@@ -1,0 +1,603 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch + CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py                 # all phases, flagship at 2^26 rows
+
+Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
+(one nvcc per source, in parallel) and then:
+
+1. flagship at full width: bench.py's query (filter a % 3 != 0 and b < 0.9,
+   c = a * 2 + 1, group by k: sum(c), count(*), max(a)) over bench.py's data
+   (seed 42, k in [0, 1024), a int64, b float32, 2 partitions, cached) at
+   2^26 rows, through new_session() / createDataFrame().cache() / collect(),
+   with the plan asserted all on the device; all 1024 rows are checked
+   against a direct numpy group-by; the warm query time is the median of 3;
+2. high-cardinality keys (2^24 rows, k in [0, 2^22)): the partial output
+   exceeds the exchange's zero-copy piece cap, so the routed tier and the
+   route half of K4 run; checked the same way;
+3. every kernel against its plain PyTorch version on the card, at the
+   flagship's shapes and at edge cases (8 rows, all pads, one group, NaN /
+   -0.0 / inf keys, nulls, int64 sums that wrap): integer outputs must match
+   bit for bit, float sums within a relative 1e-5 (f32) / 1e-12 (f64)
+   because the summation order differs; each is timed with CUDA events
+   beside its plain version, a one-call PyTorch yardstick where one exists,
+   and its bound (bytes read once plus written once over 3.35 TB/s).
+
+Launch counts are reset just before each of phases 1 and 2 and read just
+after it; every kernel of a path must have launched in that path's own run
+(K1-K3 and the hash half of K4 in both, the route half of K4 in phase 2).
+In the kernels line, "launches" is the count of the kernel's own path
+("path": the flagship, or high cardinality for the route half of K4) and
+"launches_by_path" holds both runs' counts.
+
+Output: the card's name and power limit, then one JSON line with the
+kernels, then the last line {"ok": true, "device": {...}}. Exits
+non-zero, printing no result, without a CUDA device or without the
+package beside this script.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+FLAGSHIP_ROWS = 1 << 26
+N_KEYS = 1024
+HIGH_CARD_ROWS = 1 << 24
+HIGH_CARD_KEYS = 1 << 22
+
+# name: (source, replaced JAX function, the path whose run gives "launches")
+KERNELS = {
+    "radix_sort_pairs": (
+        "spark_rapids_tpu_torch/csrc/radix_sort.cu",
+        "spark_rapids_tpu/exec/rowkeys.py:220", "flagship"),
+    "group_ids": (
+        "spark_rapids_tpu_torch/csrc/group_ids.cu",
+        "spark_rapids_tpu/exec/rowkeys.py:309", "flagship"),
+    "segment_reduce": (
+        "spark_rapids_tpu_torch/csrc/segment_reduce.cu",
+        "spark_rapids_tpu/exec/rowkeys.py:434", "flagship"),
+    "hash_partition": (
+        "spark_rapids_tpu_torch/csrc/hash_partition.cu",
+        "spark_rapids_tpu/ops/hashing.py:228", "flagship"),
+    "route_plan": (
+        "spark_rapids_tpu_torch/csrc/hash_partition.cu",
+        "spark_rapids_tpu/shuffle/exchange.py:1315", "high_cardinality"),
+}
+# the kernels each path must launch
+PATH_KERNELS = {
+    "flagship": ("radix_sort_pairs", "group_ids", "segment_reduce",
+                 "hash_partition"),
+    "high_cardinality": tuple(KERNELS),
+}
+
+
+def log(msg: str) -> None:
+    print(f"[chip_smoke +{time.perf_counter() - T0:7.1f}s] {msg}",
+          file=sys.stderr, flush=True)
+
+
+T0 = time.perf_counter()
+
+
+class SmokeFailure(AssertionError):
+    pass
+
+
+def check(cond, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+# ---------------------------------------------------------------- timing
+def cuda_ms(fn, iters: int) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+# ------------------------------------------------------------- flagship
+def flagship_data(n_rows: int, n_keys: int):
+    """bench.py:_build_df's data, exactly."""
+    import numpy as np
+
+    rng = np.random.default_rng(42)
+    return {
+        "k": rng.integers(0, n_keys, n_rows).astype(np.int64),
+        "a": rng.integers(-10_000, 10_000, n_rows).astype(np.int64),
+        "b": rng.random(n_rows).astype(np.float32),
+    }
+
+
+def flagship_query(df):
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    return (df.filter((F.col("a") % 3 != 0) & (F.col("b") < 0.9))
+              .withColumn("c", F.col("a") * 2 + 1)
+              .groupBy("k")
+              .agg(F.sum("c").alias("s"), F.count("*").alias("n"),
+                   F.max("a").alias("m")))
+
+
+def numpy_groupby(data, n_keys: int):
+    """Direct numpy group-by of the flagship: (keys, sums, counts, maxes)
+    of the groups that keep rows."""
+    import numpy as np
+
+    k, a, b = data["k"], data["a"], data["b"]
+    keep = (np.fmod(a, 3) != 0) & (b < np.float32(0.9))
+    kk, aa = k[keep], a[keep]
+    c = aa * 2 + 1
+    counts = np.bincount(kk, minlength=n_keys)
+    sums = np.bincount(kk, weights=c.astype(np.float64), minlength=n_keys)
+    # sort-based max: composite (key, a) sorts each group's max last
+    comp = np.sort(kk * 20_000 + (aa + 10_000))
+    gkeys = comp // 20_000
+    last = np.r_[np.nonzero(np.diff(gkeys))[0], len(comp) - 1]
+    maxes = np.zeros(n_keys, dtype=np.int64)
+    maxes[gkeys[last]] = comp[last] % 20_000 - 10_000
+    present = counts > 0
+    keys = np.nonzero(present)[0]
+    return (keys, sums[present].astype(np.int64), counts[present],
+            maxes[present])
+
+
+def result_arrays(batches):
+    import numpy as np
+
+    cols = list(zip(*[[c.data for c in b.columns] for b in batches]))
+    valids = list(zip(*[[c.validity for c in b.columns] for b in batches]))
+    arrs = [np.concatenate(c) for c in cols]
+    vals = [np.concatenate(v) for v in valids]
+    return arrs, vals
+
+
+def check_flagship(batches, data, n_keys: int, what: str) -> int:
+    import numpy as np
+
+    (k, s, n, m), vals = result_arrays(batches)
+    check(all(v.all() for v in vals), f"{what}: unexpected NULL in result")
+    order = np.argsort(k, kind="stable")
+    k, s, n, m = k[order], s[order], n[order], m[order]
+    wk, ws, wn, wm = numpy_groupby(data, n_keys)
+    check(len(k) == len(wk), f"{what}: {len(k)} groups, numpy {len(wk)}")
+    check(np.array_equal(k, wk), f"{what}: group keys differ")
+    check(np.array_equal(s, ws), f"{what}: sum(c) differs")
+    check(np.array_equal(n, wn), f"{what}: count(*) differs")
+    check(np.array_equal(m, wm), f"{what}: max(a) differs")
+    return len(k)
+
+
+def assert_on_device(sess) -> None:
+    from spark_rapids_tpu_torch.exec.base import CpuExec
+
+    allowed = {"HostScanExec", "DeviceToHostExec", "HostToDeviceExec",
+               "CpuCoalesceBatchesExec"}
+    bad = sess.last_physical_plan.collect_nodes(
+        lambda n: isinstance(n, CpuExec) and type(n).__name__ not in allowed)
+    check(not bad, f"plan not on the device: {bad}")
+
+
+def run_flagship(sess, n_rows: int, n_keys: int, what: str, reps: int):
+    import torch
+
+    log(f"{what}: generating {n_rows} rows")
+    data = flagship_data(n_rows, n_keys)
+    df = sess.createDataFrame(
+        data, [("k", "long"), ("a", "long"), ("b", "float")],
+        num_partitions=2).cache()
+    q = flagship_query(df)
+    t = time.perf_counter()
+    batches = q.toLocalBatches()  # cold: uploads the cache
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    assert_on_device(sess)
+    groups = check_flagship(batches, data, n_keys, what)
+    warm = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batches = q.toLocalBatches()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+    check_flagship(batches, data, n_keys, what)
+    log(f"{what}: {groups} groups, cold {cold:.4f} s, warm {warm}")
+    return {"rows": n_rows, "keys": n_keys, "groups": groups,
+            "cold_s": cold, "warm_s": warm,
+            "warm_median_s": statistics.median(warm)}
+
+
+def profile_flagship(sess, n_rows: int, out_dir: str) -> dict:
+    """One warm flagship query under torch.profiler: device time by kernel
+    and the device's busy share of the query's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    data = flagship_data(n_rows, N_KEYS)
+    df = sess.createDataFrame(
+        data, [("k", "long"), ("a", "long"), ("b", "float")],
+        num_partitions=2).cache()
+    q = flagship_query(df)
+    q.toLocalBatches()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        q.toLocalBatches()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    events = prof.key_averages()
+    # device kernels only: an aten op's row repeats its kernels' time
+    dev_us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+                 for e in events
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    table = events.table(sort_by="self_cuda_time_total", row_limit=40)
+    with open(os.path.join(out_dir, "flagship_profile.txt"), "w") as fh:
+        fh.write(f"wall {wall:.6f} s, device busy {dev_us / 1e6:.6f} s\n")
+        fh.write(table)
+    log(f"profile: wall {wall:.4f} s, device kernels {dev_us / 1e6:.4f} s")
+    return {"wall_s": wall, "device_busy_s": dev_us / 1e6,
+            "device_busy_share": dev_us / 1e6 / wall if wall else None}
+
+
+# ----------------------------------------------------------- kernels
+def max_abs_err(a, b) -> float:
+    import torch
+
+    if a.dtype.is_floating_point:
+        ok = torch.isnan(a) == torch.isnan(b)
+        check(bool(ok.all()), "NaN positions differ")
+        mask = ~torch.isnan(a)
+        if not bool(mask.any()):
+            return 0.0
+        return float((a[mask].double() - b[mask].double()).abs().max())
+    return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
+def bits_equal(a, b) -> bool:
+    """Exact equality, NaN == NaN: floats compare by bit pattern (both
+    sides emit the canonical NaN)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if a.dtype == torch.float64:
+        return torch.equal(a.view(torch.int64), b.view(torch.int64))
+    return torch.equal(a, b)
+
+
+def rel_ok(a, b, rel: float) -> bool:
+    import torch
+
+    a, b = a.double(), b.double()
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    a, b = a[~nan], b[~nan]
+    return bool(torch.all((a - b).abs() <= rel * torch.maximum(
+        a.abs(), b.abs()) + 1e-300))
+
+
+def compare_pipeline(key_cols, live, specs, n_parts: int, label: str,
+                     errs: dict) -> None:
+    """Every kernel against its plain version on one input set."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    cap = live.shape[0]
+    words = RK.sort_words([RK.key_proxy(c) for c in key_cols], live)
+    order = RK.radix_sort_pairs(words)
+    order_p = RK.radix_sort_pairs_plain(words)
+    check(torch.equal(order, order_p), f"{label}: K1 order differs")
+    errs["radix_sort_pairs"] = max(errs.get("radix_sort_pairs", 0.0),
+                                   max_abs_err(order, order_p))
+    got = RK.group_ids(words, order, live)
+    want = RK.group_ids_plain(words, order_p, live)
+    for g, w, name in zip(got, want, ("gid", "gid_sorted", "rep_rows",
+                                      "seg_ends", "num_groups")):
+        check(torch.equal(g, w), f"{label}: K2 {name} differs")
+        errs["group_ids"] = max(errs.get("group_ids", 0.0),
+                                max_abs_err(g, w))
+    gi = RK.GroupInfo(got[0], got[4], got[2], order, got[1], got[3])
+    outs = RK.segment_reduce_many(specs, gi, cap)
+    for (op, data, valid), (o, ov) in zip(specs, outs):
+        po, pov = RK.segment_reduce_plain(op, data, valid, gi, cap)
+        check(torch.equal(ov, pov), f"{label}: K3 {op} validity differs")
+        if op == "sum" and o.dtype.is_floating_point:
+            rel = 1e-5 if o.dtype == torch.float32 else 1e-12
+            check(rel_ok(o, po, rel), f"{label}: K3 float sum off")
+        else:
+            check(bits_equal(o, po), f"{label}: K3 {op} differs")
+        errs["segment_reduce"] = max(errs.get("segment_reduce", 0.0),
+                                     max_abs_err(o, po))
+    ids, counts = H.partition_ids(key_cols, live, n_parts)
+    ids_p, counts_p = H.partition_ids_plain(key_cols, live, n_parts)
+    check(torch.equal(ids, ids_p) and torch.equal(counts, counts_p),
+          f"{label}: K4 hash differs")
+    errs["hash_partition"] = max(errs.get("hash_partition", 0.0),
+                                 max_abs_err(ids, ids_p))
+    ro, rc = X.route_plan(ids, n_parts)
+    ro_p, rc_p = X.route_plan_plain(ids, n_parts)
+    check(torch.equal(ro, ro_p) and torch.equal(rc, rc_p),
+          f"{label}: K4 route differs")
+    errs["route_plan"] = max(errs.get("route_plan", 0.0),
+                             max_abs_err(ro, ro_p))
+
+
+def edge_cases(dev, errs: dict) -> int:
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    rng = np.random.default_rng(7)
+    n_cases = 0
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    def specs_for(cap, nulls):
+        v = t(rng.random(cap) >= nulls)
+        i64 = t(rng.integers(-2**62, 2**62, cap).astype(np.int64))
+        f32 = t(rng.standard_normal(cap).astype(np.float32))
+        f64 = t(rng.standard_normal(cap))
+        f32[::7] = float("nan")
+        return [("sum", i64, v), ("count", i64, v), ("min", i64, v),
+                ("max", i64, v), ("sum", f32, v), ("min", f32, v),
+                ("max", f32, v), ("sum", f64, v), ("max", f64, v),
+                ("min", t(rng.integers(-50, 50, cap).astype(np.int32)), v)]
+
+    for cap in (8, 4096, 1 << 17):
+        for nulls in (0.0, 0.3):
+            k = t(rng.integers(0, 37, cap).astype(np.int64))
+            kv = t(rng.random(cap) >= nulls)
+            live = t(np.arange(cap) < cap - 3)
+            compare_pipeline([ColV(DataType.INT64, k, kv)], live,
+                             specs_for(cap, nulls), 8, f"int64 C={cap}",
+                             errs)
+            n_cases += 1
+    cap = 4096
+    # all pads
+    k = t(rng.integers(0, 5, cap).astype(np.int64))
+    ones = t(np.ones(cap, dtype=bool))
+    compare_pipeline([ColV(DataType.INT64, k, ones)],
+                     t(np.zeros(cap, dtype=bool)), specs_for(cap, 0.0), 8,
+                     "all pads", errs)
+    # one group, with int64 sums that wrap
+    big = t(np.full(cap, 2**62 + 12345, dtype=np.int64))
+    compare_pipeline([ColV(DataType.INT64, t(np.zeros(cap, np.int64)),
+                           ones)], ones,
+                     [("sum", big, ones), ("count", big, ones),
+                      ("max", big, ones)], 8, "one group + wrap", errs)
+    # NaN / -0.0 / inf float keys, two key columns, nulls
+    f = rng.choice(np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5,
+                             -2.25], dtype=np.float64), cap)
+    fk32 = ColV(DataType.FLOAT32, t(f.astype(np.float32)),
+                t(rng.random(cap) > 0.1))
+    fk64 = ColV(DataType.FLOAT64, t(f[::-1].copy()), ones)
+    ik = ColV(DataType.INT32, t(rng.integers(-3, 3, cap).astype(np.int32)),
+              t(rng.random(cap) > 0.2))
+    compare_pipeline([fk32, fk64, ik], ones, specs_for(cap, 0.2), 8,
+                     "float keys", errs)
+    return n_cases + 3
+
+
+def time_kernels(dev, errs: dict, launches: dict):
+    """Each kernel at the flagship's shapes: the partial aggregate's update
+    over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
+    the high-cardinality partial output (2^22 rows) for K4."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.ops.values import ColV
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    cap = FLAGSHIP_ROWS // 2
+    data = flagship_data(cap, N_KEYS)
+    k = torch.as_tensor(data["k"]).to(dev)
+    a = torch.as_tensor(data["a"]).to(dev)
+    b = torch.as_tensor(data["b"]).to(dev)
+    live = (torch.fmod(a, 3) != 0) & (b < 0.9)
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    c = a * 2 + 1
+    kcol = ColV(DataType.INT64, k, ones)
+    words = RK.sort_words([RK.key_proxy(kcol)], live)
+    n_words = words.shape[0]
+    specs = [("sum", c, ones & live), ("count", k, ones & live),
+             ("max", a, ones & live)]
+    compare_pipeline([kcol], live, specs, 8, "flagship shape", errs)
+    order = RK.radix_sort_pairs(words)
+    g = RK.group_ids(words, order, live)
+    gi = RK.GroupInfo(g[0], g[4], g[2], order, g[1], g[3])
+    rows = {}
+    iters = 10
+
+    packed = words[0] * (1 << 32) + words[n_words - 1]
+    rows["radix_sort_pairs"] = dict(
+        ms=cuda_ms(lambda: RK.radix_sort_pairs(words), iters),
+        plain_ms=cuda_ms(lambda: RK.radix_sort_pairs_plain(words), iters),
+        library_ms=cuda_ms(lambda: torch.sort(packed, stable=True), iters),
+        bound_ms=bound_ms(4 * n_words * cap + 4 * cap),
+        shape=f"{n_words} words x {cap} rows")
+    srt_key = packed[order.long()]
+    rows["group_ids"] = dict(
+        ms=cuda_ms(lambda: RK.group_ids(words, order, live), iters),
+        plain_ms=cuda_ms(lambda: RK.group_ids_plain(words, order, live),
+                         iters),
+        library_ms=cuda_ms(lambda: torch.unique_consecutive(
+            srt_key, return_inverse=True, return_counts=True), iters),
+        bound_ms=bound_ms((4 * n_words + 4 + 1) * cap + 16 * cap),
+        shape=f"{cap} rows")
+    gid = gi.gid.long().clamp(max=cap - 1)
+
+    def library_k3():
+        for op, d, v in specs:
+            src = d if op != "count" else v.long()
+            red = "sum" if op in ("sum", "count") else "amax"
+            torch.zeros(cap, dtype=src.dtype, device=dev).scatter_reduce_(
+                0, gid, src, red)
+
+    in_bytes = 8 * cap + sum(d.element_size() * cap + cap
+                             for _, d, _ in specs)
+    rows["segment_reduce"] = dict(
+        ms=cuda_ms(lambda: RK.segment_reduce_many(specs, gi, cap), iters),
+        plain_ms=cuda_ms(lambda: [RK.segment_reduce_plain(
+            op, d, v, gi, cap) for op, d, v in specs], iters),
+        library_ms=cuda_ms(library_k3, iters),
+        bound_ms=bound_ms(in_bytes + len(specs) * 9 * cap),
+        shape=f"{len(specs)} columns x {cap} rows")
+    hcap = 1 << 22
+    rng = np.random.default_rng(3)
+    hk = ColV(DataType.INT64, torch.as_tensor(
+        rng.integers(0, HIGH_CARD_KEYS, hcap)).to(dev),
+        torch.ones(hcap, dtype=torch.bool, device=dev))
+    hlive = torch.arange(hcap, device=dev) < hcap - 1000
+    rows["hash_partition"] = dict(
+        ms=cuda_ms(lambda: H.partition_ids([hk], hlive, 8), iters),
+        plain_ms=cuda_ms(lambda: H.partition_ids_plain([hk], hlive, 8),
+                         iters),
+        library_ms=None,
+        bound_ms=bound_ms(10 * hcap + 4 * hcap + 36),
+        shape=f"1 int64 key x {hcap} rows, 8 partitions")
+    ids, _ = H.partition_ids([hk], hlive, 8)
+    rows["route_plan"] = dict(
+        ms=cuda_ms(lambda: X.route_plan(ids, 8), iters),
+        plain_ms=cuda_ms(lambda: X.route_plan_plain(ids, 8), iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * hcap + 4 * hcap + 36),
+        shape=f"{hcap} ids, 8 partitions")
+    out = []
+    for name, (source, replaces, path) in KERNELS.items():
+        r = rows[name]
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "path": path,
+            "launches": launches[path].get(name, 0),
+            "launches_by_path": {p: c.get(name, 0)
+                                 for p, c in launches.items()},
+            "max_abs_err": errs.get(name, 0.0), "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": "bytes", "library_ms": r["library_ms"],
+            "shape": r["shape"]})
+    return out
+
+
+# ----------------------------------------------------------------- main
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="trace one warm flagship query with torch.profiler "
+                         "and write its kernel table to DIR")
+    ap.add_argument("--out", default=None,
+                    help="also write the results as JSON to this file")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(root, "spark_rapids_tpu_torch")):
+        print("chip_smoke: spark_rapids_tpu_torch is not beside this script",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+
+    if torch.cuda.device_count() < 1:
+        return 2
+    dev = torch.device("cuda", 0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()
+    card = smi[0] if smi else "nvidia-smi unavailable"
+    log(f"card: {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+
+    t = time.perf_counter()
+    for line in CB.build_all(verbose=True):
+        log(line[:4000])
+    build_s = time.perf_counter() - t
+    log(f"kernels built in {build_s:.1f} s")
+
+    errs: dict = {}
+    results = {"card": card, "build_s": build_s}
+    n_edge = edge_cases(dev, errs)
+    log(f"phase 3 edge cases: {n_edge} input sets match their plain "
+        f"versions")
+    sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
+    launches = {}
+    CB.reset_launch_counts()
+    results["phase1"] = run_flagship(sess, FLAGSHIP_ROWS, N_KEYS,
+                                     "phase 1 flagship", 3)
+    launches["flagship"] = CB.launch_counts()
+    CB.reset_launch_counts()
+    results["phase2"] = run_flagship(sess, HIGH_CARD_ROWS, HIGH_CARD_KEYS,
+                                     "phase 2 high cardinality", 1)
+    launches["high_cardinality"] = CB.launch_counts()
+    results["launches"] = launches
+    log(f"launches: {launches}")
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path].get(name, 0) > 0,
+                  f"{name} never launched in the {path} run")
+    if args.profile:
+        results["profile"] = profile_flagship(sess, FLAGSHIP_ROWS,
+                                              args.profile)
+    kernels = time_kernels(dev, errs, launches)
+    results["kernels"] = kernels
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(results, fh, indent=1)
+    print(card)
+    print(json.dumps({"flagship": {k: results["phase1"][k] for k in (
+        "rows", "groups", "cold_s", "warm_s", "warm_median_s")},
+        "high_cardinality": {k: results["phase2"][k] for k in (
+            "rows", "groups", "cold_s", "warm_median_s")}}))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

@@ -1,0 +1,242 @@
+// K4 hash_partition: the exchange's row hash, partition ids and routing.
+//
+// Replaces spark_rapids_tpu/ops/hashing.py:hash_columns + partition_ids
+// (reached through shuffle/exchange.py:_build_hash_ids) and
+// shuffle/exchange.py:_route_plan + _lazy_masks.
+//
+// Hash half: a murmur3-style uint32 row hash with seed 42 over each key
+// column's words (bool/int8/int16/int32: the sign-extended low word; int64:
+// low then high word; float/double: the float32 bit pattern with -0.0 ->
+// 0.0 and one canonical NaN), data words zeroed at nulls and one null word
+// per column, then fmix32; the partition id is hash % n, and rows outside
+// the live mask get id n. It also counts rows per id (n + 1 buckets, pads
+// last). Bit-identical to the reference, which co-partitions host and
+// device plans on it.
+//
+// Route half: a stable scatter of row indices into `order`, grouped by id,
+// with the per-id counts — the shared stable radix pass over the ids (one
+// pass below 256 buckets, two below 65536).
+//
+// Bound: memory. The hash reads each key column once and writes one int32
+// id a row; the route reads ids twice and writes one int32 a row.
+#include <algorithm>
+
+#include "common.cuh"
+
+struct SrtHashCol {
+  const void* data;
+  const uint8_t* valid;
+  int32_t kind;  // 0 bool, 1 int8, 2 int16, 3 int32, 4 int64, 5 f32, 6 f64
+  int32_t pad;
+};
+
+namespace srt {
+namespace {
+
+constexpr int kMaxHashCols = 16;
+constexpr int kMaxBuckets = 4096;
+
+struct HashCols {
+  SrtHashCol c[kMaxHashCols];
+  int n;
+};
+
+constexpr uint32_t kC1 = 0xCC9E2D51u;
+constexpr uint32_t kC2 = 0x1B873593u;
+constexpr uint32_t kGolden = 0x9E3779B9u;
+constexpr uint32_t kSeed = 42u;
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t x, int r) {
+  return (x << r) | (x >> (32 - r));
+}
+
+__device__ __forceinline__ uint32_t mix_h1(uint32_t h, uint32_t k) {
+  k *= kC1;
+  k = rotl32(k, 15);
+  k *= kC2;
+  h ^= k;
+  h = rotl32(h, 13);
+  return h * 5u + 0xE6546B64u;
+}
+
+__device__ __forceinline__ uint32_t fmix32(uint32_t h) {
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return h;
+}
+
+__device__ __forceinline__ uint32_t canonical_f32_bits(float f) {
+  if (f == 0.0f) return 0u;
+  if (isnan(f)) return 0x7FC00000u;
+  return __float_as_uint(f);
+}
+
+__global__ void hash_ids_kernel(HashCols cols, long long n,
+                                const uint8_t* __restrict__ live,
+                                int num_parts, int32_t* __restrict__ ids,
+                                uint32_t* __restrict__ counts) {
+  extern __shared__ uint32_t hist[];
+  for (int b = threadIdx.x; b <= num_parts; b += blockDim.x) hist[b] = 0u;
+  __syncthreads();
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    int32_t pid = num_parts;
+    if (live[i]) {
+      uint32_t h = kSeed;
+      for (int k = 0; k < cols.n; ++k) {
+        const SrtHashCol& c = cols.c[k];
+        const bool v = c.valid[i] != 0;
+        uint32_t w0 = 0u, w1 = 0u;
+        int nw = 1;
+        switch (c.kind) {
+          case 0: w0 = static_cast<const uint8_t*>(c.data)[i] ? 1u : 0u; break;
+          case 1: w0 = (uint32_t)(int32_t)static_cast<const int8_t*>(c.data)[i]; break;
+          case 2: w0 = (uint32_t)(int32_t)static_cast<const int16_t*>(c.data)[i]; break;
+          case 3: w0 = (uint32_t)static_cast<const int32_t*>(c.data)[i]; break;
+          case 4: {
+            const unsigned long long x =
+                (unsigned long long)static_cast<const long long*>(c.data)[i];
+            w0 = (uint32_t)(x & 0xFFFFFFFFull);
+            w1 = (uint32_t)(x >> 32);
+            nw = 2;
+            break;
+          }
+          case 5: w0 = canonical_f32_bits(static_cast<const float*>(c.data)[i]); break;
+          default:
+            w0 = canonical_f32_bits(
+                __double2float_rn(static_cast<const double*>(c.data)[i]));
+            break;
+        }
+        h = mix_h1(h, v ? w0 : 0u);
+        if (nw == 2) h = mix_h1(h, v ? w1 : 0u);
+        h = mix_h1(h, v ? 0u : kGolden);
+      }
+      pid = (int32_t)(fmix32(h) % (uint32_t)num_parts);
+    }
+    ids[i] = pid;
+    atomicAdd(&hist[pid], 1u);
+  }
+  __syncthreads();
+  for (int b = threadIdx.x; b <= num_parts; b += blockDim.x)
+    if (hist[b]) atomicAdd(&counts[b], hist[b]);
+}
+
+__global__ void count_ids_kernel(const int32_t* __restrict__ ids, long long n,
+                                 int num_buckets,
+                                 uint32_t* __restrict__ counts) {
+  extern __shared__ uint32_t hist[];
+  for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) hist[b] = 0u;
+  __syncthreads();
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x)
+    atomicAdd(&hist[ids[i]], 1u);
+  __syncthreads();
+  for (int b = threadIdx.x; b < num_buckets; b += blockDim.x)
+    if (hist[b]) atomicAdd(&counts[b], hist[b]);
+}
+
+struct RouteScratch {
+  uint32_t* keys;
+  int32_t* vals;
+  uint32_t* counts;
+  uint32_t* offsets;
+  uint32_t* scan;
+};
+
+size_t carve(void* base, long long n, RouteScratch* s) {
+  Carver c{static_cast<char*>(base), 0};
+  const long long hist = (long long)kRadix * radix_pass_tiles(n);
+  s->keys = c.take<uint32_t>(n);
+  s->vals = c.take<int32_t>(n);
+  s->counts = c.take<uint32_t>(hist);
+  s->offsets = c.take<uint32_t>(hist);
+  s->scan = c.take<uint32_t>(scan_scratch_elems(hist));
+  return c.used;
+}
+
+}  // namespace
+}  // namespace srt
+
+using namespace srt;
+
+SRT_API int srt_hash_max_buckets() { return kMaxBuckets; }
+
+// ids: int32 [n] partition id per row (n = num_parts outside `live`);
+// counts: uint32 [num_parts + 1], zeroed here.
+SRT_API int srt_hash_partition_ids(const SrtHashCol* cols, int n_cols,
+                                   long long n, const uint8_t* live,
+                                   int num_parts, int32_t* ids,
+                                   uint32_t* counts, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (n_cols < 1 || n_cols > kMaxHashCols || num_parts < 1 ||
+      num_parts + 1 > kMaxBuckets || n > 0x7FFFFFFFLL)
+    return fail(cudaErrorInvalidValue, "arguments");
+  SRT_CALL(cudaMemsetAsync(counts, 0, sizeof(uint32_t) * (size_t)(num_parts + 1), st),
+           "memset counts");
+  if (n <= 0) return 0;
+  HashCols hc;
+  hc.n = n_cols;
+  for (int k = 0; k < n_cols; ++k) hc.c[k] = cols[k];
+  const unsigned grid = (unsigned)std::min<long long>(ceil_div(n, kThreads), 4096);
+  const size_t shmem = sizeof(uint32_t) * (size_t)(num_parts + 1);
+  hash_ids_kernel<<<grid, kThreads, shmem, st>>>(hc, n, live, num_parts, ids,
+                                                 counts);
+  SRT_LAUNCHED("hash_ids_kernel");
+  return 0;
+}
+
+SRT_API size_t srt_route_plan_scratch_bytes(long long n) {
+  RouteScratch s;
+  return carve(nullptr, n, &s);
+}
+
+// ids: int32 [n] in [0, num_parts]; order: int32 [n], row indices grouped
+// by id in row order; counts: uint32 [num_parts + 1].
+SRT_API int srt_route_plan(const int32_t* ids, long long n, int num_parts,
+                           int32_t* order, uint32_t* counts, void* scratch,
+                           size_t scratch_bytes, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int buckets = num_parts + 1;
+  if (num_parts < 1 || buckets > kMaxBuckets || n > 0x7FFFFFFFLL)
+    return fail(cudaErrorInvalidValue, "arguments");
+  RouteScratch s;
+  if (carve(scratch, n, &s) > scratch_bytes)
+    return fail(cudaErrorInvalidValue, "scratch size");
+  SRT_CALL(cudaMemsetAsync(counts, 0, sizeof(uint32_t) * (size_t)buckets, st),
+           "memset counts");
+  if (n <= 0) return 0;
+  const unsigned grid = (unsigned)std::min<long long>(ceil_div(n, kThreads), 4096);
+  count_ids_kernel<<<grid, kThreads, sizeof(uint32_t) * (size_t)buckets, st>>>(
+      ids, n, buckets, counts);
+  SRT_LAUNCHED("count_ids_kernel");
+  const uint32_t* keys = reinterpret_cast<const uint32_t*>(ids);
+  PingPong pp = {};
+  if (buckets <= kRadix) {
+    pp.keys_in[0] = keys;
+    pp.vals_in[0] = nullptr;
+    pp.keys_out[1] = nullptr;
+    pp.vals_out[1] = order;
+    SRT_TRY(radix_pass(pp, n, 0, s.counts, s.offsets, s.scan, nullptr,
+                       nullptr, st));
+  } else {
+    pp.keys_in[0] = keys;
+    pp.vals_in[0] = nullptr;
+    pp.keys_out[1] = s.keys;
+    pp.vals_out[1] = s.vals;
+    SRT_TRY(radix_pass(pp, n, 0, s.counts, s.offsets, s.scan, nullptr,
+                       nullptr, st));
+    PingPong pp2 = {};
+    pp2.keys_in[0] = s.keys;
+    pp2.vals_in[0] = s.vals;
+    pp2.keys_out[1] = nullptr;
+    pp2.vals_out[1] = order;
+    SRT_TRY(radix_pass(pp2, n, 8, s.counts, s.offsets, s.scan, nullptr,
+                       nullptr, st));
+  }
+  return 0;
+}
+
+SRT_API const char* srt_error_string(int code) { return error_string(code); }

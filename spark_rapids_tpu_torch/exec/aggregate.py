@@ -1,0 +1,597 @@
+"""Hash aggregate execs (port of spark_rapids_tpu/exec/aggregate.py, PARTIAL and
+FINAL modes; reference: aggregate.scala).
+
+Device design, as in the reference: group-by = sort the rows by key (K1),
+number the groups (K2), reduce every aggregate column per group (K3) — all
+three hand-written CUDA kernels in exec/rowkeys.py. The update side folds
+the Filter/Project chain below it into its evaluation (`_collapse_scan_chain`,
+the aggregate half of whole-stage fusion), so filtered rows become a live
+mask instead of a compaction. Each batch is aggregated, then merged into
+the running result (concat + merge), the reference's incremental loop
+(aggregate.scala:338-396).
+
+Output assembly: `_assemble` reads the group count (one host sync, the
+reference's marked point aggregate.py:432) and gathers the group keys at
+their representative rows into a batch of bucket_capacity(groups) lanes;
+`_assemble_traced` keeps the count on the card and the input capacity
+(the sync-free 'lazy' form, chosen by rapids.tpu.engine.aggCompactSync=never
+when the output fits the exchange's zero-copy piece cap).
+
+Left out of this slice (ROADMAP.md): encoded (dictionary) columns, run-aware
+collapse, buffer donation, the retry combinators, string min/max, the keyless
+global aggregate, holistic aggregates (COMPLETE mode).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnarBatch,
+    ColumnVector,
+    HostColumnarBatch,
+    HostColumnVector,
+    bucket_capacity,
+    concat_batches,
+    ensure_compact,
+    gather_batch,
+)
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
+from spark_rapids_tpu_torch.exec import rowkeys as RK
+from spark_rapids_tpu_torch.exec.base import (
+    CpuExec,
+    ExecContext,
+    PartitionedBatches,
+    PhysicalExec,
+    TpuExec,
+    count_output,
+)
+from spark_rapids_tpu_torch.ops.aggregates import AggregateFunction
+from spark_rapids_tpu_torch.ops.base import (
+    Alias,
+    AttributeReference,
+    Expression,
+    to_attribute,
+)
+from spark_rapids_tpu_torch.ops.bind import bind_all
+from spark_rapids_tpu_torch.ops.eval import (
+    DeviceProjector,
+    col_to_colv,
+    cpu_project,
+    eval_as_col,
+    keep_mask_from_result,
+)
+from spark_rapids_tpu_torch.ops.values import ColV, EvalContext
+
+PARTIAL = "partial"
+FINAL = "final"
+
+# Max device bytes of an un-compacted partial output for the sync-free lazy
+# form (shared with the exchange's zero-copy slicer; reference:
+# shuffle/exchange.py:73).
+LAZY_PIECE_CAP_BYTES = 4 << 20
+
+
+class AggSpec(NamedTuple):
+    """One distinct aggregate function instance and its buffer slots."""
+
+    func: AggregateFunction
+    buffers: List[AttributeReference]
+
+
+def build_agg_specs(agg_exprs: Sequence[Expression]) -> List[AggSpec]:
+    specs: List[AggSpec] = []
+    seen: Dict[str, AggSpec] = {}
+    for e in agg_exprs:
+        for f in e.collect(lambda n: isinstance(n, AggregateFunction)):
+            fp = f.fingerprint()
+            if fp not in seen:
+                spec = AggSpec(f, list(f.buffer_attrs()))
+                seen[fp] = spec
+                specs.append(spec)
+    return specs
+
+
+def rewrite_result_exprs(agg_exprs: Sequence[Expression],
+                         specs: List[AggSpec]) -> List[Expression]:
+    """Aggregate functions -> their evaluate_expression over the buffers
+    (the reference's final projection)."""
+    by_fp = {s.func.fingerprint(): s for s in specs}
+
+    def rewrite(node: Expression) -> Expression:
+        if isinstance(node, AggregateFunction):
+            spec = by_fp[node.fingerprint()]
+            return node.evaluate_expression(spec.buffers)
+        return node
+
+    return [e.transform_up(rewrite) for e in agg_exprs]
+
+
+def _key_exprs_for(grouping: Sequence[AttributeReference],
+                   agg_exprs: Sequence[Expression]) -> List[Expression]:
+    out: List[Expression] = []
+    for g in grouping:
+        found: Expression = g
+        for e in agg_exprs:
+            if isinstance(e, (Alias, AttributeReference)) and \
+                    to_attribute(e).expr_id == g.expr_id:
+                found = e
+                break
+        out.append(found)
+    return out
+
+
+class _HashAggregateBase(PhysicalExec):
+    """Shared schema/structure for the CPU and device hash aggregate."""
+
+    def __init__(self, grouping: List[AttributeReference],
+                 agg_exprs: List[Expression], mode: str,
+                 child: PhysicalExec,
+                 specs: Optional[List[AggSpec]] = None):
+        super().__init__(child)
+        self.grouping = list(grouping)
+        self.agg_exprs = list(agg_exprs)
+        self.mode = mode
+        self.specs = specs if specs is not None else build_agg_specs(agg_exprs)
+        self.key_exprs = _key_exprs_for(self.grouping, self.agg_exprs)
+
+    @property
+    def buffer_attrs(self) -> List[AttributeReference]:
+        return [b for s in self.specs for b in s.buffers]
+
+    @property
+    def output(self) -> List[AttributeReference]:
+        if self.mode == PARTIAL:
+            return list(self.grouping) + self.buffer_attrs
+        return [to_attribute(e) for e in self.agg_exprs]
+
+    def node_expressions(self):
+        return list(self.key_exprs) + list(self.agg_exprs)
+
+    def with_children(self, new_children):
+        return type(self)(self.grouping, self.agg_exprs, self.mode,
+                          new_children[0], self.specs)
+
+    def node_name(self):
+        return f"{type(self).__name__}({self.mode})"
+
+    @property
+    def _inter_attrs(self) -> List[AttributeReference]:
+        return list(self.grouping) + self.buffer_attrs
+
+    def _update_ops(self) -> List[Tuple[str, Expression, DataType]]:
+        out = []
+        for spec in self.specs:
+            for (_name, op, expr), battr in zip(spec.func.update_aggs(),
+                                                spec.buffers):
+                out.append((op, expr, battr.data_type))
+        return out
+
+    def _merge_ops(self) -> List[Tuple[str, DataType]]:
+        out = []
+        for spec in self.specs:
+            for (_name, op), battr in zip(spec.func.merge_aggs(),
+                                          spec.buffers):
+                out.append((op, battr.data_type))
+        return out
+
+
+def _default_row_values(specs: List[AggSpec]) -> List[Any]:
+    vals: List[Any] = []
+    for spec in specs:
+        vals.extend(spec.func.initial_buffer_values())
+    return vals
+
+
+# ===========================================================================
+# Device exec
+# ===========================================================================
+def _collapse_scan_chain(child: PhysicalExec, exprs: List[Expression],
+                         max_nodes: Optional[int] = None):
+    """Fold a TpuFilter/TpuProject/TpuCoalesceBatches chain below the
+    aggregate into its update: project lists substitute into the
+    aggregate's expressions, filter conditions become row masks evaluated
+    with them (reference: aggregate.py:200). Returns (scan child, rewritten
+    exprs, filter conditions)."""
+    from spark_rapids_tpu_torch.exec import basic as B
+    from spark_rapids_tpu_torch.exec.transitions import TpuCoalesceBatchesExec
+
+    filters: List[Expression] = []
+    exprs = list(exprs)
+    node = child
+    walked = 0
+    while max_nodes is None or walked < max_nodes:
+        walked += 1
+        if isinstance(node, B.TpuProjectExec):
+            mapping: Dict[int, Expression] = {}
+            for e in node.project_list:
+                attr = to_attribute(e)
+                mapping[attr.expr_id] = e.child if isinstance(e, Alias) else e
+
+            def sub(x: Expression) -> Expression:
+                if isinstance(x, AttributeReference) and \
+                        x.expr_id in mapping:
+                    return mapping[x.expr_id]
+                return x
+
+            exprs = [e.transform_up(sub) for e in exprs]
+            filters = [f.transform_up(sub) for f in filters]
+            node = node.children[0]
+        elif isinstance(node, B.TpuFilterExec):
+            filters.append(node.condition)
+            node = node.children[0]
+        elif isinstance(node, TpuCoalesceBatchesExec):
+            if node.goal.target_bytes() is None:
+                break
+            node = node.children[0]
+        else:
+            break
+    if any(not e.deterministic for e in exprs + filters):
+        return child, list(exprs), []
+    return node, exprs, filters
+
+
+def _group_info(key_cols: List[ColV], live, capacity: int) -> RK.GroupInfo:
+    proxies = [RK.key_proxy(cv) for cv in key_cols]
+    return RK.group_ids_masked(proxies, live, capacity)
+
+
+def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
+            bound_filters, op_names):
+    """Evaluate keys, inputs and folded filters; group and reduce."""
+    ctx = EvalContext(True, cols, num_rows, capacity, device=device)
+    live = ctx.row_mask()
+    for f in bound_filters:
+        live = live & keep_mask_from_result(ctx, f.eval(ctx))
+    key_cols = [eval_as_col(ctx, e) for e in bound_keys]
+    in_cols = [eval_as_col(ctx, e) for e in bound_inputs]
+    gi = _group_info(key_cols, live, capacity)
+    bufs = RK.segment_reduce_many(
+        [(op, cv.data, cv.validity & live)
+         for op, cv in zip(op_names, in_cols)], gi, capacity)
+    return key_cols, bufs, gi
+
+
+def _merge(cols, num_rows, capacity, device, n_keys, op_names):
+    ctx = EvalContext(True, cols, num_rows, capacity, device=device)
+    key_cols = cols[:n_keys]
+    gi = _group_info(key_cols, ctx.row_mask(), capacity)
+    bufs = RK.segment_reduce_many(
+        [(op, cv.data, cv.validity)
+         for op, cv in zip(op_names, cols[n_keys:])], gi, capacity)
+    return key_cols, bufs, gi
+
+
+def _storage(data, dt: DataType):
+    want = to_torch(dt)
+    return data if data.dtype == want else data.to(want)
+
+
+def _assemble_traced(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
+    """Group slots at the input capacity with the count left on the card
+    (reference: aggregate.py:894)."""
+    dev = gi.order.device
+    slot = torch.arange(capacity, device=dev) < gi.num_groups
+    rep = gi.rep_rows.long()
+    cols = []
+    for cv, attr in zip(key_cols, attrs):
+        valid = slot & cv.validity[rep]
+        data = torch.where(valid, cv.data[rep], torch.zeros(
+            (), dtype=cv.data.dtype, device=dev))
+        cols.append(ColumnVector(attr.data_type, _storage(data,
+                                                          attr.data_type),
+                                 valid))
+    for (data, valid), attr in zip(bufs, attrs[len(key_cols):]):
+        v = valid & slot
+        d = _storage(data, attr.data_type)
+        d = torch.where(v, d, torch.zeros((), dtype=d.dtype, device=dev))
+        cols.append(ColumnVector(attr.data_type, d, v))
+    return ColumnarBatch(cols, gi.num_groups)
+
+
+def _assemble(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
+    """Compacted group slots (reference: aggregate.py:424 with
+    _finalize_kernel :870)."""
+    # host sync: the group count sizes the assembled batch (the reference's
+    # marked sync point, aggregate.py:432)
+    n_groups = int(gi.num_groups.item())
+    n_keys = len(key_cols)
+    key_batch = ColumnarBatch(
+        [ColumnVector(a.data_type, _storage(cv.data, a.data_type),
+                      cv.validity)
+         for cv, a in zip(key_cols, attrs[:n_keys])], capacity)
+    gathered = gather_batch(key_batch, gi.rep_rows, n_groups)
+    out_cap = bucket_capacity(max(n_groups, 1))
+    cols = list(gathered.columns)
+    dev = gi.order.device
+    slot = torch.arange(out_cap, device=dev) < n_groups
+    for (data, valid), attr in zip(bufs, attrs[n_keys:]):
+        d = _storage(data[:out_cap], attr.data_type)
+        v = valid[:out_cap] & slot
+        d = torch.where(v, d, torch.zeros((), dtype=d.dtype, device=dev))
+        cols.append(ColumnVector(attr.data_type, d, v))
+    return ColumnarBatch(cols, n_groups)
+
+
+class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
+    placement = "tpu"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        do_update = self.mode == PARTIAL
+        child = self.children[0]
+        key_exprs = self.key_exprs
+        ops = self._update_ops()
+        input_exprs = [e for _, e, _ in ops]
+        op_names = [op for op, _, _ in ops]
+        filters: List[Expression] = []
+        stage_len = 0
+        if do_update and ctx.conf.get(C.FUSION_ENABLED):
+            from spark_rapids_tpu_torch.plan.fusion import agg_stage_len
+
+            stage_len = agg_stage_len(self, ctx.conf.get(C.FUSION_MAX_OPS))
+        if stage_len > 1:
+            n_in = len(key_exprs)
+            scan, rewritten, new_filters = _collapse_scan_chain(
+                child, list(key_exprs) + list(input_exprs),
+                max_nodes=stage_len - 1)
+            if scan is not child:
+                child = scan
+                key_exprs = rewritten[:n_in]
+                input_exprs = rewritten[n_in:]
+                filters = new_filters
+        child_pb = child.execute(ctx)
+        child_attrs = child.output
+        if do_update:
+            bound_keys = bind_all(key_exprs, child_attrs)
+            bound_inputs = bind_all(input_exprs, child_attrs)
+            bound_filters = bind_all(filters, child_attrs)
+        n_keys = len(self.grouping)
+        merge_ops = [op for op, _ in self._merge_ops()]
+        attrs = self._inter_attrs
+        device = ctx.device
+        inter_width = sum(to_torch(a.data_type).itemsize + 1 for a in attrs)
+        lazy_policy = ctx.conf.get(C.AGG_COMPACT_SYNC) == "never"
+
+        def assemble(out, capacity: int, allow_lazy: bool) -> ColumnarBatch:
+            k, b, gi = out
+            if allow_lazy and lazy_policy and \
+                    capacity * inter_width <= LAZY_PIECE_CAP_BYTES:
+                return _assemble_traced(k, b, gi, capacity, attrs)
+            return _assemble(k, b, gi, capacity, attrs)
+
+        def merge(batch: ColumnarBatch) -> ColumnarBatch:
+            cols = [col_to_colv(c) for c in batch.columns]
+            out = _merge(cols, batch.num_rows, batch.capacity, device,
+                         n_keys, merge_ops)
+            return assemble(out, batch.capacity, True)
+
+        def agg_partition(pidx: int):
+            running: Optional[ColumnarBatch] = None
+            for batch in child_pb.iterator(pidx):
+                if batch.rows_on_host and batch.num_rows == 0:
+                    continue
+                batch = ensure_compact(batch)
+                if do_update:
+                    cols = [col_to_colv(c) for c in batch.columns]
+                    out = _update(cols, batch.num_rows, batch.capacity,
+                                  device, bound_keys, bound_inputs,
+                                  bound_filters, op_names)
+                    local = assemble(out, batch.capacity, True)
+                    running = local if running is None else \
+                        merge(concat_batches([running, local]))
+                else:
+                    merged = batch if running is None else \
+                        concat_batches([running, batch])
+                    running = merge(merged)
+            yield from self._emit(running)
+
+        return PartitionedBatches(
+            child_pb.num_partitions,
+            lambda p: count_output(self.metrics, agg_partition(p)))
+
+    def _emit(self, running: Optional[ColumnarBatch]):
+        if running is None:
+            return
+        if self.mode == PARTIAL:
+            yield running
+            return
+        rewritten = rewrite_result_exprs(self.agg_exprs, self.specs)
+        yield DeviceProjector(bind_all(rewritten, self._inter_attrs)).project(
+            running)
+
+
+# ===========================================================================
+# CPU oracle exec
+# ===========================================================================
+def _canonical_key(dtype: DataType, value, valid: bool):
+    if not valid:
+        return None
+    if dtype in (DataType.FLOAT32, DataType.FLOAT64):
+        f = float(value)
+        if f != f:
+            return ("NaN",)
+        if f == 0.0:
+            return 0.0
+        return f
+    if dtype is DataType.STRING:
+        return str(value)
+    if dtype is DataType.BOOL:
+        return bool(value)
+    return int(value)
+
+
+def _is_nan(v) -> bool:
+    try:
+        return v != v
+    except TypeError:
+        return False
+
+
+def _min_sql(a, b):
+    # NaN is greater than any value (Spark float ordering)
+    if _is_nan(a):
+        return b
+    if _is_nan(b):
+        return a
+    return a if a <= b else b
+
+
+def _max_sql(a, b):
+    if _is_nan(a):
+        return a
+    if _is_nan(b):
+        return b
+    return a if a >= b else b
+
+
+class _HostAcc:
+    """Per-group per-buffer accumulator with SQL null semantics."""
+
+    __slots__ = ("op", "value", "valid")
+
+    def __init__(self, op: str):
+        self.op = op
+        self.value = None
+        self.valid = False
+
+    def add(self, v, valid: bool):
+        op = self.op
+        if op == "count":
+            if self.value is None:
+                self.value = 0
+            if valid:
+                self.value += 1
+            self.valid = True
+            return
+        if not valid:
+            return
+        if not self.valid:
+            self.value, self.valid = v, True
+            return
+        if op == "sum":
+            s = self.value + v
+            if isinstance(s, int):
+                # wrap to signed 64-bit like the device's int64 arithmetic
+                s = ((s + (1 << 63)) % (1 << 64)) - (1 << 63)
+            self.value = s
+        elif op == "min":
+            self.value = _min_sql(self.value, v)
+        elif op == "max":
+            self.value = _max_sql(self.value, v)
+        else:
+            raise ValueError(f"unknown op {op}")
+
+    def result(self):
+        if self.op == "count":
+            return (self.value or 0), True
+        return self.value, self.valid
+
+
+class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
+    placement = "cpu"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        child_pb = self.children[0].execute(ctx)
+        child_attrs = self.children[0].output
+
+        def agg_partition(pidx: int):
+            groups: Dict[tuple, List[_HostAcc]] = {}
+            key_rows: Dict[tuple, tuple] = {}
+            order: List[tuple] = []
+            do_update = self.mode == PARTIAL
+            ops = [op for op, _, _ in self._update_ops()] if do_update else \
+                [op for op, _ in self._merge_ops()]
+            n_keys = len(self.grouping)
+            key_dtypes = [g.data_type for g in self.grouping]
+            bound_update = bind_all(
+                self.key_exprs + [e for _, e, _ in self._update_ops()],
+                child_attrs) if do_update else None
+            for batch in child_pb.iterator(pidx):
+                if batch.num_rows == 0:
+                    continue
+                ev = cpu_project(bound_update, batch, partition_id=pidx) \
+                    if do_update else batch
+                kcols = ev.columns[:n_keys]
+                vcols = ev.columns[n_keys:]
+                for i in range(ev.num_rows):
+                    key = tuple(
+                        _canonical_key(key_dtypes[c], kcols[c].data[i],
+                                       bool(kcols[c].validity[i]))
+                        for c in range(n_keys))
+                    accs = groups.get(key)
+                    if accs is None:
+                        accs = [_HostAcc(op) for op in ops]
+                        groups[key] = accs
+                        order.append(key)
+                        key_rows[key] = tuple(
+                            (kcols[c].data[i], bool(kcols[c].validity[i]))
+                            for c in range(n_keys))
+                    for acc, col in zip(accs, vcols):
+                        v = col.data[i]
+                        if isinstance(v, np.generic):
+                            v = v.item()
+                        acc.add(v, bool(col.validity[i]))
+            inter = self._build_inter_batch(order, key_rows, groups, pidx)
+            if inter is None:
+                return
+            if self.mode == PARTIAL:
+                yield inter
+                return
+            rewritten = rewrite_result_exprs(self.agg_exprs, self.specs)
+            yield cpu_project(bind_all(rewritten, self._inter_attrs), inter,
+                              partition_id=pidx)
+
+        return PartitionedBatches(
+            child_pb.num_partitions,
+            lambda p: count_output(self.metrics, agg_partition(p)))
+
+    def _build_inter_batch(self, order, key_rows, groups, pidx):
+        if not order:
+            if self.mode == PARTIAL or self.grouping or pidx != 0:
+                return None
+            return _default_row_batch_host(self.specs, self._inter_attrs)
+        n = len(order)
+        cols: List[HostColumnVector] = []
+        for c, attr in enumerate(self.grouping):
+            npdt = attr.data_type.to_np()
+            data = np.zeros(n, dtype=npdt)
+            validity = np.zeros(n, dtype=bool)
+            for i, key in enumerate(order):
+                v, valid = key_rows[key][c]
+                validity[i] = valid
+                if valid:
+                    data[i] = v
+                elif attr.data_type is DataType.STRING:
+                    data[i] = ""
+            cols.append(HostColumnVector(attr.data_type, data, validity))
+        for b, battr in enumerate(self.buffer_attrs):
+            npdt = battr.data_type.to_np()
+            data = np.zeros(n, dtype=npdt)
+            if battr.data_type is DataType.STRING:
+                data[:] = ""
+            validity = np.zeros(n, dtype=bool)
+            for i, key in enumerate(order):
+                v, valid = groups[key][b].result()
+                validity[i] = valid
+                if valid and v is not None:
+                    data[i] = v
+            cols.append(HostColumnVector(battr.data_type, data, validity))
+        return HostColumnarBatch(cols, n)
+
+
+def _default_row_batch_host(specs, inter_attrs) -> HostColumnarBatch:
+    """One row of initial buffer values: the empty ungrouped reduction
+    (reference: aggregate.scala:406-419)."""
+    vals = _default_row_values(specs)
+    cols = []
+    for battr, v in zip(inter_attrs, vals):
+        data = np.zeros(1, dtype=battr.data_type.to_np())
+        if v is not None and battr.data_type is not DataType.STRING:
+            data[0] = v
+        cols.append(HostColumnVector(battr.data_type, data,
+                                     np.array([v is not None])))
+    return HostColumnarBatch(cols, 1)

@@ -1,0 +1,165 @@
+"""Projection/filter evaluation entry points (port of spark_rapids_tpu/ops/eval.py).
+
+Device path: the bound expression trees evaluate eagerly as torch ops on
+the card (the reference traces them into one jitted XLA program; the
+hand-written fused-stage kernel is ROADMAP item B6). CPU path: the same
+trees evaluate with numpy — the independent oracle engine.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnarBatch,
+    ColumnVector,
+    HostColumnarBatch,
+    HostColumnVector,
+    compact_batch,
+)
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
+from spark_rapids_tpu_torch.ops.base import Expression
+from spark_rapids_tpu_torch.ops.values import (
+    ColV,
+    EvalContext,
+    ScalarV,
+    broadcast_scalar,
+)
+
+
+def col_to_colv(cv: ColumnVector) -> ColV:
+    return ColV(cv.dtype, cv.data, cv.validity)
+
+
+def colv_to_col(cv: ColV) -> ColumnVector:
+    """Restore the storage dtype at the batch boundary."""
+    data = cv.data
+    want = to_torch(cv.dtype)
+    if data.dtype != want:
+        data = data.to(want)
+    return ColumnVector(cv.dtype, data, cv.validity)
+
+
+def scalar_to_colv(ctx: EvalContext, s: ScalarV, want: DataType) -> ColV:
+    if s.dtype is DataType.NULL or s.is_null:
+        s = ScalarV(want, None)
+    col = broadcast_scalar(ctx, ScalarV(want, s.value))
+    return ColV(want, col.data, col.validity)
+
+
+def device_eval_context(batch: ColumnarBatch, partition_id: int = 0,
+                        row_start: int = 0) -> EvalContext:
+    cols = [col_to_colv(c) for c in batch.columns]
+    return EvalContext(True, cols, batch.num_rows, batch.capacity,
+                       partition_id=partition_id, row_start=row_start,
+                       device=batch.device)
+
+
+def eval_as_col(ctx: EvalContext, e: Expression) -> ColV:
+    r = e.eval(ctx)
+    if isinstance(r, ScalarV):
+        r = scalar_to_colv(ctx, r, e.data_type)
+    return r
+
+
+def keep_mask_from_result(ctx: EvalContext, r):
+    """Keep mask of a filter condition: true AND non-null (SQL drops a row
+    whose condition is NULL); shared by DeviceFilter and the aggregate's
+    folded filters so the two can never diverge on null semantics."""
+    if isinstance(r, ScalarV):
+        return ctx.bools((not r.is_null) and bool(r.value))
+    data = r.data if r.data.dtype == torch.bool else r.data != 0
+    return data & r.validity
+
+
+class DeviceProjector:
+    """Evaluates a fixed list of bound expressions over device batches
+    (reference: GpuProjectExec's bound-expression evaluation)."""
+
+    def __init__(self, exprs: Sequence[Expression]):
+        self.exprs = list(exprs)
+
+    def project(self, batch: ColumnarBatch, partition_id: int = 0,
+                row_start: int = 0) -> ColumnarBatch:
+        ctx = device_eval_context(batch, partition_id, row_start)
+        outs = [colv_to_col(eval_as_col(ctx, e)) for e in self.exprs]
+        return ColumnarBatch(outs, batch.num_rows)
+
+
+class DeviceFilter:
+    """Evaluates the condition on the card and compacts the kept rows
+    (reference: GpuFilterExec + cudf Table.filter)."""
+
+    def __init__(self, condition: Expression):
+        self.condition = condition
+
+    def apply(self, batch: ColumnarBatch, partition_id: int = 0,
+              row_start: int = 0, sync: bool = True) -> ColumnarBatch:
+        ctx = device_eval_context(batch, partition_id, row_start)
+        keep = keep_mask_from_result(ctx, self.condition.eval(ctx)) & \
+            ctx.row_mask()
+        return compact_batch(batch, keep, sync)
+
+
+# ---------------------------------------------------------------------------
+# CPU oracle path
+# ---------------------------------------------------------------------------
+def host_to_colv(hc: HostColumnVector) -> ColV:
+    return ColV(hc.dtype, hc.data, hc.validity)
+
+
+def _colv_to_host(cv: ColV, dtype: DataType) -> HostColumnVector:
+    data = cv.data
+    if dtype is DataType.STRING:
+        if data.dtype != object:
+            data = data.astype(object)
+        data = np.where(cv.validity, data, "")
+        return HostColumnVector(dtype, data,
+                                np.asarray(cv.validity, dtype=bool))
+    npdt = dtype.to_np()
+    if data.dtype != npdt:
+        data = data.astype(npdt)
+    data = np.where(cv.validity, data, npdt.type(0))
+    return HostColumnVector(dtype, data, np.asarray(cv.validity, dtype=bool))
+
+
+def cpu_eval_context(batch: HostColumnarBatch, partition_id: int = 0,
+                     row_start: int = 0) -> EvalContext:
+    cols = [host_to_colv(c) for c in batch.columns]
+    n = batch.num_rows
+    return EvalContext(False, cols, n, n, partition_id=partition_id,
+                       row_start=row_start)
+
+
+def cpu_project(exprs: Sequence[Expression], batch: HostColumnarBatch,
+                partition_id: int = 0, row_start: int = 0) -> HostColumnarBatch:
+    ctx = cpu_eval_context(batch, partition_id, row_start)
+    outs = []
+    for e in exprs:
+        r = e.eval(ctx)
+        if isinstance(r, ScalarV):
+            if e.data_type is DataType.STRING or r.dtype is DataType.STRING:
+                data = np.full((ctx.capacity,),
+                               r.value if not r.is_null else "", dtype=object)
+                validity = np.full((ctx.capacity,), not r.is_null, dtype=bool)
+                outs.append(HostColumnVector(DataType.STRING, data, validity))
+                continue
+            r = broadcast_scalar(ctx, ScalarV(e.data_type, r.value))
+        outs.append(_colv_to_host(r, e.data_type))
+    return HostColumnarBatch(outs, batch.num_rows)
+
+
+def cpu_filter(condition: Expression, batch: HostColumnarBatch,
+               partition_id: int = 0, row_start: int = 0) -> HostColumnarBatch:
+    ctx = cpu_eval_context(batch, partition_id, row_start)
+    r = condition.eval(ctx)
+    if isinstance(r, ScalarV):
+        keep = np.full((batch.num_rows,), (not r.is_null) and bool(r.value))
+    else:
+        keep = np.asarray(r.data, dtype=bool) & r.validity
+    cols = [HostColumnVector(c.dtype, c.data[keep], c.validity[keep])
+            for c in batch.columns]
+    return HostColumnarBatch(cols, int(keep.sum()))

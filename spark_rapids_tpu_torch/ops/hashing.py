@@ -1,0 +1,199 @@
+"""Row hashing and partition ids (port of spark_rapids_tpu/ops/hashing.py).
+
+Holds the hash half of the hand-written kernel K4 `hash_partition`
+(csrc/hash_partition.cu), which replaces the reference's `hash_columns`
+(hashing.py:215) and `partition_ids` (:228) as reached through
+shuffle/exchange.py:_build_hash_ids (:1157). The route half lives in
+shuffle/exchange.py (`route_plan`).
+
+The hash is the reference's murmur3-style mix, bit for bit: seed 42, each
+column decomposed into uint32 words (bool/int8/int16/int32: the low word of
+the sign-extended value; int64: low word then high word; float/double: the
+float32 bit pattern with -0.0 -> 0.0 and one canonical NaN), data words
+zeroed at nulls, one null word per column (0 or the golden ratio), then
+fmix32; the partition id is hash % n. Both engines of both packages
+co-partition on it.
+
+The plain version runs the uint32 arithmetic in int64 with explicit
+`& 0xFFFFFFFF` masks: torch has no unsigned add, shift, multiply or
+remainder. `>>` on int64 is arithmetic, so the high word is masked after
+the shift. The CPU engine hashes through the same plain version (numpy
+columns convert to CPU tensors); strings hash on the host only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Any, List
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import cuda_build as CB
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.ops.values import ColV
+
+M32 = 0xFFFFFFFF
+_C1 = 0xCC9E2D51
+_C2 = 0x1B873593
+_GOLDEN = 0x9E3779B9
+HASH_SEED = 42  # Spark's default seed (reference: Murmur3Hash)
+
+
+def _rotl32(x, r: int):
+    return ((x << r) | (x >> (32 - r))) & M32
+
+
+def _fmix32(h):
+    h = h ^ (h >> 16)
+    h = (h * 0x85EBCA6B) & M32
+    h = h ^ (h >> 13)
+    h = (h * 0xC2B2AE35) & M32
+    return h ^ (h >> 16)
+
+
+def _mix_h1(h, k1):
+    k1 = (k1 * _C1) & M32
+    k1 = _rotl32(k1, 15)
+    k1 = (k1 * _C2) & M32
+    h = _rotl32(h ^ k1, 13)
+    return (h * 5 + 0xE6546B64) & M32
+
+
+def _string_words_host(data: np.ndarray) -> List[Any]:
+    """Per-row double polynomial over utf-8 bytes (reference: hashing.py:98)."""
+    n = len(data)
+    h1 = np.zeros(n, dtype=np.int64)
+    h2 = np.zeros(n, dtype=np.int64)
+    lens = np.zeros(n, dtype=np.int64)
+    for i, s in enumerate(data):
+        b = s.encode("utf-8") if isinstance(s, str) else bytes(s)
+        a1 = a2 = 0
+        for byte in b:
+            a1 = (a1 * 31 + byte) & M32
+            a2 = (a2 * 1000003 + byte) & M32
+        h1[i], h2[i], lens[i] = a1, a2, len(b)
+    return [torch.from_numpy(h1), torch.from_numpy(h2),
+            torch.from_numpy(lens)]
+
+
+def column_words(col: ColV) -> List[Any]:
+    """uint32 words (int64 tensors) of one column (reference:
+    hashing.py:77); null lanes are zeroed by hash_word_entries."""
+    dt, data = col.dtype, col.data
+    if dt is DataType.STRING:
+        return _string_words_host(data)
+    if dt is DataType.BOOL:
+        return [data.to(torch.int64)]
+    if dt in (DataType.INT8, DataType.INT16, DataType.INT32, DataType.DATE):
+        return [data.to(torch.int64) & M32]
+    if dt in (DataType.INT64, DataType.TIMESTAMP) or \
+            getattr(dt, "is_decimal", False):
+        x = data.to(torch.int64)
+        return [x & M32, (x >> 32) & M32]
+    if dt in (DataType.FLOAT32, DataType.FLOAT64):
+        f = data.to(torch.float32)
+        f = torch.where(f == 0, torch.zeros((), dtype=torch.float32,
+                                            device=f.device), f)
+        bits = f.view(torch.int32).to(torch.int64) & M32
+        return [torch.where(torch.isnan(f),
+                            torch.full((), 0x7FC00000, dtype=torch.int64,
+                                       device=f.device), bits)]
+    raise TypeError(f"cannot hash column of type {dt}")
+
+
+def hash_word_entries(entries, seed: int = HASH_SEED):
+    """Murmur3-style mix over (words, validity) entries -> int64 tensor of
+    uint32 hash values (reference: hashing.py:192)."""
+    h = None
+    for words, validity in entries:
+        zero = torch.zeros((), dtype=torch.int64, device=validity.device)
+        nullw = torch.where(validity, zero,
+                            torch.full((), _GOLDEN, dtype=torch.int64,
+                                       device=validity.device))
+        for w in [torch.where(validity, w, zero) for w in words] + [nullw]:
+            if h is None:
+                h = torch.full(w.shape, seed, dtype=torch.int64,
+                               device=w.device)
+            h = _mix_h1(h, w)
+    assert h is not None, "hash needs at least one column"
+    return _fmix32(h)
+
+
+def hash_columns(cols: List[ColV], seed: int = HASH_SEED):
+    """Row hash over several columns (reference: hashing.py:215)."""
+    return hash_word_entries([(column_words(c), c.validity) for c in cols],
+                             seed)
+
+
+# ---------------------------------------------------------------------------
+# K4, hash half: partition ids
+# ---------------------------------------------------------------------------
+_KINDS = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
+          torch.int64: 4, torch.float32: 5, torch.float64: 6}
+
+
+class _HashCol(ctypes.Structure):
+    _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("kind", ctypes.c_int32), ("pad", ctypes.c_int32)]
+
+
+def partition_ids_plain(cols: List[ColV], live, num_partitions: int):
+    """(ids int32 [rows], counts int32 [n + 1]): hash % n per live row, n
+    elsewhere, and the rows per id."""
+    h = hash_columns(cols)
+    ids = (h % num_partitions).to(torch.int32)
+    if live is not None:
+        ids = torch.where(live, ids, torch.full(
+            (), num_partitions, dtype=torch.int32, device=ids.device))
+    counts = torch.bincount(ids.long(), minlength=num_partitions + 1)
+    return ids, counts.to(torch.int32)
+
+
+def partition_ids(cols: List[ColV], live, num_partitions: int):
+    """Partition id per row and rows per id; pads (outside `live`) get id
+    num_partitions. CPU tensors run the plain version, CUDA tensors K4."""
+    if cols[0].validity.device.type == "cpu":
+        return partition_ids_plain(cols, live, num_partitions)
+    lib = CB.library("hash_partition")
+    if num_partitions + 1 > lib.srt_hash_max_buckets():
+        raise ValueError(f"{num_partitions} partitions exceed the device "
+                         "hash kernel's bucket limit")
+    n = int(cols[0].validity.shape[0])
+    dev = cols[0].validity.device
+    descs = (_HashCol * len(cols))()
+    keep = []
+    for k, c in enumerate(cols):
+        if c.dtype is DataType.STRING:
+            raise NotImplementedError("device string hashing waits for "
+                                      "slice 2")
+        data = c.data.contiguous()
+        valid = c.validity.contiguous()
+        CB.require_cuda(data, valid)
+        descs[k].data, descs[k].valid = data.data_ptr(), valid.data_ptr()
+        descs[k].kind = _KINDS[data.dtype]
+        keep += [data, valid]
+    if live is None:
+        live = torch.ones(n, dtype=torch.bool, device=dev)
+    live = live.contiguous()
+    ids = torch.empty(n, dtype=torch.int32, device=dev)
+    counts = torch.empty(num_partitions + 1, dtype=torch.int32, device=dev)
+    rc = lib.srt_hash_partition_ids(
+        ctypes.addressof(descs), len(cols), n, live.data_ptr(),
+        num_partitions, ids.data_ptr(), counts.data_ptr(),
+        CB.stream_of(ids))
+    CB.count_launch("hash_partition")
+    CB.check(lib, rc, "hash_partition")
+    return ids, counts
+
+
+def host_partition_ids(cols: List[ColV], num_partitions: int) -> np.ndarray:
+    """CPU-engine partition ids over numpy columns (the same hash)."""
+    tcols = []
+    for c in cols:
+        valid = torch.from_numpy(np.asarray(c.validity, dtype=bool))
+        data = c.data if c.dtype is DataType.STRING else \
+            torch.from_numpy(np.ascontiguousarray(c.data))
+        tcols.append(ColV(c.dtype, data, valid))
+    ids, _ = partition_ids_plain(tcols, None, num_partitions)
+    return ids.numpy()

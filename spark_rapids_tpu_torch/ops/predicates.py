@@ -1,0 +1,140 @@
+"""Comparisons and logical operators (port of spark_rapids_tpu/ops/predicates.py;
+reference: predicates.scala). And/Or use Kleene three-valued logic like Spark.
+
+Comparison type promotion follows the reference's numpy/jnp rules
+(predicates.py:46 compares the raw operands): two columns promote to their
+common type, and a python scalar is weak — `b < 0.9` with `b` FLOAT
+compares in float32 on both engines. torch would compare an INTEGER tensor
+with a python float in float32 (its default dtype) where numpy uses float64,
+so the device path widens that one case explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.ops.base import BinaryExpression, UnaryExpression, _d
+from spark_rapids_tpu_torch.ops.values import ColV, ScalarV
+
+_I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
+
+
+def _operands(lv, rv):
+    l, r = _d(lv), _d(rv)
+    if isinstance(l, torch.Tensor) != isinstance(r, torch.Tensor):
+        t, s = (l, r) if isinstance(l, torch.Tensor) else (r, l)
+        if isinstance(s, float) and not t.is_floating_point():
+            t = t.to(torch.float64)
+        elif isinstance(s, int) and not isinstance(s, bool) and \
+                t.dtype in (torch.int8, torch.int16, torch.int32) and \
+                not _I32_MIN <= s <= _I32_MAX:
+            t = t.to(torch.int64)
+        l, r = (t, s) if isinstance(l, torch.Tensor) else (s, t)
+    return l, r
+
+
+class BinaryComparison(BinaryExpression):
+    @property
+    def data_type(self):
+        return DataType.BOOL
+
+    def do_columnar(self, ctx, lv, rv):
+        if self.left.data_type is DataType.STRING and ctx.is_device:
+            raise NotImplementedError("device string comparison (slice 2)")
+        return self._cmp(*_operands(lv, rv))
+
+
+class EqualTo(BinaryComparison):
+    @staticmethod
+    def _cmp(l, r):
+        return l == r
+
+
+class LessThan(BinaryComparison):
+    @staticmethod
+    def _cmp(l, r):
+        return l < r
+
+
+class LessThanOrEqual(BinaryComparison):
+    @staticmethod
+    def _cmp(l, r):
+        return l <= r
+
+
+class GreaterThan(BinaryComparison):
+    @staticmethod
+    def _cmp(l, r):
+        return l > r
+
+
+class GreaterThanOrEqual(BinaryComparison):
+    @staticmethod
+    def _cmp(l, r):
+        return l >= r
+
+
+def _bool_parts(ctx, v):
+    if isinstance(v, ScalarV):
+        if v.is_null:
+            return ctx.bools(False), ctx.bools(False)
+        return ctx.bools(bool(v.value)), ctx.bools(True)
+    data = v.data
+    if ctx.is_device:
+        data = data if data.dtype == torch.bool else data != 0
+    else:
+        data = data.astype(bool)
+    return data, v.validity
+
+
+class And(BinaryExpression):
+    """Kleene AND: F&null=F, T&null=null."""
+
+    @property
+    def data_type(self):
+        return DataType.BOOL
+
+    def eval_kernel(self, ctx, lv, rv):
+        ld, lval = _bool_parts(ctx, lv)
+        rd, rval = _bool_parts(ctx, rv)
+        data = ld & rd
+        false_somewhere = (~ld & lval) | (~rd & rval)
+        validity = (lval & rval) | false_somewhere
+        data = data & validity
+        if ctx.is_device:
+            validity = validity & ctx.row_mask()
+            data = data & validity
+        return ColV(DataType.BOOL, data, validity)
+
+
+class Or(BinaryExpression):
+    """Kleene OR: T|null=T, F|null=null."""
+
+    @property
+    def data_type(self):
+        return DataType.BOOL
+
+    def eval_kernel(self, ctx, lv, rv):
+        ld, lval = _bool_parts(ctx, lv)
+        rd, rval = _bool_parts(ctx, rv)
+        data = ld | rd
+        true_somewhere = (ld & lval) | (rd & rval)
+        validity = (lval & rval) | true_somewhere
+        data = data & validity
+        if ctx.is_device:
+            validity = validity & ctx.row_mask()
+            data = data & validity
+        return ColV(DataType.BOOL, data, validity)
+
+
+class Not(UnaryExpression):
+    @property
+    def data_type(self):
+        return DataType.BOOL
+
+    def do_columnar(self, ctx, v):
+        data = v.data
+        if isinstance(data, torch.Tensor):
+            return ~(data if data.dtype == torch.bool else data != 0)
+        return ~data.astype(bool)

@@ -1,0 +1,182 @@
+"""DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
+select, withColumn, filter, groupBy/agg, cache, collect, explain).
+
+Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
+against the child plan's output.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Union
+
+from spark_rapids_tpu_torch.ops.base import (
+    Alias,
+    AttributeReference,
+    Expression,
+    to_attribute,
+)
+from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.column import Column, _to_expr
+from spark_rapids_tpu_torch.plan.functions import _UnresolvedAttribute
+
+ColumnOrName = Union[Column, str]
+
+
+class AnalysisError(Exception):
+    pass
+
+
+def resolve(expr: Expression, attrs: Sequence[AttributeReference]) -> Expression:
+    """Rewrite _UnresolvedAttribute leaves into schema attributes."""
+    by_name: Dict[str, AttributeReference] = {}
+    dupes = set()
+    for a in attrs:
+        if a.name in by_name:
+            dupes.add(a.name)
+        by_name.setdefault(a.name, a)
+
+    def rewrite(node: Expression) -> Expression:
+        if isinstance(node, _UnresolvedAttribute):
+            if node.name in dupes:
+                raise AnalysisError(
+                    f"ambiguous column {node.name!r}; rename before combining")
+            got = by_name.get(node.name)
+            if got is None:
+                raise AnalysisError(
+                    f"column {node.name!r} not found in "
+                    f"[{', '.join(a.name for a in attrs)}]")
+            return got
+        return node
+
+    return expr.transform_up(rewrite)
+
+
+def _auto_alias(e: Expression, fallback: str) -> Expression:
+    if isinstance(e, (Alias, AttributeReference)):
+        return e
+    return Alias(e, fallback)
+
+
+class DataFrame:
+    def __init__(self, plan: L.LogicalPlan, session):
+        self._plan = plan
+        self.session = session
+
+    @property
+    def schema(self) -> List[AttributeReference]:
+        return self._plan.output
+
+    @property
+    def columns(self) -> List[str]:
+        return [a.name for a in self._plan.output]
+
+    def __getitem__(self, name: str) -> Column:
+        return Column(self._resolve_name(name))
+
+    def _resolve_name(self, name: str) -> AttributeReference:
+        for a in self._plan.output:
+            if a.name == name:
+                return a
+        raise AnalysisError(
+            f"column {name!r} not found in [{', '.join(self.columns)}]")
+
+    def _resolve(self, c: ColumnOrName) -> Expression:
+        if isinstance(c, str):
+            return self._resolve_name(c)
+        return resolve(_to_expr(c), self._plan.output)
+
+    def _with_plan(self, plan: L.LogicalPlan) -> "DataFrame":
+        return DataFrame(plan, self.session)
+
+    # -- relational ops -------------------------------------------------------
+    def select(self, *cols: ColumnOrName) -> "DataFrame":
+        out: List[Expression] = []
+        for c in cols:
+            if isinstance(c, str) and c == "*":
+                out.extend(self._plan.output)
+                continue
+            e = self._resolve(c)
+            out.append(_auto_alias(e, c if isinstance(c, str)
+                                   else f"col{len(out)}"))
+        return self._with_plan(L.Project(out, self._plan))
+
+    def withColumn(self, name: str, c: Column) -> "DataFrame":
+        e = Alias(self._resolve(c), name)
+        out: List[Expression] = []
+        replaced = False
+        for a in self._plan.output:
+            if a.name == name:
+                out.append(e)
+                replaced = True
+            else:
+                out.append(a)
+        if not replaced:
+            out.append(e)
+        return self._with_plan(L.Project(out, self._plan))
+
+    def filter(self, condition: Column) -> "DataFrame":
+        if isinstance(condition, str):
+            raise AnalysisError("string predicates require the SQL frontend; "
+                                "pass a Column")
+        return self._with_plan(L.Filter(self._resolve(condition), self._plan))
+
+    where = filter
+
+    def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
+        keys = [self._resolve(c) for c in cols]
+        named = [_auto_alias(k, c if isinstance(c, str) else f"col{i}")
+                 for i, (k, c) in enumerate(zip(keys, cols))]
+        return GroupedData(self, named)
+
+    groupby = groupBy
+
+    def agg(self, *cols: Column) -> "DataFrame":
+        return GroupedData(self, []).agg(*cols)
+
+    def cache(self) -> "DataFrame":
+        """Keep this DataFrame's batches in memory: on the card for the
+        device engine (reference: df.cache() served by the accelerated
+        InMemoryTableScan)."""
+        if isinstance(self._plan, L.CacheRelation):
+            return self
+        return self._with_plan(L.CacheRelation(self._plan))
+
+    persist = cache
+
+    def unpersist(self) -> "DataFrame":
+        from spark_rapids_tpu_torch.exec.cache import invalidate
+
+        if isinstance(self._plan, L.CacheRelation):
+            invalidate(self._plan)
+            return self._with_plan(self._plan.children[0])
+        return self
+
+    # -- actions --------------------------------------------------------------
+    def collect(self) -> List[tuple]:
+        return self.session.execute_collect(self._plan)
+
+    def toLocalBatches(self):
+        return self.session.execute_batches(self._plan)
+
+    def explain(self, mode: str = "ALL") -> str:
+        return self.session.explain_plan(self._plan, mode)
+
+
+class GroupedData:
+    def __init__(self, df: DataFrame, grouping: List[Expression]):
+        self._df = df
+        self._grouping = grouping
+
+    def agg(self, *cols: Column) -> DataFrame:
+        out: List[Expression] = list(self._grouping)
+        for i, c in enumerate(cols):
+            e = resolve(_to_expr(c), self._df._plan.output)
+            out.append(_auto_alias(e, f"agg{i}"))
+        plan = L.Aggregate([to_attribute(g) if isinstance(g, Alias) else g
+                            for g in self._grouping], out, self._df._plan)
+        return self._df._with_plan(plan)
+
+    def count(self) -> DataFrame:
+        from spark_rapids_tpu_torch.plan.functions import count as f_count
+
+        return self.agg(f_count("*").alias("count"))

@@ -1,0 +1,87 @@
+"""User-facing function library (port of spark_rapids_tpu/plan/functions.py,
+with the functions whose expressions this slice ports)."""
+
+from __future__ import annotations
+
+from typing import Any, Union
+
+from spark_rapids_tpu_torch.ops import aggregates as A
+from spark_rapids_tpu_torch.ops import arithmetic as AR
+from spark_rapids_tpu_torch.ops import nulls as N
+from spark_rapids_tpu_torch.ops.base import Expression
+from spark_rapids_tpu_torch.ops.literals import Literal
+from spark_rapids_tpu_torch.plan.column import Column, _to_expr
+
+ColumnOrName = Union[Column, str]
+
+
+def col(name: str) -> Column:
+    """An unresolved named column, resolved against the DataFrame schema
+    when the plan is built (plan/dataframe.py)."""
+    return Column(_UnresolvedAttribute(name))
+
+
+class _UnresolvedAttribute(Expression):
+    """Placeholder resolved by DataFrame methods; never evaluated."""
+
+    def __init__(self, name: str):
+        self.name = name
+
+    def children(self):
+        return ()
+
+    def with_children(self, new_children):
+        return self
+
+    @property
+    def data_type(self):
+        raise RuntimeError(f"unresolved column {self.name!r}")
+
+    def eval(self, ctx):
+        raise RuntimeError(f"unresolved column {self.name!r}")
+
+    def _fingerprint_extra(self):
+        return f"{self.name};"
+
+    def __repr__(self):
+        return f"'{self.name}"
+
+
+def lit(v: Any) -> Column:
+    return Column(Literal(v))
+
+
+def _c(e: ColumnOrName) -> Expression:
+    if isinstance(e, str):
+        return _UnresolvedAttribute(e)
+    return _to_expr(e)
+
+
+def coalesce(*cols: ColumnOrName) -> Column:
+    return Column(N.Coalesce(*[_c(c) for c in cols]))
+
+
+def isnull(c: ColumnOrName) -> Column:
+    return Column(N.IsNull(_c(c)))
+
+
+def pmod(a: ColumnOrName, b) -> Column:
+    return Column(AR.Pmod(_c(a), _to_expr(b)))
+
+
+def sum(c: ColumnOrName) -> Column:  # noqa: A001
+    return Column(A.Sum(_c(c)))
+
+
+def min(c: ColumnOrName) -> Column:  # noqa: A001
+    return Column(A.Min(_c(c)))
+
+
+def max(c: ColumnOrName) -> Column:  # noqa: A001
+    return Column(A.Max(_c(c)))
+
+
+def count(c: ColumnOrName = "*") -> Column:
+    if isinstance(c, str) and c == "*":
+        return Column(A.Count(Literal(1)))
+    return Column(A.Count(_c(c)))

@@ -1,0 +1,158 @@
+"""TpuOverrides: the CPU -> device plan rewrite and its rule table (port
+of spark_rapids_tpu/plan/overrides.py; reference: GpuOverrides.scala).
+
+Only what this slice ports has a rule: an expression or exec without one
+cannot go on the device, stays on the CPU engine, and `explain("ALL")`
+reports why. The reference's `import jax` at overrides.py:17 was unused and
+has no counterpart here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Type
+
+from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.exec import basic as B
+from spark_rapids_tpu_torch.exec.base import PhysicalExec
+from spark_rapids_tpu_torch.ops import aggregates as AGG
+from spark_rapids_tpu_torch.ops import arithmetic as AR
+from spark_rapids_tpu_torch.ops import nulls as N
+from spark_rapids_tpu_torch.ops import predicates as P
+from spark_rapids_tpu_torch.ops.base import (
+    Alias,
+    AttributeReference,
+    BoundReference,
+    Expression,
+)
+from spark_rapids_tpu_torch.ops.cast import Cast
+from spark_rapids_tpu_torch.ops.literals import Literal
+from spark_rapids_tpu_torch.plan import meta as MT
+from spark_rapids_tpu_torch.plan.meta import ExecMeta, ExecRule, ExprMeta, ExprRule
+
+EXPR_RULES: Dict[Type[Expression], ExprRule] = {}
+EXEC_RULES: Dict[Type[PhysicalExec], ExecRule] = {}
+
+
+def register_expr(expr_cls, desc, incompat=None, disabled_by_default=False,
+                  tag_fn=None):
+    rule = ExprRule(expr_cls, desc, incompat, disabled_by_default, tag_fn)
+    EXPR_RULES[expr_cls] = rule
+    return rule
+
+
+def register_exec(cpu_cls, desc, convert, incompat=None,
+                  disabled_by_default=False, tag_fn=None):
+    rule = ExecRule(cpu_cls, desc, convert, incompat, disabled_by_default,
+                    tag_fn)
+    EXEC_RULES[cpu_cls] = rule
+    return rule
+
+
+def _tag_cast(m: ExprMeta) -> None:
+    e: Cast = m.expr
+    if not Cast.device_supported(e.child.data_type, e.to_type):
+        m.will_not_work(f"cast {e.child.data_type.name}->{e.to_type.name} "
+                        "has no device kernel yet")
+
+
+def _tag_agg(m: ExprMeta) -> None:
+    e = m.expr
+    if isinstance(e, AGG.Sum) and e.child.data_type.is_floating and \
+            not m.conf.get(C.ENABLE_FLOAT_AGG):
+        m.will_not_work(
+            "float aggregation order differs from CPU; set "
+            "rapids.tpu.sql.variableFloatAgg.enabled=true")
+    if isinstance(e, (AGG.Min, AGG.Max)) and \
+            e.child.data_type is DataType.BOOL:
+        m.will_not_work("boolean min/max has no device reduction yet")
+
+
+def _register_expr_rules():
+    r = register_expr
+    r(Alias, "name a result")
+    r(AttributeReference, "reference an input column")
+    r(BoundReference, "ordinal input reference")
+    r(Literal, "literal value")
+    r(Cast, "cast between numeric types", tag_fn=_tag_cast)
+    for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Remainder, AR.Pmod):
+        r(cls, f"arithmetic {cls.__name__}")
+    for cls in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
+                P.GreaterThanOrEqual, P.And, P.Or, P.Not):
+        r(cls, f"predicate {cls.__name__}")
+    for cls in (N.IsNull, N.IsNotNull, N.Coalesce):
+        r(cls, f"null-handling {cls.__name__}")
+    for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count):
+        r(cls, f"aggregate {cls.__name__}", tag_fn=_tag_agg)
+
+
+def _tag_hash_agg(m: ExecMeta) -> None:
+    if not m.plan.grouping:
+        m.will_not_work("the keyless global aggregate waits for slice 2")
+
+
+def _register_exec_rules():
+    from spark_rapids_tpu_torch.exec.aggregate import (
+        CpuHashAggregateExec,
+        TpuHashAggregateExec,
+    )
+    from spark_rapids_tpu_torch.exec.cache import (
+        CpuCachedScanExec,
+        TpuCachedScanExec,
+    )
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    register_exec(
+        B.CpuProjectExec, "columnar projection",
+        lambda cpu, ch: B.TpuProjectExec(cpu.project_list, ch[0]))
+    register_exec(
+        B.CpuFilterExec, "columnar filter",
+        lambda cpu, ch: B.TpuFilterExec(cpu.condition, ch[0]))
+    register_exec(
+        CpuHashAggregateExec, "hash aggregate (sort + segment reduce)",
+        lambda cpu, ch: TpuHashAggregateExec(
+            cpu.grouping, cpu.agg_exprs, cpu.mode, ch[0], cpu.specs),
+        tag_fn=_tag_hash_agg)
+    register_exec(
+        X.CpuShuffleExchangeExec, "columnar shuffle exchange",
+        lambda cpu, ch: X.TpuShuffleExchangeExec(cpu.partitioning, ch[0]))
+    register_exec(
+        CpuCachedScanExec, "device-resident in-memory table cache",
+        lambda cpu, ch: TpuCachedScanExec(cpu.logical_node, ch[0]))
+
+
+def _expr_rule_for(e: Expression) -> Optional[ExprRule]:
+    return EXPR_RULES.get(type(e))
+
+
+def _wrap_plan(plan: PhysicalExec, conf: C.TpuConf) -> ExecMeta:
+    return ExecMeta(plan, conf, EXEC_RULES.get(type(plan)), _expr_rule_for)
+
+
+def _wrap_expr(expr: Expression, conf: C.TpuConf) -> ExprMeta:
+    return ExprMeta(expr, conf, _expr_rule_for(expr))
+
+
+MT._WRAP_PLAN = _wrap_plan
+MT._WRAP_EXPR = _wrap_expr
+MT._NODE_EXPRESSIONS = lambda plan: plan.node_expressions()
+
+
+class TpuOverrides:
+    """The pre-transition columnar rule (reference: GpuOverrides.apply,
+    GpuOverrides.scala:1769-1826)."""
+
+    @staticmethod
+    def apply(cpu_plan: PhysicalExec, conf: C.TpuConf,
+              explain_out: Optional[List[str]] = None) -> PhysicalExec:
+        if not conf.sql_enabled:
+            return cpu_plan
+        wrapped = _wrap_plan(cpu_plan, conf)
+        wrapped.tag_for_tpu()
+        if explain_out is not None:
+            explain_out.append(wrapped.explain_string(all_nodes=True))
+        return wrapped.convert_if_needed()
+
+
+_register_expr_rules()
+_register_exec_rules()

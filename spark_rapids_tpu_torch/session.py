@@ -1,0 +1,195 @@
+"""TpuSession: the port's SparkSession analog (port of spark_rapids_tpu/session.py,
+cut to createDataFrame, cache, plan, execute and collect).
+
+Plan pipeline, as in the reference (session.py:423-426): logical plan ->
+CPU physical plan (plan/planner.py) -> device rewrite (plan/overrides.py)
+-> transitions and coalesces (plan/transition_overrides.py) -> stage fusion
+(plan/fusion.py). Execution is the per-operator host-loop executor: each
+partition's iterator runs on the calling thread and ends at the
+DeviceToHostExec sink (reference: _execute_device :1008, without admission
+or the lifted-sink async path). The spmd, placement, adaptive, admission
+and plan-cache keys of conf.py are read as off; those layers are later
+queue items (ROADMAP.md queue 1).
+
+A session runs on one device: `cuda:0` unless the caller asks for
+`device="cpu"`, the only way onto the CPU. Without a CUDA device and
+without that argument the session raises instead of carrying on on the
+CPU.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch.columnar.batch import (
+    HostColumnarBatch,
+    HostColumnVector,
+)
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.exec.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.ops.base import AttributeReference
+from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.dataframe import DataFrame
+from spark_rapids_tpu_torch.plan.fusion import fuse_stages
+from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
+from spark_rapids_tpu_torch.plan.planner import plan_physical
+from spark_rapids_tpu_torch.plan.transition_overrides import (
+    TpuTransitionOverrides,
+)
+
+
+def resolve_device(device=None) -> torch.device:
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: the port runs on the card; pass "
+                "device='cpu' to run on the CPU explicitly")
+        return torch.device("cuda", 0)
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {dev} requested but CUDA is unavailable")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class TpuSession:
+    def __init__(self, settings: Optional[Dict[str, Any]] = None,
+                 device=None):
+        self.conf = C.TpuConf(settings)
+        self.device = resolve_device(device)
+        # the final physical plan of the most recent query
+        self.last_physical_plan: Optional[PhysicalExec] = None
+
+    def set_conf(self, key: str, value: Any) -> None:
+        self.conf.set(key, value)
+
+    # -- data sources ---------------------------------------------------------
+    def createDataFrame(self, data, schema=None,
+                        num_partitions: int = 1) -> DataFrame:
+        """data: list of tuples + schema [(name, type)], or dict of
+        name -> list/ndarray with schema optional."""
+        attrs, batch = _to_host_batch(data, schema)
+        return DataFrame(L.LocalRelation(attrs, _split_batch(
+            batch, num_partitions)), self)
+
+    # -- plan pipeline --------------------------------------------------------
+    def _physical_plan(self, plan: L.LogicalPlan) -> PhysicalExec:
+        cpu_plan = plan_physical(plan, self.conf)
+        tpu_plan = TpuOverrides.apply(cpu_plan, self.conf)
+        final = TpuTransitionOverrides.apply(tpu_plan, self.conf)
+        final = fuse_stages(final, self.conf)
+        self.last_physical_plan = final
+        return final
+
+    def explain_plan(self, plan: L.LogicalPlan, mode: str = "ALL") -> str:
+        from spark_rapids_tpu_torch.plan.meta import explain_string
+
+        explain_out: List[str] = []
+        cpu_plan = plan_physical(plan, self.conf)
+        tpu_plan = TpuOverrides.apply(cpu_plan, self.conf,
+                                      explain_out=explain_out)
+        final = fuse_stages(TpuTransitionOverrides.apply(tpu_plan, self.conf),
+                            self.conf)
+        parts = []
+        if explain_out:
+            parts.append("== Device tagging ==\n" + explain_out[0])
+        parts.append("== Final plan ==\n" + explain_string(final))
+        return "\n".join(parts)
+
+    # -- actions --------------------------------------------------------------
+    def execute_partitions(self, plan: L.LogicalPlan
+                           ) -> List[List[HostColumnarBatch]]:
+        physical = self._physical_plan(plan)
+        pb = physical.execute(ExecContext(self.conf, self.device))
+        return [list(pb.iterator(p)) for p in range(pb.num_partitions)]
+
+    def execute_batches(self, plan: L.LogicalPlan) -> List[HostColumnarBatch]:
+        return [b for part in self.execute_partitions(plan) for b in part]
+
+    def execute_collect(self, plan: L.LogicalPlan) -> List[tuple]:
+        rows: List[tuple] = []
+        for b in self.execute_batches(plan):
+            rows.extend(b.to_pylist_rows())
+        return rows
+
+
+# ---------------------------------------------------------------------------
+# createDataFrame input coercion
+# ---------------------------------------------------------------------------
+def _to_host_batch(data, schema):
+    if isinstance(data, dict):
+        return _dict_to_batch(data, schema)
+    if isinstance(data, list):
+        if schema is None:
+            raise ValueError("schema required for list-of-rows input")
+        names_types = _normalize_schema(schema)
+        cols = {name: [row[i] for row in data]
+                for i, (name, _) in enumerate(names_types)}
+        attrs = [AttributeReference(n, t, True) for n, t in names_types]
+        vecs = [HostColumnVector.from_pylist(cols[n], t)
+                for n, t in names_types]
+        return attrs, HostColumnarBatch(vecs, len(data))
+    raise TypeError(f"cannot create DataFrame from {type(data)}")
+
+
+def _normalize_schema(schema):
+    out = []
+    for item in schema:
+        if isinstance(item, tuple):
+            name, t = item
+            if isinstance(t, str):
+                t = DataType.parse(t)
+            out.append((name, t))
+        elif isinstance(item, AttributeReference):
+            out.append((item.name, item.data_type))
+        else:
+            raise TypeError(f"bad schema element {item!r}")
+    return out
+
+
+def _dict_to_batch(cols: Dict[str, Any], schema):
+    names_types = _normalize_schema(schema) if schema else None
+    attrs, vecs = [], []
+    for i, (name, values) in enumerate(cols.items()):
+        want = names_types[i][1] if names_types else None
+        if isinstance(values, np.ndarray):
+            vec = HostColumnVector.from_numpy(values, dtype=want)
+        else:
+            vec = HostColumnVector.from_pylist(list(values),
+                                               want or _infer_type(values))
+        attrs.append(AttributeReference(name, vec.dtype, True))
+        vecs.append(vec)
+    return attrs, HostColumnarBatch(vecs)
+
+
+def _infer_type(values) -> DataType:
+    for v in values:
+        if v is None:
+            continue
+        if isinstance(v, bool):
+            return DataType.BOOL
+        if isinstance(v, int):
+            return DataType.INT64
+        if isinstance(v, float):
+            return DataType.FLOAT64
+        if isinstance(v, str):
+            return DataType.STRING
+        raise TypeError(f"cannot infer SQL type for {v!r}")
+    return DataType.STRING
+
+
+def _split_batch(batch: HostColumnarBatch,
+                 n: int) -> List[List[HostColumnarBatch]]:
+    n = max(1, n)
+    total = batch.num_rows
+    per = -(-total // n) if total else 0
+    parts: List[List[HostColumnarBatch]] = []
+    for i in range(n):
+        lo, hi = i * per, min(total, (i + 1) * per)
+        parts.append([batch.slice(lo, hi - lo)] if hi > lo else [])
+    return parts
