@@ -21,14 +21,25 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    bit for bit, float sums within a relative 1e-5 (f32) / 1e-12 (f64)
    because the summation order differs; each is timed with CUDA events
    beside its plain version, a one-call PyTorch yardstick where one exists,
-   and its bound (bytes read once plus written once over 3.35 TB/s).
+   and its bound (bytes read once plus written once over 3.35 TB/s). The
+   string kernels K5-K7 run on edge cases (empty, NULL, non-ASCII, 64 bytes
+   and longer, prefix pairs) and at 2^25 rows shaped like l_shipmode and
+   l_shipinstruct (K7 gathers the latter through a random permutation);
+   their words, offsets and bytes must match bit for bit;
+4. TPC-H q1 and q6 at SF 10 (60,000,000 lineitem rows; the port's
+   gen_tables, 4 partitions, every table cached as bench.py does), one cold
+   and 3 warm runs each, plans asserted all on the device, results checked
+   against a direct numpy computation over the generated columns (counts
+   exact, DOUBLE sums and averages within a relative 1e-9, q1's 6 rows in
+   ORDER BY order); then one q1 run with the exchange's zero-copy piece cap
+   at 0, which routes every map batch (K4's route half, K7's string
+   pieces), checked the same way.
 
-Launch counts are reset just before each of phases 1 and 2 and read just
-after it; every kernel of a path must have launched in that path's own run
-(K1-K3 and the hash half of K4 in both, the route half of K4 in phase 2).
-In the kernels line, "launches" is the count of the kernel's own path
-("path": the flagship, or high cardinality for the route half of K4) and
-"launches_by_path" holds both runs' counts.
+Launch counts are reset just before each path's run and read just after
+it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed); every
+kernel of a path must have launched in that path's own run. In the kernels
+line, "launches" is the count of the kernel's own path ("path") and
+"launches_by_path" holds every run's counts.
 
 Output: the card's name and power limit, then one JSON line with the
 kernels, then the last line {"ok": true, "device": {...}}. Exits
@@ -45,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
 FLAGSHIP_ROWS = 1 << 26
@@ -69,13 +81,33 @@ KERNELS = {
     "route_plan": (
         "spark_rapids_tpu_torch/csrc/hash_partition.cu",
         "spark_rapids_tpu/shuffle/exchange.py:1315", "high_cardinality"),
+    "string_hash_words": (
+        "spark_rapids_tpu_torch/csrc/string_hash.cu",
+        "spark_rapids_tpu/ops/hashing.py:118", "tpch_q1"),
+    "string_order_words": (
+        "spark_rapids_tpu_torch/csrc/string_order.cu",
+        "spark_rapids_tpu/exec/rowkeys.py:108", "tpch_q1"),
+    "gather_strings": (
+        "spark_rapids_tpu_torch/csrc/string_gather.cu",
+        "spark_rapids_tpu/columnar/batch.py:1592", "tpch_q1"),
 }
+_GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
+             "hash_partition")
+_Q1 = _GROUP_BY + ("string_hash_words", "string_order_words",
+                   "gather_strings")
 # the kernels each path must launch
 PATH_KERNELS = {
-    "flagship": ("radix_sort_pairs", "group_ids", "segment_reduce",
-                 "hash_partition"),
-    "high_cardinality": tuple(KERNELS),
+    "flagship": _GROUP_BY,
+    "high_cardinality": _GROUP_BY + ("route_plan",),
+    "tpch_q1": _Q1,
+    "tpch_q6": ("segment_reduce",),
+    "tpch_q1_routed": _Q1 + ("route_plan",),
 }
+TPCH_SF = 10
+TPCH_PARTITIONS = 4
+TPCH_REL = 1e-9
+TPCH_CONF = {"rapids.tpu.sql.test.enabled": True,
+             "rapids.tpu.sql.variableFloatAgg.enabled": True}
 
 
 def log(msg: str) -> None:
@@ -227,16 +259,21 @@ def run_flagship(sess, n_rows: int, n_keys: int, what: str, reps: int):
 
 
 def profile_flagship(sess, n_rows: int, out_dir: str) -> dict:
-    """One warm flagship query under torch.profiler: device time by kernel
-    and the device's busy share of the query's wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
     data = flagship_data(n_rows, N_KEYS)
     df = sess.createDataFrame(
         data, [("k", "long"), ("a", "long"), ("b", "float")],
         num_partitions=2).cache()
     q = flagship_query(df)
+    q.toLocalBatches()
+    return profile_query(q, out_dir, "flagship")
+
+
+def profile_query(q, out_dir: str, name: str) -> dict:
+    """One warm run of a query under torch.profiler: device time by kernel
+    and the device's busy share of the query's wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     q.toLocalBatches()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -253,12 +290,157 @@ def profile_flagship(sess, n_rows: int, out_dir: str) -> dict:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
     os.makedirs(out_dir, exist_ok=True)
     table = events.table(sort_by="self_cuda_time_total", row_limit=40)
-    with open(os.path.join(out_dir, "flagship_profile.txt"), "w") as fh:
+    with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as fh:
         fh.write(f"wall {wall:.6f} s, device busy {dev_us / 1e6:.6f} s\n")
         fh.write(table)
-    log(f"profile: wall {wall:.4f} s, device kernels {dev_us / 1e6:.4f} s")
+    log(f"profile {name}: wall {wall:.4f} s, device kernels "
+        f"{dev_us / 1e6:.4f} s")
     return {"wall_s": wall, "device_busy_s": dev_us / 1e6,
             "device_busy_share": dev_us / 1e6 / wall if wall else None}
+
+
+# -------------------------------------------------------------- TPC-H
+def lineitem_columns(df) -> dict:
+    """The generated lineitem columns q1 and q6 read (host numpy, all
+    partitions)."""
+    import numpy as np
+
+    batches = [b for part in df._plan.partitions for b in part]
+    out = {}
+    for i, attr in enumerate(df.schema):
+        cols = [b.columns[i] for b in batches]
+        if attr.name in ("l_shipmode", "l_shipinstruct"):
+            continue
+        if attr.data_type.is_string:
+            # q1's keys are one byte each: the UTF-8 bytes are the values
+            lens = np.concatenate([np.diff(c.utf8()[0]) for c in cols])
+            check(bool((lens == 1).all()), f"{attr.name}: not one byte")
+            out[attr.name] = np.concatenate([c.utf8()[1] for c in cols])
+        else:
+            out[attr.name] = np.concatenate([c.data for c in cols])
+    return out
+
+
+def numpy_q1(li: dict):
+    """q1 by numpy: [(flag, status, sums..., avgs..., count)] in ORDER BY
+    order, the sums pairwise over each group's rows."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import _days
+
+    keep = li["l_shipdate"] <= _days("1998-09-02")
+    flag, status = li["l_returnflag"][keep], li["l_linestatus"][keep]
+    qty, price = li["l_quantity"][keep], li["l_extendedprice"][keep]
+    disc, tax = li["l_discount"][keep], li["l_tax"][keep]
+    disc_price = price * (1.0 - disc)
+    charge = price * (1.0 - disc) * (1.0 + tax)
+    key = flag.astype(np.int32) * 256 + status
+    rows = []
+    for k in np.unique(key):
+        m = key == k
+        n = int(m.sum())
+        sums = [float(np.sum(x[m])) for x in (qty, price, disc_price,
+                                              charge, disc)]
+        rows.append((chr(k // 256), chr(k % 256), sums[0], sums[1], sums[2],
+                     sums[3], sums[0] / n, sums[1] / n, sums[4] / n, n))
+    return rows
+
+
+def numpy_q6(li: dict):
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import _days
+
+    d = li["l_shipdate"]
+    m = (d >= _days("1994-01-01")) & (d < _days("1995-01-01")) & \
+        (li["l_discount"] >= 0.05) & (li["l_discount"] <= 0.07) & \
+        (li["l_quantity"] < 24.0)
+    return [(float(np.sum(li["l_extendedprice"][m] * li["l_discount"][m])),)]
+
+
+def check_rows(got, want, what: str) -> float:
+    """Rows equal in order: strings and counts exactly, floats within
+    TPCH_REL; returns the largest relative float difference."""
+    check(len(got) == len(want), f"{what}: {len(got)} rows, numpy "
+          f"{len(want)}")
+    worst = 0.0
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            if isinstance(y, float):
+                check(x is not None, f"{what}: NULL where numpy has {y}")
+                rel = abs(x - y) / max(abs(y), 1e-300)
+                worst = max(worst, rel)
+                check(rel <= TPCH_REL, f"{what}: {x} vs numpy {y}")
+            else:
+                check(x == y, f"{what}: {x!r} vs numpy {y!r}")
+    return worst
+
+
+def run_query(sess, q, want, what: str, warm_reps: int):
+    import torch
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows = q.collect()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t
+    assert_on_device(sess)
+    worst = check_rows(rows, want, what)
+    warm = []
+    for _ in range(warm_reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = q.collect()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t)
+        worst = max(worst, check_rows(rows, want, what))
+    log(f"{what}: {len(rows)} rows, cold {cold:.4f} s, warm {warm}, "
+        f"max rel diff {worst:.3e}")
+    return {"cold_s": cold, "warm_s": warm,
+            "warm_median_s": statistics.median(warm) if warm else None,
+            "max_rel_diff": worst, "rows": len(rows)}
+
+
+def run_tpch(sess, launches: dict, profile_dir=None) -> dict:
+    """Phase 4: q1, q6 and the routed q1 at TPCH_SF."""
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    t = time.perf_counter()
+    raw = tpch.gen_tables(sess, sf=TPCH_SF, num_partitions=TPCH_PARTITIONS)
+    gen_s = time.perf_counter() - t
+    li = lineitem_columns(raw["lineitem"])
+    n_rows = len(li["l_quantity"])
+    log(f"phase 4: SF {TPCH_SF} generated in {gen_s:.1f} s, lineitem "
+        f"{n_rows} rows")
+    want_q1, want_q6 = numpy_q1(li), numpy_q6(li)
+    tables = {k: v.cache() for k, v in raw.items()}
+    out = {"sf": TPCH_SF, "lineitem_rows": n_rows, "gen_s": gen_s}
+    for name, query, want, reps in (("tpch_q1", tpch.q1, want_q1, 3),
+                                    ("tpch_q6", tpch.q6, want_q6, 3)):
+        CB.reset_launch_counts()
+        out[name] = run_query(sess, query(tables), want, name, reps)
+        launches[name] = CB.launch_counts()
+        if name == "tpch_q1":
+            out["device_bytes"] = torch.cuda.memory_allocated()
+    lazy_cap = X.LAZY_PIECE_CAP_BYTES
+    X.LAZY_PIECE_CAP_BYTES = 0
+    try:
+        CB.reset_launch_counts()
+        out["tpch_q1_routed"] = run_query(sess, tpch.q1(tables), want_q1,
+                                          "tpch_q1_routed", 0)
+        launches["tpch_q1_routed"] = CB.launch_counts()
+    finally:
+        X.LAZY_PIECE_CAP_BYTES = lazy_cap
+    for name in ("tpch_q1", "tpch_q6"):
+        out[name]["rows_per_s"] = n_rows / out[name]["warm_median_s"]
+    if profile_dir:
+        out["q1_profile"] = profile_query(tpch.q1(tables), profile_dir,
+                                          "tpch_q1")
+    return out
 
 
 # ----------------------------------------------------------- kernels
@@ -409,6 +591,153 @@ def edge_cases(dev, errs: dict) -> int:
     return n_cases + 3
 
 
+def string_column(values, dev):
+    """(offsets, bytes, validity) on the card of a list of str / None."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.strings import encode_utf8
+
+    valid = np.array([v is not None for v in values], dtype=bool)
+    data = np.array([v if v is not None else "" for v in values],
+                    dtype=object)
+    offsets, raw = encode_utf8(data, valid)
+    raw = np.concatenate([raw, np.zeros(8, np.uint8)])
+    return (torch.from_numpy(offsets).to(dev), torch.from_numpy(raw).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def pool_column(pool, n: int, seed: int, dev):
+    """n rows drawn from a pool of values, on the card."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.strings import encode_pool
+
+    codes = np.random.default_rng(seed).integers(0, len(pool), n)
+    _, offsets, raw = encode_pool(pool, codes)
+    return (torch.from_numpy(offsets).to(dev), torch.from_numpy(raw).to(dev),
+            torch.ones(n, dtype=torch.bool, device=dev))
+
+
+def compare_strings(col, chunk_words: int, label: str, errs: dict,
+                    seed: int = 0) -> None:
+    """K5, K6 and K7 against their plain versions on one string column:
+    words, offsets, validity and bytes bit for bit."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops import hashing as H
+
+    offsets, raw, valid = col
+    n = int(valid.shape[0])
+    got = H.string_hash_words(offsets, raw, valid)
+    want = H.string_hash_words_plain(offsets, raw, valid)
+    check(torch.equal(got, want), f"{label}: K5 words differ")
+    errs["string_hash_words"] = max(errs.get("string_hash_words", 0.0),
+                                    max_abs_err(got, want))
+    got = RK.string_order_words(offsets, raw, valid, chunk_words)
+    want = RK.string_order_words_plain(offsets, raw, valid, chunk_words)
+    check(torch.equal(got, want), f"{label}: K6 words differ")
+    errs["string_order_words"] = max(errs.get("string_order_words", 0.0),
+                                     max_abs_err(got, want))
+    gen = torch.Generator(device=offsets.device).manual_seed(seed)
+    perm = torch.randperm(n, generator=gen, device=offsets.device).to(
+        torch.int32)
+    byte_cap = CBT.bucket_capacity(max(int(offsets[-1]), 1))
+    for idx, rows in ((perm, n), (perm[: max(n // 2, 1)], n // 2)):
+        new_off, data, ok = CBT.gather_strings(offsets, raw, valid, idx,
+                                               rows, None, byte_cap)
+        total = int(new_off[-1])
+        want_off, want_ok = CBT.gather_strings_plan_plain(
+            offsets, valid, idx, rows)
+        want_data = CBT.gather_strings_copy_plain(offsets, raw, idx,
+                                                  want_off, max(total, 1))
+        check(torch.equal(new_off, want_off) and torch.equal(ok, want_ok),
+              f"{label}: K7 offsets or validity differ")
+        check(torch.equal(data[:total], want_data[:total]),
+              f"{label}: K7 bytes differ")
+        errs["gather_strings"] = max(
+            errs.get("gather_strings", 0.0),
+            max_abs_err(new_off, want_off),
+            max_abs_err(data[:total], want_data[:total]))
+
+
+STRING_EDGES = ["", None, "a", "ab", "abc", "abcd", "abcde", "abcdefgh",
+                "abcdefghi", "héllo wörld", "日本語テキスト", "☃" * 30,
+                "x" * 64, "y" * 300, "ab", "abcÿ", None, "TAKE BACK RETURN"]
+
+
+def string_edge_cases(dev, errs: dict) -> int:
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.columnar.strings import len_bucket
+
+    n = 0
+    for values in (STRING_EDGES, [None] * 9, [""] * 5,
+                   STRING_EDGES * 700):
+        lens = [len(v.encode()) for v in values if v is not None] or [1]
+        words = RK.string_chunk_words(
+            SimpleNamespace(max_len=len_bucket(max(lens))))
+        compare_strings(string_column(values, dev), words, f"strings {n}",
+                        errs, n)
+        n += 1
+    return n
+
+
+def time_string_kernels(dev, errs: dict) -> dict:
+    """K5 and K6 over 2^25 rows shaped like l_shipmode (max_len 7, two
+    chunk words) and like l_shipinstruct (max_len 17, eight chunk words:
+    four uint64 chunks); K7 gathers the l_shipinstruct rows through a random
+    permutation. Times are the l_shipinstruct shape."""
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops import hashing as H
+
+    n = 1 << 25
+    rows = {}
+    iters, plain_iters = 10, 2
+    for label, pool, words in (("l_shipmode", tpch._SHIPMODES, 2),
+                               ("l_shipinstruct", tpch._INSTRUCT, 8)):
+        col = pool_column(pool, n, 5, dev)
+        compare_strings(col, words, f"{label} 2^25", errs)
+    offsets, raw, valid = col
+    total = int(offsets[-1])
+    base = 4 * (n + 1) + n + total  # offsets, validity, bytes read once
+    rows["string_hash_words"] = dict(
+        ms=cuda_ms(lambda: H.string_hash_words(offsets, raw, valid), iters),
+        plain_ms=cuda_ms(lambda: H.string_hash_words_plain(
+            offsets, raw, valid), plain_iters),
+        library_ms=None, bound_ms=bound_ms(base + 12 * n),
+        shape=f"{n} rows like l_shipinstruct, {total} bytes")
+    rows["string_order_words"] = dict(
+        ms=cuda_ms(lambda: RK.string_order_words(offsets, raw, valid, 8),
+                   iters),
+        plain_ms=cuda_ms(lambda: RK.string_order_words_plain(
+            offsets, raw, valid, 8), plain_iters),
+        library_ms=None, bound_ms=bound_ms(base + 4 * 9 * n),
+        shape=f"{n} rows like l_shipinstruct, 8 chunk words + length")
+    perm = torch.randperm(n, device=dev).to(torch.int32)
+    byte_cap = CBT.bucket_capacity(total)
+
+    def plain_k7():
+        off, ok = CBT.gather_strings_plan_plain(offsets, valid, perm, n)
+        return CBT.gather_strings_copy_plain(offsets, raw, perm, off,
+                                             byte_cap)
+
+    rows["gather_strings"] = dict(
+        ms=cuda_ms(lambda: CBT.gather_strings(offsets, raw, valid, perm, n,
+                                              None, byte_cap), iters),
+        plain_ms=cuda_ms(plain_k7, plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * n + base + 4 * (n + 1) + n + total),
+        shape=f"{n} rows like l_shipinstruct through a permutation")
+    return rows
+
+
 def time_kernels(dev, errs: dict, launches: dict):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
@@ -496,6 +825,7 @@ def time_kernels(dev, errs: dict, launches: dict):
         library_ms=None,
         bound_ms=bound_ms(4 * hcap + 4 * hcap + 36),
         shape=f"{hcap} ids, 8 partitions")
+    rows.update(time_string_kernels(dev, errs))
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
@@ -554,7 +884,7 @@ def main(argv=None) -> int:
 
     errs: dict = {}
     results = {"card": card, "build_s": build_s}
-    n_edge = edge_cases(dev, errs)
+    n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -567,6 +897,8 @@ def main(argv=None) -> int:
     results["phase2"] = run_flagship(sess, HIGH_CARD_ROWS, HIGH_CARD_KEYS,
                                      "phase 2 high cardinality", 1)
     launches["high_cardinality"] = CB.launch_counts()
+    tpch_sess = srt.new_session(TPCH_CONF)
+    results["phase4"] = run_tpch(tpch_sess, launches, args.profile)
     results["launches"] = launches
     log(f"launches: {launches}")
     for path, names in PATH_KERNELS.items():
@@ -584,10 +916,15 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1)
     print(card)
+    p4 = results["phase4"]
     print(json.dumps({"flagship": {k: results["phase1"][k] for k in (
         "rows", "groups", "cold_s", "warm_s", "warm_median_s")},
         "high_cardinality": {k: results["phase2"][k] for k in (
-            "rows", "groups", "cold_s", "warm_median_s")}}))
+            "rows", "groups", "cold_s", "warm_median_s")},
+        "tpch": {"sf": p4["sf"], "lineitem_rows": p4["lineitem_rows"],
+                 "gen_s": p4["gen_s"], "device_bytes": p4["device_bytes"],
+                 **{q: p4[q] for q in ("tpch_q1", "tpch_q6",
+                                       "tpch_q1_routed")}}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

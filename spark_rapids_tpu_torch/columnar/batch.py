@@ -1,5 +1,4 @@
-"""Device and host columnar batches (port of spark_rapids_tpu/columnar/batch.py,
-fixed-width columns).
+"""Device and host columnar batches (port of spark_rapids_tpu/columnar/batch.py).
 
 - `ColumnVector`: a device column, data + validity tensors padded to a
   bucketed capacity (next power of two, >= 8). Rows past num_rows have
@@ -17,8 +16,17 @@ not one per column. DOUBLE stays float64 on the card (an H100 has f64
 units), so the reference's TPU narrowing in `physical_np_dtype` (:56) is
 not ported.
 
-Compaction, concat and gather here are plain torch ops (the reference's
-B5/B9 kernels stay queued in ROADMAP.md). Strings have no device form yet.
+STRING columns (slice 2) are uint8 bytes + int32 offsets + validity with a
+host-known `max_len` (columnar/strings.py). Every string gather goes through
+the hand-written kernel K7 `gather_strings` (csrc/string_gather.cu, replacing
+the reference's `_gather_string_plan_cap` :1592 / `_gather_string_bytes`
+:1607): a plan launch (gathered lengths, the shared device-wide scan, new
+offsets) and a copy launch (one warp per output row). Its output byte
+buffer is sized from a host-known bound (the source buffer for a gather
+that repeats no row, `rows * max_len` otherwise), so no string gather reads
+a count back from the card. Concat and compaction of string columns are K7
+gathers over the pieces laid end to end. Fixed-width compaction, concat
+and gather stay plain torch ops (B5 compaction is queued in ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -28,6 +36,8 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import cuda_build as CB
+from spark_rapids_tpu_torch.columnar import strings as S
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, from_np
 
 MIN_CAPACITY = 8
@@ -42,22 +52,31 @@ def bucket_capacity(n: int) -> int:
 
 
 class ColumnVector:
-    """A device-resident column (reference: GpuColumnVector.java)."""
+    """A device-resident column (reference: GpuColumnVector.java).
+    STRING columns also carry int32 `offsets` [capacity + 1] and the
+    host-known power-of-two `max_len` bound (every producer of a device
+    string column sets it); `data` is their uint8 bytes."""
 
-    __slots__ = ("dtype", "data", "validity")
+    __slots__ = ("dtype", "data", "validity", "offsets", "max_len")
 
-    def __init__(self, dtype: DataType, data, validity):
+    def __init__(self, dtype: DataType, data, validity, offsets=None,
+                 max_len=None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
+        self.offsets = offsets
+        self.max_len = max_len
 
     @property
     def capacity(self) -> int:
-        return int(self.data.shape[0])
+        return int(self.validity.shape[0])
 
     def device_memory_size(self) -> int:
-        return self.data.numel() * self.data.element_size() + \
+        size = self.data.numel() * self.data.element_size() + \
             self.validity.numel()
+        if self.offsets is not None:
+            size += self.offsets.numel() * 4
+        return size
 
     def __repr__(self):
         return f"ColumnVector({self.dtype.name}, cap={self.capacity})"
@@ -65,18 +84,36 @@ class ColumnVector:
 
 class HostColumnVector:
     """Host column: numpy data + validity (reference: RapidsHostColumnVector).
-    Strings are object arrays of str; nulls live only in the mask."""
+    Strings are object arrays of str; nulls live only in the mask. A string
+    column caches its UTF-8 form (offsets, bytes) once computed."""
 
-    __slots__ = ("dtype", "data", "validity")
+    __slots__ = ("dtype", "data", "validity", "_utf8")
 
-    def __init__(self, dtype: DataType, data: np.ndarray, validity: np.ndarray):
+    def __init__(self, dtype: DataType, data: np.ndarray, validity: np.ndarray,
+                 utf8=None):
         assert len(data) == len(validity)
         self.dtype = dtype
         self.data = data
         self.validity = validity
+        self._utf8 = utf8
 
     def __len__(self):
         return len(self.data)
+
+    def utf8(self):
+        """(offsets int32 [n + 1], bytes uint8) of a string column."""
+        if self._utf8 is None:
+            self._utf8 = S.encode_utf8(self.data, self.validity)
+        return self._utf8
+
+    @staticmethod
+    def from_pool(pool: Sequence[str], codes: np.ndarray) -> "HostColumnVector":
+        """A non-null string column `pool[codes]`, encoded without a
+        per-row loop (the generators' categorical columns)."""
+        values, offsets, raw = S.encode_pool(pool, codes)
+        return HostColumnVector(DataType.STRING, values,
+                                np.ones(len(values), dtype=bool),
+                                (offsets, raw))
 
     @staticmethod
     def from_pylist(values: Sequence[Any], dtype: DataType) -> "HostColumnVector":
@@ -99,8 +136,7 @@ class HostColumnVector:
         if dt is DataType.STRING:
             if arr.dtype != object:
                 arr = arr.astype(object)
-            none_mask = np.fromiter((v is None for v in arr), dtype=bool,
-                                    count=len(arr))
+            none_mask = np.equal(arr, None)
             if none_mask.any():
                 base = np.ones(len(arr), dtype=bool) if validity is None \
                     else np.asarray(validity, dtype=bool)
@@ -144,9 +180,17 @@ class HostColumnarBatch:
         return [tuple(vals) for vals in zip(*col_lists)] if col_lists else []
 
     def slice(self, start: int, length: int) -> "HostColumnarBatch":
-        cols = [HostColumnVector(c.dtype, c.data[start:start + length],
-                                 c.validity[start:start + length])
-                for c in self.columns]
+        cols = []
+        for c in self.columns:
+            utf8 = None
+            if c.dtype is DataType.STRING and c._utf8 is not None:
+                offs, raw = c._utf8
+                o = offs[start:start + length + 1]
+                if len(o):
+                    utf8 = (o - o[0], raw[o[0]:o[-1]])
+            cols.append(HostColumnVector(c.dtype, c.data[start:start + length],
+                                         c.validity[start:start + length],
+                                         utf8))
         return HostColumnarBatch(cols,
                                  min(length, max(0, self.num_rows - start)))
 
@@ -154,52 +198,73 @@ class HostColumnarBatch:
         total = 0
         for c in self.columns:
             if c.dtype is DataType.STRING:
-                total += sum(len(s) for s in c.data) + 5 * len(c.data)
+                total += len(c.utf8()[1]) + 5 * len(c.data)
             else:
                 total += c.data.nbytes + len(c.validity)
         return total
 
     def to_device(self, device) -> "ColumnarBatch":
-        """Grouped upload: every column's padded data and validity go into
-        one host buffer per dtype (pinned when the target is a card), one
-        copy per buffer, and device views slice the columns back out
-        (reference: HostColumnarBatch.to_device, batch.py:390)."""
+        """Grouped upload: every column's padded data, offsets and validity
+        go into one host buffer per dtype (pinned when the target is a
+        card), one copy per buffer, and device views slice the columns back
+        out (reference: HostColumnarBatch.to_device, batch.py:390)."""
         device = torch.device(device)
         n = self.num_rows
         cap = bucket_capacity(n)
         parts = []
+        max_lens = []
         for hc in self.columns:
             if hc.dtype is DataType.STRING:
-                raise NotImplementedError(
-                    "string columns have no device form yet (slice 2)")
-            npdt = hc.dtype.to_np()
-            parts.append((npdt, np.where(hc.validity[:n], hc.data[:n],
-                                         npdt.type(0))))
-            parts.append((np.dtype(np.bool_), hc.validity[:n]))
-        arrays = _upload_grouped(parts, cap, device)
-        cols = [ColumnVector(hc.dtype, arrays[2 * i], arrays[2 * i + 1])
-                for i, hc in enumerate(self.columns)]
+                offs, raw = hc.utf8()
+                offsets = np.empty(cap + 1, dtype=np.int32)
+                offsets[:n + 1] = offs[:n + 1]
+                offsets[n + 1:] = offs[n]
+                nbytes = int(offs[n])
+                parts.append((np.dtype(np.int32), offsets, cap + 1))
+                parts.append((np.dtype(np.uint8), raw[:nbytes],
+                              bucket_capacity(max(nbytes, 1))))
+                lens = np.diff(offs[:n + 1])
+                max_lens.append(S.len_bucket(int(lens.max()) if n else 1))
+            else:
+                npdt = hc.dtype.to_np()
+                parts.append((npdt, np.where(hc.validity[:n], hc.data[:n],
+                                             npdt.type(0)), cap))
+                max_lens.append(None)
+            parts.append((np.dtype(np.bool_), hc.validity[:n], cap))
+        arrays = _upload_grouped(parts, device)
+        cols = []
+        i = 0
+        for hc, ml in zip(self.columns, max_lens):
+            if hc.dtype is DataType.STRING:
+                cols.append(ColumnVector(hc.dtype, arrays[i + 1],
+                                         arrays[i + 2], arrays[i], ml))
+                i += 3
+            else:
+                cols.append(ColumnVector(hc.dtype, arrays[i], arrays[i + 1]))
+                i += 2
         return ColumnarBatch(cols, n)
 
 
-def _upload_grouped(parts, cap: int, device: torch.device):
-    """(np dtype, values[:n]) parts -> device tensors padded to cap, with
-    one host buffer and one host->device copy per dtype."""
+def _upload_grouped(parts, device: torch.device):
+    """(np dtype, values, padded length) parts -> device tensors zero-padded
+    to their lengths, with one host buffer and one host->device copy per
+    dtype."""
     groups: dict = {}
-    for i, (npdt, _) in enumerate(parts):
+    for i, (npdt, _, _) in enumerate(parts):
         groups.setdefault(npdt, []).append(i)
     out: List[Optional[torch.Tensor]] = [None] * len(parts)
     pin = device.type == "cuda"
     for npdt, idxs in groups.items():
         tdt = torch.from_numpy(np.zeros(0, dtype=npdt)).dtype
-        host = torch.zeros(len(idxs) * cap, dtype=tdt, pin_memory=pin)
+        starts = np.cumsum([0] + [parts[i][2] for i in idxs])
+        host = torch.zeros(int(starts[-1]), dtype=tdt, pin_memory=pin)
         view = host.numpy()
         for j, i in enumerate(idxs):
             vals = parts[i][1]
-            view[j * cap:j * cap + len(vals)] = vals
+            view[starts[j]:starts[j] + len(vals)] = vals
         dev = host.to(device, non_blocking=pin)
         for j, i in enumerate(idxs):
-            out[i] = dev[j * cap:(j + 1) * cap]
+            out[i] = dev[starts[j]:starts[j + 1]]
     return out
 
 
@@ -283,7 +348,11 @@ def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
             count = add(b.num_rows.to(torch.int64).reshape(1))
         segs = []
         for c in b.columns:
-            segs.append(add(c.data[:trim]))
+            if c.offsets is not None:
+                segs.append(add(c.offsets[:trim + 1]))
+                segs.append(add(c.data))
+            else:
+                segs.append(add(c.data[:trim]))
             segs.append(add(c.validity[:trim]))
         plan.append((bi, segs, count))
     if not plan:
@@ -309,9 +378,19 @@ def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
             n = int(np_host[k][off])
             b.num_rows = n
         cols = []
-        for ci, c in enumerate(b.columns):
-            kd, od, ld = segs[2 * ci]
-            kv, ov, _ = segs[2 * ci + 1]
+        seg_iter = iter(segs)
+        for c in b.columns:
+            if c.offsets is not None:
+                ko, oo, lo = next(seg_iter)
+                kb, ob, lb = next(seg_iter)
+                kv, ov, _ = next(seg_iter)
+                valid = np_host[kv][ov:ov + n].copy()
+                offs = np_host[ko][oo:oo + lo]
+                data = S.decode_utf8(offs, np_host[kb][ob:ob + lb], valid, n)
+                cols.append(HostColumnVector(c.dtype, data, valid))
+                continue
+            kd, od, _ = next(seg_iter)
+            kv, ov, _ = next(seg_iter)
             data = np_host[kd][od:od + n].copy()
             valid = np_host[kv][ov:ov + n].copy()
             npdt = c.dtype.to_np()
@@ -325,6 +404,154 @@ def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
 
 def _zeros_like_col(t: torch.Tensor, n: int) -> torch.Tensor:
     return torch.zeros(n, dtype=t.dtype, device=t.device)
+
+
+# ---------------------------------------------------------------------------
+# K7: string gather
+# ---------------------------------------------------------------------------
+def gather_strings_plan_plain(offsets, validity, indices, out_rows: int,
+                              indices_valid=None):
+    """(new offsets int32 [cap + 1], validity [cap]) of gathering rows
+    `indices` (cap = len(indices)); lanes at or past out_rows, masked by
+    indices_valid or out of range are NULL with length 0 (reference:
+    _string_plan_body, batch.py:1577)."""
+    cap = int(indices.shape[0])
+    n_src = int(offsets.shape[0]) - 1
+    dev = indices.device
+    idx = indices.long()
+    ok = (torch.arange(cap, device=dev) < out_rows) & (idx >= 0) & \
+        (idx < n_src)
+    if indices_valid is not None:
+        ok = ok & indices_valid
+    safe = torch.where(ok, idx, torch.zeros((), dtype=torch.int64,
+                                            device=dev))
+    lens = torch.where(ok, offsets[safe + 1] - offsets[safe],
+                       torch.zeros((), dtype=offsets.dtype, device=dev))
+    new_offsets = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    new_offsets[1:] = torch.cumsum(lens, 0, dtype=torch.int32)
+    return new_offsets, ok & validity[safe]
+
+
+def gather_strings_copy_plain(offsets, data, indices, new_offsets,
+                              byte_cap: int):
+    """Bytes of the gathered rows laid out at new_offsets, zero past the
+    total (reference: _gather_string_bytes, batch.py:1607)."""
+    out = torch.zeros(byte_cap, dtype=torch.uint8, device=data.device)
+    lens = (new_offsets[1:] - new_offsets[:-1]).long()
+    total = int(new_offsets[-1])
+    if total:
+        row = torch.repeat_interleave(
+            torch.arange(lens.shape[0], device=data.device), lens)
+        within = torch.arange(total, device=data.device) - \
+            new_offsets[row].long()
+        src = offsets[indices[row].long()].long() + within
+        out[:total] = data[src]
+    return out
+
+
+def gather_strings(offsets, data, validity, indices, out_rows: int,
+                   indices_valid, byte_cap: int):
+    """K7 (replaces batch.py:_gather_string_plan_cap + _gather_string_bytes):
+    (new offsets [cap + 1], bytes [byte_cap], validity [cap]) of the rows
+    `indices` of a string column. byte_cap must bound the gathered bytes
+    (the copy writes nothing past it). CPU tensors run the plain version,
+    CUDA tensors the kernel."""
+    if indices.device.type == "cpu":
+        new_offsets, valid = gather_strings_plan_plain(
+            offsets, validity, indices, out_rows, indices_valid)
+        return (new_offsets, gather_strings_copy_plain(
+            offsets, data, indices, new_offsets, byte_cap), valid)
+    idx = indices.to(torch.int32).contiguous()
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity, idx)
+    if indices_valid is not None:
+        indices_valid = indices_valid.contiguous()
+        CB.require_cuda(indices_valid)
+    dev = idx.device
+    cap = int(idx.shape[0])
+    lib = CB.library("string_gather")
+    scratch = torch.empty(int(lib.srt_gather_strings_scratch_bytes(cap)),
+                          dtype=torch.uint8, device=dev)
+    new_offsets = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    stream = CB.stream_of(idx)
+    rc = lib.srt_gather_strings_plan(
+        offsets.data_ptr(), validity.data_ptr(), int(offsets.shape[0]) - 1,
+        idx.data_ptr(),
+        indices_valid.data_ptr() if indices_valid is not None else None,
+        int(out_rows), cap, new_offsets.data_ptr(), valid.data_ptr(),
+        scratch.data_ptr(), scratch.numel(), stream)
+    CB.check(lib, rc, "gather_strings plan")
+    out = torch.empty(byte_cap, dtype=torch.uint8, device=dev)
+    rc = lib.srt_gather_strings_copy(
+        offsets.data_ptr(), data.data_ptr(), idx.data_ptr(),
+        new_offsets.data_ptr(), cap, out.data_ptr(), byte_cap, stream)
+    CB.count_launch("gather_strings")
+    CB.check(lib, rc, "gather_strings copy")
+    return new_offsets, out, valid
+
+
+def gather_string_col(cv: ColumnVector, indices, out_rows: int,
+                       indices_valid=None, unique: bool = False
+                       ) -> ColumnVector:
+    """One string column gathered through K7, its byte buffer sized from
+    host-known bounds, so no gather reads a count back from the card:
+    len(indices) * max_len, and the source buffer when no source row
+    repeats."""
+    bound = int(indices.shape[0]) * cv.max_len
+    if unique:
+        bound = min(bound, int(cv.data.shape[0]))
+    offs, data, valid = gather_strings(cv.offsets, cv.data, cv.validity,
+                                       indices, out_rows, indices_valid,
+                                       bucket_capacity(max(bound, 1)))
+    return ColumnVector(DataType.STRING, data, valid, offs, cv.max_len)
+
+
+def strings_end_to_end(cols: Sequence[ColumnVector]):
+    """(one string column, first lane of each piece): the pieces laid end to
+    end without a host sync — byte buffers concatenated, offsets shifted,
+    and one dead (NULL) lane after each piece but the last, spanning the
+    unused tail of its byte buffer."""
+    dev = cols[0].validity.device
+    false1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    offs, valids, bases = [], [], []
+    byte_base = lane_base = 0
+    for c in cols:
+        offs.append(c.offsets + byte_base)
+        valids += [c.validity, false1]
+        bases.append(lane_base)
+        byte_base += int(c.data.shape[0])
+        lane_base += c.capacity + 1
+    if byte_base >= (1 << 31):
+        raise ValueError("string pieces exceed 2 GiB of bytes")
+    if len(cols) == 1:
+        return cols[0], bases
+    return ColumnVector(DataType.STRING, torch.cat([c.data for c in cols]),
+                        torch.cat(valids[:-1]), torch.cat(offs),
+                        max(c.max_len for c in cols)), bases
+
+
+def _compact_strings(cols: Sequence[ColumnVector], lives, cap_out: int
+                     ) -> ColumnVector:
+    """The live rows of several string columns, in order, as one column of
+    cap_out lanes, with no host sync: K7 gathers the live lanes of the
+    pieces laid end to end."""
+    src, _ = strings_end_to_end(cols)
+    dev = src.validity.device
+    false1 = torch.zeros(1, dtype=torch.bool, device=dev)
+    live = [t for lv in lives for t in (lv, false1)][:-1]
+    live_mask = torch.cat(live) if len(live) > 1 else live[0]
+    n_src = int(live_mask.shape[0])
+    pos = torch.cumsum(live_mask.to(torch.int64), 0) - 1
+    dest = torch.where(live_mask, pos, torch.full((), cap_out,
+                                                  dtype=torch.int64,
+                                                  device=dev))
+    idx = torch.zeros(cap_out + 1, dtype=torch.int32, device=dev)
+    idx.scatter_(0, dest, torch.arange(n_src, dtype=torch.int32, device=dev))
+    idx_valid = torch.arange(cap_out, device=dev) < live_mask.sum()
+    return gather_string_col(src, idx[:cap_out], cap_out, idx_valid,
+                              unique=True)
 
 
 def _scatter_compact(pieces, lives, cap_out: int):
@@ -347,23 +574,45 @@ def _scatter_compact(pieces, lives, cap_out: int):
     return outs, total
 
 
+def _compact_pieces(batches: Sequence[ColumnarBatch], lives, cap_out: int):
+    """(columns, device row count): the live rows of same-schema batches
+    in order, in cap_out lanes."""
+    fixed = [i for i, c in enumerate(batches[0].columns) if c.offsets is None]
+    cols: List[Optional[ColumnVector]] = [None] * batches[0].num_columns
+    total = None
+    if fixed:
+        pieces = [[t for i in fixed for t in (b.columns[i].data,
+                                              b.columns[i].validity)]
+                  for b in batches]
+        outs, total = _scatter_compact(pieces, lives, cap_out)
+        for k, i in enumerate(fixed):
+            cols[i] = ColumnVector(batches[0].columns[i].dtype, outs[2 * k],
+                                   outs[2 * k + 1])
+    for i, c in enumerate(batches[0].columns):
+        if c.offsets is not None:
+            cols[i] = _compact_strings([b.columns[i] for b in batches],
+                                       lives, cap_out)
+    if total is None:
+        live = torch.cat(lives) if len(lives) > 1 else lives[0]
+        total = live.sum(dtype=torch.int32)
+    return cols, total
+
+
 def ensure_compact(batch: ColumnarBatch) -> ColumnarBatch:
     """Compact a live-masked view into a dense batch (reference:
     batch.py:1047); the count stays a device scalar."""
     if batch.live is None:
         return batch
-    cap = bucket_capacity(batch.capacity)
-    pieces = [[t for c in batch.columns for t in (c.data, c.validity)]]
-    outs, total = _scatter_compact(pieces, [batch.live], cap)
-    cols = [ColumnVector(c.dtype, outs[2 * i], outs[2 * i + 1])
-            for i, c in enumerate(batch.columns)]
+    cols, total = _compact_pieces([batch], [batch.live],
+                                  bucket_capacity(batch.capacity))
     return ColumnarBatch(cols, total)
 
 
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     """Concatenate same-schema batches in order (reference: batch.py:877).
-    Host counts and no masks: slices and one cat per column. Otherwise a
-    masked scatter compaction with the count left on the card."""
+    Host counts and no masks: slices and one cat per fixed column.
+    Otherwise a masked scatter compaction with the count left on the card.
+    String columns go through K7 either way (no host sync)."""
     assert batches, "cannot concat zero batches"
     if len(batches) == 1:
         return ensure_compact(batches[0])
@@ -374,6 +623,11 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
         cols = []
         for ci in range(ncols):
             c0 = batches[0].columns[ci]
+            if c0.offsets is not None:
+                cols.append(_compact_strings(
+                    [b.columns[ci] for b in batches],
+                    [b.live_mask() for b in batches], cap))
+                continue
             data = _zeros_like_col(c0.data, cap)
             valid = _zeros_like_col(c0.validity, cap)
             off = 0
@@ -385,31 +639,41 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
             cols.append(ColumnVector(c0.dtype, data, valid))
         return ColumnarBatch(cols, total)
     cap = bucket_capacity(sum(b.capacity for b in batches))
-    pieces = [[t for c in b.columns for t in (c.data, c.validity)]
-              for b in batches]
-    outs, total = _scatter_compact(pieces, [b.live_mask() for b in batches],
-                                   cap)
-    cols = [ColumnVector(batches[0].columns[i].dtype, outs[2 * i],
-                         outs[2 * i + 1]) for i in range(ncols)]
+    cols, total = _compact_pieces(batches, [b.live_mask() for b in batches],
+                                  cap)
     return ColumnarBatch(cols, total)
 
 
-def gather_batch(batch: ColumnarBatch, indices, out_rows: int) -> ColumnarBatch:
+def gather_batch(batch: ColumnarBatch, indices, out_rows: int,
+                 indices_valid=None, unique_indices: bool = False
+                 ) -> ColumnarBatch:
     """Rows by index into a new batch of `out_rows` rows (reference:
-    batch.py:1501, fixed-width columns); lanes past out_rows are null."""
+    batch.py:1501); lanes past out_rows, out of range or masked off by
+    `indices_valid` are null. unique_indices promises no source row
+    repeats, which bounds the string bytes by the source buffer."""
     cap = bucket_capacity(max(out_rows, 1))
     src_cap = batch.capacity
     idx = indices[:cap].to(torch.int64)
+    ivalid = None if indices_valid is None else indices_valid[:cap]
     if idx.shape[0] < cap:
-        idx = torch.cat([idx, torch.zeros(cap - idx.shape[0],
-                                          dtype=torch.int64,
+        pad = cap - idx.shape[0]
+        idx = torch.cat([idx, torch.zeros(pad, dtype=torch.int64,
                                           device=idx.device)])
+        if ivalid is not None:
+            ivalid = torch.cat([ivalid, torch.zeros(
+                pad, dtype=torch.bool, device=idx.device)])
     lane = torch.arange(cap, device=idx.device)
     ok = (lane < out_rows) & (idx >= 0) & (idx < src_cap)
+    if ivalid is not None:
+        ok = ok & ivalid
     safe = torch.where(ok, idx, torch.zeros((), dtype=torch.int64,
                                             device=idx.device))
     cols = []
     for c in batch.columns:
+        if c.offsets is not None:
+            cols.append(gather_string_col(c, idx, out_rows, ivalid,
+                                           unique_indices))
+            continue
         valid = c.validity[safe] & ok
         data = torch.where(valid, c.data[safe],
                            torch.zeros((), dtype=c.data.dtype,
@@ -429,6 +693,9 @@ def compact_batch(batch: ColumnarBatch, keep_mask, sync: bool) -> ColumnarBatch:
     cap = bucket_capacity(max(n, 1))
     if cap >= out.capacity:
         return out
-    cols = [ColumnVector(c.dtype, c.data[:cap].clone(),
+    cols = [ColumnVector(c.dtype, c.data.clone(), c.validity[:cap].clone(),
+                         c.offsets[:cap + 1].clone(), c.max_len)
+            if c.offsets is not None else
+            ColumnVector(c.dtype, c.data[:cap].clone(),
                          c.validity[:cap].clone()) for c in out.columns]
     return ColumnarBatch(cols, n)

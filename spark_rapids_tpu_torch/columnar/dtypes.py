@@ -246,12 +246,15 @@ def from_np(dtype: np.dtype) -> DataType:
     raise TypeError(f"unsupported numpy dtype {dtype}")
 
 
-# The device type gate of this slice of the port (reference:
-# GpuOverrides.isSupportedType, GpuOverrides.scala:383-395). Strings, dates,
-# timestamps and decimals have no device kernels in the port yet, so an
-# operator touching them stays on the CPU engine (ROADMAP.md queue 1).
+# The device type gate of the port's slices so far (reference:
+# GpuOverrides.isSupportedType, GpuOverrides.scala:383-395). Timestamps and
+# decimals have no device kernels in the port yet, so an operator touching
+# them stays on the CPU engine (ROADMAP.md queue 1); the device string
+# operations are those plan/overrides.py admits.
 SUPPORTED_TYPES = frozenset(
     {
+        DataType.STRING,
+        DataType.DATE,
         DataType.BOOL,
         DataType.INT8,
         DataType.INT16,

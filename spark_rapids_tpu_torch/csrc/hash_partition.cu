@@ -7,8 +7,9 @@
 // Hash half: a murmur3-style uint32 row hash with seed 42 over each key
 // column's words (bool/int8/int16/int32: the sign-extended low word; int64:
 // low then high word; float/double: the float32 bit pattern with -0.0 ->
-// 0.0 and one canonical NaN), data words zeroed at nulls and one null word
-// per column, then fmix32; the partition id is hash % n, and rows outside
+// 0.0 and one canonical NaN; string: the three words of kernel K5,
+// string_hash_words), data words zeroed at nulls and one null word per
+// column, then fmix32; the partition id is hash % n, and rows outside
 // the live mask get id n. It also counts rows per id (n + 1 buckets, pads
 // last). Bit-identical to the reference, which co-partitions host and
 // device plans on it.
@@ -26,7 +27,8 @@
 struct SrtHashCol {
   const void* data;
   const uint8_t* valid;
-  int32_t kind;  // 0 bool, 1 int8, 2 int16, 3 int32, 4 int64, 5 f32, 6 f64
+  int32_t kind;  // 0 bool, 1 int8, 2 int16, 3 int32, 4 int64, 5 f32, 6 f64,
+                 // 7 uint32 words [3][n] (a string's K5 words)
   int32_t pad;
 };
 
@@ -89,7 +91,7 @@ __global__ void hash_ids_kernel(HashCols cols, long long n,
       for (int k = 0; k < cols.n; ++k) {
         const SrtHashCol& c = cols.c[k];
         const bool v = c.valid[i] != 0;
-        uint32_t w0 = 0u, w1 = 0u;
+        uint32_t w0 = 0u, w1 = 0u, w2 = 0u;
         int nw = 1;
         switch (c.kind) {
           case 0: w0 = static_cast<const uint8_t*>(c.data)[i] ? 1u : 0u; break;
@@ -105,13 +107,22 @@ __global__ void hash_ids_kernel(HashCols cols, long long n,
             break;
           }
           case 5: w0 = canonical_f32_bits(static_cast<const float*>(c.data)[i]); break;
+          case 7: {
+            const uint32_t* w = static_cast<const uint32_t*>(c.data);
+            w0 = w[i];
+            w1 = w[n + i];
+            w2 = w[2 * n + i];
+            nw = 3;
+            break;
+          }
           default:
             w0 = canonical_f32_bits(
                 __double2float_rn(static_cast<const double*>(c.data)[i]));
             break;
         }
         h = mix_h1(h, v ? w0 : 0u);
-        if (nw == 2) h = mix_h1(h, v ? w1 : 0u);
+        if (nw >= 2) h = mix_h1(h, v ? w1 : 0u);
+        if (nw == 3) h = mix_h1(h, v ? w2 : 0u);
         h = mix_h1(h, v ? 0u : kGolden);
       }
       pid = (int32_t)(fmix32(h) % (uint32_t)num_parts);

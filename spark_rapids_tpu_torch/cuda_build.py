@@ -29,7 +29,8 @@ from typing import Dict, List
 import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition")
+SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
+           "string_hash", "string_order", "string_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -148,6 +149,26 @@ _SIGNATURES = {
         "srt_route_plan": (ctypes.c_int, [
             _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
             ctypes.c_size_t, _VOIDP]),
+    },
+    "string_hash": {
+        "srt_string_hash_words": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP]),
+    },
+    "string_order": {
+        "srt_string_order_words": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP,
+            _VOIDP]),
+    },
+    "string_gather": {
+        "srt_gather_strings_scratch_bytes": (ctypes.c_size_t,
+                                             [ctypes.c_longlong]),
+        "srt_gather_strings_plan": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
+            ctypes.c_longlong, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_size_t, _VOIDP]),
+        "srt_gather_strings_copy": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
+            ctypes.c_longlong, _VOIDP]),
     },
 }
 

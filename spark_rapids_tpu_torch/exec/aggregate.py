@@ -17,9 +17,15 @@ their representative rows into a batch of bucket_capacity(groups) lanes;
 (the sync-free 'lazy' form, chosen by rapids.tpu.engine.aggCompactSync=never
 when the output fits the exchange's zero-copy piece cap).
 
-Left out of this slice (ROADMAP.md): encoded (dictionary) columns, run-aware
-collapse, buffer donation, the retry combinators, string min/max, the keyless
-global aggregate, holistic aggregates (COMPLETE mode).
+Slice 2 adds STRING group keys (grouped on K5's hash words, assembled by
+K7 gathers at the representative rows), Average, and the keyless global
+aggregate on the device: every live row is in group 0 (no sort,
+`rowkeys.keyless_group_info`), K3 reduces it, and an empty input emits the
+one default row (reference: aggregate.py:845-856, :923-938).
+
+Left out so far (ROADMAP.md): encoded (dictionary) columns, run-aware
+collapse, buffer donation, the retry combinators, string min/max, holistic
+aggregates (COMPLETE mode).
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
     ensure_compact,
     gather_batch,
+    gather_string_col,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
 from spark_rapids_tpu_torch.exec import rowkeys as RK
@@ -240,6 +247,12 @@ def _group_info(key_cols: List[ColV], live, capacity: int) -> RK.GroupInfo:
     return RK.group_ids_masked(proxies, live, capacity)
 
 
+def _row_width(dt: DataType) -> int:
+    """Device bytes a row of one column takes, for the lazy-piece cap (a
+    string counts its offset and a few bytes)."""
+    return 12 if dt is DataType.STRING else to_torch(dt).itemsize
+
+
 def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
             bound_filters, op_names):
     """Evaluate keys, inputs and folded filters; group and reduce."""
@@ -259,9 +272,10 @@ def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
 def _merge(cols, num_rows, capacity, device, n_keys, op_names):
     ctx = EvalContext(True, cols, num_rows, capacity, device=device)
     key_cols = cols[:n_keys]
-    gi = _group_info(key_cols, ctx.row_mask(), capacity)
+    live = ctx.row_mask()
+    gi = _group_info(key_cols, live, capacity)
     bufs = RK.segment_reduce_many(
-        [(op, cv.data, cv.validity)
+        [(op, cv.data, cv.validity & live)
          for op, cv in zip(op_names, cols[n_keys:])], gi, capacity)
     return key_cols, bufs, gi
 
@@ -271,14 +285,26 @@ def _storage(data, dt: DataType):
     return data if data.dtype == want else data.to(want)
 
 
+def _key_column(cv: ColV, dt: DataType) -> ColumnVector:
+    if cv.offsets is not None:
+        return ColumnVector(dt, cv.data, cv.validity, cv.offsets, cv.max_len)
+    return ColumnVector(dt, _storage(cv.data, dt), cv.validity)
+
+
 def _assemble_traced(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
     """Group slots at the input capacity with the count left on the card
-    (reference: aggregate.py:894)."""
+    (reference: aggregate.py:894); string keys are K7 gathers at the
+    representative rows."""
     dev = gi.order.device
     slot = torch.arange(capacity, device=dev) < gi.num_groups
     rep = gi.rep_rows.long()
     cols = []
     for cv, attr in zip(key_cols, attrs):
+        if cv.offsets is not None:
+            cols.append(gather_string_col(_key_column(cv, attr.data_type),
+                                          gi.rep_rows, capacity, slot,
+                                          unique=True))
+            continue
         valid = slot & cv.validity[rep]
         data = torch.where(valid, cv.data[rep], torch.zeros(
             (), dtype=cv.data.dtype, device=dev))
@@ -301,12 +327,11 @@ def _assemble(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
     n_groups = int(gi.num_groups.item())
     n_keys = len(key_cols)
     key_batch = ColumnarBatch(
-        [ColumnVector(a.data_type, _storage(cv.data, a.data_type),
-                      cv.validity)
+        [_key_column(cv, a.data_type)
          for cv, a in zip(key_cols, attrs[:n_keys])], capacity)
-    gathered = gather_batch(key_batch, gi.rep_rows, n_groups)
+    cols = list(gather_batch(key_batch, gi.rep_rows, n_groups,
+                             unique_indices=True).columns)
     out_cap = bucket_capacity(max(n_groups, 1))
-    cols = list(gathered.columns)
     dev = gi.order.device
     slot = torch.arange(out_cap, device=dev) < n_groups
     for (data, valid), attr in zip(bufs, attrs[n_keys:]):
@@ -353,7 +378,7 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
         merge_ops = [op for op, _ in self._merge_ops()]
         attrs = self._inter_attrs
         device = ctx.device
-        inter_width = sum(to_torch(a.data_type).itemsize + 1 for a in attrs)
+        inter_width = sum(_row_width(a.data_type) + 1 for a in attrs)
         lazy_policy = ctx.conf.get(C.AGG_COMPACT_SYNC) == "never"
 
         def assemble(out, capacity: int, allow_lazy: bool) -> ColumnarBatch:
@@ -387,18 +412,28 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
                     merged = batch if running is None else \
                         concat_batches([running, batch])
                     running = merge(merged)
-            yield from self._emit(running)
+            yield from self._emit(running, pidx, device)
 
         return PartitionedBatches(
             child_pb.num_partitions,
             lambda p: count_output(self.metrics, agg_partition(p)))
 
-    def _emit(self, running: Optional[ColumnarBatch]):
-        if running is None:
-            return
+    def _emit(self, running: Optional[ColumnarBatch], pidx: int, device):
         if self.mode == PARTIAL:
-            yield running
+            if running is not None:
+                yield running
             return
+        if running is not None and not self.grouping and \
+                running.host_rows() == 0:
+            # the empty ungrouped reduction emits the default row; a
+            # device-count batch needs this one scalar read to know
+            running = None
+        if running is None:
+            if not self.grouping and pidx == 0:
+                running = _default_row_batch_host(
+                    self.specs, self._inter_attrs).to_device(device)
+            else:
+                return
         rewritten = rewrite_result_exprs(self.agg_exprs, self.specs)
         yield DeviceProjector(bind_all(rewritten, self._inter_attrs)).project(
             running)

@@ -9,7 +9,16 @@ port's hand-written CUDA kernels, each beside its plain PyTorch version:
 - K2 `group_ids` (csrc/group_ids.cu) replaces `group_ids_masked` (:309)
   with `_neighbor_differs` (:269);
 - K3 `segment_reduce` (csrc/segment_reduce.cu) replaces `segment_reduce`
-  (:434) with `_sorted_group_totals` / `_sorted_segment_reduce` (:371-431).
+  (:434) with `_sorted_group_totals` / `_sorted_segment_reduce` (:371-431);
+- K6 `string_order_words` (csrc/string_order.cu) replaces
+  `string_order_proxy` (:108) with `_string_chunk_keys` (:142): the order
+  words of a STRING sort key.
+
+A STRING group key groups on K5's hash words plus its length
+(`key_proxy`, reference :91-93; ops/hashing.py holds K5). `sort_words` takes
+per-key `(ascending, nulls_first)` directions (`sort_permutation`, :231): a
+descending word is 0xFFFFFFFF - w (the reference's bitwise NOT,
+`_invert_order` :214), a NULLS FIRST flag word is 1 - null.
 
 A wrapper given CPU tensors runs the plain version (the CPU tests use it);
 given CUDA tensors it launches the kernel or raises — there is no fallback.
@@ -105,7 +114,10 @@ def key_proxy(col: ColV) -> KeyProxy:
         return KeyProxy(tuple(torch.where(valid, w, zero) for w in words),
                         ~valid, True)
     if dt is DataType.STRING:
-        raise NotImplementedError("device string keys wait for slice 2")
+        from spark_rapids_tpu_torch.ops.hashing import string_hash_words
+
+        words = string_hash_words(col.offsets, col.data, valid)
+        return KeyProxy(tuple(words), ~valid, False)
     x = torch.where(valid, data, torch.zeros((), dtype=data.dtype,
                                              device=data.device))
     if dt is DataType.BOOL:
@@ -117,19 +129,117 @@ def key_proxy(col: ColV) -> KeyProxy:
     return KeyProxy((x + (1 << 31),), ~valid, True)
 
 
-def sort_words(proxies: Sequence[KeyProxy], valid_mask):
-    """[n_words, capacity] int64 words of the group sort, most significant
-    first: (pad << 1 | null flag of key 0), key 0's words, null flag of key
-    1, key 1's words, ... — the reference's operand order (rowkeys.py:262)."""
+# ---------------------------------------------------------------------------
+# K6: string order words
+# ---------------------------------------------------------------------------
+def string_chunks_needed(col) -> int:
+    """Pow2-bucketed count of 8-byte chunks covering the column's longest
+    string (reference: rowkeys.py:155), from its host-known max_len bound,
+    so the sort needs no device sync."""
+    chunks = max(1, -(-int(col.max_len) // 8))
+    return 1 << (chunks - 1).bit_length()
+
+
+def string_chunk_words(col) -> int:
+    """uint32 chunk words of a string sort key: 1 for max_len <= 4, 2 for
+    <= 8 (the reference's uint32 chunks), else two per uint64 chunk."""
+    if col.max_len <= 4:
+        return 1
+    if col.max_len <= 8:
+        return 2
+    return 2 * string_chunks_needed(col)
+
+
+def string_order_words_plain(offsets, data, validity, n_chunk_words: int):
+    """int64 [n_chunk_words + 1, n]: big-endian chunks, then the byte
+    length; 0 at NULL rows (reference: string_order_proxy with
+    strings.py:_chunk_u32 up to two words, else _chunk_u64 split into its
+    high and low words)."""
+    from spark_rapids_tpu_torch.columnar.strings import _chunk_u32, _chunk_u64
+
+    starts = offsets[:-1].long()
+    zero = torch.zeros((), dtype=torch.int64, device=starts.device)
+    lens = torch.where(validity, (offsets[1:] - offsets[:-1]).long(), zero)
+    if n_chunk_words <= 2:
+        words = [_chunk_u32(data, starts + 4 * k, (lens - 4 * k).clamp(min=0))
+                 for k in range(n_chunk_words)]
+    else:
+        words = [w for c in range(n_chunk_words // 2)
+                 for w in _chunk_u64(data, starts + 8 * c,
+                                     (lens - 8 * c).clamp(min=0))]
+    words.append(lens)
+    return torch.stack(words)
+
+
+def string_order_words(offsets, data, validity, n_chunk_words: int):
+    """K6: the order words of a string column (values in [0, 2^32) in
+    int64). CPU tensors run the plain version, CUDA tensors the kernel."""
+    if validity.device.type == "cpu":
+        return string_order_words_plain(offsets, data, validity,
+                                        n_chunk_words)
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity)
+    n = int(validity.shape[0])
+    words = torch.empty((n_chunk_words + 1, n), dtype=torch.int32,
+                        device=validity.device)
+    lib = CB.library("string_order")
+    rc = lib.srt_string_order_words(
+        offsets.data_ptr(), data.data_ptr(), validity.data_ptr(), n,
+        n_chunk_words, words.data_ptr(), CB.stream_of(words))
+    CB.count_launch("string_order_words")
+    CB.check(lib, rc, "string_order_words")
+    return words.long() & M32
+
+
+def string_order_proxy(col: ColV) -> KeyProxy:
+    """ORDERABLE string proxy (reference: rowkeys.py:108): K6's chunk
+    words and length, exact because the chunks cover max_len."""
+    words = string_order_words(col.offsets, col.data, col.validity,
+                               string_chunk_words(col))
+    return KeyProxy(tuple(words), ~col.validity, True)
+
+
+def _invert_order(w):
+    """Order-reversing transform of a uint32 word (reference:
+    rowkeys.py:214 applies bitwise NOT at each operand's width; NOT of
+    every word of a key reverses its lexicographic order the same way)."""
+    return M32 - w
+
+
+def sort_words(proxies: Sequence[KeyProxy], valid_mask, directions=None):
+    """[n_words, capacity] int64 words of a sort, most significant first:
+    (pad << 1 | null word of key 0), key 0's words, null word of key 1, key
+    1's words, ... — the reference's operand order (rowkeys.py:231, :262).
+    `directions[i] = (ascending, nulls_first)`; None (the group sort)
+    keeps every word as is, with the null flag as the null word."""
     pad = (~valid_mask).to(torch.int64)
     if not proxies:
         return pad[None, :]
     words = []
     for i, p in enumerate(proxies):
         nf = p.null_flag.to(torch.int64)
+        arrays = list(p.arrays)
+        if directions is not None:
+            ascending, nulls_first = directions[i]
+            assert p.orderable, "sort on an equality-only key proxy"
+            if nulls_first:
+                nf = 1 - nf
+            if not ascending:
+                arrays = [_invert_order(a) for a in arrays]
         words.append(pad * 2 + nf if i == 0 else nf)
-        words.extend(p.arrays)
+        words.extend(arrays)
     return torch.stack(words)
+
+
+def sort_permutation(proxies: Sequence[KeyProxy], directions, num_rows,
+                     capacity: int):
+    """Stable lexicographic sort permutation (int32 [capacity]) with
+    per-key (ascending, nulls_first); pads last (reference:
+    rowkeys.py:231). K1 sorts the direction words."""
+    dev = proxies[0].null_flag.device
+    valid = torch.arange(capacity, device=dev) < num_rows
+    return radix_sort_pairs(sort_words(proxies, valid, directions))
 
 
 # ---------------------------------------------------------------------------
@@ -235,10 +345,29 @@ def group_ids(words, order, valid_mask):
     return gid, gid_sorted, rep, ends, num_groups
 
 
+def keyless_group_info(valid_mask, capacity: int) -> GroupInfo:
+    """The one group of an aggregate without keys (reference:
+    aggregate.py:923-928): gid 0 for every live row, num_groups =
+    min(live rows, 1), no sort. The identity order with every position in
+    group 0 lets K3 reduce it; dead rows are masked out of its inputs."""
+    dev = valid_mask.device
+    cap = torch.full((), capacity, dtype=torch.int32, device=dev)
+    gid = torch.where(valid_mask, torch.zeros((), dtype=torch.int32,
+                                              device=dev), cap)
+    num_groups = torch.clamp(valid_mask.sum(dtype=torch.int32), max=1)
+    zeros = torch.zeros(capacity, dtype=torch.int32, device=dev)
+    seg_ends = zeros.clone()
+    seg_ends[0] = capacity - 1
+    order = torch.arange(capacity, dtype=torch.int32, device=dev)
+    return GroupInfo(gid, num_groups, zeros, order, zeros, seg_ends)
+
+
 def group_ids_masked(proxies: Sequence[KeyProxy], valid_mask,
                      capacity: int) -> GroupInfo:
     """Dense group ids of the rows under valid_mask (reference:
     rowkeys.py:309)."""
+    if not proxies:
+        return keyless_group_info(valid_mask, capacity)
     words = sort_words(proxies, valid_mask)
     order = radix_sort_pairs(words)
     gid, gid_sorted, rep, ends, num_groups = group_ids(words, order,
@@ -397,7 +526,6 @@ def segment_reduce(op: str, data, validity, gid, num_rows, capacity: int):
     """Reference signature (rowkeys.py:434): one reduction over a
     GroupInfo with sort fields."""
     if not isinstance(gid, GroupInfo) or gid.order is None:
-        raise NotImplementedError(
-            "segment_reduce needs a sorted GroupInfo (the keyless global "
-            "aggregate waits for slice 2)")
+        raise NotImplementedError("segment_reduce needs a GroupInfo with "
+                                  "its sort fields")
     return segment_reduce_many([(op, data, validity)], gid, capacity)[0]

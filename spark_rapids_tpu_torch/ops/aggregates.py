@@ -1,5 +1,5 @@
 """Declarative aggregate functions (port of spark_rapids_tpu/ops/aggregates.py:
-Sum, Count, Min, Max; reference: AggregateFunctions.scala).
+Sum, Count, Min, Max, Average; reference: AggregateFunctions.scala).
 
 Every aggregate is an update/merge pair of reduce ops plus a final
 expression over its buffer attributes, which is what makes partial/final
@@ -10,7 +10,8 @@ aggregation composable across a shuffle:
 - `evaluate_expression`: result expression over the buffer attributes;
 - `initial_buffer_values`: buffers of the empty ungrouped reduction.
 
-Average and the decimal sums wait for slice 2 of the port.
+Average is its DOUBLE branch (reference: aggregates.py:405); the decimal
+averages and sums wait with the decimals.
 """
 
 from __future__ import annotations
@@ -138,3 +139,37 @@ class Count(AggregateFunction):
 
     def initial_buffer_values(self):
         return [0]
+
+
+class Average(AggregateFunction):
+    """avg over a numeric input as DOUBLE: buffers sum (DOUBLE) and count
+    (LONG), finished as sum / count, NULL for no input rows (reference:
+    aggregates.py:405, the non-decimal branch)."""
+
+    @property
+    def data_type(self):
+        return DataType.FLOAT64
+
+    def buffer_attrs(self):
+        return [AttributeReference("sum", DataType.FLOAT64, True),
+                AttributeReference("count", DataType.INT64, False)]
+
+    def update_aggs(self):
+        from spark_rapids_tpu_torch.ops.cast import Cast
+
+        src = self.child
+        if src.data_type is not DataType.FLOAT64:
+            src = Cast(src, DataType.FLOAT64)
+        return [("sum", "sum", src), ("count", "count", self.child)]
+
+    def merge_aggs(self):
+        return [("sum", "sum"), ("count", "sum")]
+
+    def evaluate_expression(self, buffers):
+        from spark_rapids_tpu_torch.ops.arithmetic import Divide
+        from spark_rapids_tpu_torch.ops.cast import Cast
+
+        return Divide(buffers[0], Cast(buffers[1], DataType.FLOAT64))
+
+    def initial_buffer_values(self):
+        return [None, 0]

@@ -1,5 +1,5 @@
 """Arithmetic expressions (port of spark_rapids_tpu/ops/arithmetic.py; reference:
-org/apache/spark/sql/rapids/arithmetic.scala — +, -, *, remainder, pmod).
+org/apache/spark/sql/rapids/arithmetic.scala — +, -, *, /, remainder, pmod).
 
 Decimal operands wait for slice 2 of the port. Integer arithmetic wraps at
 the result type on both engines (numpy and torch both wrap int64).
@@ -15,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from spark_rapids_tpu_torch.columnar.dtypes import common_type, to_torch
+from spark_rapids_tpu_torch.columnar.dtypes import DataType, common_type, to_torch
 from spark_rapids_tpu_torch.ops.base import BinaryExpression, _d
 from spark_rapids_tpu_torch.ops.values import ColV, ScalarV, zero_nulls
 
@@ -154,3 +154,32 @@ class Pmod(BinaryArithmetic):
             return np.where(m < 0, np.fmod(m + safe_r, safe_r), m)
         m = _trunc_mod_np(l, safe_r)
         return np.where(m < 0, _trunc_mod_np(m + safe_r, safe_r), m)
+
+
+class Divide(BinaryArithmetic):
+    """SQL / on DOUBLE (reference: arithmetic.py:228, its floating branch;
+    Spark Divide): both operands widen to double, x / 0 is NULL. Decimal
+    division waits with the decimals."""
+
+    @property
+    def data_type(self):
+        super().data_type  # the operand type check
+        return DataType.FLOAT64
+
+    @property
+    def nullable(self):
+        return True
+
+    def eval_kernel(self, ctx, lv, rv):
+        return _zero_divisor_nulls(ctx, super().eval_kernel(ctx, lv, rv), rv)
+
+    def do_columnar(self, ctx, lv, rv):
+        l, r = _d(lv), _d(rv)
+        if isinstance(l, torch.Tensor) or isinstance(r, torch.Tensor):
+            dev = (l if isinstance(l, torch.Tensor) else r).device
+            l = torch.as_tensor(l, dtype=torch.float64, device=dev)
+            r = torch.as_tensor(r, dtype=torch.float64, device=dev)
+            return l / torch.where(r == 0, torch.ones_like(r), r)
+        l = np.asarray(l, dtype=np.float64)
+        r = np.asarray(r, dtype=np.float64)
+        return l / np.where(r == 0, 1.0, r)

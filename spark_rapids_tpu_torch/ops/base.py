@@ -317,3 +317,25 @@ def to_attribute(e: Expression) -> AttributeReference:
     if isinstance(e, Alias):
         return e.to_attribute()
     raise TypeError(f"not a named expression: {e!r}")
+
+
+class SortOrder:
+    """Sort key descriptor (reference: ops/base.py:459, GpuSortOrder)."""
+
+    __slots__ = ("child", "ascending", "nulls_first")
+
+    def __init__(self, child: Expression, ascending: bool = True,
+                 nulls_first: Optional[bool] = None):
+        self.child = child
+        self.ascending = ascending
+        # Spark default: NULLS FIRST for ASC, NULLS LAST for DESC
+        self.nulls_first = ascending if nulls_first is None else nulls_first
+
+    def fingerprint(self):
+        return (f"SortOrder({self.child.fingerprint()},{self.ascending},"
+                f"{self.nulls_first})")
+
+    def __repr__(self):
+        d = "ASC" if self.ascending else "DESC"
+        n = "NULLS FIRST" if self.nulls_first else "NULLS LAST"
+        return f"{self.child!r} {d} {n}"

@@ -11,6 +11,7 @@ from spark_rapids_tpu_torch.ops.base import (
     AttributeReference,
     BoundReference,
     Expression,
+    SortOrder,
 )
 
 
@@ -38,3 +39,11 @@ def bind_references(expr: Expression,
 def bind_all(exprs: Sequence[Expression],
              input_attrs: Sequence[AttributeReference]) -> List[Expression]:
     return [bind_references(e, input_attrs) for e in exprs]
+
+
+def bind_sort_orders(orders: Sequence[SortOrder],
+                     input_attrs: Sequence[AttributeReference]
+                     ) -> List[SortOrder]:
+    """Reference: bind.py:44."""
+    return [SortOrder(bind_references(o.child, input_attrs), o.ascending,
+                      o.nulls_first) for o in orders]

@@ -31,11 +31,14 @@ from spark_rapids_tpu_torch.ops.values import (
 
 
 def col_to_colv(cv: ColumnVector) -> ColV:
-    return ColV(cv.dtype, cv.data, cv.validity)
+    return ColV(cv.dtype, cv.data, cv.validity, cv.offsets, cv.max_len)
 
 
 def colv_to_col(cv: ColV) -> ColumnVector:
     """Restore the storage dtype at the batch boundary."""
+    if cv.offsets is not None:
+        return ColumnVector(cv.dtype, cv.data, cv.validity, cv.offsets,
+                            cv.max_len)
     data = cv.data
     want = to_torch(cv.dtype)
     if data.dtype != want:

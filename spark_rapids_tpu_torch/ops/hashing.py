@@ -14,11 +14,18 @@ zeroed at nulls, one null word per column (0 or the golden ratio), then
 fmix32; the partition id is hash % n. Both engines of both packages
 co-partition on it.
 
-The plain version runs the uint32 arithmetic in int64 with explicit
+A STRING column hashes as three words (reference: `string_words` :168):
+two polynomial hashes of its UTF-8 bytes and its byte length, computed by
+the hand-written kernel K5 `string_hash_words` (csrc/string_hash.cu,
+replacing `_string_words_device` :118); K4 then mixes the three words as one
+column. The CPU engine encodes its object arrays to UTF-8 (vectorised) and
+runs K5's plain version, so host and device plans co-partition bit for bit.
+
+The plain versions run the uint32 arithmetic in int64 with explicit
 `& 0xFFFFFFFF` masks: torch has no unsigned add, shift, multiply or
 remainder. `>>` on int64 is arithmetic, so the high word is masked after
-the shift. The CPU engine hashes through the same plain version (numpy
-columns convert to CPU tensors); strings hash on the host only.
+the shift. The CPU engine hashes through the same plain versions (numpy
+columns convert to CPU tensors).
 """
 
 from __future__ import annotations
@@ -60,21 +67,68 @@ def _mix_h1(h, k1):
     return (h * 5 + 0xE6546B64) & M32
 
 
-def _string_words_host(data: np.ndarray) -> List[Any]:
-    """Per-row double polynomial over utf-8 bytes (reference: hashing.py:98)."""
-    n = len(data)
-    h1 = np.zeros(n, dtype=np.int64)
-    h2 = np.zeros(n, dtype=np.int64)
-    lens = np.zeros(n, dtype=np.int64)
-    for i, s in enumerate(data):
-        b = s.encode("utf-8") if isinstance(s, str) else bytes(s)
-        a1 = a2 = 0
-        for byte in b:
-            a1 = (a1 * 31 + byte) & M32
-            a2 = (a2 * 1000003 + byte) & M32
-        h1[i], h2[i], lens[i] = a1, a2, len(b)
-    return [torch.from_numpy(h1), torch.from_numpy(h2),
-            torch.from_numpy(lens)]
+# ---------------------------------------------------------------------------
+# K5: string hash words
+# ---------------------------------------------------------------------------
+def string_hash_words_plain(offsets, data, validity):
+    """int64 [3, n] (h1, h2, length) by Horner's rule over the byte
+    positions: h = h * base + byte mod 2^32 while the row has bytes left
+    (the reference's power sums b[k] * base^(len-1-k), bit for bit)."""
+    starts = offsets[:-1].long()
+    lens = (offsets[1:] - offsets[:-1]).long()
+    lens = torch.where(validity, lens, torch.zeros((), dtype=torch.int64,
+                                                   device=lens.device))
+    n = int(lens.shape[0])
+    h1 = torch.zeros(n, dtype=torch.int64, device=lens.device)
+    h2 = torch.zeros(n, dtype=torch.int64, device=lens.device)
+    width = int(lens.max()) if n else 0
+    top = max(int(data.shape[0]) - 1, 0)
+    for k in range(width):
+        live = lens > k
+        b = data[(starts + k).clamp(0, top)].long() if data.numel() else \
+            torch.zeros_like(starts)
+        h1 = torch.where(live, (h1 * 31 + b) & M32, h1)
+        h2 = torch.where(live, (h2 * 1000003 + b) & M32, h2)
+    return torch.stack([h1, h2, lens])
+
+
+def string_hash_words(offsets, data, validity):
+    """K5 (replaces hashing.py:_string_words_device): int64 [3, n] words
+    of a string column, 0 at NULL rows. CPU tensors run the plain version,
+    CUDA tensors the kernel."""
+    if validity.device.type == "cpu":
+        return string_hash_words_plain(offsets, data, validity)
+    return string_hash_words_u32(offsets, data, validity).long() & M32
+
+
+def string_hash_words_u32(offsets, data, validity):
+    """The kernel's int32 [3, n] output (the words' bits), as K4 takes it."""
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity)
+    n = int(validity.shape[0])
+    words = torch.empty((3, n), dtype=torch.int32, device=validity.device)
+    lib = CB.library("string_hash")
+    rc = lib.srt_string_hash_words(offsets.data_ptr(), data.data_ptr(),
+                                   validity.data_ptr(), n, words.data_ptr(),
+                                   CB.stream_of(words))
+    CB.count_launch("string_hash_words")
+    CB.check(lib, rc, "string_hash_words")
+    return words
+
+
+def _string_words_host(data: np.ndarray, validity=None) -> List[Any]:
+    """CPU-engine words of an object array of str (reference:
+    hashing.py:101): vectorised UTF-8 encoding, then K5's plain version."""
+    from spark_rapids_tpu_torch.columnar.strings import encode_utf8
+
+    if validity is None:
+        validity = np.ones(len(data), dtype=bool)
+    offsets, raw = encode_utf8(data, validity)
+    words = string_hash_words_plain(
+        torch.from_numpy(offsets), torch.from_numpy(raw),
+        torch.from_numpy(np.asarray(validity, dtype=bool)))
+    return list(words)
 
 
 def column_words(col: ColV) -> List[Any]:
@@ -82,7 +136,9 @@ def column_words(col: ColV) -> List[Any]:
     hashing.py:77); null lanes are zeroed by hash_word_entries."""
     dt, data = col.dtype, col.data
     if dt is DataType.STRING:
-        return _string_words_host(data)
+        if getattr(col, "offsets", None) is not None:
+            return list(string_hash_words(col.offsets, data, col.validity))
+        return _string_words_host(data, col.validity)
     if dt is DataType.BOOL:
         return [data.to(torch.int64)]
     if dt in (DataType.INT8, DataType.INT16, DataType.INT32, DataType.DATE):
@@ -131,6 +187,7 @@ def hash_columns(cols: List[ColV], seed: int = HASH_SEED):
 # ---------------------------------------------------------------------------
 _KINDS = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
           torch.int64: 4, torch.float32: 5, torch.float64: 6}
+_STRING_WORDS = 7  # K5's uint32 words [3, n]
 
 
 class _HashCol(ctypes.Structure):
@@ -164,14 +221,16 @@ def partition_ids(cols: List[ColV], live, num_partitions: int):
     descs = (_HashCol * len(cols))()
     keep = []
     for k, c in enumerate(cols):
-        if c.dtype is DataType.STRING:
-            raise NotImplementedError("device string hashing waits for "
-                                      "slice 2")
-        data = c.data.contiguous()
         valid = c.validity.contiguous()
+        if c.dtype is DataType.STRING:
+            data = string_hash_words_u32(c.offsets, c.data, valid)
+            kind = _STRING_WORDS
+        else:
+            data = c.data.contiguous()
+            kind = _KINDS[data.dtype]
         CB.require_cuda(data, valid)
         descs[k].data, descs[k].valid = data.data_ptr(), valid.data_ptr()
-        descs[k].kind = _KINDS[data.dtype]
+        descs[k].kind = kind
         keep += [data, valid]
     if live is None:
         live = torch.ones(n, dtype=torch.bool, device=dev)

@@ -33,6 +33,8 @@ class ColV:
     dtype: DataType
     data: Any
     validity: Any
+    offsets: Any = None   # device STRING: int32 [capacity + 1]
+    max_len: Any = None   # device STRING: host-known byte-length bound
 
     @property
     def is_string(self) -> bool:

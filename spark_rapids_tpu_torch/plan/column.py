@@ -9,11 +9,12 @@ from typing import Any
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.arithmetic import (
     Add,
+    Divide,
     Multiply,
     Remainder,
     Subtract,
 )
-from spark_rapids_tpu_torch.ops.base import Alias, Expression
+from spark_rapids_tpu_torch.ops.base import Alias, Expression, SortOrder
 from spark_rapids_tpu_torch.ops.cast import Cast
 from spark_rapids_tpu_torch.ops.literals import Literal
 from spark_rapids_tpu_torch.ops.nulls import IsNotNull, IsNull
@@ -61,6 +62,12 @@ class Column:
 
     def __rmul__(self, other):
         return Column(Multiply(_to_expr(other), self.expr))
+
+    def __truediv__(self, other):
+        return Column(Divide(self.expr, _to_expr(other)))
+
+    def __rtruediv__(self, other):
+        return Column(Divide(_to_expr(other), self.expr))
 
     def __mod__(self, other):
         return Column(Remainder(self.expr, _to_expr(other)))
@@ -114,6 +121,19 @@ class Column:
     def between(self, lo, hi) -> "Column":
         return Column(And(GreaterThanOrEqual(self.expr, _to_expr(lo)),
                           LessThanOrEqual(self.expr, _to_expr(hi))))
+
+    # -- sorting -------------------------------------------------------------
+    def asc(self) -> SortOrder:
+        return SortOrder(self.expr, True)
+
+    def desc(self) -> SortOrder:
+        return SortOrder(self.expr, False)
+
+    def asc_nulls_last(self) -> SortOrder:
+        return SortOrder(self.expr, True, nulls_first=False)
+
+    def desc_nulls_first(self) -> SortOrder:
+        return SortOrder(self.expr, False, nulls_first=True)
 
     def __repr__(self):
         return f"Column<{self.expr!r}>"

@@ -1,5 +1,6 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
-select, withColumn, filter, groupBy/agg, cache, collect, explain).
+select, withColumn, filter, groupBy/agg (keyed and keyless), orderBy, cache,
+collect, explain).
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -13,6 +14,7 @@ from spark_rapids_tpu_torch.ops.base import (
     Alias,
     AttributeReference,
     Expression,
+    SortOrder,
     to_attribute,
 )
 from spark_rapids_tpu_torch.plan import logical as L
@@ -121,6 +123,23 @@ class DataFrame:
         return self._with_plan(L.Filter(self._resolve(condition), self._plan))
 
     where = filter
+
+    def orderBy(self, *cols, **kwargs) -> "DataFrame":
+        """Global sort (reference: dataframe.py:224): names, Columns or
+        SortOrders (`col.desc()`); `ascending=` applies to names/Columns."""
+        orders = []
+        ascending = kwargs.get("ascending", True)
+        for c in cols:
+            if isinstance(c, SortOrder):
+                orders.append(SortOrder(resolve(c.child, self._plan.output),
+                                        c.ascending, c.nulls_first))
+            elif isinstance(c, str):
+                orders.append(SortOrder(self._resolve_name(c), ascending))
+            else:
+                orders.append(SortOrder(self._resolve(c), ascending))
+        return self._with_plan(L.Sort(orders, True, self._plan))
+
+    sort = orderBy
 
     def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
         keys = [self._resolve(c) for c in cols]

@@ -85,3 +85,10 @@ def count(c: ColumnOrName = "*") -> Column:
     if isinstance(c, str) and c == "*":
         return Column(A.Count(Literal(1)))
     return Column(A.Count(_c(c)))
+
+
+def avg(c: ColumnOrName) -> Column:
+    return Column(A.Average(_c(c)))
+
+
+mean = avg

@@ -1,5 +1,5 @@
 """Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: the nodes of
-this slice — local relation, cache, project, filter, aggregate)."""
+slices 1-2 — local relation, cache, project, filter, aggregate, sort)."""
 
 from __future__ import annotations
 
@@ -8,6 +8,7 @@ from typing import List, Sequence, Tuple
 from spark_rapids_tpu_torch.ops.base import (
     AttributeReference,
     Expression,
+    SortOrder,
     to_attribute,
 )
 
@@ -89,6 +90,24 @@ class Aggregate(LogicalPlan):
     def describe(self):
         return (f"Aggregate [{', '.join(map(repr, self.grouping))}] "
                 f"[{', '.join(map(repr, self.agg_exprs))}]")
+
+
+class Sort(LogicalPlan):
+    """Reference: logical.py:172."""
+
+    def __init__(self, orders: Sequence[SortOrder], is_global: bool,
+                 child: LogicalPlan):
+        super().__init__(child)
+        self.orders = list(orders)
+        self.is_global = is_global
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def describe(self):
+        scope = "global" if self.is_global else "local"
+        return f"Sort {scope} [{', '.join(map(repr, self.orders))}]"
 
 
 class CacheRelation(LogicalPlan):

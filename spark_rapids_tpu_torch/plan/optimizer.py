@@ -1,0 +1,171 @@
+"""Logical optimizer: column pruning (port of spark_rapids_tpu/plan/optimizer.py).
+
+The reference rides Spark Catalyst, whose ColumnPruning rule narrows every
+operator to the attributes its ancestors consume before the plugin sees the
+plan. Standalone, this pass plays that role: without it an uncached TPC-H
+q1 or q6 uploads every lineitem column, strings included, for a query that
+reads seven.
+
+Design (as the reference): one top-down walk carrying the set of attribute
+expr_ids the parent may reference (`None` = everything). Each node keeps
+`output ∩ required` plus whatever its own expressions reference, and
+rebuilds itself over pruned children. A LocalRelation drops host columns
+zero-copy; CacheRelation is a shared materialization boundary, so pruning
+never pushes below it — a Project lands above the cache instead. Filter and
+Aggregate never drop (they change row counts). A node pruned to zero
+columns keeps its narrowest attribute as the row-count carrier.
+
+The rules cover the logical nodes the port has (relation, cache, project,
+filter, sort, aggregate); any other node is left untouched, as the
+reference leaves an unknown node.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Set
+
+from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch.ops.base import (
+    AttributeReference,
+    Expression,
+    to_attribute,
+)
+from spark_rapids_tpu_torch.plan import logical as L
+
+
+def optimize(plan: L.LogicalPlan, conf: C.TpuConf) -> L.LogicalPlan:
+    if conf.get(C.COLUMN_PRUNING):
+        plan = _prune(plan, None)
+    return plan
+
+
+def _refs(exprs: Sequence[Expression]) -> Set[int]:
+    out: Set[int] = set()
+    for e in exprs:
+        for a in e.collect(lambda n: isinstance(n, AttributeReference)):
+            out.add(a.expr_id)
+    return out
+
+
+def _attr_cost(a: AttributeReference) -> int:
+    dt = a.data_type
+    return 64 if dt.is_string else dt.itemsize
+
+
+def _narrowest(attrs: List[AttributeReference]) -> AttributeReference:
+    """Row-count carrier when nothing is referenced: cheapest column wins
+    (strings cost offsets + bytes, so any fixed-width beats them)."""
+    return min(attrs, key=_attr_cost)
+
+
+def _keep(attrs: List[AttributeReference],
+          req: Optional[Set[int]]) -> List[AttributeReference]:
+    if req is None:
+        return list(attrs)
+    kept = [a for a in attrs if a.expr_id in req]
+    if not kept and attrs:
+        kept = [_narrowest(attrs)]
+    return kept
+
+
+def _wrap_project(node: L.LogicalPlan,
+                  req: Optional[Set[int]]) -> L.LogicalPlan:
+    """Project `node` down to req (used above pruning barriers: cache)."""
+    kept = _keep(node.output, req)
+    if len(kept) == len(node.output):
+        return node
+    return L.Project(kept, node)
+
+
+def _prune(plan: L.LogicalPlan,
+           req: Optional[Set[int]]) -> L.LogicalPlan:
+    fn = _RULES.get(type(plan))
+    if fn is None:
+        # unknown node: leave the whole subtree untouched (correct, unpruned)
+        return plan
+    return fn(plan, req)
+
+
+_RULES = {}
+
+
+def _rule(cls):
+    def deco(fn):
+        _RULES[cls] = fn
+        return fn
+    return deco
+
+
+@_rule(L.LocalRelation)
+def _local(plan: L.LocalRelation, req):
+    kept = _keep(plan.schema, req)
+    if len(kept) == len(plan.schema):
+        return plan
+    keep_ids = {k.expr_id for k in kept}
+    idx = [i for i, a in enumerate(plan.schema) if a.expr_id in keep_ids]
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+
+    parts = [[HostColumnarBatch([b.columns[i] for i in idx], b.num_rows)
+              for b in part] for part in plan.partitions]
+    return L.LocalRelation(kept, parts)
+
+
+@_rule(L.CacheRelation)
+def _cache(plan: L.CacheRelation, req):
+    # the cached materialization is shared across queries; narrowing below
+    # it would split the cache per consumer schema. Project above instead.
+    return _wrap_project(plan, req)
+
+
+@_rule(L.Project)
+def _project(plan: L.Project, req):
+    if req is None:
+        kept = list(plan.project_list)
+    else:
+        kept = [e for e in plan.project_list
+                if to_attribute(e).expr_id in req]
+        if not kept:
+            kept = [min(plan.project_list,
+                        key=lambda e: 64 if e.data_type.is_string
+                        else e.data_type.itemsize)]
+    child = _prune(plan.children[0], _refs(kept))
+    return L.Project(kept, child)
+
+
+@_rule(L.Filter)
+def _filter(plan: L.Filter, req):
+    cond_refs = _refs([plan.condition])
+    child_req = None if req is None else req | cond_refs
+    pruned = L.Filter(plan.condition, _prune(plan.children[0], child_req))
+    if req is not None and cond_refs - req:
+        # condition-only columns the parent never asked for would otherwise
+        # flow through every exchange between this Filter and the next
+        # Project; Catalyst inserts the pruning Project in this position
+        return _wrap_project(pruned, req)
+    return pruned
+
+
+@_rule(L.Sort)
+def _sort(plan: L.Sort, req):
+    child_req = None if req is None else \
+        req | _refs([o.child for o in plan.orders])
+    return L.Sort(plan.orders, plan.is_global,
+                  _prune(plan.children[0], child_req))
+
+
+@_rule(L.Aggregate)
+def _aggregate(plan: L.Aggregate, req):
+    grouping_ids = {to_attribute(g).expr_id for g in plan.grouping}
+    if req is None:
+        kept = list(plan.agg_exprs)
+    else:
+        # grouping-key computations must survive even when the key column
+        # itself is unselected: grouping them determines output cardinality
+        kept = [e for e in plan.agg_exprs
+                if to_attribute(e).expr_id in req
+                or to_attribute(e).expr_id in grouping_ids]
+        if not kept:
+            kept = list(plan.agg_exprs)
+    child_req = _refs(kept) | _refs(plan.grouping)
+    return L.Aggregate(plan.grouping, kept,
+                       _prune(plan.children[0], child_req))

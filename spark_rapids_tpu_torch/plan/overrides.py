@@ -1,7 +1,7 @@
 """TpuOverrides: the CPU -> device plan rewrite and its rule table (port
 of spark_rapids_tpu/plan/overrides.py; reference: GpuOverrides.scala).
 
-Only what this slice ports has a rule: an expression or exec without one
+Only what the port's slices cover has a rule: an expression or exec without one
 cannot go on the device, stays on the CPU engine, and `explain("ALL")`
 reports why. The reference's `import jax` at overrides.py:17 was unused and
 has no counterpart here.
@@ -58,7 +58,8 @@ def _tag_cast(m: ExprMeta) -> None:
 
 def _tag_agg(m: ExprMeta) -> None:
     e = m.expr
-    if isinstance(e, AGG.Sum) and e.child.data_type.is_floating and \
+    if isinstance(e, (AGG.Sum, AGG.Average)) and \
+            e.child.data_type.is_floating and \
             not m.conf.get(C.ENABLE_FLOAT_AGG):
         m.will_not_work(
             "float aggregation order differs from CPU; set "
@@ -66,6 +67,21 @@ def _tag_agg(m: ExprMeta) -> None:
     if isinstance(e, (AGG.Min, AGG.Max)) and \
             e.child.data_type is DataType.BOOL:
         m.will_not_work("boolean min/max has no device reduction yet")
+    if e.child.data_type is DataType.STRING and \
+            not isinstance(e, AGG.Count):
+        m.will_not_work("this aggregate over STRING inputs runs on the CPU "
+                        "engine (device string min/max is not ported yet)")
+
+
+def _tag_string_operands(m: ExprMeta) -> None:
+    """Device string support covers column references, grouping, hashing,
+    sorting and gathers; string comparisons, coalesce and literals wait
+    for the string functions (ROADMAP B12, B15)."""
+    e = m.expr
+    if any(c.data_type is DataType.STRING for c in e.children()) or \
+            (isinstance(e, Literal) and e.data_type is DataType.STRING):
+        m.will_not_work(f"device {type(e).__name__} over STRING is not "
+                        "ported yet")
 
 
 def _register_expr_rules():
@@ -73,22 +89,44 @@ def _register_expr_rules():
     r(Alias, "name a result")
     r(AttributeReference, "reference an input column")
     r(BoundReference, "ordinal input reference")
-    r(Literal, "literal value")
+    r(Literal, "literal value (numeric, boolean, DATE)",
+      tag_fn=_tag_string_operands)
     r(Cast, "cast between numeric types", tag_fn=_tag_cast)
-    for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Remainder, AR.Pmod):
+    for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide, AR.Remainder,
+                AR.Pmod):
         r(cls, f"arithmetic {cls.__name__}")
     for cls in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
                 P.GreaterThanOrEqual, P.And, P.Or, P.Not):
-        r(cls, f"predicate {cls.__name__}")
-    for cls in (N.IsNull, N.IsNotNull, N.Coalesce):
-        r(cls, f"null-handling {cls.__name__}")
-    for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count):
+        r(cls, f"predicate {cls.__name__}", tag_fn=_tag_string_operands)
+    r(N.IsNull, "null-handling IsNull")
+    r(N.IsNotNull, "null-handling IsNotNull")
+    r(N.Coalesce, "null-handling Coalesce", tag_fn=_tag_string_operands)
+    for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count, AGG.Average):
         r(cls, f"aggregate {cls.__name__}", tag_fn=_tag_agg)
 
 
-def _tag_hash_agg(m: ExecMeta) -> None:
-    if not m.plan.grouping:
-        m.will_not_work("the keyless global aggregate waits for slice 2")
+def _computed_string_keys(orders) -> bool:
+    return any(o.child.data_type is DataType.STRING and
+               not isinstance(o.child, AttributeReference) for o in orders)
+
+
+def _tag_sort(m: ExecMeta) -> None:
+    if _computed_string_keys(m.plan.orders):
+        # plain string columns sort on the device through K6; a computed
+        # string key waits for the device string functions
+        m.will_not_work("device ordering of computed string expressions is "
+                        "not implemented (plain string columns sort on the "
+                        "device)")
+
+
+def _tag_exchange(m: ExecMeta) -> None:
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    p = m.plan.partitioning
+    if isinstance(p, X.RangePartitioning) and \
+            _computed_string_keys(p.orders):
+        m.will_not_work("device range partitioning on computed string "
+                        "expressions is not implemented")
 
 
 def _register_exec_rules():
@@ -100,6 +138,7 @@ def _register_exec_rules():
         CpuCachedScanExec,
         TpuCachedScanExec,
     )
+    from spark_rapids_tpu_torch.exec.sort import CpuSortExec, TpuSortExec
     from spark_rapids_tpu_torch.shuffle import exchange as X
 
     register_exec(
@@ -111,11 +150,14 @@ def _register_exec_rules():
     register_exec(
         CpuHashAggregateExec, "hash aggregate (sort + segment reduce)",
         lambda cpu, ch: TpuHashAggregateExec(
-            cpu.grouping, cpu.agg_exprs, cpu.mode, ch[0], cpu.specs),
-        tag_fn=_tag_hash_agg)
+            cpu.grouping, cpu.agg_exprs, cpu.mode, ch[0], cpu.specs))
     register_exec(
         X.CpuShuffleExchangeExec, "columnar shuffle exchange",
-        lambda cpu, ch: X.TpuShuffleExchangeExec(cpu.partitioning, ch[0]))
+        lambda cpu, ch: X.TpuShuffleExchangeExec(cpu.partitioning, ch[0]),
+        tag_fn=_tag_exchange)
+    register_exec(
+        CpuSortExec, "multi-key stable sort",
+        lambda cpu, ch: TpuSortExec(cpu.orders, ch[0]), tag_fn=_tag_sort)
     register_exec(
         CpuCachedScanExec, "device-resident in-memory table cache",
         lambda cpu, ch: TpuCachedScanExec(cpu.logical_node, ch[0]))

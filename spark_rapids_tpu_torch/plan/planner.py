@@ -1,12 +1,12 @@
 """Logical -> CPU physical planning (port of spark_rapids_tpu/plan/planner.py:
-the LocalRelation :52, Project :63, Filter :146, cache and Aggregate
-:192-247 planners).
+the LocalRelation :52, Project :63, Filter :146, cache, Aggregate
+:192-247 and Sort :273 planners).
 
 The CPU plan is the oracle engine; TpuOverrides (plan/overrides.py) then
 replaces the supported nodes with device execs, as the reference replaces
 Spark execs with Gpu execs. An aggregate plans as partial aggregate ->
 hash exchange on the grouping keys (one partition without keys) -> final
-aggregate.
+aggregate. A global sort plans as range exchange -> per-partition sort.
 """
 
 from __future__ import annotations
@@ -90,3 +90,20 @@ def _plan_aggregate(plan: L.Aggregate, conf: C.TpuConf) -> PhysicalExec:
     exchange = CpuShuffleExchangeExec(part, partial)
     return CpuHashAggregateExec(plan.grouping, plan.agg_exprs, FINAL,
                                 exchange, specs)
+
+
+@register_planner(L.Sort)
+def _plan_sort(plan: L.Sort, conf: C.TpuConf) -> PhysicalExec:
+    """Global sort = range exchange + per-partition sort (reference:
+    planner.py:273, GpuSortExec.scala:50-98)."""
+    from spark_rapids_tpu_torch.exec.sort import CpuSortExec
+    from spark_rapids_tpu_torch.shuffle.exchange import (
+        CpuShuffleExchangeExec,
+        RangePartitioning,
+    )
+
+    (child,) = _plan_children(plan, conf)
+    if plan.is_global:
+        child = CpuShuffleExchangeExec(
+            RangePartitioning(plan.orders, conf.shuffle_partitions), child)
+    return CpuSortExec(plan.orders, child)

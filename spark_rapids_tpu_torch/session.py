@@ -1,8 +1,9 @@
 """TpuSession: the port's SparkSession analog (port of spark_rapids_tpu/session.py,
 cut to createDataFrame, cache, plan, execute and collect).
 
-Plan pipeline, as in the reference (session.py:423-426): logical plan ->
-CPU physical plan (plan/planner.py) -> device rewrite (plan/overrides.py)
+Plan pipeline, as in the reference (session.py:378, :423-426): logical
+plan -> column pruning (plan/optimizer.py) -> CPU physical plan
+(plan/planner.py) -> device rewrite (plan/overrides.py)
 -> transitions and coalesces (plan/transition_overrides.py) -> stage fusion
 (plan/fusion.py). Execution is the per-operator host-loop executor: each
 partition's iterator runs on the calling thread and ends at the
@@ -35,6 +36,7 @@ from spark_rapids_tpu_torch.ops.base import AttributeReference
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.dataframe import DataFrame
 from spark_rapids_tpu_torch.plan.fusion import fuse_stages
+from spark_rapids_tpu_torch.plan.optimizer import optimize
 from spark_rapids_tpu_torch.plan.overrides import TpuOverrides
 from spark_rapids_tpu_torch.plan.planner import plan_physical
 from spark_rapids_tpu_torch.plan.transition_overrides import (
@@ -72,14 +74,14 @@ class TpuSession:
     def createDataFrame(self, data, schema=None,
                         num_partitions: int = 1) -> DataFrame:
         """data: list of tuples + schema [(name, type)], or dict of
-        name -> list/ndarray with schema optional."""
+        name -> list/ndarray/HostColumnVector with schema optional."""
         attrs, batch = _to_host_batch(data, schema)
         return DataFrame(L.LocalRelation(attrs, _split_batch(
             batch, num_partitions)), self)
 
     # -- plan pipeline --------------------------------------------------------
     def _physical_plan(self, plan: L.LogicalPlan) -> PhysicalExec:
-        cpu_plan = plan_physical(plan, self.conf)
+        cpu_plan = plan_physical(optimize(plan, self.conf), self.conf)
         tpu_plan = TpuOverrides.apply(cpu_plan, self.conf)
         final = TpuTransitionOverrides.apply(tpu_plan, self.conf)
         final = fuse_stages(final, self.conf)
@@ -90,7 +92,7 @@ class TpuSession:
         from spark_rapids_tpu_torch.plan.meta import explain_string
 
         explain_out: List[str] = []
-        cpu_plan = plan_physical(plan, self.conf)
+        cpu_plan = plan_physical(optimize(plan, self.conf), self.conf)
         tpu_plan = TpuOverrides.apply(cpu_plan, self.conf,
                                       explain_out=explain_out)
         final = fuse_stages(TpuTransitionOverrides.apply(tpu_plan, self.conf),
@@ -157,7 +159,9 @@ def _dict_to_batch(cols: Dict[str, Any], schema):
     attrs, vecs = [], []
     for i, (name, values) in enumerate(cols.items()):
         want = names_types[i][1] if names_types else None
-        if isinstance(values, np.ndarray):
+        if isinstance(values, HostColumnVector):
+            vec = values
+        elif isinstance(values, np.ndarray):
             vec = HostColumnVector.from_numpy(values, dtype=want)
         else:
             vec = HostColumnVector.from_pylist(list(values),

@@ -16,14 +16,28 @@ Two slicers (reference: the slicer at exchange.py:787-813):
   side gathers all its slices of a bucket together (`_device_slices_routed`
   :1415, `_assemble_routed` :1433).
 
-The hash half of K4 lives in ops/hashing.py. Left out of this slice
-(ROADMAP.md): range and round-robin partitioning, the serialized tier, the
-ICI/collective tier, adaptive coalescing, fetch-failure remapping, strings.
+Range partitioning (slice 2; reference: `_execute_range` :680 on the CPU
+engine, :908 on the device): every map batch is staged first. On the
+device, fixed-width keys become order words on the card (the reference's
+`_build_order_keys_kernel` :1260, here torch ops over the key proxies) and
+download in one transfer per batch; STRING keys download their values.
+The host packs each row's keys into one byte string whose order is the SQL
+order, picks the n - 1 bounds from the sorted rows and bins every row with
+a searchsorted; the batch then routes through K4's route half. String
+pieces of both tiers are gathered by K7 (columnar/batch.py): lazy pieces
+when the reduce side compacts them, routed pieces in `_assemble_routed`
+(the reference's `_routed_string_plan` :1567 / `_routed_string_bytes`
+:1593).
+
+The hash half of K4 lives in ops/hashing.py. Left out so far (ROADMAP.md):
+round-robin partitioning, the serialized tier, the ICI/collective tier,
+adaptive coalescing, fetch-failure remapping, encoded keys.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Sequence
+import bisect
+from typing import Any, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -36,6 +50,8 @@ from spark_rapids_tpu_torch.columnar.batch import (
     HostColumnVector,
     bucket_capacity,
     ensure_compact,
+    gather_string_col,
+    strings_end_to_end,
 )
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -47,7 +63,12 @@ from spark_rapids_tpu_torch.exec.base import (
 )
 from spark_rapids_tpu_torch.exec.aggregate import LAZY_PIECE_CAP_BYTES
 from spark_rapids_tpu_torch.ops import hashing as H
-from spark_rapids_tpu_torch.ops.base import AttributeReference, Expression
+from spark_rapids_tpu_torch.exec import rowkeys as RK
+from spark_rapids_tpu_torch.ops.base import (
+    AttributeReference,
+    Expression,
+    SortOrder,
+)
 from spark_rapids_tpu_torch.ops.bind import bind_all
 from spark_rapids_tpu_torch.ops.eval import (
     cpu_project,
@@ -81,6 +102,17 @@ class HashPartitioning(Partitioning):
         return f"HashPartitioning({self.exprs!r}, {self.num_partitions})"
 
 
+class RangePartitioning(Partitioning):
+    """Reference: exchange.py:117."""
+
+    def __init__(self, orders: Sequence[SortOrder], num_partitions: int):
+        self.orders = list(orders)
+        self.num_partitions = num_partitions
+
+    def describe(self):
+        return f"RangePartitioning({self.orders!r}, {self.num_partitions})"
+
+
 class _ExchangeBase(PhysicalExec):
     def __init__(self, partitioning: Partitioning, child: PhysicalExec):
         super().__init__(child)
@@ -101,7 +133,11 @@ class _ExchangeBase(PhysicalExec):
 
     def node_expressions(self):
         p = self.partitioning
-        return list(p.exprs) if isinstance(p, HashPartitioning) else []
+        if isinstance(p, HashPartitioning):
+            return list(p.exprs)
+        if isinstance(p, RangePartitioning):
+            return [o.child for o in p.orders]
+        return []
 
     def node_name(self):
         return f"{type(self).__name__}({self.partitioning.describe()})"
@@ -118,6 +154,11 @@ class _ExchangeBase(PhysicalExec):
                     continue
                 for target, piece in map_fn(pidx, batch):
                     buckets[target].append(piece)
+        return self._serve(n_out, buckets)
+
+    def _serve(self, n_out: int, buckets) -> PartitionedBatches:
+        """Reduce side: each bucket's pieces in map order, routed slices
+        assembled in groups."""
 
         def piece_gen(pidx: int):
             routed: List[_RoutedSlice] = []
@@ -154,6 +195,126 @@ def _host_slices(batch: HostColumnarBatch, ids: np.ndarray, n: int):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Range keys (reference: exchange.py:485-647)
+# ---------------------------------------------------------------------------
+def _order_key(v, o: SortOrder):
+    """Sortable python key matching SQL null/NaN ordering for one column:
+    (null_rank, nan_rank, value). Nulls rank 0 (first) or 2 (last); NaN is
+    strictly greater than every number including +inf (reference:
+    exchange.py:504)."""
+    if isinstance(v, np.generic):
+        v = v.item()
+    if v is None:
+        return (0 if o.nulls_first else 2, 0, 0)
+    if isinstance(v, float) and v != v:
+        return (1, 1 if o.ascending else -1, 0)
+    if isinstance(v, str):
+        return (1, 0, _InvertedStr(v) if not o.ascending else v)
+    if isinstance(v, bool):
+        v = int(v)
+    return (1, 0, -v if not o.ascending else v)
+
+
+class _InvertedStr:
+    __slots__ = ("s",)
+
+    def __init__(self, s):
+        self.s = s
+
+    def __lt__(self, other):
+        return other.s < self.s
+
+    def __eq__(self, other):
+        return self.s == other.s
+
+    def __le__(self, other):
+        return other.s <= self.s
+
+
+def _key_levels(keys, orders, widths) -> List[np.ndarray]:
+    """Per key a null-rank level (u8) and a value level whose unsigned
+    bytewise order is the SQL order of that key (reference:
+    _fixed_key_levels_np :551, _string_key_levels_np :563). keys[i] is
+    ("bits", (u64 order words, null flags)) or ("str", (offsets, bytes,
+    validity))."""
+    levels = []
+    for (kind, payload), o, width in zip(keys, orders, widths):
+        if kind == "bits":
+            u, nf = payload
+            if not o.ascending:
+                u = ~u
+            value = np.where(nf, np.uint64(0), u).astype(">u8").view(
+                np.uint8).reshape(-1, 8)
+        else:
+            offsets, raw, valid = payload
+            nf = ~valid
+            rows = len(valid)
+            starts = offsets[:-1].astype(np.int64)
+            lens = offsets[1:].astype(np.int64) - starts
+            k = np.arange(width)[None, :]
+            mask = k < lens[:, None]
+            value = np.zeros((rows, width), np.uint8)
+            value[mask] = raw[(starts[:, None] + k)[mask]]
+            if not o.ascending:
+                value = ~value
+            value[nf] = 0
+        levels.append(np.where(nf, np.uint8(0 if o.nulls_first else 2),
+                               np.uint8(1))[:, None])
+        levels.append(value)
+    return levels
+
+
+def _pack_key_rows(levels: List[np.ndarray]) -> np.ndarray:
+    """Concatenate per-key levels into one 'S{w}' column whose bytewise
+    comparison is the composite lexicographic order (reference:
+    exchange.py:580)."""
+    m = np.ascontiguousarray(np.concatenate(levels, axis=1))
+    return m.view(f"S{m.shape[1]}").ravel()
+
+
+def _packed_bounds(packed_all: np.ndarray, n: int) -> Optional[np.ndarray]:
+    """n - 1 split points over all packed rows (reference:
+    exchange.py:635; the full sort is vectorised and exact)."""
+    cnt = packed_all.shape[0]
+    if cnt == 0:
+        return None
+    s = np.sort(packed_all)
+    return s[[min(cnt - 1, (b * cnt) // n) for b in range(1, n)]]
+
+
+def _sample_bounds_host(key_cols: List[np.ndarray], orders: List[SortOrder],
+                        n_parts: int):
+    """Range bounds from the key rows of the CPU engine: rows of raw key
+    values at the n_parts - 1 split points (reference: exchange.py:485)."""
+    if not key_cols or len(key_cols[0]) == 0:
+        return None
+    n = len(key_cols[0])
+    decorated = [
+        (tuple(_order_key(c[i], o) for c, o in zip(key_cols, orders)), i)
+        for i in range(n)
+    ]
+    decorated.sort(key=lambda t: t[0])
+    order_idx = [i for _, i in decorated]
+    bounds_rows = [order_idx[min(n - 1, (b * n) // n_parts)]
+                   for b in range(1, n_parts)]
+    return [tuple(c[i] for c in key_cols) for i in bounds_rows]
+
+
+def _range_ids_host(key_cols: List[List[Any]], bounds, orders) -> np.ndarray:
+    """Reference: exchange.py:732."""
+    nrows = len(key_cols[0]) if key_cols else 0
+    ids = np.zeros(nrows, dtype=np.int32)
+    if bounds is None:
+        return ids
+    bound_keys = [tuple(_order_key(v, o) for v, o in zip(b, orders))
+                  for b in bounds]
+    for i in range(nrows):
+        row = tuple(_order_key(kc[i], o) for kc, o in zip(key_cols, orders))
+        ids[i] = bisect.bisect_right(bound_keys, row)
+    return ids
+
+
 class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
     placement = "cpu"
 
@@ -161,6 +322,8 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
         p = self.partitioning
         if isinstance(p, SinglePartitioning):
             return self._materialize(ctx, lambda pidx, b: [(0, b)])
+        if isinstance(p, RangePartitioning):
+            return self._execute_range(ctx, p)
         n = p.num_partitions
         bound = bind_all(p.exprs, self.children[0].output)
 
@@ -171,6 +334,33 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
             return _host_slices(batch, ids, n)
 
         return self._materialize(ctx, hash_map)
+
+    def _execute_range(self, ctx: ExecContext,
+                       p: RangePartitioning) -> PartitionedBatches:
+        """Reference: exchange.py:680 — python order keys, sampled bounds,
+        a bisect per row."""
+        child_pb = self.children[0].execute(ctx)
+        bound = bind_all([o.child for o in p.orders], self.children[0].output)
+        n = p.num_partitions
+        staged = []
+        for pidx in range(child_pb.num_partitions):
+            for batch in child_pb.iterator(pidx):
+                if batch.num_rows == 0:
+                    continue
+                ev = cpu_project(bound, batch, partition_id=pidx)
+                staged.append((batch, [c.to_pylist() for c in ev.columns]))
+        all_keys: List[List[Any]] = [[] for _ in p.orders]
+        for _, keys in staged:
+            for i, k in enumerate(keys):
+                all_keys[i].extend(k)
+        bounds = _sample_bounds_host(
+            [np.array(k, dtype=object) for k in all_keys], p.orders, n)
+        buckets: List[List[Any]] = [[] for _ in range(n)]
+        for batch, keys in staged:
+            ids = _range_ids_host(keys, bounds, p.orders)
+            for t, piece in _host_slices(batch, ids, n):
+                buckets[t].append(piece)
+        return self._serve(n, buckets)
 
 
 # ===========================================================================
@@ -251,12 +441,28 @@ def _device_slices_routed(batch: ColumnarBatch, ids, n: int):
 
 def _assemble_routed(slices: Sequence[_RoutedSlice]) -> ColumnarBatch:
     """Concatenate routed slices (possibly of different map batches) into
-    one compact batch."""
+    one compact batch. A string column is one K7 gather over the slices'
+    source columns laid end to end (reference: `_routed_string_plan`
+    :1567 and `_routed_string_bytes` :1593)."""
     total = sum(s.count for s in slices)
     cap = bucket_capacity(max(total, 1))
     idxs = [s.order[s.start:s.start + s.count].long() for s in slices]
+    sources: List[ColumnarBatch] = []
+    for s in slices:
+        if all(s.batch is not b for b in sources):
+            sources.append(s.batch)
     cols = []
     for ci, c0 in enumerate(slices[0].batch.columns):
+        if c0.offsets is not None:
+            src, bases = strings_end_to_end([b.columns[ci] for b in sources])
+            at = {id(b): base for b, base in zip(sources, bases)}
+            idx = torch.zeros(cap, dtype=torch.int32, device=c0.data.device)
+            off = 0
+            for s, i in zip(slices, idxs):
+                idx[off:off + s.count] = i + at[id(s.batch)]
+                off += s.count
+            cols.append(gather_string_col(src, idx, total, unique=True))
+            continue
         data = torch.zeros(cap, dtype=c0.data.dtype, device=c0.data.device)
         valid = torch.zeros(cap, dtype=torch.bool, device=c0.data.device)
         off = 0
@@ -269,6 +475,37 @@ def _assemble_routed(slices: Sequence[_RoutedSlice]) -> ColumnarBatch:
     return ColumnarBatch(cols, total)
 
 
+def _device_order_keys(batch: ColumnarBatch, bound, pidx: int):
+    """Host range keys of one device batch: fixed-width keys as unsigned
+    64-bit order words with null flags, computed on the card and downloaded
+    in one transfer; STRING keys as their downloaded (offsets, bytes,
+    validity), and their widest byte length."""
+    n = batch.host_rows()
+    ectx = device_eval_context(batch, pidx)
+    cols = [eval_as_col(ectx, e) for e in bound]
+    fixed = []
+    for c in cols:
+        if c.is_string:
+            continue
+        proxy = RK.key_proxy(c)
+        words = proxy.arrays
+        u = words[0] if len(words) == 1 else (words[0] << 32) | words[1]
+        fixed += [u[:n], proxy.null_flag[:n].to(torch.int64)]
+    got = iter(torch.stack(fixed).cpu().numpy()) if fixed else iter(())
+    keys, widths = [], []
+    for c in cols:
+        if c.is_string:
+            offsets = c.offsets[:n + 1].cpu().numpy()
+            keys.append(("str", (offsets, c.data.cpu().numpy(),
+                                 c.validity[:n].cpu().numpy())))
+            widths.append(int(np.diff(offsets).max()))
+        else:
+            u = next(got).view(np.uint64)
+            keys.append(("bits", (u, next(got).astype(bool))))
+            widths.append(1)
+    return keys, widths
+
+
 class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
     placement = "tpu"
 
@@ -276,6 +513,8 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
         p = self.partitioning
         if isinstance(p, SinglePartitioning):
             return self._materialize(ctx, lambda pidx, b: [(0, b)])
+        if isinstance(p, RangePartitioning):
+            return self._execute_range(ctx)
         n = p.num_partitions
         bound = bind_all(p.exprs, self.children[0].output)
 
@@ -289,3 +528,38 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
             return _device_slices_routed(batch, ids, n)
 
         return self._materialize(ctx, hash_map)
+
+    def _execute_range(self, ctx: ExecContext) -> PartitionedBatches:
+        """Reference: exchange.py:908 — stage every map batch with its host
+        range keys, pick the bounds over all rows, bin each batch's rows
+        and route them with K4."""
+        p = self.partitioning
+        n = p.num_partitions
+        child_pb = self.children[0].execute(ctx)
+        bound = bind_all([o.child for o in p.orders],
+                         self.children[0].output)
+        staged = []
+        for pidx in range(child_pb.num_partitions):
+            for batch in child_pb.iterator(pidx):
+                batch = ensure_compact(batch)
+                if batch.host_rows() == 0:
+                    continue
+                staged.append((batch, *_device_order_keys(batch, bound,
+                                                          pidx)))
+        # one byte width per string key across all batches, so every
+        # packed row compares in the same space
+        widths = [max([w[i] for _, _, w in staged] or [1])
+                  for i in range(len(p.orders))]
+        packed = [_pack_key_rows(_key_levels(keys, p.orders, widths))
+                  for _, keys, _ in staged]
+        bounds = _packed_bounds(np.concatenate(packed) if packed else
+                                np.empty((0,), dtype="S1"), n)
+        buckets: List[List[Any]] = [[] for _ in range(n)]
+        for (batch, _, _), rows in zip(staged, packed):
+            lanes = np.full(batch.capacity, n, dtype=np.int32)
+            lanes[:len(rows)] = 0 if bounds is None else \
+                np.searchsorted(bounds, rows, side="right")
+            ids = torch.from_numpy(lanes).to(batch.device)
+            for target, piece in _device_slices_routed(batch, ids, n):
+                buckets[target].append(piece)
+        return self._serve(n, buckets)
