@@ -33,11 +33,28 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    exact, DOUBLE sums and averages within a relative 1e-9, q1's 6 rows in
    ORDER BY order); then one q1 run with the exchange's zero-copy piece cap
    at 0, which routes every map batch (K4's route half, K7's string
-   pieces), checked the same way.
+   pieces), checked the same way;
+5. TPC-H q3 and q5 over the same cached SF 10 tables (15,000,000 orders,
+   1,500,000 customers, 100,000 suppliers; 8 shuffle partitions), one cold
+   and 3 warm runs each, then q5 once more with every join shuffled
+   (autoBroadcastJoinThreshold 0, runtime broadcast off). Plans are asserted
+   all on the device, each query must run at least one shuffled and one
+   broadcast hash join (planned, or demoted by the runtime probe; the log
+   says which), and the rows must equal a direct numpy computation (the
+   generator's primary keys are arange, so each join is an index lookup
+   and each aggregate a weighted bincount): q3's 10 rows in ORDER BY order
+   with exact keys, q5's ASIA nations in order, revenue within a relative
+   1e-9. Phase 3 also holds K8 (string_compare) at 2^25 rows shaped like
+   c_mktsegment, against the literal 'BUILDING' and against a permutation
+   of itself, and K9-K11 (join_build, join_probe, join_expand) at the
+   shape of q5's s_suppkey = l_suppkey (2^23 build rows, keys in [0, 2^21),
+   2^22 stream rows, half of their keys present) and a skewed stream (1%
+   of its rows on one key), against their plain versions.
 
 Launch counts are reset just before each path's run and read just after
-it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed); every
-kernel of a path must have launched in that path's own run. In the kernels
+it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
+tpch_q5, tpch_q5_shuffled); every kernel of a path must have launched in
+that path's own run. In the kernels
 line, "launches" is the count of the kernel's own path ("path") and
 "launches_by_path" holds every run's counts.
 
@@ -63,6 +80,9 @@ FLAGSHIP_ROWS = 1 << 26
 N_KEYS = 1024
 HIGH_CARD_ROWS = 1 << 24
 HIGH_CARD_KEYS = 1 << 22
+K8_ROWS = 1 << 25  # like c_mktsegment
+# q5's s_suppkey = l_suppkey: build rows, stream rows, build key range
+JOIN_SHAPE = (1 << 23, 1 << 22, 1 << 21)
 
 # name: (source, replaced JAX function, the path whose run gives "launches")
 KERNELS = {
@@ -90,11 +110,26 @@ KERNELS = {
     "gather_strings": (
         "spark_rapids_tpu_torch/csrc/string_gather.cu",
         "spark_rapids_tpu/columnar/batch.py:1592", "tpch_q1"),
+    "string_compare": (
+        "spark_rapids_tpu_torch/csrc/string_compare.cu",
+        "spark_rapids_tpu/columnar/strings.py:118", "tpch_q3"),
+    "join_build": (
+        "spark_rapids_tpu_torch/csrc/hash_join.cu",
+        "spark_rapids_tpu/exec/join.py:150", "tpch_q5"),
+    "join_probe": (
+        "spark_rapids_tpu_torch/csrc/hash_join.cu",
+        "spark_rapids_tpu/exec/join.py:172", "tpch_q5"),
+    "join_expand": (
+        "spark_rapids_tpu_torch/csrc/hash_join.cu",
+        "spark_rapids_tpu/exec/join.py:554", "tpch_q5"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
 _Q1 = _GROUP_BY + ("string_hash_words", "string_order_words",
                    "gather_strings")
+_Q3 = _GROUP_BY + ("string_compare", "join_build", "join_probe",
+                   "join_expand")
+_Q5 = _Q3 + ("string_hash_words", "gather_strings")
 # the kernels each path must launch
 PATH_KERNELS = {
     "flagship": _GROUP_BY,
@@ -102,12 +137,19 @@ PATH_KERNELS = {
     "tpch_q1": _Q1,
     "tpch_q6": ("segment_reduce",),
     "tpch_q1_routed": _Q1 + ("route_plan",),
+    "tpch_q3": _Q3,
+    "tpch_q5": _Q5,
+    "tpch_q5_shuffled": _Q5 + ("route_plan",),
 }
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
 TPCH_CONF = {"rapids.tpu.sql.test.enabled": True,
              "rapids.tpu.sql.variableFloatAgg.enabled": True}
+ALL_SHUFFLED = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
+                "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": False}
+C_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
+              "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": True}
 
 
 def log(msg: str) -> None:
@@ -270,7 +312,13 @@ def profile_flagship(sess, n_rows: int, out_dir: str) -> dict:
 
 def profile_query(q, out_dir: str, name: str) -> dict:
     """One warm run of a query under torch.profiler: device time by kernel
-    and the device's busy share of the query's wall time."""
+    and the device's busy share of the query's wall time; then one under
+    cProfile: the host's time by Python function (cProfile slows every
+    Python call, so it ranks host work, it does not time it)."""
+    import cProfile
+    import io
+    import pstats
+
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -293,6 +341,17 @@ def profile_query(q, out_dir: str, name: str) -> dict:
     with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as fh:
         fh.write(f"wall {wall:.6f} s, device busy {dev_us / 1e6:.6f} s\n")
         fh.write(table)
+    host = cProfile.Profile()
+    host.enable()
+    q.toLocalBatches()
+    torch.cuda.synchronize()
+    host.disable()
+    text = io.StringIO()
+    stats = pstats.Stats(host, stream=text)
+    stats.sort_stats("cumulative").print_stats(45)
+    stats.sort_stats("tottime").print_stats(25)
+    with open(os.path.join(out_dir, f"{name}_host.txt"), "w") as fh:
+        fh.write(text.getvalue())
     log(f"profile {name}: wall {wall:.4f} s, device kernels "
         f"{dev_us / 1e6:.4f} s")
     return {"wall_s": wall, "device_busy_s": dev_us / 1e6,
@@ -440,6 +499,142 @@ def run_tpch(sess, launches: dict, profile_dir=None) -> dict:
     if profile_dir:
         out["q1_profile"] = profile_query(tpch.q1(tables), profile_dir,
                                           "tpch_q1")
+    return out, raw, tables, li
+
+
+def table_columns(df, names) -> dict:
+    """Host numpy columns `names` of a generated table (all partitions);
+    STRING columns as object arrays."""
+    import numpy as np
+
+    batches = [b for part in df._plan.partitions for b in part]
+    return {a.name: np.concatenate([b.columns[i].data for b in batches])
+            for i, a in enumerate(df.schema) if a.name in names}
+
+
+def numpy_q3(li: dict, o: dict, c: dict):
+    """q3 by numpy: orders and customers are indexed by their keys
+    (arange), so each join is a lookup and the aggregate a bincount."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import _days
+
+    n_ord = len(o["o_orderkey"])
+    check(np.array_equal(o["o_orderkey"], np.arange(n_ord)) and
+          np.array_equal(c["c_custkey"], np.arange(len(c["c_custkey"]))),
+          "q3 reference: primary keys are not arange")
+    day = _days("1995-03-15")
+    o_ok = (c["c_mktsegment"] == "BUILDING")[o["o_custkey"]] & \
+        (o["o_orderdate"] < day)
+    lk = li["l_orderkey"]
+    keep = (li["l_shipdate"] > day) & o_ok[lk]
+    vol = li["l_extendedprice"][keep] * (1.0 - li["l_discount"][keep])
+    rev = np.bincount(lk[keep], weights=vol, minlength=n_ord)
+    keys = np.nonzero(np.bincount(lk[keep], minlength=n_ord))[0]
+    top = keys[np.lexsort((o["o_orderdate"][keys], -rev[keys]))[:10]]
+    return [(int(k), int(o["o_orderdate"][k]), int(o["o_shippriority"][k]),
+             float(rev[k])) for k in top]
+
+
+def numpy_q5(li: dict, o: dict, c: dict, s: dict, n: dict, r: dict):
+    """q5 by numpy: the ASIA nations' revenue from lineitems whose
+    supplier and customer share the nation, orders of 1994."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import _days
+
+    check(np.array_equal(s["s_suppkey"], np.arange(len(s["s_suppkey"]))) and
+          np.array_equal(n["n_nationkey"], np.arange(len(n["n_nationkey"]))),
+          "q5 reference: primary keys are not arange")
+    asia = np.isin(n["n_regionkey"], r["r_regionkey"][r["r_name"] == "ASIA"])
+    o_ok = (o["o_orderdate"] >= _days("1994-01-01")) & \
+        (o["o_orderdate"] < _days("1995-01-01"))
+    ls, lo = li["l_suppkey"], li["l_orderkey"]
+    nation = s["s_nationkey"][ls]
+    keep = asia[nation] & o_ok[lo] & \
+        (c["c_nationkey"][o["o_custkey"][lo]] == nation)
+    vol = li["l_extendedprice"][keep] * (1.0 - li["l_discount"][keep])
+    n_nat = len(asia)
+    rev = np.bincount(nation[keep], weights=vol, minlength=n_nat)
+    keys = np.nonzero(np.bincount(nation[keep], minlength=n_nat))[0]
+    keys = keys[np.argsort(-rev[keys], kind="stable")]
+    return [(n["n_name"][k], float(rev[k])) for k in keys]
+
+
+def join_strategies(sess) -> list:
+    """How each hash join of the last query ran: broadcast (planned),
+    shuffled, or shuffled demoted to a broadcast by the runtime probe."""
+    from spark_rapids_tpu_torch.exec import join as J
+
+    out = []
+    for j in sess.last_physical_plan.collect_nodes(
+            lambda x: isinstance(x, J._JoinBase)):
+        if isinstance(j, J.TpuBroadcastHashJoinExec):
+            ran = "broadcast"
+        elif j.metrics[J.RUNTIME_BROADCASTS]:
+            ran = "shuffled->broadcast (runtime probe"
+            ran += ", build side swapped)" if j.build_left else ")"
+        else:
+            ran = "shuffled"
+        out.append({"join": f"{j.left_keys!r} = {j.right_keys!r}",
+                    "ran_as": ran})
+    return out
+
+
+def run_joins(sess, raw, tables, li: dict, launches: dict,
+              profile_dir=None) -> dict:
+    """Phase 5: q3, q5 and the all-shuffled q5 over phase 4's tables."""
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    o = table_columns(raw["orders"], ("o_orderkey", "o_custkey",
+                                      "o_orderdate", "o_shippriority"))
+    c = table_columns(raw["customer"], ("c_custkey", "c_mktsegment",
+                                        "c_nationkey"))
+    s = table_columns(raw["supplier"], ("s_suppkey", "s_nationkey"))
+    n = table_columns(raw["nation"], ("n_nationkey", "n_regionkey",
+                                      "n_name"))
+    r = table_columns(raw["region"], ("r_regionkey", "r_name"))
+    want = {"tpch_q3": numpy_q3(li, o, c),
+            "tpch_q5": numpy_q5(li, o, c, s, n, r)}
+    n_li, n_ord = len(li["l_orderkey"]), len(o["o_orderkey"])
+    n_cust, n_supp = len(c["c_custkey"]), len(s["s_suppkey"])
+    input_rows = {"tpch_q3": n_li + n_ord + n_cust,
+                  "tpch_q5": n_li + n_ord + n_cust + n_supp + 25 + 5}
+    out = {"orders_rows": n_ord, "customer_rows": n_cust,
+           "supplier_rows": n_supp}
+    runs = (("tpch_q3", tpch.q3, "tpch_q3", 3, {}),
+            ("tpch_q5", tpch.q5, "tpch_q5", 3, {}),
+            ("tpch_q5_shuffled", tpch.q5, "tpch_q5", 0, ALL_SHUFFLED))
+    for name, query, ref, reps, conf in runs:
+        for k, v in conf.items():
+            sess.set_conf(k, v)
+        try:
+            CB.reset_launch_counts()
+            out[name] = run_query(sess, query(tables), want[ref], name,
+                                  reps)
+            launches[name] = CB.launch_counts()
+            joins = join_strategies(sess)
+        finally:
+            for k in conf:
+                sess.set_conf(k, C_DEFAULTS[k])
+        out[name]["joins"] = joins
+        ran = [j["ran_as"] for j in joins]
+        log(f"{name} joins: {joins}")
+        if conf:
+            check(all(x == "shuffled" for x in ran),
+                  f"{name}: not every join shuffled: {ran}")
+        else:
+            check(any(x == "shuffled" for x in ran) and
+                  any("broadcast" in x for x in ran),
+                  f"{name}: needs a shuffled and a broadcast join: {ran}")
+            out[name]["rows_per_s"] = input_rows[ref] / \
+                out[name]["warm_median_s"]
+        out[name]["input_rows"] = input_rows[ref]
+    if profile_dir:
+        for name, query in (("tpch_q3", tpch.q3), ("tpch_q5", tpch.q5)):
+            out[name]["profile"] = profile_query(query(tables), profile_dir,
+                                                 name)
     return out
 
 
@@ -738,6 +933,246 @@ def time_string_kernels(dev, errs: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------- K8-K11 (slice 3)
+CMP_OPS = ("eq", "lt", "le", "gt", "ge")
+CMP_LITERALS = ("", "ab", "abcdefghi", "BUILDING", "a\x00", "é", None)
+
+
+def column_view(col):
+    """A string column (offsets, bytes, validity) as a K8 view."""
+    from spark_rapids_tpu_torch.columnar.strings import StrView
+
+    offsets, raw, valid = col
+    return StrView(raw, offsets[:-1], offsets[1:] - offsets[:-1], valid)
+
+
+def literal_view(value, n: int, dev):
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.columnar.strings import as_view
+    from spark_rapids_tpu_torch.ops.values import ScalarV
+
+    return as_view(SimpleNamespace(capacity=n, device=dev),
+                   ScalarV(DataType.STRING, value))
+
+
+def permuted_view(view, perm):
+    from spark_rapids_tpu_torch.columnar.strings import StrView
+
+    return StrView(view.data, view.starts[perm].contiguous(),
+                   view.lens[perm].contiguous(),
+                   view.validity[perm].contiguous())
+
+
+def compare_k8(left, right, label: str, errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import strings as S
+
+    for op in CMP_OPS:
+        got = S.string_compare_views(left, right, op)
+        want = S.string_compare_plain(left, right, op)
+        check(torch.equal(got, want), f"{label}: K8 {op} differs")
+        errs["string_compare"] = max(errs.get("string_compare", 0.0),
+                                     max_abs_err(got.int(), want.int()))
+
+
+def join_inputs(n_build: int, n_stream: int, key_hi: int, seed: int,
+                dev, skew: float = 0.0, nulls: float = 0.0):
+    """Int64 join keys as K9-K11 see them: (build words, build ok, stream
+    words, stream live, stream ok). Stream keys are drawn from twice the
+    build's key range, so about half of them are present."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.exec import join as J
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    rng = np.random.default_rng(seed)
+    bk = rng.integers(0, key_hi, n_build)
+    sk = rng.integers(0, 2 * key_hi, n_stream)
+    if skew:
+        sk[rng.random(n_stream) < skew] = 7
+    sides = []
+    for keys, n in ((bk, n_build), (sk, n_stream)):
+        valid = torch.from_numpy(rng.random(n) >= nulls).to(dev)
+        live = torch.arange(n, device=dev) < n - (3 if n > 8 else 0)
+        col = ColV(DataType.INT64, torch.from_numpy(keys).to(dev), valid)
+        sides.append((*J.join_words([col], live), live))
+    (bw, b_ok, _), (sw, s_ok, s_live) = sides
+    return bw, b_ok, sw, s_live, s_ok
+
+
+def compare_join(inputs, mode: str, label: str, errs: dict):
+    """K9-K11 against the plain union plan: offsets, stream and build
+    indices and build-matched flags bit for bit. Returns the probe."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.exec import join as J
+
+    bw, b_ok, sw, s_live, s_ok = inputs
+    table = J.join_build(bw, b_ok)
+    probe = J.join_probe(table, sw, s_live, s_ok, mode)
+    out_cap = bucket_capacity(max(probe.total, 1))
+    s_idx, b_idx = J.join_expand(probe, out_cap)
+    offsets, total, b_order, start, match_cnt, b_matched = \
+        J.join_plan_plain(sw, s_live, s_ok, bw, b_ok, mode)
+    ps, pb = J.join_expand_plain(offsets, match_cnt, start, b_order,
+                                 out_cap)
+    check(total == probe.total, f"{label}: K10 total {probe.total} vs "
+          f"plain {total}")
+    check(torch.equal(offsets, probe.offsets), f"{label}: K10 offsets differ")
+    check(torch.equal(s_idx, ps) and torch.equal(b_idx, pb),
+          f"{label}: K11 indices differ")
+    got_m = J.build_matched(table)
+    check(torch.equal(got_m, b_matched), f"{label}: K10 matched differ")
+    for name, err in (("join_build", max_abs_err(got_m.int(),
+                                                   b_matched.int())),
+                      ("join_probe", max_abs_err(offsets, probe.offsets)),
+                      ("join_expand", max(max_abs_err(s_idx, ps),
+                                          max_abs_err(b_idx, pb)))):
+        errs[name] = max(errs.get(name, 0.0), err)
+    return table, probe
+
+
+def join_edge_cases(dev, errs: dict) -> int:
+    """K8 on edge strings against literals and a reversed column; K9-K11
+    in every join mode on small, NULL-keyed, empty-matched and skewed
+    inputs."""
+    import torch
+
+    n = 0
+    for values in (STRING_EDGES + ["a\x00", "ÿ", "abcdefghij1",
+                                   "abcdefghij2"], [None] * 9, [""] * 5,
+                   STRING_EDGES * 700):
+        view = column_view(string_column(values, dev))
+        rows = len(values)
+        for lit in CMP_LITERALS:
+            compare_k8(view, literal_view(lit, rows, dev), f"K8 {n} {lit!r}",
+                       errs)
+        rev = torch.arange(rows - 1, -1, -1, device=dev)
+        compare_k8(view, permuted_view(view, rev), f"K8 {n} reversed", errs)
+        n += 1
+    for mode in ("inner", "outer", "semi", "anti"):
+        for nb, ns, hi, nulls in ((8, 8, 3, 0.0), (8, 4096, 2, 0.3),
+                                  (5000, 3000, 40, 0.1),
+                                  (1 << 16, 1 << 17, 1 << 14, 0.05)):
+            compare_join(join_inputs(nb, ns, hi, n, dev, nulls=nulls), mode,
+                         f"join {mode} {nb}x{ns}", errs)
+            n += 1
+    compare_join(join_inputs(1 << 18, 1 << 18, 1 << 16, 99, dev, skew=0.01),
+                 "outer", "join skewed", errs)
+    return n + 1
+
+
+def time_join_kernels(dev, errs: dict) -> dict:
+    """K8 at 2^25 rows shaped like c_mktsegment, against the literal
+    'BUILDING' and against a permutation of itself (op '='); K9-K11 at the
+    shape of q5's s_suppkey = l_suppkey: 2^23 build rows with keys in
+    [0, 2^21) (4 rows a key), 2^22 stream rows with half their keys
+    present; and a skewed stream (1% of its rows on one key)."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.columnar import strings as S
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.columnar.strings import encode_pool
+    from spark_rapids_tpu_torch.exec import join as J
+
+    rows = {}
+    iters, plain_iters = 10, 2
+    n = K8_ROWS
+    pool = tpch._SEGMENTS
+    rng = np.random.default_rng(11)
+    codes = rng.integers(0, len(pool), n)
+    _, offsets, raw = encode_pool(pool, codes)
+    col = (torch.from_numpy(offsets).to(dev), torch.from_numpy(raw).to(dev),
+           torch.ones(n, dtype=torch.bool, device=dev))
+    view = column_view(col)
+    lit = literal_view("BUILDING", n, dev)
+    perm_np = rng.permutation(n)
+    perm = torch.from_numpy(perm_np).to(dev)
+    other = permuted_view(view, perm)
+    compare_k8(view, lit, "K8 c_mktsegment vs 'BUILDING'", errs)
+    compare_k8(view, other, "K8 c_mktsegment vs its permutation", errs)
+
+    def needed(a: str, b: str) -> int:
+        """Bytes of one side an equality compare must read."""
+        a, b = a.encode(), b.encode()
+        if len(a) != len(b):
+            return 0
+        diff = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        return diff[0] + 1 if diff else len(a)
+
+    counts = np.bincount(codes, minlength=len(pool))
+    lit_bytes = sum(int(counts[i]) * needed(v, "BUILDING")
+                    for i, v in enumerate(pool))
+    pair = np.array([[needed(a, b) for b in pool] for a in pool])
+    col_bytes = 2 * int(pair[codes, codes[perm_np]].sum())
+    per_side = 4 * (n + 1) + n  # offsets and validity
+    rows["string_compare"] = dict(
+        ms=cuda_ms(lambda: S.string_compare_views(view, lit, "eq"), iters),
+        plain_ms=cuda_ms(lambda: S.string_compare_plain(view, lit, "eq"),
+                         plain_iters),
+        library_ms=None, bound_ms=bound_ms(per_side + lit_bytes + n),
+        ms_column=cuda_ms(lambda: S.string_compare_views(view, other, "eq"),
+                          iters),
+        bound_ms_column=bound_ms(2 * per_side + col_bytes + n),
+        shape=f"{n} rows like c_mktsegment = 'BUILDING' ({lit_bytes} "
+              f"string bytes needed); against a permutation of itself: "
+              f"see ms_column")
+    del col, view, lit, other, perm
+
+    n_build, n_stream, key_hi = JOIN_SHAPE
+    inputs = join_inputs(n_build, n_stream, key_hi, 5, dev)
+    table, probe = compare_join(inputs, "inner", "join q5 shape", errs)
+    skewed = join_inputs(n_build, n_stream, key_hi, 6, dev, skew=0.01)
+    compare_join(skewed, "inner", "join q5 shape, skewed", errs)
+    bw, b_ok, sw, s_live, s_ok = inputs
+    out_cap = bucket_capacity(max(probe.total, 1))
+    distinct = int(torch.unique(bw[:, b_ok], dim=1).shape[1])
+    found = int((probe.match_cnt > 0).sum())
+
+    def plain_plan():
+        return J.join_plan_plain(sw, s_live, s_ok, bw, b_ok, "inner")
+
+    plan = plain_plan()
+    plain_plan_ms = cuda_ms(plain_plan, plain_iters)
+    rows["join_build"] = dict(
+        ms=cuda_ms(lambda: J.join_build(bw, b_ok), iters),
+        plain_ms=plain_plan_ms, library_ms=None,
+        bound_ms=bound_ms(n_build * (8 + 1 + 4 + 4) + 8 * distinct),
+        shape=f"{n_build} build rows, {distinct} keys (K1 over the slots "
+              "included); plain: the union plan, which also probes")
+    rows["join_probe"] = dict(
+        ms=cuda_ms(lambda: J.join_probe(table, sw, s_live, s_ok, "inner"),
+                   iters),
+        plain_ms=plain_plan_ms, library_ms=None,
+        bound_ms=bound_ms(n_stream * (10 + 4 + 12) + found * 16),
+        shape=f"{n_stream} stream rows, {found} with a match, "
+              f"{probe.total} output rows; plain: the union plan")
+    rows["join_expand"] = dict(
+        ms=cuda_ms(lambda: J.join_expand(probe, out_cap), iters),
+        plain_ms=cuda_ms(lambda: J.join_expand_plain(
+            plan[0], plan[4], plan[3], plan[2], out_cap), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(12 * n_stream + 4 + 4 * probe.total +
+                          8 * out_cap),
+        shape=f"{probe.total} output rows in {out_cap} lanes")
+    sk_table = J.join_build(skewed[0], skewed[1])
+    sk_probe = J.join_probe(sk_table, skewed[2], skewed[3], skewed[4],
+                            "inner")
+    sk_cap = bucket_capacity(max(sk_probe.total, 1))
+    rows["join_expand"]["ms_skewed"] = cuda_ms(
+        lambda: J.join_expand(sk_probe, sk_cap), iters)
+    rows["join_probe"]["ms_skewed"] = cuda_ms(
+        lambda: J.join_probe(sk_table, skewed[2], skewed[3], skewed[4],
+                             "inner"), iters)
+    return rows
+
+
 def time_kernels(dev, errs: dict, launches: dict):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
@@ -826,6 +1261,7 @@ def time_kernels(dev, errs: dict, launches: dict):
         bound_ms=bound_ms(4 * hcap + 4 * hcap + 36),
         shape=f"{hcap} ids, 8 partitions")
     rows.update(time_string_kernels(dev, errs))
+    rows.update(time_join_kernels(dev, errs))
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
@@ -838,7 +1274,9 @@ def time_kernels(dev, errs: dict, launches: dict):
             "max_abs_err": errs.get(name, 0.0), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
-            "shape": r["shape"]})
+            "shape": r["shape"],
+            **{k: v for k, v in r.items() if k.startswith(("ms_",
+                                                            "bound_ms_"))}})
     return out
 
 
@@ -846,8 +1284,10 @@ def time_kernels(dev, errs: dict, launches: dict):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace one warm flagship query with torch.profiler "
-                         "and write its kernel table to DIR")
+                    help="trace one warm flagship, q1, q3 and q5 query "
+                         "each with torch.profiler and cProfile and write "
+                         "their device kernel and host function tables to "
+                         "DIR")
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this file")
     args = ap.parse_args(argv)
@@ -884,7 +1324,8 @@ def main(argv=None) -> int:
 
     errs: dict = {}
     results = {"card": card, "build_s": build_s}
-    n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs)
+    n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
+        join_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -898,7 +1339,11 @@ def main(argv=None) -> int:
                                      "phase 2 high cardinality", 1)
     launches["high_cardinality"] = CB.launch_counts()
     tpch_sess = srt.new_session(TPCH_CONF)
-    results["phase4"] = run_tpch(tpch_sess, launches, args.profile)
+    results["phase4"], raw, tables, li = run_tpch(tpch_sess, launches,
+                                                  args.profile)
+    results["phase5"] = run_joins(tpch_sess, raw, tables, li, launches,
+                                  args.profile)
+    del raw, tables, li
     results["launches"] = launches
     log(f"launches: {launches}")
     for path, names in PATH_KERNELS.items():
@@ -916,7 +1361,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1)
     print(card)
-    p4 = results["phase4"]
+    p4, p5 = results["phase4"], results["phase5"]
     print(json.dumps({"flagship": {k: results["phase1"][k] for k in (
         "rows", "groups", "cold_s", "warm_s", "warm_median_s")},
         "high_cardinality": {k: results["phase2"][k] for k in (
@@ -924,7 +1369,10 @@ def main(argv=None) -> int:
         "tpch": {"sf": p4["sf"], "lineitem_rows": p4["lineitem_rows"],
                  "gen_s": p4["gen_s"], "device_bytes": p4["device_bytes"],
                  **{q: p4[q] for q in ("tpch_q1", "tpch_q6",
-                                       "tpch_q1_routed")}}}))
+                                       "tpch_q1_routed")},
+                 **{q: p5[q] for q in ("tpch_q3", "tpch_q5",
+                                       "tpch_q5_shuffled")}},
+        "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

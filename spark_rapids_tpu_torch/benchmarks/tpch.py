@@ -1,6 +1,9 @@
 """TPC-H-like schema, data generator and queries (port of
 spark_rapids_tpu/benchmarks/tpch.py: `date_lit` :35, `gen_tables` :57-233,
-`q1` :237 and `q6` :258; the other queries wait for their slices).
+`q1` :237, `q6` :258, `q3` :271 and `q5` :290; the other queries wait for
+their slices). q1 and q6 are the reference's BASELINE config 2 (aggregate
+and sort over a scan), q3 and q5 its config 3 (broadcast and shuffled hash
+joins).
 
 `gen_tables` makes the same random draws in the same order as the
 reference, so one seed gives the same rows in both packages. Only the way
@@ -252,4 +255,42 @@ def q6(t) -> "object":
             .agg(F.sum("revenue").alias("revenue")))
 
 
-QUERIES = {"q1": q1, "q6": q6}
+def q3(t) -> "object":
+    """Shipping priority (3-way join + agg + sort + limit)."""
+    c = t["customer"]
+    o = t["orders"]
+    li = t["lineitem"]
+    return (c.filter(c["c_mktsegment"] == F.lit("BUILDING"))
+            .join(o, on=(c["c_custkey"] == o["o_custkey"]), how="inner")
+            .filter(F.col("o_orderdate") < date_lit("1995-03-15"))
+            .join(li.filter(li["l_shipdate"] > date_lit("1995-03-15")),
+                  on=(F.col("o_orderkey") == li["l_orderkey"]), how="inner")
+            .withColumn("volume",
+                        F.col("l_extendedprice") * (F.lit(1.0) - F.col("l_discount")))
+            .groupBy("o_orderkey", "o_orderdate", "o_shippriority")
+            .agg(F.sum("volume").alias("revenue"))
+            .orderBy(F.col("revenue").desc(), F.col("o_orderdate"))
+            .limit(10))
+
+
+def q5(t) -> "object":
+    """Local supplier volume (6-way join + agg + sort)."""
+    c, o, li = t["customer"], t["orders"], t["lineitem"]
+    s, n, r = t["supplier"], t["nation"], t["region"]
+    return (r.filter(r["r_name"] == F.lit("ASIA"))
+            .join(n, on=(r["r_regionkey"] == n["n_regionkey"]), how="inner")
+            .join(s, on=(n["n_nationkey"] == s["s_nationkey"]), how="inner")
+            .join(li, on=(s["s_suppkey"] == li["l_suppkey"]), how="inner")
+            .join(o.filter((o["o_orderdate"] >= date_lit("1994-01-01"))
+                           & (o["o_orderdate"] < date_lit("1995-01-01"))),
+                  on=(F.col("l_orderkey") == o["o_orderkey"]), how="inner")
+            .join(c, on=(F.col("o_custkey") == c["c_custkey"]), how="inner")
+            .filter(F.col("c_nationkey") == F.col("n_nationkey"))
+            .withColumn("volume",
+                        F.col("l_extendedprice") * (F.lit(1.0) - F.col("l_discount")))
+            .groupBy("n_name")
+            .agg(F.sum("volume").alias("revenue"))
+            .orderBy(F.col("revenue").desc()))
+
+
+QUERIES = {"q1": q1, "q6": q6, "q3": q3, "q5": q5}

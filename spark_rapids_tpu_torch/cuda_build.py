@@ -30,7 +30,8 @@ import torch
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
-           "string_hash", "string_order", "string_gather")
+           "string_hash", "string_order", "string_gather", "string_compare",
+           "hash_join")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -169,6 +170,31 @@ _SIGNATURES = {
         "srt_gather_strings_copy": (ctypes.c_int, [
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
             ctypes.c_longlong, _VOIDP]),
+    },
+    "string_compare": {
+        "srt_string_compare": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP]),
+    },
+    "hash_join": {
+        "srt_join_build_scratch_bytes": (ctypes.c_size_t,
+                                         [ctypes.c_longlong]),
+        "srt_join_build": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_longlong, _VOIDP,
+            ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_size_t, _VOIDP]),
+        "srt_join_probe_scratch_bytes": (ctypes.c_size_t,
+                                         [ctypes.c_longlong]),
+        "srt_join_probe": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_longlong, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP,
+            _VOIDP, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_size_t, _VOIDP]),
+        "srt_join_expand": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP]),
     },
 }
 

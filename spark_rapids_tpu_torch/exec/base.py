@@ -122,6 +122,12 @@ class CpuExec(PhysicalExec):
     placement = "cpu"
 
 
+def rows_of(batch) -> int:
+    """A batch's row count on the host (a device count is read back)."""
+    host_rows = getattr(batch, "host_rows", None)
+    return host_rows() if host_rows is not None else batch.num_rows
+
+
 def count_output(metrics: Dict[str, int], it: Iterator) -> Iterator:
     """Count output batches, and rows whose count is on the host (a metric
     read never forces a device sync)."""

@@ -1,13 +1,21 @@
 """Basic physical operators (port of spark_rapids_tpu/exec/basic.py: the host
-scan, project and filter; reference: basicPhysicalOperators.scala —
-GpuProjectExec :34-95, GpuFilterExec :96-177)."""
+scan, project, filter, the limits and partition coalescing; reference:
+basicPhysicalOperators.scala — GpuProjectExec :34-95, GpuFilterExec
+:96-177, GpuCoalesceExec :201-240 — and limit.scala:39-123)."""
 
 from __future__ import annotations
 
+import itertools
 from typing import Iterator, List, Sequence
 
 from spark_rapids_tpu_torch import conf as C
-from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+from spark_rapids_tpu_torch.columnar.batch import (
+    ColumnarBatch,
+    ColumnVector,
+    HostColumnarBatch,
+    bucket_capacity,
+    ensure_compact,
+)
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
     ExecContext,
@@ -15,6 +23,7 @@ from spark_rapids_tpu_torch.exec.base import (
     PhysicalExec,
     TpuExec,
     count_output,
+    rows_of,
 )
 from spark_rapids_tpu_torch.ops.base import AttributeReference, Expression, to_attribute
 from spark_rapids_tpu_torch.ops.bind import bind_all, bind_references
@@ -171,3 +180,132 @@ class CpuFilterExec(CpuExec):
         return PartitionedBatches(
             child_pb.num_partitions,
             lambda p: count_output(self.metrics, factory(p)))
+
+
+# ---------------------------------------------------------------------------
+# Limits (reference: exec/basic.py:337-438, limit.scala:39-123)
+# ---------------------------------------------------------------------------
+def _limited(it: Iterator, limit: int, slicer) -> Iterator:
+    remaining = limit
+    for b in it:
+        if remaining <= 0:
+            break
+        n = rows_of(b)
+        if n <= remaining:
+            remaining -= n
+            yield b
+        else:
+            yield slicer(b, remaining)
+            remaining = 0
+
+
+def _slice_host(b: HostColumnarBatch, n: int) -> HostColumnarBatch:
+    return b.slice(0, n)
+
+
+def slice_head(b: ColumnarBatch, n: int) -> ColumnarBatch:
+    """The first n rows of a device batch, with no kernel: fixed columns
+    narrow to the new capacity with the rows past n cleared; a string
+    column keeps its bytes and narrows its offsets (the rows past n become
+    empty NULLs). Reference: slice_batch_host (batch.py:1696), a gather."""
+    b = ensure_compact(b)
+    cap = bucket_capacity(max(n, 1))
+    cols = []
+    for c in b.columns:
+        validity = c.validity[:cap].clone()
+        validity[n:] = False
+        if c.offsets is not None:
+            offsets = c.offsets[:cap + 1].clone()
+            offsets[n + 1:] = offsets[n]
+            cols.append(ColumnVector(c.dtype, c.data, validity, offsets,
+                                     c.max_len))
+        else:
+            data = c.data[:cap].clone()
+            data[n:] = 0
+            cols.append(ColumnVector(c.dtype, data, validity))
+    return ColumnarBatch(cols, n)
+
+
+class _LocalLimitBase(PhysicalExec):
+    """Per-partition limit (reference: exec/basic.py:358, :380)."""
+
+    def __init__(self, limit: int, child: PhysicalExec):
+        super().__init__(child)
+        self.limit = limit
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def with_children(self, new_children):
+        return type(self)(self.limit, new_children[0])
+
+    def node_name(self):
+        return f"{type(self).__name__}({self.limit})"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        return self._limit(self.children[0].execute(ctx))
+
+    def _limit(self, child_pb: PartitionedBatches) -> PartitionedBatches:
+        limit = self.limit
+        slicer = slice_head if self.placement == "tpu" else _slice_host
+        return PartitionedBatches(
+            child_pb.num_partitions,
+            lambda p: count_output(self.metrics, _limited(
+                child_pb.iterator(p), limit, slicer)))
+
+
+class TpuLocalLimitExec(_LocalLimitBase, TpuExec):
+    placement = "tpu"
+
+
+class CpuLocalLimitExec(_LocalLimitBase, CpuExec):
+    placement = "cpu"
+
+
+class _GlobalLimitBase(_LocalLimitBase):
+    """Global limit over one input partition (the planner puts a
+    CoalescePartitionsExec(1) below it; reference: exec/basic.py:402)."""
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        child_pb = self.children[0].execute(ctx)
+        if child_pb.num_partitions != 1:
+            raise ValueError("a global limit needs a single partition")
+        return self._limit(child_pb)
+
+
+class TpuGlobalLimitExec(_GlobalLimitBase, TpuExec):
+    placement = "tpu"
+
+
+class CpuGlobalLimitExec(_GlobalLimitBase, CpuExec):
+    placement = "cpu"
+
+
+class CoalescePartitionsExec(PhysicalExec):
+    """Merge input partitions into `num_partitions` by chaining their
+    iterators, without a shuffle (reference: exec/basic.py:441). It takes
+    its child's placement and passes batches through untouched."""
+
+    def __init__(self, num_partitions: int, child: PhysicalExec):
+        super().__init__(child)
+        self.num_partitions = max(1, num_partitions)
+        self.placement = child.placement
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def with_children(self, new_children):
+        return CoalescePartitionsExec(self.num_partitions, new_children[0])
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        child_pb = self.children[0].execute(ctx)
+        n_in = child_pb.num_partitions
+        n_out = min(self.num_partitions, max(1, n_in))
+
+        def factory(pidx: int) -> Iterator:
+            return count_output(self.metrics, itertools.chain.from_iterable(
+                child_pb.iterator(i) for i in range(pidx, n_in, n_out)))
+
+        return PartitionedBatches(n_out, factory)

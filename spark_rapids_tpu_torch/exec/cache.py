@@ -34,6 +34,25 @@ def invalidate(logical_node) -> None:
         _HOST_CACHE.pop(logical_node, None)
 
 
+def cached_row_count(logical_node):
+    """Rows of a cached relation once materialised, else None (the
+    planner's statistics: reference exec/cache.py:37). A device row count
+    not yet read back gives None rather than a sync."""
+    with _LOCK:
+        parts = _DEVICE_CACHE.get(logical_node)
+        if parts is None:
+            parts = _HOST_CACHE.get(logical_node)
+    if parts is None:
+        return None
+    total = 0
+    for part in parts:
+        for b in part:
+            if not isinstance(b.num_rows, int):
+                return None
+            total += b.num_rows
+    return total
+
+
 class _CachedScanBase(PhysicalExec):
     def __init__(self, logical_node, child: PhysicalExec):
         super().__init__(child)

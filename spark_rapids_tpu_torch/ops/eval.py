@@ -49,8 +49,36 @@ def colv_to_col(cv: ColV) -> ColumnVector:
 def scalar_to_colv(ctx: EvalContext, s: ScalarV, want: DataType) -> ColV:
     if s.dtype is DataType.NULL or s.is_null:
         s = ScalarV(want, None)
+    if want is DataType.STRING:
+        return _string_scalar_col(ctx, s)
     col = broadcast_scalar(ctx, ScalarV(want, s.value))
     return ColV(want, col.data, col.validity)
+
+
+def _string_scalar_col(ctx: EvalContext, s: ScalarV) -> ColV:
+    """A STRING scalar as a column of the batch's rows (reference:
+    eval.py:_scalar_to_colv :87): kernel K7 gathers the one-row source at
+    index 0 into every live lane."""
+    from spark_rapids_tpu_torch.columnar.batch import (
+        bucket_capacity,
+        gather_strings,
+    )
+    from spark_rapids_tpu_torch.columnar.strings import (
+        _literal_bytes,
+        as_view,
+        len_bucket,
+        plan_byte_cap,
+    )
+
+    view = as_view(ctx, s)
+    n = len(_literal_bytes(s))
+    dev = ctx.device
+    offsets = torch.tensor([0, n], dtype=torch.int32, device=dev)
+    idx = torch.zeros(ctx.capacity, dtype=torch.int32, device=dev)
+    offs, data, valid = gather_strings(
+        offsets, view.data, view.validity[:1].contiguous(), idx,
+        ctx.capacity, ctx.row_mask(), bucket_capacity(plan_byte_cap(ctx, s)))
+    return ColV(DataType.STRING, data, valid, offs, len_bucket(n))
 
 
 def device_eval_context(batch: ColumnarBatch, partition_id: int = 0,

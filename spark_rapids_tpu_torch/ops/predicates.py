@@ -35,41 +35,59 @@ def _operands(lv, rv):
 
 
 class BinaryComparison(BinaryExpression):
+    """STRING operands compare through columnar/strings.py (reference:
+    predicates.py:54-94): kernel K8 on the device, the decoded strings on
+    the CPU engine. Null propagation is the template's."""
+
+    op = ""
+
     @property
     def data_type(self):
         return DataType.BOOL
 
     def do_columnar(self, ctx, lv, rv):
-        if self.left.data_type is DataType.STRING and ctx.is_device:
-            raise NotImplementedError("device string comparison (slice 2)")
+        if self.left.data_type is DataType.STRING:
+            from spark_rapids_tpu_torch.columnar import strings as S
+
+            return S.string_compare(ctx, lv, rv, self.op)
         return self._cmp(*_operands(lv, rv))
 
 
 class EqualTo(BinaryComparison):
+    op = "eq"
+
     @staticmethod
     def _cmp(l, r):
         return l == r
 
 
 class LessThan(BinaryComparison):
+    op = "lt"
+
     @staticmethod
     def _cmp(l, r):
         return l < r
 
 
 class LessThanOrEqual(BinaryComparison):
+    op = "le"
+
     @staticmethod
     def _cmp(l, r):
         return l <= r
 
 
 class GreaterThan(BinaryComparison):
+    op = "gt"
+
     @staticmethod
     def _cmp(l, r):
         return l > r
 
 
 class GreaterThanOrEqual(BinaryComparison):
+    op = "ge"
+
     @staticmethod
     def _cmp(l, r):
         return l >= r

@@ -1,6 +1,6 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
-select, withColumn, filter, groupBy/agg (keyed and keyless), orderBy, cache,
-collect, explain).
+select, withColumn, filter, groupBy/agg (keyed and keyless), orderBy, limit,
+join, cache, collect, explain). `crossJoin` waits for the nested-loop join.
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -8,7 +8,7 @@ against the child plan's output.
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 from spark_rapids_tpu_torch.ops.base import (
     Alias,
@@ -141,6 +141,54 @@ class DataFrame:
 
     sort = orderBy
 
+    def limit(self, n: int) -> "DataFrame":
+        """Reference: dataframe.py:187."""
+        return self._with_plan(L.Limit(n, self._plan))
+
+    def join(self, other: "DataFrame",
+             on: Union[str, List[str], Column, None] = None,
+             how: str = "inner") -> "DataFrame":
+        """Reference: dataframe.py:285. `on` is a Column condition (split
+        into equi keys and a residual), a column name or a list of names
+        (USING semantics: the keys appear once); `how` takes Spark's
+        aliases."""
+        jt = L.JoinType.parse(how)
+        left_keys: List[Expression] = []
+        right_keys: List[Expression] = []
+        condition: Optional[Expression] = None
+        if isinstance(on, str):
+            on = [on]
+        if isinstance(on, list):
+            for name in on:
+                left_keys.append(self._resolve_name(name))
+                right_keys.append(other._resolve_name(name))
+        elif isinstance(on, Column):
+            condition = self._resolve_join_condition(on, other)
+            left_keys, right_keys, condition = _extract_equi_keys(
+                condition, self._plan.output, other._plan.output)
+        elif on is not None:
+            raise AnalysisError(f"unsupported join on: {on!r}")
+        elif jt is not L.JoinType.CROSS:
+            raise AnalysisError("join requires 'on' unless how='cross'")
+        plan = L.Join(self._plan, other._plan, jt, left_keys, right_keys,
+                      condition)
+        df = self._with_plan(plan)
+        if isinstance(on, list) and jt in (
+                L.JoinType.INNER, L.JoinType.LEFT_OUTER,
+                L.JoinType.RIGHT_OUTER, L.JoinType.FULL_OUTER):
+            # USING-join semantics: emit the join columns once
+            drop_ids = {a.expr_id for a in right_keys
+                        if isinstance(a, AttributeReference)}
+            keep = [a for a in plan.output if a.expr_id not in drop_ids]
+            df = df._with_plan(L.Project(keep, plan))
+        return df
+
+    def _resolve_join_condition(self, c: Column,
+                                other: "DataFrame") -> Expression:
+        """Reference: dataframe.py:319."""
+        both = list(self._plan.output) + list(other._plan.output)
+        return resolve(c.expr, both)
+
     def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
         keys = [self._resolve(c) for c in cols]
         named = [_auto_alias(k, c if isinstance(c, str) else f"col{i}")
@@ -199,3 +247,44 @@ class GroupedData:
         from spark_rapids_tpu_torch.plan.functions import count as f_count
 
         return self.agg(f_count("*").alias("count"))
+
+
+def _extract_equi_keys(condition: Expression, left_attrs, right_attrs):
+    """Split a join condition into equi-key pairs and a residual condition
+    (reference: dataframe.py:523, the planner's extractEquiJoinKeys)."""
+    from spark_rapids_tpu_torch.ops.predicates import And, EqualTo
+
+    left_ids = {a.expr_id for a in left_attrs}
+    right_ids = {a.expr_id for a in right_attrs}
+
+    def refs(e: Expression):
+        return {n.expr_id for n in e.collect(
+            lambda x: isinstance(x, AttributeReference))}
+
+    conjuncts: List[Expression] = []
+
+    def split(e: Expression):
+        if isinstance(e, And):
+            split(e.left)
+            split(e.right)
+        else:
+            conjuncts.append(e)
+
+    split(condition)
+    lk, rk, residual = [], [], []
+    for c in conjuncts:
+        if isinstance(c, EqualTo):
+            lrefs, rrefs = refs(c.left), refs(c.right)
+            if lrefs <= left_ids and rrefs <= right_ids:
+                lk.append(c.left)
+                rk.append(c.right)
+                continue
+            if lrefs <= right_ids and rrefs <= left_ids:
+                lk.append(c.right)
+                rk.append(c.left)
+                continue
+        residual.append(c)
+    cond: Optional[Expression] = None
+    for r in residual:
+        cond = r if cond is None else And(cond, r)
+    return lk, rk, cond

@@ -1,9 +1,11 @@
 """Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: the nodes of
-slices 1-2 — local relation, cache, project, filter, aggregate, sort)."""
+slices 1-3 — local relation, cache, project, filter, aggregate, sort, join,
+limit)."""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import enum
+from typing import List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch.ops.base import (
     AttributeReference,
@@ -11,6 +13,39 @@ from spark_rapids_tpu_torch.ops.base import (
     SortOrder,
     to_attribute,
 )
+
+
+class JoinType(enum.Enum):
+    """Reference: logical.py:25."""
+
+    INNER = "inner"
+    LEFT_OUTER = "left_outer"
+    RIGHT_OUTER = "right_outer"
+    FULL_OUTER = "full_outer"
+    LEFT_SEMI = "left_semi"
+    LEFT_ANTI = "left_anti"
+    CROSS = "cross"
+
+    @staticmethod
+    def parse(s: str) -> "JoinType":
+        aliases = {
+            "inner": JoinType.INNER,
+            "left": JoinType.LEFT_OUTER, "leftouter": JoinType.LEFT_OUTER,
+            "left_outer": JoinType.LEFT_OUTER,
+            "right": JoinType.RIGHT_OUTER, "rightouter": JoinType.RIGHT_OUTER,
+            "right_outer": JoinType.RIGHT_OUTER,
+            "outer": JoinType.FULL_OUTER, "full": JoinType.FULL_OUTER,
+            "fullouter": JoinType.FULL_OUTER, "full_outer": JoinType.FULL_OUTER,
+            "semi": JoinType.LEFT_SEMI, "leftsemi": JoinType.LEFT_SEMI,
+            "left_semi": JoinType.LEFT_SEMI,
+            "anti": JoinType.LEFT_ANTI, "leftanti": JoinType.LEFT_ANTI,
+            "left_anti": JoinType.LEFT_ANTI,
+            "cross": JoinType.CROSS,
+        }
+        k = s.strip().lower().replace(" ", "")
+        if k not in aliases:
+            raise ValueError(f"unknown join type {s!r}")
+        return aliases[k]
 
 
 class LogicalPlan:
@@ -119,3 +154,64 @@ class CacheRelation(LogicalPlan):
     @property
     def output(self):
         return self.children[0].output
+
+
+def _nullable(attrs: List[AttributeReference]) -> List[AttributeReference]:
+    return [AttributeReference(a.name, a.data_type, True, a.expr_id)
+            for a in attrs]
+
+
+def join_output(join_type: JoinType, left: List[AttributeReference],
+                right: List[AttributeReference]) -> List[AttributeReference]:
+    """A join's output attributes (reference: exec/join.py:77 and
+    logical.py:200): the preserved side keeps its nullability, the other
+    side of an outer join becomes nullable; semi and anti keep the left."""
+    if join_type in (JoinType.LEFT_SEMI, JoinType.LEFT_ANTI):
+        return list(left)
+    if join_type is JoinType.LEFT_OUTER:
+        return list(left) + _nullable(right)
+    if join_type is JoinType.RIGHT_OUTER:
+        return _nullable(left) + list(right)
+    if join_type is JoinType.FULL_OUTER:
+        return _nullable(left) + _nullable(right)
+    return list(left) + list(right)
+
+
+class Join(LogicalPlan):
+    """Reference: logical.py:188."""
+
+    def __init__(self, left: LogicalPlan, right: LogicalPlan,
+                 join_type: JoinType,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 condition: Optional[Expression] = None):
+        super().__init__(left, right)
+        self.join_type = join_type
+        self.left_keys = list(left_keys)
+        self.right_keys = list(right_keys)
+        self.condition = condition
+
+    @property
+    def output(self):
+        left, right = self.children
+        return join_output(self.join_type, left.output, right.output)
+
+    def describe(self):
+        return (f"Join {self.join_type.value} keys="
+                f"{list(zip(self.left_keys, self.right_keys))} "
+                f"cond={self.condition!r}")
+
+
+class Limit(LogicalPlan):
+    """Reference: logical.py:222."""
+
+    def __init__(self, n: int, child: LogicalPlan):
+        super().__init__(child)
+        self.n = n
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def describe(self):
+        return f"Limit {self.n}"

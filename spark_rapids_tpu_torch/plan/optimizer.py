@@ -16,8 +16,10 @@ Aggregate never drop (they change row counts). A node pruned to zero
 columns keeps its narrowest attribute as the row-count carrier.
 
 The rules cover the logical nodes the port has (relation, cache, project,
-filter, sort, aggregate); any other node is left untouched, as the
-reference leaves an unknown node.
+filter, sort, aggregate, limit, join); any other node is left untouched, as
+the reference leaves an unknown node. A join asks both children for what
+its parent needs plus its keys and condition (reference :287), so TPC-H q3
+and q5 upload and exchange only the columns they read.
 """
 
 from __future__ import annotations
@@ -169,3 +171,21 @@ def _aggregate(plan: L.Aggregate, req):
     child_req = _refs(kept) | _refs(plan.grouping)
     return L.Aggregate(plan.grouping, kept,
                        _prune(plan.children[0], child_req))
+
+
+@_rule(L.Limit)
+def _limit(plan: L.Limit, req):
+    return L.Limit(plan.n, _prune(plan.children[0], req))
+
+
+@_rule(L.Join)
+def _join(plan: L.Join, req):
+    needed = None
+    if req is not None:
+        needed = (req | _refs(plan.left_keys) | _refs(plan.right_keys)
+                  | (_refs([plan.condition])
+                     if plan.condition is not None else set()))
+    return L.Join(_prune(plan.children[0], needed),
+                  _prune(plan.children[1], needed),
+                  plan.join_type, plan.left_keys, plan.right_keys,
+                  plan.condition)

@@ -74,12 +74,11 @@ def _tag_agg(m: ExprMeta) -> None:
 
 
 def _tag_string_operands(m: ExprMeta) -> None:
-    """Device string support covers column references, grouping, hashing,
-    sorting and gathers; string comparisons, coalesce and literals wait
-    for the string functions (ROADMAP B12, B15)."""
+    """Device strings cover column references, literals, comparisons (K8),
+    grouping, hashing, sorting, joins and gathers; string coalesce waits
+    for the string functions (ROADMAP B15)."""
     e = m.expr
-    if any(c.data_type is DataType.STRING for c in e.children()) or \
-            (isinstance(e, Literal) and e.data_type is DataType.STRING):
+    if any(c.data_type is DataType.STRING for c in e.children()):
         m.will_not_work(f"device {type(e).__name__} over STRING is not "
                         "ported yet")
 
@@ -89,15 +88,14 @@ def _register_expr_rules():
     r(Alias, "name a result")
     r(AttributeReference, "reference an input column")
     r(BoundReference, "ordinal input reference")
-    r(Literal, "literal value (numeric, boolean, DATE)",
-      tag_fn=_tag_string_operands)
+    r(Literal, "literal value (numeric, boolean, DATE, STRING)")
     r(Cast, "cast between numeric types", tag_fn=_tag_cast)
     for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide, AR.Remainder,
                 AR.Pmod):
         r(cls, f"arithmetic {cls.__name__}")
     for cls in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
                 P.GreaterThanOrEqual, P.And, P.Or, P.Not):
-        r(cls, f"predicate {cls.__name__}", tag_fn=_tag_string_operands)
+        r(cls, f"predicate {cls.__name__}")
     r(N.IsNull, "null-handling IsNull")
     r(N.IsNotNull, "null-handling IsNotNull")
     r(N.Coalesce, "null-handling Coalesce", tag_fn=_tag_string_operands)
@@ -134,6 +132,7 @@ def _register_exec_rules():
         CpuHashAggregateExec,
         TpuHashAggregateExec,
     )
+    from spark_rapids_tpu_torch.exec import join as J
     from spark_rapids_tpu_torch.exec.cache import (
         CpuCachedScanExec,
         TpuCachedScanExec,
@@ -161,6 +160,24 @@ def _register_exec_rules():
     register_exec(
         CpuCachedScanExec, "device-resident in-memory table cache",
         lambda cpu, ch: TpuCachedScanExec(cpu.logical_node, ch[0]))
+    register_exec(
+        B.CpuLocalLimitExec, "per-partition limit",
+        lambda cpu, ch: B.TpuLocalLimitExec(cpu.limit, ch[0]))
+    register_exec(
+        B.CpuGlobalLimitExec, "global limit",
+        lambda cpu, ch: B.TpuGlobalLimitExec(cpu.limit, ch[0]))
+
+    def _convert_join(tpu_cls):
+        return lambda cpu, ch: tpu_cls(
+            cpu.left_keys, cpu.right_keys, cpu.join_type, cpu.condition,
+            ch[0], ch[1])
+
+    register_exec(
+        J.CpuShuffledHashJoinExec, "shuffled hash equi-join (K9-K11)",
+        _convert_join(J.TpuShuffledHashJoinExec))
+    register_exec(
+        J.CpuBroadcastHashJoinExec, "broadcast hash equi-join (K9-K11)",
+        _convert_join(J.TpuBroadcastHashJoinExec))
 
 
 def _expr_rule_for(e: Expression) -> Optional[ExprRule]:

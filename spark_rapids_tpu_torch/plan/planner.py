@@ -1,17 +1,22 @@
 """Logical -> CPU physical planning (port of spark_rapids_tpu/plan/planner.py:
-the LocalRelation :52, Project :63, Filter :146, cache, Aggregate
-:192-247 and Sort :273 planners).
+the LocalRelation :52, Project :63, Filter :146, Limit :157, cache,
+Aggregate :192-247, Sort :273 and Join :338-416 planners).
 
 The CPU plan is the oracle engine; TpuOverrides (plan/overrides.py) then
 replaces the supported nodes with device execs, as the reference replaces
 Spark execs with Gpu execs. An aggregate plans as partial aggregate ->
 hash exchange on the grouping keys (one partition without keys) -> final
 aggregate. A global sort plans as range exchange -> per-partition sort.
+A limit plans as local limit -> coalesce to one partition -> global limit.
+An equi-join plans as a broadcast hash join when the build side's estimated
+bytes fit autoBroadcastJoinThreshold (an INNER join may swap its sides for
+that), else as a shuffled hash join over two hash exchanges; non-equi and
+cross joins wait for the nested-loop join and raise.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Type
+from typing import Callable, Dict, List, Optional, Type
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.exec import basic as B
@@ -107,3 +112,106 @@ def _plan_sort(plan: L.Sort, conf: C.TpuConf) -> PhysicalExec:
         child = CpuShuffleExchangeExec(
             RangePartitioning(plan.orders, conf.shuffle_partitions), child)
     return CpuSortExec(plan.orders, child)
+
+
+@register_planner(L.Limit)
+def _plan_limit(plan: L.Limit, conf: C.TpuConf) -> PhysicalExec:
+    (child,) = _plan_children(plan, conf)
+    local = B.CpuLocalLimitExec(plan.n, child)
+    merged = B.CoalescePartitionsExec(1, local)
+    return B.CpuGlobalLimitExec(plan.n, merged)
+
+
+def _estimate_rows(plan: L.LogicalPlan) -> Optional[int]:
+    """Upper-bound row estimate for the broadcast decision, or None
+    (reference: planner.py:289). Cached relations count exactly once
+    materialised; an equi-join's output is not bounded by its inputs (an
+    m:n key reaches l * r), so it estimates unknown and the runtime probe
+    decides on the materialised bytes instead."""
+    if isinstance(plan, L.LocalRelation):
+        return sum(b.num_rows for part in plan.partitions for b in part)
+    if isinstance(plan, L.Limit):
+        child = _estimate_rows(plan.children[0])
+        return plan.n if child is None else min(plan.n, child)
+    if isinstance(plan, (L.Project, L.Filter, L.Sort, L.Aggregate)):
+        return _estimate_rows(plan.children[0])
+    if isinstance(plan, L.CacheRelation):
+        from spark_rapids_tpu_torch.exec.cache import cached_row_count
+
+        n = cached_row_count(plan)
+        return n if n is not None else _estimate_rows(plan.children[0])
+    if isinstance(plan, L.Join) and plan.join_type in (
+            L.JoinType.LEFT_SEMI, L.JoinType.LEFT_ANTI):
+        # filtering joins never emit more than their left input
+        return _estimate_rows(plan.children[0])
+    return None
+
+
+@register_planner(L.Join)
+def _plan_join(plan: L.Join, conf: C.TpuConf) -> PhysicalExec:
+    from spark_rapids_tpu_torch.columnar.dtypes import common_type
+    from spark_rapids_tpu_torch.exec.join import (
+        CpuBroadcastHashJoinExec,
+        CpuShuffledHashJoinExec,
+    )
+    from spark_rapids_tpu_torch.ops.cast import Cast
+    from spark_rapids_tpu_torch.shuffle.exchange import (
+        CpuShuffleExchangeExec,
+        HashPartitioning,
+    )
+
+    left, right = _plan_children(plan, conf)
+    jt = plan.join_type
+    if jt is L.JoinType.CROSS or not plan.left_keys:
+        raise NotImplementedError(
+            f"{jt.value} join without equi keys needs the nested-loop join, "
+            "which is not ported yet")
+    if plan.condition is not None and jt is not L.JoinType.INNER:
+        raise NotImplementedError(
+            f"{jt.value} join with a non-equi residual condition")
+
+    # co-partitioning and key equality need both key lists in one type
+    left_keys, right_keys = [], []
+    for lk, rk in zip(plan.left_keys, plan.right_keys):
+        if lk.data_type != rk.data_type:
+            ct = common_type(lk.data_type, rk.data_type)
+            if ct is None:
+                raise NotImplementedError(
+                    f"join keys of types {lk.data_type}/{rk.data_type}")
+            lk = lk if lk.data_type == ct else Cast(lk, ct)
+            rk = rk if rk.data_type == ct else Cast(rk, ct)
+        left_keys.append(lk)
+        right_keys.append(rk)
+
+    def est_bytes_of(side: L.LogicalPlan) -> Optional[int]:
+        est = _estimate_rows(side)
+        if est is None:
+            return None
+        return est * max(1, sum(a.data_type.itemsize for a in side.output))
+
+    # the build side is the right (the left for a right outer join); a full
+    # outer join never broadcasts (its unmatched-build tail would repeat)
+    build_is_left = jt is L.JoinType.RIGHT_OUTER
+    threshold = conf.get(C.BROADCAST_THRESHOLD)
+    est_bytes = est_bytes_of(plan.children[0] if build_is_left
+                             else plan.children[1])
+    if jt is not L.JoinType.FULL_OUTER and est_bytes is not None and \
+            est_bytes <= threshold:
+        return CpuBroadcastHashJoinExec(left_keys, right_keys, jt,
+                                        plan.condition, left, right)
+    if jt is L.JoinType.INNER:
+        # an INNER join can build on either side: when the right is too big
+        # but the left fits, swap the children and broadcast, then restore
+        # the column order with a projection (the static form of the
+        # runtime probe's swap)
+        left_bytes = est_bytes_of(plan.children[0])
+        if left_bytes is not None and left_bytes <= threshold:
+            swapped = CpuBroadcastHashJoinExec(
+                right_keys, left_keys, jt, plan.condition, right, left)
+            return B.CpuProjectExec(list(left.output) + list(right.output),
+                                    swapped)
+    n = conf.shuffle_partitions
+    left_ex = CpuShuffleExchangeExec(HashPartitioning(left_keys, n), left)
+    right_ex = CpuShuffleExchangeExec(HashPartitioning(right_keys, n), right)
+    return CpuShuffledHashJoinExec(left_keys, right_keys, jt,
+                                   plan.condition, left_ex, right_ex)

@@ -117,6 +117,20 @@ class _ExchangeBase(PhysicalExec):
     def __init__(self, partitioning: Partitioning, child: PhysicalExec):
         super().__init__(child)
         self.partitioning = partitioning
+        self._pre_pb: Optional[PartitionedBatches] = None
+
+    def set_pre_executed(self, pb: PartitionedBatches) -> None:
+        """Hand this exchange its already materialised input: a join's
+        runtime broadcast probe ran the child (reference: exchange.py:164)."""
+        self._pre_pb = pb
+
+    def _child_pb(self, ctx: ExecContext) -> PartitionedBatches:
+        """The exchange's input: a pre-executed one exactly once, else the
+        child's execution, so the child never runs twice."""
+        if self._pre_pb is not None:
+            pb, self._pre_pb = self._pre_pb, None
+            return pb
+        return self.children[0].execute(ctx)
 
     @property
     def output(self) -> List[AttributeReference]:
@@ -145,7 +159,7 @@ class _ExchangeBase(PhysicalExec):
     def _materialize(self, ctx: ExecContext, map_fn) -> PartitionedBatches:
         """Run the map side over every child partition; regroup its pieces
         into reduce buckets in map order."""
-        child_pb = self.children[0].execute(ctx)
+        child_pb = self._child_pb(ctx)
         n_out = self.partitioning.num_partitions
         buckets: List[List[Any]] = [[] for _ in range(n_out)]
         for pidx in range(child_pb.num_partitions):
@@ -339,7 +353,7 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
                        p: RangePartitioning) -> PartitionedBatches:
         """Reference: exchange.py:680 — python order keys, sampled bounds,
         a bisect per row."""
-        child_pb = self.children[0].execute(ctx)
+        child_pb = self._child_pb(ctx)
         bound = bind_all([o.child for o in p.orders], self.children[0].output)
         n = p.num_partitions
         staged = []
@@ -403,6 +417,15 @@ def _device_slices_lazy(batch: ColumnarBatch, ids, counts, n: int):
     live mask; no gather, no count read."""
     return [(t, ColumnarBatch(batch.columns, counts[t], live=ids == t))
             for t in range(n)]
+
+
+def _piece_bytes(piece) -> int:
+    """Device or host bytes of one batch (reference: exchange.py:348); a
+    zero-copy live-masked view counts 0 (its source is counted where it is
+    owned)."""
+    if isinstance(piece, ColumnarBatch):
+        return 0 if piece.live is not None else piece.device_memory_size()
+    return piece.estimated_size_bytes()
 
 
 class _RoutedSlice:
@@ -535,7 +558,7 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
         and route them with K4."""
         p = self.partitioning
         n = p.num_partitions
-        child_pb = self.children[0].execute(ctx)
+        child_pb = self._child_pb(ctx)
         bound = bind_all([o.child for o in p.orders],
                          self.children[0].output)
         staged = []

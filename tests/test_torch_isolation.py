@@ -1,6 +1,6 @@
-"""The port stands alone: importing it, and running TPC-H q1 through its own
-generator on the CPU, loads no JAX and nothing of the JAX package, and its
-default device is the card (no silent CPU fallback)."""
+"""The port stands alone: importing it, and running TPC-H q1, q3 and q5
+through its own generator on the CPU, loads no JAX and nothing of the JAX
+package, and its default device is the card (no silent CPU fallback)."""
 
 import os
 import subprocess
@@ -18,8 +18,11 @@ import spark_rapids_tpu_torch.columnar.interop
 from spark_rapids_tpu_torch.benchmarks import tpch
 cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True},
                       device="cpu")
-rows = tpch.q1(tpch.gen_tables(cpu, sf=0.0005, num_partitions=2)).collect()
+tables = tpch.gen_tables(cpu, sf=0.0005, num_partitions=2)
+rows = tpch.q1(tables).collect()
 assert len(rows) == 6, rows
+assert len(tpch.q3(tables).collect()) == 10
+assert tpch.q5(tables).collect()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))

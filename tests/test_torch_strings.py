@@ -219,3 +219,134 @@ def test_sort_direction_words_match_reference(directions, order, num_rows):
     want = np.asarray(RRK.sort_permutation(rprox, dirs, num_rows, 64))
     got = PRK.sort_permutation(pprox, dirs, num_rows, 64)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# ---------------------------------------------------------------------------
+# K8 string comparison and the host conversion's trailing NULs
+# ---------------------------------------------------------------------------
+CMP_VALUES = ["", None, "a", "ab", "abc", "abcdefgh", "abcdefghi",
+              "abcdefghij1", "abcdefghij2", "abcdefghijklmnopq",
+              "abcdefghijklmnopr", "é", "e", "\x7f", "ÿ", "日本", "日",
+              "BUILDING", "BUILDINGS", "BUILD", "a\x00", "ASIA", "AS"]
+CMP_LITERALS = ["", "ab", "abcdefghi", "abcdefghij2", "é", "BUILDING",
+                "a\x00", None]
+
+
+def _cmp_columns(values):
+    """(reference ColV, port ColV, validity, capacity) of one column."""
+    rcol, pcol, _ = _columns(values)
+    return rcol, pcol, np.array([v is not None for v in values]), \
+        int(pcol.validity.shape[0])
+
+
+def _ref_cmp(rcol, other, op, cap, n):
+    from spark_rapids_tpu.columnar import strings as RS
+    from spark_rapids_tpu.ops.values import EvalContext as REvalContext
+    import jax.numpy as jnp
+
+    ctx = REvalContext(jnp, True, [rcol], n, cap)
+    if op == "eq":
+        return np.asarray(RS.string_equal(ctx, rcol, other))
+    return np.asarray(RS.string_compare(ctx, rcol, other, op))
+
+
+def _port_cmp(pcol, other, op, cap, n):
+    from spark_rapids_tpu_torch.columnar import strings as PS
+    from spark_rapids_tpu_torch.ops.values import EvalContext as PEvalContext
+
+    ctx = PEvalContext(True, [pcol], n, cap, device=torch.device("cpu"))
+    return PS.string_compare(ctx, pcol, other, op).numpy()
+
+
+@pytest.mark.parametrize("op", ["eq", "lt", "le", "gt", "ge"])
+def test_k8_column_vs_literal_matches_reference(op):
+    from spark_rapids_tpu.ops.values import ScalarV as RScalarV
+    from spark_rapids_tpu_torch.ops.values import ScalarV as PScalarV
+
+    values = CMP_VALUES + _strings(100, 17, max_len=20)
+    rcol, pcol, valid, cap = _cmp_columns(values)
+    n = len(values)
+    for lit in CMP_LITERALS:
+        want = _ref_cmp(rcol, RScalarV(RDT.STRING, lit), op, cap, n)
+        got = _port_cmp(pcol, PScalarV(PDT.STRING, lit), op, cap, n)
+        both = np.zeros(cap, dtype=bool)
+        both[:n] = valid & (lit is not None)
+        np.testing.assert_array_equal(got, np.where(both, want, False),
+                                      err_msg=f"{op} {lit!r}")
+
+
+@pytest.mark.parametrize("op", ["eq", "lt", "le", "gt", "ge"])
+def test_k8_column_vs_column_matches_reference(op):
+    values = CMP_VALUES + _strings(90, 23, max_len=20)
+    rng = np.random.default_rng(3)
+    other = [values[i] for i in rng.permutation(len(values))]
+    # equal pairs and pairs that differ only late
+    other[:len(CMP_VALUES)] = CMP_VALUES[::-1]
+    other[5] = values[5]
+    rl, pl, lvalid, cap = _cmp_columns(values)
+    rr, pr, rvalid, _ = _cmp_columns(other)
+    n = len(values)
+    want = _ref_cmp(rl, rr, op, cap, n)
+    got = _port_cmp(pl, pr, op, cap, n)
+    both = np.zeros(cap, dtype=bool)
+    both[:n] = lvalid & rvalid
+    np.testing.assert_array_equal(got, np.where(both, want, False))
+
+
+NUL_VALUES = ["a\x00", "\x00", "é\x00\x00", "x\x00y", "plain", None, ""]
+
+
+def test_trailing_nul_survives_host_conversion():
+    """Strings ending in NUL keep it through upload and download, and their
+    K5 words (plain) equal the reference's on its own upload."""
+    import spark_rapids_tpu as ref_srt
+    import spark_rapids_tpu_torch as port_srt
+
+    rows = [(i, v) for i, v in enumerate(NUL_VALUES)]
+    schema = [("i", "long"), ("s", "string")]
+    port = port_srt.new_session(device="cpu")
+    got = port.createDataFrame(rows, schema, num_partitions=2).collect()
+    ref = ref_srt.new_session()
+    try:
+        want = ref.createDataFrame(rows, schema).collect()
+    finally:
+        ref.stop()
+    assert sorted(got, key=lambda r: r[0]) == rows == want
+    rcol, pcol, _ = _columns(NUL_VALUES)
+    want = [np.asarray(w).astype(np.int64) for w in
+            RH._string_words_device(rcol)]
+    got_words = PH.string_hash_words(pcol.offsets, pcol.data, pcol.validity)
+    for w, g in zip(want, got_words):
+        np.testing.assert_array_equal(g.numpy(), w)
+    assert int(pcol.offsets[1]) == 2 and int(pcol.offsets[3] -
+                                             pcol.offsets[2]) == 4
+
+
+def test_string_literal_filter_and_projection_match_reference():
+    """A STRING literal compared on the device (K8) and projected as a
+    column (K7 gathers it into every row), against the reference's CPU
+    engine."""
+    import spark_rapids_tpu as ref_srt
+    import spark_rapids_tpu_torch as port_srt
+    from spark_rapids_tpu.plan import functions as RF
+    from spark_rapids_tpu_torch.plan import functions as PF
+
+    rows = [(i, v) for i, v in enumerate(CMP_VALUES * 3)]
+    schema = [("i", "long"), ("s", "string")]
+    out = []
+    ref = ref_srt.new_session()
+    ref.conf.set("rapids.tpu.sql.enabled", False)
+    port = port_srt.new_session({"rapids.tpu.sql.test.enabled": True},
+                                device="cpu")
+    try:
+        for sess, F in ((ref, RF), (port, PF)):
+            df = sess.createDataFrame(rows, schema, num_partitions=2)
+            out.append(df.filter((F.col("s") >= F.lit("ab")) |
+                                 (F.col("s") == F.lit("")))
+                       .select("i", "s", F.lit("tag é").alias("t"))
+                       .collect())
+    finally:
+        ref.stop()
+    want, got = out
+    assert len(got) > 10 and all(r[2] == "tag é" for r in got)
+    assert sorted(got) == sorted(want)

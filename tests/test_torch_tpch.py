@@ -1,4 +1,4 @@
-"""TPC-H q1 and q6 through the port (on the CPU) against the JAX package.
+"""TPC-H q1, q6, q3 and q5 through the port (on the CPU) against the JAX package.
 
 Both packages generate the tables with their own `gen_tables` from the same
 seed (the port's draws are the reference's, so the rows are the same) and
@@ -13,7 +13,12 @@ partitions 1/2/4 x shuffle partitions 1/8, an all-device port plan, a
 filter that keeps nothing, NULL and empty strings in the group and sort
 keys, ORDER BY DESC with NULLS LAST, a filter and sort over strings
 without an aggregate, the exchange's routed tier, and the port's own CPU
-engine (rapids.tpu.sql.enabled=false) on q1 and q6.
+engine (rapids.tpu.sql.enabled=false) on q1 and q6. q3 and q5 (joins,
+string filters, LIMIT) match the reference row for row, in order, with
+their default plans (against the reference's device path) and with every
+join shuffled (against its CPU engine), on an all-device port plan; a
+filter that keeps nothing gives no rows, and LIMIT 0, 1 and more than the
+row count match too.
 """
 
 import numpy as np
@@ -221,4 +226,76 @@ def test_q1_other_tiers_match_reference(ref_session, port_session,
 
     want, got = _both(ref_session, port_session, tables, "q1")
     assert_rows_equal(want, got, approx_float=APPROX)
+    assert_port_plan_on_device(port_session)
+
+
+JOIN_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
+                 "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled":
+                 True}
+JOIN_SETTINGS = {
+    "default": {},
+    "all_shuffled": {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
+                     "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled":
+                     False},
+}
+
+
+def _all_tables(sess, mod, sf=0.002, seed=7):
+    return {k: v.cache() for k, v in
+            mod.gen_tables(sess, sf=sf, num_partitions=4, seed=seed).items()}
+
+
+@pytest.mark.parametrize("setting", sorted(JOIN_SETTINGS))
+def test_q3_q5_match_reference(ref_session, ref_cpu_session, port_session,
+                               setting):
+    ref = ref_session if setting == "default" else ref_cpu_session
+    for sess in (ref, port_session):
+        for k, v in JOIN_SETTINGS[setting].items():
+            sess.conf.set(k, v)
+    try:
+        for query, n_rows in (("q3", 10), ("q5", None)):
+            want, got = _both(ref, port_session, _all_tables, query, 8)
+            assert len(got) == (n_rows or len(want)) and got
+            assert_rows_equal(want, got, approx_float=APPROX)
+            assert_port_plan_on_device(port_session)
+            joins = port_session.last_physical_plan.collect_nodes(
+                lambda n: type(n).__name__.endswith("HashJoinExec"))
+            assert len(joins) == (2 if query == "q3" else 5)
+            if setting == "all_shuffled":
+                assert all(type(j).__name__ == "TpuShuffledHashJoinExec"
+                           for j in joins)
+    finally:
+        for k in JOIN_SETTINGS[setting]:
+            ref.conf.set(k, JOIN_DEFAULTS[k])
+
+
+def test_q3_q5_filters_keep_nothing(ref_cpu_session, port_session):
+    """No lineitem after the q3 ship date, no ASIA region: no rows."""
+    def tables(sess, mod):
+        t = _all_tables(sess, mod, sf=0.001, seed=2)
+        li, r = t["lineitem"], t["region"]
+        t["lineitem"] = li.filter(li["l_shipdate"] <= mod.date_lit(
+            "1995-03-15"))
+        t["region"] = r.filter(r["r_regionkey"] != 2)
+        return t
+
+    for query in ("q3", "q5"):
+        want, got = _both(ref_cpu_session, port_session, tables, query)
+        assert got == want == []
+        assert_port_plan_on_device(port_session)
+
+
+@pytest.mark.parametrize("n", [0, 1, 10_000])
+def test_limit_matches_reference(ref_cpu_session, port_session, n):
+    rows = _rows(200, 21, ["A", "N", None, "é"])
+    out = []
+    for sess, F in ((ref_cpu_session, RF), (port_session, PF)):
+        df = _lineitem(sess, rows)
+        out.append(df.orderBy(F.col("l_extendedprice").desc(),
+                              "l_quantity").select(
+            "l_returnflag", "l_extendedprice", "l_quantity").limit(n)
+            .collect())
+    want, got = out
+    assert len(got) == min(n, 200)
+    assert_rows_equal(want, got)
     assert_port_plan_on_device(port_session)
