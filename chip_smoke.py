@@ -49,12 +49,29 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    of itself, and K9-K11 (join_build, join_probe, join_expand) at the
    shape of q5's s_suppkey = l_suppkey (2^23 build rows, keys in [0, 2^21),
    2^22 stream rows, half of their keys present) and a skewed stream (1%
-   of its rows on one key), against their plain versions.
+   of its rows on one key), against their plain versions. Phase 3 holds
+   K12 (string_search) and K13 (substring_plan) too: on corner cases (an
+   empty needle, a needle longer than the row, a match on the last byte,
+   self-overlapping partial matches, bytes >= 0x80 and NUL, a match that
+   would cross rows, NULL rows; SUBSTRING with negative, zero and per-row
+   positions and lengths, a wrapping length, rows that start with a UTF-8
+   continuation byte), K12 at 15M rows shaped like o_comment in every mode
+   and K13 at 2^24 rows shaped like c_phone, bit for bit;
+6. TPC-H q2, q4 and q7-q22 over the same cached SF 10 tables (2,000,000
+   parts, 8,000,000 partsupp rows), one cold and 3 warm runs each, every
+   plan asserted all on the device, the log stating how each join ran
+   (broadcast, shuffled, demoted by the runtime probe, nested loop);
+   q12, q13, q14 and q22 are checked against a direct numpy computation
+   over the generated columns (keys and counts exact, DOUBLE within a
+   relative 1e-9, rows in ORDER BY order), the others' warm rows against
+   their cold run; then all 22 queries at SF 0.1 on the card against the
+   port's own numpy CPU engine (rapids.tpu.sql.enabled=false: the same
+   planner, none of the device kernels), rows in order.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
-tpch_q5, tpch_q5_shuffled); every kernel of a path must have launched in
-that path's own run. In the kernels
+tpch_q5, tpch_q5_shuffled, and tpch_q2 ... tpch_q22 of phase 6); every
+kernel of a path must have launched in that path's own run. In the kernels
 line, "launches" is the count of the kernel's own path ("path") and
 "launches_by_path" holds every run's counts.
 
@@ -122,6 +139,12 @@ KERNELS = {
     "join_expand": (
         "spark_rapids_tpu_torch/csrc/hash_join.cu",
         "spark_rapids_tpu/exec/join.py:554", "tpch_q5"),
+    "string_search": (
+        "spark_rapids_tpu_torch/csrc/string_search.cu",
+        "spark_rapids_tpu/columnar/strings.py:377", "tpch_q13"),
+    "substring_plan": (
+        "spark_rapids_tpu_torch/csrc/substring.cu",
+        "spark_rapids_tpu/columnar/strings.py:284", "tpch_q22"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -130,6 +153,9 @@ _Q1 = _GROUP_BY + ("string_hash_words", "string_order_words",
 _Q3 = _GROUP_BY + ("string_compare", "join_build", "join_probe",
                    "join_expand")
 _Q5 = _Q3 + ("string_hash_words", "gather_strings")
+_JOIN = ("join_build", "join_probe", "join_expand")
+_KEYED_JOIN = _GROUP_BY + _JOIN
+_STR_KEYS = ("string_hash_words", "gather_strings")
 # the kernels each path must launch
 PATH_KERNELS = {
     "flagship": _GROUP_BY,
@@ -140,6 +166,26 @@ PATH_KERNELS = {
     "tpch_q3": _Q3,
     "tpch_q5": _Q5,
     "tpch_q5_shuffled": _Q5 + ("route_plan",),
+    "tpch_q2": _KEYED_JOIN + ("string_search", "string_compare"),
+    "tpch_q4": _KEYED_JOIN + _STR_KEYS,
+    "tpch_q7": _KEYED_JOIN + _STR_KEYS + ("string_compare",),
+    "tpch_q8": _KEYED_JOIN + ("string_compare",),
+    "tpch_q9": _KEYED_JOIN + _STR_KEYS + ("string_search",),
+    "tpch_q10": _KEYED_JOIN + _STR_KEYS + ("string_compare",),
+    "tpch_q11": _KEYED_JOIN + ("string_compare",),
+    "tpch_q12": _KEYED_JOIN + _STR_KEYS + ("string_compare",),
+    "tpch_q13": _KEYED_JOIN + ("string_search",),
+    "tpch_q14": _JOIN + ("segment_reduce", "string_search"),
+    "tpch_q15": _KEYED_JOIN,
+    "tpch_q16": _KEYED_JOIN + _STR_KEYS + ("string_search",
+                                           "string_compare"),
+    "tpch_q17": _KEYED_JOIN + ("string_compare",),
+    "tpch_q18": _KEYED_JOIN + _STR_KEYS,
+    "tpch_q19": _JOIN + ("segment_reduce", "string_compare"),
+    "tpch_q20": _KEYED_JOIN + ("string_search", "string_compare"),
+    "tpch_q21": _KEYED_JOIN + _STR_KEYS + ("string_compare",),
+    "tpch_q22": _KEYED_JOIN + _STR_KEYS + ("substring_plan",
+                                           "string_compare"),
 }
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
@@ -436,6 +482,9 @@ def check_rows(got, want, what: str) -> float:
 
 
 def run_query(sess, q, want, what: str, warm_reps: int):
+    """One cold and warm_reps warm runs, the plan asserted on the device;
+    every run's rows against `want`, or (want None) the warm runs' against
+    the cold run's."""
     import torch
 
     torch.cuda.synchronize()
@@ -444,6 +493,8 @@ def run_query(sess, q, want, what: str, warm_reps: int):
     torch.cuda.synchronize()
     cold = time.perf_counter() - t
     assert_on_device(sess)
+    if want is None:
+        want = rows
     worst = check_rows(rows, want, what)
     warm = []
     for _ in range(warm_reps):
@@ -569,7 +620,9 @@ def join_strategies(sess) -> list:
     out = []
     for j in sess.last_physical_plan.collect_nodes(
             lambda x: isinstance(x, J._JoinBase)):
-        if isinstance(j, J.TpuBroadcastHashJoinExec):
+        if isinstance(j, J.TpuNestedLoopJoinExec):
+            ran = "nested loop (cross)"
+        elif isinstance(j, J.TpuBroadcastHashJoinExec):
             ran = "broadcast"
         elif j.metrics[J.RUNTIME_BROADCASTS]:
             ran = "shuffled->broadcast (runtime probe"
@@ -635,6 +688,233 @@ def run_joins(sess, raw, tables, li: dict, launches: dict,
         for name, query in (("tpch_q3", tpch.q3), ("tpch_q5", tpch.q5)):
             out[name]["profile"] = profile_query(query(tables), profile_dir,
                                                  name)
+    return out
+
+
+# ------------------------------------------------- phase 6 (slice 4)
+NEW_QUERIES = ("q2", "q4", "q7", "q8", "q9", "q10", "q11", "q12", "q13",
+               "q14", "q15", "q16", "q17", "q18", "q19", "q20", "q21", "q22")
+# the tables each query reads (rows per second counts all of their rows)
+QUERY_TABLES = {
+    "q2": "part partsupp supplier nation region", "q4": "orders lineitem",
+    "q7": "lineitem orders customer supplier nation",
+    "q8": "lineitem orders customer supplier part nation region",
+    "q9": "lineitem orders supplier part partsupp nation",
+    "q10": "customer orders lineitem nation",
+    "q11": "partsupp supplier nation", "q12": "orders lineitem",
+    "q13": "customer orders", "q14": "lineitem part",
+    "q15": "lineitem supplier", "q16": "partsupp part supplier",
+    "q17": "lineitem part", "q18": "customer orders lineitem",
+    "q19": "lineitem part", "q20": "lineitem part partsupp supplier nation",
+    "q21": "lineitem orders supplier nation", "q22": "customer orders"}
+SMALL_SF = 0.1
+
+
+def pool_index(df, name: str, pool) -> "object":
+    """Per row of a generated STRING column whose values all come from
+    `pool`: the value's index in the pool, from its UTF-8 bytes (length
+    and first five bytes, which tell each pool's values apart)."""
+    import numpy as np
+
+    def key_of(lens, first):
+        key = lens.astype(np.int64) << 40
+        for j, b in enumerate(first):
+            key |= b.astype(np.int64) << (8 * (4 - j))
+        return key
+
+    enc = [v.encode() for v in pool]
+    pool_keys = key_of(np.array([len(b) for b in enc]),
+                       [np.array([b[j] if j < len(b) else 0 for b in enc])
+                        for j in range(5)])
+    order = np.argsort(pool_keys)
+    sorted_keys = pool_keys[order]
+    check(len(np.unique(pool_keys)) == len(pool), f"{name}: pool keys clash")
+    col = [a.name for a in df.schema].index(name)
+    out = []
+    for part in df._plan.partitions:
+        for b in part:
+            offs, raw = b.columns[col].utf8()
+            offs = offs.astype(np.int64)
+            lens = np.diff(offs)
+            first = [np.where(j < lens, raw[np.minimum(
+                offs[:-1] + j, max(len(raw) - 1, 0))], 0) for j in range(5)]
+            key = key_of(lens, first)
+            at = np.minimum(np.searchsorted(sorted_keys, key), len(pool) - 1)
+            check(bool((sorted_keys[at] == key).all()),
+                  f"{name}: a value outside the pool")
+            out.append(order[at])
+    return np.concatenate(out)
+
+
+def numpy_q12(li: dict, shipmode, priority):
+    """q12 by numpy: orders are indexed by their keys, so the join is a
+    lookup; counts per ship mode of high (1-URGENT, 2-HIGH) and low
+    priority lines."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import (
+        _PRIORITIES,
+        _SHIPMODES,
+        _days,
+    )
+
+    modes = [_SHIPMODES.index("MAIL"), _SHIPMODES.index("SHIP")]
+    rd, cd = li["l_receiptdate"], li["l_commitdate"]
+    m = np.isin(shipmode, modes) & (cd < rd) & (li["l_shipdate"] < cd) & \
+        (rd >= _days("1994-01-01")) & (rd < _days("1995-01-01"))
+    high = np.isin(priority[li["l_orderkey"][m]],
+                   [_PRIORITIES.index("1-URGENT"),
+                    _PRIORITIES.index("2-HIGH")])
+    sm = shipmode[m]
+    rows = []
+    for k in sorted(np.unique(sm), key=lambda i: _SHIPMODES[i]):
+        sel = sm == k
+        rows.append((_SHIPMODES[k], int(high[sel].sum()),
+                     int((~high[sel]).sum())))
+    return rows
+
+
+def numpy_q13(o: dict, n_cust: int, comment):
+    """q13 by numpy: orders per customer without 'special' and 'requests'
+    in the comment (0 for none: the left join), then customers per count,
+    by count of customers and count, both descending."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import _O_COMMENTS
+
+    bad = [i for i, v in enumerate(_O_COMMENTS)
+           if "special" in v and "requests" in v]
+    keep = ~np.isin(comment, bad)
+    cnt = np.bincount(o["o_custkey"][keep], minlength=n_cust)
+    dist = np.bincount(cnt)
+    keys = np.nonzero(dist)[0]
+    keys = keys[np.lexsort((-keys, -dist[keys]))]
+    return [(int(k), int(dist[k])) for k in keys]
+
+
+def numpy_q14(li: dict, p_type):
+    """q14 by numpy: parts are indexed by their keys; the PROMO share of
+    one month's revenue."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpch import _TYPES, _days
+
+    d = li["l_shipdate"]
+    m = (d >= _days("1995-09-01")) & (d < _days("1995-10-01"))
+    vol = li["l_extendedprice"][m] * (1.0 - li["l_discount"][m])
+    promo = np.array([t.startswith("PROMO") for t in _TYPES])[
+        p_type[li["l_partkey"][m]]]
+    return [(100.0 * float(np.sum(np.where(promo, vol, 0.0))) /
+             float(np.sum(vol)),)]
+
+
+def numpy_q22(c: dict, o: dict):
+    """q22 by numpy: customers of seven country codes (the phone's first
+    two characters) with a balance above those codes' average positive
+    balance and no order; count and balance per code."""
+    import numpy as np
+
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cc = np.array([p[:2] for p in c["c_phone"]], dtype=object)
+    sel = np.isin(cc, codes)
+    bal = c["c_acctbal"]
+    pos = sel & (bal > 0.0)
+    avg = float(np.sum(bal[pos])) / int(pos.sum())
+    has_order = np.bincount(o["o_custkey"],
+                            minlength=len(c["c_custkey"])) > 0
+    keep = sel & (bal > avg) & ~has_order
+    rows = []
+    for code in sorted(set(cc[keep])):
+        m = keep & (cc == code)
+        rows.append((code, int(m.sum()), float(np.sum(bal[m]))))
+    return rows
+
+
+def run_queries(sess, raw, tables, li: dict, launches: dict,
+                profile_dir=None) -> dict:
+    """Phase 6: the other 18 queries over phase 4's cached SF 10 tables,
+    one cold and 3 warm runs each; q12, q13, q14 and q22 against numpy."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    o = table_columns(raw["orders"], ("o_orderkey", "o_custkey"))
+    c = table_columns(raw["customer"], ("c_custkey", "c_acctbal",
+                                        "c_phone"))
+    p = table_columns(raw["part"], ("p_partkey",))
+    for keys in (o["o_orderkey"], c["c_custkey"], p["p_partkey"]):
+        check(np.array_equal(keys, np.arange(len(keys))),
+              "phase 6 reference: primary keys are not arange")
+    want = {
+        "q12": numpy_q12(li, pool_index(raw["lineitem"], "l_shipmode",
+                                        tpch._SHIPMODES),
+                         pool_index(raw["orders"], "o_orderpriority",
+                                    tpch._PRIORITIES)),
+        "q13": numpy_q13(o, len(c["c_custkey"]),
+                         pool_index(raw["orders"], "o_comment",
+                                    tpch._O_COMMENTS)),
+        "q14": numpy_q14(li, pool_index(raw["part"], "p_type",
+                                        tpch._TYPES)),
+        "q22": numpy_q22(c, o)}
+    log(f"phase 6: numpy references of {sorted(want)} ready")
+    table_rows = {k: sum(b.num_rows for part in v._plan.partitions
+                         for b in part) for k, v in raw.items()}
+    out = {"table_rows": table_rows}
+    for q in NEW_QUERIES:
+        name = f"tpch_{q}"
+        CB.reset_launch_counts()
+        out[name] = run_query(sess, tpch.QUERIES[q](tables), want.get(q),
+                              name, 3)
+        launches[name] = CB.launch_counts()
+        joins = join_strategies(sess)
+        out[name]["joins"] = joins
+        log(f"{name} joins: {joins}")
+        rows_in = sum(table_rows[t] for t in QUERY_TABLES[q].split())
+        out[name]["input_rows"] = rows_in
+        out[name]["rows_per_s"] = rows_in / out[name]["warm_median_s"]
+        out[name]["checked_against"] = "numpy" if q in want else \
+            "its own cold run"
+    if profile_dir:
+        slow = sorted(NEW_QUERIES, key=lambda q: -out[f"tpch_{q}"][
+            "warm_median_s"])[:2]
+        for q in slow:
+            out[f"tpch_{q}"]["profile"] = profile_query(
+                tpch.QUERIES[q](tables), profile_dir, f"tpch_{q}")
+    return out
+
+
+def run_small_sf() -> dict:
+    """All 22 queries at SMALL_SF on the card against the port's own numpy
+    CPU engine (rapids.tpu.sql.enabled=false: the same planner, none of
+    the device kernels), rows in order, DOUBLE within TPCH_REL."""
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    card = srt.new_session(TPCH_CONF)
+    host = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True,
+                            "rapids.tpu.sql.enabled": False}, device="cpu")
+    tabs = []
+    for sess in (card, host):
+        sess.set_conf("rapids.tpu.sql.shuffle.partitions", 8)
+        tabs.append({k: v.cache() for k, v in tpch.gen_tables(
+            sess, sf=SMALL_SF, num_partitions=TPCH_PARTITIONS).items()})
+    out = {"sf": SMALL_SF}
+    for q, fn in tpch.QUERIES.items():
+        t = time.perf_counter()
+        got = fn(tabs[0]).collect()
+        card_s = time.perf_counter() - t
+        assert_on_device(card)
+        t = time.perf_counter()
+        want = fn(tabs[1]).collect()
+        host_s = time.perf_counter() - t
+        worst = check_rows(got, want, f"{q} at SF {SMALL_SF} vs the CPU "
+                           "engine")
+        out[q] = {"rows": len(got), "card_s": card_s, "cpu_engine_s": host_s,
+                  "max_rel_diff": worst}
+    log(f"phase 6: all 22 queries at SF {SMALL_SF} equal the CPU engine: "
+        + ", ".join(f"{q} {v['rows']}" for q, v in out.items()
+                    if q != "sf"))
     return out
 
 
@@ -1173,6 +1453,206 @@ def time_join_kernels(dev, errs: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------- K12-K13 (slice 4)
+SEARCH_EDGES = ["", None, "a", "ab", "aab", "aaab", "xa", "ab", "bx",
+                "a\x00b", "\x00", "ÿab", "abÿ", "日本語", "é", "x" * 300,
+                "special requests", "express special handling requests",
+                "PROMO BURNISHED NICKEL", "MEDIUM POLISHED TIN", "aa", "b"]
+SEARCH_NEEDLES = ("", "a", "aa", "aab", "ab", "b", "x" * 301, "\x00",
+                  "ÿ", "日本", "special", "requests", "PROMO", "ba")
+SUBSTRING_ARGS = ((1, 2), (2, 3), (0, 2), (-1, 5), (-4, 4), (-100, 3),
+                  (5, 100), (100, 1), (3, -1), (1, 0), (2, 2147483647))
+K12_ROWS = 15_000_000  # o_comment at SF 10
+K13_ROWS = 1 << 24
+
+
+def compare_search(col, needle: str, mode: str, label: str, errs: dict,
+                   split: int = 0):
+    """K12 against its plain version on one (offsets, bytes, validity)
+    column: the bool per row, equal."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import strings as S
+
+    offsets, raw, _ = col
+    nb = needle.encode()
+    got = S.string_search(offsets, raw, nb, mode, split)
+    want = S.string_search_plain(offsets, raw, nb, mode, split)
+    check(torch.equal(got, want), f"{label}: K12 {mode} {needle!r} differs")
+    errs["string_search"] = max(errs.get("string_search", 0.0),
+                                max_abs_err(got.int(), want.int()))
+    return got
+
+
+def compare_substring(col, pos, length, label: str, errs: dict):
+    """K13 against its plain version: spans and span validity bit for bit;
+    then K7 copies the result."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import strings as S
+
+    offsets, raw, valid = col
+    n = int(valid.shape[0])
+    p = S._rows_arg(pos, n, raw.device)
+    ln = S._rows_arg(length, n, raw.device)
+    got = S.substring_plan(offsets, raw, valid, p, ln)
+    want = S.substring_plan_plain(offsets, raw, valid, p, ln)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{label}: K13 spans differ")
+    errs["substring_plan"] = max(errs.get("substring_plan", 0.0),
+                                 max_abs_err(got[0], want[0]),
+                                 max_abs_err(got[1].int(), want[1].int()))
+
+
+def raw_string_column(rows, dev):
+    """(offsets, bytes, validity) on the card of raw byte rows (they may
+    be invalid UTF-8)."""
+    import numpy as np
+    import torch
+
+    offsets = np.zeros(len(rows) + 1, np.int32)
+    offsets[1:] = np.cumsum([len(r) for r in rows])
+    raw = np.frombuffer(b"".join(rows) + bytes(8), np.uint8).copy()
+    return (torch.from_numpy(offsets).to(dev), torch.from_numpy(raw).to(dev),
+            torch.ones(len(rows), dtype=torch.bool, device=dev))
+
+
+def search_edge_cases(dev, errs: dict) -> int:
+    """K12 in every mode and K13 over the corner cases: an empty
+    needle, a needle longer than the row, a match on the last byte,
+    self-overlapping partial matches, bytes >= 0x80 and NUL, a match that
+    would cross into the next row ('xa', 'ab' hold no 'aa'), NULL rows;
+    K13 with scalar and per-row arguments and rows that start with a UTF-8
+    continuation byte."""
+    import numpy as np
+    import torch
+
+    n = 0
+    for values in (SEARCH_EDGES, [None] * 9, [""] * 5, SEARCH_EDGES * 700):
+        col = string_column(values, dev)
+        for needle in SEARCH_NEEDLES:
+            for mode in ("prefix", "suffix", "contains"):
+                compare_search(col, needle, mode, f"K12 {n}", errs)
+        for pre, suf in (("a", "b"), ("", "x"), ("special", "requests"),
+                         ("aa", "aab"), ("", "")):
+            compare_search(col, pre + suf, "prefix_suffix", f"K12 {n}", errs,
+                           split=len(pre.encode()))
+        for pos, length in SUBSTRING_ARGS:
+            compare_substring(col, pos, length, f"K13 {n} ({pos}, {length})",
+                              errs)
+        rows = int(col[2].shape[0])
+        rng = np.random.default_rng(n)
+        compare_substring(
+            col, torch.from_numpy(rng.integers(-9, 9, rows).astype(
+                np.int32)).to(dev),
+            torch.from_numpy(rng.integers(-2, 9, rows).astype(
+                np.int32)).to(dev), f"K13 {n} per row", errs)
+        n += 1
+    for rows in ([b"\x80\x80\x80abc", b"a\xc3", b"\xa9\xa9x", b"",
+                  b"\xc3\xa9t\xc3\xa9", b"\x80", b"xyz\x80"],
+                 [b"ab", b"\x80\x81c\xc3\xa9d", b"\xbf", b"q\x80\x80r"]):
+        col = raw_string_column(rows, dev)
+        for pos, length in SUBSTRING_ARGS + ((-2, 2147483647),):
+            compare_substring(col, pos, length, f"K13 invalid UTF-8 {n}",
+                              errs)
+        n += 1
+    return n
+
+
+def time_search_kernels(dev, errs: dict) -> dict:
+    """K12 at 15M rows shaped like o_comment (tpch.py's pool): CONTAINS
+    'special' (the time reported), 'requests', an absent needle and the
+    empty needle, PREFIX, SUFFIX and 'express%requests'; K13 at 2^24 rows
+    shaped like c_phone (a pool of generated phones, 15 bytes each) at
+    SUBSTRING(c_phone, 1, 2) (reported) and (-4, 4), and over multi-byte
+    rows. Bounds count the bytes each row needs: CONTAINS reads a row up
+    to the end of its first match (all of it without one), PREFIX /
+    SUFFIX min(len, |needle|) bytes."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import strings as S
+
+    rows = {}
+    iters, plain_iters = 10, 2
+    n = K12_ROWS
+    from spark_rapids_tpu_torch.benchmarks.tpch import _O_COMMENTS
+
+    col = pool_column(_O_COMMENTS, n, 21, dev)
+    offsets, raw, _ = col
+    counts = np.bincount(np.random.default_rng(21).integers(
+        0, len(_O_COMMENTS), n), minlength=len(_O_COMMENTS))
+    base = 4 * (n + 1) + n  # offsets read, one byte a row written
+
+    def needed(needle: str, mode: str) -> int:
+        total = 0
+        for c, v in zip(counts, _O_COMMENTS):
+            if mode == "contains":
+                at = v.find(needle)
+                total += int(c) * (at + len(needle) if at >= 0 else len(v))
+            else:
+                total += int(c) * min(len(v), len(needle))
+        return total
+
+    runs = (("special", "contains", "ms"), ("requests", "contains",
+                                           "ms_requests"),
+            ("zzz", "contains", "ms_absent"), ("", "contains", "ms_empty"),
+            ("express", "prefix", "ms_prefix"),
+            ("requests", "suffix", "ms_suffix"))
+    for needle, mode, key in runs:
+        got = compare_search(col, needle, mode, f"K12 o_comment {key}", errs)
+        hits = int(got.sum())
+        want_hits = sum(int(c) for c, v in zip(counts, _O_COMMENTS)
+                        if (needle in v if mode == "contains" else
+                            v.startswith(needle) if mode == "prefix" else
+                            v.endswith(needle)))
+        check(hits == want_hits, f"K12 {key}: {hits} hits, expected "
+              f"{want_hits}")
+        nb = needle.encode()
+        rows.setdefault("string_search", {})[key] = cuda_ms(
+            lambda: S.string_search(offsets, raw, nb, mode), iters)
+        rows["string_search"]["bound_" + key] = bound_ms(
+            base + needed(needle, mode))
+    compare_search(col, "expressrequests", "prefix_suffix",
+                   "K12 o_comment 'express%requests'", errs, split=7)
+    r = rows["string_search"]
+    r["plain_ms"] = cuda_ms(lambda: S.string_search_plain(
+        offsets, raw, b"special", "contains"), plain_iters)
+    r["library_ms"] = None
+    r["shape"] = (f"{n} rows like o_comment, {int(offsets[-1])} bytes; "
+                  "CONTAINS 'special'")
+    del col, offsets, raw
+
+    rng = np.random.default_rng(22)
+    codes = np.array(["13", "17", "18", "23", "29", "30", "31", "32", "33"])
+    pool = [f"{codes[i]}-{a}-{b}-{c}" for i, a, b, c in zip(
+        rng.integers(0, len(codes), 4096), rng.integers(100, 1000, 4096),
+        rng.integers(100, 1000, 4096), rng.integers(1000, 10_000, 4096))]
+    n = K13_ROWS
+    col = pool_column(pool, n, 23, dev)
+    offsets, raw, valid = col
+    total = int(offsets[-1])
+    for pos, length in ((1, 2), (-4, 4), (0, 3)):
+        compare_substring(col, pos, length, f"K13 c_phone ({pos}, "
+                          f"{length})", errs)
+    compare_substring(pool_column(["☃é-日本語-" + p for p in pool[:64]], n,
+                                  24, dev), 2, 5, "K13 multi-byte rows",
+                      errs)
+    one = torch.ones(1, dtype=torch.int32, device=dev).expand(n)
+    two = torch.full((1,), 2, dtype=torch.int32, device=dev).expand(n)
+    rows["substring_plan"] = dict(
+        ms=cuda_ms(lambda: S.substring_plan(offsets, raw, valid, one, two),
+                   iters),
+        plain_ms=cuda_ms(lambda: S.substring_plan_plain(
+            offsets, raw, valid, one, two), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * (n + 1) + n + total + 4 * (2 * n + 1) +
+                          2 * n),
+        shape=f"{n} rows like c_phone ({total} bytes), SUBSTRING(c_phone, "
+              "1, 2)")
+    return rows
+
+
 def time_kernels(dev, errs: dict, launches: dict):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
@@ -1262,6 +1742,7 @@ def time_kernels(dev, errs: dict, launches: dict):
         shape=f"{hcap} ids, 8 partitions")
     rows.update(time_string_kernels(dev, errs))
     rows.update(time_join_kernels(dev, errs))
+    rows.update(time_search_kernels(dev, errs))
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
@@ -1285,9 +1766,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace one warm flagship, q1, q3 and q5 query "
-                         "each with torch.profiler and cProfile and write "
-                         "their device kernel and host function tables to "
-                         "DIR")
+                         "and the two slowest of phase 6 each with "
+                         "torch.profiler and cProfile and write their "
+                         "device kernel and host function tables to DIR")
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this file")
     args = ap.parse_args(argv)
@@ -1325,7 +1806,7 @@ def main(argv=None) -> int:
     errs: dict = {}
     results = {"card": card, "build_s": build_s}
     n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
-        join_edge_cases(dev, errs)
+        join_edge_cases(dev, errs) + search_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -1343,13 +1824,12 @@ def main(argv=None) -> int:
                                                   args.profile)
     results["phase5"] = run_joins(tpch_sess, raw, tables, li, launches,
                                   args.profile)
+    results["phase6"] = run_queries(tpch_sess, raw, tables, li, launches,
+                                    args.profile)
     del raw, tables, li
+    results["phase6_small_sf"] = run_small_sf()
     results["launches"] = launches
     log(f"launches: {launches}")
-    for path, names in PATH_KERNELS.items():
-        for name in names:
-            check(launches[path].get(name, 0) > 0,
-                  f"{name} never launched in the {path} run")
     if args.profile:
         results["profile"] = profile_flagship(sess, FLAGSHIP_ROWS,
                                               args.profile)
@@ -1360,8 +1840,14 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1)
+    for path, names in PATH_KERNELS.items():
+        for name in names:
+            check(launches[path].get(name, 0) > 0,
+                  f"{name} never launched in the {path} run")
     print(card)
-    p4, p5 = results["phase4"], results["phase5"]
+    p4, p5, p6 = results["phase4"], results["phase5"], results["phase6"]
+    keep = ("cold_s", "warm_s", "warm_median_s", "rows", "rows_per_s",
+            "input_rows", "checked_against", "joins")
     print(json.dumps({"flagship": {k: results["phase1"][k] for k in (
         "rows", "groups", "cold_s", "warm_s", "warm_median_s")},
         "high_cardinality": {k: results["phase2"][k] for k in (
@@ -1371,7 +1857,10 @@ def main(argv=None) -> int:
                  **{q: p4[q] for q in ("tpch_q1", "tpch_q6",
                                        "tpch_q1_routed")},
                  **{q: p5[q] for q in ("tpch_q3", "tpch_q5",
-                                       "tpch_q5_shuffled")}},
+                                       "tpch_q5_shuffled")},
+                 **{f"tpch_{q}": {k: v for k, v in p6[f"tpch_{q}"].items()
+                                  if k in keep} for q in NEW_QUERIES}},
+        "small_sf": results["phase6_small_sf"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

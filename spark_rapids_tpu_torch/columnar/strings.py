@@ -1,5 +1,5 @@
 """String column helpers (port of the parts of spark_rapids_tpu/columnar/strings.py
-that slices 2-3 need, plus the host <-> UTF-8 conversions of the port).
+that slices 2-4 need, plus the host <-> UTF-8 conversions of the port).
 
 Layout of a device STRING column (as in the reference, batch.py:148-188):
 uint8 bytes, int32 offsets [capacity + 1] and bool validity [capacity]; row
@@ -21,13 +21,26 @@ of two bounding every row's byte length.
   compared as two uint32 words in int64, then the lengths). The CPU
   engine compares the decoded Python strings (`_host_cmp`, :158):
   code-point order is UTF-8 byte order.
+- K12 `string_search` (csrc/string_search.cu) replaces `starts_with`
+  (:353), `ends_with` (:365), `contains` (:377) and the searches of
+  `like_match` (:428, with `classify_like` :450): a thread per row
+  against a literal needle. Its plain version is the reference's prefix
+  and suffix byte gathers and, for CONTAINS, a match at each position of
+  the row's own bytes.
+- K13 `substring_plan` (csrc/substring.cu) replaces the plan of
+  `substring_utf8` (:284): each row's result span, which K7 copies.
+- `string_select` / `string_coalesce` (:200 / :220, with
+  `build_from_plan` :177): K7 over the sources laid end to end, as
+  concat does; a literal is a one-row source.
 - `encode_utf8` / `decode_utf8`: the host conversion between object arrays
   of str and (offsets, bytes), vectorised in row chunks through numpy's
   fixed-width strings — no per-row Python loop. numpy's fixed-width
   strings drop trailing NUL characters, so the rows that lost some (their
   fixed-width length is short of their length) convert one by one.
 
-The other string functions of the reference (B15) wait.
+The reference's other string functions (the rest of B15: concat_ws,
+upper / lower / initcap, replace, locate, substring_index, trim, lengths)
+wait.
 """
 
 from __future__ import annotations
@@ -38,7 +51,8 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import cuda_build as CB
-from spark_rapids_tpu_torch.ops.values import ScalarV
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.ops.values import ColV, ScalarV
 
 _ROWS_PER_CHUNK = 1 << 20
 
@@ -364,3 +378,335 @@ def decode_utf8(offsets: np.ndarray, raw: np.ndarray, validity: np.ndarray,
     if not valid.all():
         out[~valid] = ""
     return out
+
+
+# ---------------------------------------------------------------------------
+# K12: search for a literal needle (reference :353-475)
+# ---------------------------------------------------------------------------
+_SEARCH_MODES = {"prefix": 0, "suffix": 1, "contains": 2,
+                 "prefix_suffix": 3}
+
+
+def _byte_at(data, pos):
+    """data[pos] as int64, clamped into the buffer as the reference's
+    gathers clamp (a zero-size buffer reads as zeros)."""
+    if not data.numel():
+        return torch.zeros_like(pos)
+    return data[pos.clamp(0, int(data.shape[0]) - 1)].long()
+
+
+def _match_at(data, at, needle: bytes):
+    """bool [cap]: the bytes at `at` spell `needle` (no length check)."""
+    ok = torch.ones(at.shape, dtype=torch.bool, device=at.device)
+    for k, b in enumerate(needle):
+        ok &= _byte_at(data, at + k) == b
+    return ok
+
+
+def string_search_plain(offsets, data, needle: bytes, mode: str,
+                        split: int = 0):
+    """bool [cap] per row of (offsets [cap + 1], bytes): PREFIX / SUFFIX is
+    the reference's `starts_with` / `ends_with` (a length check, then one
+    clamped byte gather per needle byte), PREFIX_SUFFIX both halves of
+    `needle` split at `split` plus len >= |needle| (`like_match`'s 'a%b'),
+    CONTAINS a match at some position of the row's own bytes, true for
+    every row when the needle is empty (reference :381)."""
+    starts = offsets[:-1].long()
+    lens = (offsets[1:] - offsets[:-1]).long()
+    n = len(needle)
+    if mode == "prefix":
+        return (lens >= n) & _match_at(data, starts, needle)
+    if mode == "suffix":
+        return (lens >= n) & _match_at(data, starts + lens - n, needle)
+    if mode == "prefix_suffix":
+        pre, suf = needle[:split], needle[split:]
+        return (lens >= n) & _match_at(data, starts, pre) & \
+            _match_at(data, starts + lens - len(suf), suf)
+    if n == 0:
+        return torch.ones(lens.shape, dtype=torch.bool, device=lens.device)
+    hit = torch.zeros(lens.shape, dtype=torch.bool, device=lens.device)
+    longest = int(lens.max()) if lens.numel() else 0
+    for p in range(longest - n + 1):
+        hit |= (lens >= p + n) & _match_at(data, starts + p, needle)
+    return hit
+
+
+def string_search(offsets, data, needle: bytes, mode: str, split: int = 0):
+    """K12 (csrc/string_search.cu; replaces `starts_with` :353, `ends_with`
+    :365, `contains` :377 and `like_match`'s searches :428): bool [cap] per
+    row of a string column for a literal needle. NULL rows have length 0;
+    their NULL result is the expression layer's, as in the reference. CPU
+    tensors run the plain version, CUDA tensors the kernel."""
+    if offsets.device.type == "cpu":
+        return string_search_plain(offsets, data, needle, mode, split)
+    offsets = offsets.contiguous()
+    CB.require_cuda(offsets, data)
+    n = int(offsets.shape[0]) - 1
+    dev = offsets.device
+    nb = torch.frombuffer(bytearray(needle or b"\0"), dtype=torch.uint8)
+    nd = nb.to(dev, non_blocking=False)
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    lib = CB.library("string_search")
+    rc = lib.srt_string_search(offsets.data_ptr(), data.data_ptr(), n,
+                               nd.data_ptr(), len(needle), split,
+                               _SEARCH_MODES[mode], out.data_ptr(),
+                               CB.stream_of(out))
+    CB.count_launch("string_search")
+    CB.check(lib, rc, "string_search")
+    return out
+
+
+def starts_with(ctx, col, needle: str):
+    """Reference :353 (device engine)."""
+    return string_search(col.offsets, col.data, needle.encode(), "prefix")
+
+
+def ends_with(ctx, col, needle: str):
+    """Reference :365 (device engine)."""
+    return string_search(col.offsets, col.data, needle.encode(), "suffix")
+
+
+def contains(ctx, col, needle: str):
+    """Reference :377 (device engine)."""
+    return string_search(col.offsets, col.data, needle.encode(),
+                         "contains")
+
+
+def like_match(ctx, col, pattern: str):
+    """SQL LIKE for `classify_like`'s subset (reference :428): exact (K8),
+    'a%', '%a', '%a%' and 'a%b' (K12). Any other pattern raises, as in the
+    reference, whose rule table lets every LIKE onto the device."""
+    kind, parts = classify_like(pattern)
+    if kind == "exact":
+        return string_compare(ctx, col, ScalarV(col.dtype, parts[0]), "eq")
+    if kind == "prefix_suffix":
+        pre, suf = (p.encode() for p in parts)
+        return string_search(col.offsets, col.data, pre + suf,
+                             "prefix_suffix", len(pre))
+    if kind in ("prefix", "suffix", "contains"):
+        return string_search(col.offsets, col.data, parts[0].encode(), kind)
+    raise ValueError(f"unsupported LIKE pattern {pattern!r}")
+
+
+def classify_like(pattern: str):
+    """Reference :450: the pattern's kind and literal parts;
+    ('unsupported', ()) for '_', escapes and inner '%' runs other than
+    one."""
+    if "_" in pattern or "\\" in pattern:
+        return "unsupported", ()
+    if "%" not in pattern:
+        return "exact", (pattern,)
+    inner = pattern.strip("%")
+    if "%" in inner:
+        segs = inner.split("%")
+        if len(segs) == 2 and not pattern.startswith("%") and \
+                not pattern.endswith("%"):
+            return "prefix_suffix", tuple(segs)
+        return "unsupported", ()
+    if pattern.startswith("%") and pattern.endswith("%"):
+        return "contains", (inner,)
+    if pattern.endswith("%"):
+        return "prefix", (inner,)
+    return "suffix", (inner,)
+
+
+# ---------------------------------------------------------------------------
+# K13: SUBSTRING's byte plan (reference :284-320); K7 copies the bytes
+# ---------------------------------------------------------------------------
+def _wrap32(x):
+    """int64 values wrapped to int32, as the reference's int32 arithmetic
+    wraps (`pos + len` past 2^31 - 1, and the character index then)."""
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def substring_plan_plain(offsets, data, validity, pos, length):
+    """(spans int32 [2 cap + 1], span validity [2 cap]) of Spark SUBSTRING
+    over code points, in the reference's formulation: a character starts
+    at every byte with (b & 0xC0) != 0x80; char k of a row is the k-th
+    character start after the one holding the row's first byte, clipped to
+    the row; a negative pos counts from the end and clamps at 0, pos 0
+    acts as 1, a negative length gives the empty string, a pos past the
+    end the empty string. Row i's bytes are spans[2i]:spans[2i + 1]; odd
+    spans lie between rows and are never taken."""
+    cap = int(validity.shape[0])
+    dev = validity.device
+    byte_cap = max(int(data.shape[0]), 1)
+    buf = data if data.numel() else torch.zeros(1, dtype=torch.uint8,
+                                                device=dev)
+    starts = offsets[:-1].long()
+    ends = offsets[1:].long()
+    lens = ends - starts
+    is_start = (buf & 0xC0) != 0x80
+    csum = torch.cumsum(is_start.long(), 0)
+    starts_cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=dev),
+                            csum])
+    nchars = starts_cum[ends] - starts_cum[starts]
+    first_char = torch.where(lens > 0, (csum - 1)[starts.clamp(0, byte_cap
+                                                               - 1)],
+                             torch.zeros((), dtype=torch.int64, device=dev))
+    p = pos.long().expand(cap)
+    want = length.long().expand(cap).clamp(min=0)
+    p0 = torch.where(p < 0, _wrap32(nchars + p).clamp(min=0),
+                     _wrap32(p - 1).clamp(min=0))
+    lo = torch.minimum(p0, nchars)
+    hi = torch.minimum(_wrap32(p0 + want), nchars)
+    char_starts = torch.full((byte_cap,), byte_cap, dtype=torch.int64,
+                             device=dev)
+    nz = torch.nonzero(is_start).flatten()
+    char_starts[:nz.shape[0]] = nz
+
+    def char_to_byte(k):
+        g = _wrap32(first_char + k)
+        b = char_starts[g.clamp(0, byte_cap - 1)]
+        b = torch.where(g >= byte_cap, ends, b)
+        return torch.minimum(torch.maximum(b, starts), ends)
+
+    b_start = char_to_byte(lo)
+    b_end = torch.maximum(char_to_byte(hi), b_start)
+    spans = torch.zeros(2 * cap + 1, dtype=torch.int32, device=dev)
+    spans[0:2 * cap:2] = b_start.to(torch.int32)
+    spans[1:2 * cap:2] = b_end.to(torch.int32)
+    spans[2 * cap] = offsets[cap]
+    span_valid = torch.zeros(2 * cap, dtype=torch.bool, device=dev)
+    span_valid[0::2] = validity
+    return spans, span_valid
+
+
+def _rows_arg(x, cap: int, dev):
+    """A per-row int32 argument: a column, or a scalar as a stride-0 view."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32).contiguous()
+    return torch.full((1,), int(x), dtype=torch.int32,
+                      device=dev).expand(cap)
+
+
+def substring_plan(offsets, data, validity, pos, length):
+    """K13 (csrc/substring.cu; replaces the plan half of `substring_utf8`
+    :284): the spans of `substring_plan_plain`, a thread per row. `pos` and
+    `length` are int32 [cap] columns or stride-0 views. CPU tensors run the
+    plain version, CUDA tensors the kernel."""
+    if validity.device.type == "cpu":
+        return substring_plan_plain(offsets, data, validity, pos, length)
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity)
+    cap = int(validity.shape[0])
+    dev = validity.device
+    args = []
+    for t in (pos, length):
+        if t.device != dev or t.shape[0] != cap or t.dtype != torch.int32:
+            raise ValueError("substring arguments must be int32 [cap] on "
+                             "the column's device")
+        args += [t.data_ptr(), _stride(t)]
+    spans = torch.empty(2 * cap + 1, dtype=torch.int32, device=dev)
+    span_valid = torch.empty(2 * cap, dtype=torch.bool, device=dev)
+    lib = CB.library("substring")
+    rc = lib.srt_substring_plan(offsets.data_ptr(), data.data_ptr(),
+                                validity.data_ptr(), cap, *args,
+                                spans.data_ptr(),
+                                span_valid.data_ptr(), CB.stream_of(spans))
+    CB.count_launch("substring_plan")
+    CB.check(lib, rc, "substring_plan")
+    return spans, span_valid
+
+
+def substring_utf8(ctx, col, pos, length):
+    """Reference :284 (device engine): K13 plans each row's byte span, K7
+    copies the spans under new offsets (its source offsets are the spans,
+    row i at index 2i). The validity is the source's; the bytes fit in the
+    source's buffer."""
+    from spark_rapids_tpu_torch.columnar.batch import (
+        bucket_capacity,
+        gather_strings,
+    )
+
+    cap = int(col.validity.shape[0])
+    dev = col.validity.device
+    spans, span_valid = substring_plan(
+        col.offsets, col.data, col.validity, _rows_arg(pos, cap, dev),
+        _rows_arg(length, cap, dev))
+    idx = torch.arange(0, 2 * cap, 2, dtype=torch.int32, device=dev)
+    bound = min(cap * (col.max_len or 1), int(col.data.shape[0]))
+    offs, data, valid = gather_strings(spans, col.data, span_valid, idx,
+                                       cap, None,
+                                       bucket_capacity(max(bound, 1)))
+    return ColV(col.dtype, data, valid, offs, col.max_len)
+
+
+# ---------------------------------------------------------------------------
+# select / coalesce over strings (reference :200 / :220): K7 over the
+# sources laid end to end
+# ---------------------------------------------------------------------------
+def _string_source(ctx, v):
+    """(a device string column, whether it holds one row per lane): a
+    column as it is, a scalar as a one-row column every lane indexes."""
+    from spark_rapids_tpu_torch.columnar.batch import ColumnVector
+
+    if isinstance(v, ScalarV):
+        view = as_view(ctx, v)
+        n = len(_literal_bytes(v))
+        return ColumnVector(
+            DataType.STRING, view.data, view.validity[:1].contiguous(),
+            torch.tensor([0, n], dtype=torch.int32, device=ctx.device),
+            len_bucket(n)), False
+    return ColumnVector(DataType.STRING, v.data, v.validity, v.offsets,
+                        v.max_len), True
+
+
+def _gather_from_sources(ctx, vals, choice):
+    """Lane i takes the row of source `choice[i]` (its own lane for a
+    column, row 0 for a scalar), through one K7 gather over the sources
+    laid end to end; lanes past the rows are NULL."""
+    from spark_rapids_tpu_torch.columnar.batch import (
+        gather_string_col,
+        strings_end_to_end,
+    )
+
+    cap = ctx.capacity
+    dev = ctx.device
+    sources = [_string_source(ctx, v) for v in vals]
+    src, bases = strings_end_to_end([c for c, _ in sources])
+    lane = torch.arange(cap, dtype=torch.int64, device=dev)
+    idx = torch.zeros(cap, dtype=torch.int64, device=dev)
+    for k, ((_, per_lane), base) in enumerate(zip(sources, bases)):
+        idx = torch.where(choice == k, base + lane if per_lane else
+                          torch.full((), base, dtype=torch.int64,
+                                     device=dev), idx)
+    out = gather_string_col(src, idx, cap, ctx.row_mask())
+    return ColV(out.dtype, out.data, out.validity, out.offsets, out.max_len)
+
+
+def _host_col(ctx, v):
+    """(object data, validity) of a host operand (reference :240)."""
+    if isinstance(v, ScalarV):
+        return (np.full((ctx.capacity,), "" if v.is_null else v.value,
+                        dtype=object),
+                np.full((ctx.capacity,), not v.is_null, dtype=bool))
+    return v.data, v.validity
+
+
+def string_select(ctx, pred_true, then_v, else_v):
+    """where(pred, then, else) over strings (reference :200)."""
+    if not ctx.is_device:
+        t, e = _host_col(ctx, then_v), _host_col(ctx, else_v)
+        return ColV(DataType.STRING, np.where(pred_true, t[0], e[0]),
+                    np.where(pred_true, t[1], e[1]))
+    choice = torch.where(pred_true, 0, 1)
+    return _gather_from_sources(ctx, [then_v, else_v], choice)
+
+
+def string_coalesce(ctx, vals):
+    """The first non-NULL of several strings (reference :220)."""
+    if not ctx.is_device:
+        cols = [_host_col(ctx, v) for v in vals]
+        data, valid = cols[-1][0].copy(), cols[-1][1].copy()
+        for d, va in reversed(cols[:-1]):
+            data = np.where(va, d, data)
+            valid = va | valid
+        return ColV(DataType.STRING, data, valid)
+    views = [as_view(ctx, v) for v in vals]
+    choice = torch.full((ctx.capacity,), len(vals) - 1, dtype=torch.int64,
+                        device=ctx.device)
+    for k in range(len(vals) - 2, -1, -1):
+        choice = torch.where(views[k].validity, k, choice)
+    return _gather_from_sources(ctx, vals, choice)

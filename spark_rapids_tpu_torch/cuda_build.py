@@ -31,7 +31,7 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "string_hash", "string_order", "string_gather", "string_compare",
-           "hash_join")
+           "hash_join", "string_search", "substring")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -195,6 +195,17 @@ _SIGNATURES = {
         "srt_join_expand": (ctypes.c_int, [
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
             _VOIDP, ctypes.c_longlong, _VOIDP]),
+    },
+    "string_search": {
+        "srt_string_search": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP]),
+    },
+    "substring": {
+        "srt_substring_plan": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
+            ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
+            _VOIDP]),
     },
 }
 

@@ -44,7 +44,11 @@ Waiting for later queue items: the encoded-key branch (:383-446), retries
 (`with_retry`), the serialized broadcast (:783-792), the coordinated
 adaptive coalescing of both inputs (`coalesce_join_inputs` :681; the port
 reads adaptive coalescing as off, so a shuffled join takes its inputs as
-the exchanges give them), and the nested-loop / cross join.
+the exchanges give them).
+
+The nested-loop join (`TpuNestedLoopJoinExec` :803, `CpuNestedLoopJoinExec`
+:1017) runs CROSS joins and INNER joins without equi keys: a product of
+index gathers and a filter, no kernel of its own.
 """
 
 from __future__ import annotations
@@ -623,6 +627,51 @@ class TpuBroadcastHashJoinExec(_JoinBase, _TpuJoinMixin, TpuExec):
         return PartitionedBatches(stream_pb.num_partitions, factory)
 
 
+class TpuNestedLoopJoinExec(_JoinBase, TpuExec):
+    """Cross product with an optional condition (reference :803-855;
+    GpuCartesianProductExec / GpuBroadcastNestedLoopJoinExec). The right
+    side is materialised once as one batch; per stream batch, output row
+    `pos` pairs stream row pos // nb with build row pos % nb (both sides
+    gathered: torch for fixed columns, K7 for strings), then the condition
+    filters. The positions are int64: the reference's int32 arange would
+    wrap past 2^31 output rows."""
+
+    placement = "tpu"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        left_pb = self.children[0].execute(ctx)
+        right_pb = self.children[1].execute(ctx)
+        batches = [b for p in range(right_pb.num_partitions)
+                   for b in right_pb.iterator(p) if b.host_rows() > 0]
+        build = _one_build_batch(batches, self.children[1].output,
+                                 ctx.device)
+        nb = build.host_rows()
+        cond_filter = None
+        if self.condition is not None:
+            cond_filter = DeviceFilter(bind_references(
+                self.condition, self._joined_attrs()))
+
+        def gen(pidx: int):
+            for sb in left_pb.iterator(pidx):
+                sb = ensure_compact(sb)
+                ns = sb.host_rows()
+                if ns == 0 or nb == 0:
+                    continue
+                n_out = ns * nb
+                pos = torch.arange(bucket_capacity(n_out),
+                                   dtype=torch.int64, device=ctx.device)
+                s_out = gather_batch(sb, pos // nb, n_out)
+                b_out = gather_batch(build, pos % nb, n_out)
+                joined = ColumnarBatch(s_out.columns + b_out.columns, n_out)
+                if cond_filter is not None:
+                    joined = cond_filter.apply(joined)
+                yield joined
+
+        return PartitionedBatches(
+            left_pb.num_partitions,
+            lambda p: count_output(self.metrics, gen(p)))
+
+
 # ===========================================================================
 # CPU engine (numpy)
 # ===========================================================================
@@ -773,6 +822,43 @@ class CpuShuffledHashJoinExec(_JoinBase, CpuExec):
 
 class CpuBroadcastHashJoinExec(CpuShuffledHashJoinExec):
     broadcast = True
+
+
+class CpuNestedLoopJoinExec(_JoinBase, CpuExec):
+    """The CPU engine's cross product (reference :1017), vectorised: the
+    right side concatenated once, each stream batch's product gathered
+    with np.repeat / np.tile, then the condition."""
+
+    placement = "cpu"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        left_pb = self.children[0].execute(ctx)
+        right_pb = self.children[1].execute(ctx)
+        left_attrs = self.children[0].output
+        right_attrs = self.children[1].output
+        build = _concat_host([b for p in range(right_pb.num_partitions)
+                              for b in right_pb.iterator(p)
+                              if b.num_rows > 0], right_attrs)
+        cond = None
+        if self.condition is not None:
+            cond = bind_references(self.condition, self._joined_attrs())
+
+        def gen(pidx: int):
+            for sb in left_pb.iterator(pidx):
+                if sb.num_rows == 0 or build.num_rows == 0:
+                    continue
+                s_idx = np.repeat(np.arange(sb.num_rows), build.num_rows)
+                b_idx = np.tile(np.arange(build.num_rows), sb.num_rows)
+                out = HostColumnarBatch(
+                    _host_gather(sb, left_attrs, s_idx) +
+                    _host_gather(build, right_attrs, b_idx), len(s_idx))
+                if cond is not None:
+                    out = cpu_filter(cond, out)
+                yield out
+
+        return PartitionedBatches(
+            left_pb.num_partitions,
+            lambda p: count_output(self.metrics, gen(p)))
 
 
 def _concat_host(batches: List[HostColumnarBatch],

@@ -20,6 +20,7 @@ import itertools
 from typing import List, Optional, Sequence
 
 import numpy as np
+import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.values import (
@@ -182,9 +183,7 @@ class BinaryExpression(Expression):
         if isinstance(lv, ScalarV) and isinstance(rv, ScalarV):
             if lv.is_null or rv.is_null:
                 return ScalarV(self.data_type, None)
-            return _fold_result(
-                self.data_type,
-                self.do_columnar(_scalar_fold_ctx(), _lift(lv), _lift(rv)))
+            return self.eval_scalars(lv, rv)
         if isinstance(lv, ScalarV) and lv.is_null or \
            isinstance(rv, ScalarV) and rv.is_null:
             return _null_col(ctx, self.data_type)
@@ -201,6 +200,80 @@ class BinaryExpression(Expression):
         """lv/rv are ColV or non-null ScalarV; kernels use `_d(v)` to get
         the broadcastable raw value."""
         raise NotImplementedError(type(self).__name__)
+
+    def eval_scalars(self, lv: ScalarV, rv: ScalarV) -> ScalarV:
+        """Constant folding of two non-null scalars through the CPU kernel
+        (an expression whose kernel needs a scalar operand overrides it)."""
+        return _fold_result(
+            self.data_type,
+            self.do_columnar(_scalar_fold_ctx(), _lift(lv), _lift(rv)))
+
+
+def _null_string_col(ctx: EvalContext) -> ColV:
+    """An all-NULL STRING column of the batch's lanes (reference :288)."""
+    if ctx.is_device:
+        dev = ctx.device
+        return ColV(DataType.STRING, torch.zeros(8, dtype=torch.uint8,
+                                                 device=dev),
+                    torch.zeros(ctx.capacity, dtype=torch.bool, device=dev),
+                    torch.zeros(ctx.capacity + 1, dtype=torch.int32,
+                                device=dev), 1)
+    return _null_col(ctx, DataType.STRING)
+
+
+class TernaryExpression(Expression):
+    """Null-propagating ternary template (reference: ops/base.py:231). A
+    STRING scalar operand becomes a column first, so string kernels see
+    real operands; all-scalar operands fold through the CPU kernel."""
+
+    def __init__(self, a: Expression, b: Expression, c: Expression):
+        self.a, self.b, self.c = a, b, c
+
+    def children(self):
+        return (self.a, self.b, self.c)
+
+    def with_children(self, new_children):
+        return type(self)(*new_children)
+
+    def eval_kernel(self, ctx, *vals):
+        if all(isinstance(v, ScalarV) for v in vals) and \
+                not any(v.is_null for v in vals):
+            return _fold_result(self.data_type, self.do_columnar(
+                _scalar_fold_ctx(), *[_lift(v) for v in vals]))
+        vals = tuple(_lift_string_scalar(ctx, v)
+                     if isinstance(v, ScalarV) and not v.is_null and
+                     v.dtype is DataType.STRING else v for v in vals)
+        if any(isinstance(v, ScalarV) and v.is_null for v in vals):
+            if self.data_type is DataType.STRING:
+                return _null_string_col(ctx)
+            return _null_col(ctx, self.data_type)
+        data = self.do_columnar(ctx, *vals)
+        validity = and_validity(*[v.validity for v in vals
+                                  if isinstance(v, ColV)])
+        if validity is None:
+            validity = ctx.bools(True)
+            if ctx.is_device:
+                validity = validity & ctx.row_mask()
+        if isinstance(data, ColV):
+            return ColV(data.dtype, data.data,
+                        and_validity(data.validity, validity), data.offsets,
+                        data.max_len)
+        return ColV(self.data_type, zero_nulls(data, validity), validity)
+
+    def do_columnar(self, ctx, *vals):
+        raise NotImplementedError(type(self).__name__)
+
+
+def _lift_string_scalar(ctx: EvalContext, s: ScalarV) -> ColV:
+    """A STRING scalar as a real column on either engine (reference
+    :323): K7 repeats its bytes into every lane on the device."""
+    if ctx.is_device:
+        from spark_rapids_tpu_torch.ops.eval import _string_scalar_col
+
+        return _string_scalar_col(ctx, s)
+    return ColV(DataType.STRING, np.full((ctx.capacity,), s.value,
+                                         dtype=object),
+                np.ones((ctx.capacity,), dtype=bool))
 
 
 def _d(v):

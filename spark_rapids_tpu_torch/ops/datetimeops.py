@@ -1,0 +1,88 @@
+"""Date parts (port of spark_rapids_tpu/ops/datetimeops.py :18-78;
+reference: datetimeExpressions.scala — year, month, dayofmonth). UTC only,
+as in the reference.
+
+Calendar math is Howard Hinnant's civil-from-days algorithm: integer ops
+only, elementwise, the same code on torch tensors (the card) and numpy
+arrays (the CPU engine). Both libraries floor `//` on negative operands,
+so dates before 1970 come out right. Results are int32.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.ops.base import UnaryExpression
+from spark_rapids_tpu_torch.ops.values import where
+
+MICROS_PER_DAY = 86_400_000_000
+
+
+def _i32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int32)
+    return np.asarray(x).astype(np.int32)
+
+
+def _i64(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.int64)
+    return np.asarray(x).astype(np.int64)
+
+
+def civil_from_days(z):
+    """Epoch days -> (year, month, day), int32 each (reference :18)."""
+    z = _i64(z) + 719468
+    era = z // 146097
+    doe = z - era * 146097
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = where(mp < 10, mp + 3, mp - 9)
+    y = y + _i64(m <= 2)
+    return _i32(y), _i32(m), _i32(d)
+
+
+def days_from_civil(y, m, d):
+    """(year, month, day) -> epoch days, int32 (reference :33; the inverse
+    of civil_from_days)."""
+    m = _i64(m)
+    y = _i64(y) - _i64(m <= 2)
+    era = y // 400
+    yoe = y - era * 400
+    mp = where(m > 2, m - 3, m + 9)
+    doy = (153 * mp + 2) // 5 + _i64(d) - 1
+    doe = yoe * 365 + yoe // 4 - yoe // 100 + doy
+    return _i32(era * 146097 + doe - 719468)
+
+
+class _DatePart(UnaryExpression):
+    """One part of a DATE (days) or TIMESTAMP (microseconds) value."""
+
+    _part = 0
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        days = _i64(v.data)
+        if self.child.data_type is DataType.TIMESTAMP:
+            days = days // MICROS_PER_DAY
+        return civil_from_days(days)[self._part]
+
+
+class Year(_DatePart):
+    _part = 0
+
+
+class Month(_DatePart):
+    _part = 1
+
+
+class DayOfMonth(_DatePart):
+    _part = 2

@@ -77,8 +77,10 @@ class Coalesce(Expression):
                 if not v.is_null:
                     return ScalarV(self.data_type, v.value)
             return ScalarV(self.data_type, None)
-        if self.data_type is DataType.STRING and ctx.is_device:
-            raise NotImplementedError("device string coalesce (slice 2)")
+        if self.data_type is DataType.STRING:
+            from spark_rapids_tpu_torch.columnar import strings as S
+
+            return S.string_coalesce(ctx, vals)
         cols = [broadcast_scalar(ctx, ScalarV(self.data_type, v.value))
                 if isinstance(v, ScalarV) else v for v in vals]
         data = cols[-1].data

@@ -1,5 +1,6 @@
 """Comparisons and logical operators (port of spark_rapids_tpu/ops/predicates.py;
-reference: predicates.scala). And/Or use Kleene three-valued logic like Spark.
+reference: predicates.scala). And/Or use Kleene three-valued logic like
+Spark; `In` tests a value against a list of literals.
 
 Comparison type promotion follows the reference's numpy/jnp rules
 (predicates.py:46 compares the raw operands): two columns promote to their
@@ -11,10 +12,17 @@ so the device path widens that one case explicitly.
 
 from __future__ import annotations
 
+from typing import Sequence
+
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
-from spark_rapids_tpu_torch.ops.base import BinaryExpression, UnaryExpression, _d
+from spark_rapids_tpu_torch.ops.base import (
+    BinaryExpression,
+    Expression,
+    UnaryExpression,
+    _d,
+)
 from spark_rapids_tpu_torch.ops.values import ColV, ScalarV
 
 _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
@@ -156,3 +164,48 @@ class Not(UnaryExpression):
         if isinstance(data, torch.Tensor):
             return ~(data if data.dtype == torch.bool else data != 0)
         return ~data.astype(bool)
+
+
+class In(Expression):
+    """value IN (foldable literals) (reference: predicates.py:206-249,
+    GpuInSet). Numeric candidates compare as tensor ops, a STRING
+    candidate as one equality each (K8 on the device). SQL: with a NULL
+    candidate the result is NULL unless the value matched."""
+
+    def __init__(self, value: Expression, candidates: Sequence[Expression]):
+        self.value = value
+        self.candidates = tuple(candidates)
+
+    def children(self):
+        return (self.value,) + self.candidates
+
+    def with_children(self, new_children):
+        return In(new_children[0], new_children[1:])
+
+    @property
+    def data_type(self):
+        return DataType.BOOL
+
+    def eval_kernel(self, ctx, v, *cand_vals):
+        if isinstance(v, ScalarV):
+            if v.is_null:
+                return ScalarV(DataType.BOOL, None)
+            hit = any((not c.is_null) and c.value == v.value
+                      for c in cand_vals)
+            has_null = any(c.is_null for c in cand_vals)
+            return ScalarV(DataType.BOOL,
+                           True if hit else (None if has_null else False))
+        acc = ctx.bools(False)
+        has_null_candidate = False
+        for c in cand_vals:
+            if c.is_null:
+                has_null_candidate = True
+                continue
+            if self.value.data_type is DataType.STRING:
+                from spark_rapids_tpu_torch.columnar import strings as S
+
+                acc = acc | S.string_compare(ctx, v, c, "eq")
+            else:
+                acc = acc | EqualTo._cmp(*_operands(v, c))
+        validity = v.validity & (acc | ctx.bools(not has_null_candidate))
+        return ColV(DataType.BOOL, acc & validity, validity)

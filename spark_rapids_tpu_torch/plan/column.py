@@ -1,6 +1,7 @@
 """Column: the user-facing expression wrapper (port of
-spark_rapids_tpu/plan/column.py, with the methods whose expressions this
-slice ports)."""
+spark_rapids_tpu/plan/column.py, with the methods whose expressions the
+port has: arithmetic, comparisons, logic, null tests, IN, the string
+searches and LIKE, sorting)."""
 
 from __future__ import annotations
 
@@ -25,8 +26,15 @@ from spark_rapids_tpu_torch.ops.predicates import (
     GreaterThanOrEqual,
     LessThan,
     LessThanOrEqual,
+    In,
     Not,
     Or,
+)
+from spark_rapids_tpu_torch.ops.stringops import (
+    Contains,
+    EndsWith,
+    Like,
+    StartsWith,
 )
 
 
@@ -117,6 +125,23 @@ class Column:
 
     def isNotNull(self) -> "Column":
         return Column(IsNotNull(self.expr))
+
+    def isin(self, *values) -> "Column":
+        if len(values) == 1 and isinstance(values[0], (list, tuple, set)):
+            values = tuple(values[0])
+        return Column(In(self.expr, [_to_expr(v) for v in values]))
+
+    def like(self, pattern: str) -> "Column":
+        return Column(Like(self.expr, Literal(pattern)))
+
+    def startswith(self, s) -> "Column":
+        return Column(StartsWith(self.expr, _to_expr(s)))
+
+    def endswith(self, s) -> "Column":
+        return Column(EndsWith(self.expr, _to_expr(s)))
+
+    def contains(self, s) -> "Column":
+        return Column(Contains(self.expr, _to_expr(s)))
 
     def between(self, lo, hi) -> "Column":
         return Column(And(GreaterThanOrEqual(self.expr, _to_expr(lo)),

@@ -1,6 +1,6 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
 select, withColumn, filter, groupBy/agg (keyed and keyless), orderBy, limit,
-join, cache, collect, explain). `crossJoin` waits for the nested-loop join.
+join, crossJoin, cache, collect, explain).
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -188,6 +188,10 @@ class DataFrame:
         """Reference: dataframe.py:319."""
         both = list(self._plan.output) + list(other._plan.output)
         return resolve(c.expr, both)
+
+    def crossJoin(self, other: "DataFrame") -> "DataFrame":
+        """Reference: dataframe.py:323."""
+        return self.join(other, on=None, how="cross")
 
     def groupBy(self, *cols: ColumnOrName) -> "GroupedData":
         keys = [self._resolve(c) for c in cols]

@@ -1,5 +1,5 @@
 """User-facing function library (port of spark_rapids_tpu/plan/functions.py,
-with the functions whose expressions this slice ports)."""
+with the functions whose expressions the port has)."""
 
 from __future__ import annotations
 
@@ -7,8 +7,11 @@ from typing import Any, Union
 
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import arithmetic as AR
+from spark_rapids_tpu_torch.ops import datetimeops as DT
 from spark_rapids_tpu_torch.ops import nulls as N
+from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.base import Expression
+from spark_rapids_tpu_torch.ops.conditional import CaseWhen, If
 from spark_rapids_tpu_torch.ops.literals import Literal
 from spark_rapids_tpu_torch.plan.column import Column, _to_expr
 
@@ -55,6 +58,48 @@ def _c(e: ColumnOrName) -> Expression:
     if isinstance(e, str):
         return _UnresolvedAttribute(e)
     return _to_expr(e)
+
+
+# -- conditional (reference :73-90) -------------------------------------------
+def when(cond: Column, value) -> "CaseBuilder":
+    return CaseBuilder([(cond.expr, _to_expr(value))])
+
+
+class CaseBuilder:
+    def __init__(self, branches):
+        self._branches = branches
+
+    def when(self, cond: Column, value) -> "CaseBuilder":
+        return CaseBuilder(self._branches + [(cond.expr, _to_expr(value))])
+
+    def otherwise(self, value) -> Column:
+        return Column(CaseWhen(self._branches, _to_expr(value)))
+
+    @property
+    def expr(self):
+        return CaseWhen(self._branches, None)
+
+
+def expr_if(cond: Column, a, b) -> Column:
+    return Column(If(cond.expr, _to_expr(a), _to_expr(b)))
+
+
+def substring(c: ColumnOrName, pos: int, length_: int) -> Column:
+    """Reference :198."""
+    return Column(S.Substring(_c(c), Literal(pos), Literal(length_)))
+
+
+# -- date parts (reference :251) ---------------------------------------------
+def year(c: ColumnOrName) -> Column:
+    return Column(DT.Year(_c(c)))
+
+
+def month(c: ColumnOrName) -> Column:
+    return Column(DT.Month(_c(c)))
+
+
+def dayofmonth(c: ColumnOrName) -> Column:
+    return Column(DT.DayOfMonth(_c(c)))
 
 
 def coalesce(*cols: ColumnOrName) -> Column:

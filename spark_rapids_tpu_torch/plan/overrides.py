@@ -17,8 +17,10 @@ from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.base import PhysicalExec
 from spark_rapids_tpu_torch.ops import aggregates as AGG
 from spark_rapids_tpu_torch.ops import arithmetic as AR
+from spark_rapids_tpu_torch.ops import datetimeops as DT
 from spark_rapids_tpu_torch.ops import nulls as N
 from spark_rapids_tpu_torch.ops import predicates as P
+from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops.base import (
     Alias,
     AttributeReference,
@@ -26,6 +28,7 @@ from spark_rapids_tpu_torch.ops.base import (
     Expression,
 )
 from spark_rapids_tpu_torch.ops.cast import Cast
+from spark_rapids_tpu_torch.ops.conditional import CaseWhen, If
 from spark_rapids_tpu_torch.ops.literals import Literal
 from spark_rapids_tpu_torch.plan import meta as MT
 from spark_rapids_tpu_torch.plan.meta import ExecMeta, ExecRule, ExprMeta, ExprRule
@@ -73,16 +76,6 @@ def _tag_agg(m: ExprMeta) -> None:
                         "engine (device string min/max is not ported yet)")
 
 
-def _tag_string_operands(m: ExprMeta) -> None:
-    """Device strings cover column references, literals, comparisons (K8),
-    grouping, hashing, sorting, joins and gathers; string coalesce waits
-    for the string functions (ROADMAP B15)."""
-    e = m.expr
-    if any(c.data_type is DataType.STRING for c in e.children()):
-        m.will_not_work(f"device {type(e).__name__} over STRING is not "
-                        "ported yet")
-
-
 def _register_expr_rules():
     r = register_expr
     r(Alias, "name a result")
@@ -94,11 +87,18 @@ def _register_expr_rules():
                 AR.Pmod):
         r(cls, f"arithmetic {cls.__name__}")
     for cls in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-                P.GreaterThanOrEqual, P.And, P.Or, P.Not):
+                P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.In):
         r(cls, f"predicate {cls.__name__}")
-    r(N.IsNull, "null-handling IsNull")
-    r(N.IsNotNull, "null-handling IsNotNull")
-    r(N.Coalesce, "null-handling Coalesce", tag_fn=_tag_string_operands)
+    for cls in (N.IsNull, N.IsNotNull, N.Coalesce):
+        r(cls, f"null-handling {cls.__name__}")
+    r(If, "if/else")
+    r(CaseWhen, "case when")
+    # strings (reference :135-137): Like has no tag there either, so a
+    # pattern outside classify_like's subset raises in the device kernel
+    for cls in (S.Substring, S.StartsWith, S.EndsWith, S.Contains, S.Like):
+        r(cls, f"string {cls.__name__}")
+    for cls in (DT.Year, DT.Month, DT.DayOfMonth):
+        r(cls, f"datetime {cls.__name__}")
     for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count, AGG.Average):
         r(cls, f"aggregate {cls.__name__}", tag_fn=_tag_agg)
 
@@ -178,6 +178,9 @@ def _register_exec_rules():
     register_exec(
         J.CpuBroadcastHashJoinExec, "broadcast hash equi-join (K9-K11)",
         _convert_join(J.TpuBroadcastHashJoinExec))
+    register_exec(
+        J.CpuNestedLoopJoinExec, "cross/nested-loop join",
+        _convert_join(J.TpuNestedLoopJoinExec))
 
 
 def _expr_rule_for(e: Expression) -> Optional[ExprRule]:

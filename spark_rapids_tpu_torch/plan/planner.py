@@ -10,8 +10,10 @@ aggregate. A global sort plans as range exchange -> per-partition sort.
 A limit plans as local limit -> coalesce to one partition -> global limit.
 An equi-join plans as a broadcast hash join when the build side's estimated
 bytes fit autoBroadcastJoinThreshold (an INNER join may swap its sides for
-that), else as a shuffled hash join over two hash exchanges; non-equi and
-cross joins wait for the nested-loop join and raise.
+that), else as a shuffled hash join over two hash exchanges. A CROSS join,
+or an INNER join without equi keys, plans as a nested-loop join (the right
+side materialised once, the condition a filter over the product); any
+other join type without equi keys raises, as in the reference.
 """
 
 from __future__ import annotations
@@ -140,6 +142,9 @@ def _estimate_rows(plan: L.LogicalPlan) -> Optional[int]:
 
         n = cached_row_count(plan)
         return n if n is not None else _estimate_rows(plan.children[0])
+    if isinstance(plan, L.Join) and plan.join_type is L.JoinType.CROSS:
+        left, right = (_estimate_rows(c) for c in plan.children)
+        return None if left is None or right is None else left * right
     if isinstance(plan, L.Join) and plan.join_type in (
             L.JoinType.LEFT_SEMI, L.JoinType.LEFT_ANTI):
         # filtering joins never emit more than their left input
@@ -152,6 +157,7 @@ def _plan_join(plan: L.Join, conf: C.TpuConf) -> PhysicalExec:
     from spark_rapids_tpu_torch.columnar.dtypes import common_type
     from spark_rapids_tpu_torch.exec.join import (
         CpuBroadcastHashJoinExec,
+        CpuNestedLoopJoinExec,
         CpuShuffledHashJoinExec,
     )
     from spark_rapids_tpu_torch.ops.cast import Cast
@@ -163,9 +169,12 @@ def _plan_join(plan: L.Join, conf: C.TpuConf) -> PhysicalExec:
     left, right = _plan_children(plan, conf)
     jt = plan.join_type
     if jt is L.JoinType.CROSS or not plan.left_keys:
-        raise NotImplementedError(
-            f"{jt.value} join without equi keys needs the nested-loop join, "
-            "which is not ported yet")
+        # reference: planner.py:352-357
+        if jt not in (L.JoinType.CROSS, L.JoinType.INNER):
+            raise NotImplementedError(
+                f"non-equi {jt.value} join is not supported")
+        return CpuNestedLoopJoinExec([], [], L.JoinType.CROSS,
+                                     plan.condition, left, right)
     if plan.condition is not None and jt is not L.JoinType.INNER:
         raise NotImplementedError(
             f"{jt.value} join with a non-equi residual condition")

@@ -1,4 +1,4 @@
-"""The port stands alone: importing it, and running TPC-H q1, q3 and q5
+"""The port stands alone: importing it, and running all 22 TPC-H queries
 through its own generator on the CPU, loads no JAX and nothing of the JAX
 package, and its default device is the card (no silent CPU fallback)."""
 
@@ -23,6 +23,9 @@ rows = tpch.q1(tables).collect()
 assert len(rows) == 6, rows
 assert len(tpch.q3(tables).collect()) == 10
 assert tpch.q5(tables).collect()
+assert len(tpch.QUERIES) == 22
+for name, query in tpch.QUERIES.items():
+    query(tables).collect()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
