@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA card.
 
     python3 chip_smoke.py                 # all phases, flagship at 2^26 rows
+    python3 chip_smoke.py --q02-probe 2,4,6   # q02's peak memory by SF
 
 Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
 (one nvcc per source, in parallel) and then:
@@ -66,12 +67,35 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    relative 1e-9, rows in ORDER BY order), the others' warm rows against
    their cold run; then all 22 queries at SF 0.1 on the card against the
    port's own numpy CPU engine (rapids.tpu.sql.enabled=false: the same
-   planner, none of the device kernels), rows in order.
+   planner, none of the device kernels), rows in order;
+7. the TPCx-BB-like suite (BASELINE config 5) after the TPC-H tables are
+   released: the port's tpcxbb.gen_tables at SF 10 (28.8M store_sales,
+   60M web_clickstreams, 14.4M web_sales, 7.2M inventory, 2.88M
+   store_returns, 600,000 product_reviews, 180,000 items), 4 partitions,
+   every table cached, 8 shuffle partitions, as bench.py --tpcxbb lays it
+   out; all 30 queries one cold and 3 warm runs each (q02 at Q02_SF on
+   its own tables: its self-join's pairs, PERF.md), every plan asserted
+   all on the device, with the geomean of the warm medians; q16 (decimal
+   sums in int64 cents, exact, and before + after == total), q05
+   (sessions and clicks per user from a sort by user and click time), q01
+   and q28 against numpy, the others' warm rows against their cold run;
+   the window-frames path (running sum, ROWS max, hour RANGE count over
+   the clicks; its running sum against numpy); then all 30 and the frames
+   path at SF 0.01 on the card against the port's CPU engine. Phase 3
+   holds K14-K16 (window_segments, window_rank_offset, window_frame_agg)
+   and K17 (string_chars) too: bit for bit on edge cases (empty batch, one
+   row, one partition, all peers, NULL keys, NULLS FIRST / LAST,
+   descending, NaN / -0.0 keys, an int64 lag default beyond int32, RANGE
+   frames with NULL keys, empty frames; invalid UTF-8, empty rows, start
+   < 1, the empty needle) and timed at q05's window batch (7.5M rows) and
+   over pr_content.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
-tpch_q5, tpch_q5_shuffled, and tpch_q2 ... tpch_q22 of phase 6); every
-kernel of a path must have launched in that path's own run. In the kernels
+tpch_q5, tpch_q5_shuffled, tpch_q2 ... tpch_q22 of phase 6, and
+tpcxbb_q01_like ... tpcxbb_q30_like and tpcxbb_window_frames of phase 7);
+every kernel of a path must have launched in that path's own run. In the
+kernels
 line, "launches" is the count of the kernel's own path ("path") and
 "launches_by_path" holds every run's counts.
 
@@ -145,6 +169,18 @@ KERNELS = {
     "substring_plan": (
         "spark_rapids_tpu_torch/csrc/substring.cu",
         "spark_rapids_tpu/columnar/strings.py:284", "tpch_q22"),
+    "window_segments": (
+        "spark_rapids_tpu_torch/csrc/window_segments.cu",
+        "spark_rapids_tpu/exec/window.py:241", "tpcxbb_q05_like"),
+    "window_rank_offset": (
+        "spark_rapids_tpu_torch/csrc/window_rank_offset.cu",
+        "spark_rapids_tpu/exec/window.py:413", "tpcxbb_q05_like"),
+    "window_frame_agg": (
+        "spark_rapids_tpu_torch/csrc/window_frame_agg.cu",
+        "spark_rapids_tpu/exec/window.py:549", "tpcxbb_window_frames"),
+    "string_chars": (
+        "spark_rapids_tpu_torch/csrc/string_chars.cu",
+        "spark_rapids_tpu/columnar/strings.py:542", "tpcxbb_q27_like"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -187,6 +223,27 @@ PATH_KERNELS = {
     "tpch_q22": _KEYED_JOIN + _STR_KEYS + ("substring_plan",
                                            "string_compare"),
 }
+# phase 7: every query sorts, exchanges and aggregates; joins, string
+# keys, windows and K17 where its text reaches them
+_XBB = ("radix_sort_pairs", "segment_reduce", "hash_partition")
+_XBB_JOIN = ("q02", "q03", "q04", "q07", "q08", "q10", "q11", "q12", "q13",
+             "q14", "q16", "q17", "q18", "q19", "q20", "q21", "q24", "q26",
+             "q27", "q29", "q30")
+_XBB_STR_KEYS = ("q07", "q10", "q11", "q14", "q17", "q24", "q27", "q28")
+_XBB_EXTRA = {"q05": ("window_segments", "window_rank_offset", "group_ids"),
+              "q15": ("window_segments", "window_rank_offset"),
+              "q16": ("window_segments", "window_rank_offset",
+                      "string_compare"),
+              "q26": ("string_compare",),
+              "q27": ("string_search", "string_chars"),
+              "q28": ("string_chars",)}
+for _i in range(1, 31):
+    _q = f"q{_i:02d}"
+    PATH_KERNELS[f"tpcxbb_{_q}_like"] = (
+        _XBB + (_JOIN if _q in _XBB_JOIN else ()) +
+        (_STR_KEYS if _q in _XBB_STR_KEYS else ()) + _XBB_EXTRA.get(_q, ()))
+PATH_KERNELS["tpcxbb_window_frames"] = _XBB[:1] + _XBB[2:] + (
+    "window_segments", "window_frame_agg")
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -196,6 +253,15 @@ ALL_SHUFFLED = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
                 "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": False}
 C_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
               "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": True}
+# phase 7: bench.py --tpcxbb's layout (4 partitions, every table cached)
+TPCXBB_SF = 10
+TPCXBB_PARTITIONS = 4
+XBB_SHUFFLE = 8
+# q02's self-join on the user emits ~60 x its clicks pairs before its
+# filter (3.6e9 at SF 10, ~450M a shuffle partition); it runs at the
+# largest scale factor whose pairs fit one card (--q02-probe, PERF.md)
+Q02_SF = 5
+XBB_SMALL_SF = 0.01
 
 
 def log(msg: str) -> None:
@@ -916,6 +982,769 @@ def run_small_sf() -> dict:
         + ", ".join(f"{q} {v['rows']}" for q, v in out.items()
                     if q != "sf"))
     return out
+
+
+# ------------------------------------------------------------ TPCx-BB
+class TableRecorder(dict):
+    """The tables dict of a query, recording which tables it reads."""
+
+    def __init__(self, tables):
+        super().__init__(tables)
+        self.seen = set()
+
+    def __getitem__(self, k):
+        self.seen.add(k)
+        return super().__getitem__(k)
+
+
+def host_columns(df, names) -> dict:
+    """Host numpy columns `names` of a generated table (all partitions;
+    DECIMAL as unscaled int64)."""
+    import numpy as np
+
+    batches = [b for part in df._plan.partitions for b in part]
+    idx = {a.name: i for i, a in enumerate(df.schema)}
+    return {n: np.concatenate([b.columns[idx[n]].data for b in batches])
+            for n in names}
+
+
+def numpy_xbb_q16(ss: dict, item: dict):
+    """q16 by numpy: per store the decimal revenue before / after the
+    pivot and in total, summed in int64 cents, ranked by total desc,
+    store; the rows with rank <= 20 as (store, before, after, total, rank,
+    delta), the money as Decimal."""
+    from decimal import Decimal
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb import _secs
+
+    cat = item["i_category"]
+    keep_cat = np.isin(cat, ["BOOKS", "ELECTRONICS", "HOME"])
+    m = keep_cat[ss["ss_item_sk"]]
+    store = ss["ss_store_sk"][m]
+    paid = ss["ss_net_paid"][m]
+    early = ss["ss_sold_ts"][m] < _secs("2003-07-01T00:00:00") * 1_000_000
+    n_store = int(store.max()) + 1 if len(store) else 0
+
+    def total(w):
+        out = np.zeros(n_store, dtype=np.int64)
+        np.add.at(out, store, w)
+        return out
+
+    before = total(np.where(early, paid, 0))
+    after = total(np.where(early, 0, paid))
+    tot = total(paid)
+    present = np.bincount(store, minlength=n_store) > 0
+    stores = np.nonzero(present)[0]
+    order = np.lexsort((stores, -tot[stores]))
+    rows = []
+    rank = 0
+    for i, s in enumerate(stores[order]):
+        if i == 0 or tot[s] != tot[stores[order][i - 1]]:
+            rank = i + 1
+        if rank > 20:
+            break
+        check(before[s] + after[s] == tot[s], "q16 numpy: before + after")
+        cents = (before[s], after[s], tot[s], after[s] - before[s])
+        b, a, tt, d = (Decimal(int(c)).scaleb(-2) for c in cents)
+        rows.append((int(s), b, a, tt, rank, d))
+    return rows
+
+
+def click_key(user, ts):
+    """One int64 sort key of (user, click second in 2003): users are below
+    2^20 at SF 10, seconds of the year below 2^25."""
+    from spark_rapids_tpu_torch.benchmarks.tpcxbb import _secs
+
+    return user * (1 << 25) + (ts // 1_000_000 - _secs("2003-01-01T00:00:00"))
+
+
+def clicks_by_user(wcs: dict):
+    """The clicks sorted by (user, click time) and the start of each
+    user's run."""
+    import numpy as np
+
+    order = np.argsort(click_key(wcs["wcs_user_sk"], wcs["wcs_click_ts"]),
+                       kind="stable")
+    user = wcs["wcs_user_sk"][order]
+    ts = wcs["wcs_click_ts"][order]
+    item = wcs["wcs_item_sk"][order]
+    first = np.ones(len(user), dtype=bool)
+    first[1:] = user[1:] != user[:-1]
+    return user, ts, item, first
+
+
+def numpy_xbb_q05(sorted_clicks):
+    """q05 by numpy: sessions (gaps over an hour + 1) and clicks per user,
+    clicks > 1, top 100 by sessions desc, user."""
+    import numpy as np
+
+    user, ts, _, first = sorted_clicks
+    secs = ts // 1_000_000
+    gap = np.zeros(len(secs), dtype=np.int64)
+    gap[1:] = secs[1:] - secs[:-1]
+    gap[first] = 0
+    starts = np.nonzero(first)[0]
+    users = user[starts]
+    clicks = np.diff(np.append(starts, len(user)))
+    sessions = np.add.reduceat((gap > 3600).astype(np.int64), starts) + 1
+    keep = clicks > 1
+    users, clicks, sessions = users[keep], clicks[keep], sessions[keep]
+    order = np.lexsort((users, -sessions))[:100]
+    return [(int(users[i]), int(sessions[i]), int(clicks[i]))
+            for i in order]
+
+
+def numpy_xbb_q01(ss: dict, n_item: int):
+    """q01 by numpy: per (store, item) count and quantity, count >= 2, top
+    100 by count desc, store, item."""
+    import numpy as np
+
+    key = ss["ss_store_sk"] * n_item + ss["ss_item_sk"]
+    keys, inv, cnt = np.unique(key, return_inverse=True, return_counts=True)
+    qty = np.bincount(inv, weights=ss["ss_quantity"]).astype(np.int64)
+    keep = cnt >= 2
+    keys, cnt, qty = keys[keep], cnt[keep], qty[keep]
+    order = np.lexsort((keys, -cnt))[:100]
+    return [(int(keys[i] // n_item), int(keys[i] % n_item), int(cnt[i]),
+             int(qty[i])) for i in order]
+
+
+def numpy_xbb_q28(pr: dict, lengths):
+    """q28 by numpy: per (split, label) review count and mean text
+    length, ordered by split, label."""
+    import numpy as np
+
+    split = np.where(pr["pr_review_sk"] % 10 < 9, "train", "test")
+    label = (pr["pr_rating"] >= 4).astype(np.int64)
+    rows = []
+    for s in ("test", "train"):
+        for lab in (0, 1):
+            m = (split == s) & (label == lab)
+            n = int(m.sum())
+            if n:
+                rows.append((s, lab, n, float(lengths[m].sum()) / n))
+    return rows
+
+
+def numpy_running_items(sorted_clicks):
+    """The frames path's running sum by numpy: per user the cumulative
+    item keys up to the row's last peer (same click time)."""
+    import numpy as np
+
+    user, ts, item, first = sorted_clicks
+    cs = np.cumsum(item)
+    starts = np.nonzero(first)[0]
+    base = np.repeat(np.append(0, cs)[starts],
+                     np.diff(np.append(starts, len(user))))
+    run = cs - base
+    last = np.ones(len(user), dtype=bool)
+    last[:-1] = (user[1:] != user[:-1]) | (ts[1:] != ts[:-1])
+    ends = np.nonzero(last)[0]
+    peer_last = np.repeat(ends, np.diff(np.append(-1, ends)))
+    return run[peer_last]
+
+
+def gen_xbb(sess, sf: float):
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+
+    t = time.perf_counter()
+    raw = tpcxbb.gen_tables(sess, sf=sf, num_partitions=TPCXBB_PARTITIONS)
+    gen_s = time.perf_counter() - t
+    rows = {k: sum(b.num_rows for part in v._plan.partitions for b in part)
+            for k, v in raw.items()}
+    log(f"phase 7: TPCx-BB SF {sf} generated in {gen_s:.1f} s: {rows}")
+    return raw, {k: v.cache() for k, v in raw.items()}, rows, gen_s
+
+
+def xbb_session():
+    """A session laid out as bench.py --tpcxbb runs the suite."""
+    import spark_rapids_tpu_torch as srt
+
+    sess = srt.new_session(TPCH_CONF)
+    sess.set_conf("rapids.tpu.sql.shuffle.partitions", XBB_SHUFFLE)
+    return sess
+
+
+def release(sess, tables) -> None:
+    import torch
+
+    for df in tables.values():
+        df.unpersist()
+    sess.last_physical_plan = None
+    torch.cuda.empty_cache()
+
+
+def probe_q02(sfs) -> list:
+    """q02 alone at each scale factor in `sfs` (ascending), on its own
+    cached tables as phase 7 lays them out: per scale factor the device
+    bytes its tables hold, then the time, rows and peak device bytes of
+    three runs, up to the first that runs out of device memory. The
+    readings that set Q02_SF."""
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    out = []
+    for sf in sfs:
+        sess = xbb_session()
+        raw, tables, rows, gen_s = gen_xbb(sess, sf)
+        # upload q02's one table before its runs
+        tables["web_clickstreams"].agg(F.count("*")).collect()
+        q = tpcxbb.q02_like(tables)
+        r = {"sf": sf, "clicks": rows["web_clickstreams"], "gen_s": gen_s,
+             "tables_bytes": torch.cuda.memory_allocated(), "runs": []}
+        out.append(r)
+        for _ in range(3):
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            try:
+                n = len(q.collect())
+                torch.cuda.synchronize()
+            except torch.OutOfMemoryError as e:
+                r["out_of_memory"] = str(e).splitlines()[0]
+                r["peak_bytes"] = torch.cuda.max_memory_allocated()
+                break
+            r["runs"].append({"s": time.perf_counter() - t, "rows": n,
+                              "peak_bytes":
+                              torch.cuda.max_memory_allocated()})
+        log(f"q02 probe at SF {sf}: {r}")
+        del q, raw
+        release(sess, tables)
+        if "out_of_memory" in r:
+            break
+    return out
+
+
+def run_xbb_query(sess, name, fn, tables, table_rows, want, launches,
+                  warm_reps: int) -> dict:
+    from spark_rapids_tpu_torch import cuda_build as CB
+
+    rec = TableRecorder(tables)
+    q = fn(rec)
+    CB.reset_launch_counts()
+    r = run_query(sess, q, want, name, warm_reps)
+    launches[name] = CB.launch_counts()
+    rows_in = sum(table_rows[t] for t in sorted(rec.seen))
+    r["tables"] = sorted(rec.seen)
+    r["input_rows"] = rows_in
+    r["rows_per_s"] = rows_in / r["warm_median_s"]
+    r["joins"] = join_strategies(sess)
+    return r
+
+
+def run_tpcxbb(launches: dict, profile_dir=None):
+    """Phase 7: all 30 TPCx-BB-like queries (q02 at Q02_SF, see PERF.md)
+    and the window-frames path over cached SF 10 tables; returns the
+    results and pr_content's host column (for K17's timing)."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+
+    sess = xbb_session()
+    out = {"sf": TPCXBB_SF, "q02_sf": Q02_SF}
+    # q02 alone at its cut scale factor (its self-join's pairs, PERF.md)
+    raw, tables, rows, _ = gen_xbb(sess, Q02_SF)
+    torch.cuda.reset_peak_memory_stats()
+    r = run_xbb_query(sess, "tpcxbb_q02_like", tpcxbb.q02_like, tables,
+                      rows, None, launches, 3)
+    r["sf"] = Q02_SF
+    r["peak_bytes"] = torch.cuda.max_memory_allocated()
+    r["checked_against"] = "its own cold run"
+    out["tpcxbb_q02_like"] = r
+    log(f"tpcxbb_q02_like at SF {Q02_SF}: peak device bytes "
+        f"{r['peak_bytes']}")
+    del raw
+    release(sess, tables)
+
+    raw, tables, rows, gen_s = gen_xbb(sess, TPCXBB_SF)
+    out["gen_s"] = gen_s
+    out["table_rows"] = rows
+    ss = host_columns(raw["store_sales"], (
+        "ss_sold_ts", "ss_store_sk", "ss_item_sk", "ss_quantity",
+        "ss_net_paid"))
+    item_batches = [b for p in raw["item"]._plan.partitions for b in p]
+    item = {"i_category": np.concatenate([b.columns[1].data
+                                          for b in item_batches])}
+    wcs = host_columns(raw["web_clickstreams"], (
+        "wcs_user_sk", "wcs_click_ts", "wcs_item_sk"))
+    pr = host_columns(raw["product_reviews"], ("pr_review_sk", "pr_rating"))
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnVector
+
+    pr_batches = [b for p in raw["product_reviews"]._plan.partitions
+                  for b in p]
+    pr_content = HostColumnVector.from_numpy(np.concatenate(
+        [b.columns[4].data for b in pr_batches]))
+    lengths = np.diff(pr_content.utf8()[0])
+    t = time.perf_counter()
+    sorted_clicks = clicks_by_user(wcs)
+    want = {"q16_like": numpy_xbb_q16(ss, item),
+            "q05_like": numpy_xbb_q05(sorted_clicks),
+            "q01_like": numpy_xbb_q01(ss, rows["item"]),
+            "q28_like": numpy_xbb_q28(pr, lengths)}
+    running = numpy_running_items(sorted_clicks)
+    log(f"phase 7: numpy references of {sorted(want)} and the running sum "
+        f"ready in {time.perf_counter() - t:.1f} s")
+    del ss, wcs, pr, item
+    for name in sorted(tpcxbb.QUERIES):
+        if name == "q02_like":
+            continue
+        path = f"tpcxbb_{name}"
+        fn = tpcxbb.QUERIES[name]
+        r = run_xbb_query(sess, path, fn, tables, rows, want.get(name),
+                          launches, 3)
+        r["checked_against"] = "numpy" if name in want else \
+            "its own cold run"
+        if name == "q16_like":
+            for _, before, after, total, _, delta in fn(tables).collect():
+                check(before + after == total and after - before == delta,
+                      f"{path}: before + after != total")
+            r["checked_against"] = "numpy (int64 cents, exact)"
+        out[path] = r
+    # the frames path: 60M rows back to the host each run
+    name = "tpcxbb_window_frames"
+    q = tpcxbb.window_frames(tables)
+    times = []
+    for i in range(4):  # one cold run, 3 warm
+        CB.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batches = q.toLocalBatches()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        if i == 0:
+            launches[name] = CB.launch_counts()
+            assert_on_device(sess)
+    warm = times[1:]
+    cols = [np.concatenate([b.columns[j].data for b in batches])
+            for j in range(4)]
+    user, ts, run = cols[0], cols[1], cols[3]
+    # rows of one (user, click time) share their running sum
+    order = np.argsort(click_key(user, ts), kind="stable")
+    check(np.array_equal(user[order], sorted_clicks[0]),
+          f"{name}: rows differ from the clicks")
+    check(np.array_equal(run[order], running),
+          f"{name}: running sum differs from numpy")
+    out[name] = {"cold_s": times[0], "warm_s": warm,
+                 "warm_median_s": statistics.median(warm),
+                 "rows": int(len(user)),
+                 "input_rows": rows["web_clickstreams"],
+                 "rows_per_s": rows["web_clickstreams"] /
+                 statistics.median(warm),
+                 "checked_against": "numpy (running sum), the CPU engine "
+                                    "at small SF"}
+    log(f"{name}: {len(user)} rows, cold {out[name]['cold_s']:.4f} s, "
+        f"warm {warm}")
+    del batches, cols, user, ts, run, sorted_clicks, running
+    warm30 = [out[f"tpcxbb_{q}"]["warm_median_s"] for q in tpcxbb.QUERIES]
+    out["geomean_warm_s"] = float(np.exp(np.mean(np.log(warm30))))
+    log(f"phase 7: geomean of the 30 warm medians "
+        f"{out['geomean_warm_s']:.4f} s")
+    out["device_bytes"] = torch.cuda.memory_allocated()
+    if profile_dir:
+        slow = sorted(tpcxbb.QUERIES, key=lambda q: -out[f"tpcxbb_{q}"][
+            "warm_median_s"])[:2]
+        for qn in ["q05_like"] + [s for s in slow if s != "q05_like"]:
+            if qn == "q02_like":
+                continue
+            out[f"tpcxbb_{qn}"]["profile"] = profile_query(
+                tpcxbb.QUERIES[qn](tables), profile_dir, f"tpcxbb_{qn}")
+    release(sess, tables)
+    return out, pr_content
+
+
+def run_xbb_small_sf() -> dict:
+    """All 30 queries and the frames path at XBB_SMALL_SF on the card
+    against the port's numpy CPU engine, rows in order (the frames path's
+    as a set), DOUBLE within TPCH_REL."""
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+
+    card = srt.new_session(TPCH_CONF)
+    host = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True,
+                            "rapids.tpu.sql.enabled": False}, device="cpu")
+    tabs = []
+    for sess in (card, host):
+        sess.set_conf("rapids.tpu.sql.shuffle.partitions", XBB_SHUFFLE)
+        tabs.append({k: v.cache() for k, v in tpcxbb.gen_tables(
+            sess, sf=XBB_SMALL_SF, num_partitions=TPCXBB_PARTITIONS).items()})
+    out = {"sf": XBB_SMALL_SF}
+    queries = dict(tpcxbb.QUERIES, window_frames=tpcxbb.window_frames)
+    for q, fn in queries.items():
+        t = time.perf_counter()
+        got = fn(tabs[0]).collect()
+        card_s = time.perf_counter() - t
+        assert_on_device(card)
+        t = time.perf_counter()
+        want = fn(tabs[1]).collect()
+        host_s = time.perf_counter() - t
+        if q == "window_frames":
+            got, want = sorted(got), sorted(want)
+        worst = check_rows(got, want, f"{q} at SF {XBB_SMALL_SF} vs the CPU "
+                           "engine")
+        out[q] = {"rows": len(got), "card_s": card_s, "cpu_engine_s": host_s,
+                  "max_rel_diff": worst}
+    log(f"phase 7: all 30 queries and the frames path at SF {XBB_SMALL_SF} "
+        "equal the CPU engine: " + ", ".join(
+            f"{q} {v['rows']}" for q, v in out.items() if q != "sf"))
+    for d in tabs[0].values():
+        d.unpersist()
+    card.last_physical_plan = None
+    return out
+
+
+# ----------------------------------------------------- window kernels
+def window_setup(part_cols, order_cols, orders, live):
+    """K1's permutation and the words of a window sort (exec/window.py)."""
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.exec import window as W
+
+    words, n_part = W._window_words([RK.key_proxy(c) for c in part_cols],
+                                    [RK.key_proxy(c) for c in order_cols],
+                                    orders, live)
+    return words, n_part, RK.radix_sort_pairs(words)
+
+
+def compare_window(part_cols, order_cols, orders, live, values, label: str,
+                   errs: dict, frames) -> None:
+    """K14, K15 and K16 against their plain versions on one input set, bit
+    for bit. values: [(data, validity)] of several dtypes; frames:
+    WindowFrames for K16 (a bounded RANGE one only with a range key)."""
+    import torch
+
+    from spark_rapids_tpu_torch.exec import window as W
+    from spark_rapids_tpu_torch.exec.window import RANGE_KEY_TYPES
+
+    words, n_part, perm = window_setup(part_cols, order_cols, orders, live)
+    range_key = None
+    if len(order_cols) == 1 and order_cols[0].dtype in RANGE_KEY_TYPES:
+        oc = order_cols[0]
+        range_key = (oc.data, oc.validity, not orders[0].ascending)
+    seg = W.window_segments(words, perm, live, n_part, range_key)
+    seg_p = W.window_segments_plain(words, perm, live, n_part, range_key)
+    for f, g, w in zip(seg._fields, seg, seg_p):
+        if w is None:
+            continue
+        check(bits_equal(g, w), f"{label}: K14 {f} differs")
+        errs["window_segments"] = max(errs.get("window_segments", 0.0),
+                                      max_abs_err(g.long(), w.long()))
+    for kind, n in (("row_number", 0), ("rank", 0), ("dense_rank", 0),
+                    ("ntile", 3), ("ntile", 1000)):
+        got = W.window_rank_offset(seg, perm, kind, n=n)
+        want = W.window_rank_offset_plain(seg_p, perm, kind, n=n)
+        check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+              f"{label}: K15 {kind} differs")
+        errs["window_rank_offset"] = max(
+            errs.get("window_rank_offset", 0.0), max_abs_err(got[0], want[0]))
+    for data, valid in values:
+        defaults = [None, 3_000_000_000] if data.dtype == torch.int64 else \
+            [None, True] if data.dtype == torch.bool else [None, -7]
+        for offset in (-1, 1, -3, 2, 0):
+            for default in defaults:
+                got = W.window_rank_offset(seg, perm, "shift", offset=offset,
+                                           values=data, validity=valid,
+                                           default=default)
+                want = W.window_rank_offset_plain(
+                    seg_p, perm, "shift", offset=offset, values=data,
+                    validity=valid, default=default)
+                check(bits_equal(got[0], want[0]) and
+                      bits_equal(got[1], want[1]),
+                      f"{label}: K15 shift {offset} {data.dtype} differs")
+        if data.dtype == torch.bool:
+            continue
+        funcs = {"count": torch.int64, "min": data.dtype,
+                 "max": data.dtype, "first": data.dtype,
+                 "last": data.dtype}
+        funcs["sum"] = torch.float64 if data.is_floating_point() else \
+            torch.int64
+        funcs["avg"] = torch.float64
+        for frame in frames:
+            for func, out_dt in funcs.items():
+                got = W.window_frame_agg(seg, perm, func, frame, data, valid,
+                                         out_dt)
+                want = W.window_frame_agg_plain(seg_p, perm, func, frame,
+                                                data, valid, out_dt)
+                check(bits_equal(got[1], want[1]),
+                      f"{label}: K16 {func} {frame} validity differs")
+                check(bits_equal(got[0], want[0]),
+                      f"{label}: K16 {func} {frame} {data.dtype} differs")
+                errs["window_frame_agg"] = max(
+                    errs.get("window_frame_agg", 0.0),
+                    max_abs_err(got[0], want[0]))
+
+
+def window_edge_cases(dev, errs: dict) -> int:
+    """K14-K16 on the edge cases: an empty batch (all pads), one row, one
+    partition (no partitionBy), all rows peers (no orderBy), NULL partition
+    and order keys, NULLS FIRST and LAST, descending, NaN / -0.0 / inf
+    order keys, a TIMESTAMP range key with NULLs under every frame shape
+    (unbounded, running, ROWS offsets, bounded RANGE, an empty frame),
+    lag / lead with an int64 default beyond int32, values of int32, int64,
+    float32 (integer-valued, so prefix sums are exact), float64 with NaN
+    for min / max, and bool."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.ops.base import BoundReference, SortOrder
+    from spark_rapids_tpu_torch.ops.values import ColV
+    from spark_rapids_tpu_torch.ops.window import WindowFrame
+
+    rng = np.random.default_rng(31)
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    def col(dt, data, null_frac=0.0):
+        n = len(data)
+        return ColV(dt, t(data), t(rng.random(n) >= null_frac))
+
+    def order(asc=True, nulls_first=None):
+        return SortOrder(BoundReference(0, DataType.INT64), asc, nulls_first)
+
+    frames = [WindowFrame("rows", None, None), WindowFrame("rows", None, 0),
+              WindowFrame("rows", -3, 0), WindowFrame("rows", 0, None),
+              WindowFrame("rows", -2, 2), WindowFrame("rows", 2, 1),
+              WindowFrame("range", None, None),
+              WindowFrame("range", None, 0), WindowFrame("range", 0, 0)]
+    bounded = [WindowFrame("range", -5, 5), WindowFrame("range", None, 3),
+               WindowFrame("range", 0, 10), WindowFrame("range", 5, 10),
+               WindowFrame("range", -3_600_000_000, 0)]
+    n_cases = 0
+    for cap, n, null_frac in ((8, 0, 0.0), (8, 1, 0.0), (4096, 4000, 0.2),
+                              (1 << 16, 60_000, 0.1)):
+        live = t(np.arange(cap) < n)
+        values = [
+            (t(rng.integers(-50, 50, cap).astype(np.int32)),
+             t(rng.random(cap) > null_frac)),
+            (t(rng.integers(-2**40, 2**40, cap).astype(np.int64)),
+             t(rng.random(cap) > null_frac)),
+            (t(rng.integers(-100, 100, cap).astype(np.float32)),
+             t(rng.random(cap) > null_frac)),
+            (t(rng.choice(np.array([np.nan, -0.0, 0.0, 1.0, -2.0, np.inf]),
+                          cap)), t(rng.random(cap) > null_frac)),
+            (t(rng.random(cap) > 0.5), t(rng.random(cap) > null_frac))]
+        part = col(DataType.INT64, rng.integers(0, 9, cap).astype(np.int64),
+                   null_frac)
+        ts = col(DataType.TIMESTAMP, rng.integers(
+            -3 * 3_600_000_000, 3 * 3_600_000_000, cap).astype(np.int64) //
+            1000 * 1000, null_frac)
+        ties = col(DataType.INT32, rng.integers(0, 7, cap).astype(np.int32),
+                   null_frac)
+        flt = col(DataType.FLOAT64, rng.choice(np.array(
+            [np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5]), cap), null_frac)
+        for label, pcols, ocols, orders, fr in (
+                ("ts asc", [part], [ts], [order()], frames + bounded),
+                ("ts desc nulls first", [part], [ts], [order(False, True)],
+                 frames + bounded),
+                ("ts asc nulls last", [part], [ts], [order(True, False)],
+                 frames + bounded),
+                ("one partition", [], [ties], [order()], frames + bounded),
+                ("all peers", [part], [], [], frames),
+                ("float keys", [part], [flt, ties],
+                 [order(False), order()], frames)):
+            compare_window(pcols, ocols, orders, live, values,
+                           f"K14-K16 {label} C={cap} n={n}", errs, fr)
+            n_cases += 1
+    return n_cases
+
+
+def string_chars_edge_cases(dev, errs: dict) -> int:
+    """K17 against its plain version: invalid UTF-8 (continuation bytes
+    first, a lone lead byte), empty and NULL rows, multi-byte characters,
+    a match at a row's end and one that would cross rows; start 0, 1,
+    inside and beyond the length, -1; the empty needle, a needle longer
+    than shared memory."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.columnar import strings as S
+
+    rows = [b"", b"a", b"brandx", b"the brandx box", b"xbrandx", b"brand",
+            b"x", b"\xc3\xa9brandx \xe2\x98\x83 brandx", b"\x80\x80brandx",
+            b"\xc3", b"brandxbrandx", b"aab", b"aaab", b"ab", b"bra",
+            b"ndx brandx", b"\xff\xfe", b"x" * 300 + b"brandx"]
+    rng = np.random.default_rng(41)
+    alphabet = [b"a", b"b", b"x", b" ", b"\xc3\xa9", b"\x80", b"brandx"]
+    many = [b"".join(alphabet[int(i)] for i in rng.integers(
+        0, len(alphabet), int(rng.integers(0, 12)))) for _ in range(20_000)]
+    n = 0
+    for case in (rows, many, [b""] * 5):
+        offsets, raw, _ = raw_string_column(case, dev)
+        got = S.utf8_char_lengths(offsets, raw)
+        want = S.utf8_char_lengths_plain(offsets, raw)
+        check(bits_equal(got, want), f"K17 lengths {n} differ")
+        errs["string_chars"] = max(errs.get("string_chars", 0.0),
+                                   max_abs_err(got, want))
+        needles = [b"brandx", b"a", b"ab", b"x", b"", "é".encode(),
+                   b"\x80", b"aab", b"zzz"]
+        if n == 0:
+            needles.append(b"q" * 20_000)  # past the shared-memory copy
+        for needle in needles:
+            for start in ((0, 1, 2, 3, 7, 40, -1) if len(needle) < 99
+                          else (1, 2)):
+                got = S.locate(offsets, raw, needle, start)
+                want = S.locate_plain(offsets, raw, needle, start)
+                check(bits_equal(got, want),
+                      f"K17 locate {needle[:8]!r} {start} {n} differs")
+                errs["string_chars"] = max(errs["string_chars"],
+                                           max_abs_err(got, want))
+        n += 1
+    return n
+
+
+def q05_window_batch(dev):
+    """One window batch of q05 at SF 10: 60M clicks over 8 shuffle
+    partitions is 7.5M rows, 1M users (about 125,000 a partition with 60
+    clicks each), click times over 2003, item keys below 180,000."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    n = 60_000_000 // XBB_SHUFFLE
+    cap = bucket_capacity(n)
+    rng = np.random.default_rng(51)
+    live = torch.arange(cap, device=dev) < n
+
+    def t(x):
+        pad = np.zeros(cap, dtype=x.dtype)
+        pad[:n] = x
+        return torch.from_numpy(pad).to(dev)
+
+    user = t(rng.integers(0, 125_000, n) * 8)
+    ts = t(rng.integers(1041379200, 1072915199, n) * 1_000_000)
+    item = t(rng.integers(0, 180_000, n))
+    return n, cap, live, ColV(DataType.INT64, user, live), \
+        ColV(DataType.TIMESTAMP, ts, live), item
+
+
+def time_window_kernels(dev, errs: dict, pr_content) -> dict:
+    """K14-K16 at q05's window batch (7.5M rows, partition by user, order
+    by click time), as q05 and the frames path call them: K14 with the
+    TIMESTAMP range key; K15 as q05's lag of the click time; K16 as the
+    frames path's running sum (reported), ROWS 3 PRECEDING max and hour
+    RANGE count. K17 over product_reviews' pr_content at SF 10 (600,000
+    rows of the generator's text, phase 7's column): lengths (reported)
+    and locate('brandx'). Bounds: each input read once, each output written
+    once."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import strings as S
+    from spark_rapids_tpu_torch.exec import window as W
+    from spark_rapids_tpu_torch.ops.base import BoundReference, SortOrder
+    from spark_rapids_tpu_torch.ops.window import WindowFrame
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+    iters, plain_iters = 10, 2
+    n, cap, live, user, ts, item = q05_window_batch(dev)
+    orders = [SortOrder(BoundReference(0, DataType.TIMESTAMP), True)]
+    words, n_part, perm = window_setup([user], [ts], orders, live)
+    rk = (ts.data, ts.validity, False)
+    n_words = int(words.shape[0])
+    rows = {}
+    seg = W.window_segments(words, perm, live, n_part, rk)
+    seg_p = W.window_segments_plain(words, perm, live, n_part, rk)
+    for f, g, w in zip(seg._fields, seg, seg_p):
+        check(bits_equal(g, w), f"K14 q05 batch: {f} differs")
+    rows["window_segments"] = dict(
+        ms=cuda_ms(lambda: W.window_segments(words, perm, live, n_part, rk),
+                   iters),
+        plain_ms=cuda_ms(lambda: W.window_segments_plain(
+            words, perm, live, n_part, rk), plain_iters),
+        library_ms=None,
+        # in: the words, perm, live, the range key and its validity; out:
+        # live_s, six int32 (pgid, start, end, peer_start, peer_end,
+        # peer_id), key_s, kvalid, nn_start, nn_end
+        bound_ms=bound_ms((4 * n_words + 4 + 1 + 8 + 1) * cap +
+                          (1 + 6 * 4 + 8 + 1 + 4 + 4) * cap),
+        shape=f"{n} rows (cap {cap}), {n_words} key words, TIMESTAMP "
+              "range key")
+    got = W.window_rank_offset(seg, perm, "shift", offset=-1,
+                               values=ts.data, validity=ts.validity)
+    want = W.window_rank_offset_plain(seg, perm, "shift", offset=-1,
+                                      values=ts.data, validity=ts.validity)
+    check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+          "K15 q05 batch: lag differs")
+    rows["window_rank_offset"] = dict(
+        ms=cuda_ms(lambda: W.window_rank_offset(
+            seg, perm, "shift", offset=-1, values=ts.data,
+            validity=ts.validity), iters),
+        plain_ms=cuda_ms(lambda: W.window_rank_offset_plain(
+            seg, perm, "shift", offset=-1, values=ts.data,
+            validity=ts.validity), plain_iters),
+        library_ms=None,
+        # in: perm, live_s, start, the values and their validity (a lag's
+        # source row is never past its partition's end); out: 8 + 1
+        bound_ms=bound_ms((4 + 1 + 4 + 8 + 1) * cap + 9 * cap),
+        shape=f"{n} rows, lag(click_ts, 1)")
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    # the bytes a row of each array holds, and the arrays each run needs:
+    # a running RANGE frame is [start, peer_end]; ROWS -3..0 ends at the
+    # row itself; the hour RANGE count reads no values, searches its lower
+    # bound in [nn_start, row] and ends at peer_end (no click time is NULL)
+    width = dict(perm=4, value=8, flag=1, live=1, start=4, peer_end=4,
+                 key_s=8, kvalid=1, nn_start=4)
+    runs = (("ms", "sum", WindowFrame("range", None, 0),
+             ("perm", "value", "flag", "live", "start", "peer_end")),
+            ("ms_max_rows", "max", WindowFrame("rows", -3, 0),
+             ("perm", "value", "flag", "live", "start")),
+            ("ms_count_range", "count",
+             WindowFrame("range", -3_600_000_000, 0),
+             ("perm", "flag", "live", "key_s", "kvalid", "nn_start",
+              "peer_end")))
+    r = {}
+    for key, func, frame, arrays in runs:
+        in_bytes = sum(width[a] for a in arrays)
+        out_dt = torch.int64
+        got = W.window_frame_agg(seg, perm, func, frame, item, ones, out_dt)
+        want = W.window_frame_agg_plain(seg, perm, func, frame, item, ones,
+                                        out_dt)
+        check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+              f"K16 q05 batch: {func} differs")
+        r[key] = cuda_ms(lambda: W.window_frame_agg(
+            seg, perm, func, frame, item, ones, out_dt), iters)
+        r["bound_" + key] = bound_ms((in_bytes + 9) * cap)
+        if key == "ms":
+            r["plain_ms"] = cuda_ms(lambda: W.window_frame_agg_plain(
+                seg, perm, func, frame, item, ones, out_dt), plain_iters)
+    r["library_ms"] = None
+    r["shape"] = (f"{n} rows, sum(item) RANGE UNBOUNDED PRECEDING .. "
+                  "CURRENT ROW")
+    rows["window_frame_agg"] = r
+    del seg, seg_p, words, perm, user, ts, item, live
+
+    offs, raw = pr_content.utf8()
+    offsets = torch.from_numpy(offs.astype(np.int32)).to(dev)
+    data = torch.from_numpy(raw.copy()).to(dev)
+    nrows, nbytes = len(offs) - 1, int(offs[-1])
+    got = S.utf8_char_lengths(offsets, data)
+    check(bits_equal(got, S.utf8_char_lengths_plain(offsets, data)),
+          "K17 pr_content lengths differ")
+    loc = S.locate(offsets, data, b"brandx", 1)
+    check(bits_equal(loc, S.locate_plain(offsets, data, b"brandx", 1)),
+          "K17 pr_content locate differs")
+    found = loc.cpu().numpy()
+    # locate reads a row to the end of its first match (all of it without)
+    need = np.where(found > 0, found - 1 + 6,
+                    np.diff(offs)).sum()
+    rows["string_chars"] = dict(
+        ms=cuda_ms(lambda: S.utf8_char_lengths(offsets, data), iters),
+        plain_ms=cuda_ms(lambda: S.utf8_char_lengths_plain(offsets, data),
+                         plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * (nrows + 1) + nbytes + 4 * nrows),
+        ms_locate=cuda_ms(lambda: S.locate(offsets, data, b"brandx", 1),
+                          iters),
+        bound_ms_locate=bound_ms(4 * (nrows + 1) + int(need) + 4 * nrows),
+        shape=f"{nrows} rows like pr_content ({nbytes} bytes), lengths")
+    return rows
 
 
 # ----------------------------------------------------------- kernels
@@ -1653,7 +2482,7 @@ def time_search_kernels(dev, errs: dict) -> dict:
     return rows
 
 
-def time_kernels(dev, errs: dict, launches: dict):
+def time_kernels(dev, errs: dict, launches: dict, pr_content):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
     the high-cardinality partial output (2^22 rows) for K4."""
@@ -1743,6 +2572,7 @@ def time_kernels(dev, errs: dict, launches: dict):
     rows.update(time_string_kernels(dev, errs))
     rows.update(time_join_kernels(dev, errs))
     rows.update(time_search_kernels(dev, errs))
+    rows.update(time_window_kernels(dev, errs, pr_content))
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
@@ -1771,6 +2601,11 @@ def main(argv=None) -> int:
                          "device kernel and host function tables to DIR")
     ap.add_argument("--out", default=None,
                     help="also write the results as JSON to this file")
+    ap.add_argument("--q02-probe", default=None, metavar="SF,SF,...",
+                    help="instead of the phases, run TPCx-BB q02 alone at "
+                         "each scale factor (ascending, up to the first "
+                         "that runs out of device memory) and print its "
+                         "times and peak device memory as one JSON line")
     args = ap.parse_args(argv)
 
     import torch
@@ -1802,11 +2637,18 @@ def main(argv=None) -> int:
         log(line[:4000])
     build_s = time.perf_counter() - t
     log(f"kernels built in {build_s:.1f} s")
+    if args.q02_probe:
+        print(card)
+        print(json.dumps({"q02_probe": probe_q02(
+            [float(x) for x in args.q02_probe.split(",")]),
+            "total_memory": torch.cuda.get_device_properties(0).total_memory}))
+        return 0
 
     errs: dict = {}
     results = {"card": card, "build_s": build_s}
     n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
-        join_edge_cases(dev, errs) + search_edge_cases(dev, errs)
+        join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
+        window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -1826,15 +2668,22 @@ def main(argv=None) -> int:
                                   args.profile)
     results["phase6"] = run_queries(tpch_sess, raw, tables, li, launches,
                                     args.profile)
+    for df in tables.values():
+        df.unpersist()
+    tpch_sess.last_physical_plan = None
     del raw, tables, li
     results["phase6_small_sf"] = run_small_sf()
+    torch.cuda.empty_cache()
+    results["phase7"], pr_content = run_tpcxbb(launches, args.profile)
+    results["phase7_small_sf"] = run_xbb_small_sf()
     results["launches"] = launches
     log(f"launches: {launches}")
     if args.profile:
         results["profile"] = profile_flagship(sess, FLAGSHIP_ROWS,
                                               args.profile)
-    kernels = time_kernels(dev, errs, launches)
+    kernels = time_kernels(dev, errs, launches, pr_content)
     results["kernels"] = kernels
+    results["total_s"] = time.perf_counter() - T0
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
                     exist_ok=True)
@@ -1861,6 +2710,10 @@ def main(argv=None) -> int:
                  **{f"tpch_{q}": {k: v for k, v in p6[f"tpch_{q}"].items()
                                   if k in keep} for q in NEW_QUERIES}},
         "small_sf": results["phase6_small_sf"],
+        "tpcxbb": {k: ({kk: vv for kk, vv in v.items() if kk in keep +
+                        ("tables", "sf")} if k.startswith("tpcxbb_") else v)
+                   for k, v in results["phase7"].items()},
+        "tpcxbb_small_sf": results["phase7_small_sf"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

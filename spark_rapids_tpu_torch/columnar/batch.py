@@ -121,6 +121,14 @@ class HostColumnVector:
         if dtype is DataType.STRING:
             data = np.array([v if v is not None else "" for v in values],
                             dtype=object)
+        elif getattr(dtype, "is_decimal", False):
+            # logical values (Decimal/int/float/str) -> unscaled int64
+            # (reference: batch.py:263-270)
+            from spark_rapids_tpu_torch.ops.decimal_util import to_unscaled
+
+            data = np.array(
+                [to_unscaled(v, dtype.scale, dtype.precision)
+                 if v is not None else 0 for v in values], dtype=np.int64)
         else:
             npdt = dtype.to_np()
             zero = npdt.type(0)
@@ -149,14 +157,39 @@ class HostColumnVector:
         return HostColumnVector(dt, np.asarray(arr),
                                 np.asarray(validity, dtype=bool))
 
+    @staticmethod
+    def from_unscaled(unscaled: np.ndarray, dtype,
+                      validity: Optional[np.ndarray] = None
+                      ) -> "HostColumnVector":
+        """A DECIMAL column from its unscaled int64 values, which must lie
+        inside the type's precision bound (the generators' money columns:
+        the same values as a list of `decimal.Decimal`, without a Python
+        object per row)."""
+        from spark_rapids_tpu_torch.ops.decimal_util import bound
+
+        data = np.asarray(unscaled, dtype=np.int64)
+        if len(data) and int(np.abs(data).max()) > bound(dtype.precision):
+            raise OverflowError(f"unscaled values exceed {dtype.value}")
+        if validity is None:
+            validity = np.ones(len(data), dtype=bool)
+        return HostColumnVector(dtype, data, np.asarray(validity, dtype=bool))
+
     def to_pylist(self) -> List[Any]:
+        dec_scale = self.dtype.scale if getattr(self.dtype, "is_decimal",
+                                                False) else None
+        if dec_scale is not None:
+            from spark_rapids_tpu_torch.ops.decimal_util import from_unscaled
         out = []
         for i in range(len(self.data)):
             if not self.validity[i]:
                 out.append(None)
                 continue
             v = self.data[i]
-            out.append(v.item() if isinstance(v, np.generic) else v)
+            if isinstance(v, np.generic):
+                v = v.item()
+            if dec_scale is not None:
+                v = from_unscaled(v, dec_scale)
+            out.append(v)
         return out
 
 

@@ -246,11 +246,10 @@ def from_np(dtype: np.dtype) -> DataType:
     raise TypeError(f"unsupported numpy dtype {dtype}")
 
 
-# The device type gate of the port's slices so far (reference:
-# GpuOverrides.isSupportedType, GpuOverrides.scala:383-395). Timestamps and
-# decimals have no device kernels in the port yet, so an operator touching
-# them stays on the CPU engine (ROADMAP.md queue 1); the device string
-# operations are those plan/overrides.py admits.
+# The device type gate (reference: GpuOverrides.isSupportedType,
+# GpuOverrides.scala:383-395, and columnar/dtypes.py:249-267): the flat
+# types, TIMESTAMP and 64-bit DECIMAL; the device string operations are
+# those plan/overrides.py admits.
 SUPPORTED_TYPES = frozenset(
     {
         DataType.STRING,
@@ -262,13 +261,14 @@ SUPPORTED_TYPES = frozenset(
         DataType.INT64,
         DataType.FLOAT32,
         DataType.FLOAT64,
+        DataType.TIMESTAMP,
         DataType.NULL,
     }
 )
 
 
 def is_supported_type(dt) -> bool:
-    return dt in SUPPORTED_TYPES
+    return isinstance(dt, DecimalType) or dt in SUPPORTED_TYPES
 
 
 # Device storage dtype of each type. DOUBLE stays float64 on the card: an

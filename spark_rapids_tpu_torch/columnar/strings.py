@@ -38,9 +38,14 @@ of two bounding every row's byte length.
   strings drop trailing NUL characters, so the rows that lost some (their
   fixed-width length is short of their length) convert one by one.
 
+- K17 `string_chars` (csrc/string_chars.cu) replaces `utf8_char_lengths`
+  (:260) and `locate` (:542, with `_match_starts` :484): per row the count
+  of non-continuation bytes, and the 1-based character position of a
+  literal needle's first match at or after a start character. Its plain
+  version is the reference's cumsum formulation.
+
 The reference's other string functions (the rest of B15: concat_ws,
-upper / lower / initcap, replace, locate, substring_index, trim, lengths)
-wait.
+upper / lower / initcap, replace, substring_index, trim) wait.
 """
 
 from __future__ import annotations
@@ -710,3 +715,92 @@ def string_coalesce(ctx, vals):
     for k in range(len(vals) - 2, -1, -1):
         choice = torch.where(views[k].validity, k, choice)
     return _gather_from_sources(ctx, vals, choice)
+
+
+# ---------------------------------------------------------------------------
+# K17: character counts and locate (reference :260, :484, :542)
+# ---------------------------------------------------------------------------
+def _char_starts_cum(data):
+    """int32 [byte_cap + 1]: non-continuation bytes before each position."""
+    is_start = (data & 0xC0) != 0x80
+    out = torch.zeros(int(data.shape[0]) + 1, dtype=torch.int32,
+                      device=data.device)
+    out[1:] = torch.cumsum(is_start.to(torch.int32), 0, dtype=torch.int32)
+    return out
+
+
+def utf8_char_lengths_plain(offsets, data):
+    """int32 [cap]: characters a row, the count of bytes that are not
+    UTF-8 continuation bytes (reference :260)."""
+    cum = _char_starts_cum(data)
+    return cum[offsets[1:].long()] - cum[offsets[:-1].long()]
+
+
+def locate_plain(offsets, data, needle: bytes, start: int):
+    """int32 [cap]: 1-based character position of the first match of
+    `needle` whose character position is at least start - 1, inside its
+    own row; 0 when there is none or start < 1; for an empty needle
+    `start` when start <= characters + 1 (reference :542)."""
+    cap = int(offsets.shape[0]) - 1
+    dev = offsets.device
+    if start < 1:
+        return torch.zeros(cap, dtype=torch.int32, device=dev)
+    if not needle:
+        chars = utf8_char_lengths_plain(offsets, data)
+        return torch.where(start <= chars + 1,
+                           torch.full((), start, dtype=torch.int32,
+                                      device=dev),
+                           torch.zeros((), dtype=torch.int32, device=dev))
+    byte_cap = int(data.shape[0])
+    pos = torch.arange(byte_cap, device=dev)
+    n = len(needle)
+    m = torch.ones(byte_cap, dtype=torch.bool, device=dev)
+    for k, b in enumerate(needle):
+        m &= data[(pos + k).clamp(max=byte_cap - 1)] == b
+    ends = offsets[1:].long()
+    row = torch.searchsorted(ends, pos, right=True).clamp(0, cap - 1)
+    row_start = offsets[:-1].long()[row]
+    fits = (pos >= row_start) & (pos + n <= ends[row])
+    cum = _char_starts_cum(data)
+    char_pos = cum[pos] - cum[row_start.clamp(max=max(byte_cap - 1, 0))]
+    cand = m & fits & (char_pos >= start - 1)
+    inf = 1 << 30
+    first = torch.full((cap,), inf, dtype=torch.int32, device=dev)
+    first.scatter_reduce_(0, row, torch.where(
+        cand, char_pos, torch.full((), inf, dtype=torch.int32, device=dev)),
+        "amin")
+    return torch.where(first < inf, first + 1,
+                       torch.zeros((), dtype=torch.int32, device=dev))
+
+
+def _string_chars(offsets, data, needle: bytes, start: int, mode: int):
+    offsets = offsets.contiguous()
+    CB.require_cuda(offsets, data)
+    n = int(offsets.shape[0]) - 1
+    dev = offsets.device
+    nb = torch.frombuffer(bytearray(needle or b"\0"), dtype=torch.uint8)
+    nd = nb.to(dev, non_blocking=False)
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    lib = CB.library("string_chars")
+    rc = lib.srt_string_chars(offsets.data_ptr(), data.data_ptr(), n,
+                              nd.data_ptr(), len(needle), start, mode,
+                              out.data_ptr(), CB.stream_of(out))
+    CB.count_launch("string_chars")
+    CB.check(lib, rc, "string_chars")
+    return out
+
+
+def utf8_char_lengths(offsets, data):
+    """K17's count entry point: CPU tensors run the plain version, CUDA
+    tensors the kernel."""
+    if offsets.device.type == "cpu":
+        return utf8_char_lengths_plain(offsets, data)
+    return _string_chars(offsets, data, b"", 0, 0)
+
+
+def locate(offsets, data, needle: bytes, start: int):
+    """K17's locate entry point: CPU tensors run the plain version, CUDA
+    tensors the kernel."""
+    if offsets.device.type == "cpu":
+        return locate_plain(offsets, data, needle, start)
+    return _string_chars(offsets, data, needle, start, 1)

@@ -31,7 +31,8 @@ import torch
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "string_hash", "string_order", "string_gather", "string_compare",
-           "hash_join", "string_search", "substring")
+           "hash_join", "string_search", "substring", "window_segments",
+           "window_rank_offset", "window_frame_agg", "string_chars")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -200,6 +201,37 @@ _SIGNATURES = {
         "srt_string_search": (ctypes.c_int, [
             _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_int,
             ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP]),
+    },
+    "window_segments": {
+        "srt_window_segments_scratch_bytes": (ctypes.c_size_t,
+                                              [ctypes.c_longlong]),
+        "srt_window_segments": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_size_t, _VOIDP]),
+    },
+    "window_rank_offset": {
+        "srt_window_rank_offset": (ctypes.c_int, [
+            ctypes.c_int, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong, _VOIDP,
+            _VOIDP, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, _VOIDP,
+            _VOIDP, _VOIDP]),
+    },
+    "window_frame_agg": {
+        "srt_window_frame_agg_scratch_bytes": (ctypes.c_size_t,
+                                               [ctypes.c_longlong]),
+        "srt_window_frame_agg": (ctypes.c_int, [
+            ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_size_t, _VOIDP]),
+    },
+    "string_chars": {
+        "srt_string_chars": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

@@ -1,5 +1,6 @@
 """Basic physical operators (port of spark_rapids_tpu/exec/basic.py: the host
-scan, project, filter, the limits and partition coalescing; reference:
+scan, project, filter, union :296, the limits and partition coalescing;
+reference:
 basicPhysicalOperators.scala — GpuProjectExec :34-95, GpuFilterExec
 :96-177, GpuCoalesceExec :201-240 — and limit.scala:39-123)."""
 
@@ -180,6 +181,45 @@ class CpuFilterExec(CpuExec):
         return PartitionedBatches(
             child_pb.num_partitions,
             lambda p: count_output(self.metrics, factory(p)))
+
+
+# ---------------------------------------------------------------------------
+# Union (reference: exec/basic.py:296)
+# ---------------------------------------------------------------------------
+class _UnionBase(PhysicalExec):
+    """Union-all: the children's partition lists one after another, no
+    shuffle (reference: GpuUnionExec, basicPhysicalOperators.scala)."""
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def with_children(self, new_children):
+        return type(self)(*new_children)
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        child_pbs = [c.execute(ctx) for c in self.children]
+        spans = []
+        offset = 0
+        for pb in child_pbs:
+            spans.append((offset, pb))
+            offset += pb.num_partitions
+
+        def factory(pidx: int) -> Iterator:
+            for off, pb in spans:
+                if off <= pidx < off + pb.num_partitions:
+                    return count_output(self.metrics, pb.iterator(pidx - off))
+            raise IndexError(pidx)
+
+        return PartitionedBatches(offset, factory)
+
+
+class TpuUnionExec(_UnionBase, TpuExec):
+    placement = "tpu"
+
+
+class CpuUnionExec(_UnionBase, CpuExec):
+    placement = "cpu"
 
 
 # ---------------------------------------------------------------------------

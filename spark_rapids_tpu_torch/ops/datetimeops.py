@@ -1,11 +1,14 @@
-"""Date parts (port of spark_rapids_tpu/ops/datetimeops.py :18-78;
-reference: datetimeExpressions.scala — year, month, dayofmonth). UTC only,
-as in the reference.
+"""Date and time parts (port of spark_rapids_tpu/ops/datetimeops.py :18-108
+and UnixTimestamp :157; reference: datetimeExpressions.scala — year,
+month, dayofmonth, hour, minute, second, unix_timestamp). UTC only, as in
+the reference.
 
 Calendar math is Howard Hinnant's civil-from-days algorithm: integer ops
 only, elementwise, the same code on torch tensors (the card) and numpy
 arrays (the CPU engine). Both libraries floor `//` on negative operands,
-so dates before 1970 come out right. Results are int32.
+so dates before 1970 come out right; `hour()` takes `micros %
+MICROS_PER_DAY`, the floor modulus, on both (reference :90-92). Results are
+int32, unix_timestamp's int64.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.base import UnaryExpression
 from spark_rapids_tpu_torch.ops.values import where
 
-MICROS_PER_DAY = 86_400_000_000
+from spark_rapids_tpu_torch.ops.cast import MICROS_PER_DAY, MICROS_PER_SEC
 
 
 def _i32(x):
@@ -86,3 +89,46 @@ class Month(_DatePart):
 
 class DayOfMonth(_DatePart):
     _part = 2
+
+
+class _TimePart(UnaryExpression):
+    """A part of the time of day of a TIMESTAMP (reference :80)."""
+
+    _div = 1
+    _mod = 1
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        sec_of_day = (_i64(v.data) % MICROS_PER_DAY) // MICROS_PER_SEC
+        return _i32((sec_of_day // self._div) % self._mod)
+
+
+class Hour(_TimePart):
+    _div = 3600
+    _mod = 24
+
+
+class Minute(_TimePart):
+    _div = 60
+    _mod = 60
+
+
+class Second(_TimePart):
+    _div = 1
+    _mod = 60
+
+
+class UnixTimestamp(UnaryExpression):
+    """unix_timestamp(ts): epoch seconds, floored (reference :149)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT64
+
+    def do_columnar(self, ctx, v):
+        if self.child.data_type is DataType.DATE:
+            return _i64(v.data) * 86_400
+        return _i64(v.data) // MICROS_PER_SEC

@@ -1,8 +1,12 @@
 """Literals (port of spark_rapids_tpu/ops/literals.py; reference:
-literals.scala — GpuLiteral :120, GpuScalar.from :33)."""
+literals.scala — GpuLiteral :120, GpuScalar.from :33). A DECIMAL literal
+takes its logical value (5 means 5.00 at scale 2) and holds the unscaled
+int64, as a DECIMAL column does; a TIMESTAMP literal holds microseconds
+since the epoch."""
 
 from __future__ import annotations
 
+import decimal
 from typing import Any, Optional
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
@@ -19,6 +23,10 @@ def infer_literal_type(value: Any):
         return DataType.FLOAT64
     if isinstance(value, str):
         return DataType.STRING
+    if isinstance(value, decimal.Decimal):
+        from spark_rapids_tpu_torch.ops.decimal_util import infer_decimal_type
+
+        return infer_decimal_type(value)
     raise TypeError(f"cannot infer literal type for {value!r}")
 
 
@@ -26,6 +34,10 @@ class Literal(LeafExpression):
     def __init__(self, value: Any, dtype: Optional[DataType] = None):
         if dtype is None:
             dtype = DataType.NULL if value is None else infer_literal_type(value)
+        if getattr(dtype, "is_decimal", False) and value is not None:
+            from spark_rapids_tpu_torch.ops.decimal_util import to_unscaled
+
+            value = to_unscaled(value, dtype.scale, dtype.precision)
         self.value = value
         self._dtype = dtype
 

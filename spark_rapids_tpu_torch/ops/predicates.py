@@ -14,6 +14,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
@@ -29,7 +30,12 @@ _I32_MIN, _I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def _operands(lv, rv):
-    l, r = _d(lv), _d(rv)
+    return _promote(_d(lv), _d(rv))
+
+
+def _promote(l, r):
+    """Raw operands of a comparison, a python scalar weak as described
+    above."""
     if isinstance(l, torch.Tensor) != isinstance(r, torch.Tensor):
         t, s = (l, r) if isinstance(l, torch.Tensor) else (r, l)
         if isinstance(s, float) and not t.is_floating_point():
@@ -58,7 +64,35 @@ class BinaryComparison(BinaryExpression):
             from spark_rapids_tpu_torch.columnar import strings as S
 
             return S.string_compare(ctx, lv, rv, self.op)
+        lt, rt = self.left.data_type, self.right.data_type
+        if lt.is_decimal or rt.is_decimal:
+            return self._cmp(*_decimal_operands(lv, rv, lt, rt))
         return self._cmp(*_operands(lv, rv))
+
+
+def _scalar(x):
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _decimal_operands(lv, rv, lt, rt):
+    """Operands of a comparison with a DECIMAL side (reference:
+    predicates.py:29-45): two decimal-coercible sides rescale to their
+    common scale (saturating, so order survives an overflow); a decimal
+    against a float compares as DOUBLE."""
+    from spark_rapids_tpu_torch.ops import decimal_util as DU
+
+    ld, rd = DU.as_decimal_type(lt), DU.as_decimal_type(rt)
+    if ld is not None and rd is not None:
+        s = max(ld.scale, rd.scale)
+        return (_scalar(DU.compare_rescale(_d(lv), ld.scale, s)),
+                _scalar(DU.compare_rescale(_d(rv), rd.scale, s)))
+
+    def unscale(x, dt):
+        if not dt.is_decimal:
+            return x
+        return _scalar(DU.unscale_to_double(x, dt.scale))
+
+    return _promote(unscale(_d(lv), lt), unscale(_d(rv), rt))
 
 
 class EqualTo(BinaryComparison):

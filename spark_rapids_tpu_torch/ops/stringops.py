@@ -1,9 +1,10 @@
-"""String expressions (port of spark_rapids_tpu/ops/stringops.py :84-203;
-reference: stringFunctions.scala — substring, startsWith, endsWith,
-contains, like).
+"""String expressions (port of spark_rapids_tpu/ops/stringops.py :40,
+:84-203, :256-304 and :419; reference: stringFunctions.scala — length,
+substring, startsWith, endsWith, contains, like, locate).
 
 The device engine runs the kernels of columnar/strings.py (K12 for the
-searches, K13 + K7 for SUBSTRING, K8 for an exact LIKE); the CPU engine
+searches, K13 + K7 for SUBSTRING, K8 for an exact LIKE, K17 for length and
+locate); the CPU engine
 runs Python string operations over the object arrays, as the reference's
 CPU branches do.
 """
@@ -18,9 +19,17 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.base import (
     BinaryExpression,
     TernaryExpression,
+    UnaryExpression,
     _d,
+    _fold_result,
+    _lift_string_scalar,
+    _scalar_fold_ctx,
 )
-from spark_rapids_tpu_torch.ops.values import ColV, ScalarV
+from spark_rapids_tpu_torch.ops.values import (
+    ColV,
+    ScalarV,
+    zero_nulls,
+)
 
 
 def _obj(fn, *arrs):
@@ -130,3 +139,73 @@ class Like(BinaryExpression):
             return S.like_match(ctx, lv, rv.value)
         pat = _like_regex(rv.value)
         return np.array([bool(pat.match(s)) for s in lv.data], dtype=bool)
+
+
+class Length(UnaryExpression):
+    """Character length (reference :40, GpuLength): K17 on the device."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        if ctx.is_device:
+            from spark_rapids_tpu_torch.columnar import strings as S
+
+            return S.utf8_char_lengths(v.offsets, v.data)
+        return np.array([len(s) for s in v.data], dtype=np.int32)
+
+
+class _ScalarArgsTernary(TernaryExpression):
+    """A ternary whose 2nd and 3rd operands stay scalars (the base template
+    lifts string scalars to columns, which a needle kernel cannot take;
+    reference :256)."""
+
+    def eval_kernel(self, ctx, av, bv, cv):
+        for v in (bv, cv):
+            if not isinstance(v, ScalarV):
+                raise TypeError(
+                    f"{type(self).__name__} requires scalar arguments")
+        if bv.is_null or cv.is_null or \
+                (isinstance(av, ScalarV) and av.is_null):
+            return ColV(self.data_type, ctx.full(0, self.data_type),
+                        ctx.bools(False))
+        if isinstance(av, ScalarV):
+            if not ctx.is_device:
+                lifted = ColV(DataType.STRING,
+                              np.array([av.value], dtype=object),
+                              np.array([True]))
+                return _fold_result(self.data_type, self.do_columnar(
+                    _scalar_fold_ctx(), lifted, bv, cv))
+            av = _lift_string_scalar(ctx, av)
+        data = self.do_columnar(ctx, av, bv, cv)
+        validity = av.validity
+        return ColV(self.data_type, zero_nulls(data, validity), validity)
+
+
+class StringLocate(_ScalarArgsTernary):
+    """locate(substr, str, start): 1-based character position, 0 if absent
+    (reference :419, GpuStringLocate; scalar substr and start). The child
+    order is (str, substr, start)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, sv, nv, pv):
+        start = int(pv.value)
+        if ctx.is_device:
+            from spark_rapids_tpu_torch.columnar import strings as S
+
+            return S.locate(sv.offsets, sv.data, nv.value.encode("utf-8"),
+                            start)
+
+        def loc(s):
+            if start < 1:
+                return 0
+            if nv.value == "":
+                return start if start <= len(s) + 1 else 0
+            return s.find(nv.value, start - 1) + 1
+
+        return np.fromiter((loc(s) for s in sv.data), dtype=np.int32,
+                           count=len(sv.data))

@@ -1,7 +1,7 @@
 """Column: the user-facing expression wrapper (port of
 spark_rapids_tpu/plan/column.py, with the methods whose expressions the
 port has: arithmetic, comparisons, logic, null tests, IN, the string
-searches and LIKE, sorting)."""
+searches and LIKE, sorting, OVER a window)."""
 
 from __future__ import annotations
 
@@ -142,6 +142,12 @@ class Column:
 
     def contains(self, s) -> "Column":
         return Column(Contains(self.expr, _to_expr(s)))
+
+    def over(self, window) -> "Column":
+        """function OVER window (reference :161, GpuWindowExpression)."""
+        from spark_rapids_tpu_torch.ops.window import WindowExpression
+
+        return Column(WindowExpression(self.expr, window.to_spec()))
 
     def between(self, lo, hi) -> "Column":
         return Column(And(GreaterThanOrEqual(self.expr, _to_expr(lo)),

@@ -1,6 +1,7 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
-select, withColumn, filter, groupBy/agg (keyed and keyless), orderBy, limit,
-join, crossJoin, cache, collect, explain).
+select, withColumn (a window column too), filter, groupBy/agg (keyed and
+keyless), orderBy, limit, union, join, crossJoin, cache, collect,
+explain).
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -144,6 +145,14 @@ class DataFrame:
     def limit(self, n: int) -> "DataFrame":
         """Reference: dataframe.py:187."""
         return self._with_plan(L.Limit(n, self._plan))
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        """Union-all by position (reference: dataframe.py:190)."""
+        if len(other.schema) != len(self.schema):
+            raise AnalysisError("union requires same number of columns")
+        return self._with_plan(L.Union(self._plan, other._plan))
+
+    unionAll = union
 
     def join(self, other: "DataFrame",
              on: Union[str, List[str], Column, None] = None,

@@ -10,6 +10,7 @@ from spark_rapids_tpu_torch.ops import arithmetic as AR
 from spark_rapids_tpu_torch.ops import datetimeops as DT
 from spark_rapids_tpu_torch.ops import nulls as N
 from spark_rapids_tpu_torch.ops import stringops as S
+from spark_rapids_tpu_torch.ops import window as W
 from spark_rapids_tpu_torch.ops.base import Expression
 from spark_rapids_tpu_torch.ops.conditional import CaseWhen, If
 from spark_rapids_tpu_torch.ops.literals import Literal
@@ -89,6 +90,16 @@ def substring(c: ColumnOrName, pos: int, length_: int) -> Column:
     return Column(S.Substring(_c(c), Literal(pos), Literal(length_)))
 
 
+def length(c: ColumnOrName) -> Column:
+    """Reference :186."""
+    return Column(S.Length(_c(c)))
+
+
+def locate(substr: str, c: ColumnOrName, pos: int = 1) -> Column:
+    """1-based position of substr in c, 0 if absent (reference :228)."""
+    return Column(S.StringLocate(_c(c), Literal(substr), Literal(pos)))
+
+
 # -- date parts (reference :251) ---------------------------------------------
 def year(c: ColumnOrName) -> Column:
     return Column(DT.Year(_c(c)))
@@ -100,6 +111,22 @@ def month(c: ColumnOrName) -> Column:
 
 def dayofmonth(c: ColumnOrName) -> Column:
     return Column(DT.DayOfMonth(_c(c)))
+
+
+def hour(c: ColumnOrName) -> Column:
+    return Column(DT.Hour(_c(c)))
+
+
+def minute(c: ColumnOrName) -> Column:
+    return Column(DT.Minute(_c(c)))
+
+
+def second(c: ColumnOrName) -> Column:
+    return Column(DT.Second(_c(c)))
+
+
+def unix_timestamp(c: ColumnOrName) -> Column:
+    return Column(DT.UnixTimestamp(_c(c)))
 
 
 def coalesce(*cols: ColumnOrName) -> Column:
@@ -137,3 +164,28 @@ def avg(c: ColumnOrName) -> Column:
 
 
 mean = avg
+
+
+# -- window functions (reference :385-418) -----------------------------------
+def row_number() -> Column:
+    return Column(W.RowNumber())
+
+
+def rank() -> Column:
+    return Column(W.Rank())
+
+
+def dense_rank() -> Column:
+    return Column(W.DenseRank())
+
+
+def ntile(n: int) -> Column:
+    return Column(W.NTile(n))
+
+
+def lead(c: ColumnOrName, offset: int = 1, default=None) -> Column:
+    return Column(W.Lead(_c(c), offset, default))
+
+
+def lag(c: ColumnOrName, offset: int = 1, default=None) -> Column:
+    return Column(W.Lag(_c(c), offset, default))

@@ -1,6 +1,6 @@
-"""Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: the nodes of
-slices 1-3 — local relation, cache, project, filter, aggregate, sort, join,
-limit)."""
+"""Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: local
+relation, cache, project, filter, aggregate, sort, join, limit, union
+:235 and window :292)."""
 
 from __future__ import annotations
 
@@ -215,3 +215,29 @@ class Limit(LogicalPlan):
 
     def describe(self):
         return f"Limit {self.n}"
+
+
+class Union(LogicalPlan):
+    """Union-all by position (reference: logical.py:235)."""
+
+    def __init__(self, *children: LogicalPlan):
+        super().__init__(*children)
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+
+class WindowOp(LogicalPlan):
+    """Window expressions appended to the child's output (reference:
+    logical.py:292). The DataFrame API reaches windows through Project
+    (`withColumn(name, f.over(w))`); the planner splits them out."""
+
+    def __init__(self, window_exprs: Sequence[Expression], child: LogicalPlan):
+        super().__init__(child)
+        self.window_exprs = list(window_exprs)
+
+    @property
+    def output(self):
+        return self.children[0].output + [to_attribute(e)
+                                           for e in self.window_exprs]

@@ -16,8 +16,10 @@ Aggregate never drop (they change row counts). A node pruned to zero
 columns keeps its narrowest attribute as the row-count carrier.
 
 The rules cover the logical nodes the port has (relation, cache, project,
-filter, sort, aggregate, limit, join); any other node is left untouched, as
-the reference leaves an unknown node. A join asks both children for what
+filter, sort, aggregate, limit, join, window :214, union :264); any other
+node is left untouched, as the reference leaves an unknown node. A union
+prunes the same positions in every child and pins each child's output
+order with a Project. A join asks both children for what
 its parent needs plus its keys and condition (reference :287), so TPC-H q3
 and q5 upload and exchange only the columns they read.
 """
@@ -189,3 +191,37 @@ def _join(plan: L.Join, req):
                   _prune(plan.children[1], needed),
                   plan.join_type, plan.left_keys, plan.right_keys,
                   plan.condition)
+
+
+@_rule(L.WindowOp)
+def _window(plan: L.WindowOp, req):
+    if req is None:
+        kept = list(plan.window_exprs)
+    else:
+        kept = [e for e in plan.window_exprs
+                if to_attribute(e).expr_id in req]
+    if not kept:
+        # a row-preserving node with no consumed output: drop it
+        return _prune(plan.children[0], req)
+    child_req = None if req is None else req | _refs(kept)
+    return L.WindowOp(kept, _prune(plan.children[0], child_req))
+
+
+@_rule(L.Union)
+def _union(plan: L.Union, req):
+    first = plan.children[0].output
+    if req is None:
+        keep_pos = list(range(len(first)))
+    else:
+        keep_pos = [i for i, a in enumerate(first) if a.expr_id in req]
+        if not keep_pos:
+            keep_pos = [first.index(_narrowest(list(first)))]
+    new_children = []
+    for child in plan.children:
+        attrs = [child.output[i] for i in keep_pos]
+        pruned = _prune(child, {a.expr_id for a in attrs})
+        if [a.expr_id for a in pruned.output] != \
+                [a.expr_id for a in attrs]:
+            pruned = L.Project(attrs, pruned)
+        new_children.append(pruned)
+    return L.Union(*new_children)

@@ -59,6 +59,36 @@ def _tag_cast(m: ExprMeta) -> None:
                         "has no device kernel yet")
 
 
+def _tag_window_expr(m: ExprMeta) -> None:
+    """Window shapes the device kernels do not cover (reference
+    :305-342)."""
+    from spark_rapids_tpu_torch.exec.window import RANGE_KEY_TYPES
+    from spark_rapids_tpu_torch.ops import window as W
+
+    w = m.expr
+    f = w.function
+    frame = w.spec.frame
+    if frame.frame_type == "range" and (
+            frame.lower not in (W.UNBOUNDED, 0)
+            or frame.upper not in (W.UNBOUNDED, 0)):
+        # bounded RANGE frames binary-search the one integer-kind ORDER BY
+        # key (K16); float keys would round at the frame edges
+        ob = w.spec.order_by
+        dt = ob[0].child.data_type if len(ob) == 1 else None
+        if dt not in RANGE_KEY_TYPES:
+            m.will_not_work(
+                "bounded range frames need exactly one integer/date/"
+                "timestamp ORDER BY column on the device engine")
+    input_child = f.children()[0] if f.children() else None
+    if input_child is not None and \
+            input_child.data_type is DataType.STRING:
+        m.will_not_work(
+            "window functions over STRING inputs run on the CPU engine "
+            "(no device string gather in the window kernel yet)")
+    if isinstance(f, W.NTile) and f.n <= 0:
+        m.will_not_work("ntile(n) requires n > 0")
+
+
 def _tag_agg(m: ExprMeta) -> None:
     e = m.expr
     if isinstance(e, (AGG.Sum, AGG.Average)) and \
@@ -81,8 +111,10 @@ def _register_expr_rules():
     r(Alias, "name a result")
     r(AttributeReference, "reference an input column")
     r(BoundReference, "ordinal input reference")
-    r(Literal, "literal value (numeric, boolean, DATE, STRING)")
-    r(Cast, "cast between numeric types", tag_fn=_tag_cast)
+    r(Literal, "literal value (numeric, boolean, DATE, TIMESTAMP, DECIMAL, "
+               "STRING)")
+    r(Cast, "cast between numeric, datetime and decimal types",
+      tag_fn=_tag_cast)
     for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide, AR.Remainder,
                 AR.Pmod):
         r(cls, f"arithmetic {cls.__name__}")
@@ -95,12 +127,27 @@ def _register_expr_rules():
     r(CaseWhen, "case when")
     # strings (reference :135-137): Like has no tag there either, so a
     # pattern outside classify_like's subset raises in the device kernel
-    for cls in (S.Substring, S.StartsWith, S.EndsWith, S.Contains, S.Like):
+    for cls in (S.Substring, S.StartsWith, S.EndsWith, S.Contains, S.Like,
+                S.Length):
         r(cls, f"string {cls.__name__}")
-    for cls in (DT.Year, DT.Month, DT.DayOfMonth):
+    r(S.StringLocate, "string locate (scalar substring/start)")
+    for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Hour, DT.Minute,
+                DT.Second):
         r(cls, f"datetime {cls.__name__}")
+    r(DT.UnixTimestamp, "parse/convert to unix seconds",
+      incompat="range/overflow behavior differs slightly from CPU "
+               "(reference: improvedTimeOps)")
     for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count, AGG.Average):
         r(cls, f"aggregate {cls.__name__}", tag_fn=_tag_agg)
+    # window (reference :229-239)
+    from spark_rapids_tpu_torch.ops import window as W
+
+    r(W.WindowExpression, "function over a window spec",
+      tag_fn=_tag_window_expr)
+    for cls in (W.RowNumber, W.Rank, W.DenseRank, W.NTile):
+        r(cls, f"window ranking {cls.__name__}")
+    r(W.Lag, "value from a preceding row")
+    r(W.Lead, "value from a following row")
 
 
 def _computed_string_keys(orders) -> bool:
@@ -138,6 +185,7 @@ def _register_exec_rules():
         TpuCachedScanExec,
     )
     from spark_rapids_tpu_torch.exec.sort import CpuSortExec, TpuSortExec
+    from spark_rapids_tpu_torch.exec.window import CpuWindowExec, TpuWindowExec
     from spark_rapids_tpu_torch.shuffle import exchange as X
 
     register_exec(
@@ -160,6 +208,12 @@ def _register_exec_rules():
     register_exec(
         CpuCachedScanExec, "device-resident in-memory table cache",
         lambda cpu, ch: TpuCachedScanExec(cpu.logical_node, ch[0]))
+    register_exec(
+        B.CpuUnionExec, "union-all",
+        lambda cpu, ch: B.TpuUnionExec(*ch))
+    register_exec(
+        CpuWindowExec, "window functions (K1 sort, K14-K16)",
+        lambda cpu, ch: TpuWindowExec(cpu.window_exprs, ch[0]))
     register_exec(
         B.CpuLocalLimitExec, "per-partition limit",
         lambda cpu, ch: B.TpuLocalLimitExec(cpu.limit, ch[0]))

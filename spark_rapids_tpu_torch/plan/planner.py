@@ -1,6 +1,7 @@
 """Logical -> CPU physical planning (port of spark_rapids_tpu/plan/planner.py:
-the LocalRelation :52, Project :63, Filter :146, Limit :157, cache,
-Aggregate :192-247, Sort :273 and Join :338-416 planners).
+the LocalRelation :52, Project with its windows :63-133, WindowOp :136,
+Filter :146, Union :152, Limit :157, cache, Aggregate :192-247, Sort :273
+and Join :338-416 planners).
 
 The CPU plan is the oracle engine; TpuOverrides (plan/overrides.py) then
 replaces the supported nodes with device execs, as the reference replaces
@@ -13,7 +14,11 @@ bytes fit autoBroadcastJoinThreshold (an INNER join may swap its sides for
 that), else as a shuffled hash join over two hash exchanges. A CROSS join,
 or an INNER join without equi keys, plans as a nested-loop join (the right
 side materialised once, the condition a filter over the product); any
-other join type without equi keys raises, as in the reference.
+other join type without equi keys raises, as in the reference. Window
+expressions inside a projection become one window exec per (partition,
+order) spec below it, each over a hash exchange on the partition keys (or
+one partition without them). A union concatenates its children's
+partitions: no shuffle.
 """
 
 from __future__ import annotations
@@ -55,7 +60,83 @@ def _plan_local(plan: L.LocalRelation, conf: C.TpuConf) -> PhysicalExec:
 @register_planner(L.Project)
 def _plan_project(plan: L.Project, conf: C.TpuConf) -> PhysicalExec:
     (child,) = _plan_children(plan, conf)
-    return B.CpuProjectExec(plan.project_list, child)
+    return _project_with_windows(plan.project_list, child, conf)
+
+
+def _project_with_windows(project_list, child: PhysicalExec,
+                          conf: C.TpuConf) -> PhysicalExec:
+    """Extract window expressions into window execs below the projection,
+    one per distinct (partition_by, order_by) (reference :68-113,
+    GpuWindowExec.scala:33-91)."""
+    from spark_rapids_tpu_torch.exec.window import CpuWindowExec
+    from spark_rapids_tpu_torch.ops.base import Alias, to_attribute
+    from spark_rapids_tpu_torch.ops.window import WindowExpression
+
+    wnodes = []
+    for e in project_list:
+        wnodes.extend(e.collect(lambda n: isinstance(n, WindowExpression)))
+    if not wnodes:
+        return B.CpuProjectExec(project_list, child)
+    by_fp = {}
+    attr_of = {}
+    for w in wnodes:
+        fp = w.fingerprint()
+        if fp in by_fp:
+            continue
+        alias = Alias(w, f"_w{len(by_fp)}")
+        by_fp[fp] = alias
+        attr_of[fp] = to_attribute(alias)
+    groups = {}
+    for alias in by_fp.values():
+        w = alias.child
+        skey = (tuple(e.fingerprint() for e in w.spec.partition_by),
+                tuple(o.fingerprint() for o in w.spec.order_by))
+        groups.setdefault(skey, []).append(alias)
+    node = child
+    for aliases in groups.values():
+        node = CpuWindowExec(
+            aliases, _window_distribution(aliases[0].child.spec, node, conf))
+
+    def rewrite(e):
+        if isinstance(e, WindowExpression):
+            return attr_of[e.fingerprint()]
+        return e
+
+    return B.CpuProjectExec([e.transform_up(rewrite) for e in project_list],
+                            node)
+
+
+def _window_distribution(spec, child: PhysicalExec,
+                         conf: C.TpuConf) -> PhysicalExec:
+    """All rows of a partition key in one task partition (reference :116):
+    a hash exchange on partition_by, or one partition without it."""
+    from spark_rapids_tpu_torch.shuffle.exchange import (
+        CpuShuffleExchangeExec,
+        HashPartitioning,
+        SinglePartitioning,
+    )
+
+    if spec.partition_by:
+        part = HashPartitioning(list(spec.partition_by),
+                                conf.shuffle_partitions)
+    else:
+        part = SinglePartitioning()
+    return CpuShuffleExchangeExec(part, child)
+
+
+@register_planner(L.WindowOp)
+def _plan_window(plan: L.WindowOp, conf: C.TpuConf) -> PhysicalExec:
+    from spark_rapids_tpu_torch.exec.window import CpuWindowExec, _unwrap
+
+    (child,) = _plan_children(plan, conf)
+    spec = _unwrap(plan.window_exprs[0]).spec
+    return CpuWindowExec(plan.window_exprs,
+                         _window_distribution(spec, child, conf))
+
+
+@register_planner(L.Union)
+def _plan_union(plan: L.Union, conf: C.TpuConf) -> PhysicalExec:
+    return B.CpuUnionExec(*_plan_children(plan, conf))
 
 
 @register_planner(L.Filter)
@@ -135,8 +216,12 @@ def _estimate_rows(plan: L.LogicalPlan) -> Optional[int]:
     if isinstance(plan, L.Limit):
         child = _estimate_rows(plan.children[0])
         return plan.n if child is None else min(plan.n, child)
-    if isinstance(plan, (L.Project, L.Filter, L.Sort, L.Aggregate)):
+    if isinstance(plan, (L.Project, L.Filter, L.Sort, L.Aggregate,
+                         L.WindowOp)):
         return _estimate_rows(plan.children[0])
+    if isinstance(plan, L.Union):
+        parts = [_estimate_rows(c) for c in plan.children]
+        return None if any(p is None for p in parts) else sum(parts)
     if isinstance(plan, L.CacheRelation):
         from spark_rapids_tpu_torch.exec.cache import cached_row_count
 

@@ -20,6 +20,7 @@ CPU.
 
 from __future__ import annotations
 
+import decimal
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -183,8 +184,32 @@ def _infer_type(values) -> DataType:
             return DataType.FLOAT64
         if isinstance(v, str):
             return DataType.STRING
+        if isinstance(v, decimal.Decimal):
+            return _infer_decimal_type(values)
         raise TypeError(f"cannot infer SQL type for {v!r}")
     return DataType.STRING
+
+
+def _infer_decimal_type(values):
+    """The narrowest DECIMAL that holds every Decimal of a column: the
+    widest integral part plus the widest scale (reference:
+    session.py:1413-1435); beyond 18 digits it raises, never clamps."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DecimalType
+    from spark_rapids_tpu_torch.ops.decimal_util import infer_decimal_type
+
+    p = s = 0
+    for w in values:
+        if w is None:
+            continue
+        t = infer_decimal_type(w)
+        s = max(s, t.scale)
+        p = max(p, t.precision - t.scale)
+    if p + s > DecimalType.MAX_PRECISION:
+        raise ValueError(
+            f"decimal column needs precision {p + s} "
+            f"(> {DecimalType.MAX_PRECISION}, the 64-bit cap); "
+            "pass an explicit narrower schema or use double")
+    return DecimalType(p + s, s)
 
 
 def _split_batch(batch: HostColumnarBatch,

@@ -1,6 +1,7 @@
 """The port stands alone: importing it, and running all 22 TPC-H queries
-through its own generator on the CPU, loads no JAX and nothing of the JAX
-package, and its default device is the card (no silent CPU fallback)."""
+and all 30 TPCx-BB-like queries (with the window-frames path) through its
+own generators on the CPU, loads no JAX and nothing of the JAX package,
+and its default device is the card (no silent CPU fallback)."""
 
 import os
 import subprocess
@@ -26,6 +27,12 @@ assert tpch.q5(tables).collect()
 assert len(tpch.QUERIES) == 22
 for name, query in tpch.QUERIES.items():
     query(tables).collect()
+from spark_rapids_tpu_torch.benchmarks import tpcxbb
+bb = tpcxbb.gen_tables(cpu, sf=0.0002, num_partitions=2)
+assert len(tpcxbb.QUERIES) == 30
+for name, query in tpcxbb.QUERIES.items():
+    query(bb).collect()
+assert tpcxbb.window_frames(bb).collect()
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
