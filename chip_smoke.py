@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # all phases, flagship at 2^26 rows
     python3 chip_smoke.py --q02-probe 2,4,6   # q02's peak memory by SF
+    python3 chip_smoke.py --mortgage-probe 2,5,10   # q_delinquency_12's
 
 Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
 (one nvcc per source, in parallel) and then:
@@ -88,12 +89,36 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    descending, NaN / -0.0 keys, an int64 lag default beyond int32, RANGE
    frames with NULL keys, empty frames; invalid UTF-8, empty rows, start
    < 1, the empty needle) and timed at q05's window batch (7.5M rows) and
-   over pr_content.
+   over pr_content;
+8. the mortgage ETL suite after phase 7's tables are released: the port's
+   mortgage.gen_tables at SF 10 (4,000,000 acquisition rows, 96,000,000
+   performance rows), 4 partitions, every table cached, 8 shuffle
+   partitions, as bench.py --mortgage lays it out; all 6 queries one cold
+   and 3 warm runs each (q_delinquency_12 at MORTGAGE_D12_SF on its own
+   tables: its explode, PERF.md), every plan asserted all on the device,
+   the log stating how each join ran; q_percentiles (min, max, avg and the
+   exact 50/75/90/99th percentiles by np.lexsort), q_delinquency
+   (conditional sums and counts by np.bincount, minimum by
+   np.minimum.reduceat, the acquisition columns gathered by loan id) and
+   q_agg_join (first() is the loan's own
+   orig_rate) against numpy, the others' warm rows against their cold run;
+   the per-loan group-by at SF 1 with 5000 shuffle partitions (past K4's
+   shared-memory histogram) against its run at 8; then all 6 at SF 0.01 on
+   the card against the port's CPU engine. Phase 3 holds K18
+   (explode_rows), K19 (segment_percentile), K3's first / last and K4 at
+   4095, 4096, 5000 and 65,536 partitions to their plain versions bit for
+   bit (0 rows, 1 row, k = 1 and 12, NULL elements, int64 / BOOL / STRING
+   children; NaN, -0.0, +-inf, all-NULL and one-row groups, p = 0 and 1, a
+   group past 2^24 rows; NULL first rows with and without ignore_nulls),
+   and times K18 at q_delinquency_12's exploded batch, K19 at
+   q_percentiles' batch and K3's first at q_agg_join's.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
 tpch_q5, tpch_q5_shuffled, tpch_q2 ... tpch_q22 of phase 6, and
-tpcxbb_q01_like ... tpcxbb_q30_like and tpcxbb_window_frames of phase 7);
+tpcxbb_q01_like ... tpcxbb_q30_like and tpcxbb_window_frames of phase 7,
+mortgage_q_agg_join ... mortgage_q_simple_agg and
+mortgage_many_partitions of phase 8);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -181,6 +206,12 @@ KERNELS = {
     "string_chars": (
         "spark_rapids_tpu_torch/csrc/string_chars.cu",
         "spark_rapids_tpu/columnar/strings.py:542", "tpcxbb_q27_like"),
+    "explode_rows": (
+        "spark_rapids_tpu_torch/csrc/explode.cu",
+        "spark_rapids_tpu/exec/expand.py:257", "mortgage_q_delinquency_12"),
+    "segment_percentile": (
+        "spark_rapids_tpu_torch/csrc/segment_percentile.cu",
+        "spark_rapids_tpu/exec/rowkeys.py:480", "mortgage_q_percentiles"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -244,6 +275,17 @@ for _i in range(1, 31):
         (_STR_KEYS if _q in _XBB_STR_KEYS else ()) + _XBB_EXTRA.get(_q, ()))
 PATH_KERNELS["tpcxbb_window_frames"] = _XBB[:1] + _XBB[2:] + (
     "window_segments", "window_frame_agg")
+# phase 8: every mortgage query groups by key and, but q_percentiles,
+# joins; explode, first and the percentile where the text has them
+PATH_KERNELS.update({
+    "mortgage_q_delinquency": _KEYED_JOIN,
+    "mortgage_q_seller_quarter": _KEYED_JOIN + _STR_KEYS,
+    "mortgage_q_delinquency_12": _KEYED_JOIN + ("explode_rows",),
+    "mortgage_q_simple_agg": _KEYED_JOIN,
+    "mortgage_q_agg_join": _KEYED_JOIN,
+    "mortgage_q_percentiles": _GROUP_BY + ("segment_percentile",),
+    "mortgage_many_partitions": _GROUP_BY + ("route_plan",),
+})
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -262,6 +304,18 @@ XBB_SHUFFLE = 8
 # largest scale factor whose pairs fit one card (--q02-probe, PERF.md)
 Q02_SF = 5
 XBB_SMALL_SF = 0.01
+# phase 8: bench.py --mortgage's layout (4 partitions, every table cached)
+MORTGAGE_SF = 10
+MORTGAGE_PARTITIONS = 4
+MORTGAGE_SHUFFLE = 8
+# q_delinquency_12 explodes every joined performance row 12 times (1.15e9
+# rows at SF 10, 144M a stream batch); it runs at the largest scale factor
+# whose explode and group-by fit one card (--mortgage-probe, PERF.md)
+MORTGAGE_D12_SF = 4
+MORTGAGE_SMALL_SF = 0.01
+# the shuffle past K4's shared-memory histogram (4096 buckets)
+MANY_PARTITIONS = 5000
+MANY_PARTITIONS_SF = 1
 
 
 def log(msg: str) -> None:
@@ -547,11 +601,16 @@ def check_rows(got, want, what: str) -> float:
     return worst
 
 
-def run_query(sess, q, want, what: str, warm_reps: int):
+def run_query(sess, q, want, what: str, warm_reps: int, cols=None):
     """One cold and warm_reps warm runs, the plan asserted on the device;
-    every run's rows against `want`, or (want None) the warm runs' against
-    the cold run's."""
+    every run's rows (their columns `cols`, or all) against `want`, or
+    (want None) the warm runs' against the cold run's."""
     import torch
+
+    def pick(rows):
+        if want is None or cols is None:
+            return rows
+        return [tuple(r[i] for i in cols) for r in rows]
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -561,7 +620,7 @@ def run_query(sess, q, want, what: str, warm_reps: int):
     assert_on_device(sess)
     if want is None:
         want = rows
-    worst = check_rows(rows, want, what)
+    worst = check_rows(pick(rows), want, what)
     warm = []
     for _ in range(warm_reps):
         torch.cuda.synchronize()
@@ -569,7 +628,7 @@ def run_query(sess, q, want, what: str, warm_reps: int):
         rows = q.collect()
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t)
-        worst = max(worst, check_rows(rows, want, what))
+        worst = max(worst, check_rows(pick(rows), want, what))
     log(f"{what}: {len(rows)} rows, cold {cold:.4f} s, warm {warm}, "
         f"max rel diff {worst:.3e}")
     return {"cold_s": cold, "warm_s": warm,
@@ -1159,7 +1218,8 @@ def gen_xbb(sess, sf: float):
 
 
 def xbb_session():
-    """A session laid out as bench.py --tpcxbb runs the suite."""
+    """A session laid out as bench.py --tpcxbb and --mortgage run their
+    suites (8 shuffle partitions, float aggregation on)."""
     import spark_rapids_tpu_torch as srt
 
     sess = srt.new_session(TPCH_CONF)
@@ -1176,25 +1236,25 @@ def release(sess, tables) -> None:
     torch.cuda.empty_cache()
 
 
-def probe_q02(sfs) -> list:
-    """q02 alone at each scale factor in `sfs` (ascending), on its own
-    cached tables as phase 7 lays them out: per scale factor the device
-    bytes its tables hold, then the time, rows and peak device bytes of
-    three runs, up to the first that runs out of device memory. The
-    readings that set Q02_SF."""
+def probe_memory(sfs, gen, table: str, query_of, label: str) -> list:
+    """One query alone at each scale factor in `sfs` (ascending), on its
+    own cached tables as its phase lays them out (4 partitions, 8 shuffle
+    partitions): per scale factor the device bytes its tables hold, then
+    the time, rows and peak device bytes of three runs, up to the first
+    that runs out of device memory. `gen` makes the tables, `table` is the
+    one uploaded before the runs. The readings that set Q02_SF and
+    MORTGAGE_D12_SF."""
     import torch
 
-    from spark_rapids_tpu_torch.benchmarks import tpcxbb
     from spark_rapids_tpu_torch.plan import functions as F
 
     out = []
     for sf in sfs:
         sess = xbb_session()
-        raw, tables, rows, gen_s = gen_xbb(sess, sf)
-        # upload q02's one table before its runs
-        tables["web_clickstreams"].agg(F.count("*")).collect()
-        q = tpcxbb.q02_like(tables)
-        r = {"sf": sf, "clicks": rows["web_clickstreams"], "gen_s": gen_s,
+        raw, tables, rows, gen_s = gen(sess, sf)
+        tables[table].agg(F.count("*")).collect()
+        q = query_of(tables)
+        r = {"sf": sf, "input_rows": rows[table], "gen_s": gen_s,
              "tables_bytes": torch.cuda.memory_allocated(), "runs": []}
         out.append(r)
         for _ in range(3):
@@ -1210,7 +1270,7 @@ def probe_q02(sfs) -> list:
             r["runs"].append({"s": time.perf_counter() - t, "rows": n,
                               "peak_bytes":
                               torch.cuda.max_memory_allocated()})
-        log(f"q02 probe at SF {sf}: {r}")
+        log(f"{label} probe at SF {sf}: {r}")
         del q, raw
         release(sess, tables)
         if "out_of_memory" in r:
@@ -1218,14 +1278,22 @@ def probe_q02(sfs) -> list:
     return out
 
 
+def probe_q02(sfs) -> list:
+    """TPCx-BB q02 by scale factor (its self-join's pairs, PERF.md)."""
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+
+    return probe_memory(sfs, gen_xbb, "web_clickstreams", tpcxbb.q02_like,
+                        "q02")
+
+
 def run_xbb_query(sess, name, fn, tables, table_rows, want, launches,
-                  warm_reps: int) -> dict:
+                  warm_reps: int, cols=None) -> dict:
     from spark_rapids_tpu_torch import cuda_build as CB
 
     rec = TableRecorder(tables)
     q = fn(rec)
     CB.reset_launch_counts()
-    r = run_query(sess, q, want, name, warm_reps)
+    r = run_query(sess, q, want, name, warm_reps, cols)
     launches[name] = CB.launch_counts()
     rows_in = sum(table_rows[t] for t in sorted(rec.seen))
     r["tables"] = sorted(rec.seen)
@@ -2482,7 +2550,8 @@ def time_search_kernels(dev, errs: dict) -> dict:
     return rows
 
 
-def time_kernels(dev, errs: dict, launches: dict, pr_content):
+def time_kernels(dev, errs: dict, launches: dict, pr_content,
+                 d12_rows: int):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
     the high-cardinality partial output (2^22 rows) for K4."""
@@ -2555,24 +2624,41 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content):
         rng.integers(0, HIGH_CARD_KEYS, hcap)).to(dev),
         torch.ones(hcap, dtype=torch.bool, device=dev))
     hlive = torch.arange(hcap, device=dev) < hcap - 1000
+    many = MANY_PARTITIONS
     rows["hash_partition"] = dict(
         ms=cuda_ms(lambda: H.partition_ids([hk], hlive, 8), iters),
         plain_ms=cuda_ms(lambda: H.partition_ids_plain([hk], hlive, 8),
                          iters),
         library_ms=None,
         bound_ms=bound_ms(10 * hcap + 4 * hcap + 36),
-        shape=f"1 int64 key x {hcap} rows, 8 partitions")
+        shape=f"1 int64 key x {hcap} rows, 8 partitions",
+        # past the shared-memory histogram: counts in device memory
+        **{f"ms_{many}": cuda_ms(lambda: H.partition_ids([hk], hlive, many),
+                                 iters),
+           f"plain_ms_{many}": cuda_ms(lambda: H.partition_ids_plain(
+               [hk], hlive, many), iters),
+           f"bound_ms_{many}": bound_ms(14 * hcap + 4 * (many + 1))})
     ids, _ = H.partition_ids([hk], hlive, 8)
+    ids_many, _ = H.partition_ids([hk], hlive, many)
     rows["route_plan"] = dict(
         ms=cuda_ms(lambda: X.route_plan(ids, 8), iters),
         plain_ms=cuda_ms(lambda: X.route_plan_plain(ids, 8), iters),
         library_ms=None,
         bound_ms=bound_ms(4 * hcap + 4 * hcap + 36),
-        shape=f"{hcap} ids, 8 partitions")
+        shape=f"{hcap} ids, 8 partitions",
+        **{f"ms_{many}": cuda_ms(lambda: X.route_plan(ids_many, many),
+                                 iters),
+           f"plain_ms_{many}": cuda_ms(lambda: X.route_plan_plain(
+               ids_many, many), iters),
+           f"bound_ms_{many}": bound_ms(8 * hcap + 4 * (many + 1))})
     rows.update(time_string_kernels(dev, errs))
     rows.update(time_join_kernels(dev, errs))
     rows.update(time_search_kernels(dev, errs))
     rows.update(time_window_kernels(dev, errs, pr_content))
+    rows.update(time_slice6_kernels(dev, errs, d12_rows))
+    # K3's first at q_agg_join's shape rides K3's row
+    rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
+        "segment_reduce_first").items()})
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
@@ -2586,17 +2672,556 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content):
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": "bytes", "library_ms": r["library_ms"],
             "shape": r["shape"],
-            **{k: v for k, v in r.items() if k.startswith(("ms_",
-                                                            "bound_ms_"))}})
+            **{k: v for k, v in r.items() if k.startswith((
+                "ms_", "bound_ms_", "plain_ms_", "library_ms_"))}})
     return out
+
+
+# ------------------------------------------------- phase 8 (slice 6)
+def gen_mortgage(sess, sf: float):
+    from spark_rapids_tpu_torch.benchmarks import mortgage
+
+    t = time.perf_counter()
+    raw = mortgage.gen_tables(sess, sf=sf,
+                              num_partitions=MORTGAGE_PARTITIONS)
+    gen_s = time.perf_counter() - t
+    rows = {k: sum(b.num_rows for part in v._plan.partitions for b in part)
+            for k, v in raw.items()}
+    log(f"phase 8: mortgage SF {sf} generated in {gen_s:.1f} s: {rows}")
+    return raw, {k: v.cache() for k, v in raw.items()}, rows, gen_s
+
+
+def probe_d12(sfs) -> list:
+    """q_delinquency_12 by scale factor (its explode, PERF.md)."""
+    from spark_rapids_tpu_torch.benchmarks import mortgage
+
+    return probe_memory(sfs, gen_mortgage, "performance",
+                        mortgage.q_delinquency_12, "q_delinquency_12")
+
+
+def _exact_percentile(vals, p: float) -> float:
+    """The reference's host percentile of sorted float64 values."""
+    import numpy as np
+
+    q = p * (len(vals) - 1)
+    k = int(np.floor(q))
+    frac = q - k
+    hi = min(k + 1, len(vals) - 1) if frac > 0 else k
+    return float(vals[k] * (1 - frac) + vals[hi] * frac)
+
+
+def numpy_mortgage_percentiles(perf: dict):
+    """q_percentiles by numpy: the 100 loans of highest average rate
+    (ties by loan id) with their min, max, average and exact 50/75/90/99th
+    percentiles (np.lexsort by loan and rate)."""
+    import numpy as np
+
+    loan, rate = perf["loan_id"], perf["interest_rate"]
+    cnt = np.bincount(loan)
+    total = np.bincount(loan, weights=rate.astype(np.float64))
+    ids = np.nonzero(cnt)[0]
+    avg = total[ids] / cnt[ids]
+    top = ids[np.lexsort((ids, -avg))[:100]]
+    m = np.isin(loan, top)
+    sel_l, sel_r = loan[m], rate[m].astype(np.float64)
+    o = np.lexsort((sel_r, sel_l))
+    sel_l, sel_r = sel_l[o], sel_r[o]
+    rows = []
+    for g in top:
+        vals = sel_r[sel_l == g]
+        rows.append((int(g), float(vals[0]), float(vals[-1]),
+                     float(total[g] / cnt[g]),
+                     *[_exact_percentile(vals, p)
+                       for p in (0.50, 0.75, 0.90, 0.99)]))
+    return rows
+
+
+def numpy_mortgage_delinquency(perf: dict, acq: dict):
+    """q_delinquency by numpy: per-loan worst status, months >= 30 and >=
+    90 days delinquent, min unpaid balance and reports (np.bincount, and
+    np.minimum.reduceat over the chosen loans' rows), the loans with a
+    90-day month, ordered by worst status desc and loan id; every
+    acquisition column the join carries is gathered by loan id."""
+    import numpy as np
+
+    loan, st, upb = perf["loan_id"], perf["delinq_status"], \
+        perf["current_upb"]
+    n_loans = len(acq["loan_id"])
+    n = np.bincount(loan, minlength=n_loans)
+    m30 = np.bincount(loan[st >= 1], minlength=n_loans)
+    m90 = np.bincount(loan[st >= 3], minlength=n_loans)
+    worst = np.full(n_loans, -1, dtype=np.int64)
+    for s in range(int(st.max()) + 1):
+        worst[np.bincount(loan[st == s], minlength=n_loans) > 0] = s
+    ids = np.nonzero((n > 0) & (m90 > 0))[0]
+    top = ids[np.lexsort((ids, -worst[ids]))[:100]]
+    m = np.isin(loan, top)
+    sel_l, sel_u = loan[m], upb[m]
+    o = np.argsort(sel_l, kind="stable")
+    uniq, firsts = np.unique(sel_l[o], return_index=True)
+    mins = dict(zip(uniq.tolist(),
+                    np.minimum.reduceat(sel_u[o], firsts).tolist()))
+    rows = []
+    for g in top:
+        orig = int(acq["orig_upb"][g])
+        rows.append((int(g), int(acq["orig_date"][g]), orig,
+                     int(acq["credit_score"][g]), float(acq["dti"][g]),
+                     int(acq["zip"][g]), float(acq["orig_rate"][g]),
+                     str(acq["seller"][g]), int(worst[g]), int(m30[g]),
+                     int(m90[g]), mins[int(g)], int(n[g]),
+                     1.0 - mins[int(g)] / orig))
+    return rows
+
+
+def numpy_mortgage_agg_join(perf: dict, acq: dict):
+    """q_agg_join by numpy: the first 200 loans with performance rows,
+    their min rate and (loan_id is unique in acquisition) first() is the
+    loan's own orig_rate, exactly."""
+    import numpy as np
+
+    loan, rate = perf["loan_id"], perf["interest_rate"]
+    ids = np.nonzero(np.bincount(loan))[0][:200]
+    m = loan <= ids[-1]
+    mins = np.full(int(ids[-1]) + 1, np.inf, dtype=np.float32)
+    np.minimum.at(mins, loan[m], rate[m])
+    return [(int(g), float(mins[g]), int(g), float(acq["orig_rate"][g]),
+             float(acq["dti"][g])) for g in ids]
+
+
+def mortgage_features(t):
+    """q_delinquency's per-loan group-by alone (the many-partitions run)."""
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    return (t["performance"].groupBy("loan_id")
+            .agg(F.max("delinq_status").alias("worst"),
+                 F.min("current_upb").alias("min_upb"),
+                 F.count("*").alias("n_reports")))
+
+
+def run_many_partitions(launches: dict) -> dict:
+    """The per-loan group-by at MANY_PARTITIONS_SF with the shuffle at
+    MANY_PARTITIONS partitions (K4's device-memory histogram, hash and
+    route halves) against its run at MORTGAGE_SHUFFLE partitions."""
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+
+    sess = xbb_session()
+    raw, tables, rows, _ = gen_mortgage(sess, MANY_PARTITIONS_SF)
+    q = mortgage_features(tables)
+    want = sorted(q.collect())
+    sess.set_conf("rapids.tpu.sql.shuffle.partitions", MANY_PARTITIONS)
+    CB.reset_launch_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got = q.collect()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches["mortgage_many_partitions"] = CB.launch_counts()
+    assert_on_device(sess)
+    check(sorted(got) == want, f"{MANY_PARTITIONS} shuffle partitions: rows "
+          f"differ from the run at {MORTGAGE_SHUFFLE}")
+    sess.set_conf("rapids.tpu.sql.shuffle.partitions", MORTGAGE_SHUFFLE)
+    log(f"phase 8: the group-by at {MANY_PARTITIONS} shuffle partitions "
+        f"({len(got)} rows, {secs:.2f} s) equals its run at "
+        f"{MORTGAGE_SHUFFLE}")
+    del raw
+    release(sess, tables)
+    return {"sf": MANY_PARTITIONS_SF, "partitions": MANY_PARTITIONS,
+            "rows": len(got), "s": secs,
+            "input_rows": rows["performance"]}
+
+
+def run_mortgage(launches: dict, profile_dir=None) -> dict:
+    """Phase 8: the 6 mortgage queries over cached tables at MORTGAGE_SF
+    (q_delinquency_12 at MORTGAGE_D12_SF on its own tables: its explode,
+    PERF.md), then the many-partitions run."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.benchmarks import mortgage
+
+    sess = xbb_session()
+    out = {"sf": MORTGAGE_SF, "d12_sf": MORTGAGE_D12_SF}
+    d12 = "mortgage_q_delinquency_12"
+    if MORTGAGE_D12_SF != MORTGAGE_SF:
+        raw, tables, rows, _ = gen_mortgage(sess, MORTGAGE_D12_SF)
+        torch.cuda.reset_peak_memory_stats()
+        r = run_xbb_query(sess, d12, mortgage.q_delinquency_12, tables,
+                          rows, None, launches, 3)
+        r["sf"] = MORTGAGE_D12_SF
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["checked_against"] = "its own cold run"
+        out[d12] = r
+        log(f"{d12} at SF {MORTGAGE_D12_SF}: peak device bytes "
+            f"{r['peak_bytes']}")
+        del raw
+        release(sess, tables)
+    raw, tables, rows, gen_s = gen_mortgage(sess, MORTGAGE_SF)
+    out["gen_s"] = gen_s
+    out["table_rows"] = rows
+    perf = host_columns(raw["performance"], (
+        "loan_id", "interest_rate", "delinq_status", "current_upb"))
+    acq = host_columns(raw["acquisition"], (
+        "loan_id", "orig_date", "orig_upb", "credit_score", "dti", "zip",
+        "orig_rate", "seller"))
+    check(bool((acq["loan_id"] == np.arange(len(acq["loan_id"]))).all()),
+          "phase 8 reference: loan ids are not arange")
+    t = time.perf_counter()
+    want = {"q_percentiles": (numpy_mortgage_percentiles(perf), None),
+            "q_delinquency": (numpy_mortgage_delinquency(perf, acq), None),
+            "q_agg_join": (numpy_mortgage_agg_join(perf, acq), None)}
+    log(f"phase 8: numpy references of {sorted(want)} ready in "
+        f"{time.perf_counter() - t:.1f} s")
+    del perf, acq
+    for name in sorted(mortgage.QUERIES):
+        path = f"mortgage_{name}"
+        if path in out:
+            continue
+        ref, cols = want.get(name, (None, None))
+        torch.cuda.reset_peak_memory_stats()
+        r = run_xbb_query(sess, path, mortgage.QUERIES[name], tables, rows,
+                          ref, launches, 3, cols=cols)
+        r["peak_bytes"] = torch.cuda.max_memory_allocated()
+        r["checked_against"] = "numpy" if name in want else \
+            "its own cold run"
+        out[path] = r
+    out["device_bytes"] = torch.cuda.memory_allocated()
+    if profile_dir:
+        for name in ("q_percentiles", "q_delinquency"):
+            out[f"mortgage_{name}"]["profile"] = profile_query(
+                mortgage.QUERIES[name](tables), profile_dir,
+                f"mortgage_{name}")
+    del raw
+    release(sess, tables)
+    out["many_partitions"] = run_many_partitions(launches)
+    return out
+
+
+def run_mortgage_small_sf() -> dict:
+    """All 6 mortgage queries at MORTGAGE_SMALL_SF on the card against the
+    port's numpy CPU engine, rows in order, DOUBLE within TPCH_REL."""
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch.benchmarks import mortgage
+
+    card = srt.new_session(TPCH_CONF)
+    host = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True,
+                            "rapids.tpu.sql.enabled": False}, device="cpu")
+    tabs = []
+    for sess in (card, host):
+        sess.set_conf("rapids.tpu.sql.shuffle.partitions", MORTGAGE_SHUFFLE)
+        tabs.append({k: v.cache() for k, v in mortgage.gen_tables(
+            sess, sf=MORTGAGE_SMALL_SF,
+            num_partitions=MORTGAGE_PARTITIONS).items()})
+    out = {"sf": MORTGAGE_SMALL_SF}
+    for q, fn in sorted(mortgage.QUERIES.items()):
+        t = time.perf_counter()
+        got = fn(tabs[0]).collect()
+        card_s = time.perf_counter() - t
+        assert_on_device(card)
+        t = time.perf_counter()
+        want = fn(tabs[1]).collect()
+        host_s = time.perf_counter() - t
+        worst = check_rows(got, want, f"{q} at SF {MORTGAGE_SMALL_SF} vs the "
+                           "CPU engine")
+        out[q] = {"rows": len(got), "card_s": card_s, "cpu_engine_s": host_s,
+                  "max_rel_diff": worst}
+    log(f"phase 8: all 6 queries at SF {MORTGAGE_SMALL_SF} equal the CPU "
+        "engine: " + ", ".join(f"{q} {v['rows']}" for q, v in out.items()
+                                if q != "sf"))
+    for d in tabs[0].values():
+        d.unpersist()
+    card.last_physical_plan = None
+    return out
+
+
+# ------------------------------------------- slice 6 kernels (K18, K19)
+def compare_explode(children, elems, k: int, n: int, with_pos: bool,
+                    label: str, errs: dict, strings=None) -> None:
+    """K18 against its plain version on one input set; a STRING child
+    (offsets, bytes, validity, max_len) goes through K7 with K18's
+    replicate index against the plain gather with the plain index."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+    from spark_rapids_tpu_torch.exec import expand as E
+
+    out_cap = CBT.bucket_capacity(max(n * k, 1))
+    got = E.explode_rows(children, elems, k, n, out_cap, with_pos)
+    want = E.explode_rows_plain(children, elems, k, n, out_cap, with_pos)
+    for (gd, gv), (wd, wv) in zip(got[0], want[0]):
+        check(bits_equal(gd, wd) and torch.equal(gv, wv),
+              f"{label}: K18 child column differs")
+        errs["explode_rows"] = max(errs.get("explode_rows", 0.0),
+                                   max_abs_err(gd, wd))
+    if elems:
+        check(bits_equal(got[1][0], want[1][0]) and
+              torch.equal(got[1][1], want[1][1]),
+              f"{label}: K18 element column differs")
+    if with_pos:
+        check(torch.equal(got[2], want[2]), f"{label}: K18 pos differs")
+    check(torch.equal(got[3], want[3]), f"{label}: K18 replicate index "
+          "differs")
+    if strings is not None:
+        offsets, data, valid = strings
+        max_len = int((offsets[1:] - offsets[:-1]).max())
+        col = CBT.ColumnVector(None, data, valid, offsets, max_len)
+        g = CBT.gather_string_col(col, got[3], n * k)
+        po, pv = CBT.gather_strings_plan_plain(offsets, valid, want[3],
+                                               n * k)
+        total = int(po[-1])
+        pb = CBT.gather_strings_copy_plain(offsets, data, want[3], po,
+                                           max(total, 1))
+        check(torch.equal(g.offsets, po) and torch.equal(g.validity, pv)
+              and torch.equal(g.data[:total], pb[:total]),
+              f"{label}: K7 through K18's index differs")
+
+
+def compare_percentile(data, valid, gid, cap: int, ps, label: str,
+                       errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+
+    got = RK.segment_percentile(data, valid, gid, cap, ps)
+    want = RK.segment_percentile_plain(data, valid, gid, cap, ps)
+    for p, (o, ov), (po, pov) in zip(ps, got, want):
+        check(torch.equal(ov, pov), f"{label}: K19 p={p} validity differs")
+        check(bits_equal(o, po), f"{label}: K19 p={p} differs")
+        errs["segment_percentile"] = max(errs.get("segment_percentile", 0.0),
+                                         max_abs_err(o, po))
+
+
+EXPLODE_PS = (0.0, 0.25, 0.5, 0.75, 0.9, 0.99, 1.0, 1.0 / 3.0)
+
+
+def slice6_edge_cases(dev, errs: dict) -> int:
+    """K18, K19, K3's first / last and K4 past 4096 buckets against their
+    plain versions, bit for bit."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    rng = np.random.default_rng(11)
+    n_cases = 0
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    def children_of(cap):
+        v = t(rng.random(cap) > 0.2)
+        return [(t(rng.integers(-2**62, 2**62, cap).astype(np.int64)), v),
+                (t(rng.random(cap) > 0.5), t(rng.random(cap) > 0.1)),
+                (t(rng.integers(-9, 9, cap).astype(np.int32)), v),
+                (t(rng.standard_normal(cap).astype(np.float32)), v),
+                (t(rng.integers(-9, 9, cap).astype(np.int16)), v),
+                (t(rng.integers(-9, 9, cap).astype(np.int8)), v),
+                (t(rng.standard_normal(cap)), v)]
+
+    def elems_of(cap, k, nulls):
+        return [(t(rng.integers(0, 99, cap).astype(np.int32)),
+                 t(rng.random(cap) >= nulls)) for _ in range(k)]
+
+    strs = string_column([STRING_EDGES[i % len(STRING_EDGES)]
+                          for i in range(64)], dev)
+    for n, k, nulls, pos in ((0, 12, 0.0, True), (1, 12, 0.0, False),
+                             (1000, 1, 0.3, True), (5000, 12, 0.3, False),
+                             (64, 12, 0.5, True)):
+        cap = max(n, 8) if n != 64 else 64
+        compare_explode(children_of(cap), elems_of(cap, k, nulls), k, n, pos,
+                        f"explode n={n} k={k}", errs,
+                        strings=strs if n == 64 else None)
+        n_cases += 1
+    # K19: NaN, -0.0 / 0.0, +-inf, all-NULL groups, one-row groups, pads
+    cap = 4096
+    vals = rng.choice(np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5,
+                                -2.25], dtype=np.float64), cap)
+    vals[::3] = rng.standard_normal(len(vals[::3]))
+    gid = rng.integers(0, 40, cap).astype(np.int32)
+    gid[:6] = 40 + np.arange(6)          # one-row groups 40-45
+    gid[6:30] = 46 + np.arange(24) % 4   # groups 46-49: all NULL
+    gid[-50:] = cap                      # pads
+    valid = rng.random(cap) > 0.2
+    valid[6:30] = False
+    compare_percentile(t(vals), t(valid), t(gid), cap, EXPLODE_PS,
+                       "percentile edges", errs)
+    # one group past 2^24 rows (the exact integer base), beside small ones
+    cap = 1 << 25
+    gid = np.zeros(cap, dtype=np.int32)
+    gid[(1 << 24) + 3:] = 1 + rng.integers(0, 1000, cap - (1 << 24) - 3)
+    compare_percentile(t(rng.standard_normal(cap)), t(np.ones(cap, bool)),
+                       t(gid), cap, (0.5, 0.99, 1.0 / 3.0, 1.0),
+                       "percentile 2^24 group", errs)
+    n_cases += 2
+    # K3 first / last (NULL first rows, with and without ignore_nulls), and
+    # K4 past 4096 buckets
+    for cap, n_parts in ((4096, 4095), (4096, 4096), (1 << 17, 5000),
+                         (1 << 17, 65536)):
+        k = ColV(DataType.INT64, t(rng.integers(0, 300, cap).astype(
+            np.int64)), t(rng.random(cap) > 0.05))
+        v = t(rng.random(cap) > 0.4)
+        f32 = t(rng.standard_normal(cap).astype(np.float32))
+        f32[::5] = float("nan")
+        specs = [(op, d, v) for op in ("first", "last", "first_ignore_nulls",
+                                       "last_ignore_nulls")
+                 for d in (f32, t(rng.standard_normal(cap)),
+                           t(rng.integers(-2**62, 2**62, cap)),
+                           t(rng.integers(-9, 9, cap).astype(np.int32)),
+                           t(rng.random(cap) > 0.5),
+                           t(rng.integers(-9, 9, cap).astype(np.int16)))]
+        live = t(np.arange(cap) < cap - 7)
+        for lo in range(0, len(specs), 8):
+            compare_pipeline([k], live, specs[lo:lo + 8], n_parts,
+                             f"first/last C={cap} n_parts={n_parts}", errs)
+        n_cases += 1
+    return n_cases
+
+
+def d12_batch_rows(joins) -> int:
+    """Rows of one joined stream batch that q_delinquency_12 explodes at
+    MORTGAGE_D12_SF: its performance rows over the table's partitions when
+    the per-loan flags join ran as a broadcast (the stream keeps the cached
+    partitions), else over the shuffle partitions."""
+    flags = [j for j in joins if "f_loan" in j["join"]]
+    parts = MORTGAGE_PARTITIONS if flags and "broadcast" in \
+        flags[0]["ran_as"] else MORTGAGE_SHUFFLE
+    return int(9_600_000 * MORTGAGE_D12_SF) // parts
+
+
+def percentile_reads(valid, gid, cap: int, ps) -> int:
+    """Values K19's interpolation reads for this data: the distinct sorted
+    positions lo and hi of every fraction over the groups with a valid
+    value (launch a reads the order, group ids and validity whole)."""
+    import torch
+
+    g = gid.long()
+    in_group = g < cap
+    rows = torch.bincount(g[in_group], minlength=cap)
+    cnt = torch.bincount(g[in_group & valid], minlength=cap)
+    start = torch.cumsum(rows, 0) - rows
+    live = cnt > 0
+    c1 = (cnt[live] - 1).to(torch.float64)
+    pos = []
+    for p in ps:
+        q = p * c1
+        lo = start[live] + torch.floor(q).long()
+        pos += [lo, lo + (q > torch.floor(q)).long()]
+    return int(torch.unique(torch.cat(pos)).numel())
+
+
+def time_slice6_kernels(dev, errs: dict, d12_rows: int) -> dict:
+    """K18 at q_delinquency_12's exploded batch, K19 at q_percentiles'
+    batch (SF 10: 12M rows a shuffle partition, 500,000 loans), K3's first
+    at q_agg_join's acquisition partition (2M rows, every group one row);
+    returns their rows and K3 / K4 extra columns."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.exec import expand as E
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    rng = np.random.default_rng(5)
+    iters = 10
+    rows = {}
+    # K18: loan_id, ym, delinq_status, current_upb, ever_30/90/180; 12
+    # int32 month offsets
+    n, k = d12_rows, 12
+    cap = bucket_capacity(n)
+    out_cap = bucket_capacity(n * k)
+    ones = torch.ones(cap, dtype=torch.bool, device=dev)
+    children = [
+        (torch.as_tensor(rng.integers(0, 4_000_000, cap)).to(dev), ones),
+        (torch.as_tensor(rng.integers(24_000, 24_110, cap).astype(
+            np.int32)).to(dev), ones),
+        (torch.as_tensor(rng.integers(0, 7, cap).astype(np.int32)).to(dev),
+         ones),
+        (torch.as_tensor(rng.integers(0, 800_000, cap)).to(dev), ones),
+        (torch.as_tensor(rng.random(cap) > 0.2).to(dev), ones),
+        (torch.as_tensor(rng.random(cap) > 0.6).to(dev), ones),
+        (torch.as_tensor(rng.random(cap) > 0.9).to(dev), ones)]
+    elems = [(torch.full((cap,), j, dtype=torch.int32, device=dev), ones)
+             for j in range(k)]
+    compare_explode(children, elems, k, n, False, "q_delinquency_12 batch",
+                    errs)
+
+    def library_k18():
+        for d, v in children:
+            torch.repeat_interleave(d[:n], k)
+            torch.repeat_interleave(v[:n], k)
+        torch.stack([d[:n] for d, _ in elems], 1).reshape(-1)
+
+    in_bytes = sum((d.element_size() + 1) * n for d, _ in children) + \
+        k * 5 * n
+    out_bytes = out_cap * (sum(d.element_size() + 1 for d, _ in children)
+                           + 5 + 4)
+    rows["explode_rows"] = dict(
+        ms=cuda_ms(lambda: E.explode_rows(children, elems, k, n, out_cap,
+                                          False), iters),
+        plain_ms=cuda_ms(lambda: E.explode_rows_plain(
+            children, elems, k, n, out_cap, False), 2),
+        library_ms=cuda_ms(library_k18, iters),
+        bound_ms=bound_ms(in_bytes + out_bytes),
+        shape=f"{n} rows x {k} elements, 7 child columns, {out_cap} lanes")
+    del children, elems
+    # K19: 4 fractions of one column, 12M rows in 500,000 groups
+    n, groups = 12_000_000, 500_000
+    cap = bucket_capacity(n)
+    gid = torch.full((cap,), cap, dtype=torch.int32, device=dev)
+    gid[:n] = torch.as_tensor(rng.integers(0, groups, n).astype(
+        np.int32)).to(dev)
+    data = torch.as_tensor((rng.random(cap) * 5 + 2).astype(
+        np.float32).astype(np.float64)).to(dev)
+    valid = torch.ones(cap, dtype=torch.bool, device=dev)
+    ps = [0.5, 0.75, 0.9, 0.99]
+    compare_percentile(data, valid, gid, cap, ps, "q_percentiles batch", errs)
+    order = RK.radix_sort_pairs(RK.percentile_sort_words(data, valid, gid,
+                                                         cap))
+    rows["segment_percentile"] = dict(
+        ms=cuda_ms(lambda: RK.percentile_from_order(order, data, valid, gid,
+                                                    cap, ps), iters),
+        plain_ms=cuda_ms(lambda: RK.segment_percentile_plain(
+            data, valid, gid, cap, ps, order=order), 2),
+        library_ms=None,
+        bound_ms=bound_ms((4 + 4 + 1) * cap + 8 * percentile_reads(
+            valid, gid, cap, ps) + len(ps) * 9 * cap),
+        ms_with_sort=cuda_ms(lambda: RK.segment_percentile(
+            data, valid, gid, cap, ps), iters),
+        shape=f"{n} rows, {groups} groups, {len(ps)} fractions, "
+              f"capacity {cap}")
+    del gid, data, valid, order
+    # K3 first: one row a group
+    n = 2_000_000
+    cap = bucket_capacity(n)
+    live = torch.arange(cap, device=dev) < n
+    key = ColV(DataType.INT64, torch.arange(cap, device=dev),
+               torch.ones(cap, dtype=torch.bool, device=dev))
+    gi = RK.group_ids_masked([RK.key_proxy(key)], live, cap)
+    rate = torch.as_tensor((rng.random(cap) * 5 + 2).astype(
+        np.float32)).to(dev)
+    specs = [("first", rate, live)]
+    rep = gi.rep_rows.long()
+    rows["segment_reduce_first"] = dict(
+        ms=cuda_ms(lambda: RK.segment_reduce_many(specs, gi, cap), iters),
+        plain_ms=cuda_ms(lambda: RK.segment_reduce_plain(
+            "first", rate, live, gi, cap), iters),
+        library_ms=cuda_ms(lambda: rate[rep], iters),
+        bound_ms=bound_ms((8 + 4 + 1) * cap + (4 + 1) * cap))
+    return rows
 
 
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
-                    help="trace one warm flagship, q1, q3 and q5 query "
-                         "and the two slowest of phase 6 each with "
+                    help="trace one warm flagship, q1, q3 and q5 query, "
+                         "the two slowest of phase 6, q05 and the two "
+                         "slowest of phase 7 and q_percentiles and "
+                         "q_delinquency of phase 8 each with "
                          "torch.profiler and cProfile and write their "
                          "device kernel and host function tables to DIR")
     ap.add_argument("--out", default=None,
@@ -2606,6 +3231,8 @@ def main(argv=None) -> int:
                          "each scale factor (ascending, up to the first "
                          "that runs out of device memory) and print its "
                          "times and peak device memory as one JSON line")
+    ap.add_argument("--mortgage-probe", default=None, metavar="SF,SF,...",
+                    help="the same for the mortgage q_delinquency_12")
     args = ap.parse_args(argv)
 
     import torch
@@ -2637,18 +3264,22 @@ def main(argv=None) -> int:
         log(line[:4000])
     build_s = time.perf_counter() - t
     log(f"kernels built in {build_s:.1f} s")
-    if args.q02_probe:
-        print(card)
-        print(json.dumps({"q02_probe": probe_q02(
-            [float(x) for x in args.q02_probe.split(",")]),
-            "total_memory": torch.cuda.get_device_properties(0).total_memory}))
-        return 0
+    probes = {"q02_probe": (args.q02_probe, probe_q02),
+              "mortgage_probe": (args.mortgage_probe, probe_d12)}
+    for key, (sfs, probe) in probes.items():
+        if sfs:
+            print(card)
+            print(json.dumps({key: probe([float(x) for x in sfs.split(",")]),
+                              "total_memory": torch.cuda.get_device_properties(
+                                  0).total_memory}))
+            return 0
 
     errs: dict = {}
     results = {"card": card, "build_s": build_s}
     n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
         join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
-        window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs)
+        window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
+        slice6_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -2676,12 +3307,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     results["phase7"], pr_content = run_tpcxbb(launches, args.profile)
     results["phase7_small_sf"] = run_xbb_small_sf()
+    torch.cuda.empty_cache()
+    results["phase8"] = run_mortgage(launches, args.profile)
+    results["phase8_small_sf"] = run_mortgage_small_sf()
     results["launches"] = launches
     log(f"launches: {launches}")
     if args.profile:
         results["profile"] = profile_flagship(sess, FLAGSHIP_ROWS,
                                               args.profile)
-    kernels = time_kernels(dev, errs, launches, pr_content)
+    kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
+        results["phase8"]["mortgage_q_delinquency_12"]["joins"]))
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - T0
     if args.out:
@@ -2714,6 +3349,11 @@ def main(argv=None) -> int:
                         ("tables", "sf")} if k.startswith("tpcxbb_") else v)
                    for k, v in results["phase7"].items()},
         "tpcxbb_small_sf": results["phase7_small_sf"],
+        "mortgage": {k: ({kk: vv for kk, vv in v.items() if kk in keep +
+                          ("tables", "sf", "peak_bytes")}
+                         if k.startswith("mortgage_") else v)
+                     for k, v in results["phase8"].items()},
+        "mortgage_small_sf": results["phase8_small_sf"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

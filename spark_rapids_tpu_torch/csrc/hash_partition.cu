@@ -15,8 +15,15 @@
 // device plans on it.
 //
 // Route half: a stable scatter of row indices into `order`, grouped by id,
-// with the per-id counts — the shared stable radix pass over the ids (one
-// pass below 256 buckets, two below 65536).
+// with the per-id counts — the shared stable radix pass over the ids, one
+// pass per 8 bits of the largest id (one below 256 buckets, two below
+// 65536, three below 2^24).
+//
+// Counts: up to kSharedBuckets buckets (num_parts + 1) each block keeps its
+// histogram in shared memory and adds it to `counts` once; past that the
+// launcher picks the variant that adds every row straight into `counts` in
+// device memory with atomicAdd, so any partition count works (the
+// reference's partition_ids and _route_plan take any n).
 //
 // Bound: memory. The hash reads each key column once and writes one int32
 // id a row; the route reads ids twice and writes one int32 a row.
@@ -36,7 +43,7 @@ namespace srt {
 namespace {
 
 constexpr int kMaxHashCols = 16;
-constexpr int kMaxBuckets = 4096;
+constexpr int kSharedBuckets = 4096;  // 16 KB of shared memory a block
 
 struct HashCols {
   SrtHashCol c[kMaxHashCols];
@@ -76,13 +83,18 @@ __device__ __forceinline__ uint32_t canonical_f32_bits(float f) {
   return __float_as_uint(f);
 }
 
+// kShared: per-block histogram in shared memory (num_parts + 1 <=
+// kSharedBuckets), else one global atomicAdd a row.
+template <bool kShared>
 __global__ void hash_ids_kernel(HashCols cols, long long n,
                                 const uint8_t* __restrict__ live,
                                 int num_parts, int32_t* __restrict__ ids,
                                 uint32_t* __restrict__ counts) {
   extern __shared__ uint32_t hist[];
-  for (int b = threadIdx.x; b <= num_parts; b += blockDim.x) hist[b] = 0u;
-  __syncthreads();
+  if (kShared) {
+    for (int b = threadIdx.x; b <= num_parts; b += blockDim.x) hist[b] = 0u;
+    __syncthreads();
+  }
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x) {
     int32_t pid = num_parts;
@@ -128,40 +140,59 @@ __global__ void hash_ids_kernel(HashCols cols, long long n,
       pid = (int32_t)(fmix32(h) % (uint32_t)num_parts);
     }
     ids[i] = pid;
-    atomicAdd(&hist[pid], 1u);
+    atomicAdd(kShared ? &hist[pid] : &counts[pid], 1u);
   }
-  __syncthreads();
-  for (int b = threadIdx.x; b <= num_parts; b += blockDim.x)
-    if (hist[b]) atomicAdd(&counts[b], hist[b]);
+  if (kShared) {
+    __syncthreads();
+    for (int b = threadIdx.x; b <= num_parts; b += blockDim.x)
+      if (hist[b]) atomicAdd(&counts[b], hist[b]);
+  }
 }
 
+template <bool kShared>
 __global__ void count_ids_kernel(const int32_t* __restrict__ ids, long long n,
                                  int num_buckets,
                                  uint32_t* __restrict__ counts) {
   extern __shared__ uint32_t hist[];
-  for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) hist[b] = 0u;
-  __syncthreads();
+  if (kShared) {
+    for (int b = threadIdx.x; b < num_buckets; b += blockDim.x) hist[b] = 0u;
+    __syncthreads();
+  }
   for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += (long long)gridDim.x * blockDim.x)
-    atomicAdd(&hist[ids[i]], 1u);
-  __syncthreads();
-  for (int b = threadIdx.x; b < num_buckets; b += blockDim.x)
-    if (hist[b]) atomicAdd(&counts[b], hist[b]);
+    atomicAdd(kShared ? &hist[ids[i]] : &counts[ids[i]], 1u);
+  if (kShared) {
+    __syncthreads();
+    for (int b = threadIdx.x; b < num_buckets; b += blockDim.x)
+      if (hist[b]) atomicAdd(&counts[b], hist[b]);
+  }
 }
 
+// 8-bit radix passes that order ids in [0, max_id]
+inline int route_passes(uint32_t max_id) {
+  int passes = 1;
+  while (passes < 4 && (max_id >> (8 * passes)) != 0u) ++passes;
+  return passes;
+}
+
+// keys / vals: the ping-pong buffers between passes (a second pair only
+// from three passes on)
 struct RouteScratch {
-  uint32_t* keys;
-  int32_t* vals;
+  uint32_t* keys[2];
+  int32_t* vals[2];
   uint32_t* counts;
   uint32_t* offsets;
   uint32_t* scan;
 };
 
-size_t carve(void* base, long long n, RouteScratch* s) {
+size_t carve(void* base, long long n, int passes, RouteScratch* s) {
   Carver c{static_cast<char*>(base), 0};
   const long long hist = (long long)kRadix * radix_pass_tiles(n);
-  s->keys = c.take<uint32_t>(n);
-  s->vals = c.take<int32_t>(n);
+  for (int k = 0; k < 2; ++k) {
+    const bool used = passes > 1 + k;
+    s->keys[k] = c.take<uint32_t>(used ? n : 0);
+    s->vals[k] = c.take<int32_t>(used ? n : 0);
+  }
   s->counts = c.take<uint32_t>(hist);
   s->offsets = c.take<uint32_t>(hist);
   s->scan = c.take<uint32_t>(scan_scratch_elems(hist));
@@ -173,8 +204,6 @@ size_t carve(void* base, long long n, RouteScratch* s) {
 
 using namespace srt;
 
-SRT_API int srt_hash_max_buckets() { return kMaxBuckets; }
-
 // ids: int32 [n] partition id per row (n = num_parts outside `live`);
 // counts: uint32 [num_parts + 1], zeroed here.
 SRT_API int srt_hash_partition_ids(const SrtHashCol* cols, int n_cols,
@@ -183,7 +212,7 @@ SRT_API int srt_hash_partition_ids(const SrtHashCol* cols, int n_cols,
                                    uint32_t* counts, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (n_cols < 1 || n_cols > kMaxHashCols || num_parts < 1 ||
-      num_parts + 1 > kMaxBuckets || n > 0x7FFFFFFFLL)
+      num_parts == 0x7FFFFFFF || n > 0x7FFFFFFFLL)
     return fail(cudaErrorInvalidValue, "arguments");
   SRT_CALL(cudaMemsetAsync(counts, 0, sizeof(uint32_t) * (size_t)(num_parts + 1), st),
            "memset counts");
@@ -192,16 +221,21 @@ SRT_API int srt_hash_partition_ids(const SrtHashCol* cols, int n_cols,
   hc.n = n_cols;
   for (int k = 0; k < n_cols; ++k) hc.c[k] = cols[k];
   const unsigned grid = (unsigned)std::min<long long>(ceil_div(n, kThreads), 4096);
-  const size_t shmem = sizeof(uint32_t) * (size_t)(num_parts + 1);
-  hash_ids_kernel<<<grid, kThreads, shmem, st>>>(hc, n, live, num_parts, ids,
-                                                 counts);
+  if (num_parts + 1 <= kSharedBuckets) {
+    const size_t shmem = sizeof(uint32_t) * (size_t)(num_parts + 1);
+    hash_ids_kernel<true><<<grid, kThreads, shmem, st>>>(
+        hc, n, live, num_parts, ids, counts);
+  } else {
+    hash_ids_kernel<false><<<grid, kThreads, 0, st>>>(
+        hc, n, live, num_parts, ids, counts);
+  }
   SRT_LAUNCHED("hash_ids_kernel");
   return 0;
 }
 
-SRT_API size_t srt_route_plan_scratch_bytes(long long n) {
+SRT_API size_t srt_route_plan_scratch_bytes(long long n, int num_parts) {
   RouteScratch s;
-  return carve(nullptr, n, &s);
+  return carve(nullptr, n, route_passes((uint32_t)num_parts), &s);
 }
 
 // ids: int32 [n] in [0, num_parts]; order: int32 [n], row indices grouped
@@ -210,41 +244,34 @@ SRT_API int srt_route_plan(const int32_t* ids, long long n, int num_parts,
                            int32_t* order, uint32_t* counts, void* scratch,
                            size_t scratch_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int buckets = num_parts + 1;
-  if (num_parts < 1 || buckets > kMaxBuckets || n > 0x7FFFFFFFLL)
+  if (num_parts < 1 || num_parts == 0x7FFFFFFF || n > 0x7FFFFFFFLL)
     return fail(cudaErrorInvalidValue, "arguments");
+  const int buckets = num_parts + 1;
+  const int passes = route_passes((uint32_t)num_parts);
   RouteScratch s;
-  if (carve(scratch, n, &s) > scratch_bytes)
+  if (carve(scratch, n, passes, &s) > scratch_bytes)
     return fail(cudaErrorInvalidValue, "scratch size");
   SRT_CALL(cudaMemsetAsync(counts, 0, sizeof(uint32_t) * (size_t)buckets, st),
            "memset counts");
   if (n <= 0) return 0;
   const unsigned grid = (unsigned)std::min<long long>(ceil_div(n, kThreads), 4096);
-  count_ids_kernel<<<grid, kThreads, sizeof(uint32_t) * (size_t)buckets, st>>>(
-      ids, n, buckets, counts);
+  if (buckets <= kSharedBuckets)
+    count_ids_kernel<true><<<grid, kThreads, sizeof(uint32_t) * (size_t)buckets,
+                             st>>>(ids, n, buckets, counts);
+  else
+    count_ids_kernel<false><<<grid, kThreads, 0, st>>>(ids, n, buckets, counts);
   SRT_LAUNCHED("count_ids_kernel");
-  const uint32_t* keys = reinterpret_cast<const uint32_t*>(ids);
-  PingPong pp = {};
-  if (buckets <= kRadix) {
-    pp.keys_in[0] = keys;
-    pp.vals_in[0] = nullptr;
-    pp.keys_out[1] = nullptr;
-    pp.vals_out[1] = order;
-    SRT_TRY(radix_pass(pp, n, 0, s.counts, s.offsets, s.scan, nullptr,
-                       nullptr, st));
-  } else {
-    pp.keys_in[0] = keys;
-    pp.vals_in[0] = nullptr;
-    pp.keys_out[1] = s.keys;
-    pp.vals_out[1] = s.vals;
-    SRT_TRY(radix_pass(pp, n, 0, s.counts, s.offsets, s.scan, nullptr,
-                       nullptr, st));
-    PingPong pp2 = {};
-    pp2.keys_in[0] = s.keys;
-    pp2.vals_in[0] = s.vals;
-    pp2.keys_out[1] = nullptr;
-    pp2.vals_out[1] = order;
-    SRT_TRY(radix_pass(pp2, n, 8, s.counts, s.offsets, s.scan, nullptr,
+  // pass p reads the ids (p = 0) or the previous pass's buffers and writes
+  // the next pair, the last pass only the row indices into `order`
+  for (int p = 0; p < passes; ++p) {
+    PingPong pp = {};
+    pp.keys_in[0] = p == 0 ? reinterpret_cast<const uint32_t*>(ids)
+                           : s.keys[(p - 1) & 1];
+    pp.vals_in[0] = p == 0 ? nullptr : s.vals[(p - 1) & 1];
+    const bool last = p == passes - 1;
+    pp.keys_out[1] = last ? nullptr : s.keys[p & 1];
+    pp.vals_out[1] = last ? order : s.vals[p & 1];
+    SRT_TRY(radix_pass(pp, n, 8 * p, s.counts, s.offsets, s.scan, nullptr,
                        nullptr, st));
   }
   return 0;

@@ -1,13 +1,23 @@
-// K3 segment_reduce: per-group count, sum, min and max of every aggregate
-// column in one launch, over the group-sorted order.
+// K3 segment_reduce: per-group count, sum, min, max, first and last of every
+// aggregate column in one launch, over the group-sorted order.
 //
 // Replaces spark_rapids_tpu/exec/rowkeys.py:segment_reduce with
-// _sorted_group_totals / _sorted_counts / _sorted_segment_reduce. SQL null
+// _sorted_group_totals / _sorted_counts / _sorted_segment_reduce, and its
+// first / last branch (:641-672). SQL null
 // semantics: null inputs are skipped, a group without a non-null input is
 // NULL (its slot holds 0), count is never NULL; integer sums wrap modulo
 // 2^64; float min/max reduce on order bits, so -0.0 equals 0.0 and NaN is
 // the largest value. Slots at or above num_groups come out as 0 (NULL, or
 // a 0 count).
+//
+// first / last (and their _ignore_nulls forms) select a row: each run
+// flushes the least (first) or greatest (last) original row position with
+// atomicMin / atomicMax into an int32 slot per group, over every row of
+// the group or, with _ignore_nulls, over its valid rows only, as the
+// reference's unsorted branch does (:665-669; its sorted branch's rep_rows
+// and seg_ends pick the same rows). The finalize pass copies that row's
+// value (1, 2, 4 or 8 bytes: any type) and validity; a group with no such
+// row is NULL.
 //
 // Bound: memory. Per row and column it reads order and gid_sorted (once per
 // column from L2), the row's value and valid flag through order (a random
@@ -32,7 +42,8 @@ namespace {
 constexpr int kChunk = 32;
 constexpr int kMaxCols = 16;
 
-enum Op { kCount = 0, kSum = 1, kMin = 2, kMax = 3 };
+enum Op { kCount = 0, kSum = 1, kMin = 2, kMax = 3, kFirst = 4, kLast = 5,
+          kFirstIgnoreNulls = 6, kLastIgnoreNulls = 7 };
 enum Dt { kI32 = 0, kI64 = 1, kF32 = 2, kF64 = 3 };
 
 }  // namespace
@@ -49,7 +60,7 @@ struct SrtSegCol {
   void* head;           // float sums: partial of a chunk's first run
   void* tail;           // float sums: partial of a chunk's last run
   int32_t op;
-  int32_t dtype;
+  int32_t dtype;  // first / last: the value's width in bytes
 };
 
 namespace srt {
@@ -116,6 +127,34 @@ __device__ void flush_atomic(const SrtSegCol& c, int32_t g, long long acc_i,
     if (c.op == kMin) atomicMin(p, acc_u);
     else atomicMax(p, acc_u);
   }
+}
+
+__device__ __forceinline__ bool is_select(int op) { return op >= kFirst; }
+
+// first / last: one atomic per run of the chunk with the run's least or
+// greatest row position (acc holds int32 positions)
+__device__ void select_col(const SrtSegCol& c, long long start, long long end,
+                           long long n, const int32_t* __restrict__ order,
+                           const int32_t* __restrict__ gid_sorted) {
+  const bool last = c.op == kLast || c.op == kLastIgnoreNulls;
+  const bool skip_nulls = c.op == kFirstIgnoreNulls || c.op == kLastIgnoreNulls;
+  int32_t* acc = static_cast<int32_t*>(c.acc);
+  int32_t run_g = -1;
+  int32_t sel = -1;
+  for (long long i = start; i < end; ++i) {
+    const int32_t g = gid_sorted[i];
+    if (g >= n) break;  // pads sort last
+    if (g != run_g) {
+      if (sel >= 0) last ? atomicMax(acc + run_g, sel) : atomicMin(acc + run_g, sel);
+      run_g = g;
+      sel = -1;
+    }
+    const int32_t r = order[i];
+    if (skip_nulls && !c.valid[r]) continue;
+    if (sel < 0) sel = r;
+    else sel = last ? (r > sel ? r : sel) : (r < sel ? r : sel);
+  }
+  if (sel >= 0) last ? atomicMax(acc + run_g, sel) : atomicMin(acc + run_g, sel);
 }
 
 __device__ void reduce_atomic_col(const SrtSegCol& c, long long start,
@@ -217,7 +256,9 @@ __global__ void reduce_kernel(SegCols cols, long long n,
   const long long end = start + kChunk < n ? start + kChunk : n;
   for (int k = 0; k < cols.n; ++k) {
     const SrtSegCol& c = cols.c[k];
-    if (c.op == kSum && c.dtype == kF32)
+    if (is_select(c.op))
+      select_col(c, start, end, n, order, gid_sorted);
+    else if (c.op == kSum && c.dtype == kF32)
       reduce_float_sum_col<float>(c, chunk, start, end, n, order, gid_sorted);
     else if (c.op == kSum && c.dtype == kF64)
       reduce_float_sum_col<double>(c, chunk, start, end, n, order, gid_sorted);
@@ -282,6 +323,18 @@ __global__ void finalize_kernel(SegCols cols, long long n,
         if (!live) static_cast<long long*>(c.out)[s] = 0;
         continue;
       }
+      if (is_select(c.op)) {
+        const int32_t r = static_cast<const int32_t*>(c.acc)[s];
+        const bool has = live && r >= 0 && r < n;
+        c.out_valid[s] = has ? c.valid[r] : 0;
+        switch (c.dtype) {
+          case 1: static_cast<uint8_t*>(c.out)[s] = has ? static_cast<const uint8_t*>(c.data)[r] : 0; break;
+          case 2: static_cast<uint16_t*>(c.out)[s] = has ? static_cast<const uint16_t*>(c.data)[r] : 0; break;
+          case 4: static_cast<uint32_t*>(c.out)[s] = has ? static_cast<const uint32_t*>(c.data)[r] : 0u; break;
+          default: static_cast<unsigned long long*>(c.out)[s] = has ? static_cast<const unsigned long long*>(c.data)[r] : 0ull; break;
+        }
+        continue;
+      }
       const bool v = live && c.nonnull[s] > 0;
       c.out_valid[s] = v ? 1 : 0;
       if (c.op == kSum) {
@@ -310,9 +363,9 @@ SRT_API int srt_segment_reduce_chunk() { return kChunk; }
 SRT_API int srt_segment_reduce_max_cols() { return kMaxCols; }
 
 // cols: host array of n_cols descriptors; n: capacity (rows = group slots).
-// The caller initializes acc to each op's identity, nonnull to 0, and for
-// float sums out to 0; out may alias acc for counts, integer sums and
-// integer min/max.
+// The caller initializes acc to each op's identity (first: INT32_MAX,
+// last: -1), nonnull to 0, and for float sums out to 0; out may alias acc
+// for counts, integer sums and integer min/max.
 SRT_API int srt_segment_reduce(const SrtSegCol* cols, int n_cols, long long n,
                                const int32_t* order, const int32_t* gid_sorted,
                                const int32_t* seg_ends,

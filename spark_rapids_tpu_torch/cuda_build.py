@@ -32,7 +32,8 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "string_hash", "string_order", "string_gather", "string_compare",
            "hash_join", "string_search", "substring", "window_segments",
-           "window_rank_offset", "window_frame_agg", "string_chars")
+           "window_rank_offset", "window_frame_agg", "string_chars",
+           "explode", "segment_percentile")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -142,12 +143,11 @@ _SIGNATURES = {
             _VOIDP, _VOIDP]),
     },
     "hash_partition": {
-        "srt_hash_max_buckets": (ctypes.c_int, []),
         "srt_hash_partition_ids": (ctypes.c_int, [
             _VOIDP, ctypes.c_int, ctypes.c_longlong, _VOIDP, ctypes.c_int,
             _VOIDP, _VOIDP, _VOIDP]),
         "srt_route_plan_scratch_bytes": (ctypes.c_size_t,
-                                         [ctypes.c_longlong]),
+                                         [ctypes.c_longlong, ctypes.c_int]),
         "srt_route_plan": (ctypes.c_int, [
             _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
             ctypes.c_size_t, _VOIDP]),
@@ -232,6 +232,20 @@ _SIGNATURES = {
         "srt_string_chars": (ctypes.c_int, [
             _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP]),
+    },
+    "explode": {
+        "srt_explode_max_child_cols": (ctypes.c_int, []),
+        "srt_explode_max_elems": (ctypes.c_int, []),
+        "srt_explode_rows": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, _VOIDP, ctypes.c_int, ctypes.c_int,
+            ctypes.c_longlong, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP]),
+    },
+    "segment_percentile": {
+        "srt_segment_percentile_max_fractions": (ctypes.c_int, []),
+        "srt_segment_percentile": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_int, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

@@ -1,5 +1,5 @@
-"""Hash aggregate execs (port of spark_rapids_tpu/exec/aggregate.py, PARTIAL and
-FINAL modes; reference: aggregate.scala).
+"""Hash aggregate execs (port of spark_rapids_tpu/exec/aggregate.py, PARTIAL,
+FINAL and COMPLETE modes; reference: aggregate.scala).
 
 Device design, as in the reference: group-by = sort the rows by key (K1),
 number the groups (K2), reduce every aggregate column per group (K3) — all
@@ -23,9 +23,15 @@ aggregate on the device: every live row is in group 0 (no sort,
 `rowkeys.keyless_group_info`), K3 reduces it, and an empty input emits the
 one default row (reference: aggregate.py:845-856, :923-938).
 
+Slice 6 adds first / last (K3) and the holistic exact percentile: the
+planner exchanges raw rows into one COMPLETE aggregate (update, then the
+final projection, no merge), which takes each partition as a single batch
+(`children_coalesce_goal`, reference :284-294); its `pct:<p>` buffers are
+K19 reductions, several fractions of one input sharing one sort. The
+update evaluates each distinct input expression once.
+
 Left out so far (ROADMAP.md): encoded (dictionary) columns, run-aware
-collapse, buffer donation, the retry combinators, string min/max, holistic
-aggregates (COMPLETE mode).
+collapse, buffer donation, the retry combinators, string min/max.
 """
 
 from __future__ import annotations
@@ -76,6 +82,7 @@ from spark_rapids_tpu_torch.ops.values import ColV, EvalContext
 
 PARTIAL = "partial"
 FINAL = "final"
+COMPLETE = "complete"
 
 # Max device bytes of an un-compacted partial output for the sync-free lazy
 # form (shared with the exchange's zero-copy slicer; reference:
@@ -261,11 +268,31 @@ def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
     for f in bound_filters:
         live = live & keep_mask_from_result(ctx, f.eval(ctx))
     key_cols = [eval_as_col(ctx, e) for e in bound_keys]
-    in_cols = [eval_as_col(ctx, e) for e in bound_inputs]
+    # one evaluation and one masked validity per distinct input; the
+    # percentiles of one input share one K19 sort
+    inputs: Dict[Any, Tuple[Any, Any]] = {}
+    in_of, pct, rest = [], {}, []
+    for i, (op, e) in enumerate(zip(op_names, bound_inputs)):
+        key = e.fingerprint() if e.deterministic else i
+        if key not in inputs:
+            cv = eval_as_col(ctx, e)
+            inputs[key] = (cv.data, cv.validity & live)
+        in_of.append(key)
+        if op.startswith("pct:"):
+            pct.setdefault(key, []).append(i)
+        else:
+            rest.append(i)
     gi = _group_info(key_cols, live, capacity)
-    bufs = RK.segment_reduce_many(
-        [(op, cv.data, cv.validity & live)
-         for op, cv in zip(op_names, in_cols)], gi, capacity)
+    bufs: List[Any] = [None] * len(op_names)
+    got = RK.segment_reduce_many(
+        [(op_names[i], *inputs[in_of[i]]) for i in rest], gi, capacity)
+    for i, r in zip(rest, got):
+        bufs[i] = r
+    for key, idxs in pct.items():
+        got = RK.segment_percentile(*inputs[key], gi.gid, capacity,
+                                    [float(op_names[i][4:]) for i in idxs])
+        for i, r in zip(idxs, got):
+            bufs[i] = r
     return key_cols, bufs, gi
 
 
@@ -342,11 +369,27 @@ def _assemble(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
     return ColumnarBatch(cols, n_groups)
 
 
+def _holistic(specs: List[AggSpec]) -> bool:
+    return any(getattr(s.func, "holistic", False) for s in specs)
+
+
 class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
     placement = "tpu"
 
+    @property
+    def children_coalesce_goal(self):
+        if self.mode == COMPLETE and _holistic(self.specs):
+            # holistic buffers cannot merge: the whole partition arrives
+            # as ONE batch, so exactly one update runs (reference :284)
+            from spark_rapids_tpu_torch.exec.transitions import (
+                RequireSingleBatch,
+            )
+
+            return [RequireSingleBatch()]
+        return [None]
+
     def execute(self, ctx: ExecContext) -> PartitionedBatches:
-        do_update = self.mode == PARTIAL
+        do_update = self.mode in (PARTIAL, COMPLETE)
         child = self.children[0]
         key_exprs = self.key_exprs
         ops = self._update_ops()
@@ -486,21 +529,44 @@ def _max_sql(a, b):
 class _HostAcc:
     """Per-group per-buffer accumulator with SQL null semantics."""
 
-    __slots__ = ("op", "value", "valid")
+    __slots__ = ("op", "value", "valid", "seen")
 
     def __init__(self, op: str):
         self.op = op
         self.value = None
         self.valid = False
+        self.seen = False  # first / last including nulls
 
     def add(self, v, valid: bool):
         op = self.op
+        if op.startswith("pct:"):
+            if valid:
+                if self.value is None:
+                    self.value = []
+                self.value.append(float(v))
+            return
+        if op == "unmergeable":
+            raise AssertionError(
+                "holistic aggregate reached a merge stage — the planner "
+                "must run it complete-mode")
         if op == "count":
             if self.value is None:
                 self.value = 0
             if valid:
                 self.value += 1
             self.valid = True
+            return
+        if op in ("first", "last"):
+            if op == "first" and self.seen:
+                return
+            self.value, self.valid, self.seen = v, valid, True
+            return
+        if op in ("first_ignore_nulls", "last_ignore_nulls"):
+            if not valid:
+                return
+            if op.startswith("first") and self.seen:
+                return
+            self.value, self.valid, self.seen = v, True, True
             return
         if not valid:
             return
@@ -523,6 +589,17 @@ class _HostAcc:
     def result(self):
         if self.op == "count":
             return (self.value or 0), True
+        if self.op.startswith("pct:"):
+            # the reference's host percentile (aggregate.py:1024)
+            if not self.value:
+                return None, False
+            p = float(self.op[4:])
+            vals = np.sort(np.asarray(self.value, dtype=np.float64))
+            q = p * (len(vals) - 1)
+            k = int(np.floor(q))
+            frac = q - k
+            hi = min(k + 1, len(vals) - 1) if frac > 0 else k
+            return float(vals[k] * (1 - frac) + vals[hi] * frac), True
         return self.value, self.valid
 
 
@@ -537,7 +614,7 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
             groups: Dict[tuple, List[_HostAcc]] = {}
             key_rows: Dict[tuple, tuple] = {}
             order: List[tuple] = []
-            do_update = self.mode == PARTIAL
+            do_update = self.mode in (PARTIAL, COMPLETE)
             ops = [op for op, _, _ in self._update_ops()] if do_update else \
                 [op for op, _ in self._merge_ops()]
             n_keys = len(self.grouping)
@@ -545,11 +622,12 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
             bound_update = bind_all(
                 self.key_exprs + [e for _, e, _ in self._update_ops()],
                 child_attrs) if do_update else None
-            for batch in child_pb.iterator(pidx):
-                if batch.num_rows == 0:
-                    continue
-                ev = cpu_project(bound_update, batch, partition_id=pidx) \
-                    if do_update else batch
+            evs = [cpu_project(bound_update, batch, partition_id=pidx)
+                   if do_update else batch
+                   for batch in child_pb.iterator(pidx)
+                   if batch.num_rows]
+            fast = _fast_groups(evs, n_keys, key_dtypes, ops)
+            for ev in ([] if fast is not None else evs):
                 kcols = ev.columns[:n_keys]
                 vcols = ev.columns[n_keys:]
                 for i in range(ev.num_rows):
@@ -570,7 +648,11 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
                         if isinstance(v, np.generic):
                             v = v.item()
                         acc.add(v, bool(col.validity[i]))
-            inter = self._build_inter_batch(order, key_rows, groups, pidx)
+            if fast is not None:
+                inter = self._fast_inter_batch(*fast)
+            else:
+                inter = self._build_inter_batch(order, key_rows, groups,
+                                                pidx)
             if inter is None:
                 return
             if self.mode == PARTIAL:
@@ -583,6 +665,24 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
         return PartitionedBatches(
             child_pb.num_partitions,
             lambda p: count_output(self.metrics, agg_partition(p)))
+
+    def _fast_inter_batch(self, key_cols, buf_data, buf_valid):
+        """_build_inter_batch for _fast_groups' group-major arrays
+        (reference: aggregate.py:1214); invalid slots are zeroed before
+        the dtype cast."""
+        n = len(key_cols[0]) if key_cols else len(buf_data[0])
+        cols: List[HostColumnVector] = []
+        for c, attr in enumerate(self.grouping):
+            cols.append(HostColumnVector(
+                attr.data_type,
+                key_cols[c].astype(attr.data_type.to_np(), copy=False),
+                np.ones(n, dtype=bool)))
+        for b, battr in enumerate(self.buffer_attrs):
+            valid = buf_valid[b]
+            data = np.where(valid, buf_data[b], 0).astype(
+                battr.data_type.to_np(), copy=False)
+            cols.append(HostColumnVector(battr.data_type, data, valid))
+        return HostColumnarBatch(cols, n)
 
     def _build_inter_batch(self, order, key_rows, groups, pidx):
         if not order:
@@ -616,6 +716,91 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
                     data[i] = v
             cols.append(HostColumnVector(battr.data_type, data, validity))
         return HostColumnarBatch(cols, n)
+
+
+_FAST_OPS = frozenset(("sum", "count", "min", "max"))
+
+
+def _fast_groups(evs, n_keys: int, key_dtypes, ops):
+    """Vectorised group-by of the CPU engine's common shape, or None
+    (reference: aggregate.py:1064): integer / bool keys without NULLs,
+    sum / count / min / max only, no NaN among valid float values. Returns
+    group-major (key columns, buffer data, buffer validity). int64 sums
+    wrap per addition as _HostAcc's do; float sums add in row order
+    (np.add.at is unbuffered); groups come out in key order."""
+    if not evs or not ops or any(op not in _FAST_OPS for op in ops):
+        return None
+    if len(evs[0].columns) != n_keys + len(ops):
+        return None
+    if any(dt in (DataType.FLOAT32, DataType.FLOAT64, DataType.STRING)
+           for dt in key_dtypes):
+        return None
+
+    def cat(cidx, what):
+        return np.concatenate([np.asarray(getattr(ev.columns[cidx], what))
+                               for ev in evs])
+
+    kdata = []
+    for c in range(n_keys):
+        if not cat(c, "validity").all():
+            return None
+        kd = cat(c, "data")
+        if kd.dtype.kind not in "iub":
+            return None
+        kdata.append(kd)
+    vdata, vvalid = [], []
+    for j, op in enumerate(ops):
+        d = cat(n_keys + j, "data")
+        v = cat(n_keys + j, "validity").astype(bool, copy=False)
+        if op != "count":
+            if d.dtype.kind == "f":
+                if np.isnan(d[v]).any():
+                    return None
+            elif d.dtype.kind not in "iu":
+                return None
+        vdata.append(d)
+        vvalid.append(v)
+    total = sum(ev.num_rows for ev in evs)
+    if n_keys == 0:
+        n_groups = 1
+        inv = np.zeros(total, dtype=np.intp)
+        key_cols = []
+    elif n_keys == 1:
+        uniq, inv = np.unique(kdata[0], return_inverse=True)
+        n_groups = len(uniq)
+        key_cols = [uniq]
+    else:
+        mat = np.stack([k.astype(np.int64, copy=False) for k in kdata],
+                       axis=1)
+        uniq, inv = np.unique(mat, axis=0, return_inverse=True)
+        inv = inv.ravel()
+        n_groups = len(uniq)
+        key_cols = [uniq[:, c] for c in range(n_keys)]
+    buf_data, buf_valid = [], []
+    for op, d, v in zip(ops, vdata, vvalid):
+        nvalid = np.bincount(inv, weights=v.astype(np.float64),
+                             minlength=n_groups).astype(np.int64)
+        if op == "count":
+            buf_data.append(nvalid)
+            buf_valid.append(np.ones(n_groups, dtype=bool))
+            continue
+        is_float = d.dtype.kind == "f"
+        dv = d[v].astype(np.float64 if is_float else np.int64, copy=False)
+        iv = inv[v]
+        if op == "sum":
+            out = np.zeros(n_groups, dtype=dv.dtype)
+            np.add.at(out, iv, dv)
+        elif op == "min":
+            out = np.full(n_groups, np.inf) if is_float else \
+                np.full(n_groups, np.iinfo(np.int64).max, dtype=np.int64)
+            np.minimum.at(out, iv, dv)
+        else:
+            out = np.full(n_groups, -np.inf) if is_float else \
+                np.full(n_groups, np.iinfo(np.int64).min, dtype=np.int64)
+            np.maximum.at(out, iv, dv)
+        buf_data.append(out)
+        buf_valid.append(nvalid > 0)
+    return key_cols, buf_data, buf_valid
 
 
 def _default_row_batch_host(specs, inter_attrs) -> HostColumnarBatch:

@@ -1,6 +1,6 @@
 """Row-key kernels of the group-by: sort, dense group ids, segment reductions.
 
-Port of spark_rapids_tpu/exec/rowkeys.py. This module holds three of the
+Port of spark_rapids_tpu/exec/rowkeys.py. This module holds five of the
 port's hand-written CUDA kernels, each beside its plain PyTorch version:
 
 - K1 `radix_sort_pairs` (csrc/radix_sort.cu) replaces `_multi_key_sort`
@@ -9,7 +9,11 @@ port's hand-written CUDA kernels, each beside its plain PyTorch version:
 - K2 `group_ids` (csrc/group_ids.cu) replaces `group_ids_masked` (:309)
   with `_neighbor_differs` (:269);
 - K3 `segment_reduce` (csrc/segment_reduce.cu) replaces `segment_reduce`
-  (:434) with `_sorted_group_totals` / `_sorted_segment_reduce` (:371-431);
+  (:434) with `_sorted_group_totals` / `_sorted_segment_reduce` (:371-431)
+  and its first / last branch (:641-672);
+- K19 `segment_percentile` (csrc/segment_percentile.cu) replaces its
+  `pct:<p>` branch (:480-523): K1 sorts (group, null flag, value order
+  bits), K19 finds each group's valid run and interpolates;
 - K6 `string_order_words` (csrc/string_order.cu) replaces
   `string_order_proxy` (:108) with `_string_chunk_keys` (:142): the order
   words of a STRING sort key.
@@ -52,6 +56,7 @@ M32 = 0xFFFFFFFF
 _I64_MIN = -(1 << 63)
 _I64_MAX = (1 << 63) - 1
 _LOW63 = _I64_MAX
+_I32_MAX = (1 << 31) - 1
 
 
 class KeyProxy(NamedTuple):
@@ -378,7 +383,9 @@ def group_ids_masked(proxies: Sequence[KeyProxy], valid_mask,
 # ---------------------------------------------------------------------------
 # K3: segment reductions
 # ---------------------------------------------------------------------------
-_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3}
+_OPS = {"count": 0, "sum": 1, "min": 2, "max": 3, "first": 4, "last": 5,
+        "first_ignore_nulls": 6, "last_ignore_nulls": 7}
+_SELECT_OPS = ("first", "last", "first_ignore_nulls", "last_ignore_nulls")
 _DTS = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
 
 
@@ -399,7 +406,7 @@ def _reduce_input(op, data):
     """Kernel-side dtype of an aggregate input: sums of any integer type
     accumulate in int64 (SQL sum over integral is LONG); narrow integer
     min/max ride int32 lanes and convert back."""
-    if op == "count":
+    if op == "count" or op in _SELECT_OPS:
         return data
     if data.dtype == torch.bool:
         raise TypeError("boolean min/max/sum is not a device reduction")
@@ -410,11 +417,41 @@ def _reduce_input(op, data):
     return data
 
 
+def _select_plain(op, data, validity, gid, capacity: int):
+    """first / last: the value and validity at each group's least / greatest
+    row position, over its valid rows only for _ignore_nulls (reference:
+    rowkeys.py:657-671)."""
+    dev = validity.device
+    consider = gid < capacity
+    if op.endswith("ignore_nulls"):
+        consider = consider & validity
+    pos = torch.arange(gid.shape[0], dtype=torch.int64, device=dev)
+    seg = torch.where(consider, gid, torch.full((), capacity,
+                                                dtype=torch.int64,
+                                                device=dev))
+    if op.startswith("first"):
+        sel = torch.full((capacity + 1,), capacity, dtype=torch.int64,
+                         device=dev)
+        sel.scatter_reduce_(0, seg, torch.where(consider, pos, capacity),
+                            "amin")
+    else:
+        sel = torch.full((capacity + 1,), -1, dtype=torch.int64, device=dev)
+        sel.scatter_reduce_(0, seg, torch.where(consider, pos, -1), "amax")
+    sel = sel[:capacity]
+    has = (sel >= 0) & (sel < capacity)
+    safe = sel.clamp(0, capacity - 1)
+    out = torch.where(has, data[safe], torch.zeros((), dtype=data.dtype,
+                                                   device=dev))
+    return out, has & validity[safe]
+
+
 def segment_reduce_plain(op, data, validity, gi: GroupInfo, capacity: int):
     """One reduction by scatter over group ids (the CPU path and the card
     reference of K3)."""
     dev = validity.device
     gid = gi.gid.long()
+    if op in _SELECT_OPS:
+        return _select_plain(op, data, validity, gid, capacity)
     vmask = validity & (gid < capacity)
     seg = torch.where(vmask, gid, torch.full((), capacity, dtype=torch.int64,
                                              device=dev))
@@ -458,21 +495,17 @@ def segment_reduce_plain(op, data, validity, gi: GroupInfo, capacity: int):
     return out, outv
 
 
-def segment_reduce_many(specs, gi: GroupInfo, capacity: int):
-    """Reduce several (op, data, validity) columns per group with SQL null
-    semantics; returns [(out [capacity], out_valid [capacity])]. Slot g
-    holds group g; all-null groups are NULL with 0 data, count is never
-    NULL, slots at or above num_groups are 0."""
-    if not specs:
-        return []
+def _segment_reduce_k3(specs, gi: GroupInfo, capacity: int):
+    """K3 over the non-percentile specs (one launch for up to its column
+    limit)."""
     if gi.order.device.type == "cpu":
         return [segment_reduce_plain(op, d, v, gi, capacity)
                 for op, d, v in specs]
     lib = CB.library("segment_reduce")
     if len(specs) > lib.srt_segment_reduce_max_cols():
         half = len(specs) // 2
-        return segment_reduce_many(specs[:half], gi, capacity) + \
-            segment_reduce_many(specs[half:], gi, capacity)
+        return _segment_reduce_k3(specs[:half], gi, capacity) + \
+            _segment_reduce_k3(specs[half:], gi, capacity)
     dev = gi.order.device
     chunks = -(-capacity // lib.srt_segment_reduce_chunk())
     descs = (_SegCol * len(specs))()
@@ -488,7 +521,12 @@ def segment_reduce_many(specs, gi: GroupInfo, capacity: int):
         d.valid = valid.data_ptr()
         out_valid = torch.empty(capacity, dtype=torch.bool, device=dev)
         nonnull = torch.zeros(capacity, dtype=torch.int32, device=dev)
-        if op == "count" or (op == "sum" and not x.is_floating_point()):
+        if op in _SELECT_OPS:
+            acc = torch.full((capacity,), _I32_MAX if op.startswith("first")
+                             else -1, dtype=torch.int32, device=dev)
+            out = torch.empty(capacity, dtype=x.dtype, device=dev)
+            d.dtype = x.element_size()
+        elif op == "count" or (op == "sum" and not x.is_floating_point()):
             acc = out = torch.zeros(capacity, dtype=torch.int64, device=dev)
             d.dtype = _DTS.get(x.dtype, 1)
         elif op == "sum":
@@ -522,6 +560,35 @@ def segment_reduce_many(specs, gi: GroupInfo, capacity: int):
              ov) for op, dt, out, ov in results]
 
 
+def segment_reduce_many(specs, gi: GroupInfo, capacity: int):
+    """Reduce several (op, data, validity) columns per group with SQL null
+    semantics; returns [(out [capacity], out_valid [capacity])]. Slot g
+    holds group g; all-null groups are NULL with 0 data, count is never
+    NULL, slots at or above num_groups are 0. count / sum / min / max /
+    first / last go to K3; each `pct:<p>` op to K19 on its own (a caller
+    with several fractions of one input calls segment_percentile once
+    with all of them, sharing the sort)."""
+    if not specs:
+        return []
+    out: List[Any] = [None] * len(specs)
+    rest = []
+    for i, (op, data, validity) in enumerate(specs):
+        if op == "unmergeable":
+            raise AssertionError(
+                "holistic aggregate reached a merge stage — the planner "
+                "must run it complete-mode over a single batch")
+        if op.startswith("pct:"):
+            out[i] = segment_percentile(data, validity, gi.gid, capacity,
+                                        [float(op[4:])])[0]
+        else:
+            rest.append(i)
+    if rest:
+        for i, r in zip(rest, _segment_reduce_k3([specs[i] for i in rest],
+                                                 gi, capacity)):
+            out[i] = r
+    return out
+
+
 def segment_reduce(op: str, data, validity, gid, num_rows, capacity: int):
     """Reference signature (rowkeys.py:434): one reduction over a
     GroupInfo with sort fields."""
@@ -529,3 +596,105 @@ def segment_reduce(op: str, data, validity, gid, num_rows, capacity: int):
         raise NotImplementedError("segment_reduce needs a GroupInfo with "
                                   "its sort fields")
     return segment_reduce_many([(op, data, validity)], gid, capacity)[0]
+
+
+# ---------------------------------------------------------------------------
+# K19: exact percentiles
+# ---------------------------------------------------------------------------
+def percentile_sort_words(data, validity, gid, capacity: int):
+    """[3, capacity] int64 words of the percentile sort (reference:
+    rowkeys.py:486-491, lax.sort over (gid with pads at capacity, ~valid,
+    value order bits)): gid * 2 + null flag, then the float64 order bits'
+    high and low words (0 at NULL rows, which sort after the group's
+    values in row order either way)."""
+    gid = gid.long()
+    in_group = gid < capacity
+    vmask = validity & in_group
+    g = torch.where(in_group, gid, torch.full((), capacity,
+                                              dtype=torch.int64,
+                                              device=gid.device))
+    proxy = key_proxy(ColV(DataType.FLOAT64, data.to(torch.float64), vmask))
+    return torch.stack([g * 2 + (~vmask).to(torch.int64), *proxy.arrays])
+
+
+def segment_percentile_plain(data, validity, gid, capacity: int, ps,
+                             order=None):
+    """[(out float64 [capacity], valid [capacity])] per fraction p: linear
+    interpolation at rank p * (cnt - 1) over each group's sorted valid
+    values, as the reference computes it (rowkeys.py:492-522; every product
+    rounded on its own)."""
+    dev = validity.device
+    gid = gid.long()
+    in_group = gid < capacity
+    vmask = validity & in_group
+    if order is None:
+        order = radix_sort_pairs_plain(percentile_sort_words(
+            data, validity, gid, capacity))
+    o = order.long()
+    big = torch.full((), capacity, dtype=torch.int64, device=dev)
+    seg = torch.where(vmask[o], gid[o], big)
+    cnt = torch.bincount(seg, minlength=capacity + 1)[:capacity]
+    pos = torch.arange(capacity, dtype=torch.int64, device=dev)
+    starts = torch.full((capacity + 1,), capacity, dtype=torch.int64,
+                        device=dev)
+    starts.scatter_reduce_(0, seg, pos, "amin")
+    outv = cnt > 0
+    starts = torch.where(outv, starts[:capacity], torch.zeros(
+        (), dtype=torch.int64, device=dev))
+    c1 = torch.clamp(cnt - 1, min=0).to(torch.float64)
+    sv = data.to(torch.float64)[o]
+    outs = []
+    for p in ps:
+        q = p * c1
+        fl = torch.floor(q)
+        frac = q - fl
+        lo = torch.clamp(starts + fl.long(), 0, capacity - 1)
+        hi = torch.clamp(lo + (frac > 0).long(), 0, capacity - 1)
+        val = sv[lo] * (1 - frac) + sv[hi] * frac
+        outs.append((torch.where(outv, val, torch.zeros(
+            (), dtype=torch.float64, device=dev)), outv))
+    return outs
+
+
+def segment_percentile(data, validity, gid, capacity: int, ps):
+    """K19 (replaces segment_reduce's "pct:<p>", rowkeys.py:480): K1 sorts
+    the percentile words, then two launches find each group's valid run
+    and interpolate every fraction in `ps`. CPU tensors run the plain
+    version, CUDA tensors the kernels."""
+    if validity.device.type == "cpu":
+        return segment_percentile_plain(data, validity, gid, capacity, ps)
+    order = radix_sort_pairs(percentile_sort_words(data, validity, gid,
+                                                   capacity))
+    return percentile_from_order(order, data, validity, gid, capacity, ps)
+
+
+def percentile_from_order(order, data, validity, gid, capacity: int, ps):
+    """K19's two launches over the permutation of the percentile sort."""
+    x = data.to(torch.float64).contiguous()
+    valid = (validity & (gid.long() < capacity)).contiguous()
+    g32 = gid.to(torch.int32).contiguous()
+    CB.require_cuda(order, g32, valid, x)
+    lib = CB.library("segment_percentile")
+    limit = lib.srt_segment_percentile_max_fractions()
+    if len(ps) > limit:
+        return percentile_from_order(order, data, validity, gid, capacity,
+                                     ps[:limit]) + \
+            percentile_from_order(order, data, validity, gid, capacity,
+                                  ps[limit:])
+    dev = order.device
+    starts = torch.empty(capacity, dtype=torch.int32, device=dev)
+    ends = torch.empty(capacity, dtype=torch.int32, device=dev)
+    outs = [(torch.empty(capacity, dtype=torch.float64, device=dev),
+             torch.empty(capacity, dtype=torch.bool, device=dev))
+            for _ in ps]
+    nf = len(ps)
+    c_ps = (ctypes.c_double * nf)(*[float(p) for p in ps])
+    c_out = (ctypes.c_void_p * nf)(*[o.data_ptr() for o, _ in outs])
+    c_valid = (ctypes.c_void_p * nf)(*[v.data_ptr() for _, v in outs])
+    rc = lib.srt_segment_percentile(
+        order.data_ptr(), g32.data_ptr(), valid.data_ptr(), x.data_ptr(),
+        capacity, starts.data_ptr(), ends.data_ptr(), c_ps, c_out, c_valid,
+        nf, CB.stream_of(order))
+    CB.count_launch("segment_percentile")
+    CB.check(lib, rc, "segment_percentile")
+    return outs

@@ -1,5 +1,6 @@
 """Declarative aggregate functions (port of spark_rapids_tpu/ops/aggregates.py:
-Sum, Count, Min, Max, Average; reference: AggregateFunctions.scala).
+Sum, Count, Min, Max, Average, First, Last, Percentile; reference:
+AggregateFunctions.scala).
 
 Every aggregate is an update/merge pair of reduce ops plus a final
 expression over its buffer attributes, which is what makes partial/final
@@ -434,3 +435,86 @@ class Average(AggregateFunction):
         if self._dec is not None and not self._narrow_dec:
             return [None, None, 0]
         return [None, 0]
+
+
+class First(AggregateFunction):
+    """first(expr[, ignoreNulls]) in encounter order (reference :484)."""
+
+    def __init__(self, child: Expression, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    _name = "first"
+
+    def with_children(self, new_children):
+        return type(self)(new_children[0], self.ignore_nulls)
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    @property
+    def _op(self):
+        return f"{self._name}_ignore_nulls" if self.ignore_nulls \
+            else self._name
+
+    def buffer_attrs(self):
+        return [AttributeReference(self._name, self.data_type, True)]
+
+    def update_aggs(self):
+        return [(self._name, self._op, self.child)]
+
+    def merge_aggs(self):
+        return [(self._name, self._op)]
+
+    def _fingerprint_extra(self):
+        return f"{self.ignore_nulls};"
+
+
+class Last(First):
+    """last(expr[, ignoreNulls]) (reference :514)."""
+
+    _name = "last"
+
+
+class Percentile(AggregateFunction):
+    """Exact percentile(col, p): linear interpolation at rank p * (n - 1)
+    over the group's sorted non-null values, as DOUBLE (reference :544).
+
+    Holistic: no update/merge partials, so the planner exchanges raw rows
+    on the grouping keys into one complete-mode aggregate over a single
+    batch per partition; on the card the `pct:<p>` reduction is kernel K19
+    (exec/rowkeys.py:segment_percentile)."""
+
+    holistic = True
+
+    def __init__(self, child: Expression, p: float):
+        super().__init__(child)
+        if not (0.0 <= float(p) <= 1.0):
+            raise ValueError(f"percentile fraction must be in [0, 1]: {p}")
+        self.p = float(p)
+
+    def with_children(self, new_children):
+        return Percentile(new_children[0], self.p)
+
+    def _fingerprint_extra(self):
+        return f"p={self.p!r};"
+
+    @property
+    def data_type(self):
+        return DataType.FLOAT64
+
+    def buffer_attrs(self):
+        return [AttributeReference("pct", DataType.FLOAT64, True)]
+
+    def update_aggs(self):
+        from spark_rapids_tpu_torch.ops.cast import Cast
+
+        child = self.child
+        if child.data_type is not DataType.FLOAT64:
+            child = Cast(child, DataType.FLOAT64)
+        return [("pct", f"pct:{self.p!r}", child)]
+
+    def merge_aggs(self):
+        # never reached: holistic plans have no partial stage
+        return [("pct", "unmergeable")]

@@ -1,7 +1,7 @@
-"""Date and time parts (port of spark_rapids_tpu/ops/datetimeops.py :18-108
-and UnixTimestamp :157; reference: datetimeExpressions.scala — year,
-month, dayofmonth, hour, minute, second, unix_timestamp). UTC only, as in
-the reference.
+"""Date and time parts (port of spark_rapids_tpu/ops/datetimeops.py :18-108,
+Quarter :231 and UnixTimestamp :157; reference: datetimeExpressions.scala
+— year, month, dayofmonth, quarter, hour, minute, second,
+unix_timestamp). UTC only, as in the reference.
 
 Calendar math is Howard Hinnant's civil-from-days algorithm: integer ops
 only, elementwise, the same code on torch tensors (the card) and numpy
@@ -89,6 +89,21 @@ class Month(_DatePart):
 
 class DayOfMonth(_DatePart):
     _part = 2
+
+
+class Quarter(UnaryExpression):
+    """Quarter of the year, 1-4 (reference :231)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        days = _i64(v.data)
+        if self.child.data_type is DataType.TIMESTAMP:
+            days = days // MICROS_PER_DAY
+        m = civil_from_days(days)[1]
+        return _i32((_i64(m) - 1) // 3 + 1)
 
 
 class _TimePart(UnaryExpression):

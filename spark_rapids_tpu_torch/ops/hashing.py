@@ -213,9 +213,6 @@ def partition_ids(cols: List[ColV], live, num_partitions: int):
     if cols[0].validity.device.type == "cpu":
         return partition_ids_plain(cols, live, num_partitions)
     lib = CB.library("hash_partition")
-    if num_partitions + 1 > lib.srt_hash_max_buckets():
-        raise ValueError(f"{num_partitions} partitions exceed the device "
-                         "hash kernel's bucket limit")
     n = int(cols[0].validity.shape[0])
     dev = cols[0].validity.device
     descs = (_HashCol * len(cols))()

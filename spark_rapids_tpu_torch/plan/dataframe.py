@@ -1,7 +1,7 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
-select, withColumn (a window column too), filter, groupBy/agg (keyed and
-keyless), orderBy, limit, union, join, crossJoin, cache, collect,
-explain).
+select (with explode / posexplode of a created array), withColumn (a window
+column too), filter, groupBy/agg (keyed and keyless), orderBy, limit,
+union, join, crossJoin, cache, collect, explain).
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -93,15 +93,56 @@ class DataFrame:
 
     # -- relational ops -------------------------------------------------------
     def select(self, *cols: ColumnOrName) -> "DataFrame":
+        from spark_rapids_tpu_torch.ops.generators import Explode
+
         out: List[Expression] = []
+        gen: Optional[Expression] = None
+        gen_slot = -1
         for c in cols:
             if isinstance(c, str) and c == "*":
                 out.extend(self._plan.output)
                 continue
             e = self._resolve(c)
+            core = e.child if isinstance(e, Alias) else e
+            if isinstance(core, Explode):
+                if gen is not None:
+                    raise ValueError("only one explode()/posexplode() per "
+                                     "select (Spark restriction)")
+                gen = e
+                gen_slot = len(out)
+                out.append(e)  # placeholder, replaced below
+                continue
             out.append(_auto_alias(e, c if isinstance(c, str)
                                    else f"col{len(out)}"))
-        return self._with_plan(L.Project(out, self._plan))
+        if gen is None:
+            return self._with_plan(L.Project(out, self._plan))
+        return self._select_generate(out, gen, gen_slot)
+
+    def _select_generate(self, out: List[Expression], gen: Expression,
+                         gen_slot: int) -> "DataFrame":
+        """select(..., explode(array(...)), ...) as Generate + Project
+        (reference: dataframe.py:124); every element is cast to the
+        array's element type."""
+        from spark_rapids_tpu_torch.columnar.dtypes import DataType
+        from spark_rapids_tpu_torch.ops.cast import Cast
+
+        alias_name = gen.name if isinstance(gen, Alias) else None
+        core = gen.child if isinstance(gen, Alias) else gen
+        elem_t = core.array.element_type
+        elems = [e if e.data_type is elem_t else Cast(e, elem_t)
+                 for e in core.array.elems]
+        generator = core.with_children([core.array.with_children(elems)])
+        gen_attrs: List[AttributeReference] = []
+        if core.include_pos:
+            if alias_name is not None:
+                raise ValueError("posexplode produces two columns (pos, col)"
+                                 " and cannot be aliased to one name")
+            gen_attrs.append(AttributeReference("pos", DataType.INT32, False))
+        gen_attrs.append(AttributeReference(alias_name or "col", elem_t,
+                                            True))
+        plan = L.Generate(generator, gen_attrs, False, self._plan)
+        final = out[:gen_slot] + gen_attrs + out[gen_slot + 1:]
+        return self._with_plan(L.Project(final, plan))
 
     def withColumn(self, name: str, c: Column) -> "DataFrame":
         e = Alias(self._resolve(c), name)

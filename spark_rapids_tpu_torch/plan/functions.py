@@ -8,6 +8,7 @@ from typing import Any, Union
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import arithmetic as AR
 from spark_rapids_tpu_torch.ops import datetimeops as DT
+from spark_rapids_tpu_torch.ops import mathx as MX
 from spark_rapids_tpu_torch.ops import nulls as N
 from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops import window as W
@@ -125,8 +126,51 @@ def second(c: ColumnOrName) -> Column:
     return Column(DT.Second(_c(c)))
 
 
+def quarter(c: ColumnOrName) -> Column:
+    return Column(DT.Quarter(_c(c)))
+
+
 def unix_timestamp(c: ColumnOrName) -> Column:
     return Column(DT.UnixTimestamp(_c(c)))
+
+
+# -- math (reference :143) ---------------------------------------------------
+def floor(c: ColumnOrName) -> Column:
+    return Column(MX.Floor(_c(c)))
+
+
+def ceil(c: ColumnOrName) -> Column:
+    return Column(MX.Ceil(_c(c)))
+
+
+# -- generators (reference :289-318) ------------------------------------------
+def array(*cols: ColumnOrName) -> Column:
+    """array(e1, e2, ...) — consumable only by explode()/posexplode()."""
+    from spark_rapids_tpu_torch.ops.generators import CreateArray
+
+    return Column(CreateArray([_c(c) for c in cols]))
+
+
+def explode(c: Column) -> Column:
+    """One output row per array element per input row. Requires
+    array(...)."""
+    from spark_rapids_tpu_torch.ops.generators import CreateArray, Explode
+
+    e = _to_expr(c)
+    if not isinstance(e, CreateArray):
+        raise TypeError("explode() requires array(...) — arrays exist only "
+                        "as created arrays (flat column types)")
+    return Column(Explode(e))
+
+
+def posexplode(c: Column) -> Column:
+    """explode() plus the element position column."""
+    from spark_rapids_tpu_torch.ops.generators import CreateArray, PosExplode
+
+    e = _to_expr(c)
+    if not isinstance(e, CreateArray):
+        raise TypeError("posexplode() requires array(...)")
+    return Column(PosExplode(e))
 
 
 def coalesce(*cols: ColumnOrName) -> Column:
@@ -161,6 +205,19 @@ def count(c: ColumnOrName = "*") -> Column:
 
 def avg(c: ColumnOrName) -> Column:
     return Column(A.Average(_c(c)))
+
+
+def percentile(c: ColumnOrName, p: float) -> Column:
+    """Exact percentile at fraction p in [0, 1] (Spark `percentile`)."""
+    return Column(A.Percentile(_c(c), p))
+
+
+def first(c: ColumnOrName, ignorenulls: bool = False) -> Column:
+    return Column(A.First(_c(c), ignorenulls))
+
+
+def last(c: ColumnOrName, ignorenulls: bool = False) -> Column:
+    return Column(A.Last(_c(c), ignorenulls))
 
 
 mean = avg

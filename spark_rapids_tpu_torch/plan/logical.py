@@ -1,6 +1,6 @@
 """Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: local
 relation, cache, project, filter, aggregate, sort, join, limit, union
-:235 and window :292)."""
+:235, generate :276 and window :292)."""
 
 from __future__ import annotations
 
@@ -226,6 +226,26 @@ class Union(LogicalPlan):
     @property
     def output(self):
         return self.children[0].output
+
+
+class Generate(LogicalPlan):
+    """explode / posexplode of a created array (reference: logical.py:276);
+    its output is the child's columns, then the generator's."""
+
+    def __init__(self, generator: Expression,
+                 generator_output: List[AttributeReference], outer: bool,
+                 child: LogicalPlan):
+        super().__init__(child)
+        self.generator = generator
+        self.generator_output = list(generator_output)
+        self.outer = outer
+
+    @property
+    def output(self):
+        return self.children[0].output + self.generator_output
+
+    def describe(self):
+        return f"Generate {self.generator!r}"
 
 
 class WindowOp(LogicalPlan):

@@ -16,7 +16,8 @@ Aggregate never drop (they change row counts). A node pruned to zero
 columns keeps its narrowest attribute as the row-count carrier.
 
 The rules cover the logical nodes the port has (relation, cache, project,
-filter, sort, aggregate, limit, join, window :214, union :264); any other
+filter, sort, aggregate, limit, join, window :214, generate :247, union
+:264); any other
 node is left untouched, as the reference leaves an unknown node. A union
 prunes the same positions in every child and pins each child's output
 order with a Project. A join asks both children for what
@@ -205,6 +206,15 @@ def _window(plan: L.WindowOp, req):
         return _prune(plan.children[0], req)
     child_req = None if req is None else req | _refs(kept)
     return L.WindowOp(kept, _prune(plan.children[0], child_req))
+
+
+@_rule(L.Generate)
+def _generate(plan: L.Generate, req):
+    """The generator multiplies rows, so the node always stays; only the
+    pass-through child columns narrow (reference :247)."""
+    child_req = None if req is None else req | _refs([plan.generator])
+    return L.Generate(plan.generator, plan.generator_output, plan.outer,
+                      _prune(plan.children[0], child_req))
 
 
 @_rule(L.Union)

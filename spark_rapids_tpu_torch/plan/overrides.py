@@ -18,6 +18,7 @@ from spark_rapids_tpu_torch.exec.base import PhysicalExec
 from spark_rapids_tpu_torch.ops import aggregates as AGG
 from spark_rapids_tpu_torch.ops import arithmetic as AR
 from spark_rapids_tpu_torch.ops import datetimeops as DT
+from spark_rapids_tpu_torch.ops import mathx as MX
 from spark_rapids_tpu_torch.ops import nulls as N
 from spark_rapids_tpu_torch.ops import predicates as P
 from spark_rapids_tpu_torch.ops import stringops as S
@@ -131,14 +132,19 @@ def _register_expr_rules():
                 S.Length):
         r(cls, f"string {cls.__name__}")
     r(S.StringLocate, "string locate (scalar substring/start)")
-    for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Hour, DT.Minute,
-                DT.Second):
+    for cls in (MX.Floor, MX.Ceil):
+        r(cls, f"math {cls.__name__}")
+    for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Quarter, DT.Hour,
+                DT.Minute, DT.Second):
         r(cls, f"datetime {cls.__name__}")
     r(DT.UnixTimestamp, "parse/convert to unix seconds",
       incompat="range/overflow behavior differs slightly from CPU "
                "(reference: improvedTimeOps)")
-    for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count, AGG.Average):
+    for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count, AGG.Average,
+                AGG.First, AGG.Last):
         r(cls, f"aggregate {cls.__name__}", tag_fn=_tag_agg)
+    r(AGG.Percentile, "exact percentile (holistic sort-based aggregate)",
+      tag_fn=_tag_agg)
     # window (reference :229-239)
     from spark_rapids_tpu_torch.ops import window as W
 
@@ -235,6 +241,23 @@ def _register_exec_rules():
     register_exec(
         J.CpuNestedLoopJoinExec, "cross/nested-loop join",
         _convert_join(J.TpuNestedLoopJoinExec))
+
+    from spark_rapids_tpu_torch.exec.expand import (
+        CpuGenerateExec,
+        TpuGenerateExec,
+    )
+
+    def _tag_generate(m: ExecMeta) -> None:
+        """Reference :467-473."""
+        if m.plan.generator_output[-1].data_type is DataType.STRING:
+            m.will_not_work(
+                "device explode of string elements is not implemented")
+
+    register_exec(
+        CpuGenerateExec, "explode/posexplode of a created array (K18)",
+        lambda cpu, ch: TpuGenerateExec(
+            cpu.include_pos, cpu.elem_exprs, cpu.generator_output, ch[0]),
+        tag_fn=_tag_generate)
 
 
 def _expr_rule_for(e: Expression) -> Optional[ExprRule]:

@@ -1,13 +1,14 @@
 """Logical -> CPU physical planning (port of spark_rapids_tpu/plan/planner.py:
 the LocalRelation :52, Project with its windows :63-133, WindowOp :136,
-Filter :146, Union :152, Limit :157, cache, Aggregate :192-247, Sort :273
-and Join :338-416 planners).
+Filter :146, Union :152, Limit :157, cache, Aggregate :192-247, Generate
+:260, Sort :273 and Join :338-416 planners).
 
 The CPU plan is the oracle engine; TpuOverrides (plan/overrides.py) then
 replaces the supported nodes with device execs, as the reference replaces
 Spark execs with Gpu execs. An aggregate plans as partial aggregate ->
 hash exchange on the grouping keys (one partition without keys) -> final
-aggregate. A global sort plans as range exchange -> per-partition sort.
+aggregate; one with a holistic function (percentile) exchanges its raw
+rows instead, into one complete-mode aggregate. A global sort plans as range exchange -> per-partition sort.
 A limit plans as local limit -> coalesce to one partition -> global limit.
 An equi-join plans as a broadcast hash join when the build side's estimated
 bytes fit autoBroadcastJoinThreshold (an INNER join may swap its sides for
@@ -169,6 +170,25 @@ def _plan_aggregate(plan: L.Aggregate, conf: C.TpuConf) -> PhysicalExec:
 
     (child,) = _plan_children(plan, conf)
     specs = build_agg_specs(plan.agg_exprs)
+    if any(getattr(s.func, "holistic", False) for s in specs):
+        # holistic aggregates (percentile) have no partials to merge: the
+        # raw rows exchange on the grouping keys (one partition without
+        # keys) into ONE complete-mode aggregate, which takes each
+        # partition as a single batch (reference :211-238)
+        from spark_rapids_tpu_torch.exec.aggregate import (
+            COMPLETE,
+            _key_exprs_for,
+        )
+
+        if plan.grouping:
+            part = HashPartitioning(
+                _key_exprs_for(plan.grouping, plan.agg_exprs),
+                conf.shuffle_partitions)
+        else:
+            part = SinglePartitioning()
+        return CpuHashAggregateExec(plan.grouping, plan.agg_exprs, COMPLETE,
+                                    CpuShuffleExchangeExec(part, child),
+                                    specs)
     partial = CpuHashAggregateExec(plan.grouping, plan.agg_exprs, PARTIAL,
                                    child, specs)
     if plan.grouping:
@@ -178,6 +198,17 @@ def _plan_aggregate(plan: L.Aggregate, conf: C.TpuConf) -> PhysicalExec:
     exchange = CpuShuffleExchangeExec(part, partial)
     return CpuHashAggregateExec(plan.grouping, plan.agg_exprs, FINAL,
                                 exchange, specs)
+
+
+@register_planner(L.Generate)
+def _plan_generate(plan: L.Generate, conf: C.TpuConf) -> PhysicalExec:
+    """explode / posexplode of a created array (reference :260)."""
+    from spark_rapids_tpu_torch.exec.expand import CpuGenerateExec
+
+    (child,) = _plan_children(plan, conf)
+    gen = plan.generator
+    return CpuGenerateExec(gen.include_pos, list(gen.array.elems),
+                           plan.generator_output, child)
 
 
 @register_planner(L.Sort)

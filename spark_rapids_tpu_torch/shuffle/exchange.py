@@ -396,11 +396,8 @@ def route_plan(ids, n: int):
     ids = ids.contiguous()
     CB.require_cuda(ids)
     lib = CB.library("hash_partition")
-    if n + 1 > lib.srt_hash_max_buckets():
-        raise ValueError(f"{n} partitions exceed the device route kernel's "
-                         "bucket limit")
     cap = int(ids.shape[0])
-    scratch = torch.empty(int(lib.srt_route_plan_scratch_bytes(cap)),
+    scratch = torch.empty(int(lib.srt_route_plan_scratch_bytes(cap, n)),
                           dtype=torch.uint8, device=ids.device)
     order = torch.empty(cap, dtype=torch.int32, device=ids.device)
     counts = torch.empty(n + 1, dtype=torch.int32, device=ids.device)

@@ -1,13 +1,19 @@
 """The port stands alone: importing it, and running all 22 TPC-H queries
 and all 30 TPCx-BB-like queries (with the window-frames path) through its
 own generators on the CPU, loads no JAX and nothing of the JAX package,
-and its default device is the card (no silent CPU fallback)."""
+and its default device is the card (no silent CPU fallback). The 6
+mortgage queries run in a process of their own, jax-free too."""
 
 import os
 import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# One thread per probe: their tables are tiny, and under a parallel test
+# run torch's default thread pool contends with the workers' and can run a
+# probe 30 times slower, past its time limit.
+ENV = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO,
+           OMP_NUM_THREADS="1")
 
 _PROBE = r"""
 import sys
@@ -50,8 +56,33 @@ print("isolated")
 
 
 def test_port_imports_no_jax_and_defaults_to_cuda():
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+    proc = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=ENV,
                           capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
+
+
+_MORTGAGE_PROBE = r"""
+import sys
+import spark_rapids_tpu_torch as srt
+from spark_rapids_tpu_torch.benchmarks import mortgage
+cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True},
+                      device="cpu")
+tables = mortgage.gen_tables(cpu, sf=0.0005, num_partitions=2)
+assert len(mortgage.QUERIES) == 6
+for name, query in mortgage.QUERIES.items():
+    assert query(tables).collect(), name
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_mortgage_queries_import_no_jax():
+    proc = subprocess.run([sys.executable, "-c", _MORTGAGE_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "isolated"
