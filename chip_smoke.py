@@ -111,14 +111,35 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    children; NaN, -0.0, +-inf, all-NULL and one-row groups, p = 0 and 1, a
    group past 2^24 rows; NULL first rows with and without ignore_nulls),
    and times K18 at q_delinquency_12's exploded batch, K19 at
-   q_percentiles' batch and K3's first at q_agg_join's.
+   q_percentiles' batch and K3's first at q_agg_join's;
+9. Parquet (run after phase 6, while its SF 10 tables are cached): the
+   six tables q1-q5 read (60M lineitem rows, 15M orders, ...) written
+   with df.write.parquet (SNAPPY, encoded on the card by K22) to a
+   temporary directory, with the seconds and bytes of each; orders read
+   back and compared with the generated table on the card, column for
+   column, bit for bit; q1, q6, q3 and q5 over read.parquet, one cold and
+   3 warm runs each (every scan decodes on the card: K20, K21, K7's span
+   entry), every leaf a TpuFileScanExec, rows against phases 4-5's numpy
+   results, with each query's scan host seconds (file reads, Snappy, page
+   and run walks) beside its wall time; the reference's decode shape
+   (bench.py:_worker_decode: 4 << 20 rows, int64 a, b and int32 c from
+   seed 7, v1 dictionary pages, SNAPPY, row groups of 2^19, written by
+   write_dict_fixture without pyarrow) summed against numpy, with its GB/s
+   (20 bytes a row over the warm median); the files are removed at the
+   end. Phase 3 holds K20-K22 and K7's span entry bit for bit (bit widths
+   1-32; RLE, bit-packed and mixed streams; 0 rows, all-NULL pages,
+   required columns, several pages, every element width; empty, non-ASCII
+   and 64+ byte strings) and times them at one lineitem partition (15M
+   rows).
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
 tpch_q5, tpch_q5_shuffled, tpch_q2 ... tpch_q22 of phase 6, and
 tpcxbb_q01_like ... tpcxbb_q30_like and tpcxbb_window_frames of phase 7,
 mortgage_q_agg_join ... mortgage_q_simple_agg and
-mortgage_many_partitions of phase 8);
+mortgage_many_partitions of phase 8, parquet_write, parquet_tpch_q1,
+parquet_tpch_q6, parquet_tpch_q3, parquet_tpch_q5 and parquet_decode_shape
+of phase 9);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -212,6 +233,18 @@ KERNELS = {
     "segment_percentile": (
         "spark_rapids_tpu_torch/csrc/segment_percentile.cu",
         "spark_rapids_tpu/exec/rowkeys.py:480", "mortgage_q_percentiles"),
+    "hybrid_expand": (
+        "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+        "spark_rapids_tpu/io/parquet_device.py:443", "parquet_decode_shape"),
+    "page_decode_fixed": (
+        "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+        "spark_rapids_tpu/io/parquet_device.py:865", "parquet_tpch_q1"),
+    "encode_plain_page": (
+        "spark_rapids_tpu_torch/csrc/parquet_encode.cu",
+        "spark_rapids_tpu/io/parquet_encode_device.py:116", "parquet_write"),
+    "gather_string_spans": (
+        "spark_rapids_tpu_torch/csrc/string_gather.cu",
+        "spark_rapids_tpu/io/parquet_device.py:1397", "parquet_tpch_q1"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -285,6 +318,17 @@ PATH_KERNELS.update({
     "mortgage_q_agg_join": _KEYED_JOIN,
     "mortgage_q_percentiles": _GROUP_BY + ("segment_percentile",),
     "mortgage_many_partitions": _GROUP_BY + ("route_plan",),
+})
+# the Parquet phase: K22 writes; every read decodes levels (K20) and values
+# (K21), and STRING columns gather their PLAIN page spans (K7's span entry)
+_PQ_READ = ("hybrid_expand", "page_decode_fixed")
+PATH_KERNELS.update({
+    "parquet_write": ("encode_plain_page",),
+    "parquet_tpch_q1": _Q1 + _PQ_READ + ("gather_string_spans",),
+    "parquet_tpch_q6": ("segment_reduce",) + _PQ_READ,
+    "parquet_tpch_q3": _Q3 + _PQ_READ + ("gather_string_spans",),
+    "parquet_tpch_q5": _Q5 + _PQ_READ + ("gather_string_spans",),
+    "parquet_decode_shape": ("segment_reduce",) + _PQ_READ,
 })
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
@@ -476,15 +520,39 @@ def profile_flagship(sess, n_rows: int, out_dir: str) -> dict:
     return profile_query(q, out_dir, "flagship")
 
 
+def profile_host(fn, out_dir: str, name: str) -> float:
+    """fn() under cProfile, its host functions by cumulative and own time
+    written to DIR/{name}_host.txt; returns the wall seconds of that run
+    (slowed by cProfile: it ranks host work, it does not time it)."""
+    import cProfile
+    import io
+    import pstats
+
+    import torch
+
+    host = cProfile.Profile()
+    t = time.perf_counter()
+    host.enable()
+    fn()
+    torch.cuda.synchronize()
+    host.disable()
+    wall = time.perf_counter() - t
+    text = io.StringIO()
+    stats = pstats.Stats(host, stream=text)
+    stats.sort_stats("cumulative").print_stats(45)
+    stats.sort_stats("tottime").print_stats(25)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, f"{name}_host.txt"), "w") as fh:
+        fh.write(f"wall {wall:.6f} s under cProfile\n")
+        fh.write(text.getvalue())
+    return wall
+
+
 def profile_query(q, out_dir: str, name: str) -> dict:
     """One warm run of a query under torch.profiler: device time by kernel
     and the device's busy share of the query's wall time; then one under
     cProfile: the host's time by Python function (cProfile slows every
     Python call, so it ranks host work, it does not time it)."""
-    import cProfile
-    import io
-    import pstats
-
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -507,17 +575,7 @@ def profile_query(q, out_dir: str, name: str) -> dict:
     with open(os.path.join(out_dir, f"{name}_profile.txt"), "w") as fh:
         fh.write(f"wall {wall:.6f} s, device busy {dev_us / 1e6:.6f} s\n")
         fh.write(table)
-    host = cProfile.Profile()
-    host.enable()
-    q.toLocalBatches()
-    torch.cuda.synchronize()
-    host.disable()
-    text = io.StringIO()
-    stats = pstats.Stats(host, stream=text)
-    stats.sort_stats("cumulative").print_stats(45)
-    stats.sort_stats("tottime").print_stats(25)
-    with open(os.path.join(out_dir, f"{name}_host.txt"), "w") as fh:
-        fh.write(text.getvalue())
+    profile_host(q.toLocalBatches, out_dir, name)
     log(f"profile {name}: wall {wall:.4f} s, device kernels "
         f"{dev_us / 1e6:.4f} s")
     return {"wall_s": wall, "device_busy_s": dev_us / 1e6,
@@ -636,8 +694,9 @@ def run_query(sess, q, want, what: str, warm_reps: int, cols=None):
             "max_rel_diff": worst, "rows": len(rows)}
 
 
-def run_tpch(sess, launches: dict, profile_dir=None) -> dict:
-    """Phase 4: q1, q6 and the routed q1 at TPCH_SF."""
+def run_tpch(sess, launches: dict, profile_dir=None, wants=None) -> dict:
+    """Phase 4: q1, q6 and the routed q1 at TPCH_SF; `wants` gains their
+    numpy rows."""
     import torch
 
     from spark_rapids_tpu_torch import cuda_build as CB
@@ -652,6 +711,8 @@ def run_tpch(sess, launches: dict, profile_dir=None) -> dict:
     log(f"phase 4: SF {TPCH_SF} generated in {gen_s:.1f} s, lineitem "
         f"{n_rows} rows")
     want_q1, want_q6 = numpy_q1(li), numpy_q6(li)
+    if wants is not None:
+        wants.update(tpch_q1=want_q1, tpch_q6=want_q6)
     tables = {k: v.cache() for k, v in raw.items()}
     out = {"sf": TPCH_SF, "lineitem_rows": n_rows, "gen_s": gen_s}
     for name, query, want, reps in (("tpch_q1", tpch.q1, want_q1, 3),
@@ -760,8 +821,9 @@ def join_strategies(sess) -> list:
 
 
 def run_joins(sess, raw, tables, li: dict, launches: dict,
-              profile_dir=None) -> dict:
-    """Phase 5: q3, q5 and the all-shuffled q5 over phase 4's tables."""
+              profile_dir=None, wants=None) -> dict:
+    """Phase 5: q3, q5 and the all-shuffled q5 over phase 4's tables;
+    `wants` gains their numpy rows and input rows."""
     from spark_rapids_tpu_torch import cuda_build as CB
     from spark_rapids_tpu_torch.benchmarks import tpch
 
@@ -779,6 +841,11 @@ def run_joins(sess, raw, tables, li: dict, launches: dict,
     n_cust, n_supp = len(c["c_custkey"]), len(s["s_suppkey"])
     input_rows = {"tpch_q3": n_li + n_ord + n_cust,
                   "tpch_q5": n_li + n_ord + n_cust + n_supp + 25 + 5}
+    if wants is not None:
+        wants.update(want)
+        wants["input_rows"] = {"q1": n_li, "q6": n_li,
+                               "q3": input_rows["tpch_q3"],
+                               "q5": input_rows["tpch_q5"]}
     out = {"orders_rows": n_ord, "customer_rows": n_cust,
            "supplier_rows": n_supp}
     runs = (("tpch_q3", tpch.q3, "tpch_q3", 3, {}),
@@ -2643,7 +2710,8 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows["route_plan"] = dict(
         ms=cuda_ms(lambda: X.route_plan(ids, 8), iters),
         plain_ms=cuda_ms(lambda: X.route_plan_plain(ids, 8), iters),
-        library_ms=None,
+        # one call gives the same order: a stable sort of the ids
+        library_ms=cuda_ms(lambda: torch.sort(ids, stable=True), iters),
         bound_ms=bound_ms(4 * hcap + 4 * hcap + 36),
         shape=f"{hcap} ids, 8 partitions",
         **{f"ms_{many}": cuda_ms(lambda: X.route_plan(ids_many, many),
@@ -2656,6 +2724,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows.update(time_search_kernels(dev, errs))
     rows.update(time_window_kernels(dev, errs, pr_content))
     rows.update(time_slice6_kernels(dev, errs, d12_rows))
+    rows.update(time_parquet_kernels(dev, errs))
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -3214,14 +3283,753 @@ def time_slice6_kernels(dev, errs: dict, d12_rows: int) -> dict:
     return rows
 
 
+# ------------------------------------------------- Parquet (slice 7)
+PARQUET_TABLES = ("lineitem", "orders", "customer", "supplier", "nation",
+                  "region")
+DECODE_SHAPE_ROWS = 4 << 20     # bench.py:_worker_decode's file
+PARQUET_SHAPE_ROWS = 15_000_000  # one lineitem partition at SF 10
+COMMENT_POOL = 1 << 16          # distinct l_comment-like strings
+
+
+def comment_pool(seed: int):
+    """COMMENT_POOL strings like TPC-H's l_comment (text of 10 to 43
+    characters, clause 4.2.3: lowercase words and spaces)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    alphabet = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", np.uint8)
+    chars = alphabet[rng.integers(0, len(alphabet), (COMMENT_POOL, 43))]
+    lens = rng.integers(10, 44, COMMENT_POOL)
+    return [chars[i, :lens[i]].tobytes().decode() for i in
+            range(COMMENT_POOL)]
+
+
+def pack_bits(values, bw: int) -> bytes:
+    """values (< 2^bw each) bit-packed LSB first, bw bits apiece."""
+    import numpy as np
+
+    v = np.asarray(values, dtype=np.uint64)
+    if bw == 0 or v.size == 0:
+        return b""
+    bits = ((v[:, None] >> np.arange(bw, dtype=np.uint64)) & np.uint64(1))
+    return np.packbits(bits.astype(np.uint8).ravel(),
+                       bitorder="little").tobytes()
+
+
+def hybrid_stream(rng, bw: int, n_runs: int, kind: str):
+    """(bytes of an RLE / bit-packed hybrid stream, its values as uint64);
+    kind: 'rle', 'bp' or 'mixed' runs."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.io.thrift import uvarint
+
+    out, values = bytearray(), []
+    hi = 1 << bw
+    for r in range(n_runs):
+        if kind == "rle" or (kind == "mixed" and r % 2 == 0):
+            count = int(rng.integers(1, 40))
+            v = int(rng.integers(0, hi, dtype=np.uint64))
+            out += uvarint(count << 1) + v.to_bytes((bw + 7) // 8, "little")
+            values.append(np.full(count, v, np.uint64))
+        else:
+            groups = int(rng.integers(1, 6))
+            vals = rng.integers(0, hi, 8 * groups, dtype=np.uint64)
+            out += uvarint((groups << 1) | 1) + pack_bits(vals, bw)
+            values.append(vals)
+    return bytes(out), np.concatenate(values)
+
+
+def write_dict_fixture(path: str, columns: dict, row_group: int,
+                       page_rows: int) -> None:
+    """A Parquet file of OPTIONAL INT64 / INT32 columns in v1
+    RLE_DICTIONARY pages, SNAPPY, as pyarrow writes them by default
+    (bench.py:_worker_decode's file; pyarrow is not on the card's machine):
+    per row group and column a PLAIN dictionary page and data pages of
+    page_rows rows (definition levels one RLE run of 1s, indices one
+    bit-packed run). Written with the port's thrift writer and Snappy."""
+    import struct
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.io.thrift import CompactWriter, uvarint
+
+    def header(kind, raw_len, wire_len, fid, fields):
+        w = CompactWriter()
+        w.i32(1, kind)
+        w.i32(2, raw_len)
+        w.i32(3, wire_len)
+        w.begin_struct(fid)
+        for k, v in fields:
+            w.i32(k, v)
+        w.end_struct()
+        return w.stop()
+
+    phys = {np.dtype(np.int64): 2, np.dtype(np.int32): 1}
+    n = len(next(iter(columns.values())))
+    groups = []
+    with open(path, "wb") as f:
+        f.write(b"PAR1")
+        for lo in range(0, n, row_group):
+            metas = []
+            for name, arr in columns.items():
+                seg = arr[lo:lo + row_group]
+                uniq, inv = np.unique(seg, return_inverse=True)
+                bw = max(1, int(len(uniq) - 1).bit_length())
+                start = f.tell()
+                raw_total = wire_total = 0
+                pages = [(2, uniq.astype(arr.dtype).tobytes(), 7,
+                          [(1, len(uniq)), (2, 0)])]
+                for p in range(0, len(seg), page_rows):
+                    idx = inv[p:p + page_rows]
+                    m = len(idx)
+                    levels = uvarint(m << 1) + b"\x01"
+                    ind = bytes([bw]) + uvarint(((m + 7) // 8 << 1) | 1) + \
+                        pack_bits(np.pad(idx, (0, -m % 8)), bw)
+                    pages.append((0, struct.pack("<I", len(levels)) +
+                                  levels + ind, 5,
+                                  [(1, m), (2, 8), (3, 3), (4, 3)]))
+                data_off = None
+                for kind, payload, fid, fields in pages:
+                    wire = native.snappy_compress(payload)
+                    hdr = header(kind, len(payload), len(wire), fid, fields)
+                    if kind == 0 and data_off is None:
+                        data_off = f.tell()
+                    f.write(hdr + wire)
+                    raw_total += len(hdr) + len(payload)
+                    wire_total += len(hdr) + len(wire)
+                metas.append((name, phys[arr.dtype], start, data_off,
+                              raw_total, wire_total, len(seg)))
+            groups.append((metas, min(row_group, n - lo)))
+        w = CompactWriter()
+        w.i32(1, 1)
+        w.list_header(2, 12, len(columns) + 1)
+        w.begin_element_struct()
+        w.string(4, "schema")
+        w.i32(5, len(columns))
+        w.end_struct()
+        for name, arr in columns.items():
+            w.begin_element_struct()
+            w.i32(1, phys[arr.dtype])
+            w.i32(3, 1)
+            w.string(4, name)
+            w.end_struct()
+        w.i64(3, n)
+        w.list_header(4, 12, len(groups))
+        for metas, rows in groups:
+            w.begin_element_struct()
+            w.list_header(1, 12, len(metas))
+            for name, ptype, start, data_off, raw_total, wire_total, m in \
+                    metas:
+                w.begin_element_struct()
+                w.i64(2, start)
+                w.begin_struct(3)
+                w.i32(1, ptype)
+                w.list_header(2, 5, 3)
+                w.buf += bytes([0, 3 << 1, 8 << 1])  # PLAIN, RLE, RLE_DICT
+                w.list_header(3, 8, 1)
+                w.buf += uvarint(len(name)) + name.encode()
+                w.i32(4, 1)                          # SNAPPY
+                w.i64(5, m)
+                w.i64(6, raw_total)
+                w.i64(7, wire_total)
+                w.i64(9, data_off)
+                w.i64(11, start)
+                w.end_struct()
+                w.end_struct()
+            w.i64(2, sum(x[5] for x in metas))
+            w.i64(3, rows)
+            w.end_struct()
+        w.string(6, "chip_smoke.py dictionary fixture")
+        footer = w.stop()
+        f.write(footer + struct.pack("<I", len(footer)) + b"PAR1")
+
+
+def runs_of(tabs, total: int, dev):
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    return PD.device_runs(tabs, dev, total)
+
+
+def stream_tab(chunk: bytes, start: int, bw: int, n: int, shift: int):
+    """The run table of the hybrid stream chunk[start:] (n values),
+    its outputs shifted by `shift`."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    rt = PD.parse_runs(chunk, start, len(chunk), bw, n)
+    return (rt.out_start + shift, rt.is_rle, rt.value, rt.bit_off,
+            np.full(len(rt.out_start), bw, np.int32)), rt.total + shift
+
+
+def compare_k20(chunk, runs, cap: int, label: str, errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    got = PD.hybrid_expand(chunk, runs, cap)
+    want = PD.hybrid_expand_plain(chunk, runs, cap)
+    check(torch.equal(got, want), f"{label}: K20 differs")
+    errs["hybrid_expand"] = max(errs.get("hybrid_expand", 0.0),
+                                max_abs_err(got, want))
+
+
+def compare_k21(levels, num_rows: int, cap: int, source, in_w: int,
+                out_dtype, sign: bool, label: str, errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    got = PD.page_decode_fixed(levels, num_rows, cap, source, in_w,
+                               out_dtype, sign)
+    want = PD.page_decode_fixed_plain(levels, num_rows, cap, source, in_w,
+                                      out_dtype, sign)
+    check(torch.equal(got[1], want[1]), f"{label}: K21 validity differs")
+    check(torch.equal(got[0].view(torch.uint8), want[0].view(torch.uint8)),
+          f"{label}: K21 values differ")
+    errs["page_decode_fixed"] = max(errs.get("page_decode_fixed", 0.0),
+                                    max_abs_err(got[0].view(torch.uint8),
+                                                want[0].view(torch.uint8)))
+
+
+def compare_k22(col, num_rows: int, label: str, errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_encode_device as PE
+
+    got = PE.encode_plain_page(col, num_rows)
+    want = PE.encode_plain_page_plain(col, num_rows)
+    counts = got[2].cpu()
+    check(torch.equal(counts, want[2].cpu()), f"{label}: K22 counts "
+          f"{counts.tolist()} vs {want[2].tolist()}")
+    nb = int(counts[1])
+    check(torch.equal(got[0][:nb], want[0][:nb]),
+          f"{label}: K22 values differ")
+    check(torch.equal(got[1], want[1]), f"{label}: K22 validity bits differ")
+    errs["encode_plain_page"] = max(errs.get("encode_plain_page", 0.0),
+                                    max_abs_err(got[0][:nb], want[0][:nb]))
+
+
+def compare_spans(src, starts, lens, valid, rows: int, label: str,
+                  errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+
+    total = int(torch.where(valid[:rows] & (lens[:rows] >= 0),
+                            lens[:rows], 0).sum())
+    cap = CBT.bucket_capacity(max(total, 1))
+    got = CBT.gather_string_spans(src, starts, lens, valid, rows, cap)
+    want = CBT.gather_string_spans_plain(src, starts, lens, valid, rows, cap)
+    check(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
+          f"{label}: K7 span offsets or validity differ")
+    check(torch.equal(got[1][:total], want[1][:total]),
+          f"{label}: K7 span bytes differ")
+    errs["gather_string_spans"] = max(errs.get("gather_string_spans", 0.0),
+                                      max_abs_err(got[1][:total],
+                                                  want[1][:total]))
+
+
+def parquet_edge_cases(dev, errs: dict) -> int:
+    """K20, K21, K22 and K7's span entry against their plain versions, bit
+    for bit: bit widths 1-32 over RLE, bit-packed and mixed streams (runs
+    crossing bytes, a stream ending the chunk, lanes past it, two widths in
+    one table); 0 rows, all-NULL pages, required columns, several pages,
+    every element width; empty, non-ASCII and 64+ byte strings."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import (
+        ColumnVector,
+        bucket_capacity,
+    )
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    rng = np.random.default_rng(23)
+    n_cases = 0
+
+    def t(x):
+        return torch.as_tensor(x).to(dev)
+
+    # K20
+    for bw in (1, 2, 7, 10, 17, 24, 32):
+        for kind in ("rle", "bp", "mixed"):
+            lead = bytes(rng.integers(0, 256, 3, dtype=np.uint8))
+            stream, vals = hybrid_stream(rng, bw, 11, kind)
+            chunk = lead + stream
+            tab, total = stream_tab(chunk, len(lead), bw, len(vals), 0)
+            chunk_t = t(np.frombuffer(chunk, np.uint8).copy())
+            compare_k20(chunk_t, runs_of([tab], total, dev),
+                        bucket_capacity(total + 9), f"K20 bw={bw} {kind}",
+                        errs)
+            n_cases += 1
+    a, av = hybrid_stream(rng, 3, 6, "mixed")
+    b, bv = hybrid_stream(rng, 11, 6, "mixed")
+    chunk = a + b
+    ta, _ = stream_tab(a, 0, 3, len(av), 0)
+    tb, nb = stream_tab(chunk, len(a), 11, len(bv), len(av))
+    compare_k20(t(np.frombuffer(chunk, np.uint8).copy()),
+                runs_of([ta, tb], nb, dev), bucket_capacity(nb),
+                "K20 two widths", errs)
+    empty = PD.DeviceRuns(*[t(np.zeros(0, d)) for d in (
+        np.int64, np.uint8, np.int32, np.int64, np.int32)], 0)
+    compare_k20(t(np.zeros(4, np.uint8)), empty, 8, "K20 no runs", errs)
+    n_cases += 2
+
+    # K21: levels from K20 (pages of 300, 0-valid, 500 rows), both modes
+    def levels_case(sizes, null_fracs):
+        from spark_rapids_tpu_torch.io.thrift import uvarint
+
+        chunk, tabs, rows, present = bytearray(), [], 0, 0
+        for n, frac in zip(sizes, null_fracs):
+            valid = rng.random(n) >= frac
+            start = len(chunk)
+            chunk += uvarint(((n + 7) // 8 << 1) | 1) + pack_bits(
+                np.pad(valid, (0, -n % 8)).astype(np.uint64), 1)
+            tab, _ = stream_tab(bytes(chunk), start, 1, n, rows)
+            tabs.append(tab)
+            rows += n
+            present += int(valid.sum())
+        chunk_t = t(np.frombuffer(bytes(chunk), np.uint8).copy())
+        cap = bucket_capacity(max(rows, 1))
+        return PD.hybrid_expand(chunk_t, runs_of(tabs, rows, dev), cap), \
+            rows, present, cap
+
+    widths = ((8, torch.int64, False), (8, torch.float64, False),
+              (4, torch.int32, False), (4, torch.float32, False),
+              (4, torch.int64, True), (4, torch.int8, False),
+              (4, torch.int16, False), (1, torch.bool, False))
+    for sizes, fracs in (((300, 200, 500), (0.3, 1.0, 0.0)), ((0,), (0.5,)),
+                         ((77,), (1.0,)), ((1000, 24), (0.1, 0.6))):
+        levels, rows, present, cap = levels_case(sizes, fracs)
+        for in_w, out_dtype, sign in widths:
+            n_dict = 5 if in_w == 1 else 300
+            dict_bytes = t(rng.integers(0, 2 if in_w == 1 else 256,
+                                        n_dict * in_w).astype(np.uint8))
+            idx = t(rng.integers(-2, n_dict + 3, bucket_capacity(
+                max(present, 1))).astype(np.int32))
+            for lv, nr in ((levels, rows - 3 if rows > 3 else rows),
+                           (None, rows)):
+                compare_k21(lv, max(nr, 0), cap, PD.DictSource(idx,
+                                                               dict_bytes),
+                            in_w, out_dtype, sign, f"K21 dict {sizes}",
+                            errs)
+                ends = np.cumsum([max(present // 3, 0), present // 3,
+                                  present - 2 * (present // 3)])
+                src = t(rng.integers(0, 256, in_w * (present + 5) + 40)
+                        .astype(np.uint8))
+                if in_w == 1:
+                    src = src & 1
+                pos = np.asarray([3, 3 + in_w * int(ends[0]) + 7,
+                                  10 + in_w * int(ends[1]) + 7], np.int64)
+                compare_k21(lv, max(nr, 0), cap, PD.PlainSource(
+                    src, t(ends.astype(np.int64)), t(pos)), in_w,
+                    out_dtype, sign, f"K21 plain {sizes}", errs)
+                n_cases += 2
+
+    # K22
+    strs = STRING_EDGES * 60
+    for cap, rows in ((64, 64), (64, 61), (1024, 1000), (8, 0)):
+        for frac in (0.0, 0.3, 1.0):
+            valid = t(rng.random(cap) >= frac)
+            for dt, arr in (
+                    (DataType.INT64, rng.integers(-2**62, 2**62, cap)),
+                    (DataType.INT32, rng.integers(-2**31, 2**31, cap)
+                     .astype(np.int32)),
+                    (DataType.FLOAT64, rng.standard_normal(cap)),
+                    (DataType.FLOAT32, rng.standard_normal(cap)
+                     .astype(np.float32)),
+                    (DataType.BOOL, rng.random(cap) < 0.5)):
+                compare_k22(ColumnVector(dt, t(arr), valid), rows,
+                            f"K22 {dt.name} {rows}/{cap} nulls {frac}", errs)
+                n_cases += 1
+            offsets, raw, sv = string_column(strs[:cap], dev)
+            compare_k22(ColumnVector(DataType.STRING, raw, sv & valid,
+                                     offsets, 512), rows,
+                        f"K22 STRING {rows}/{cap} nulls {frac}", errs)
+            n_cases += 1
+
+    # K7 span entry
+    src = t(rng.integers(0, 256, 5000).astype(np.uint8))
+    for cap, rows in ((256, 256), (256, 200), (8, 0), (4096, 4000)):
+        lens = rng.integers(0, 100, cap)
+        lens[::7] = 0
+        lens[1::13] = 300
+        starts = rng.integers(0, 5000 - 300, cap)
+        starts[2::17] = 4990     # bytes past the source read as 0
+        valid = rng.random(cap) > 0.2
+        compare_spans(src, t(starts.astype(np.int64)),
+                      t(lens.astype(np.int32)), t(valid), rows,
+                      f"K7 spans {rows}/{cap}", errs)
+        n_cases += 1
+    return n_cases
+
+
+def time_parquet_kernels(dev, errs: dict) -> dict:
+    """K20, K21, K22 and K7's span entry at one lineitem partition's shape
+    (15M rows): K20 over the definition levels of a 15M-row page (one
+    bit-packed run of width 1; width-10 dictionary indices beside it); K21
+    spreading 15M dictionary-coded int64 values (99% present; PLAIN DOUBLE
+    like l_extendedprice and PLAIN DATE like l_shipdate beside it); K22
+    encoding l_extendedprice (DOUBLE; an l_comment-like STRING column of
+    ~400 MB beside it); the span entry gathering that STRING column's
+    values out of its encoded page. Each is checked against its plain
+    version at that shape, bit for bit. A bound counts the input rows each
+    kernel reads (those below the row count; K22 and the span entry read
+    a value only for a live row) and the outputs at the size they are
+    written."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.io import parquet_encode_device as PE
+    from spark_rapids_tpu_torch.io.thrift import uvarint
+
+    n = PARQUET_SHAPE_ROWS
+    cap = CBT.bucket_capacity(n)
+    rng = np.random.default_rng(29)
+    iters, plain_iters = 10, 2
+    rows = {}
+    valid = rng.random(n) < 0.99
+    present = int(valid.sum())
+    lv = uvarint(((n + 7) // 8 << 1) | 1) + np.packbits(
+        valid, bitorder="little").tobytes()
+    chunk = torch.from_numpy(np.frombuffer(lv, np.uint8).copy()).to(dev)
+    tab, total = stream_tab(lv, 0, 1, n, 0)
+    runs = runs_of([tab], n, dev)
+    compare_k20(chunk, runs, cap, "K20 15M levels", errs)
+    idx_vals = rng.integers(0, 1000, present)
+    ist = uvarint(((present + 7) // 8 << 1) | 1) + pack_bits(
+        np.pad(idx_vals, (0, -present % 8)), 10)
+    ichunk = torch.from_numpy(np.frombuffer(ist, np.uint8).copy()).to(dev)
+    itab, _ = stream_tab(ist, 0, 10, present, 0)
+    iruns = runs_of([itab], present, dev)
+    cap_p = CBT.bucket_capacity(present)
+    compare_k20(ichunk, iruns, cap_p, "K20 15M indices", errs)
+    rows["hybrid_expand"] = dict(
+        ms=cuda_ms(lambda: PD.hybrid_expand(chunk, runs, cap), iters),
+        plain_ms=cuda_ms(lambda: PD.hybrid_expand_plain(chunk, runs, cap),
+                         plain_iters),
+        library_ms=None, bound_ms=bound_ms(len(lv) + 4 * cap),
+        ms_w10=cuda_ms(lambda: PD.hybrid_expand(ichunk, iruns, cap_p),
+                       iters),
+        bound_ms_w10=bound_ms(len(ist) + 4 * cap_p),
+        shape=f"{n} levels, one bit-packed run of width 1 (w10: {present} "
+              "dictionary indices of width 10)")
+    levels = PD.hybrid_expand(chunk, runs, cap)
+    idx = PD.hybrid_expand(ichunk, iruns, cap_p)
+    dvals = torch.as_tensor(rng.integers(-2**40, 2**40, 1000)).to(dev)
+    dsrc = PD.DictSource(idx, dvals.view(torch.uint8))
+    compare_k21(levels, n, cap, dsrc, 8, torch.int64, False,
+                "K21 15M dictionary", errs)
+    f64 = torch.as_tensor(rng.random(present) * 1e5).to(dev)
+    psrc = PD.PlainSource(f64.view(torch.uint8),
+                          torch.tensor([present], device=dev),
+                          torch.zeros(1, dtype=torch.int64, device=dev))
+    d32 = torch.as_tensor(rng.integers(8000, 10600, present).astype(
+        np.int32)).to(dev)
+    dsrc32 = PD.PlainSource(d32.view(torch.uint8),
+                            torch.tensor([present], device=dev),
+                            torch.zeros(1, dtype=torch.int64, device=dev))
+    compare_k21(levels, n, cap, psrc, 8, torch.float64, False,
+                "K21 15M PLAIN DOUBLE", errs)
+    compare_k21(levels, n, cap, dsrc32, 4, torch.int32, False,
+                "K21 15M PLAIN DATE", errs)
+    idx_l = idx[:present].long()
+    rows["page_decode_fixed"] = dict(
+        ms=cuda_ms(lambda: PD.page_decode_fixed(levels, n, cap, dsrc, 8,
+                                                torch.int64), iters),
+        plain_ms=cuda_ms(lambda: PD.page_decode_fixed_plain(
+            levels, n, cap, dsrc, 8, torch.int64, False), plain_iters),
+        library_ms=cuda_ms(lambda: dvals[idx_l], iters),
+        bound_ms=bound_ms(4 * n + 4 * present + 8000 + 9 * cap),
+        ms_plain_f64=cuda_ms(lambda: PD.page_decode_fixed(
+            levels, n, cap, psrc, 8, torch.float64), iters),
+        bound_ms_plain_f64=bound_ms(4 * n + 8 * present + 9 * cap),
+        ms_plain_date=cuda_ms(lambda: PD.page_decode_fixed(
+            levels, n, cap, dsrc32, 4, torch.int32), iters),
+        bound_ms_plain_date=bound_ms(4 * n + 4 * present + 5 * cap),
+        shape=f"{n} rows, {present} present: dictionary int64 (1000 "
+              "entries); plain_f64 / plain_date PLAIN pages")
+    del levels, idx, idx_l, f64, d32
+    price = torch.as_tensor(rng.random(cap) * 1e5).to(dev)
+    pvalid = torch.arange(cap, device=dev) < n
+    pcol = CBT.ColumnVector(DataType.FLOAT64, price, pvalid)
+    compare_k22(pcol, n, "K22 15M DOUBLE", errs)
+    offsets, raw, sv = pool_column(comment_pool(31), cap, 31, dev)
+    sv = sv & pvalid
+    scol = CBT.ColumnVector(DataType.STRING, raw, sv, offsets, 43)
+    compare_k22(scol, n, "K22 15M STRING", errs)
+    s_bytes = int(offsets[n])
+    # every row below n is live: validity and values read for n rows,
+    # n values and the packed bits of all cap rows written
+    rows["encode_plain_page"] = dict(
+        ms=cuda_ms(lambda: PE.encode_plain_page(pcol, n), iters),
+        plain_ms=cuda_ms(lambda: PE.encode_plain_page_plain(pcol, n),
+                         plain_iters),
+        library_ms=cuda_ms(lambda: price[pvalid], iters),
+        bound_ms=bound_ms(n + 8 * n + 8 * n + cap // 8 + 16),
+        ms_string=cuda_ms(lambda: PE.encode_plain_page(scol, n), iters),
+        bound_ms_string=bound_ms(n + 4 * (n + 1) + s_bytes +
+                                 s_bytes + 4 * n + cap // 8 + 16),
+        shape=f"{n} DOUBLE rows like l_extendedprice (string: {n} rows "
+              f"like l_comment, {s_bytes} bytes)")
+    stream, _, counts = PE.encode_plain_page(scol, n)
+    lens = (offsets[1:] - offsets[:-1]).to(torch.int32)
+    lens = torch.where(sv, lens, 0)
+    piece = (lens + 4).long() * sv
+    starts = torch.cumsum(piece, 0) - piece + 4
+    total = int(lens.sum())
+    compare_spans(stream, starts, lens, sv, n, "K7 spans 15M", errs)
+    byte_cap = CBT.bucket_capacity(total)
+    rows["gather_string_spans"] = dict(
+        ms=cuda_ms(lambda: CBT.gather_string_spans(
+            stream, starts, lens, sv, n, byte_cap), iters),
+        plain_ms=cuda_ms(lambda: CBT.gather_string_spans_plain(
+            stream, starts, lens, sv, n, byte_cap), plain_iters),
+        library_ms=None,
+        # lens and validity of n rows, the starts of the n live rows and
+        # their bytes read; offsets, validity of cap rows and bytes written
+        bound_ms=bound_ms(4 * n + n + 8 * n + total + 4 * (cap + 1) + cap +
+                          total),
+        shape=f"{n} rows like l_comment out of their PLAIN page, "
+              f"{total} bytes")
+    return rows
+
+
+def check_round_trip(sess, raw_df, path: str, what: str) -> int:
+    """The table read back from `path` equals the generated one column for
+    column, bit for bit (fixed-width data and validity; STRING offsets and
+    bytes), compared on the card."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import concat_batches
+    from spark_rapids_tpu_torch.exec.base import ExecContext
+
+    df = sess.read.parquet(path)
+    plan = sess._physical_plan(df._plan)
+    assert_on_device(sess)
+    pb = plan.children[0].execute(ExecContext(sess.conf, sess.device))
+    got = concat_batches([b for p in range(pb.num_partitions)
+                          for b in pb.iterator(p)])
+    n = got.host_rows()
+    parts = [b for part in raw_df._plan.partitions for b in part]
+    check(n == sum(b.num_rows for b in parts), f"{what}: {n} rows back")
+    for i, attr in enumerate(raw_df.schema):
+        col = got.columns[i]
+        hosts = [b.columns[i] for b in parts]
+        valid = np.concatenate([h.validity for h in hosts])
+        check(torch.equal(col.validity[:n].cpu(), torch.from_numpy(valid)),
+              f"{what}: {attr.name} validity differs")
+        if attr.data_type.is_string:
+            offs, raws, base = [np.zeros(1, np.int64)], [], 0
+            for h in hosts:
+                o, r = h.utf8()
+                offs.append(o[1:].astype(np.int64) + base)
+                raws.append(r[:int(o[-1])])
+                base += int(o[-1])
+            want_o = np.concatenate(offs).astype(np.int32)
+            check(torch.equal(col.offsets[:n + 1].cpu(),
+                              torch.from_numpy(want_o)),
+                  f"{what}: {attr.name} offsets differ")
+            check(torch.equal(col.data[:base].cpu(),
+                              torch.from_numpy(np.concatenate(raws))),
+                  f"{what}: {attr.name} bytes differ")
+        else:
+            data = np.concatenate([np.where(h.validity, h.data, 0).astype(
+                h.data.dtype) for h in hosts])
+            check(torch.equal(col.data[:n].cpu().view(torch.uint8),
+                              torch.from_numpy(data.view(np.uint8))),
+                  f"{what}: {attr.name} values differ")
+    return n
+
+
+def assert_file_leaves(sess) -> None:
+    from spark_rapids_tpu_torch.io.scan import TpuFileScanExec
+
+    plan = sess.last_physical_plan
+    leaves = plan.collect_nodes(lambda x: not x.children)
+    check(leaves and all(isinstance(x, TpuFileScanExec) for x in leaves),
+          f"not every leaf is a TpuFileScanExec: {leaves}")
+
+
+def scan_host_s(sess) -> float:
+    from spark_rapids_tpu_torch.io.scan import SCAN_HOST_SECONDS, \
+        TpuFileScanExec
+
+    return sum(x.metrics[SCAN_HOST_SECONDS] for x in
+               sess.last_physical_plan.collect_nodes(
+                   lambda x: isinstance(x, TpuFileScanExec)))
+
+
+def comment_round_trip(sess, root: str, profile_dir=None) -> dict:
+    """One lineitem partition's worth of an l_comment-like column
+    (PARQUET_SHAPE_ROWS rows, ~400 MB of text in one STRING page of one
+    file, beside an int64 key) written by df.write.parquet and read back
+    on the card bit for bit; with a profile directory, a second write of
+    it runs under cProfile. The files are removed at the end."""
+    import glob
+    import shutil
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnVector
+
+    n = PARQUET_SHAPE_ROWS
+    codes = np.random.default_rng(37).integers(0, COMMENT_POOL, n)
+    df = sess.createDataFrame(
+        {"l_orderkey": np.arange(n, dtype=np.int64),
+         "l_comment": HostColumnVector.from_pool(comment_pool(37), codes)},
+        [("l_orderkey", "long"), ("l_comment", "string")])
+    path = os.path.join(root, "l_comment")
+    CB.reset_launch_counts()
+    t = time.perf_counter()
+    df.write.parquet(path)
+    write_s = time.perf_counter() - t
+    assert_on_device(sess)
+    # a host table alone: the writer uploads it and encodes on the card
+    check(CB.launch_counts().get("encode_plain_page", 0) == 2,
+          f"l_comment write: K22 launches {CB.launch_counts()}")
+    nbytes = sum(os.path.getsize(p) for p in glob.glob(
+        os.path.join(path, "*.parquet")))
+    t = time.perf_counter()
+    rows = check_round_trip(sess, df, path, "l_comment round trip")
+    read_s = time.perf_counter() - t
+    text = int(df._plan.partitions[0][0].columns[1].utf8()[0][-1])
+    shutil.rmtree(path, ignore_errors=True)
+    log(f"parquet: l_comment-like column ({rows} rows, {text} bytes of "
+        f"text) written in {write_s:.3f} s ({nbytes} bytes) and read back "
+        f"bit for bit in {read_s:.3f} s")
+    out = {"rows": rows, "text_bytes": text, "write_s": write_s,
+           "file_bytes": nbytes, "read_and_check_s": read_s}
+    if profile_dir:
+        out["profiled_write_s"] = profile_host(
+            lambda: df.write.parquet(path), profile_dir,
+            "parquet_comment_write")
+        shutil.rmtree(path, ignore_errors=True)
+        log(f"parquet: the l_comment-like write again under cProfile: "
+            f"{out['profiled_write_s']:.3f} s")
+    return out
+
+
+def run_parquet(sess, raw, tables, wants: dict, input_rows: dict,
+                launches: dict, profile_dir=None) -> dict:
+    """The Parquet phase, over phase 4's cached SF 10 tables: write six
+    tables (K22), read orders and an l_comment-like column back bit for
+    bit, q1, q6, q3 and q5 over the files (one cold and 3 warm runs each,
+    every leaf a TpuFileScanExec, rows against numpy), then the
+    reference's decode shape; the files are removed at the end."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_parquet_")
+    out = {"write": {}}
+    try:
+        CB.reset_launch_counts()
+        for name in PARQUET_TABLES:
+            path = os.path.join(root, name)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tables[name].write.parquet(path)
+            secs = time.perf_counter() - t
+            assert_on_device(sess)
+            nbytes = sum(os.path.getsize(p) for p in glob.glob(
+                os.path.join(path, "*.parquet")))
+            out["write"][name] = {"s": secs, "bytes": nbytes}
+            log(f"parquet: wrote {name} in {secs:.3f} s, {nbytes} bytes")
+        launches["parquet_write"] = CB.launch_counts()
+        t = time.perf_counter()
+        n = check_round_trip(sess, raw["orders"], os.path.join(root,
+                                                              "orders"),
+                             "orders round trip")
+        out["orders_round_trip"] = {"rows": n,
+                                    "s": time.perf_counter() - t}
+        log(f"parquet: orders ({n} rows) read back bit for bit")
+        out["comment_round_trip"] = comment_round_trip(sess, root,
+                                                       profile_dir)
+        ptables = {k: sess.read.parquet(os.path.join(root, k))
+                   for k in PARQUET_TABLES}
+        for q in ("q1", "q6", "q3", "q5"):
+            name = f"parquet_tpch_{q}"
+            CB.reset_launch_counts()
+            out[name] = run_query(sess, tpch.QUERIES[q](ptables),
+                                  wants[f"tpch_{q}"], name, 3)
+            launches[name] = CB.launch_counts()
+            assert_file_leaves(sess)
+            host = scan_host_s(sess)
+            warm = out[name]["warm_median_s"]
+            out[name].update(
+                input_rows=input_rows[q],
+                rows_per_s=input_rows[q] / warm,
+                last_run_scan_host_s=host,
+                last_run_rest_s=out[name]["warm_s"][-1] - host)
+            log(f"{name}: scan host {host:.3f} s of the last warm run "
+                f"({out[name]['warm_s'][-1]:.3f} s)")
+        if profile_dir:
+            out["parquet_tpch_q1"]["profile"] = profile_query(
+                tpch.q1(ptables), profile_dir, "parquet_tpch_q1")
+        out["parquet_decode_shape"] = run_decode_shape(sess, root, launches)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_decode_shape(sess, root: str, launches: dict) -> dict:
+    """bench.py:_worker_decode's file (4 << 20 rows of a, b int64 and c
+    int32, seed 7; v1 dictionary pages, SNAPPY, row groups of 2^19) and
+    its query, sum(a), sum(b), sum(c), against numpy."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    n = DECODE_SHAPE_ROWS
+    rng = np.random.default_rng(7)
+    cols = {"a": rng.integers(0, 1000, n).astype(np.int64),
+            "b": rng.integers(0, 50, n).astype(np.int64),
+            "c": rng.integers(0, 200, n).astype(np.int32)}
+    path = os.path.join(root, "decode_shape.parquet")
+    t = time.perf_counter()
+    write_dict_fixture(path, cols, 1 << 19, 1 << 17)
+    write_s = time.perf_counter() - t
+    want = [tuple(int(v.sum()) for v in cols.values())]
+    q = sess.read.parquet(path).agg(F.sum("a").alias("sa"),
+                                    F.sum("b").alias("sb"),
+                                    F.sum("c").alias("sc"))
+    CB.reset_launch_counts()
+    res = run_query(sess, q, want, "parquet_decode_shape", 3)
+    launches["parquet_decode_shape"] = CB.launch_counts()
+    assert_file_leaves(sess)
+    res.update(rows=n, file_bytes=os.path.getsize(path),
+               fixture_write_s=write_s, decoded_bytes=n * 20,
+               gbps=n * 20 / res["warm_median_s"] / 1e9,
+               last_run_scan_host_s=scan_host_s(sess))
+    log(f"parquet_decode_shape: {res['gbps']:.3f} GB/s decoded "
+        f"(warm median {res['warm_median_s']:.4f} s)")
+    return res
+
+
 # ----------------------------------------------------------------- main
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="trace one warm flagship, q1, q3 and q5 query, "
                          "the two slowest of phase 6, q05 and the two "
-                         "slowest of phase 7 and q_percentiles and "
-                         "q_delinquency of phase 8 each with "
+                         "slowest of phase 7, q_percentiles and "
+                         "q_delinquency of phase 8 and the Parquet q1 "
+                         "each with "
                          "torch.profiler and cProfile and write their "
                          "device kernel and host function tables to DIR")
     ap.add_argument("--out", default=None,
@@ -3279,7 +4087,7 @@ def main(argv=None) -> int:
     n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
         join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
         window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
-        slice6_edge_cases(dev, errs)
+        slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -3293,12 +4101,16 @@ def main(argv=None) -> int:
                                      "phase 2 high cardinality", 1)
     launches["high_cardinality"] = CB.launch_counts()
     tpch_sess = srt.new_session(TPCH_CONF)
+    wants: dict = {}
     results["phase4"], raw, tables, li = run_tpch(tpch_sess, launches,
-                                                  args.profile)
+                                                  args.profile, wants)
     results["phase5"] = run_joins(tpch_sess, raw, tables, li, launches,
-                                  args.profile)
+                                  args.profile, wants)
     results["phase6"] = run_queries(tpch_sess, raw, tables, li, launches,
                                     args.profile)
+    results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
+                                     wants["input_rows"], launches,
+                                     args.profile)
     for df in tables.values():
         df.unpersist()
     tpch_sess.last_physical_plan = None
@@ -3354,6 +4166,10 @@ def main(argv=None) -> int:
                          if k.startswith("mortgage_") else v)
                      for k, v in results["phase8"].items()},
         "mortgage_small_sf": results["phase8_small_sf"],
+        "parquet": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "last_run_scan_host_s", "last_run_rest_s", "gbps",
+            "file_bytes")} if k.startswith("parquet_") else v)
+            for k, v in results["parquet"].items()},
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

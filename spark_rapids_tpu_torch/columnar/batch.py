@@ -541,6 +541,72 @@ def gather_string_col(cv: ColumnVector, indices, out_rows: int,
     return ColumnVector(DataType.STRING, data, valid, offs, cv.max_len)
 
 
+def gather_string_spans_plain(src, starts, lens, validity, out_rows: int,
+                              byte_cap: int):
+    """(offsets int32 [cap + 1], bytes [byte_cap], validity [cap]) of rows
+    whose bytes are src[starts[j]:starts[j] + lens[j]]; rows at or past
+    out_rows, not valid or of negative length are NULL with length 0, and
+    bytes past src read as 0 (reference: build_from_plan,
+    columnar/strings.py:177, over one source)."""
+    cap = int(lens.shape[0])
+    dev = lens.device
+    ok = (torch.arange(cap, device=dev) < out_rows) & validity[:cap] & \
+        (lens >= 0)
+    row_lens = torch.where(ok, lens, torch.zeros((), dtype=lens.dtype,
+                                                 device=dev)).long()
+    offsets = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+    offsets[1:] = torch.cumsum(row_lens, 0).to(torch.int32)
+    out = torch.zeros(byte_cap, dtype=torch.uint8, device=dev)
+    total = min(int(offsets[-1]), byte_cap)
+    if total:
+        row = torch.repeat_interleave(torch.arange(cap, device=dev),
+                                      row_lens)[:total]
+        pos = starts[row].long() + torch.arange(total, device=dev) - \
+            offsets[row].long()
+        n_src = int(src.shape[0])
+        inside = (pos >= 0) & (pos < n_src)
+        out[:total] = torch.where(inside, src[pos.clamp(0, max(n_src - 1, 0))],
+                                  torch.zeros((), dtype=torch.uint8,
+                                              device=dev))
+    return offsets, out, ok
+
+
+def gather_string_spans(src, starts, lens, validity, out_rows: int,
+                        byte_cap: int):
+    """K7's span entry (replaces the reference's build_from_plan call of
+    io/parquet_device.py:decode_chunk_device :1397): rows by their (start
+    int64, length int32) into one byte buffer, the rows of PLAIN
+    BYTE_ARRAY Parquet pages. CPU tensors run the plain version, CUDA
+    tensors the kernel."""
+    if lens.device.type == "cpu":
+        return gather_string_spans_plain(src, starts, lens, validity,
+                                         out_rows, byte_cap)
+    starts = starts.to(torch.int64).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(src, starts, lens, validity)
+    dev = lens.device
+    cap = int(lens.shape[0])
+    lib = CB.library("string_gather")
+    scratch = torch.empty(int(lib.srt_gather_strings_scratch_bytes(cap)),
+                          dtype=torch.uint8, device=dev)
+    offsets = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    stream = CB.stream_of(lens)
+    rc = lib.srt_gather_spans_plan(
+        lens.data_ptr(), validity.data_ptr(), int(out_rows), cap,
+        offsets.data_ptr(), valid.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), stream)
+    CB.check(lib, rc, "gather_string_spans plan")
+    out = torch.empty(byte_cap, dtype=torch.uint8, device=dev)
+    rc = lib.srt_gather_spans_copy(
+        src.data_ptr(), int(src.shape[0]), starts.data_ptr(),
+        offsets.data_ptr(), cap, out.data_ptr(), byte_cap, stream)
+    CB.count_launch("gather_string_spans")
+    CB.check(lib, rc, "gather_string_spans copy")
+    return offsets, out, valid
+
+
 def strings_end_to_end(cols: Sequence[ColumnVector]):
     """(one string column, first lane of each piece): the pieces laid end to
     end without a host sync — byte buffers concatenated, offsets shifted,

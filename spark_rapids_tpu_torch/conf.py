@@ -264,23 +264,24 @@ IO_PREFETCH_BATCHES = _conf("rapids.tpu.io.prefetchBatches").doc(
 PARQUET_READ_ENABLED = _conf("rapids.tpu.sql.format.parquet.read.enabled").boolean(True)
 PARQUET_DEVICE_DECODE = _conf(
     "rapids.tpu.sql.format.parquet.deviceDecode.enabled").doc(
-    "Decode eligible parquet columns ON the device: raw dictionary/RLE "
-    "chunk bytes upload and a jitted kernel expands runs + gathers the "
-    "dictionary (reference decodes on the accelerator the same way, "
-    "GpuParquetScan.scala:536-556). Ineligible columns/pages fall back to "
-    "the host Arrow decoder per column."
+    "Decode parquet ON the device: raw chunk bytes upload and hand-written "
+    "kernels expand the level / index runs and gather values (reference "
+    "decodes on the accelerator the same way, GpuParquetScan.scala:536-556). "
+    "The port has no host decoder for a device plan, so false (like "
+    "parquet.read.enabled=false) raises when a device session plans a "
+    "scan; the CPU engine decodes on the host either way."
 ).boolean(True)
 PARQUET_WRITE_ENABLED = _conf("rapids.tpu.sql.format.parquet.write.enabled").boolean(True)
 PARQUET_DEVICE_ENCODE = _conf(
     "rapids.tpu.sql.format.parquet.deviceEncode.enabled").doc(
     "Encode parquet ON the device (reference encodes on the accelerator, "
     "ColumnarOutputWriter.scala:62-177): non-null values compact (strings "
-    "via a length-prefixing byte gather, booleans bit-pack) and validity "
-    "bit-packs in jitted kernels per column; only the encoded PLAIN page "
-    "payload downloads, then the host block-compresses pages "
-    "(none/snappy/gzip/zstd — the mirror of the decode split). Applies "
-    "to flat schemas (incl. the snappy DEFAULT write) without "
-    "partitionBy; other codecs/nested types use the host Arrow writer."
+    "with a 4-byte length prefix, booleans bit-pack) and validity "
+    "bit-packs in a hand-written kernel per column; only the encoded PLAIN "
+    "page payload downloads, then the host block-compresses pages "
+    "(none/snappy/gzip). The port has no host encoder for a device plan, "
+    "so false raises when a device session writes; the CPU engine encodes "
+    "on the host either way."
 ).boolean(True)
 CSV_READ_ENABLED = _conf("rapids.tpu.sql.format.csv.read.enabled").boolean(True)
 CSV_DEVICE_PARSE = _conf(

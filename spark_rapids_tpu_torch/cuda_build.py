@@ -33,7 +33,8 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "string_hash", "string_order", "string_gather", "string_compare",
            "hash_join", "string_search", "substring", "window_segments",
            "window_rank_offset", "window_frame_agg", "string_chars",
-           "explode", "segment_percentile")
+           "explode", "segment_percentile", "parquet_decode",
+           "parquet_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -171,6 +172,12 @@ _SIGNATURES = {
         "srt_gather_strings_copy": (ctypes.c_int, [
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
             ctypes.c_longlong, _VOIDP]),
+        "srt_gather_spans_plan": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong, _VOIDP,
+            _VOIDP, _VOIDP, ctypes.c_size_t, _VOIDP]),
+        "srt_gather_spans_copy": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            _VOIDP, ctypes.c_longlong, _VOIDP]),
     },
     "string_compare": {
         "srt_string_compare": (ctypes.c_int, [
@@ -246,6 +253,31 @@ _SIGNATURES = {
         "srt_segment_percentile": (ctypes.c_int, [
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
             _VOIDP, _VOIDP, _VOIDP, _VOIDP, ctypes.c_int, _VOIDP]),
+    },
+    "parquet_decode": {
+        "srt_hybrid_expand": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_longlong, ctypes.c_longlong, _VOIDP,
+            ctypes.c_longlong, _VOIDP]),
+        "srt_page_decode_scratch_bytes": (ctypes.c_size_t,
+                                          [ctypes.c_longlong]),
+        "srt_page_decode_fixed": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP,
+            ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_size_t, _VOIDP]),
+    },
+    "parquet_encode": {
+        "srt_encode_scratch_bytes": (ctypes.c_size_t, [ctypes.c_longlong]),
+        "srt_encode_plain_page": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_size_t, _VOIDP]),
+        "srt_encode_string_page": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong,
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_size_t, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

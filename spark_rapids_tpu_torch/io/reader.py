@@ -1,0 +1,90 @@
+"""DataFrameReader, the spark.read analog (port of
+spark_rapids_tpu/io/reader.py:19).
+
+`read.parquet(path, ...)` resolves the schema from the first file's footer
+(io/parquet_meta.py, no pyarrow) unless `schema(...)` gave one, and plans a
+FileScan over every file. `format("parquet").load(...)` works as in the
+reference. The Parquet scan takes no read option, so a read given one by
+`option` / `options` raises and names it; CSV and ORC are queued and raise.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional
+
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.io.parquet_meta import (
+    ParquetFormatError,
+    read_footer,
+)
+from spark_rapids_tpu_torch.io.scan import expand_paths
+from spark_rapids_tpu_torch.ops.base import AttributeReference
+from spark_rapids_tpu_torch.plan import logical as L
+from spark_rapids_tpu_torch.plan.dataframe import DataFrame
+
+
+class DataFrameReader:
+    def __init__(self, session):
+        self._session = session
+        self._options: Dict[str, Any] = {}
+        self._schema: Optional[List[AttributeReference]] = None
+
+    def option(self, key: str, value: Any) -> "DataFrameReader":
+        self._options[key] = value
+        return self
+
+    def options(self, **kwargs) -> "DataFrameReader":
+        self._options.update(kwargs)
+        return self
+
+    def schema(self, schema) -> "DataFrameReader":
+        """schema: list of (name, type name or DataType) tuples."""
+        attrs = []
+        for name, t in schema:
+            dt = DataType.parse(t) if isinstance(t, str) else t
+            attrs.append(AttributeReference(name, dt, True))
+        self._schema = attrs
+        return self
+
+    def parquet(self, *paths: str) -> DataFrame:
+        return self._load("parquet", list(paths))
+
+    def format(self, fmt: str) -> "_FormatReader":
+        return _FormatReader(self, fmt)
+
+    def _load(self, fmt: str, paths: List[str]) -> DataFrame:
+        if fmt != "parquet":
+            raise NotImplementedError(f"{fmt} reads are queued (Parquet "
+                                      "only)")
+        if self._options:
+            raise NotImplementedError(
+                "the Parquet scan takes no read option: "
+                f"{', '.join(sorted(map(str, self._options)))}")
+        files = expand_paths(paths)
+        attrs = self._schema or _file_schema(files[0])
+        plan = L.FileScan(fmt, paths, attrs, files=files)
+        return DataFrame(plan, self._session)
+
+
+def _file_schema(path: str) -> List[AttributeReference]:
+    """The columns of one file's footer (reference: _resolve_file_schema
+    :95); a column of a type the port does not read raises."""
+    out = []
+    for c in read_footer(path).columns:
+        if c.dtype is None:
+            raise ParquetFormatError(f"{path}: {c.unsupported}")
+        out.append(AttributeReference(c.name, c.dtype, c.nullable))
+    return out
+
+
+class _FormatReader:
+    def __init__(self, reader: DataFrameReader, fmt: str):
+        self._reader = reader
+        self._fmt = fmt
+
+    def option(self, k, v) -> "_FormatReader":
+        self._reader.option(k, v)
+        return self
+
+    def load(self, *paths: str) -> DataFrame:
+        return self._reader._load(self._fmt, list(paths))

@@ -1,0 +1,94 @@
+"""File writes (port of spark_rapids_tpu/io/writer.py: `execute_write`
+:37; reference: GpuFileFormatWriter, ColumnarOutputWriter.scala).
+
+Save modes error (the default; also "errorifexists"), ignore, overwrite
+and append; one `part-{pidx:05d}-{id}.parquet` file per partition of the
+plan, then a `_SUCCESS` marker. The device plan's root DeviceToHostExec is
+peeled and the device batches go to the device encoder (K22), so only page
+payloads download (reference :62-97); host batches (a plan that is only a
+host scan) upload to the session's device first. The CPU engine
+(rapids.tpu.sql.enabled=false) hands host batches, which the same encoder
+takes as CPU tensors (its plain version). A device session with
+rapids.tpu.sql.format.parquet.deviceEncode.enabled=false raises: the port
+has no host encoder to move the write to. The one write option is
+`compression`; `partitionBy`, other options, CSV and ORC raise.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+import uuid
+
+import torch
+
+from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+from spark_rapids_tpu_torch.exec.base import ExecContext, rows_of
+from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+from spark_rapids_tpu_torch.io import parquet_encode_device as PE
+from spark_rapids_tpu_torch.plan import logical as L
+
+_MODES = {"error": "error", "errorifexists": "error", "default": "error",
+          "ignore": "ignore", "overwrite": "overwrite", "append": "append"}
+
+
+class WriteError(RuntimeError):
+    pass
+
+
+def execute_write(session, plan: L.WriteFile) -> None:
+    if plan.fmt != "parquet":
+        raise NotImplementedError(f"{plan.fmt} writes are queued (Parquet "
+                                  "only)")
+    if plan.partition_by:
+        raise NotImplementedError("partitionBy is queued: the port writes "
+                                  "unpartitioned Parquet directories")
+    mode = _MODES.get(str(plan.mode).lower())
+    if mode is None:
+        raise ValueError(f"unknown save mode {plan.mode!r}")
+    unknown = sorted(set(map(str, plan.options)) - {"compression"})
+    if unknown:
+        raise NotImplementedError("the Parquet writer takes only the "
+                                  f"compression option: {', '.join(unknown)}")
+    device = session.conf.sql_enabled
+    if device and not session.conf.get(C.PARQUET_DEVICE_ENCODE):
+        raise ValueError(
+            f"{C.PARQUET_DEVICE_ENCODE.key}=false: a device session encodes "
+            "Parquet on the device only (the CPU engine, "
+            "rapids.tpu.sql.enabled=false, encodes on the host)")
+    compression = str(plan.options.get("compression", "snappy"))
+    PE.require_codec(compression)
+    attrs = plan.children[0].output
+    bad = PE.schema_encodable(attrs)
+    if bad:
+        raise WriteError(f"cannot write column(s) {', '.join(bad)}")
+    path = plan.path
+    if os.path.exists(path):
+        if mode == "error":
+            raise WriteError(f"path {path} already exists "
+                             "(mode=error[ifexists])")
+        if mode == "ignore":
+            return
+        if mode == "overwrite":
+            shutil.rmtree(path, ignore_errors=True)
+    os.makedirs(path, exist_ok=True)
+
+    physical = session._physical_plan(plan.children[0])
+    if device and isinstance(physical, DeviceToHostExec):
+        physical = physical.children[0]
+    pb = physical.execute(ExecContext(session.conf, session.device))
+    write_id = uuid.uuid4().hex[:12]
+    # host batches (a plan that is a host scan alone, or the CPU engine's)
+    # go to the session's device, so a device session encodes with K22
+    target = session.device if device else torch.device("cpu")
+    for pidx in range(pb.num_partitions):
+        batches = [b.to_device(target) if isinstance(b, HostColumnarBatch)
+                   else b for b in pb.iterator(pidx) if rows_of(b) > 0]
+        if not batches:
+            continue
+        fname = f"part-{pidx:05d}-{write_id}.parquet"
+        PE.write_file(os.path.join(path, fname), attrs, batches,
+                      compression=compression)
+    with open(os.path.join(path, "_SUCCESS"), "w"):
+        pass

@@ -1,0 +1,226 @@
+"""The port's host library for Parquet I/O (native/srt_io.cpp), built with
+the host C++ compiler at first use and bound with ctypes.
+
+The library goes into `build/native/<hash of the source>/` under the
+repository root; each builder compiles to a file of its own and renames it
+into place, so parallel test workers can build side by side. A failed
+build or load raises: there is no Python fallback that walks values one by
+one.
+
+The wrappers take and return numpy arrays and `bytes`; ctypes releases the
+GIL during each call, so callers may run them on worker threads.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional, Tuple
+
+import numpy as np
+
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "srt_io.cpp")
+_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+_LOCK = threading.Lock()
+_LIB: Optional[ctypes.CDLL] = None
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_int64
+_SIGNATURES = {
+    "srt_parse_runs": (_I64, [_P, _I64, _I64, ctypes.c_int32, _I64, _P, _P,
+                              _P, _P, _I64, _P]),
+    "srt_count_ones": (_I64, [_P, _I64, _P, _P, _P, _P, _I64, _I64, _I64]),
+    "srt_parse_pages": (_I64, [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                               _I64, _P]),
+    "srt_plain_strings": (_I64, [_P, _I64, _I64, _I64, _P, _P]),
+    "srt_snappy_max_compressed": (_I64, [_I64]),
+    "srt_snappy_compress": (_I64, [_P, _I64, _P]),
+    "srt_snappy_uncompressed_length": (_I64, [_P, _I64]),
+    "srt_snappy_decompress": (_I64, [_P, _I64, _P, _I64]),
+}
+
+
+def _lib_path() -> str:
+    with open(_SRC, "rb") as fh:
+        digest = hashlib.sha1(fh.read() + " ".join(_FLAGS).encode())
+    repo = os.path.dirname(os.path.dirname(os.path.dirname(_SRC)))
+    return os.path.join(repo, "build", "native", digest.hexdigest()[:12],
+                        "libsrt_io.so")
+
+
+def _compiler() -> str:
+    for name in ("g++", "c++", "clang++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no C++ compiler found: the Parquet host library "
+                       "(spark_rapids_tpu_torch/native/srt_io.cpp) cannot "
+                       "be built")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded host library, built on first use; raises when it cannot
+    be built or loaded."""
+    global _LIB
+    with _LOCK:
+        if _LIB is not None:
+            return _LIB
+        target = _lib_path()
+        if not os.path.exists(target):
+            os.makedirs(os.path.dirname(target), exist_ok=True)
+            tmp = f"{target}.{os.getpid()}.{threading.get_ident()}.tmp"
+            proc = subprocess.run([_compiler(), *_FLAGS, "-o", tmp, _SRC],
+                                  capture_output=True, text=True,
+                                  timeout=300)
+            if proc.returncode != 0:
+                raise RuntimeError("building the Parquet host library "
+                                   f"failed:\n{proc.stderr}")
+            os.replace(tmp, target)
+        lib = ctypes.CDLL(target)
+        for fn, (restype, argtypes) in _SIGNATURES.items():
+            f = getattr(lib, fn)
+            f.restype = restype
+            f.argtypes = argtypes
+        _LIB = lib
+        return lib
+
+
+def _ptr(a) -> int:
+    return a.ctypes.data
+
+
+def _buf(data) -> Tuple[np.ndarray, int]:
+    """(uint8 view kept alive by the caller, its address) of bytes-like
+    data, without a copy."""
+    arr = np.frombuffer(data, dtype=np.uint8) if not isinstance(
+        data, np.ndarray) else data
+    return arr, (arr.ctypes.data if arr.size else 0)
+
+
+def parse_runs(chunk, start: int, end: int, bit_width: int,
+               num_values: int):
+    """(out_start int64, is_rle bool, value int32, bit_off int64, produced)
+    of the hybrid stream chunk[start:end)."""
+    lib = library()
+    arr, base = _buf(chunk)
+    if not 0 <= start <= end <= arr.size:
+        raise ValueError(f"hybrid stream [{start}, {end}) outside the chunk")
+    max_runs = min(max(64, num_values // 64), num_values + 1)
+    while True:
+        out_start = np.empty(max_runs, np.int64)
+        is_rle = np.empty(max_runs, np.uint8)
+        value = np.empty(max_runs, np.int32)
+        bit_off = np.empty(max_runs, np.int64)
+        produced = ctypes.c_int64(0)
+        n = lib.srt_parse_runs(base, start, end, bit_width, num_values,
+                               _ptr(out_start), _ptr(is_rle), _ptr(value),
+                               _ptr(bit_off), max_runs,
+                               ctypes.addressof(produced))
+        if n == -1:
+            max_runs *= 8
+            continue
+        if n < 0:
+            raise ValueError("malformed RLE / bit-packed hybrid stream")
+        return (out_start[:n], is_rle[:n].astype(bool), value[:n],
+                bit_off[:n], int(produced.value))
+
+
+def count_ones(chunk, out_start, is_rle, value, bit_off, total: int,
+               n: int) -> int:
+    lib = library()
+    arr, base = _buf(chunk)
+    rle = np.ascontiguousarray(is_rle, dtype=np.uint8)
+    out_start = np.ascontiguousarray(out_start, dtype=np.int64)
+    value = np.ascontiguousarray(value, dtype=np.int32)
+    bit_off = np.ascontiguousarray(bit_off, dtype=np.int64)
+    got = lib.srt_count_ones(base, arr.size, _ptr(out_start), _ptr(rle),
+                             _ptr(value), _ptr(bit_off), len(out_start),
+                             total, n)
+    if got < 0:
+        raise ValueError("definition levels run past the chunk")
+    return int(got)
+
+
+PAGE_FIELDS = ("kind", "num_values", "encoding", "data_start", "data_len",
+               "uncompressed_len", "def_len", "rep_len", "data_compressed")
+
+
+class UnsupportedPage(ValueError):
+    pass
+
+
+def parse_pages(chunk):
+    """Per page of a column chunk: the PAGE_FIELDS as numpy arrays."""
+    lib = library()
+    arr, base = _buf(chunk)
+    max_pages = 64
+    while True:
+        out = [np.empty(max_pages, t) for t in (
+            np.int32, np.int64, np.int32, np.int64, np.int64, np.int64,
+            np.int64, np.int64, np.uint8)]
+        bad = ctypes.c_int32(0)
+        n = lib.srt_parse_pages(base, arr.size, *[_ptr(a) for a in out],
+                                max_pages, ctypes.addressof(bad))
+        if n == -1:
+            max_pages *= 8
+            continue
+        if n == -4:
+            raise UnsupportedPage(f"Parquet page type {bad.value} is not "
+                                  "supported (data v1 / v2 and dictionary "
+                                  "pages only)")
+        if n < 0:
+            raise ValueError("malformed Parquet page header")
+        return [a[:n] for a in out]
+
+
+def plain_strings(chunk, pos: int, end: int, n: int):
+    """(starts int64, lens int32) of n length-prefixed values."""
+    lib = library()
+    arr, base = _buf(chunk)
+    if not 0 <= pos <= end <= arr.size:
+        raise ValueError(f"byte-array values [{pos}, {end}) outside the "
+                         "chunk")
+    starts = np.empty(max(n, 1), np.int64)
+    lens = np.empty(max(n, 1), np.int32)
+    if lib.srt_plain_strings(base, pos, end, n, _ptr(starts),
+                             _ptr(lens)) != n:
+        raise ValueError("truncated or malformed PLAIN byte-array values")
+    return starts[:n], lens[:n]
+
+
+def snappy_compress(data) -> bytes:
+    lib = library()
+    arr, base = _buf(data)
+    out = np.empty(lib.srt_snappy_max_compressed(arr.size), np.uint8)
+    n = lib.srt_snappy_compress(base, arr.size, _ptr(out))
+    return out[:n].tobytes()
+
+
+def snappy_decompress_into(data, out: np.ndarray) -> None:
+    """Decompress a raw Snappy block into `out`, a contiguous uint8 array
+    of exactly the block's uncompressed length."""
+    lib = library()
+    arr, base = _buf(data)
+    ulen = lib.srt_snappy_uncompressed_length(base, arr.size)
+    if ulen != out.size or not out.flags.c_contiguous:
+        raise ValueError(f"malformed Snappy block (declares {ulen} bytes, "
+                         f"page header {out.size})")
+    if ulen and lib.srt_snappy_decompress(base, arr.size, _ptr(out),
+                                          ulen) != ulen:
+        raise ValueError("malformed Snappy block")
+
+
+def snappy_decompress(data, expected: Optional[int] = None) -> bytes:
+    lib = library()
+    arr, base = _buf(data)
+    ulen = lib.srt_snappy_uncompressed_length(base, arr.size)
+    if ulen < 0 or (expected is not None and ulen != expected):
+        raise ValueError(f"malformed Snappy block (declares {ulen} bytes, "
+                         f"page header {expected})")
+    out = np.empty(ulen, np.uint8)
+    snappy_decompress_into(data, out)
+    return out.tobytes()

@@ -1,7 +1,7 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
 select (with explode / posexplode of a created array), withColumn (a window
 column too), filter, groupBy/agg (keyed and keyless), orderBy, limit,
-union, join, crossJoin, cache, collect, explain).
+union, join, crossJoin, cache, collect, explain, write.parquet).
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -9,7 +9,7 @@ against the child plan's output.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 from spark_rapids_tpu_torch.ops.base import (
     Alias,
@@ -281,6 +281,53 @@ class DataFrame:
 
     def explain(self, mode: str = "ALL") -> str:
         return self.session.explain_plan(self._plan, mode)
+
+    # -- write ----------------------------------------------------------------
+    @property
+    def write(self) -> "DataFrameWriter":
+        """Reference: dataframe.py:389."""
+        return DataFrameWriter(self)
+
+
+class DataFrameWriter:
+    """df.write (reference: dataframe.py:489-520): mode, option and
+    parquet; partitionBy, orc and csv are queued and raise at the write."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._mode = "error"
+        self._options: Dict[str, Any] = {}
+        self._partition_by: List[str] = []
+
+    def mode(self, m: str) -> "DataFrameWriter":
+        self._mode = m
+        return self
+
+    def option(self, k: str, v: Any) -> "DataFrameWriter":
+        self._options[k] = v
+        return self
+
+    def options(self, **kwargs) -> "DataFrameWriter":
+        self._options.update(kwargs)
+        return self
+
+    def partitionBy(self, *cols: str) -> "DataFrameWriter":
+        self._partition_by = list(cols)
+        return self
+
+    def parquet(self, path: str) -> None:
+        self._write("parquet", path)
+
+    def orc(self, path: str) -> None:
+        self._write("orc", path)
+
+    def csv(self, path: str) -> None:
+        self._write("csv", path)
+
+    def _write(self, fmt: str, path: str) -> None:
+        plan = L.WriteFile(fmt, path, self._mode, self._options,
+                           self._partition_by, self._df._plan)
+        self._df.session.execute_write(plan)
 
 
 class GroupedData:

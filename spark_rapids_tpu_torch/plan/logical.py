@@ -1,11 +1,11 @@
 """Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: local
-relation, cache, project, filter, aggregate, sort, join, limit, union
-:235, generate :276 and window :292)."""
+relation, file scan :102, cache, project, filter, aggregate, sort, join,
+limit, union :235, generate :276, window :292 and file write :318)."""
 
 from __future__ import annotations
 
 import enum
-from typing import List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from spark_rapids_tpu_torch.ops.base import (
     AttributeReference,
@@ -80,6 +80,49 @@ class LocalRelation(LogicalPlan):
 
     def describe(self):
         return f"LocalRelation[{', '.join(a.name for a in self.schema)}]"
+
+
+class FileScan(LogicalPlan):
+    """A file scan (reference: logical.py:102; GpuBatchScanExec)."""
+
+    def __init__(self, fmt: str, paths: List[str],
+                 schema: List[AttributeReference],
+                 files: Optional[List[str]] = None):
+        super().__init__()
+        self.fmt = fmt
+        self.paths = paths
+        self.schema = schema
+        # the files schema resolution found (no second directory walk)
+        self.files = files
+
+    @property
+    def output(self):
+        return self.schema
+
+    def describe(self):
+        return f"FileScan {self.fmt} {self.paths}"
+
+
+class WriteFile(LogicalPlan):
+    """A write to files (reference: logical.py:318;
+    GpuInsertIntoHadoopFsRelationCommand)."""
+
+    def __init__(self, fmt: str, path: str, mode: str,
+                 options: Dict[str, Any], partition_by: List[str],
+                 child: LogicalPlan):
+        super().__init__(child)
+        self.fmt = fmt
+        self.path = path
+        self.mode = mode
+        self.options = dict(options)
+        self.partition_by = list(partition_by)
+
+    @property
+    def output(self):
+        return []
+
+    def describe(self):
+        return f"WriteFile {self.fmt} -> {self.path} mode={self.mode}"
 
 
 class Project(LogicalPlan):

@@ -15,7 +15,8 @@ never pushes below it — a Project lands above the cache instead. Filter and
 Aggregate never drop (they change row counts). A node pruned to zero
 columns keeps its narrowest attribute as the row-count carrier.
 
-The rules cover the logical nodes the port has (relation, cache, project,
+The rules cover the logical nodes the port has (relation, file scan :124,
+file write :256, cache, project,
 filter, sort, aggregate, limit, join, window :214, generate :247, union
 :264); any other
 node is left untouched, as the reference leaves an unknown node. A union
@@ -113,6 +114,23 @@ def _local(plan: L.LocalRelation, req):
     parts = [[HostColumnarBatch([b.columns[i] for i in idx], b.num_rows)
               for b in part] for part in plan.partitions]
     return L.LocalRelation(kept, parts)
+
+
+@_rule(L.FileScan)
+def _file_scan(plan: L.FileScan, req):
+    """Parquet projects by name: a narrowed schema means the pruned columns'
+    chunks are never read or decoded (reference :124)."""
+    kept = _keep(plan.output, req)
+    if len(kept) == len(plan.output):
+        return plan
+    return L.FileScan(plan.fmt, plan.paths, kept, plan.files)
+
+
+@_rule(L.WriteFile)
+def _write(plan: L.WriteFile, req):
+    # a write persists its child's full schema (reference :256)
+    return L.WriteFile(plan.fmt, plan.path, plan.mode, plan.options,
+                       plan.partition_by, _prune(plan.children[0], None))
 
 
 @_rule(L.CacheRelation)

@@ -242,6 +242,32 @@ def _register_exec_rules():
         J.CpuNestedLoopJoinExec, "cross/nested-loop join",
         _convert_join(J.TpuNestedLoopJoinExec))
 
+    from spark_rapids_tpu_torch.io.scan import (
+        CpuFileScanExec,
+        TpuFileScanExec,
+    )
+
+    def _tag_scan(m: ExecMeta) -> None:
+        """Reference :490-511; the port reads Parquet only. A device
+        session decodes on the device or not at all: either key set false,
+        or a column type the device does not take, raises where the
+        reference would fall back to its host scan."""
+        for key in (C.PARQUET_READ_ENABLED, C.PARQUET_DEVICE_DECODE):
+            if not m.conf.get(key):
+                raise ValueError(
+                    f"{key.key}=false: a device session decodes Parquet on "
+                    "the device only (the CPU engine, "
+                    "rapids.tpu.sql.enabled=false, decodes on the host)")
+        for a in m.plan.output:
+            if not MT.is_supported_type(a.data_type):
+                raise ValueError(f"column {a.name}: the device scan does "
+                                 f"not take {a.data_type}")
+
+    register_exec(
+        CpuFileScanExec, "Parquet scan decoded on the device (K20, K21, K7)",
+        lambda cpu, ch: TpuFileScanExec(cpu.attrs, cpu.splits, cpu.fmt),
+        tag_fn=_tag_scan)
+
     from spark_rapids_tpu_torch.exec.expand import (
         CpuGenerateExec,
         TpuGenerateExec,

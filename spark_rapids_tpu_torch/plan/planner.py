@@ -1,5 +1,5 @@
 """Logical -> CPU physical planning (port of spark_rapids_tpu/plan/planner.py:
-the LocalRelation :52, Project with its windows :63-133, WindowOp :136,
+the LocalRelation :52, FileScan :175, Project with its windows :63-133, WindowOp :136,
 Filter :146, Union :152, Limit :157, cache, Aggregate :192-247, Generate
 :260, Sort :273 and Join :338-416 planners).
 
@@ -56,6 +56,15 @@ def _plan_children(plan: L.LogicalPlan, conf: C.TpuConf) -> List[PhysicalExec]:
 @register_planner(L.LocalRelation)
 def _plan_local(plan: L.LocalRelation, conf: C.TpuConf) -> PhysicalExec:
     return B.HostScanExec(plan.schema, plan.partitions)
+
+
+@register_planner(L.FileScan)
+def _plan_file_scan(plan: L.FileScan, conf: C.TpuConf) -> PhysicalExec:
+    """Reference: planner.py:175."""
+    from spark_rapids_tpu_torch.io.scan import CpuFileScanExec, plan_splits
+
+    splits = plan_splits(plan.fmt, plan.paths, conf, files=plan.files)
+    return CpuFileScanExec(plan.output, splits, plan.fmt)
 
 
 @register_planner(L.Project)

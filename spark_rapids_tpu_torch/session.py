@@ -1,5 +1,6 @@
 """TpuSession: the port's SparkSession analog (port of spark_rapids_tpu/session.py,
-cut to createDataFrame, cache, plan, execute and collect).
+cut to createDataFrame, Parquet read and write, cache, plan, execute and
+collect).
 
 Plan pipeline, as in the reference (session.py:378, :423-426): logical
 plan -> column pruning (plan/optimizer.py) -> CPU physical plan
@@ -80,6 +81,13 @@ class TpuSession:
         return DataFrame(L.LocalRelation(attrs, _split_batch(
             batch, num_partitions)), self)
 
+    @property
+    def read(self):
+        """Parquet reads (io/reader.py; reference: session.py:371)."""
+        from spark_rapids_tpu_torch.io.reader import DataFrameReader
+
+        return DataFrameReader(self)
+
     # -- plan pipeline --------------------------------------------------------
     def _physical_plan(self, plan: L.LogicalPlan) -> PhysicalExec:
         cpu_plan = plan_physical(optimize(plan, self.conf), self.conf)
@@ -113,6 +121,12 @@ class TpuSession:
 
     def execute_batches(self, plan: L.LogicalPlan) -> List[HostColumnarBatch]:
         return [b for part in self.execute_partitions(plan) for b in part]
+
+    def execute_write(self, plan: L.WriteFile) -> None:
+        """Reference: session.py:1321."""
+        from spark_rapids_tpu_torch.io.writer import execute_write
+
+        execute_write(self, plan)
 
     def execute_collect(self, plan: L.LogicalPlan) -> List[tuple]:
         rows: List[tuple] = []

@@ -2,7 +2,8 @@
 and all 30 TPCx-BB-like queries (with the window-frames path) through its
 own generators on the CPU, loads no JAX and nothing of the JAX package,
 and its default device is the card (no silent CPU fallback). The 6
-mortgage queries run in a process of their own, jax-free too."""
+mortgage queries run in a process of their own, jax-free too, and so do a
+Parquet write, read and q1, which load neither jax nor pyarrow."""
 
 import os
 import subprocess
@@ -82,6 +83,42 @@ print("isolated")
 
 def test_mortgage_queries_import_no_jax():
     proc = subprocess.run([sys.executable, "-c", _MORTGAGE_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
+
+
+_PARQUET_PROBE = r"""
+import sys, tempfile
+import spark_rapids_tpu_torch as srt
+from spark_rapids_tpu_torch.benchmarks import tpch
+cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True},
+                      device="cpu")
+raw = tpch.gen_tables(cpu, sf=0.0005, num_partitions=2)
+with tempfile.TemporaryDirectory() as d:
+    raw["lineitem"].write.parquet(d + "/lineitem")
+    tables = {"lineitem": cpu.read.parquet(d + "/lineitem")}
+    rows = tpch.q1(tables).collect()
+    assert rows == tpch.q1({"lineitem": raw["lineitem"]}).collect(), rows
+    assert len(rows) == 6, rows
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(
+                 ("jax.", "jaxlib", "pyarrow."))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+try:
+    srt.new_session()
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("new_session() without a card did not raise")
+print("isolated")
+"""
+
+
+def test_parquet_write_read_imports_no_jax_or_pyarrow():
+    proc = subprocess.run([sys.executable, "-c", _PARQUET_PROBE], cwd=REPO,
                           env=ENV, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
