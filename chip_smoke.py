@@ -131,6 +131,26 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    required columns, several pages, every element width; empty, non-ASCII
    and 64+ byte strings) and times them at one lineitem partition (15M
    rows).
+10. encoded (dictionary) execution (after the Parquet phase, on the same
+   cached tables): bench.py --encoded's lineitem-like table (seed 42) and
+   its rank companion's sorted table (seed 7) at 60M rows, 8 row groups,
+   every column a SNAPPY v1 dictionary chunk in first-seen order, and
+   phase 4's SF 10 lineitem and orders with dictionary chunks for their
+   STRING and DATE columns (PLAIN keys and DOUBLEs), all written by
+   write_parquet_fixture without pyarrow; q_agg, q_join (shuffled),
+   q_sort, q_minmax, TPC-H q1 and q12, each one cold and 3 warm runs with
+   rapids.tpu.sql.encoded.enabled true and then false, against numpy,
+   with the encoded columns the scan emitted, the device decodes (K23
+   launches) before the sink, K24 and K4-code launches and peak device
+   bytes; every 'on' run must show encoded columns and every 'off' run
+   none, and q_agg must decode no STRING column before the sink. Phase 3
+   holds K21's codes mode, K23 (fixed, string), K24 (fill 0 and -1) and
+   K4's code mode bit for bit (an all-NULL chunk, a required column,
+   ndv = 1, codes at and past the table's end, empty batches, a
+   dictionary with "" and multi-byte UTF-8, an absent value, one stream
+   dictionary against two build dictionaries; K4's code mode also
+   against K4 over the decoded values) and times them at one 7.5M-row
+   row group. The decode shape also runs with encoding off.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -138,8 +158,9 @@ tpch_q5, tpch_q5_shuffled, tpch_q2 ... tpch_q22 of phase 6, and
 tpcxbb_q01_like ... tpcxbb_q30_like and tpcxbb_window_frames of phase 7,
 mortgage_q_agg_join ... mortgage_q_simple_agg and
 mortgage_many_partitions of phase 8, parquet_write, parquet_tpch_q1,
-parquet_tpch_q6, parquet_tpch_q3, parquet_tpch_q5 and parquet_decode_shape
-of phase 9);
+parquet_tpch_q6, parquet_tpch_q3, parquet_tpch_q5, parquet_decode_shape
+and parquet_decode_shape_off of phase 9, encoded_q_agg ...
+encoded_tpch_q12 and their _off runs of phase 10);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -245,6 +266,21 @@ KERNELS = {
     "gather_string_spans": (
         "spark_rapids_tpu_torch/csrc/string_gather.cu",
         "spark_rapids_tpu/io/parquet_device.py:1397", "parquet_tpch_q1"),
+    "page_decode_codes": (
+        "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+        "spark_rapids_tpu/io/parquet_device.py:824", "encoded_q_agg"),
+    "dict_materialize_fixed": (
+        "spark_rapids_tpu_torch/csrc/dict_encoded.cu",
+        "spark_rapids_tpu/columnar/encoded.py:602", "encoded_q_agg"),
+    "dict_materialize_strings": (
+        "spark_rapids_tpu_torch/csrc/dict_encoded.cu",
+        "spark_rapids_tpu/columnar/encoded.py:614", "encoded_q_join"),
+    "remap_codes": (
+        "spark_rapids_tpu_torch/csrc/dict_encoded.cu",
+        "spark_rapids_tpu/columnar/encoded.py:707", "encoded_q_join"),
+    "hash_partition_codes": (
+        "spark_rapids_tpu_torch/csrc/hash_partition.cu",
+        "spark_rapids_tpu/shuffle/exchange.py:1181", "encoded_q_join"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -1023,9 +1059,10 @@ def numpy_q22(c: dict, o: dict):
 
 
 def run_queries(sess, raw, tables, li: dict, launches: dict,
-                profile_dir=None) -> dict:
+                profile_dir=None, wants=None) -> dict:
     """Phase 6: the other 18 queries over phase 4's cached SF 10 tables,
-    one cold and 3 warm runs each; q12, q13, q14 and q22 against numpy."""
+    one cold and 3 warm runs each; q12, q13, q14 and q22 against numpy
+    (`wants` gains q12's numpy rows)."""
     import numpy as np
 
     from spark_rapids_tpu_torch import cuda_build as CB
@@ -1050,6 +1087,8 @@ def run_queries(sess, raw, tables, li: dict, launches: dict,
                                         tpch._TYPES)),
         "q22": numpy_q22(c, o)}
     log(f"phase 6: numpy references of {sorted(want)} ready")
+    if wants is not None:
+        wants["tpch_q12"] = want["q12"]
     table_rows = {k: sum(b.num_rows for part in v._plan.partitions
                          for b in part) for k, v in raw.items()}
     out = {"table_rows": table_rows}
@@ -2725,6 +2764,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows.update(time_window_kernels(dev, errs, pr_content))
     rows.update(time_slice6_kernels(dev, errs, d12_rows))
     rows.update(time_parquet_kernels(dev, errs))
+    rows.update(time_encoded_kernels(dev, errs))
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -3339,15 +3379,46 @@ def hybrid_stream(rng, bw: int, n_runs: int, kind: str):
     return bytes(out), np.concatenate(values)
 
 
-def write_dict_fixture(path: str, columns: dict, row_group: int,
-                       page_rows: int) -> None:
-    """A Parquet file of OPTIONAL INT64 / INT32 columns in v1
-    RLE_DICTIONARY pages, SNAPPY, as pyarrow writes them by default
-    (bench.py:_worker_decode's file; pyarrow is not on the card's machine):
-    per row group and column a PLAIN dictionary page and data pages of
-    page_rows rows (definition levels one RLE run of 1s, indices one
-    bit-packed run). Written with the port's thrift writer and Snappy."""
+def pack_bits_fast(values, bw: int) -> bytes:
+    """pack_bits for bw <= 32 through a uint8 bit matrix (no 64-bit
+    temporaries), for the fixture's million-row pages."""
+    import numpy as np
+
+    v = np.ascontiguousarray(values, dtype="<u4")
+    if bw == 0 or v.size == 0:
+        return b""
+    bits = np.unpackbits(v.view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")[:, :bw]
+    return np.packbits(bits.ravel(), bitorder="little").tobytes()
+
+
+# fixture column specs: (kind, Parquet physical type, converted type or
+# None, payload); "dict": (per-row codes into pool, pool) where pool is a
+# numpy array of fixed values or a list of UTF-8 bytes; "plain": values
+PHYS_INT32, PHYS_INT64, PHYS_DOUBLE, PHYS_BYTE_ARRAY = 1, 2, 5, 6
+CONV_UTF8, CONV_DATE = 0, 6
+
+
+def dict_spec(codes, pool, physical: int, converted=None):
+    return ("dict", physical, converted, (codes, pool))
+
+
+def plain_spec(values, physical: int, converted=None):
+    return ("plain", physical, converted, values)
+
+
+def write_parquet_fixture(path: str, columns: dict, row_group: int,
+                          page_rows: int, first_seen: bool = True) -> None:
+    """A Parquet file as parquet-mr and pyarrow write one by default
+    (pyarrow is not on the card's machine): OPTIONAL flat columns, v1 data
+    pages of page_rows rows, SNAPPY; a "dict" column has per row group a
+    PLAIN dictionary page of the pool entries that group uses, in the
+    order the group first meets them (those writers' order; first_seen
+    False: pool order), and RLE_DICTIONARY pages (definition levels one
+    RLE run of 1s, indices one bit-packed run), a "plain" column PLAIN
+    pages. Written with the port's thrift writer and Snappy."""
     import struct
+    from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
 
@@ -3365,42 +3436,82 @@ def write_dict_fixture(path: str, columns: dict, row_group: int,
         w.end_struct()
         return w.stop()
 
-    phys = {np.dtype(np.int64): 2, np.dtype(np.int32): 1}
-    n = len(next(iter(columns.values())))
+    def dict_payload(pool, used):
+        if isinstance(pool, np.ndarray):
+            return pool[used].tobytes()
+        return b"".join(struct.pack("<I", len(pool[i])) + pool[i]
+                        for i in used)
+
+    def rows_of(spec):
+        kind, _, _, payload = spec
+        return len(payload[0] if kind == "dict" else payload)
+
+    def column_chunk(name, spec, lo: int, hi: int):
+        """(bytes of the column chunk, raw size, wire size, offset of its
+        first data page in the chunk) of rows [lo, hi)."""
+        kind, _phys, _conv, payload = spec
+        pages = []
+        if kind == "dict":
+            codes, pool = payload
+            seg = np.asarray(codes[lo:hi])
+            used = np.flatnonzero(np.bincount(seg, minlength=len(pool)))
+            if first_seen:
+                # the last write of a repeated index wins: writing the rows
+                # backwards leaves each entry's first row
+                first = np.zeros(len(pool), np.int64)
+                first[seg[::-1]] = np.arange(len(seg) - 1, -1, -1)
+                used = used[np.argsort(first[used], kind="stable")]
+            remap = np.zeros(len(pool), np.uint32)
+            remap[used] = np.arange(len(used), dtype=np.uint32)
+            inv = remap[seg]
+            bw = max(1, int(len(used) - 1).bit_length())
+            pages.append((2, dict_payload(pool, used), 7,
+                          [(1, len(used)), (2, 0)]))
+        else:
+            seg = np.ascontiguousarray(payload[lo:hi])
+        for p in range(0, hi - lo, page_rows):
+            m = min(page_rows, hi - lo - p)
+            levels = uvarint(m << 1) + b"\x01"
+            if kind == "dict":
+                body = bytes([bw]) + uvarint(((m + 7) // 8 << 1) | 1) + \
+                    pack_bits_fast(np.pad(inv[p:p + m], (0, -m % 8)), bw)
+                enc = 8
+            else:
+                body = seg[p:p + m].tobytes()
+                enc = 0
+            pages.append((0, struct.pack("<I", len(levels)) + levels + body,
+                          5, [(1, m), (2, enc), (3, 3), (4, 3)]))
+        out, raw_total, data_off = [], 0, None
+        for pkind, body, fid, fields in pages:
+            wire = native.snappy_compress(body)
+            hdr = header(pkind, len(body), len(wire), fid, fields)
+            if pkind == 0 and data_off is None:
+                data_off = sum(len(x) for x in out)
+            out.append(hdr + wire)
+            raw_total += len(hdr) + len(body)
+        chunk = b"".join(out)
+        return chunk, raw_total, len(chunk), data_off
+
+    n = rows_of(next(iter(columns.values())))
     groups = []
-    with open(path, "wb") as f:
+    # a row group's column chunks build on threads (numpy and Snappy
+    # release the GIL) and are written in schema order
+    with open(path, "wb") as f, ThreadPoolExecutor(8) as pool_ex:
         f.write(b"PAR1")
         for lo in range(0, n, row_group):
+            hi = min(lo + row_group, n)
+            chunks = list(pool_ex.map(
+                lambda item: column_chunk(item[0], item[1], lo, hi),
+                columns.items()))
             metas = []
-            for name, arr in columns.items():
-                seg = arr[lo:lo + row_group]
-                uniq, inv = np.unique(seg, return_inverse=True)
-                bw = max(1, int(len(uniq) - 1).bit_length())
+            for (name, (kind, phys, _c, _p)), (chunk, raw_total, wire_total,
+                                               data_off) in zip(
+                    columns.items(), chunks):
                 start = f.tell()
-                raw_total = wire_total = 0
-                pages = [(2, uniq.astype(arr.dtype).tobytes(), 7,
-                          [(1, len(uniq)), (2, 0)])]
-                for p in range(0, len(seg), page_rows):
-                    idx = inv[p:p + page_rows]
-                    m = len(idx)
-                    levels = uvarint(m << 1) + b"\x01"
-                    ind = bytes([bw]) + uvarint(((m + 7) // 8 << 1) | 1) + \
-                        pack_bits(np.pad(idx, (0, -m % 8)), bw)
-                    pages.append((0, struct.pack("<I", len(levels)) +
-                                  levels + ind, 5,
-                                  [(1, m), (2, 8), (3, 3), (4, 3)]))
-                data_off = None
-                for kind, payload, fid, fields in pages:
-                    wire = native.snappy_compress(payload)
-                    hdr = header(kind, len(payload), len(wire), fid, fields)
-                    if kind == 0 and data_off is None:
-                        data_off = f.tell()
-                    f.write(hdr + wire)
-                    raw_total += len(hdr) + len(payload)
-                    wire_total += len(hdr) + len(wire)
-                metas.append((name, phys[arr.dtype], start, data_off,
-                              raw_total, wire_total, len(seg)))
-            groups.append((metas, min(row_group, n - lo)))
+                f.write(chunk)
+                metas.append((name, phys, kind, start, start + data_off,
+                              raw_total, wire_total, hi - lo))
+            groups.append((metas, hi - lo))
         w = CompactWriter()
         w.i32(1, 1)
         w.list_header(2, 12, len(columns) + 1)
@@ -3408,25 +3519,28 @@ def write_dict_fixture(path: str, columns: dict, row_group: int,
         w.string(4, "schema")
         w.i32(5, len(columns))
         w.end_struct()
-        for name, arr in columns.items():
+        for name, (_kind, phys, conv, _payload) in columns.items():
             w.begin_element_struct()
-            w.i32(1, phys[arr.dtype])
+            w.i32(1, phys)
             w.i32(3, 1)
             w.string(4, name)
+            if conv is not None:
+                w.i32(6, conv)
             w.end_struct()
         w.i64(3, n)
         w.list_header(4, 12, len(groups))
         for metas, rows in groups:
             w.begin_element_struct()
             w.list_header(1, 12, len(metas))
-            for name, ptype, start, data_off, raw_total, wire_total, m in \
-                    metas:
+            for name, ptype, kind, start, data_off, raw_total, wire_total, \
+                    m in metas:
                 w.begin_element_struct()
                 w.i64(2, start)
                 w.begin_struct(3)
                 w.i32(1, ptype)
-                w.list_header(2, 5, 3)
-                w.buf += bytes([0, 3 << 1, 8 << 1])  # PLAIN, RLE, RLE_DICT
+                encs = [0, 3, 8] if kind == "dict" else [0, 3]
+                w.list_header(2, 5, len(encs))
+                w.buf += bytes(e << 1 for e in encs)  # zigzag i32
                 w.list_header(3, 8, 1)
                 w.buf += uvarint(len(name)) + name.encode()
                 w.i32(4, 1)                          # SNAPPY
@@ -3434,15 +3548,35 @@ def write_dict_fixture(path: str, columns: dict, row_group: int,
                 w.i64(6, raw_total)
                 w.i64(7, wire_total)
                 w.i64(9, data_off)
-                w.i64(11, start)
+                if kind == "dict":
+                    w.i64(11, start)
                 w.end_struct()
                 w.end_struct()
-            w.i64(2, sum(x[5] for x in metas))
+            w.i64(2, sum(x[6] for x in metas))
             w.i64(3, rows)
             w.end_struct()
         w.string(6, "chip_smoke.py dictionary fixture")
         footer = w.stop()
         f.write(footer + struct.pack("<I", len(footer)) + b"PAR1")
+
+
+def write_dict_fixture(path: str, columns: dict, row_group: int,
+                       page_rows: int) -> None:
+    """A Parquet file of OPTIONAL INT64 / INT32 columns in v1
+    RLE_DICTIONARY pages, SNAPPY, as pyarrow writes them by default
+    (bench.py:_worker_decode's file): per row group and column a PLAIN
+    dictionary page of its sorted distinct values and data pages of
+    page_rows rows (write_parquet_fixture)."""
+    import numpy as np
+
+    phys = {np.dtype(np.int64): PHYS_INT64, np.dtype(np.int32): PHYS_INT32}
+    specs = {}
+    for name, arr in columns.items():
+        pool, codes = np.unique(arr, return_inverse=True)
+        specs[name] = dict_spec(codes.ravel(), pool.astype(arr.dtype),
+                                phys[arr.dtype])
+    write_parquet_fixture(path, specs, row_group, page_rows,
+                          first_seen=False)
 
 
 def runs_of(tabs, total: int, dev):
@@ -3980,7 +4114,7 @@ def run_parquet(sess, raw, tables, wants: dict, input_rows: dict,
         if profile_dir:
             out["parquet_tpch_q1"]["profile"] = profile_query(
                 tpch.q1(ptables), profile_dir, "parquet_tpch_q1")
-        out["parquet_decode_shape"] = run_decode_shape(sess, root, launches)
+        out.update(run_decode_shape(sess, root, launches))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4008,17 +4142,649 @@ def run_decode_shape(sess, root: str, launches: dict) -> dict:
     q = sess.read.parquet(path).agg(F.sum("a").alias("sa"),
                                     F.sum("b").alias("sb"),
                                     F.sum("c").alias("sc"))
+    out = {}
+    # encoding on (the default: a and b stay encoded, and their sums
+    # materialize them through K23), then off
+    for label, on in (("", True), ("_off", False)):
+        name = f"parquet_decode_shape{label}"
+        sess.set_conf("rapids.tpu.sql.encoded.enabled", on)
+        CB.reset_launch_counts()
+        res = run_query(sess, q, want, name, 3)
+        launches[name] = CB.launch_counts()
+        assert_file_leaves(sess)
+        res.update(rows=n, file_bytes=os.path.getsize(path),
+                   fixture_write_s=write_s, decoded_bytes=n * 20,
+                   gbps=n * 20 / res["warm_median_s"] / 1e9,
+                   last_run_scan_host_s=scan_host_s(sess),
+                   encoded="on" if on else "off")
+        log(f"{name} (encoding {res['encoded']}): {res['gbps']:.3f} GB/s "
+            f"decoded (warm median {res['warm_median_s']:.4f} s)")
+        out[name] = res
+    sess.set_conf("rapids.tpu.sql.encoded.enabled", True)
+    return out
+
+
+# ------------------------------------------------- encoded phase (slice 8)
+ENCODED_ROWS = 60_000_000        # the SF 10 lineitem count
+ENCODED_ROW_GROUP = 7_500_000    # 8 row groups
+ENCODED_PAGE_ROWS = 1 << 20
+TPCH_DICT_ROW_GROUP = 7_500_000
+ENC_FLAGS = ["A", "N", "R"]
+ENC_STATUS = ["F", "O"]
+ENC_MODES = ["AIR", "MAIL", "SHIP", "TRUCK", "RAIL", "FOB", "REG AIR"]
+ENC_COMMENTS = [f"clerk notes row class {i:03d}: carefully packed and "
+                "inspected" for i in range(200)]
+ENC_MODE_COST = [3, 1, 2, 2, 2, 4, 3]
+ENCODED_OFF = {"rapids.tpu.sql.encoded.enabled": False}
+ENC_SHUFFLED = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
+                "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled":
+                False}
+_ENC_READ = ("hybrid_expand", "page_decode_codes")
+_ENC_GROUP = ("radix_sort_pairs", "group_ids", "segment_reduce",
+              "hash_partition_codes")
+# the kernels each encoded path must launch (with encoding on)
+PATH_KERNELS.update({
+    "encoded_q_agg": _ENC_READ + _ENC_GROUP + ("dict_materialize_fixed",
+                                               "remap_codes"),
+    "encoded_q_join": _ENC_READ + _ENC_GROUP + _JOIN + (
+        "remap_codes", "dict_materialize_strings"),
+    "encoded_q_sort": _ENC_READ + _ENC_GROUP + ("route_plan",
+                                                "remap_codes"),
+    "encoded_q_minmax": _ENC_READ + _ENC_GROUP + ("remap_codes",),
+    "encoded_tpch_q1": _ENC_READ + _ENC_GROUP + ("page_decode_fixed",
+                                                 "remap_codes"),
+    "encoded_tpch_q12": _ENC_READ + _ENC_GROUP + _JOIN + (
+        "page_decode_fixed", "dict_materialize_fixed"),
+    "parquet_decode_shape": ("segment_reduce", "hybrid_expand",
+                             "page_decode_fixed", "page_decode_codes",
+                             "dict_materialize_fixed"),
+    "parquet_decode_shape_off": ("segment_reduce",) + _PQ_READ,
+})
+
+
+def pool_bytes(pool):
+    return [v.encode() for v in pool]
+
+
+def encoded_bench_files(root: str) -> dict:
+    """bench.py main_encoded's table (seed 42) and main_encoded_rank's
+    (seed 7) at ENCODED_ROWS rows, 8 row groups, pages of 2^20 rows, every
+    column a SNAPPY v1 dictionary chunk, and the 7-row modes table. The
+    draws are bench.py's: rng.choice(pool, n) draws rng.integers(0,
+    len(pool), n). Returns the paths and the columns as pool codes."""
+    import numpy as np
+
+    n = ENCODED_ROWS
+    t = time.perf_counter()
+    rng = np.random.default_rng(42)
+    li = {"l_returnflag": rng.integers(0, 3, n).astype(np.int32),
+          "l_linestatus": rng.integers(0, 2, n).astype(np.int32),
+          "l_shipmode": rng.integers(0, 7, n).astype(np.int32),
+          "l_comment": rng.integers(0, 200, n).astype(np.int32),
+          "l_quantity": rng.integers(1, 51, n),
+          "l_extendedprice": rng.integers(100, 100_000, n)}
+    rng = np.random.default_rng(7)
+    mode = rng.integers(0, 7, n)
+    by_name = np.argsort(np.array(ENC_MODES))     # np.sort of the strings
+    counts = np.bincount(mode, minlength=7)
+    rk = {"l_shipmode": np.repeat(by_name, counts[by_name]).astype(np.int32),
+          "l_returnflag": rng.integers(0, 3, n).astype(np.int32),
+          "l_quantity": rng.integers(1, 51, n),
+          "l_bucket": np.sort(rng.integers(0, 32, n)).astype(np.int64)}
+    del mode
+
+    def ints(v, lo: int, hi: int):
+        return dict_spec((v - lo).astype(np.int32),
+                         np.arange(lo, hi, dtype=np.int64), PHYS_INT64)
+
+    def strs(codes, pool):
+        return dict_spec(codes, pool_bytes(pool), PHYS_BYTE_ARRAY,
+                         CONV_UTF8)
+
+    paths = {k: os.path.join(root, f"{k}.parquet")
+             for k in ("lineitem_like", "modes", "sorted_lowcard")}
+    write_parquet_fixture(paths["lineitem_like"], {
+        "l_returnflag": strs(li["l_returnflag"], ENC_FLAGS),
+        "l_linestatus": strs(li["l_linestatus"], ENC_STATUS),
+        "l_shipmode": strs(li["l_shipmode"], ENC_MODES),
+        "l_comment": strs(li["l_comment"], ENC_COMMENTS),
+        "l_quantity": ints(li["l_quantity"], 1, 51),
+        "l_extendedprice": ints(li["l_extendedprice"], 100, 100_000)},
+        ENCODED_ROW_GROUP, ENCODED_PAGE_ROWS)
+    write_parquet_fixture(paths["modes"], {
+        "m_mode": strs(np.arange(7, dtype=np.int32), ENC_MODES),
+        "m_cost": ints(np.asarray(ENC_MODE_COST, np.int64), 0, 8)}, 7, 7)
+    write_parquet_fixture(paths["sorted_lowcard"], {
+        "l_shipmode": strs(rk["l_shipmode"], ENC_MODES),
+        "l_returnflag": strs(rk["l_returnflag"], ENC_FLAGS),
+        "l_quantity": ints(rk["l_quantity"], 1, 51),
+        "l_bucket": ints(rk["l_bucket"], 0, 32)},
+        ENCODED_ROW_GROUP, ENCODED_PAGE_ROWS)
+    secs = time.perf_counter() - t
+    log(f"encoded: bench files ({n} rows each) written in {secs:.1f} s")
+    return {"paths": paths, "li": li, "rk": rk, "write_s": secs}
+
+
+def numpy_enc_agg(li: dict):
+    """q_agg: l_returnflag = 'A', by (l_linestatus, l_shipmode): count,
+    sum(l_quantity), sum(l_extendedprice)."""
+    import numpy as np
+
+    m = li["l_returnflag"] == ENC_FLAGS.index("A")
+    key = li["l_linestatus"][m].astype(np.int64) * 7 + li["l_shipmode"][m]
+    n = np.bincount(key, minlength=14)
+    qty = np.bincount(key, li["l_quantity"][m], minlength=14)
+    rev = np.bincount(key, li["l_extendedprice"][m], minlength=14)
+    # int64 sums: float64 bincount is exact below 2^53 (~5e11 here)
+    return sorted((ENC_STATUS[k // 7], ENC_MODES[k % 7], int(n[k]),
+                   int(qty[k]), int(rev[k])) for k in range(14) if n[k])
+
+
+def numpy_enc_join(li: dict):
+    """q_join: every row meets its one mode: by l_returnflag count,
+    sum(m_cost), max(l_comment) (the comments order by their index)."""
+    import numpy as np
+
+    f = li["l_returnflag"]
+    cost = np.asarray(ENC_MODE_COST, np.int64)[li["l_shipmode"]]
+    n = np.bincount(f, minlength=3)
+    c = np.bincount(f, cost, minlength=3)
+    mx = np.full(3, -1, np.int64)
+    np.maximum.at(mx, f, li["l_comment"])
+    return sorted((ENC_FLAGS[k], int(n[k]), int(c[k]), ENC_COMMENTS[mx[k]])
+                  for k in range(3) if n[k])
+
+
+def numpy_enc_sort(rk: dict):
+    """q_sort: by (l_returnflag, l_shipmode) sum(l_quantity), ordered."""
+    import numpy as np
+
+    key = rk["l_returnflag"].astype(np.int64) * 7 + rk["l_shipmode"]
+    n = np.bincount(key, minlength=21)
+    qty = np.bincount(key, rk["l_quantity"], minlength=21)
+    return sorted((ENC_FLAGS[k // 7], ENC_MODES[k % 7], int(qty[k]))
+                  for k in range(21) if n[k])
+
+
+def numpy_enc_minmax(rk: dict):
+    """q_minmax: by l_returnflag min / max(l_shipmode), count."""
+    import numpy as np
+
+    rank = np.argsort(np.argsort(np.array(ENC_MODES)))  # code -> rank
+    by_rank = sorted(ENC_MODES)
+    out = []
+    for k in range(3):
+        r = rank[rk["l_shipmode"][rk["l_returnflag"] == k]]
+        if len(r):
+            out.append((ENC_FLAGS[k], by_rank[int(r.min())],
+                        by_rank[int(r.max())], int(len(r))))
+    return sorted(out)
+
+
+def encoded_queries(paths: dict):
+    """bench.py's q_agg, q_join (main_encoded) and q_sort, q_minmax
+    (main_encoded_rank), over the session given."""
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    li, dim, srt_path = paths["lineitem_like"], paths["modes"], \
+        paths["sorted_lowcard"]
+
+    def q_agg(s):
+        return (s.read.parquet(li)
+                .filter(F.col("l_returnflag") == F.lit("A"))
+                .groupBy("l_linestatus", "l_shipmode")
+                .agg(F.count("*").alias("n"),
+                     F.sum("l_quantity").alias("qty"),
+                     F.sum("l_extendedprice").alias("rev")))
+
+    def q_join(s):
+        lt, dm = s.read.parquet(li), s.read.parquet(dim)
+        return (lt.join(dm, lt["l_shipmode"] == dm["m_mode"], "inner")
+                .groupBy("l_returnflag")
+                .agg(F.count("*").alias("n"),
+                     F.sum("m_cost").alias("cost"),
+                     F.max("l_comment").alias("mc")))
+
+    def q_sort(s):
+        return (s.read.parquet(srt_path)
+                .groupBy("l_returnflag", "l_shipmode")
+                .agg(F.sum("l_quantity").alias("qty"))
+                .orderBy("l_returnflag", "l_shipmode"))
+
+    def q_minmax(s):
+        return (s.read.parquet(srt_path).groupBy("l_returnflag")
+                .agg(F.min("l_shipmode").alias("mn"),
+                     F.max("l_shipmode").alias("mx"),
+                     F.count("*").alias("c")))
+
+    return {"q_agg": q_agg, "q_join": q_join, "q_sort": q_sort,
+            "q_minmax": q_minmax}
+
+
+def tpch_dict_files(root: str, raw) -> dict:
+    """Phase 4's cached SF 10 lineitem and orders written as parquet-mr
+    writes them: dictionary chunks for the STRING and DATE columns (and
+    o_shippriority), PLAIN for the keys and the DOUBLE columns; row groups
+    of 7.5M rows, pages of 2^20."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    pools = {"l_returnflag": tpch._FLAGS, "l_linestatus": tpch._STATUS,
+             "l_shipmode": tpch._SHIPMODES, "l_shipinstruct": tpch._INSTRUCT,
+             "o_orderpriority": tpch._PRIORITIES,
+             "o_orderstatus": ["F", "O", "P"],
+             "o_comment": tpch._O_COMMENTS}
+    from concurrent.futures import ThreadPoolExecutor
+
+    def spec_of(df, a):
+        if a.name in pools:
+            return dict_spec(
+                pool_index(df, a.name, pools[a.name]).astype(np.int32),
+                pool_bytes(pools[a.name]), PHYS_BYTE_ARRAY, CONV_UTF8)
+        v = table_columns(df, (a.name,))[a.name]
+        if a.data_type.name in ("DATE", "INT32"):
+            lo, hi = int(v.min()), int(v.max()) + 1
+            return dict_spec((v - lo).astype(np.int32),
+                             np.arange(lo, hi, dtype=np.int32), PHYS_INT32,
+                             CONV_DATE if a.data_type.name == "DATE"
+                             else None)
+        if v.dtype == np.float64:
+            return plain_spec(v, PHYS_DOUBLE)
+        return plain_spec(v.astype(np.int64), PHYS_INT64)
+
+    t = time.perf_counter()
+    paths = {}
+    for name in ("lineitem", "orders"):
+        df = raw[name]
+        with ThreadPoolExecutor(8) as ex:
+            specs = dict(zip([a.name for a in df.schema], ex.map(
+                lambda a: spec_of(df, a), df.schema)))
+        paths[name] = os.path.join(root, f"{name}_dict.parquet")
+        write_parquet_fixture(paths[name], specs, TPCH_DICT_ROW_GROUP,
+                              ENCODED_PAGE_ROWS)
+    secs = time.perf_counter() - t
+    log(f"encoded: TPC-H SF 10 lineitem and orders written with dictionary "
+        f"chunks in {secs:.1f} s")
+    return {"paths": paths, "write_s": secs}
+
+
+def run_encoded_query(sess, q, want, name: str, launches: dict,
+                      ordered: bool, input_rows: int) -> dict:
+    """One path: a cold and 3 warm runs (rows against numpy), its launch
+    counts, the encoded columns the scan emitted and the device decodes
+    over the path's 4 runs, the last run's scan host seconds and the peak
+    device bytes."""
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.columnar import encoded as E
+
+    class Sorted:
+        def __init__(self, q):
+            self.q = q
+
+        def collect(self):
+            return sorted(self.q.collect(), key=repr)
+
+    if not ordered:
+        want = sorted(want, key=repr)
+    E.reset_counters()
     CB.reset_launch_counts()
-    res = run_query(sess, q, want, "parquet_decode_shape", 3)
-    launches["parquet_decode_shape"] = CB.launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    res = run_query(sess, q if ordered else Sorted(q), want, name, 3)
+    launches[name] = CB.launch_counts()
+    # above what the phase already held (phase 4's cached tables)
+    res["peak_device_bytes"] = torch.cuda.max_memory_allocated() - held
     assert_file_leaves(sess)
-    res.update(rows=n, file_bytes=os.path.getsize(path),
-               fixture_write_s=write_s, decoded_bytes=n * 20,
-               gbps=n * 20 / res["warm_median_s"] / 1e9,
-               last_run_scan_host_s=scan_host_s(sess))
-    log(f"parquet_decode_shape: {res['gbps']:.3f} GB/s decoded "
-        f"(warm median {res['warm_median_s']:.4f} s)")
+    res.update(E.counters())
+    res["scan_host_s"] = scan_host_s(sess)
+    res["input_rows"] = input_rows
+    res["rows_per_s"] = input_rows / res["warm_median_s"]
+    res["k23_launches"] = {k: launches[name].get(k, 0) for k in (
+        "dict_materialize_fixed", "dict_materialize_strings")}
+    res["k24_launches"] = launches[name].get("remap_codes", 0)
+    res["k4_code_launches"] = launches[name].get("hash_partition_codes", 0)
+    log(f"{name}: encoded columns {res['encodedColumns']}, device decodes "
+        f"{res['lateMaterializations']}, K23 {res['k23_launches']}, K24 "
+        f"{res['k24_launches']}, K4 codes {res['k4_code_launches']}, peak "
+        f"{res['peak_device_bytes']} B, scan host {res['scan_host_s']:.3f} s")
     return res
+
+
+def run_encoded(tpch_sess, raw, wants: dict, launches: dict,
+                profile_dir=None) -> dict:
+    """The encoded phase: bench.py --encoded's q_agg and q_join and its
+    rank companion's q_sort and q_minmax at ENCODED_ROWS rows, TPC-H q1 and
+    q12 over SF 10 dictionary Parquet, each with encoding on and off (the
+    off run's path name ends in _off), all against numpy. Every 'on' path
+    must show encoded columns from the scan; q_agg decodes no STRING column
+    before the sink."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_encoded_")
+    out = {}
+    try:
+        bench = encoded_bench_files(root)
+        tfiles = tpch_dict_files(root, raw)
+        out["write_s"] = {"bench": bench["write_s"],
+                          "tpch": tfiles["write_s"]}
+        qs = encoded_queries(bench["paths"])
+        wants_enc = {"q_agg": numpy_enc_agg(bench["li"]),
+                     "q_join": numpy_enc_join(bench["li"]),
+                     "q_sort": numpy_enc_sort(bench["rk"]),
+                     "q_minmax": numpy_enc_minmax(bench["rk"])}
+        n = ENCODED_ROWS
+        for label, extra in (("", {}), ("_off", ENCODED_OFF)):
+            for qname, qfn in qs.items():
+                conf = {**TPCH_CONF, **extra,
+                        **(ENC_SHUFFLED if qname == "q_join" else {})}
+                sess = srt.new_session(conf)
+                name = f"encoded_{qname}{label}"
+                out[name] = run_encoded_query(
+                    sess, qfn(sess), wants_enc[qname], name, launches,
+                    qname == "q_sort", n + (7 if qname == "q_join" else 0))
+                if profile_dir and not label and qname == "q_agg":
+                    out[name]["profile"] = profile_query(
+                        qfn(sess), profile_dir, name)
+            sess = srt.new_session({**TPCH_CONF, **extra})
+            t = {k: sess.read.parquet(p) for k, p in tfiles["paths"].items()}
+            rows = {"q1": wants["input_rows"]["q1"],
+                    "q12": wants["input_rows"]["q1"] + sum(
+                        b.num_rows for part in raw["orders"]._plan.partitions
+                        for b in part)}
+            for q in ("q1", "q12"):
+                name = f"encoded_tpch_{q}{label}"
+                out[name] = run_encoded_query(
+                    sess, tpch.QUERIES[q](t), wants[f"tpch_{q}"], name,
+                    launches, True, rows[q])
+                if profile_dir and not label and q == "q1":
+                    out[name]["profile"] = profile_query(
+                        tpch.q1(t), profile_dir, name)
+        for name, r in out.items():
+            if not name.startswith("encoded_"):
+                continue
+            if name.endswith("_off"):
+                check(r["encodedColumns"] == 0,
+                      f"{name}: the scan emitted encoded columns with "
+                      "encoding off")
+            else:
+                check(r["encodedColumns"] > 0,
+                      f"{name}: the scan emitted no encoded column")
+        check(out["encoded_q_agg"]["k23_launches"][
+            "dict_materialize_strings"] == 0,
+            "encoded_q_agg decoded a STRING column before the sink")
+        for name in list(out):
+            if name.startswith("encoded_") and not name.endswith("_off"):
+                off = out[f"{name}_off"]
+                out[name]["warm_speedup_vs_off"] = \
+                    off["warm_median_s"] / out[name]["warm_median_s"]
+                log(f"{name}: warm {out[name]['warm_median_s']:.4f} s on, "
+                    f"{off['warm_median_s']:.4f} s off")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------- encoded kernels (phase 3 part)
+def _enc_dicts():
+    import numpy as np
+
+    from spark_rapids_tpu_torch.columnar import encoded as E
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+    return {
+        "STRING": E.DeviceDictionary.from_values(
+            ["", "AIR", "é", "日本語", "REG AIR", "x" * 70, "MAIL"]),
+        "INT64": E.DeviceDictionary.from_fixed_values(
+            np.array([5, -(1 << 40), 7, 1 << 33, 0], np.int64),
+            DataType.INT64),
+        "DATE": E.DeviceDictionary.from_fixed_values(
+            np.array([8035, 10591, -3, 9000], np.int32), DataType.DATE),
+        "ONE": E.DeviceDictionary.from_values(["only"]),
+    }
+
+
+def _codes_for(rng, n: int, ndv: int, null_frac: float, dev):
+    import numpy as np
+    import torch
+
+    codes = rng.integers(0, max(ndv, 1), n).astype(np.int32)
+    if n >= 4:
+        codes[:4] = [0, max(ndv - 1, 0), ndv, -1]  # last entry, overruns
+    valid = rng.random(n) >= null_frac
+    return torch.as_tensor(codes).to(dev), torch.as_tensor(valid).to(dev)
+
+
+def _same(got, want, label: str, errs: dict, name: str) -> None:
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    check(got.dtype == want.dtype and torch.equal(got, want),
+          f"{label}: kernel differs from its plain version")
+    errs[name] = max(errs.get(name, 0.0), max_abs_err(got, want))
+
+
+def encoded_edge_cases(dev, errs: dict) -> int:
+    """K21 codes, K23 fixed and string, K24 in both fills and K4's code
+    mode bit for bit against their plain versions: an all-NULL chunk, a
+    required column, ndv = 1, codes equal to ndv - 1 and past the table,
+    an empty batch, a dictionary holding "" and multi-byte UTF-8, an
+    absent value, one stream dictionary against two build dictionaries;
+    K4's code mode also against K4 over the expanded values."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import encoded as E
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.ops.eval import col_to_colv
+
+    rng = np.random.default_rng(8)
+    cases = 0
+    cpu = torch.device("cpu")
+    # K21 codes: levels with NULLs, all NULL, none (required), ndv = 1
+    for n, null_frac, ndv in ((1000, 0.3, 200), (777, 1.0, 5),
+                              (513, None, 1), (0, 0.0, 3)):
+        cap = max(8, 1 << max(n, 1).bit_length())
+        valid = rng.random(n) >= (null_frac or 0.0)
+        levels = None
+        if null_frac is not None:
+            lv = np.zeros(cap, np.int32)
+            lv[:n] = valid
+            levels = torch.as_tensor(lv)
+        k = int(valid.sum()) if null_frac is not None else n
+        idx = torch.as_tensor(rng.integers(0, ndv, max(k, 1)).astype(
+            np.int32))
+        got = PD.page_decode_codes(None if levels is None else levels.to(dev),
+                                   n, cap, idx.to(dev))
+        want = PD.page_decode_codes(levels, n, cap, idx)
+        _same(got, want, f"K21 codes {n} rows", errs, "page_decode_codes")
+        cases += 1
+    d = _enc_dicts()
+    for kind in ("STRING", "INT64", "DATE", "ONE"):
+        dd = d[kind]
+        for n in (0, 1, 300):
+            codes, valid = _codes_for(rng, n, dd.size, 0.2, dev)
+            if dd.is_fixed:
+                got = E.dict_materialize_fixed(codes, valid,
+                                               dd.device_fixed_values(dev))
+                want = E.dict_materialize_fixed(codes.cpu(), valid.cpu(),
+                                                dd.device_fixed_values(cpu))
+                _same(got, want, f"K23 fixed {kind} {n}", errs,
+                      "dict_materialize_fixed")
+            else:
+                _b, offs = dd.device_strings(dev)
+                got = E.dict_materialize_spans(codes, valid, offs)
+                want = E.dict_materialize_spans(codes.cpu(), valid.cpu(),
+                                                offs.cpu())
+                for g, w in zip(got, want):
+                    _same(g, w, f"K23 spans {kind} {n}", errs,
+                          "dict_materialize_strings")
+                col = E.DictionaryColumn(dd.value_dtype, codes, valid, dd)
+                m = E.materialize(col)
+                mc = E.materialize(E.DictionaryColumn(
+                    dd.value_dtype, codes.cpu(), valid.cpu(), dd))
+                _same(m.offsets, mc.offsets, f"K23 offsets {kind} {n}",
+                      errs, "dict_materialize_strings")
+                total = int(mc.offsets[-1])
+                _same(m.data[:total], mc.data[:total],
+                      f"K23 bytes {kind} {n}", errs,
+                      "dict_materialize_strings")
+            cases += 1
+    # K24: both fills, an absent value (-1), an empty batch / table, and one
+    # stream dictionary against two build dictionaries
+    stream = E.DeviceDictionary.from_values(["open", "closed", "pending"])
+    builds = [E.DeviceDictionary.from_values(["closed", "open"]),
+              E.DeviceDictionary.from_values(["pending", "archived", "open",
+                                              "closed"])]
+    for b in builds:
+        remap = torch.as_tensor(E.join_remap(stream, b))
+        for n in (0, 500):
+            codes, valid = _codes_for(rng, n, stream.size, 0.1, dev)
+            for fill in (0, -1):
+                got = E.remap_codes(codes, valid, remap.to(dev), fill)
+                want = E.remap_codes(codes.cpu(), valid.cpu(), remap, fill)
+                _same(got, want, f"K24 fill {fill} {n}", errs,
+                      "remap_codes")
+                cases += 1
+    empty = torch.zeros(0, dtype=torch.int32)
+    codes, valid = _codes_for(rng, 64, 3, 0.1, dev)
+    _same(E.remap_codes(codes, valid, empty.to(dev), -1),
+          E.remap_codes(codes.cpu(), valid.cpu(), empty, -1),
+          "K24 empty table", errs, "remap_codes")
+    check(stream.code_of("absent") == -1, "an absent literal has a code")
+    # K4 code mode: against its plain version and K4 over the values
+    for kind in ("STRING", "INT64", "DATE", "ONE"):
+        dd = d[kind]
+        for parts in (8, 5000):
+            codes, valid = _codes_for(rng, 1000, dd.size, 0.15, dev)
+            codes = torch.where(valid, codes.clamp(0, dd.size - 1),
+                                torch.zeros_like(codes))
+            col = E.DictionaryColumn(dd.value_dtype, codes, valid, dd)
+            live = torch.arange(1000, device=dev) < 990
+            ids, counts = H.partition_ids([E.code_key(col)], live, parts)
+            ccol = E.DictionaryColumn(dd.value_dtype, codes.cpu(),
+                                      valid.cpu(), dd)
+            pids, pcounts = H.partition_ids([E.code_key(ccol)], live.cpu(),
+                                            parts)
+            _same(ids, pids, f"K4 codes {kind} {parts}", errs,
+                  "hash_partition_codes")
+            _same(counts, pcounts, f"K4 codes counts {kind} {parts}", errs,
+                  "hash_partition_codes")
+            vids, _ = H.partition_ids([col_to_colv(E.materialize(col))],
+                                      live, parts)
+            _same(ids, vids, f"K4 codes vs values {kind} {parts}", errs,
+                  "hash_partition_codes")
+            cases += 1
+    return cases
+
+
+def time_encoded_kernels(dev, errs: dict) -> dict:
+    """K21 codes, K23, K24 and K4's code mode at one row group of the
+    encoded bench table (7.5M rows): l_comment's 200-string dictionary for
+    K23 string mode, l_extendedprice's INT64 values for K23 fixed; each
+    against its plain version (bit for bit) and timed with CUDA events."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import encoded as E
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.ops import hashing as H
+
+    n = ENCODED_ROW_GROUP
+    cap = bucket_capacity(n)
+    iters, plain_iters = 10, 2
+    rng = np.random.default_rng(9)
+    rows = {}
+    valid_np = rng.random(n) >= 0.01
+    levels = torch.zeros(cap, dtype=torch.int32, device=dev)
+    levels[:n] = torch.as_tensor(valid_np.astype(np.int32)).to(dev)
+    k = int(valid_np.sum())
+    idx = torch.as_tensor(rng.integers(0, 200, k).astype(np.int32)).to(dev)
+    got = PD.page_decode_codes(levels, n, cap, idx)
+    _same(got, PD.page_decode_codes(levels.cpu(), n, cap, idx.cpu()),
+          "K21 codes 7.5M", errs, "page_decode_codes")
+    rows["page_decode_codes"] = dict(
+        ms=cuda_ms(lambda: PD.page_decode_codes(levels, n, cap, idx), iters),
+        plain_ms=cuda_ms(lambda: PD.page_decode_codes_plain(
+            levels, n, cap, idx), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * n + 4 * k + 4 * cap),
+        shape=f"{n} rows, 1% NULL, 200-entry dictionary")
+    codes = got
+    valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+    valid[:n] = levels[:n] != 0
+    comments = E.DeviceDictionary.from_values(ENC_COMMENTS)
+    byts, offs = comments.device_strings(dev)
+    starts, lens = E.dict_materialize_spans(codes, valid, offs)
+    pstarts, plens = E.dict_materialize_spans_plain(codes, valid, offs)
+    _same(starts, pstarts, "K23 spans 7.5M", errs, "dict_materialize_strings")
+    _same(lens, plens, "K23 lens 7.5M", errs, "dict_materialize_strings")
+    col = E.DictionaryColumn(comments.value_dtype, codes, valid, comments)
+    total = int(lens.sum())
+    rows["dict_materialize_strings"] = dict(
+        ms=cuda_ms(lambda: E.dict_materialize_spans(codes, valid, offs),
+                   iters),
+        plain_ms=cuda_ms(lambda: E.dict_materialize_spans_plain(
+            codes, valid, offs), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(5 * cap + 12 * cap),
+        ms_with_span_copy=cuda_ms(lambda: E.materialize(col), iters),
+        bound_ms_with_span_copy=bound_ms(5 * cap + 4 * cap + total + cap),
+        shape=f"{cap} lanes of l_comment codes ({total} bytes materialized)")
+    prices = E.DeviceDictionary.from_fixed_values(
+        np.arange(100, 100_000, dtype=np.int64), DataType.INT64)
+    vals = prices.device_fixed_values(dev)
+    pcodes = torch.as_tensor(rng.integers(0, prices.size, cap).astype(
+        np.int32)).to(dev)
+    got = E.dict_materialize_fixed(pcodes, valid, vals)
+    _same(got, E.dict_materialize_fixed_plain(pcodes, valid, vals),
+          "K23 fixed 7.5M", errs, "dict_materialize_fixed")
+    rows["dict_materialize_fixed"] = dict(
+        ms=cuda_ms(lambda: E.dict_materialize_fixed(pcodes, valid, vals),
+                   iters),
+        plain_ms=cuda_ms(lambda: E.dict_materialize_fixed_plain(
+            pcodes, valid, vals), plain_iters),
+        library_ms=cuda_ms(lambda: vals[pcodes], iters),
+        bound_ms=bound_ms(5 * cap + 8 * cap + 8 * prices.size),
+        shape=f"{cap} lanes through {prices.size} INT64 values")
+    remap = torch.as_tensor(rng.permutation(200).astype(np.int32)).to(dev)
+    for fill in (0, -1):
+        _same(E.remap_codes(codes, valid, remap, fill),
+              E.remap_codes_plain(codes, valid, remap, fill),
+              f"K24 fill {fill} 7.5M", errs, "remap_codes")
+    rows["remap_codes"] = dict(
+        ms=cuda_ms(lambda: E.remap_codes(codes, valid, remap, 0), iters),
+        plain_ms=cuda_ms(lambda: E.remap_codes_plain(codes, valid, remap, 0),
+                         plain_iters),
+        library_ms=cuda_ms(lambda: remap[codes], iters),
+        bound_ms=bound_ms(9 * cap + 4 * 200),
+        ms_join_fill=cuda_ms(lambda: E.remap_codes(codes, valid, remap, -1),
+                             iters),
+        shape=f"{cap} lanes, 200-entry remap")
+    key = E.code_key(col)
+    live = torch.arange(cap, device=dev) < n
+    ids, _ = H.partition_ids([key], live, 8)
+    pids, _ = H.partition_ids_plain([key], live, 8)
+    _same(ids, pids, "K4 codes 7.5M", errs, "hash_partition_codes")
+    rows["hash_partition_codes"] = dict(
+        ms=cuda_ms(lambda: H.partition_ids([key], live, 8), iters),
+        plain_ms=cuda_ms(lambda: H.partition_ids_plain([key], live, 8),
+                         plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(6 * cap + 4 * cap + 12 * 200 + 36),
+        shape=f"1 STRING code key x {cap} lanes, 8 partitions")
+    return rows
 
 
 # ----------------------------------------------------------------- main
@@ -4028,7 +4794,8 @@ def main(argv=None) -> int:
                     help="trace one warm flagship, q1, q3 and q5 query, "
                          "the two slowest of phase 6, q05 and the two "
                          "slowest of phase 7, q_percentiles and "
-                         "q_delinquency of phase 8 and the Parquet q1 "
+                         "q_delinquency of phase 8, the Parquet q1 and "
+                         "the encoded q_agg and q1 over dictionary files "
                          "each with "
                          "torch.profiler and cProfile and write their "
                          "device kernel and host function tables to DIR")
@@ -4087,7 +4854,8 @@ def main(argv=None) -> int:
     n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
         join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
         window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
-        slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs)
+        slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
+        encoded_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -4107,9 +4875,11 @@ def main(argv=None) -> int:
     results["phase5"] = run_joins(tpch_sess, raw, tables, li, launches,
                                   args.profile, wants)
     results["phase6"] = run_queries(tpch_sess, raw, tables, li, launches,
-                                    args.profile)
+                                    args.profile, wants)
     results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
                                      wants["input_rows"], launches,
+                                     args.profile)
+    results["encoded"] = run_encoded(tpch_sess, raw, wants, launches,
                                      args.profile)
     for df in tables.values():
         df.unpersist()
@@ -4170,6 +4940,12 @@ def main(argv=None) -> int:
             "last_run_scan_host_s", "last_run_rest_s", "gbps",
             "file_bytes")} if k.startswith("parquet_") else v)
             for k, v in results["parquet"].items()},
+        "encoded": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "encodedColumns", "lateMaterializations", "k23_launches",
+            "k24_launches", "k4_code_launches", "peak_device_bytes",
+            "scan_host_s", "warm_speedup_vs_off")}
+            if k.startswith("encoded_") else v)
+            for k, v in results["encoded"].items()},
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

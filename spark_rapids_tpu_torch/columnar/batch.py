@@ -27,6 +27,13 @@ that repeats no row, `rows * max_len` otherwise), so no string gather reads
 a count back from the card. Concat and compaction of string columns are K7
 gathers over the pieces laid end to end. Fixed-width compaction, concat
 and gather stay plain torch ops (B5 compaction is queued in ROADMAP.md).
+
+Encoded columns (columnar/encoded.py, a DictionaryColumn: int32 codes and
+a shared dictionary) move as fixed int32 lanes and keep their dictionary
+(`with_data`); a concat first brings each position's pieces onto one
+dictionary (`align_encoded`) or, where encoded and plain pieces meet,
+materializes the encoded ones. Uploads and downloads move codes: the sink
+decodes them on the host (reference: batch.py:623-640).
 """
 
 from __future__ import annotations
@@ -77,6 +84,11 @@ class ColumnVector:
         if self.offsets is not None:
             size += self.offsets.numel() * 4
         return size
+
+    def with_data(self, data, validity) -> "ColumnVector":
+        """A fixed-width column like this one over new lanes (an encoded
+        column keeps its dictionary)."""
+        return ColumnVector(self.dtype, data, validity)
 
     def __repr__(self):
         return f"ColumnVector({self.dtype.name}, cap={self.capacity})"
@@ -247,7 +259,12 @@ class HostColumnarBatch:
         parts = []
         max_lens = []
         for hc in self.columns:
-            if hc.dtype is DataType.STRING:
+            if getattr(hc, "dictionary", None) is not None:
+                # an encoded host column uploads its codes
+                parts.append((np.dtype(np.int32), np.where(
+                    hc.validity[:n], hc.data[:n], 0).astype(np.int32), cap))
+                max_lens.append(None)
+            elif hc.dtype is DataType.STRING:
                 offs, raw = hc.utf8()
                 offsets = np.empty(cap + 1, dtype=np.int32)
                 offsets[:n + 1] = offs[:n + 1]
@@ -268,7 +285,15 @@ class HostColumnarBatch:
         cols = []
         i = 0
         for hc, ml in zip(self.columns, max_lens):
-            if hc.dtype is DataType.STRING:
+            if getattr(hc, "dictionary", None) is not None:
+                from spark_rapids_tpu_torch.columnar.encoded import (
+                    DictionaryColumn,
+                )
+
+                cols.append(DictionaryColumn(hc.dtype, arrays[i],
+                                             arrays[i + 1], hc.dictionary))
+                i += 2
+            elif hc.dtype is DataType.STRING:
                 cols.append(ColumnVector(hc.dtype, arrays[i + 1],
                                          arrays[i + 2], arrays[i], ml))
                 i += 3
@@ -426,6 +451,16 @@ def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
             kv, ov, _ = next(seg_iter)
             data = np_host[kd][od:od + n].copy()
             valid = np_host[kv][ov:ov + n].copy()
+            d = getattr(c, "dictionary", None)
+            if d is not None:
+                # the sink: codes crossed to the host, decoded here
+                from spark_rapids_tpu_torch.columnar.encoded import (
+                    materialize_host_values,
+                )
+
+                cols.append(HostColumnVector(c.dtype, materialize_host_values(
+                    data, valid, d), valid))
+                continue
             npdt = c.dtype.to_np()
             if data.dtype != npdt:
                 data = data.astype(npdt)
@@ -685,8 +720,8 @@ def _compact_pieces(batches: Sequence[ColumnarBatch], lives, cap_out: int):
                   for b in batches]
         outs, total = _scatter_compact(pieces, lives, cap_out)
         for k, i in enumerate(fixed):
-            cols[i] = ColumnVector(batches[0].columns[i].dtype, outs[2 * k],
-                                   outs[2 * k + 1])
+            cols[i] = batches[0].columns[i].with_data(outs[2 * k],
+                                                      outs[2 * k + 1])
     for i, c in enumerate(batches[0].columns):
         if c.offsets is not None:
             cols[i] = _compact_strings([b.columns[i] for b in batches],
@@ -707,6 +742,30 @@ def ensure_compact(batch: ColumnarBatch) -> ColumnarBatch:
     return ColumnarBatch(cols, total)
 
 
+def _align_encoded_pieces(batches: Sequence[ColumnarBatch]
+                          ) -> List[ColumnarBatch]:
+    """Same-schema pieces with each encoded position on one dictionary
+    (reference: batch.py:960): all-encoded positions align through their
+    dictionaries' union, mixed ones materialize their encoded pieces."""
+    from spark_rapids_tpu_torch.columnar import encoded as E
+
+    ords = {i for b in batches for i in E.encoded_ordinals(b)}
+    if not ords:
+        return list(batches)
+    cols = [list(b.columns) for b in batches]
+    for i in sorted(ords):
+        col_i = [c[i] for c in cols]
+        if all(E.is_encoded(c) for c in col_i):
+            _, col_i = E.align_encoded(col_i)
+        else:
+            col_i = [E.materialize(c) if E.is_encoded(c) else c
+                     for c in col_i]
+        for c, new in zip(cols, col_i):
+            c[i] = new
+    return [ColumnarBatch(c, b.num_rows, live=b.live)
+            for c, b in zip(cols, batches)]
+
+
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     """Concatenate same-schema batches in order (reference: batch.py:877).
     Host counts and no masks: slices and one cat per fixed column.
@@ -715,6 +774,7 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
     assert batches, "cannot concat zero batches"
     if len(batches) == 1:
         return ensure_compact(batches[0])
+    batches = _align_encoded_pieces(batches)
     ncols = batches[0].num_columns
     if all(b.rows_on_host and b.live is None for b in batches):
         total = sum(b.num_rows for b in batches)
@@ -735,7 +795,7 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
                 data[off:off + n] = b.columns[ci].data[:n]
                 valid[off:off + n] = b.columns[ci].validity[:n]
                 off += n
-            cols.append(ColumnVector(c0.dtype, data, valid))
+            cols.append(c0.with_data(data, valid))
         return ColumnarBatch(cols, total)
     cap = bucket_capacity(sum(b.capacity for b in batches))
     cols, total = _compact_pieces(batches, [b.live_mask() for b in batches],
@@ -777,7 +837,7 @@ def gather_batch(batch: ColumnarBatch, indices, out_rows: int,
         data = torch.where(valid, c.data[safe],
                            torch.zeros((), dtype=c.data.dtype,
                                        device=c.data.device))
-        cols.append(ColumnVector(c.dtype, data, valid))
+        cols.append(c.with_data(data, valid))
     return ColumnarBatch(cols, out_rows)
 
 
@@ -795,6 +855,6 @@ def compact_batch(batch: ColumnarBatch, keep_mask, sync: bool) -> ColumnarBatch:
     cols = [ColumnVector(c.dtype, c.data.clone(), c.validity[:cap].clone(),
                          c.offsets[:cap + 1].clone(), c.max_len)
             if c.offsets is not None else
-            ColumnVector(c.dtype, c.data[:cap].clone(),
-                         c.validity[:cap].clone()) for c in out.columns]
+            c.with_data(c.data[:cap].clone(), c.validity[:cap].clone())
+            for c in out.columns]
     return ColumnarBatch(cols, n)

@@ -1155,37 +1155,32 @@ MICRO_BATCH_MAX_QUERIES = _conf(
 # docs/compressed-execution.md)
 # ---------------------------------------------------------------------------
 ENCODED_ENABLED = _conf("rapids.tpu.sql.encoded.enabled").doc(
-    "Keep dictionary-encoded parquet STRING columns ENCODED in HBM as "
-    "int32 codes plus one shared device dictionary, and compute on the "
-    "codes: equality/IN/IS NULL filters rewrite their literals into code "
-    "space once per dictionary, hash aggregates group directly on codes "
-    "(the dictionary is gathered only at finalize/sink), hash joins on "
-    "dictionary keys align the two sides through a build-time code-remap "
-    "table, and the serialized shuffle ships codes + one dictionary copy "
-    "per piece instead of expanded strings. Every other consumer decodes "
-    "at its operator boundary through the explicit materialize() path "
-    "(metrics: encodedColumns / lateMaterializations / "
-    "encodedBytesSaved)."
+    "Keep dictionary-encoded Parquet chunks ENCODED on the device as int32 "
+    "codes plus one shared, content-interned dictionary (a "
+    "DictionaryColumn, columnar/encoded.py), and compute on the codes: "
+    "equality / IN / IS NULL filters rewrite their literals into codes and "
+    "comparisons into rank thresholds, group-bys group on codes and reduce "
+    "min / max over ranks, joins on dictionary keys remap the stream side's "
+    "codes into the build dictionary, hash exchanges hash codes through "
+    "the dictionary's word table, and sorts and range bounds run in rank "
+    "space. Every other consumer decodes at its operator boundary through "
+    "materialize(); the sink decodes codes on the host. Off: the device "
+    "scan emits no encoded column. The CPU engine never encodes."
 ).boolean(True)
 
 ENCODED_MAX_DICT_FRACTION = _conf("rapids.tpu.sql.encoded.maxDictFraction").doc(
-    "Per-column opt-in heuristic for encoded scan output: a "
-    "dictionary-encoded column chunk stays encoded only when its "
-    "dictionary size / row count is at or below this fraction (a "
-    "near-unique column gains nothing from codes and would pay the "
-    "dictionary residency twice)."
+    "A dictionary chunk stays encoded only when its dictionary size / row "
+    "count is at or below this fraction (a near-unique column gains "
+    "nothing from codes and would keep the dictionary on the device "
+    "besides); other chunks decode to plain columns in the scan."
 ).check(lambda v: None if 0.0 < v <= 1.0 else "must be in (0,1]").double(0.5)
 
 ENCODED_FIXED_DICTIONARIES = _conf(
     "rapids.tpu.sql.encoded.fixedDictionaries.enabled").doc(
-    "Admit INT64 / DATE / TIMESTAMP dictionary-encoded parquet chunks as "
-    "ENCODED columns under the same maxDictFraction eligibility as "
-    "strings: codes stay int32 in HBM with a shared fixed-value "
-    "dictionary, group-bys run on codes, sorts / range bounds / min-max "
-    "and comparison predicates run in rank space through the "
-    "order-preserving sorted dictionary, and materialize() is one "
-    "value-table gather. Off limits encoded emission to STRING columns "
-    "(the original string-only behavior)."
+    "Admit INT64 / DATE / TIMESTAMP dictionary chunks as encoded columns "
+    "under the same maxDictFraction test as STRING chunks (a fixed-value "
+    "dictionary; materialize() is one value-table gather). Off: only "
+    "STRING chunks stay encoded."
 ).boolean(True)
 
 RUN_AWARE_ENABLED = _conf("rapids.tpu.sql.runAware.enabled").doc(
@@ -1197,7 +1192,8 @@ RUN_AWARE_ENABLED = _conf("rapids.tpu.sql.runAware.enabled").doc(
     "evaluate one predicate per run, integral sums become value x "
     "run_length, counts become sums of run lengths — before the "
     "ordinary update kernel runs. Falls back to row space whenever any "
-    "eligibility condition fails (metric: runCollapsedRows)."
+    "eligibility condition fails (metric: runCollapsedRows). The port "
+    "reads this key nowhere yet: run tables are queued (ROADMAP.md)."
 ).boolean(True)
 
 RUN_AWARE_MAX_RUN_FRACTION = _conf(

@@ -14,6 +14,15 @@
 // last). Bit-identical to the reference, which co-partitions host and
 // device plans on it.
 //
+// Code mode (kind 8) replaces shuffle/exchange.py:_hash_ids_encoded (:1181)
+// and _build_hash_ids_enc (:1222): the column holds int32 codes into a
+// dictionary, and the row's words come from the dictionary's table,
+// gathered by the code clipped into range: int32 values (a DATE
+// dictionary; one word), int64 values (INT64 / TIMESTAMP; two words) or a
+// STRING dictionary's K5 words [3][table_n]. The words are those of the
+// expanded value, so an encoded key lands in the same partition as the
+// same value in a plain column or under another dictionary.
+//
 // Route half: a stable scatter of row indices into `order`, grouped by id,
 // with the per-id counts — the shared stable radix pass over the ids, one
 // pass per 8 bits of the largest id (one below 256 buckets, two below
@@ -35,8 +44,12 @@ struct SrtHashCol {
   const void* data;
   const uint8_t* valid;
   int32_t kind;  // 0 bool, 1 int8, 2 int16, 3 int32, 4 int64, 5 f32, 6 f64,
-                 // 7 uint32 words [3][n] (a string's K5 words)
-  int32_t pad;
+                 // 7 uint32 words [3][n] (a string's K5 words),
+                 // 8 int32 codes into `table`
+  int32_t table_kind;  // code mode: 3 int32 values, 4 int64 values,
+                       // 7 uint32 words [3][table_n]
+  const void* table;
+  long long table_n;
 };
 
 namespace srt {
@@ -125,6 +138,28 @@ __global__ void hash_ids_kernel(HashCols cols, long long n,
             w1 = w[n + i];
             w2 = w[2 * n + i];
             nw = 3;
+            break;
+          }
+          case 8: {
+            if (c.table_n <= 0) break;
+            const int32_t code = static_cast<const int32_t*>(c.data)[i];
+            const long long t =
+                code < 0 ? 0 : (code >= c.table_n ? c.table_n - 1 : code);
+            if (c.table_kind == 3) {
+              w0 = (uint32_t)static_cast<const int32_t*>(c.table)[t];
+            } else if (c.table_kind == 4) {
+              const unsigned long long x = (unsigned long long)
+                  static_cast<const long long*>(c.table)[t];
+              w0 = (uint32_t)(x & 0xFFFFFFFFull);
+              w1 = (uint32_t)(x >> 32);
+              nw = 2;
+            } else {
+              const uint32_t* w = static_cast<const uint32_t*>(c.table);
+              w0 = w[t];
+              w1 = w[c.table_n + t];
+              w2 = w[2 * c.table_n + t];
+              nw = 3;
+            }
             break;
           }
           default:

@@ -107,7 +107,7 @@ struct DecodeArgs {
   const int32_t* def;        // null: a required column
   const uint32_t* slots;     // exclusive scan of the flags (with def)
   long long num_rows, cap;
-  int dict_mode;
+  int dict_mode;  // 0 PLAIN pages, 1 through the dictionary, 2 codes
   const int32_t* idx;
   long long n_idx;
   const uint8_t* dict;
@@ -129,7 +129,10 @@ __global__ void decode_fixed_kernel(DecodeArgs a) {
     unsigned long long v = 0;
     if (ok) {
       const long long slot = a.def == nullptr ? j : (long long)a.slots[j];
-      if (a.dict_mode) {
+      if (a.dict_mode == 2) {
+        if (a.n_idx > 0)
+          v = (uint32_t)a.idx[slot < a.n_idx ? slot : a.n_idx - 1];
+      } else if (a.dict_mode) {
         if (a.n_idx > 0 && a.n_dict > 0) {
           long long ix = a.idx[slot < a.n_idx ? slot : a.n_idx - 1];
           ix = ix < 0 ? 0 : (ix >= a.n_dict ? a.n_dict - 1 : ix);
@@ -199,8 +202,9 @@ SRT_API size_t srt_page_decode_scratch_bytes(long long cap) {
 }
 
 // def: int32 [cap] definition levels (K20's output) or null for a required
-// column. Dictionary mode: idx int32 [n_idx] dense dictionary indices,
-// dict: n_dict values of in_w bytes. PLAIN mode: src uint8 [n_src], the
+// column. Dictionary mode (1): idx int32 [n_idx] dense dictionary indices,
+// dict: n_dict values of in_w bytes. Codes mode (2): idx only, written as
+// they are (in_w = out_w = 4). PLAIN mode: src uint8 [n_src], the
 // page table dense_end / byte_pos int64 [n_pages] (a page's dense values
 // end at dense_end and start at byte_pos of src). out: uint8 [cap * out_w];
 // out_valid: bool [cap].
@@ -213,7 +217,9 @@ SRT_API int srt_page_decode_fixed(
     size_t scratch_bytes, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (cap <= 0) return 0;
-  if (in_w < 1 || in_w > 8 || out_w < 1 || out_w > 8 || cap >= 0xFFFFFFFFLL)
+  if (in_w < 1 || in_w > 8 || out_w < 1 || out_w > 8 || cap >= 0xFFFFFFFFLL ||
+      dict_mode < 0 || dict_mode > 2 ||
+      (dict_mode == 2 && (in_w != 4 || out_w != 4)))
     return fail(cudaErrorInvalidValue, "arguments");
   DecodeArgs a{def, nullptr, num_rows, cap, dict_mode, idx, n_idx, dict,
                n_dict, src, n_src, dense_end, byte_pos, n_pages, in_w, out_w,

@@ -34,7 +34,7 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "hash_join", "string_search", "substring", "window_segments",
            "window_rank_offset", "window_frame_agg", "string_chars",
            "explode", "segment_percentile", "parquet_decode",
-           "parquet_encode")
+           "parquet_encode", "dict_encoded")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -278,6 +278,17 @@ _SIGNATURES = {
             _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong,
             _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
             ctypes.c_size_t, _VOIDP]),
+    },
+    "dict_encoded": {
+        "srt_dict_materialize_fixed": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            ctypes.c_int, _VOIDP, _VOIDP]),
+        "srt_dict_materialize_spans": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            _VOIDP, _VOIDP, _VOIDP]),
+        "srt_remap_codes": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            ctypes.c_int, _VOIDP, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

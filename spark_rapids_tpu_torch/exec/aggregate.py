@@ -30,8 +30,20 @@ final projection, no merge), which takes each partition as a single batch
 K19 reductions, several fractions of one input sharing one sort. The
 update evaluates each distinct input expression once.
 
-Left out so far (ROADMAP.md): encoded (dictionary) columns, run-aware
-collapse, buffer donation, the retry combinators, string min/max.
+Slice 8 adds encoded (dictionary) columns (reference :493-820,
+columnar/encoded.py): the update plans each batch's dictionaries
+(`plan_agg_update`): a bare encoded grouping key groups on its codes, a
+bare min / max input reduces the ranks of its sorted dictionary, filters
+and inputs that only test an encoded column against literals run on codes,
+and every other use decodes the column first. Code-valued outputs (keys,
+min / max buffers) leave as encoded columns, so the exchange and the merge
+move codes (the merge re-encodes min / max buffers to rank space after a
+concat has unioned their dictionaries) and the value is gathered at the
+sink. min / max over a plain STRING input reduce the dense ranks of its
+values (K6 order words, K1, K2), then K7 gathers each group's winner.
+
+Left out so far (ROADMAP.md): run-aware collapse, buffer donation, the
+retry combinators.
 """
 
 from __future__ import annotations
@@ -53,6 +65,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     gather_batch,
     gather_string_col,
 )
+from spark_rapids_tpu_torch.columnar import encoded as E
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
@@ -73,7 +86,6 @@ from spark_rapids_tpu_torch.ops.base import (
 from spark_rapids_tpu_torch.ops.bind import bind_all
 from spark_rapids_tpu_torch.ops.eval import (
     DeviceProjector,
-    col_to_colv,
     cpu_project,
     eval_as_col,
     keep_mask_from_result,
@@ -276,7 +288,8 @@ def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
         key = e.fingerprint() if e.deterministic else i
         if key not in inputs:
             cv = eval_as_col(ctx, e)
-            inputs[key] = (cv.data, cv.validity & live)
+            inputs[key] = (cv if cv.offsets is not None else cv.data,
+                           cv.validity & live)
         in_of.append(key)
         if op.startswith("pct:"):
             pct.setdefault(key, []).append(i)
@@ -284,10 +297,8 @@ def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
             rest.append(i)
     gi = _group_info(key_cols, live, capacity)
     bufs: List[Any] = [None] * len(op_names)
-    got = RK.segment_reduce_many(
-        [(op_names[i], *inputs[in_of[i]]) for i in rest], gi, capacity)
-    for i, r in zip(rest, got):
-        bufs[i] = r
+    _reduce_into(bufs, [(i, op_names[i], *inputs[in_of[i]]) for i in rest],
+                 gi, capacity)
     for key, idxs in pct.items():
         got = RK.segment_percentile(*inputs[key], gi.gid, capacity,
                                     [float(op_names[i][4:]) for i in idxs])
@@ -301,10 +312,45 @@ def _merge(cols, num_rows, capacity, device, n_keys, op_names):
     key_cols = cols[:n_keys]
     live = ctx.row_mask()
     gi = _group_info(key_cols, live, capacity)
-    bufs = RK.segment_reduce_many(
-        [(op, cv.data, cv.validity & live)
-         for op, cv in zip(op_names, cols[n_keys:])], gi, capacity)
+    bufs: List[Any] = [None] * len(op_names)
+    _reduce_into(bufs, [(i, op, cv, cv.validity & live) for i, (op, cv) in
+                        enumerate(zip(op_names, cols[n_keys:]))], gi,
+                 capacity)
     return key_cols, bufs, gi
+
+
+def _reduce_into(bufs, specs, gi: RK.GroupInfo, capacity: int) -> None:
+    """bufs[i] = the reduction of each (i, op, data or ColV, validity):
+    K3 for all but min / max over a STRING column, which reduce ranks."""
+    plain = []
+    for i, op, data, valid in specs:
+        if isinstance(data, ColV) and data.offsets is not None:
+            bufs[i] = _string_minmax(op, data, valid, gi, capacity)
+        else:
+            plain.append((i, op, data.data if isinstance(data, ColV)
+                          else data, valid))
+    got = RK.segment_reduce_many([(op, d, v) for _, op, d, v in plain], gi,
+                                 capacity)
+    for (i, _, _, _), r in zip(plain, got):
+        bufs[i] = r
+
+
+def _string_minmax(op: str, cv: ColV, valid, gi: RK.GroupInfo,
+                   capacity: int) -> ColumnVector:
+    """min / max of a STRING column per group, as a string column whose
+    lane g holds group g's result: the valid rows' dense ranks in byte
+    order (K6 order words, K1, K2), K3's min / max of the ranks, then K7
+    gathers the row that represents each winning rank."""
+    if op not in ("min", "max"):
+        raise NotImplementedError(f"device {op} over a STRING column")
+    ranks = RK.group_ids_masked([RK.string_order_proxy(cv)], valid,
+                                capacity)
+    win, win_valid = RK.segment_reduce_many([(op, ranks.gid, valid)], gi,
+                                            capacity)[0]
+    rows = ranks.rep_rows[win.long().clamp(0, capacity - 1)]
+    src = ColumnVector(DataType.STRING, cv.data, cv.validity, cv.offsets,
+                       cv.max_len)
+    return gather_string_col(src, rows, capacity, win_valid)
 
 
 def _storage(data, dt: DataType):
@@ -312,21 +358,48 @@ def _storage(data, dt: DataType):
     return data if data.dtype == want else data.to(want)
 
 
-def _key_column(cv: ColV, dt: DataType) -> ColumnVector:
+def _key_column(cv: ColV, dt: DataType, d=None) -> ColumnVector:
+    """An evaluated key as a column; codes under dictionary `d` stay
+    encoded."""
+    if d is not None:
+        return E.DictionaryColumn(d.value_dtype, cv.data, cv.validity, d)
     if cv.offsets is not None:
         return ColumnVector(dt, cv.data, cv.validity, cv.offsets, cv.max_len)
     return ColumnVector(dt, _storage(cv.data, dt), cv.validity)
 
 
-def _assemble_traced(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
+def _buffer_column(buf, attr, d, n_lanes: int, slot) -> ColumnVector:
+    """A reduced buffer's first n_lanes group slots as a column, NULL past
+    the groups; ranks under dictionary `d` stay encoded, a string buffer
+    (min / max of a plain STRING) narrows its offsets."""
+    if isinstance(buf, ColumnVector):
+        offsets = buf.offsets[:n_lanes + 1]
+        return ColumnVector(DataType.STRING, buf.data,
+                            buf.validity[:n_lanes] & slot, offsets,
+                            buf.max_len)
+    data, valid = buf
+    v = valid[:n_lanes] & slot
+    d_ = data[:n_lanes]
+    if d is None:
+        d_ = _storage(d_, attr.data_type)
+    d_ = torch.where(v, d_, torch.zeros((), dtype=d_.dtype,
+                                        device=d_.device))
+    if d is not None:
+        return E.DictionaryColumn(d.value_dtype, d_, v, d)
+    return ColumnVector(attr.data_type, d_, v)
+
+
+def _assemble_traced(key_cols, bufs, gi, capacity: int, attrs,
+                     dicts) -> ColumnarBatch:
     """Group slots at the input capacity with the count left on the card
     (reference: aggregate.py:894); string keys are K7 gathers at the
-    representative rows."""
+    representative rows. dicts: output position -> dictionary of a
+    code-valued column."""
     dev = gi.order.device
     slot = torch.arange(capacity, device=dev) < gi.num_groups
     rep = gi.rep_rows.long()
     cols = []
-    for cv, attr in zip(key_cols, attrs):
+    for k, (cv, attr) in enumerate(zip(key_cols, attrs)):
         if cv.offsets is not None:
             cols.append(gather_string_col(_key_column(cv, attr.data_type),
                                           gi.rep_rows, capacity, slot,
@@ -335,18 +408,17 @@ def _assemble_traced(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
         valid = slot & cv.validity[rep]
         data = torch.where(valid, cv.data[rep], torch.zeros(
             (), dtype=cv.data.dtype, device=dev))
-        cols.append(ColumnVector(attr.data_type, _storage(data,
-                                                          attr.data_type),
-                                 valid))
-    for (data, valid), attr in zip(bufs, attrs[len(key_cols):]):
-        v = valid & slot
-        d = _storage(data, attr.data_type)
-        d = torch.where(v, d, torch.zeros((), dtype=d.dtype, device=dev))
-        cols.append(ColumnVector(attr.data_type, d, v))
+        cols.append(_key_column(ColV(attr.data_type, data, valid),
+                                attr.data_type, dicts.get(k)))
+    n_keys = len(key_cols)
+    for j, (buf, attr) in enumerate(zip(bufs, attrs[n_keys:])):
+        cols.append(_buffer_column(buf, attr, dicts.get(n_keys + j),
+                                   capacity, slot))
     return ColumnarBatch(cols, gi.num_groups)
 
 
-def _assemble(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
+def _assemble(key_cols, bufs, gi, capacity: int, attrs,
+              dicts) -> ColumnarBatch:
     """Compacted group slots (reference: aggregate.py:424 with
     _finalize_kernel :870)."""
     # host sync: the group count sizes the assembled batch (the reference's
@@ -354,18 +426,17 @@ def _assemble(key_cols, bufs, gi, capacity: int, attrs) -> ColumnarBatch:
     n_groups = int(gi.num_groups.item())
     n_keys = len(key_cols)
     key_batch = ColumnarBatch(
-        [_key_column(cv, a.data_type)
-         for cv, a in zip(key_cols, attrs[:n_keys])], capacity)
+        [_key_column(cv, a.data_type, dicts.get(k))
+         for k, (cv, a) in enumerate(zip(key_cols, attrs[:n_keys]))],
+        capacity)
     cols = list(gather_batch(key_batch, gi.rep_rows, n_groups,
                              unique_indices=True).columns)
     out_cap = bucket_capacity(max(n_groups, 1))
     dev = gi.order.device
     slot = torch.arange(out_cap, device=dev) < n_groups
-    for (data, valid), attr in zip(bufs, attrs[n_keys:]):
-        d = _storage(data[:out_cap], attr.data_type)
-        v = valid[:out_cap] & slot
-        d = torch.where(v, d, torch.zeros((), dtype=d.dtype, device=dev))
-        cols.append(ColumnVector(attr.data_type, d, v))
+    for j, (buf, attr) in enumerate(zip(bufs, attrs[n_keys:])):
+        cols.append(_buffer_column(buf, attr, dicts.get(n_keys + j),
+                                   out_cap, slot))
     return ColumnarBatch(cols, n_groups)
 
 
@@ -424,18 +495,49 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
         inter_width = sum(_row_width(a.data_type) + 1 for a in attrs)
         lazy_policy = ctx.conf.get(C.AGG_COMPACT_SYNC) == "never"
 
-        def assemble(out, capacity: int, allow_lazy: bool) -> ColumnarBatch:
+        def assemble(out, capacity: int, allow_lazy: bool,
+                     dicts) -> ColumnarBatch:
             k, b, gi = out
             if allow_lazy and lazy_policy and \
                     capacity * inter_width <= LAZY_PIECE_CAP_BYTES:
-                return _assemble_traced(k, b, gi, capacity, attrs)
-            return _assemble(k, b, gi, capacity, attrs)
+                return _assemble_traced(k, b, gi, capacity, attrs, dicts)
+            return _assemble(k, b, gi, capacity, attrs, dicts)
+
+        minmax_bufs = [n_keys + j for j, op in enumerate(merge_ops)
+                       if op in ("min", "max")]
 
         def merge(batch: ColumnarBatch) -> ColumnarBatch:
-            cols = [col_to_colv(c) for c in batch.columns]
-            out = _merge(cols, batch.num_rows, batch.capacity, device,
-                         n_keys, merge_ops)
-            return assemble(out, batch.capacity, True)
+            # encoded keys merge on their codes; min / max buffers on the
+            # ranks of their (possibly unioned) dictionary
+            batch = E.batch_to_rank_space(batch, minmax_bufs)
+            enc = E.encoded_ordinals(batch)
+            out = _merge(E.eval_columns(batch, enc), batch.num_rows,
+                         batch.capacity, device, n_keys, merge_ops)
+            return assemble(out, batch.capacity, True, {
+                i: batch.columns[i].dictionary for i in enc})
+
+        plans: Dict[tuple, Any] = {}
+
+        def update(batch: ColumnarBatch) -> ColumnarBatch:
+            sig = E.enc_sig(batch)
+            keys, inputs, filters = bound_keys, bound_inputs, bound_filters
+            dicts: Dict[int, Any] = {}
+            code_ords = ()
+            if sig:
+                plan = plans.get(sig)
+                if plan is None:
+                    if len(plans) >= 64:
+                        plans.clear()
+                    plan = plans[sig] = E.plan_agg_update(
+                        batch, bound_keys, bound_inputs, bound_filters,
+                        op_names)
+                batch = plan.prepare(batch)
+                keys, inputs, filters = plan.keys, plan.inputs, plan.filters
+                dicts, code_ords = plan.out_dicts, plan.code_ords
+            out = _update(E.eval_columns(batch, code_ords), batch.num_rows,
+                          batch.capacity, device, keys, inputs, filters,
+                          op_names)
+            return assemble(out, batch.capacity, True, dicts)
 
         def agg_partition(pidx: int):
             running: Optional[ColumnarBatch] = None
@@ -444,11 +546,7 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
                     continue
                 batch = ensure_compact(batch)
                 if do_update:
-                    cols = [col_to_colv(c) for c in batch.columns]
-                    out = _update(cols, batch.num_rows, batch.capacity,
-                                  device, bound_keys, bound_inputs,
-                                  bound_filters, op_names)
-                    local = assemble(out, batch.capacity, True)
+                    local = update(batch)
                     running = local if running is None else \
                         merge(concat_batches([running, local]))
                 else:

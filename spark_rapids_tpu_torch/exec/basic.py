@@ -262,7 +262,7 @@ def slice_head(b: ColumnarBatch, n: int) -> ColumnarBatch:
         else:
             data = c.data[:cap].clone()
             data[n:] = 0
-            cols.append(ColumnVector(c.dtype, data, validity))
+            cols.append(c.with_data(data, validity))
     return ColumnarBatch(cols, n)
 
 

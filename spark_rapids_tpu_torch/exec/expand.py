@@ -34,6 +34,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     gather_string_col,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
+from spark_rapids_tpu_torch.columnar.encoded import decode_batch
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
     ExecContext,
@@ -262,7 +263,8 @@ class TpuGenerateExec(_GenerateBase, TpuExec):
 
         def factory(pidx: int) -> Iterator[ColumnarBatch]:
             for batch in child_pb.iterator(pidx):
-                batch = ensure_compact(batch)
+                # the explode copies values: encoded columns decode here
+                batch = decode_batch(ensure_compact(batch))
                 # host sync: the row count sizes the output (reference
                 # :216, batch.host_rows())
                 n = batch.host_rows()

@@ -37,10 +37,21 @@ over the union of both sides, a stable argsort of the build side by group,
 counts, a cumsum and the expansion. Both give the same offsets, stream and
 build indices and build-matched flags, bit for bit.
 
+Dictionary-key joins (slice 8; reference :328-427, columnar/encoded.py): a
+key position whose build and stream keys are both bare encoded columns
+compares int32 codes: the build side keeps its codes, each stream batch's
+codes remap into the build dictionary through K24 with fill -1, so a
+value the build side lacks matches nothing. A position encoded on one side
+only, or a key expression over an encoded column, compares values (the
+column decodes for the key alone). A build side keeps one K9 table per
+mix of code and value positions its stream batches need; a FULL OUTER
+join compares values everywhere, so its one table tracks the matched
+build rows. Pass-through encoded columns stay encoded in the emit.
+
 Per stream batch there is one host sync, the read of the output row count
 (reference :457), which sizes the gathers; the reference's depth-1
 pipeline (:483-520) is not kept: the count is read right after the probe.
-Waiting for later queue items: the encoded-key branch (:383-446), retries
+Waiting for later queue items: retries
 (`with_retry`), the serialized broadcast (:783-792), the coordinated
 adaptive coalescing of both inputs (`coalesce_join_inputs` :681; the port
 reads adaptive coalescing as off, so a shuffled join takes its inputs as
@@ -60,6 +71,7 @@ import torch
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch import cuda_build as CB
+from spark_rapids_tpu_torch.columnar import encoded as E
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
     ColumnVector,
@@ -86,11 +98,11 @@ from spark_rapids_tpu_torch.ops.base import AttributeReference, Expression
 from spark_rapids_tpu_torch.ops.bind import bind_all, bind_references
 from spark_rapids_tpu_torch.ops.eval import (
     DeviceFilter,
+    col_to_colv,
     cpu_filter,
     cpu_project,
-    device_eval_context,
-    eval_as_col,
 )
+from spark_rapids_tpu_torch.ops.values import ColV
 from spark_rapids_tpu_torch.plan.logical import JoinType, join_output
 
 RUNTIME_BROADCASTS = "runtimeBroadcastJoins"
@@ -382,28 +394,86 @@ def join_expand(probe: JoinProbe, out_cap: int):
 # ===========================================================================
 # device join execution
 # ===========================================================================
+def _codes_colv(cv) -> ColV:
+    return ColV(DataType.INT32, cv.data, cv.validity)
+
+
+def _value_colv(c) -> ColV:
+    return col_to_colv(E.materialize(c)) if E.is_encoded(c) else c
+
+
+class BuildSide:
+    """A build batch with its key columns (encoded, or evaluated ColVs)
+    and its K9 tables, one per mix of code / value key positions."""
+
+    __slots__ = ("batch", "keys", "values_only", "tables", "_values")
+
+    def __init__(self, batch: ColumnarBatch, keys, values_only: bool):
+        self.batch = batch
+        self.keys = keys
+        self.values_only = values_only
+        self.tables = {}
+        self._values = {}
+
+    def codes_at(self, k: int) -> bool:
+        return not self.values_only and E.is_encoded(self.keys[k])
+
+    def table(self, mode) -> JoinTable:
+        got = self.tables.get(mode)
+        if got is None:
+            cols = []
+            for k, (c, code) in enumerate(zip(self.keys, mode)):
+                if code:
+                    cols.append(_codes_colv(c))
+                    continue
+                if k not in self._values:
+                    self._values[k] = _value_colv(c)
+                cols.append(self._values[k])
+            got = self.tables[mode] = join_build(
+                *join_words(cols, self.batch.live_mask()))
+        return got
+
+    def matched(self):
+        """bool [b_cap]: build rows some probe so far matched."""
+        out = None
+        for t in self.tables.values():
+            m = build_matched(t)
+            out = m if out is None else out | m
+        return out if out is not None else \
+            torch.zeros_like(self.batch.live_mask())
+
+
 class _DeviceJoiner:
     """Bound key expressions of both sides: builds a side's table (K9) and
     probes stream batches against it (K10)."""
 
     def __init__(self, stream_keys, build_keys, stream_attrs, build_attrs,
-                 mode: str):
+                 mode: str, values_only: bool = False):
         self.bound_stream = bind_all(stream_keys, stream_attrs)
         self.bound_build = bind_all(build_keys, build_attrs)
         self.mode = mode
+        self.values_only = values_only
 
-    @staticmethod
-    def _words(batch: ColumnarBatch, bound):
-        ctx = device_eval_context(batch)
-        return join_words([eval_as_col(ctx, e) for e in bound],
-                          batch.live_mask())
+    def build(self, build: ColumnarBatch) -> BuildSide:
+        side = BuildSide(build, E.key_columns(build, self.bound_build),
+                         self.values_only)
+        # the table of the common case, every encoded build key in codes
+        side.table(tuple(side.codes_at(k) for k in range(len(side.keys))))
+        return side
 
-    def build(self, build: ColumnarBatch) -> JoinTable:
-        return join_build(*self._words(build, self.bound_build))
-
-    def probe(self, stream: ColumnarBatch, table: JoinTable) -> JoinProbe:
-        words, ok = self._words(stream, self.bound_stream)
-        return join_probe(table, words, stream.live_mask(), ok, self.mode)
+    def probe(self, stream: ColumnarBatch, side: BuildSide) -> JoinProbe:
+        cols, mode = [], []
+        for k, c in enumerate(E.key_columns(stream, self.bound_stream)):
+            code = side.codes_at(k) and E.is_encoded(c)
+            mode.append(code)
+            if code:
+                cols.append(ColV(DataType.INT32, E.remapped_join_codes(
+                    c, side.keys[k].dictionary), c.validity))
+            else:
+                cols.append(_value_colv(c))
+        words, ok = join_words(cols, stream.live_mask())
+        return join_probe(side.table(tuple(mode)), words,
+                          stream.live_mask(), ok, self.mode)
 
 
 class _TpuJoinMixin:
@@ -413,12 +483,13 @@ class _TpuJoinMixin:
     def _joiner(self) -> _DeviceJoiner:
         s, b, s_keys, b_keys = self._sides()
         return _DeviceJoiner(s_keys, b_keys, self.children[s].output,
-                             self.children[b].output, self._stream_mode)
+                             self.children[b].output, self._stream_mode,
+                             self.join_type is JoinType.FULL_OUTER)
 
     def _join_stream(self, stream_iter: Iterator, build: ColumnarBatch,
                      emit_build_tail: bool,
                      joiner: Optional[_DeviceJoiner] = None,
-                     table: Optional[JoinTable] = None) -> Iterator:
+                     table: Optional[BuildSide] = None) -> Iterator:
         build_left = self.build_left
         mode = self._stream_mode
         if joiner is None:
@@ -454,7 +525,7 @@ class _TpuJoinMixin:
         if emit_build_tail and build.host_rows() > 0:
             # full outer: the unmatched build rows with NULL stream columns
             # (host sync once per partition, at the end of the stream)
-            unmatched = ~build_matched(table) & build.live_mask()
+            unmatched = ~table.matched() & build.live_mask()
             rows = torch.nonzero(unmatched).flatten()
             n_out = int(rows.shape[0])
             if n_out == 0:

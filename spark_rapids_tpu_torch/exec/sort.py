@@ -9,7 +9,11 @@ kernel of the reference's `_build_kernel` (:89) becomes: key proxies
 FIRST flags flipped), the stable radix sort K1, and a gather of the batch
 through the permutation (fixed columns as torch gathers, strings through
 K7). Computed string sort keys stay on the CPU engine (plan/overrides.py).
-The encoded-dictionary branches and buffer donation wait (ROADMAP.md).
+
+A bare encoded sort key sorts in rank space (reference :76-216): K24
+re-encodes it to its sorted dictionary, and K1 sorts the int32 ranks;
+non-key encoded columns ride the permutation as codes. Buffer donation
+waits (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,11 +22,13 @@ from typing import List
 
 import numpy as np
 
+from spark_rapids_tpu_torch.columnar import encoded as E
 from spark_rapids_tpu_torch.columnar.batch import (
     HostColumnarBatch,
     HostColumnVector,
     gather_batch,
 )
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -35,11 +41,8 @@ from spark_rapids_tpu_torch.exec.base import (
 from spark_rapids_tpu_torch.exec.transitions import RequireSingleBatch
 from spark_rapids_tpu_torch.ops.base import AttributeReference, SortOrder
 from spark_rapids_tpu_torch.ops.bind import bind_sort_orders
-from spark_rapids_tpu_torch.ops.eval import (
-    cpu_project,
-    device_eval_context,
-    eval_as_col,
-)
+from spark_rapids_tpu_torch.ops.eval import cpu_project
+from spark_rapids_tpu_torch.ops.values import ColV
 
 
 class _SortBase(PhysicalExec):
@@ -69,10 +72,11 @@ class _SortBase(PhysicalExec):
 def sort_batch_permutation(batch, bound_orders):
     """int32 [capacity] permutation sorting a device batch by bound sort
     orders (the reference's `_build_kernel` body)."""
-    ctx = device_eval_context(batch)
     proxies = []
-    for o in bound_orders:
-        col = eval_as_col(ctx, o.child)
+    for col in E.key_columns(batch, [o.child for o in bound_orders]):
+        if E.is_encoded(col):
+            col = E.to_rank_space(col)
+            col = ColV(DataType.INT32, col.data, col.validity)
         proxies.append(RK.string_order_proxy(col) if col.is_string
                        else RK.key_proxy(col))
     directions = [(o.ascending, o.nulls_first) for o in bound_orders]

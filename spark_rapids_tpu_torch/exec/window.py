@@ -56,6 +56,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ensure_compact,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
+from spark_rapids_tpu_torch.columnar.encoded import decode_batch
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -779,7 +780,9 @@ class TpuWindowExec(_WindowBase, TpuExec):
                 n = batch.host_rows()
                 if n == 0:
                     continue
-                batch = ensure_compact(batch)
+                # the window's rank-space plan is queued: encoded columns
+                # decode at this boundary
+                batch = decode_batch(ensure_compact(batch))
                 outs = window_columns(batch, bound_part, bound_orders,
                                       wexprs, inputs)
                 yield ColumnarBatch(list(batch.columns) + outs, n)

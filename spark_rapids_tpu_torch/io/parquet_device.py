@@ -22,6 +22,14 @@ decimals, ZSTD / LZ4 / BROTLI chunks and a chunk that mixes dictionary and
 PLAIN pages raise an error that names them (ROADMAP.md); nothing is
 decoded elsewhere instead.
 
+Encoded emission (reference :1010-1030 fixed, :1409-1430 strings): a
+dictionary chunk of a STRING, INT64, DATE or TIMESTAMP column whose ndv /
+rows clears rapids.tpu.sql.encoded.maxDictFraction leaves the scan as a
+DictionaryColumn (columnar/encoded.py). The host part interns the
+dictionary from the dictionary page it parses; the device part runs K20
+over the indices and K21 in codes mode, which spreads them onto their
+rows as int32 codes, with no dictionary gather.
+
 Every kernel wrapper takes its plain PyTorch version for CPU tensors (the
 tests and the port's CPU scan) and launches its kernel for CUDA tensors.
 """
@@ -388,6 +396,51 @@ def page_decode_fixed(def_levels: Optional[torch.Tensor], num_rows: int,
     return data, valid
 
 
+def page_decode_codes_plain(def_levels: Optional[torch.Tensor],
+                            num_rows: int, cap: int,
+                            idx: torch.Tensor) -> torch.Tensor:
+    """int32 codes [cap]: K21's plain spread over a one-page source of the
+    dense indices."""
+    idx = idx.to(torch.int32).contiguous()
+    dev = idx.device
+    source = PlainSource(idx.view(torch.uint8),
+                         torch.tensor([idx.shape[0]], dtype=torch.int64,
+                                      device=dev),
+                         torch.zeros(1, dtype=torch.int64, device=dev))
+    return page_decode_fixed_plain(def_levels, num_rows, cap, source, 4,
+                                   torch.int32, False)[0]
+
+
+def page_decode_codes(def_levels: Optional[torch.Tensor], num_rows: int,
+                      cap: int, idx: torch.Tensor) -> torch.Tensor:
+    """K21's codes mode (replaces _flat_dict_codes_kernel :824 with
+    _flat_finish :892): dense dictionary indices int32 [present] spread onto
+    their rows as int32 codes [cap], 0 where a row holds no value; no clip,
+    no dictionary gather."""
+    idx = idx.to(torch.int32).contiguous()
+    if idx.device.type == "cpu":
+        return page_decode_codes_plain(def_levels, num_rows, cap, idx)
+    tensors = [idx] + ([def_levels] if def_levels is not None else [])
+    CB.require_cuda(*tensors)
+    dev = idx.device
+    out = torch.empty(cap, dtype=torch.int32, device=dev)
+    valid = torch.empty(cap, dtype=torch.bool, device=dev)
+    lib = CB.library("parquet_decode")
+    scratch = torch.empty(
+        int(lib.srt_page_decode_scratch_bytes(cap))
+        if def_levels is not None else 0, dtype=torch.uint8, device=dev)
+    null = None
+    rc = lib.srt_page_decode_fixed(
+        def_levels.data_ptr() if def_levels is not None else null,
+        int(num_rows), cap, 2, idx.data_ptr(), int(idx.shape[0]), null, 0,
+        null, 0, null, null, 0, 4, 4, 0, out.data_ptr(), valid.data_ptr(),
+        scratch.data_ptr() if scratch.numel() else null, scratch.numel(),
+        CB.stream_of(idx))
+    CB.count_launch("page_decode_codes")
+    CB.check(lib, rc, "page_decode_codes")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Column chunk decode: the host half, then the device half
 # ---------------------------------------------------------------------------
@@ -466,24 +519,27 @@ class HostChunk:
     present: int
     in_w: int
     what: str
+    dictionary: object = None  # a DeviceDictionary: emit the chunk encoded
 
 
 def decode_chunk_device(chunk: bytes, dtype, num_rows: int, max_def: int,
                         cap: Optional[int] = None,
                         codec: str = "UNCOMPRESSED",
                         device=torch.device("cpu"), physical: int = -1,
-                        name: str = "?") -> ColumnVector:
+                        name: str = "?",
+                        encode_fraction: Optional[float] = None
+                        ) -> ColumnVector:
     """Decode one raw column chunk into a ColumnVector on `device`
     (reference: decode_chunk_device :1083, whose whole-chunk fixed-width
     form is _try_flat_fixed :902; here every type takes the whole-chunk
     form). max_def: 1 for an OPTIONAL column, 0 for a REQUIRED one, whose
     pages carry no definition levels. physical: the Parquet physical type
-    (it sets the value width of a DECIMAL column)."""
+    (it sets the value width of a DECIMAL column). encode_fraction: see
+    keep_encoded."""
     device = torch.device(device)
-    return decode_prepared(prepare_chunk(chunk, dtype, num_rows, max_def,
-                                         codec, physical, name,
-                                         device.type == "cuda"),
-                           cap, device)
+    hc = prepare_chunk(chunk, dtype, num_rows, max_def, codec, physical,
+                       name, device.type == "cuda")
+    return decode_prepared(keep_encoded(hc, encode_fraction), cap, device)
 
 
 def prepare_chunk(chunk: bytes, dtype, num_rows: int, max_def: int,
@@ -599,6 +655,53 @@ def prepare_chunk(chunk: bytes, dtype, num_rows: int, max_def: int,
                      rows, present, in_w, what)
 
 
+def keep_encoded(hc: HostChunk,
+                 encode_fraction: Optional[float]) -> HostChunk:
+    """The host part of encoded emission: a dictionary chunk whose ndv /
+    rows is at most encode_fraction (None: never) gets its dictionary
+    interned from the dictionary page the walk found, and decodes to a
+    DictionaryColumn."""
+    if encode_fraction is None or not hc.dict_mode:
+        return hc
+    from spark_rapids_tpu_torch.columnar import encoded as E
+
+    dp = hc.dict_pages[0]
+    if E.scan_encoded_ok(dp.num_values, hc.num_rows, encode_fraction):
+        hc.dictionary = _intern_dictionary(hc.buf, dp, hc.dtype, hc.in_w,
+                                           hc.what)
+    return hc
+
+
+def _string_dict_table(buf: np.ndarray, dp: PageInfo, what: str):
+    """(offsets int64 [ndv + 1], bytes) of a PLAIN BYTE_ARRAY dictionary
+    page, built by one vectorized gather (no per-value loop)."""
+    starts, lens = native.plain_strings(buf, dp.data_start,
+                                        dp.data_start + dp.data_len,
+                                        dp.num_values)
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    total = int(offs[-1])
+    if total >= 1 << 31:
+        raise ParquetFormatError(f"{what}: dictionary past 2 GiB")
+    src = np.repeat(starts - offs[:-1], lens) + np.arange(total)
+    return offs, buf[src]
+
+
+def _intern_dictionary(buf: np.ndarray, dp: PageInfo, dtype, in_w: int,
+                       what: str):
+    """The interned DeviceDictionary of a chunk's dictionary page."""
+    from spark_rapids_tpu_torch.columnar import encoded as E
+
+    if dtype is DataType.STRING:
+        offs, raw = _string_dict_table(buf, dp, what)
+        return E.DeviceDictionary.from_byte_table(raw, offs.astype(np.int32))
+    if dp.data_start + dp.num_values * in_w > len(buf):
+        raise ParquetFormatError(f"{what}: truncated dictionary page")
+    vals = np.frombuffer(buf, dtype=np.int32 if in_w == 4 else np.int64,
+                         count=dp.num_values, offset=dp.data_start)
+    return E.DeviceDictionary.from_fixed_values(vals, dtype)
+
+
 def decode_prepared(hc: HostChunk, cap: Optional[int],
                     device) -> ColumnVector:
     """The device's part: upload the chunk once, expand the runs (K20),
@@ -620,6 +723,17 @@ def decode_prepared(hc: HostChunk, cap: Optional[int],
     idx = hybrid_expand(chunk_t, device_runs(hc.val_tabs, device, present),
                         cap_p) if hc.val_tabs else \
         torch.zeros(cap_p, dtype=torch.int32, device=device)
+    if hc.dictionary is not None:
+        from spark_rapids_tpu_torch.columnar import encoded as E
+
+        valid = torch.arange(cap, device=device) < num_rows
+        if def_levels is not None:
+            valid = valid & (def_levels != 0)
+        codes = page_decode_codes(def_levels, num_rows, cap,
+                                  idx[:max(present, 1)])
+        out = E.DictionaryColumn(dtype, codes, valid, hc.dictionary)
+        E.record_scan_emission(out)
+        return out
     if is_string:
         return _decode_strings(chunk_t, buf, dict_pages, dict_mode,
                                hc.str_parts, idx if dict_mode else None,
@@ -665,21 +779,10 @@ def _decode_strings(chunk_t, buf, dict_pages, dict_mode, str_parts, idx,
     if def_levels is not None:
         valid = valid & (def_levels != 0)
     if dict_mode:
-        dp = dict_pages[0]
-        starts, lens = native.plain_strings(buf, dp.data_start,
-                                            dp.data_start + dp.data_len,
-                                            dp.num_values)
-        # the dictionary as an (offsets, bytes) string table, built by one
-        # vectorized gather (no per-value loop)
-        offs = np.zeros(len(lens) + 1, np.int64)
-        np.cumsum(lens, out=offs[1:])
-        total = int(offs[-1])
-        if total >= 1 << 31:
-            raise ParquetFormatError(f"{what}: dictionary past 2 GiB")
-        src = np.repeat(starts - offs[:-1], lens) + np.arange(total)
+        offs, raw = _string_dict_table(buf, dict_pages[0], what)
+        lens = np.diff(offs)
         d_offs = _upload(offs.astype(np.int32), device)
-        d_bytes = _upload(buf[src] if total else np.zeros(1, np.uint8),
-                          device)
+        d_bytes = _upload(raw if len(raw) else np.zeros(1, np.uint8), device)
         row_idx = _spread(def_levels, num_rows, cap, idx[:max(present, 1)])
         d_lens = d_offs[1:] - d_offs[:-1]
         ok = valid & (row_idx >= 0) & (row_idx < len(lens))

@@ -14,7 +14,11 @@ GpuParquetScan.scala).
   tests hold this scan to that one.
 
 A scan decodes only the columns its output keeps (the optimizer prunes
-them by name). Hive-partitioned directories (`k=v` parts), CSV and ORC are
+them by name). The device scan keeps a dictionary chunk encoded under
+rapids.tpu.sql.encoded.* (`encode_fraction`; reference: the scan's
+`encoded_ok` plumbing): a STRING chunk, and an INT64 / DATE / TIMESTAMP
+chunk unless fixedDictionaries is off, whose ndv / rows is at most
+maxDictFraction. The CPU engine's scan emits plain columns. Hive-partitioned directories (`k=v` parts), CSV and ORC are
 queued and raise; so does a column the decoder does not take
 (parquet_device.unsupported_reason) — there is no other decoder to fall
 back to.
@@ -117,6 +121,21 @@ def plan_splits(fmt: str, paths: List[str], conf,
     return splits
 
 
+def encode_fraction(conf, dtype) -> Optional[float]:
+    """maxDictFraction when a dictionary chunk of `dtype` may stay encoded
+    under the session's conf, else None."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.columnar.encoded import FIXED_DICT_DTYPES
+
+    if not conf.get(C.ENCODED_ENABLED):
+        return None
+    if dtype is DataType.STRING or (
+            dtype in FIXED_DICT_DTYPES and
+            conf.get(C.ENCODED_FIXED_DICTIONARIES)):
+        return conf.get(C.ENCODED_MAX_DICT_FRACTION)
+    return None
+
+
 def _slices(batch: ColumnarBatch, max_rows: int) -> List[ColumnarBatch]:
     """A batch cut into pieces of at most max_rows rows (reference:
     slice_batch_host, a gather)."""
@@ -158,12 +177,13 @@ class _FileScanBase(PhysicalExec):
     def node_name(self):
         return f"{type(self).__name__}({self.fmt}, {len(self.splits)} splits)"
 
-    def _decode_split(self, split: FileSplit, conf,
-                      device: torch.device) -> List[ColumnarBatch]:
+    def _decode_split(self, split: FileSplit, conf, device: torch.device,
+                      encode: bool = False) -> List[ColumnarBatch]:
         """Every row group of a split decoded on `device`, sliced to
         batchSizeRows (reference: _read_device :968). The host's part of
         each column (read, decompress, walk pages and runs) runs on
-        threads; then each column uploads once and decodes on the card."""
+        threads; then each column uploads once and decodes on the card.
+        encode: dictionary chunks may stay encoded (the device scan)."""
         md = read_footer(split.path)
         cols = {c.name: c for c in md.columns}
         groups = split.row_groups if split.row_groups is not None else \
@@ -187,14 +207,15 @@ class _FileScanBase(PhysicalExec):
                     raise ParquetFormatError(
                         f"{split.path}: column {a.name!r} is {col.dtype.name}"
                         f" in the file, {a.data_type.name} in the schema")
-                work.append((col, chunk))
+                work.append((col, chunk, encode_fraction(conf, col.dtype)
+                             if encode else None))
 
             def host_part(item):
-                col, chunk = item
-                return PD.prepare_chunk(
+                col, chunk, frac = item
+                return PD.keep_encoded(PD.prepare_chunk(
                     read_chunk(split.path, chunk), col.dtype, rows,
                     col.max_def, chunk.codec, col.physical, col.name,
-                    device.type == "cuda")
+                    device.type == "cuda"), frac)
 
             t0 = time.perf_counter()
             with ThreadPoolExecutor(max_workers=min(HOST_THREADS,
@@ -235,6 +256,6 @@ class TpuFileScanExec(_FileScanBase, TpuExec):
     def execute(self, ctx: ExecContext) -> PartitionedBatches:
         def factory(pidx: int):
             return count_output(self.metrics, iter(self._decode_split(
-                self.splits[pidx], ctx.conf, ctx.device)))
+                self.splits[pidx], ctx.conf, ctx.device, encode=True)))
 
         return PartitionedBatches(len(self.splits), factory)

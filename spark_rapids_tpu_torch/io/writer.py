@@ -24,6 +24,7 @@ import torch
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+from spark_rapids_tpu_torch.columnar.encoded import decode_batch
 from spark_rapids_tpu_torch.exec.base import ExecContext, rows_of
 from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
 from spark_rapids_tpu_torch.io import parquet_encode_device as PE
@@ -83,8 +84,10 @@ def execute_write(session, plan: L.WriteFile) -> None:
     # go to the session's device, so a device session encodes with K22
     target = session.device if device else torch.device("cpu")
     for pidx in range(pb.num_partitions):
+        # the encoder writes values: encoded columns decode here
         batches = [b.to_device(target) if isinstance(b, HostColumnarBatch)
-                   else b for b in pb.iterator(pidx) if rows_of(b) > 0]
+                   else decode_batch(b) for b in pb.iterator(pidx)
+                   if rows_of(b) > 0]
         if not batches:
             continue
         fname = f"part-{pidx:05d}-{write_id}.parquet"

@@ -4,6 +4,13 @@ Device path: the bound expression trees evaluate eagerly as torch ops on
 the card (the reference traces them into one jitted XLA program; the
 hand-written fused-stage kernel is ROADMAP item B6). CPU path: the same
 trees evaluate with numpy — the independent oracle engine.
+
+Encoded columns (columnar/encoded.py): `col_to_colv` refuses a
+DictionaryColumn, so no value kernel ever reads codes as values (the
+reference's guard, eval.py:51-60). The projector passes a bare encoded
+reference through, rewrites predicates it can compute on codes and
+materializes the columns of the rest; the filter plans its condition the
+same way (reference :130, :202-256, :282, :326).
 """
 
 from __future__ import annotations
@@ -31,6 +38,11 @@ from spark_rapids_tpu_torch.ops.values import (
 
 
 def col_to_colv(cv: ColumnVector) -> ColV:
+    if getattr(cv, "dictionary", None) is not None:
+        raise TypeError(
+            f"{cv!r} reached a value kernel without materialize(): an "
+            "operator that needs the values of an encoded column decodes "
+            "it at its boundary (columnar/encoded.py)")
     return ColV(cv.dtype, cv.data, cv.validity, cv.offsets, cv.max_len)
 
 
@@ -106,31 +118,91 @@ def keep_mask_from_result(ctx: EvalContext, r):
     return data & r.validity
 
 
+class _CodePlans:
+    """Code-space plans of fixed expressions, one per set of batch
+    dictionaries (bounded; dictionaries are interned)."""
+
+    _MAX = 64
+
+    def __init__(self, exprs, keep_bare: bool):
+        self.exprs = list(exprs)
+        self.keep_bare = keep_bare
+        self._plans: dict = {}
+
+    def get(self, batch: ColumnarBatch):
+        from spark_rapids_tpu_torch.columnar import encoded as E
+
+        sig = E.enc_sig(batch)
+        if not sig:
+            return None
+        plan = self._plans.get(sig)
+        if plan is None:
+            if len(self._plans) >= self._MAX:
+                self._plans.clear()
+            plan = E.plan_exprs(self.exprs, batch, self.keep_bare)
+            self._plans[sig] = plan
+        return plan
+
+
+def _planned_context(plans: _CodePlans, batch: ColumnarBatch,
+                     partition_id: int, row_start: int):
+    """(prepared batch, eval context, expressions) of a batch: the batch
+    itself when nothing is encoded."""
+    plan = plans.get(batch)
+    if plan is None:
+        return batch, device_eval_context(batch, partition_id,
+                                          row_start), plans.exprs
+    from spark_rapids_tpu_torch.columnar.encoded import eval_columns
+
+    batch = plan.prepare(batch)
+    ctx = EvalContext(True, eval_columns(batch, plan.code_ords),
+                      batch.num_rows, batch.capacity,
+                      partition_id=partition_id, row_start=row_start,
+                      device=batch.device)
+    return batch, ctx, plan.exprs
+
+
 class DeviceProjector:
     """Evaluates a fixed list of bound expressions over device batches
-    (reference: GpuProjectExec's bound-expression evaluation)."""
+    (reference: GpuProjectExec's bound-expression evaluation). A bare
+    reference to an encoded column passes it through encoded."""
 
     def __init__(self, exprs: Sequence[Expression]):
         self.exprs = list(exprs)
+        self._plans = _CodePlans(self.exprs, keep_bare=True)
 
     def project(self, batch: ColumnarBatch, partition_id: int = 0,
                 row_start: int = 0) -> ColumnarBatch:
-        ctx = device_eval_context(batch, partition_id, row_start)
-        outs = [colv_to_col(eval_as_col(ctx, e)) for e in self.exprs]
+        from spark_rapids_tpu_torch.ops.base import Alias, BoundReference
+
+        batch, ctx, exprs = _planned_context(self._plans, batch,
+                                             partition_id, row_start)
+        outs = []
+        for e in exprs:
+            inner = e.child if isinstance(e, Alias) else e
+            if isinstance(inner, BoundReference) and getattr(
+                    batch.columns[inner.ordinal], "dictionary",
+                    None) is not None:
+                outs.append(batch.columns[inner.ordinal])
+            else:
+                outs.append(colv_to_col(eval_as_col(ctx, e)))
         return ColumnarBatch(outs, batch.num_rows)
 
 
 class DeviceFilter:
     """Evaluates the condition on the card and compacts the kept rows
-    (reference: GpuFilterExec + cudf Table.filter)."""
+    (reference: GpuFilterExec + cudf Table.filter); over encoded columns
+    the condition runs in code space where it can."""
 
     def __init__(self, condition: Expression):
         self.condition = condition
+        self._plans = _CodePlans([condition], keep_bare=False)
 
     def apply(self, batch: ColumnarBatch, partition_id: int = 0,
               row_start: int = 0, sync: bool = True) -> ColumnarBatch:
-        ctx = device_eval_context(batch, partition_id, row_start)
-        keep = keep_mask_from_result(ctx, self.condition.eval(ctx)) & \
+        batch, ctx, exprs = _planned_context(self._plans, batch,
+                                             partition_id, row_start)
+        keep = keep_mask_from_result(ctx, exprs[0].eval(ctx)) & \
             ctx.row_mask()
         return compact_batch(batch, keep, sync)
 

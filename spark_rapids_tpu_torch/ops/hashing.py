@@ -21,6 +21,12 @@ replacing `_string_words_device` :118); K4 then mixes the three words as one
 column. The CPU engine encodes its object arrays to UTF-8 (vectorised) and
 runs K5's plain version, so host and device plans co-partition bit for bit.
 
+An encoded (dictionary) key hashes in K4's code mode (replacing
+shuffle/exchange.py:_hash_ids_encoded :1181 and _build_hash_ids_enc
+:1222): its words come from the dictionary's word table, gathered by code
+(`CodeKey`; the table is built once per dictionary, columnar/encoded.py),
+so the ids equal those of the expanded values bit for bit.
+
 The plain versions run the uint32 arithmetic in int64 with explicit
 `& 0xFFFFFFFF` masks: torch has no unsigned add, shift, multiply or
 remainder. `>>` on int64 is arithmetic, so the high word is masked after
@@ -31,7 +37,7 @@ columns convert to CPU tensors).
 from __future__ import annotations
 
 import ctypes
-from typing import Any, List
+from typing import Any, List, NamedTuple
 
 import numpy as np
 import torch
@@ -188,17 +194,58 @@ def hash_columns(cols: List[ColV], seed: int = HASH_SEED):
 _KINDS = {torch.bool: 0, torch.int8: 1, torch.int16: 2, torch.int32: 3,
           torch.int64: 4, torch.float32: 5, torch.float64: 6}
 _STRING_WORDS = 7  # K5's uint32 words [3, n]
+_CODES = 8         # int32 codes into a dictionary's word table
+TABLE_INT32, TABLE_INT64, TABLE_STRING_WORDS = 3, 4, 7
 
 
 class _HashCol(ctypes.Structure):
     _fields_ = [("data", ctypes.c_void_p), ("valid", ctypes.c_void_p),
-                ("kind", ctypes.c_int32), ("pad", ctypes.c_int32)]
+                ("kind", ctypes.c_int32), ("table_kind", ctypes.c_int32),
+                ("table", ctypes.c_void_p), ("table_n", ctypes.c_longlong)]
 
 
-def partition_ids_plain(cols: List[ColV], live, num_partitions: int):
+class CodeKey(NamedTuple):
+    """An encoded key column for K4's code mode: int32 codes [rows] into a
+    dictionary, their validity, and the dictionary's word table: its int32
+    values (TABLE_INT32, a DATE dictionary), its int64 values (TABLE_INT64)
+    or its K5 words [3, ndv] (TABLE_STRING_WORDS; int32 bits on the card,
+    int64 words on the CPU)."""
+
+    codes: Any
+    validity: Any
+    table: Any
+    table_kind: int
+
+
+def code_words_plain(key: CodeKey) -> List[Any]:
+    """The words (int64 tensors) of an encoded key: the table's words
+    gathered by code, the code clipped into the table (reference:
+    _hash_ids_encoded's gather)."""
+    t = key.table
+    ndv = int(t.shape[-1])
+    if ndv == 0:
+        z = torch.zeros_like(key.codes, dtype=torch.int64)
+        return {TABLE_INT32: [z], TABLE_INT64: [z, z]}.get(key.table_kind,
+                                                           [z, z, z])
+    idx = key.codes.long().clamp(0, ndv - 1)
+    if key.table_kind == TABLE_INT32:
+        return [t[idx].long() & M32]
+    if key.table_kind == TABLE_INT64:
+        x = t[idx].long()
+        return [x & M32, (x >> 32) & M32]
+    return [t[k][idx].long() & M32 for k in range(3)]
+
+
+def _key_entry(c):
+    if isinstance(c, CodeKey):
+        return code_words_plain(c), c.validity
+    return column_words(c), c.validity
+
+
+def partition_ids_plain(cols: List[Any], live, num_partitions: int):
     """(ids int32 [rows], counts int32 [n + 1]): hash % n per live row, n
-    elsewhere, and the rows per id."""
-    h = hash_columns(cols)
+    elsewhere, and the rows per id. A CodeKey hashes its table's words."""
+    h = hash_word_entries([_key_entry(c) for c in cols])
     ids = (h % num_partitions).to(torch.int32)
     if live is not None:
         ids = torch.where(live, ids, torch.full(
@@ -207,9 +254,10 @@ def partition_ids_plain(cols: List[ColV], live, num_partitions: int):
     return ids, counts.to(torch.int32)
 
 
-def partition_ids(cols: List[ColV], live, num_partitions: int):
+def partition_ids(cols: List[Any], live, num_partitions: int):
     """Partition id per row and rows per id; pads (outside `live`) get id
-    num_partitions. CPU tensors run the plain version, CUDA tensors K4."""
+    num_partitions. cols: ColV, or CodeKey for an encoded key (K4's code
+    mode). CPU tensors run the plain version, CUDA tensors K4."""
     if cols[0].validity.device.type == "cpu":
         return partition_ids_plain(cols, live, num_partitions)
     lib = CB.library("hash_partition")
@@ -217,8 +265,20 @@ def partition_ids(cols: List[ColV], live, num_partitions: int):
     dev = cols[0].validity.device
     descs = (_HashCol * len(cols))()
     keep = []
+    code_mode = False
     for k, c in enumerate(cols):
         valid = c.validity.contiguous()
+        if isinstance(c, CodeKey):
+            data = c.codes.to(torch.int32).contiguous()
+            table = c.table.contiguous()
+            CB.require_cuda(data, valid, table)
+            descs[k].kind, descs[k].table_kind = _CODES, c.table_kind
+            descs[k].table = table.data_ptr()
+            descs[k].table_n = int(table.shape[-1])
+            descs[k].data, descs[k].valid = data.data_ptr(), valid.data_ptr()
+            keep += [data, valid, table]
+            code_mode = True
+            continue
         if c.dtype is DataType.STRING:
             data = string_hash_words_u32(c.offsets, c.data, valid)
             kind = _STRING_WORDS
@@ -238,7 +298,7 @@ def partition_ids(cols: List[ColV], live, num_partitions: int):
         ctypes.addressof(descs), len(cols), n, live.data_ptr(),
         num_partitions, ids.data_ptr(), counts.data_ptr(),
         CB.stream_of(ids))
-    CB.count_launch("hash_partition")
+    CB.count_launch("hash_partition_codes" if code_mode else "hash_partition")
     CB.check(lib, rc, "hash_partition")
     return ids, counts
 

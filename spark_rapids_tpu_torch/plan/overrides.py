@@ -102,9 +102,10 @@ def _tag_agg(m: ExprMeta) -> None:
             e.child.data_type is DataType.BOOL:
         m.will_not_work("boolean min/max has no device reduction yet")
     if e.child.data_type is DataType.STRING and \
-            not isinstance(e, AGG.Count):
+            not isinstance(e, (AGG.Count, AGG.Min, AGG.Max)):
         m.will_not_work("this aggregate over STRING inputs runs on the CPU "
-                        "engine (device string min/max is not ported yet)")
+                        "engine (device first / last over strings is not "
+                        "ported yet)")
 
 
 def _register_expr_rules():

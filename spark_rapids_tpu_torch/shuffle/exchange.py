@@ -29,9 +29,19 @@ when the reduce side compacts them, routed pieces in `_assemble_routed`
 (the reference's `_routed_string_plan` :1567 / `_routed_string_bytes`
 :1593).
 
+Encoded columns (columnar/encoded.py; reference :420, :470, :799-980,
+:1048-1056) slice and route as fixed int32 lanes; routed slices of
+different dictionaries align on assembly. A bare encoded hash key hashes
+in K4's code mode, through its dictionary's word table, so its ids equal
+the expanded values' ids; a computed key decodes the columns it reads. A
+bare encoded range key downloads its codes, which the host maps to ranks
+over the union of the dictionaries met (`union_rank_tables`), so the
+bounds are taken over ranks; a position where encoded and plain pieces
+meet compares the decoded values.
+
 The hash half of K4 lives in ops/hashing.py. Left out so far (ROADMAP.md):
 round-robin partitioning, the serialized tier, the ICI/collective tier,
-adaptive coalescing, fetch-failure remapping, encoded keys.
+adaptive coalescing, fetch-failure remapping.
 """
 
 from __future__ import annotations
@@ -43,9 +53,9 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import cuda_build as CB
+from spark_rapids_tpu_torch.columnar import encoded as E
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
-    ColumnVector,
     HostColumnarBatch,
     HostColumnVector,
     bucket_capacity,
@@ -70,15 +80,20 @@ from spark_rapids_tpu_torch.ops.base import (
     SortOrder,
 )
 from spark_rapids_tpu_torch.ops.bind import bind_all
-from spark_rapids_tpu_torch.ops.eval import (
-    cpu_project,
-    device_eval_context,
-    eval_as_col,
-    host_to_colv,
-)
+from spark_rapids_tpu_torch.ops.eval import cpu_project, host_to_colv
+from spark_rapids_tpu_torch.ops.values import ColV
 
-# routed slices of one reduce bucket assembled per gather
+# routed slices of one reduce bucket assembled per gather, and the most
+# string bytes their source batches may hold together (a column's sources
+# lie end to end under int32 offsets)
 _ROUTED_GROUP = 16
+_ROUTED_STRING_BYTES = 1 << 30
+
+
+def _string_bytes(batch) -> int:
+    """The largest string byte buffer of a batch's columns."""
+    return max([int(c.data.shape[0]) for c in batch.columns
+                if c.offsets is not None] or [0])
 
 
 class Partitioning:
@@ -176,16 +191,27 @@ class _ExchangeBase(PhysicalExec):
 
         def piece_gen(pidx: int):
             routed: List[_RoutedSlice] = []
+            sources: dict = {}   # id(source batch) -> its string bytes
             for piece in buckets[pidx]:
                 if isinstance(piece, _RoutedSlice):
+                    key = id(piece.batch)
+                    if key not in sources:
+                        nbytes = _string_bytes(piece.batch)
+                        # a column's sources lie end to end in one K7
+                        # gather, whose offsets are int32
+                        if routed and sum(sources.values()) + nbytes >= \
+                                _ROUTED_STRING_BYTES:
+                            yield _assemble_routed(routed)
+                            routed, sources = [], {}
+                        sources[key] = nbytes
                     routed.append(piece)
                     if len(routed) >= _ROUTED_GROUP:
                         yield _assemble_routed(routed)
-                        routed = []
+                        routed, sources = [], {}
                     continue
                 if routed:
                     yield _assemble_routed(routed)
-                    routed = []
+                    routed, sources = [], {}
                 yield piece
             if routed:
                 yield _assemble_routed(routed)
@@ -471,10 +497,13 @@ def _assemble_routed(slices: Sequence[_RoutedSlice]) -> ColumnarBatch:
     for s in slices:
         if all(s.batch is not b for b in sources):
             sources.append(s.batch)
+    aligned = _aligned_source_columns(sources)
     cols = []
-    for ci, c0 in enumerate(slices[0].batch.columns):
+    for ci in range(len(sources[0].columns)):
+        c0 = aligned[id(sources[0])][ci]
         if c0.offsets is not None:
-            src, bases = strings_end_to_end([b.columns[ci] for b in sources])
+            src, bases = strings_end_to_end([aligned[id(b)][ci]
+                                             for b in sources])
             at = {id(b): base for b, base in zip(sources, bases)}
             idx = torch.zeros(cap, dtype=torch.int32, device=c0.data.device)
             off = 0
@@ -487,34 +516,59 @@ def _assemble_routed(slices: Sequence[_RoutedSlice]) -> ColumnarBatch:
         valid = torch.zeros(cap, dtype=torch.bool, device=c0.data.device)
         off = 0
         for s, idx in zip(slices, idxs):
-            col = s.batch.columns[ci]
+            col = aligned[id(s.batch)][ci]
             data[off:off + s.count] = col.data[idx]
             valid[off:off + s.count] = col.validity[idx]
             off += s.count
-        cols.append(ColumnVector(c0.dtype, data, valid))
+        cols.append(c0.with_data(data, valid))
     return ColumnarBatch(cols, total)
+
+
+def _aligned_source_columns(sources: Sequence[ColumnarBatch]):
+    """{id(batch): columns} of the routed sources with each encoded
+    position on one dictionary (or decoded where encoded and plain
+    sources meet)."""
+    if len(sources) == 1:
+        return {id(sources[0]): sources[0].columns}
+    from spark_rapids_tpu_torch.columnar.batch import _align_encoded_pieces
+
+    return {id(b): a.columns for b, a in
+            zip(sources, _align_encoded_pieces(sources))}
+
+
+def _order_bits(c: ColV, n: int):
+    """(u64 order words, null flags) of a fixed-width key, as int64."""
+    proxy = RK.key_proxy(c)
+    words = proxy.arrays
+    u = words[0] if len(words) == 1 else (words[0] << 32) | words[1]
+    return u[:n], proxy.null_flag[:n].to(torch.int64)
 
 
 def _device_order_keys(batch: ColumnarBatch, bound, pidx: int):
     """Host range keys of one device batch: fixed-width keys as unsigned
     64-bit order words with null flags, computed on the card and downloaded
-    in one transfer; STRING keys as their downloaded (offsets, bytes,
-    validity), and their widest byte length."""
+    in one transfer (a bare encoded key's codes and validity ride in the
+    same transfer: ("codes", (codes, validity, dictionary))); STRING keys
+    as their downloaded (offsets, bytes, validity), and their widest byte
+    length."""
     n = batch.host_rows()
-    ectx = device_eval_context(batch, pidx)
-    cols = [eval_as_col(ectx, e) for e in bound]
+    cols = E.key_columns(batch, bound, pidx)
     fixed = []
     for c in cols:
-        if c.is_string:
-            continue
-        proxy = RK.key_proxy(c)
-        words = proxy.arrays
-        u = words[0] if len(words) == 1 else (words[0] << 32) | words[1]
-        fixed += [u[:n], proxy.null_flag[:n].to(torch.int64)]
+        if E.is_encoded(c):
+            fixed += [c.data[:n].to(torch.int64),
+                      c.validity[:n].to(torch.int64)]
+        elif not c.is_string:
+            fixed += list(_order_bits(c, n))
     got = iter(torch.stack(fixed).cpu().numpy()) if fixed else iter(())
     keys, widths = [], []
     for c in cols:
-        if c.is_string:
+        if E.is_encoded(c):
+            codes = next(got)
+            keys.append(("codes", (codes, next(got).astype(bool),
+                                   c.dictionary)))
+            widths.append(1)
+        elif c.is_string:
             offsets = c.offsets[:n + 1].cpu().numpy()
             keys.append(("str", (offsets, c.data.cpu().numpy(),
                                  c.validity[:n].cpu().numpy())))
@@ -524,6 +578,46 @@ def _device_order_keys(batch: ColumnarBatch, bound, pidx: int):
             keys.append(("bits", (u, next(got).astype(bool))))
             widths.append(1)
     return keys, widths
+
+
+def _resolve_code_keys(staged, n_keys: int) -> None:
+    """Replace each staged ("codes", ...) range key in place: by its ranks
+    over the union of the position's dictionaries, as order bits, when
+    every piece of the position is encoded; by its decoded values where
+    encoded and plain pieces meet."""
+    for k in range(n_keys):
+        entries = [keys[k] for _, keys, _ in staged]
+        coded = [e for e in entries if e[0] == "codes"]
+        if not coded:
+            continue
+        if len(coded) == len(entries):
+            ranks = E.union_rank_tables([e[1][2] for e in coded])
+        for _, keys, widths in staged:
+            kind, payload = keys[k]
+            if kind != "codes":
+                continue
+            codes, valid, d = payload
+            if len(coded) == len(entries):
+                table = ranks[d.did]
+                r = table[np.clip(codes, 0, max(len(table) - 1, 0))] \
+                    if len(table) else np.zeros(len(codes), np.int32)
+                u = np.where(valid, r.astype(np.int64), 0).view(np.uint64)
+                keys[k] = ("bits", (u, ~valid))
+                continue
+            values = E.materialize_host_values(codes, valid, d)
+            if d.is_fixed:
+                c = ColV(d.value_dtype, torch.from_numpy(values),
+                         torch.from_numpy(valid))
+                u, nf = (t.numpy() for t in _order_bits(c, len(codes)))
+                keys[k] = ("bits", (u.view(np.uint64), nf.astype(bool)))
+            else:
+                from spark_rapids_tpu_torch.columnar.strings import (
+                    encode_utf8,
+                )
+
+                offsets, raw = encode_utf8(values, valid)
+                keys[k] = ("str", (offsets, raw, valid))
+                widths[k] = int(np.diff(offsets).max()) if len(codes) else 1
 
 
 class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
@@ -540,9 +634,9 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
 
         def hash_map(pidx: int, batch: ColumnarBatch):
             batch = ensure_compact(batch)
-            ectx = device_eval_context(batch, pidx)
-            keys = [eval_as_col(ectx, e) for e in bound]
-            ids, counts = H.partition_ids(keys, ectx.row_mask(), n)
+            keys = [E.code_key(c) if E.is_encoded(c) else c
+                    for c in E.key_columns(batch, bound, pidx)]
+            ids, counts = H.partition_ids(keys, batch.live_mask(), n)
             if batch.device_memory_size() <= LAZY_PIECE_CAP_BYTES:
                 return _device_slices_lazy(batch, ids, counts, n)
             return _device_slices_routed(batch, ids, n)
@@ -566,6 +660,7 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
                     continue
                 staged.append((batch, *_device_order_keys(batch, bound,
                                                           pidx)))
+        _resolve_code_keys(staged, len(p.orders))
         # one byte width per string key across all batches, so every
         # packed row compares in the same space
         widths = [max([w[i] for _, _, w in staged] or [1])

@@ -123,3 +123,71 @@ def test_parquet_write_read_imports_no_jax_or_pyarrow():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "isolated"
+
+
+_ENCODED_PROBE = r"""
+import sys, tempfile
+import numpy as np
+import spark_rapids_tpu_torch as srt
+from spark_rapids_tpu_torch.benchmarks import tpch
+from spark_rapids_tpu_torch.columnar import encoded as E
+from spark_rapids_tpu_torch.plan import functions as F
+import chip_smoke as CS
+cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True},
+                      device="cpu")
+raw = tpch.gen_tables(cpu, sf=0.0005, num_partitions=2)
+rng = np.random.default_rng(42)
+n = 4000
+flags = rng.integers(0, 3, n).astype(np.int32)
+status = rng.integers(0, 2, n).astype(np.int32)
+qty = rng.integers(1, 51, n)
+with tempfile.TemporaryDirectory() as d:
+    path = d + "/bench.parquet"
+    CS.write_parquet_fixture(path, {
+        "l_returnflag": CS.dict_spec(flags, [b"A", b"N", b"R"],
+                                     CS.PHYS_BYTE_ARRAY, CS.CONV_UTF8),
+        "l_linestatus": CS.dict_spec(status, [b"F", b"O"],
+                                     CS.PHYS_BYTE_ARRAY, CS.CONV_UTF8),
+        "l_quantity": CS.plain_spec(qty, CS.PHYS_INT64)}, 1000, 256)
+    E.reset_counters()
+    rows = (cpu.read.parquet(path).filter(F.col("l_returnflag") == F.lit("A"))
+            .groupBy("l_linestatus").agg(F.sum("l_quantity").alias("q"))
+            .collect())
+    m = flags == 0
+    want = {("F", "O")[s]: int(qty[m & (status == s)].sum()) for s in (0, 1)}
+    assert dict(rows) == want, rows
+    assert E.counters()["encodedColumns"] > 0
+    files = CS.tpch_dict_files(d, raw)["paths"]
+    tables = {k: cpu.read.parquet(p) for k, p in files.items()}
+    E.reset_counters()
+    got, want = tpch.q1(tables).collect(), tpch.q1(raw).collect()
+    assert E.counters()["encodedColumns"] > 0
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        for x, y in zip(g, w):
+            assert x == y or (isinstance(y, float) and
+                              abs(x - y) <= 1e-9 * abs(y)), (g, w)
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(
+                 ("jax.", "jaxlib", "pyarrow."))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+try:
+    srt.new_session()
+except RuntimeError as e:
+    assert "device='cpu'" in str(e), e
+else:
+    raise AssertionError("new_session() without a card did not raise")
+print("isolated")
+"""
+
+
+def test_encoded_path_imports_no_jax_or_pyarrow():
+    """q_agg's shape and TPC-H q1 over dictionary Parquet (written by
+    chip_smoke.py's fixture writer) run encoded with neither jax nor
+    pyarrow loaded."""
+    proc = subprocess.run([sys.executable, "-c", _ENCODED_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
