@@ -151,6 +151,31 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    dictionary against two build dictionaries; K4's code mode also
    against K4 over the decoded values) and times them at one 7.5M-row
    row group. The decode shape also runs with encoding off.
+11. Parquet v2 (the layouts Spark's and Arrow's writers produce), in two
+   places. In the Parquet phase, while phase 4's tables are cached: the
+   seven lineitem columns q1 and q6 read written one file a partition
+   (the four DOUBLEs BYTE_STREAM_SPLIT, l_shipdate DELTA_BINARY_PACKED,
+   the flags dictionaries; v2 pages, SNAPPY, row groups of 2^20, pages of
+   2^17, by write_parquet_fixture without pyarrow), then q1 and q6 over
+   them against phase 4's numpy rows. In phase 7, before its tables are
+   released: the tables each query reads written in the TPCx-BB layout
+   (keys that pass a 1 MiB dictionary fall back to DELTA pages, small-
+   domain keys stay dictionaries, timestamps, INT32 counts and dense ids
+   DELTA, decimals 4-byte FIXED_LEN_BYTE_ARRAY, i_category
+   DELTA_BYTE_ARRAY, pr_content DELTA_LENGTH_BYTE_ARRAY; q02 on its SF 5
+   tables, left out if they take more than Q02_V2_MAX_WRITE_S to write),
+   then all 30 queries over read.parquet of them, one cold and
+   V2_WARM_REPS warm runs each, every leaf a TpuFileScanExec, rows equal
+   to the same query's over the cached tables, with each query's scan
+   host seconds and the geomean of the warm medians beside phase 7's;
+   then a read with the kernel library failing to load must raise. Phase
+   3 holds K25 (delta_expand), K26 (delta_byte_array) and K21's BSS and
+   FLBA modes bit for bit to their plain versions (empty and one-value
+   streams, width 0 and widths 57-64, 1-16 byte FLBA with negatives,
+   NULLs, a DBA page whose prefixes chain across 3000 strings, whole v2
+   chunks with a mixed dictionary -> DELTA chunk) and times each at one
+   2^20-row row group (K25 on wcs_click_ts, K21 FLBA on ss_net_paid, K21
+   BSS on l_extendedprice, K26 on an l_comment-like column).
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -160,7 +185,9 @@ mortgage_q_agg_join ... mortgage_q_simple_agg and
 mortgage_many_partitions of phase 8, parquet_write, parquet_tpch_q1,
 parquet_tpch_q6, parquet_tpch_q3, parquet_tpch_q5, parquet_decode_shape
 and parquet_decode_shape_off of phase 9, encoded_q_agg ...
-encoded_tpch_q12 and their _off runs of phase 10);
+encoded_tpch_q12 and their _off runs of phase 10, parquet_v2_tpch_q1,
+parquet_v2_tpch_q6 and parquet_v2_xbb_q01 ... parquet_v2_xbb_q30 of
+phase 11);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -269,6 +296,18 @@ KERNELS = {
     "page_decode_codes": (
         "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
         "spark_rapids_tpu/io/parquet_device.py:824", "encoded_q_agg"),
+    "delta_expand": (
+        "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+        "spark_rapids_tpu/io/parquet_device.py:520", "parquet_v2_xbb_q16"),
+    "delta_byte_array": (
+        "spark_rapids_tpu_torch/csrc/parquet_delta.cu",
+        "spark_rapids_tpu/io/parquet_device.py:548", "parquet_v2_xbb_q16"),
+    "k21_flba": (
+        "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+        "spark_rapids_tpu/io/parquet_device.py:581", "parquet_v2_xbb_q16"),
+    "k21_bss": (
+        "spark_rapids_tpu_torch/csrc/parquet_decode.cu",
+        "spark_rapids_tpu/io/parquet_device.py:600", "parquet_v2_tpch_q1"),
     "dict_materialize_fixed": (
         "spark_rapids_tpu_torch/csrc/dict_encoded.cu",
         "spark_rapids_tpu/columnar/encoded.py:602", "encoded_q_agg"),
@@ -366,6 +405,25 @@ PATH_KERNELS.update({
     "parquet_tpch_q5": _Q5 + _PQ_READ + ("gather_string_spans",),
     "parquet_decode_shape": ("segment_reduce",) + _PQ_READ,
 })
+# the Parquet v2 phase: every query reads DELTA pages (K25); FLBA decimals
+# (K21's FLBA mode), i_category (DELTA_BYTE_ARRAY: K26) and pr_content
+# (DELTA_LENGTH_BYTE_ARRAY) where its text reads them; STRING values
+# gather through K7's span entry
+_V2_READ = ("hybrid_expand", "delta_expand")
+_V2_FLBA = ("q06", "q07", "q08", "q09", "q11", "q13", "q15", "q16", "q17",
+            "q18", "q19", "q20", "q21", "q24", "q25", "q26")
+_V2_DBA = ("q07", "q10", "q11", "q14", "q16", "q17", "q24", "q26", "q27")
+_V2_SPANS = _V2_DBA + ("q28",)
+for _i in range(1, 31):
+    _q = f"q{_i:02d}"
+    PATH_KERNELS[f"parquet_v2_xbb_{_q}"] = _V2_READ + (
+        ("k21_flba",) if _q in _V2_FLBA else ()) + (
+        ("delta_byte_array",) if _q in _V2_DBA else ()) + (
+        ("gather_string_spans",) if _q in _V2_SPANS else ())
+PATH_KERNELS.update({
+    "parquet_v2_tpch_q1": _Q1[:3] + _V2_READ + ("k21_bss",),
+    "parquet_v2_tpch_q6": ("segment_reduce",) + _V2_READ + ("k21_bss",),
+})
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -375,6 +433,11 @@ ALL_SHUFFLED = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
                 "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": False}
 C_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
               "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": True}
+# the Parquet v2 phase: warm runs a query (cut to 2 first if the run
+# outgrows its time), and the most seconds q02's SF 5 tables may take to
+# write before q02 is left out of it
+V2_WARM_REPS = 3
+Q02_V2_MAX_WRITE_S = 30.0
 # phase 7: bench.py --tpcxbb's layout (4 partitions, every table cached)
 TPCXBB_SF = 10
 TPCXBB_PARTITIONS = 4
@@ -695,10 +758,12 @@ def check_rows(got, want, what: str) -> float:
     return worst
 
 
-def run_query(sess, q, want, what: str, warm_reps: int, cols=None):
+def run_query(sess, q, want, what: str, warm_reps: int, cols=None,
+              keep_rows: bool = False):
     """One cold and warm_reps warm runs, the plan asserted on the device;
     every run's rows (their columns `cols`, or all) against `want`, or
-    (want None) the warm runs' against the cold run's."""
+    (want None) the warm runs' against the cold run's; keep_rows: the
+    result holds the rows under "result_rows"."""
     import torch
 
     def pick(rows):
@@ -725,9 +790,12 @@ def run_query(sess, q, want, what: str, warm_reps: int, cols=None):
         worst = max(worst, check_rows(pick(rows), want, what))
     log(f"{what}: {len(rows)} rows, cold {cold:.4f} s, warm {warm}, "
         f"max rel diff {worst:.3e}")
-    return {"cold_s": cold, "warm_s": warm,
-            "warm_median_s": statistics.median(warm) if warm else None,
-            "max_rel_diff": worst, "rows": len(rows)}
+    out = {"cold_s": cold, "warm_s": warm,
+           "warm_median_s": statistics.median(warm) if warm else None,
+           "max_rel_diff": worst, "rows": len(rows)}
+    if keep_rows:
+        out["result_rows"] = rows
+    return out
 
 
 def run_tpch(sess, launches: dict, profile_dir=None, wants=None) -> dict:
@@ -1393,13 +1461,13 @@ def probe_q02(sfs) -> list:
 
 
 def run_xbb_query(sess, name, fn, tables, table_rows, want, launches,
-                  warm_reps: int, cols=None) -> dict:
+                  warm_reps: int, cols=None, keep_rows: bool = False) -> dict:
     from spark_rapids_tpu_torch import cuda_build as CB
 
     rec = TableRecorder(tables)
     q = fn(rec)
     CB.reset_launch_counts()
-    r = run_query(sess, q, want, name, warm_reps, cols)
+    r = run_query(sess, q, want, name, warm_reps, cols, keep_rows)
     launches[name] = CB.launch_counts()
     rows_in = sum(table_rows[t] for t in sorted(rec.seen))
     r["tables"] = sorted(rec.seen)
@@ -1425,13 +1493,20 @@ def run_tpcxbb(launches: dict, profile_dir=None):
     raw, tables, rows, _ = gen_xbb(sess, Q02_SF)
     torch.cuda.reset_peak_memory_stats()
     r = run_xbb_query(sess, "tpcxbb_q02_like", tpcxbb.q02_like, tables,
-                      rows, None, launches, 3)
+                      rows, None, launches, 3, keep_rows=True)
     r["sf"] = Q02_SF
     r["peak_bytes"] = torch.cuda.max_memory_allocated()
     r["checked_against"] = "its own cold run"
     out["tpcxbb_q02_like"] = r
     log(f"tpcxbb_q02_like at SF {Q02_SF}: peak device bytes "
         f"{r['peak_bytes']}")
+    # the Parquet v2 phase's q02, on the same SF 5 tables
+    v2 = {(k if k.startswith("parquet_v2_") or k == "left_out" else
+           f"q02_sf{Q02_SF}_{k}"): v for k, v in run_parquet_v2_xbb(
+               sess, raw, {"tpcxbb_q02_like": r.pop("result_rows")}, rows,
+               launches, ["q02_like"], V2_WARM_REPS,
+               max_write_s=Q02_V2_MAX_WRITE_S,
+               profile_dir=profile_dir).items()}
     del raw
     release(sess, tables)
 
@@ -1470,7 +1545,7 @@ def run_tpcxbb(launches: dict, profile_dir=None):
         path = f"tpcxbb_{name}"
         fn = tpcxbb.QUERIES[name]
         r = run_xbb_query(sess, path, fn, tables, rows, want.get(name),
-                          launches, 3)
+                          launches, 3, keep_rows=True)
         r["checked_against"] = "numpy" if name in want else \
             "its own cold run"
         if name == "q16_like":
@@ -1514,8 +1589,8 @@ def run_tpcxbb(launches: dict, profile_dir=None):
     log(f"{name}: {len(user)} rows, cold {out[name]['cold_s']:.4f} s, "
         f"warm {warm}")
     del batches, cols, user, ts, run, sorted_clicks, running
-    warm30 = [out[f"tpcxbb_{q}"]["warm_median_s"] for q in tpcxbb.QUERIES]
-    out["geomean_warm_s"] = float(np.exp(np.mean(np.log(warm30))))
+    out["geomean_warm_s"] = geomean([out[f"tpcxbb_{q}"]["warm_median_s"]
+                                     for q in tpcxbb.QUERIES])
     log(f"phase 7: geomean of the 30 warm medians "
         f"{out['geomean_warm_s']:.4f} s")
     out["device_bytes"] = torch.cuda.memory_allocated()
@@ -1527,8 +1602,29 @@ def run_tpcxbb(launches: dict, profile_dir=None):
                 continue
             out[f"tpcxbb_{qn}"]["profile"] = profile_query(
                 tpcxbb.QUERIES[qn](tables), profile_dir, f"tpcxbb_{qn}")
+    # the Parquet v2 phase over the same SF 10 tables
+    cached = {k: v.pop("result_rows") for k, v in out.items()
+              if k.startswith("tpcxbb_") and "result_rows" in v}
+    names = [q for q in sorted(tpcxbb.QUERIES) if q != "q02_like"]
+    v2.update(run_parquet_v2_xbb(sess, raw, cached, rows, launches, names,
+                                 V2_WARM_REPS, profile_dir=profile_dir))
+    v2_samples = {"wcs_click_ts": table_columns(
+        raw["web_clickstreams"], ("wcs_click_ts",))["wcs_click_ts"][
+            :V2_ROW_GROUP].copy(),
+        "ss_net_paid": table_columns(raw["store_sales"], ("ss_net_paid",))[
+            "ss_net_paid"][:V2_ROW_GROUP].copy()}
+    warm_v2 = [v2[k]["warm_median_s"] for k in v2
+               if k.startswith("parquet_v2_xbb_")]
+    v2["geomean_warm_s"] = geomean(warm_v2)
+    v2["queries"] = len(warm_v2)
+    v2["cached_geomean_warm_s"] = out["geomean_warm_s"]
+    log(f"parquet v2: geomean of the {len(warm_v2)} warm medians over v2 "
+        f"Parquet {v2['geomean_warm_s']:.4f} s (cached tables "
+        f"{out['geomean_warm_s']:.4f} s)")
+    out["parquet_v2"] = v2
+    del raw
     release(sess, tables)
-    return out, pr_content
+    return out, pr_content, v2_samples
 
 
 def run_xbb_small_sf() -> dict:
@@ -2657,7 +2753,7 @@ def time_search_kernels(dev, errs: dict) -> dict:
 
 
 def time_kernels(dev, errs: dict, launches: dict, pr_content,
-                 d12_rows: int):
+                 d12_rows: int, v2_samples: dict):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
     the high-cardinality partial output (2^22 rows) for K4."""
@@ -2765,6 +2861,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows.update(time_slice6_kernels(dev, errs, d12_rows))
     rows.update(time_parquet_kernels(dev, errs))
     rows.update(time_encoded_kernels(dev, errs))
+    rows.update(time_parquet_v2_kernels(dev, errs, v2_samples))
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -3393,10 +3490,24 @@ def pack_bits_fast(values, bw: int) -> bytes:
 
 
 # fixture column specs: (kind, Parquet physical type, converted type or
-# None, payload); "dict": (per-row codes into pool, pool) where pool is a
-# numpy array of fixed values or a list of UTF-8 bytes; "plain": values
+# None, payload[, options]); "dict": (per-row codes into pool, pool) where
+# pool is a numpy array of fixed values or a list of UTF-8 bytes; "plain":
+# values; v2 kinds (write_parquet_fixture(..., v2=True)): "delta" values
+# (DELTA_BINARY_PACKED, blocks of 128 in 4 miniblocks, as parquet-mr and
+# pyarrow write), "bss" values (BYTE_STREAM_SPLIT), "flba" unscaled int64
+# (big-endian FIXED_LEN_BYTE_ARRAY decimals, options type_length and
+# decimal (precision, scale)), "dlba" / "dba" strings as (offsets [n + 1],
+# bytes) (DELTA_LENGTH_BYTE_ARRAY / DELTA_BYTE_ARRAY), "dict_fallback"
+# values: a dictionary (first-seen order) while its page stays within the
+# writer's dict_limit, then options["fallback"] ("delta" or "plain") pages
+# for the rest of the chunk, as parquet-mr and pyarrow fall back. Options:
+# valid (a row mask: a False row is NULL), type_length, decimal, fallback.
 PHYS_INT32, PHYS_INT64, PHYS_DOUBLE, PHYS_BYTE_ARRAY = 1, 2, 5, 6
-CONV_UTF8, CONV_DATE = 0, 6
+PHYS_FLOAT, PHYS_FLBA = 4, 7
+CONV_UTF8, CONV_DECIMAL, CONV_DATE, CONV_TIMESTAMP_MICROS = 0, 5, 6, 10
+ENC_PLAIN, ENC_RLE, ENC_DELTA, ENC_DLBA, ENC_DBA, ENC_RLE_DICT, ENC_BSS = \
+    0, 3, 5, 6, 7, 8, 9
+DICT_LIMIT = 1 << 20  # parquet.dictionary.page.size, dictionary_pagesize_limit
 
 
 def dict_spec(codes, pool, physical: int, converted=None):
@@ -3407,16 +3518,226 @@ def plain_spec(values, physical: int, converted=None):
     return ("plain", physical, converted, values)
 
 
+def v2_spec(kind: str, payload, physical: int, converted=None, **options):
+    return (kind, physical, converted, payload, options)
+
+
+def uvarint_matrix(u):
+    """(uint8 [n, 10] ULEB128 bytes, lengths [n]) of uint64 values."""
+    import numpy as np
+
+    u = np.asarray(u, dtype=np.uint64)
+    groups = (u[:, None] >> (7 * np.arange(10, dtype=np.uint64))) & \
+        np.uint64(0x7F)
+    lens = np.ones(len(u), np.int64)
+    for k in range(1, 10):
+        lens = np.where((u >> np.uint64(7 * k)) != 0, k + 1, lens)
+    cont = np.arange(10)[None, :] < (lens[:, None] - 1)
+    return (groups | (cont * np.uint64(0x80))).astype(np.uint8), lens
+
+
+def zigzag64(v):
+    import numpy as np
+
+    v = np.asarray(v, dtype=np.int64)
+    return (v.view(np.uint64) << np.uint64(1)) ^ (v >> 63).view(np.uint64)
+
+
+def bit_widths(u):
+    """Bits needed for each uint64 value (0 for 0)."""
+    import numpy as np
+
+    w = np.zeros(len(u), np.int64)
+    for b in range(64):
+        w = np.where((u >> np.uint64(b)) != 0, b + 1, w)
+    return w
+
+
+def delta_encode(values, block: int = 128, mbs: int = 4) -> bytes:
+    """values as a DELTA_BINARY_PACKED stream, vectorised: per block a
+    zigzag min delta, mbs width bytes and the miniblocks' bit-packed
+    deltas; trailing miniblocks of the last block carry no bytes. Deltas
+    wrap modulo 2^32 for 4-byte values (as parquet-mr and pyarrow write an
+    INT32 column: widths stay within 32) and 2^64 otherwise."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.io.thrift import uvarint
+
+    v = np.asarray(values)
+    narrow = v.dtype.itemsize == 4
+    u_t, s_t = (np.uint32, np.int32) if narrow else (np.uint64, np.int64)
+    v = v.astype(s_t)
+    n = len(v)
+    head = uvarint(block) + uvarint(mbs) + uvarint(n) + uvarint(int(
+        zigzag64([v[0] if n else 0])[0]))
+    if n <= 1:
+        return head
+    vpm = block // mbs
+    d = np.diff(v.view(u_t))                  # wraps
+    nd = len(d)
+    nb = -(-nd // block)
+    dd = np.zeros(nb * block, u_t)
+    dd[:nd] = d
+    real = np.arange(nb * block) < nd
+    sd = np.where(real, dd.view(s_t), np.iinfo(s_t).max)
+    mins = sd.reshape(nb, block).min(axis=1)
+    rel = np.where(real, dd - np.repeat(mins.view(u_t), block),
+                   u_t(0)).astype(np.uint64).reshape(nb * mbs, vpm)
+    mins = mins.astype(np.int64)
+    has = np.arange(nb * mbs) * vpm < nd
+    widths = np.where(has, bit_widths(rel.max(axis=1)), 0)
+    data_len = vpm * widths // 8
+    vb, vl = uvarint_matrix(zigzag64(mins))
+    blk_len = vl + mbs + data_len.reshape(nb, mbs).sum(axis=1)
+    blk_off = np.zeros(nb, np.int64)
+    np.cumsum(blk_len[:-1], out=blk_off[1:])
+    out = np.zeros(int(blk_len.sum()), np.uint8)
+    vmask = np.arange(10)[None, :] < vl[:, None]
+    out[(blk_off[:, None] + np.arange(10)[None, :])[vmask]] = vb[vmask]
+    wpos = blk_off + vl
+    out[(wpos[:, None] + np.arange(mbs)[None, :]).ravel()] = \
+        widths.astype(np.uint8)
+    mb_start = np.repeat(wpos + mbs, mbs) + np.concatenate(
+        [np.zeros((nb, 1), np.int64),
+         np.cumsum(data_len.reshape(nb, mbs), axis=1)[:, :-1]],
+        axis=1).ravel()
+    for w in np.unique(widths[data_len > 0]):
+        w = int(w)
+        sel = np.flatnonzero((widths == w) & (data_len > 0))
+        vals = rel[sel]
+        # value j of a miniblock at bit j * w: OR it into 64-bit words,
+        # one vectorised step per position over every miniblock
+        words = np.zeros((len(sel), (vpm * w + 63) // 64 + 1), np.uint64)
+        for j in range(vpm):
+            wi, sh = divmod(j * w, 64)
+            words[:, wi] |= vals[:, j] << np.uint64(sh)
+            if sh + w > 64:
+                words[:, wi + 1] |= vals[:, j] >> np.uint64(64 - sh)
+        packed = words.view(np.uint8)[:, :vpm * w // 8]
+        out[(mb_start[sel][:, None] + np.arange(packed.shape[1])[None, :]
+             ).ravel()] = packed.ravel()
+    return head + out.tobytes()
+
+
+def string_rows(offsets, data, rows):
+    """(offsets from 0, bytes) of the strings `rows` of (offsets, data)."""
+    import numpy as np
+
+    offsets = np.asarray(offsets, np.int64)
+    lens = offsets[rows + 1] - offsets[rows]
+    new = np.zeros(len(rows) + 1, np.int64)
+    np.cumsum(lens, out=new[1:])
+    src = np.repeat(offsets[rows] - new[:-1], lens) + np.arange(new[-1])
+    return new, np.asarray(data, np.uint8)[src]
+
+
+def dlba_encode(offsets, data) -> bytes:
+    """DELTA_LENGTH_BYTE_ARRAY: the lengths delta-packed, then the bytes."""
+    import numpy as np
+
+    offsets = np.asarray(offsets, np.int64)
+    return delta_encode(np.diff(offsets)) + np.asarray(
+        data, np.uint8)[offsets[0]:offsets[-1]].tobytes()
+
+
+def dba_encode(offsets, data) -> bytes:
+    """DELTA_BYTE_ARRAY: each string's common prefix with the one before
+    it (0 for the first) and its suffix length delta-packed, then the
+    suffixes, vectorised through a padded byte matrix."""
+    import numpy as np
+
+    offsets = np.asarray(offsets, np.int64)
+    data = np.asarray(data, np.uint8)
+    lens = np.diff(offsets)
+    n = len(lens)
+    if n == 0:
+        return delta_encode([]) + delta_encode([])
+    width = max(int(lens.max()), 1)
+    col = np.arange(width)[None, :]
+    inside = col < lens[:, None]
+    mat = np.zeros((n, width), np.uint8)
+    mat[inside] = data[(offsets[:-1, None] + col)[inside]]
+    plen = np.zeros(n, np.int64)
+    if n > 1:
+        same = (mat[1:] == mat[:-1]) & inside[1:] & inside[:-1]
+        plen[1:] = np.where(same.all(axis=1), np.minimum(lens[1:], lens[:-1]),
+                            np.argmin(same, axis=1))
+    suffix = inside & (col >= plen[:, None])
+    return delta_encode(plen) + delta_encode(lens - plen) + \
+        mat[suffix].tobytes()
+
+
+def bss_encode(values) -> bytes:
+    """BYTE_STREAM_SPLIT: byte k of every value, then byte k + 1."""
+    import numpy as np
+
+    v = np.ascontiguousarray(values)
+    return v.view(np.uint8).reshape(len(v), v.itemsize).T.tobytes()
+
+
+def flba_encode(unscaled, width: int) -> bytes:
+    """Unscaled decimals as width-byte big-endian two's complement."""
+    import numpy as np
+
+    v = np.asarray(unscaled, np.int64)
+    be = v.astype(">i8").view(np.uint8).reshape(len(v), 8)
+    if width <= 8:
+        return be[:, 8 - width:].tobytes()
+    ext = np.where(v < 0, 0xFF, 0).astype(np.uint8)[:, None].repeat(
+        width - 8, axis=1)
+    return np.concatenate([ext, be], axis=1).tobytes()
+
+
+def min_flba_bytes(precision: int) -> int:
+    """The fewest bytes that hold `precision` decimal digits (Spark's
+    minBytesForPrecision, pyarrow's FLBA width)."""
+    b = 1
+    while 2 ** (8 * b - 1) < 10 ** precision:
+        b += 1
+    return b
+
+
+def first_seen_dictionary(values):
+    """(dictionary in first-seen order, codes, first position of each
+    entry) of a value array; keys in [0, 2^26) take a dense table instead
+    of a sort."""
+    import numpy as np
+
+    values = np.asarray(values)
+    n = len(values)
+    if n and values.dtype.kind in "iu" and values.min() >= 0 and \
+            values.max() < 1 << 26:
+        first = np.full(int(values.max()) + 1, n, np.int64)
+        # the last write of a repeated index wins: writing the rows
+        # backwards leaves each value's first row
+        first[values[::-1]] = np.arange(n - 1, -1, -1)
+        uniq = np.flatnonzero(first < n)
+        order = np.argsort(first[uniq], kind="stable")
+        rank = np.zeros(len(first), np.int64)
+        rank[uniq[order]] = np.arange(len(uniq))
+        return uniq[order].astype(values.dtype), rank[values], \
+            first[uniq[order]]
+    uniq, first, inv = np.unique(values, return_index=True,
+                                 return_inverse=True)
+    order = np.argsort(first, kind="stable")
+    rank = np.empty(len(uniq), np.int64)
+    rank[order] = np.arange(len(uniq))
+    return uniq[order], rank[inv.ravel()], first[order]
+
+
 def write_parquet_fixture(path: str, columns: dict, row_group: int,
-                          page_rows: int, first_seen: bool = True) -> None:
-    """A Parquet file as parquet-mr and pyarrow write one by default
-    (pyarrow is not on the card's machine): OPTIONAL flat columns, v1 data
-    pages of page_rows rows, SNAPPY; a "dict" column has per row group a
-    PLAIN dictionary page of the pool entries that group uses, in the
-    order the group first meets them (those writers' order; first_seen
-    False: pool order), and RLE_DICTIONARY pages (definition levels one
-    RLE run of 1s, indices one bit-packed run), a "plain" column PLAIN
-    pages. Written with the port's thrift writer and Snappy."""
+                          page_rows: int, first_seen: bool = True,
+                          v2: bool = False,
+                          dict_limit: int = DICT_LIMIT) -> None:
+    """A Parquet file as parquet-mr and pyarrow write one (pyarrow is not
+    on the card's machine): OPTIONAL flat columns, data pages of page_rows
+    rows (v1, or v2 with v2=True), SNAPPY; a "dict" column has per row
+    group a PLAIN dictionary page of the pool entries that group uses, in
+    the order the group first meets them (those writers' order; first_seen
+    False: pool order), and RLE_DICTIONARY pages (indices one bit-packed
+    run); the other kinds are described above. Definition levels are one
+    RLE run of 1s, or one bit-packed run where a page has NULLs. Written
+    with the port's thrift writer and Snappy."""
     import struct
     from concurrent.futures import ThreadPoolExecutor
 
@@ -3442,18 +3763,39 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
         return b"".join(struct.pack("<I", len(pool[i])) + pool[i]
                         for i in used)
 
+    def options(spec):
+        return spec[4] if len(spec) > 4 else {}
+
     def rows_of(spec):
-        kind, _, _, payload = spec
-        return len(payload[0] if kind == "dict" else payload)
+        kind, _, _, payload = spec[:4]
+        if kind == "dict":
+            return len(payload[0])
+        if kind in ("dlba", "dba"):
+            return len(payload[0]) - 1
+        return len(payload)
+
+    def dict_indices(codes, bw):
+        m = len(codes)
+        return bytes([bw]) + uvarint(((m + 7) // 8 << 1) | 1) + \
+            pack_bits_fast(np.pad(codes, (0, -m % 8)), bw)
 
     def column_chunk(name, spec, lo: int, hi: int):
         """(bytes of the column chunk, raw size, wire size, offset of its
-        first data page in the chunk) of rows [lo, hi)."""
-        kind, _phys, _conv, payload = spec
-        pages = []
+        first data page in the chunk, encodings) of rows [lo, hi)."""
+        kind, phys, _conv, payload = spec[:4]
+        opts = options(spec)
+        valid = opts.get("valid")
+        vseg = np.ones(hi - lo, bool) if valid is None else \
+            np.asarray(valid[lo:hi], bool)
+        pres = np.flatnonzero(vseg)              # present rows, from 0
+        pstart = np.concatenate([[0], np.cumsum(
+            [int(vseg[p:p + page_rows].sum())
+             for p in range(0, hi - lo, page_rows)])])
+        pages, encs = [], {ENC_RLE}
+        n_dict_pages = 0
         if kind == "dict":
             codes, pool = payload
-            seg = np.asarray(codes[lo:hi])
+            seg = np.asarray(codes[lo:hi])[pres]
             used = np.flatnonzero(np.bincount(seg, minlength=len(pool)))
             if first_seen:
                 # the last write of a repeated index wins: writing the rows
@@ -3464,33 +3806,76 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
             remap = np.zeros(len(pool), np.uint32)
             remap[used] = np.arange(len(used), dtype=np.uint32)
             inv = remap[seg]
-            bw = max(1, int(len(used) - 1).bit_length())
-            pages.append((2, dict_payload(pool, used), 7,
-                          [(1, len(used)), (2, 0)]))
-        else:
-            seg = np.ascontiguousarray(payload[lo:hi])
-        for p in range(0, hi - lo, page_rows):
+            n_dict_pages = len(pstart) - 1
+            entries = dict_payload(pool, used)
+            n_entries = len(used)
+        elif kind == "dict_fallback":
+            seg = np.asarray(payload[lo:hi])[pres]
+            pool, inv, first = first_seen_dictionary(seg)
+            ndv = np.searchsorted(first, pstart[1:], side="left")
+            ok = ndv * seg.itemsize <= dict_limit
+            n_dict_pages = int(np.argmin(ok)) if not ok.all() else len(ok)
+            n_entries = int(ndv[n_dict_pages - 1]) if n_dict_pages else 0
+            entries = pool[:n_entries].tobytes()
+            inv = inv.astype(np.uint32)
+        if n_dict_pages:
+            bw = max(1, int(n_entries - 1).bit_length())
+            pages.append((2, b"", entries, 7, [(1, n_entries), (2, 0)]))
+            encs |= {ENC_PLAIN, ENC_RLE_DICT}
+        for pi, p in enumerate(range(0, hi - lo, page_rows)):
             m = min(page_rows, hi - lo - p)
-            levels = uvarint(m << 1) + b"\x01"
-            if kind == "dict":
-                body = bytes([bw]) + uvarint(((m + 7) // 8 << 1) | 1) + \
-                    pack_bits_fast(np.pad(inv[p:p + m], (0, -m % 8)), bw)
-                enc = 8
+            a, b = int(pstart[pi]), int(pstart[pi + 1])
+            rows = pres[a:b]                     # present rows of the page
+            pv = vseg[p:p + m]
+            if b - a == m:
+                levels = uvarint(m << 1) + b"\x01"
             else:
-                body = seg[p:p + m].tobytes()
-                enc = 0
-            pages.append((0, struct.pack("<I", len(levels)) + levels + body,
-                          5, [(1, m), (2, enc), (3, 3), (4, 3)]))
+                levels = uvarint(((m + 7) // 8 << 1) | 1) + np.packbits(
+                    np.pad(pv, (0, -m % 8)), bitorder="little").tobytes()
+            pkind = kind
+            if kind == "dict_fallback":
+                pkind = "dict" if pi < n_dict_pages else \
+                    opts.get("fallback", "delta")
+            if pkind == "dict":
+                body, enc = dict_indices(inv[a:b], bw), ENC_RLE_DICT
+            elif pkind in ("dlba", "dba"):
+                o, d = string_rows(payload[0], payload[1], lo + rows)
+                body = dlba_encode(o, d) if pkind == "dlba" else \
+                    dba_encode(o, d)
+                enc = ENC_DLBA if pkind == "dlba" else ENC_DBA
+            else:
+                vals = np.asarray(payload[lo:hi])[rows]
+                if pkind == "delta":
+                    body, enc = delta_encode(vals), ENC_DELTA
+                elif pkind == "bss":
+                    body, enc = bss_encode(vals), ENC_BSS
+                elif pkind == "flba":
+                    body, enc = flba_encode(vals, opts["type_length"]), \
+                        ENC_PLAIN
+                else:
+                    body, enc = np.ascontiguousarray(vals).tobytes(), \
+                        ENC_PLAIN
+            encs.add(enc)
+            if v2:
+                pages.append((3, levels, body, 8, [
+                    (1, m), (2, m - (b - a)), (3, m), (4, enc),
+                    (5, len(levels)), (6, 0)]))
+            else:
+                pages.append((0, b"", struct.pack("<I", len(levels)) +
+                              levels + body, 5,
+                              [(1, m), (2, enc), (3, 3), (4, 3)]))
         out, raw_total, data_off = [], 0, None
-        for pkind, body, fid, fields in pages:
-            wire = native.snappy_compress(body)
-            hdr = header(pkind, len(body), len(wire), fid, fields)
-            if pkind == 0 and data_off is None:
+        for pkind, levels, body, fid, fields in pages:
+            wire = levels + native.snappy_compress(body)
+            hdr = header(pkind, len(levels) + len(body), len(wire), fid,
+                         fields)
+            if pkind != 2 and data_off is None:
                 data_off = sum(len(x) for x in out)
             out.append(hdr + wire)
-            raw_total += len(hdr) + len(body)
+            raw_total += len(hdr) + len(levels) + len(body)
         chunk = b"".join(out)
-        return chunk, raw_total, len(chunk), data_off
+        return chunk, raw_total, len(chunk), data_off, sorted(encs), \
+            n_dict_pages > 0
 
     n = rows_of(next(iter(columns.values())))
     groups = []
@@ -3504,13 +3889,13 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
                 lambda item: column_chunk(item[0], item[1], lo, hi),
                 columns.items()))
             metas = []
-            for (name, (kind, phys, _c, _p)), (chunk, raw_total, wire_total,
-                                               data_off) in zip(
-                    columns.items(), chunks):
+            for (name, spec), (chunk, raw_total, wire_total, data_off, encs,
+                               has_dict) in zip(columns.items(), chunks):
                 start = f.tell()
                 f.write(chunk)
-                metas.append((name, phys, kind, start, start + data_off,
-                              raw_total, wire_total, hi - lo))
+                metas.append((name, spec[1], has_dict, start,
+                              start + data_off, raw_total, wire_total,
+                              hi - lo, encs))
             groups.append((metas, hi - lo))
         w = CompactWriter()
         w.i32(1, 1)
@@ -3519,12 +3904,20 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
         w.string(4, "schema")
         w.i32(5, len(columns))
         w.end_struct()
-        for name, (_kind, phys, conv, _payload) in columns.items():
+        for name, spec in columns.items():
+            _kind, phys, conv = spec[:3]
+            opts = options(spec)
             w.begin_element_struct()
             w.i32(1, phys)
+            if phys == PHYS_FLBA:
+                w.i32(2, opts["type_length"])
             w.i32(3, 1)
             w.string(4, name)
-            if conv is not None:
+            if "decimal" in opts:
+                w.i32(6, CONV_DECIMAL)
+                w.i32(7, opts["decimal"][1])
+                w.i32(8, opts["decimal"][0])
+            elif conv is not None:
                 w.i32(6, conv)
             w.end_struct()
         w.i64(3, n)
@@ -3532,13 +3925,12 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
         for metas, rows in groups:
             w.begin_element_struct()
             w.list_header(1, 12, len(metas))
-            for name, ptype, kind, start, data_off, raw_total, wire_total, \
-                    m in metas:
+            for name, ptype, has_dict, start, data_off, raw_total, \
+                    wire_total, m, encs in metas:
                 w.begin_element_struct()
                 w.i64(2, start)
                 w.begin_struct(3)
                 w.i32(1, ptype)
-                encs = [0, 3, 8] if kind == "dict" else [0, 3]
                 w.list_header(2, 5, len(encs))
                 w.buf += bytes(e << 1 for e in encs)  # zigzag i32
                 w.list_header(3, 8, 1)
@@ -3548,14 +3940,14 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
                 w.i64(6, raw_total)
                 w.i64(7, wire_total)
                 w.i64(9, data_off)
-                if kind == "dict":
+                if has_dict:
                     w.i64(11, start)
                 w.end_struct()
                 w.end_struct()
             w.i64(2, sum(x[6] for x in metas))
             w.i64(3, rows)
             w.end_struct()
-        w.string(6, "chip_smoke.py dictionary fixture")
+        w.string(6, "chip_smoke.py fixture")
         footer = w.stop()
         f.write(footer + struct.pack("<I", len(footer)) + b"PAR1")
 
@@ -3607,24 +3999,6 @@ def compare_k20(chunk, runs, cap: int, label: str, errs: dict) -> None:
     check(torch.equal(got, want), f"{label}: K20 differs")
     errs["hybrid_expand"] = max(errs.get("hybrid_expand", 0.0),
                                 max_abs_err(got, want))
-
-
-def compare_k21(levels, num_rows: int, cap: int, source, in_w: int,
-                out_dtype, sign: bool, label: str, errs: dict) -> None:
-    import torch
-
-    from spark_rapids_tpu_torch.io import parquet_device as PD
-
-    got = PD.page_decode_fixed(levels, num_rows, cap, source, in_w,
-                               out_dtype, sign)
-    want = PD.page_decode_fixed_plain(levels, num_rows, cap, source, in_w,
-                                      out_dtype, sign)
-    check(torch.equal(got[1], want[1]), f"{label}: K21 validity differs")
-    check(torch.equal(got[0].view(torch.uint8), want[0].view(torch.uint8)),
-          f"{label}: K21 values differ")
-    errs["page_decode_fixed"] = max(errs.get("page_decode_fixed", 0.0),
-                                    max_abs_err(got[0].view(torch.uint8),
-                                                want[0].view(torch.uint8)))
 
 
 def compare_k22(col, num_rows: int, label: str, errs: dict) -> None:
@@ -3746,10 +4120,10 @@ def parquet_edge_cases(dev, errs: dict) -> int:
                 max(present, 1))).astype(np.int32))
             for lv, nr in ((levels, rows - 3 if rows > 3 else rows),
                            (None, rows)):
-                compare_k21(lv, max(nr, 0), cap, PD.DictSource(idx,
-                                                               dict_bytes),
-                            in_w, out_dtype, sign, f"K21 dict {sizes}",
-                            errs)
+                compare_k21_pages(lv, max(nr, 0), cap, PD.page_source(
+                    dict_bytes, [PD.KIND_DICT], [present], [0], idx=idx,
+                    dict_bytes=dict_bytes, dict_w=in_w), in_w, out_dtype,
+                    sign, f"K21 dict {sizes}", errs)
                 ends = np.cumsum([max(present // 3, 0), present // 3,
                                   present - 2 * (present // 3)])
                 src = t(rng.integers(0, 256, in_w * (present + 5) + 40)
@@ -3758,9 +4132,9 @@ def parquet_edge_cases(dev, errs: dict) -> int:
                     src = src & 1
                 pos = np.asarray([3, 3 + in_w * int(ends[0]) + 7,
                                   10 + in_w * int(ends[1]) + 7], np.int64)
-                compare_k21(lv, max(nr, 0), cap, PD.PlainSource(
-                    src, t(ends.astype(np.int64)), t(pos)), in_w,
-                    out_dtype, sign, f"K21 plain {sizes}", errs)
+                compare_k21_pages(lv, max(nr, 0), cap, PD.page_source(
+                    src, [PD.KIND_PLAIN] * 3, ends, pos), in_w, out_dtype,
+                    sign, f"K21 plain {sizes}", errs)
                 n_cases += 2
 
     # K22
@@ -3857,34 +4231,34 @@ def time_parquet_kernels(dev, errs: dict) -> dict:
     levels = PD.hybrid_expand(chunk, runs, cap)
     idx = PD.hybrid_expand(ichunk, iruns, cap_p)
     dvals = torch.as_tensor(rng.integers(-2**40, 2**40, 1000)).to(dev)
-    dsrc = PD.DictSource(idx, dvals.view(torch.uint8))
-    compare_k21(levels, n, cap, dsrc, 8, torch.int64, False,
-                "K21 15M dictionary", errs)
+    dsrc = PD.page_source(dvals.view(torch.uint8), [PD.KIND_DICT],
+                          [present], [0], idx=idx,
+                          dict_bytes=dvals.view(torch.uint8))
+    compare_k21_pages(levels, n, cap, dsrc, 8, torch.int64, False,
+                      "K21 15M dictionary", errs)
     f64 = torch.as_tensor(rng.random(present) * 1e5).to(dev)
-    psrc = PD.PlainSource(f64.view(torch.uint8),
-                          torch.tensor([present], device=dev),
-                          torch.zeros(1, dtype=torch.int64, device=dev))
+    psrc = PD.page_source(f64.view(torch.uint8), [PD.KIND_PLAIN], [present],
+                          [0])
     d32 = torch.as_tensor(rng.integers(8000, 10600, present).astype(
         np.int32)).to(dev)
-    dsrc32 = PD.PlainSource(d32.view(torch.uint8),
-                            torch.tensor([present], device=dev),
-                            torch.zeros(1, dtype=torch.int64, device=dev))
-    compare_k21(levels, n, cap, psrc, 8, torch.float64, False,
-                "K21 15M PLAIN DOUBLE", errs)
-    compare_k21(levels, n, cap, dsrc32, 4, torch.int32, False,
-                "K21 15M PLAIN DATE", errs)
+    dsrc32 = PD.page_source(d32.view(torch.uint8), [PD.KIND_PLAIN],
+                            [present], [0])
+    compare_k21_pages(levels, n, cap, psrc, 8, torch.float64, False,
+                      "K21 15M PLAIN DOUBLE", errs)
+    compare_k21_pages(levels, n, cap, dsrc32, 4, torch.int32, False,
+                      "K21 15M PLAIN DATE", errs)
     idx_l = idx[:present].long()
     rows["page_decode_fixed"] = dict(
-        ms=cuda_ms(lambda: PD.page_decode_fixed(levels, n, cap, dsrc, 8,
+        ms=cuda_ms(lambda: PD.page_decode_pages(levels, n, cap, dsrc, 8,
                                                 torch.int64), iters),
-        plain_ms=cuda_ms(lambda: PD.page_decode_fixed_plain(
+        plain_ms=cuda_ms(lambda: PD.page_decode_pages_plain(
             levels, n, cap, dsrc, 8, torch.int64, False), plain_iters),
         library_ms=cuda_ms(lambda: dvals[idx_l], iters),
         bound_ms=bound_ms(4 * n + 4 * present + 8000 + 9 * cap),
-        ms_plain_f64=cuda_ms(lambda: PD.page_decode_fixed(
+        ms_plain_f64=cuda_ms(lambda: PD.page_decode_pages(
             levels, n, cap, psrc, 8, torch.float64), iters),
         bound_ms_plain_f64=bound_ms(4 * n + 8 * present + 9 * cap),
-        ms_plain_date=cuda_ms(lambda: PD.page_decode_fixed(
+        ms_plain_date=cuda_ms(lambda: PD.page_decode_pages(
             levels, n, cap, dsrc32, 4, torch.int32), iters),
         bound_ms_plain_date=bound_ms(4 * n + 4 * present + 5 * cap),
         shape=f"{n} rows, {present} present: dictionary int64 (1000 "
@@ -4115,6 +4489,9 @@ def run_parquet(sess, raw, tables, wants: dict, input_rows: dict,
             out["parquet_tpch_q1"]["profile"] = profile_query(
                 tpch.q1(ptables), profile_dir, "parquet_tpch_q1")
         out.update(run_decode_shape(sess, root, launches))
+        v2, out["l_extendedprice_sample"] = run_parquet_v2_tpch(
+            sess, raw, wants, input_rows, launches, root)
+        out.update(v2)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -4788,6 +5165,697 @@ def time_encoded_kernels(dev, errs: dict) -> dict:
 
 
 # ----------------------------------------------------------------- main
+# ------------------------------------------------------------ Parquet v2
+V2_ROW_GROUP = 1 << 20
+V2_PAGE_ROWS = 1 << 17
+
+
+def compare_k25(chunk, st, out_len: int, label: str, errs: dict, want=None):
+    """K25 against its plain version (and `want`, int64 numpy, when
+    given), bit for bit."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    got = PD.delta_expand(chunk, st, out_len)
+    plain = PD.delta_expand_plain(chunk, st, out_len)
+    check(bits_equal(got, plain), f"{label}: K25 differs from its plain version")
+    if want is not None:
+        check(np.array_equal(got.cpu().numpy(), want),
+              f"{label}: K25 differs from the encoded values")
+    errs["delta_expand"] = max(errs.get("delta_expand", 0.0),
+                               max_abs_err(got, plain))
+    return got
+
+
+def compare_k21_pages(levels, num_rows: int, cap: int, source, in_w: int,
+                      out_dtype, sign: bool, label: str, errs: dict):
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    got = PD.page_decode_pages(levels, num_rows, cap, source, in_w,
+                               out_dtype, sign)
+    want = PD.page_decode_pages_plain(levels, num_rows, cap, source, in_w,
+                                      out_dtype, sign)
+    check(torch.equal(got[1], want[1]), f"{label}: K21 validity differs")
+    check(bits_equal(got[0], want[0]), f"{label}: K21 values differ")
+    name = source.label
+    errs[name] = max(errs.get(name, 0.0), max_abs_err(
+        got[0].view(torch.uint8), want[0].view(torch.uint8)))
+    return got
+
+
+def compare_k26(chunk, plen, slen, page_lanes, base, end, label: str,
+                errs: dict):
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    got = PD.delta_byte_array(chunk, plen, slen, page_lanes, base, end, label)
+    want = PD.delta_byte_array_plain(chunk, plen, slen, page_lanes, base,
+                                     end, label)
+    check(torch.equal(got[1], want[1]), f"{label}: K26 offsets differ")
+    check(torch.equal(got[0], want[0]), f"{label}: K26 bytes differ")
+    errs["delta_byte_array"] = max(errs.get("delta_byte_array", 0.0),
+                                   max_abs_err(got[0], want[0]))
+    return got
+
+
+def delta_pages(pages, dev):
+    """(chunk on dev, K25 streams, expected int64 lanes) of DELTA streams
+    laid end to end, each at its own dense offset."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    raw, streams, want, lane = bytearray(b"\x07" * 3), [], [], 0
+    for vals in pages:
+        pos = len(raw)
+        raw += delta_encode(vals)
+        first, vpm, off, w, md, _ = native.parse_delta(bytes(raw), pos,
+                                                       len(raw), len(vals))
+        streams.append((lane, len(vals), first, vpm, off, w, md))
+        want.append(np.asarray(vals).astype(np.int64))
+        lane += len(vals)
+    chunk = __import__("torch").from_numpy(np.frombuffer(
+        bytes(raw), np.uint8).copy()).to(dev)
+    return chunk, PD.delta_streams(streams, dev), np.concatenate(want), lane
+
+
+def width_stream(rng, w: int, n: int):
+    """n int64 values whose deltas need exactly w bits in every block."""
+    import numpy as np
+
+    if w == 0:
+        return np.full(n, 123456789, np.int64)
+    hi = np.uint64(1) << np.uint64(w - 1) if w < 64 else np.uint64(1 << 63)
+    d = rng.integers(0, 2 ** min(w, 63), n, dtype=np.uint64) if w < 64 \
+        else rng.integers(0, 2 ** 63, n, dtype=np.uint64) * np.uint64(2) + \
+        rng.integers(0, 2, n, dtype=np.uint64)
+    d[::16] |= hi                            # the top bit in every block
+    d[1::16] = 0                             # and the least delta 0
+    return np.cumsum(d).view(np.int64)
+
+
+def dba_pages(pages, dev):
+    """(chunk, plen, slen, page lanes, suffix starts, page ends) of
+    DELTA_BYTE_ARRAY pages built from lists of byte strings."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    raw, plens, slens, base, end, lanes, pres = bytearray(b"\x01"), [], \
+        [], [], [], [0], 0
+    for strs in pages:
+        lens = np.asarray([len(x) for x in strs], np.int64)
+        offs = np.zeros(len(strs) + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        pos = len(raw)
+        raw += dba_encode(offs, np.frombuffer(b"".join(strs), np.uint8))
+        n = len(strs)
+        buf = bytes(raw)
+        f1, v1, o1, w1, m1, p1 = native.parse_delta(buf, pos, len(buf), n)
+        f2, v2, o2, w2, m2, p2 = native.parse_delta(buf, p1, len(buf), n)
+        plens.append((pres, n, f1, v1, o1, w1, m1))
+        slens.append((pres, n, f2, v2, o2, w2, m2))
+        base.append(p2)
+        end.append(len(buf))
+        pres += n
+        lanes.append(pres)
+    fixed = plens + [(s[0] + pres,) + s[1:] for s in slens]
+    chunk = torch.from_numpy(np.frombuffer(bytes(raw), np.uint8).copy()).to(
+        dev)
+    out = PD.delta_expand(chunk, PD.delta_streams(fixed, dev), 2 * pres)
+    return chunk, out[:pres], out[pres:], np.asarray(lanes), \
+        np.asarray(base), np.asarray(end)
+
+
+def parquet_v2_edge_cases(dev, errs: dict) -> int:
+    """K25, K26 and K21's BSS and FLBA modes against their plain versions,
+    bit for bit (K25 also against the encoded values): empty and one-value
+    streams, width 0 and every width 57-64, full-range int64 deltas,
+    several streams in one launch; BSS over FLOAT / DOUBLE / INT32 / INT64
+    pages of 0, 1 and many values with NULL rows; FLBA of 1-16 bytes with
+    negatives and NULLs, and a dictionary page folded; DBA pages of 0 and 1
+    strings, empty strings, and prefixes that chain across 3000 strings;
+    then whole v2 chunks written by write_parquet_fixture (NULLs, a mixed
+    dictionary -> DELTA chunk and a dictionary -> PLAIN one) decoded on the
+    card against the same decode of CPU tensors."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.io.parquet_meta import (
+        read_chunk,
+        read_footer,
+    )
+
+    rng = np.random.default_rng(91)
+    n_cases = 0
+    # K25
+    big = rng.integers(-2**63, 2**63 - 1, 700, dtype=np.int64)
+    streams = [np.zeros(0, np.int64), np.asarray([-5], np.int64), big,
+               np.arange(1000, dtype=np.int64), width_stream(rng, 0, 300)] + \
+        [width_stream(rng, w, 333) for w in range(57, 65)] + \
+        [rng.integers(-1000, 1000, 4097).astype(np.int64)]
+    chunk, st, want, lanes = delta_pages(streams, dev)
+    compare_k25(chunk, st, lanes, "K25 edge streams", errs, want)
+    for one in streams:
+        chunk, st, want, lanes = delta_pages([one], dev)
+        compare_k25(chunk, st, lanes, f"K25 {len(one)} values", errs, want)
+        n_cases += 1
+    # K25 across tiles: one stream of 3 tiles and a head inside a tile
+    long = [rng.integers(-2**40, 2**40, 9000).astype(np.int64),
+            rng.integers(0, 7, 5000).astype(np.int64)]
+    chunk, st, want, lanes = delta_pages(long, dev)
+    compare_k25(chunk, st, lanes, "K25 across tiles", errs, want)
+    # K21 BSS and FLBA through a page table, with NULL rows
+    for np_t, in_w, out_t in ((np.float32, 4, torch.float32),
+                              (np.float64, 8, torch.float64),
+                              (np.int32, 4, torch.int32),
+                              (np.int64, 8, torch.int64)):
+        for counts in ((0,), (1,), (1000, 0, 1, 333)):
+            raw, ends, pos, p = bytearray(b"\x09" * 5), [], [], 0
+            for c in counts:
+                vals = (rng.standard_normal(c) * 1e6).astype(np_t)
+                pos.append(len(raw))
+                raw += bss_encode(vals)
+                p += c
+                ends.append(p)
+            rows = p + p // 3 + 1
+            lv = np.zeros(rows, bool)
+            lv[np.sort(rng.choice(rows, p, replace=False))] = True
+            levels = torch.from_numpy(lv.astype(np.int32)).to(dev)
+            cap = 1 << max(rows - 1, 1).bit_length()
+            levels = torch.cat([levels, torch.zeros(cap - rows,
+                                                    dtype=torch.int32,
+                                                    device=dev)])
+            src = torch.from_numpy(np.frombuffer(bytes(raw), np.uint8).copy()
+                                   ).to(dev)
+            source = PD.page_source(src, [PD.KIND_BSS] * len(counts), ends,
+                                    pos)
+            compare_k21_pages(levels, rows, cap, source, in_w, out_t, False,
+                              f"K21 BSS {np_t.__name__} {counts}", errs)
+            n_cases += 1
+    for w in range(1, 17):
+        lo = -(1 << min(8 * w - 1, 62))
+        vals = rng.integers(lo, -lo, 500, dtype=np.int64)
+        vals[:4] = [lo, -lo - 1, -1, 0]
+        raw = b"\x05\x06" + flba_encode(vals[:300], w) + b"\x07" + \
+            flba_encode(vals[300:], w)
+        src = torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev)
+        lv = rng.random(1024) < 0.8
+        lv[np.flatnonzero(lv)[500:]] = False
+        levels = torch.from_numpy(lv.astype(np.int32)).to(dev)
+        source = PD.page_source(src, [PD.KIND_FLBA] * 2, [300, 500],
+                                [2, 3 + 300 * w])
+        got = compare_k21_pages(levels, 600, 1024, source, w, torch.int64,
+                                w < 8, f"K21 FLBA {w} bytes", errs)
+        dense = got[0][:600].cpu().numpy()[lv[:600]]
+        check(np.array_equal(dense, vals[:int(lv[:600].sum())]),
+              f"K21 FLBA {w} bytes: values differ from the encoded ones")
+        n_cases += 1
+    # K26
+    chain = [b"x" * i for i in range(3000)]
+    words = [b"", b"a", b"ab", b"abc", b"abd", b"b", "h\xc3\xa9".encode(),
+             b"", b"zz" * 40, b"zz" * 41]
+    pages = [[], [b"one"], words, chain, sorted(
+        bytes(rng.integers(97, 100, int(rng.integers(0, 9))).astype(
+            np.uint8)) for _ in range(2000))]
+    chunk, plen, slen, pl, base, end = dba_pages(pages, dev)
+    got = compare_k26(chunk, plen, slen, pl, base, end, "K26 pages", errs)
+    flat = b"".join(b"".join(p) for p in pages)
+    check(bytes(got[0].cpu().numpy()) == flat, "K26: bytes differ from the "
+          "encoded strings")
+    for page in pages:
+        compare_k26(*dba_pages([page], dev), f"K26 {len(page)} strings",
+                    errs)
+        n_cases += 1
+    # whole v2 chunks: the card's decode against the CPU's
+    n = 20000
+    valid = rng.random(n) > 0.15
+    keys = rng.integers(0, 4000, n).astype(np.int64)
+    codes = rng.integers(0, len(words), n)
+    lens = np.asarray([len(words[c]) for c in codes], np.int64)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    text = np.frombuffer(b"".join(words[c] for c in codes), np.uint8)
+    sorted_text = string_rows(offs, text, np.argsort(codes, kind="stable"))
+    cols = {
+        "k": v2_spec("dict_fallback", keys, PHYS_INT64, valid=valid),
+        "kp": v2_spec("dict_fallback", keys.astype(np.int32), PHYS_INT32,
+                      fallback="plain"),
+        "ts": v2_spec("delta", rng.integers(0, 2**50, n), PHYS_INT64,
+                      CONV_TIMESTAMP_MICROS, valid=valid),
+        "dt": v2_spec("delta", rng.integers(8000, 11000, n).astype(
+            np.int32), PHYS_INT32, CONV_DATE),
+        "f": v2_spec("bss", rng.standard_normal(n), PHYS_DOUBLE,
+                     valid=valid),
+        "p": v2_spec("flba", rng.integers(-10**8, 10**8, n), PHYS_FLBA,
+                     type_length=4, decimal=(9, 2), valid=valid),
+        "s": v2_spec("dlba", (offs, text), PHYS_BYTE_ARRAY, CONV_UTF8,
+                     valid=valid),
+        "c": v2_spec("dba", sorted_text, PHYS_BYTE_ARRAY, CONV_UTF8),
+    }
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "v2.parquet")
+        write_parquet_fixture(path, cols, 8192, 1024, v2=True,
+                              dict_limit=8 * 1024)
+        md = read_footer(path)
+        mixed = 0
+        for g in md.row_groups:
+            for c in md.columns:
+                ch = g.columns[c.name]
+                raw = read_chunk(path, ch)
+                args = (raw, c.dtype, g.num_rows, c.max_def)
+                kw = dict(codec=ch.codec, physical=c.physical, name=c.name,
+                          type_length=c.type_length)
+                got = PD.decode_chunk_device(*args, device=dev, **kw)
+                want = PD.decode_chunk_device(*args, **kw)
+                label = f"v2 chunk {c.name} ({', '.join(ch.encodings)})"
+                check(torch.equal(got.validity.cpu(), want.validity),
+                      f"{label}: validity differs")
+                if c.dtype.is_string:
+                    check(torch.equal(got.offsets.cpu(), want.offsets),
+                          f"{label}: offsets differ")
+                    nb = int(want.offsets[-1])
+                    check(torch.equal(got.data[:nb].cpu(), want.data[:nb]),
+                          f"{label}: bytes differ")
+                else:
+                    check(bits_equal(got.data.cpu(), want.data),
+                          f"{label}: values differ")
+                mixed += "RLE_DICTIONARY" in ch.encodings and (
+                    "DELTA_BINARY_PACKED" in ch.encodings)
+                n_cases += 1
+        check(mixed > 0, "no mixed dictionary -> DELTA chunk was written")
+    return n_cases
+
+
+def v2_chunk(cols: dict, dev, name: str):
+    """(HostChunk of column `name` of a one-row-group v2 file of cols,
+    its chunk on dev, its definition levels on dev) for timing."""
+    import tempfile
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+    from spark_rapids_tpu_torch.io.parquet_meta import read_chunk, \
+        read_footer
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "t.parquet")
+        write_parquet_fixture(path, cols, V2_ROW_GROUP, V2_PAGE_ROWS,
+                              v2=True)
+        md = read_footer(path)
+        c = md.column(name)
+        g = md.row_groups[0]
+        ch = g.columns[name]
+        hc = PD.prepare_chunk(read_chunk(path, ch), c.dtype, g.num_rows,
+                              c.max_def, ch.codec, c.physical, name, True,
+                              c.type_length)
+    chunk = hc.buf_t.to(dev)
+    cap = 1 << max(hc.num_rows - 1, 1).bit_length()
+    levels = PD.hybrid_expand(chunk, PD.device_runs(hc.def_tabs, dev,
+                                                    hc.rows), cap)
+    return hc, chunk, levels, cap
+
+
+# TPCx-BB's tables in the v2 layouts real files have: keys that overflow
+# a 1 MiB dictionary fall back to DELTA pages; small-domain keys stay
+# dictionaries; timestamps, INT32 counts and the dense review / item ids
+# are DELTA; decimals are FLBA of the fewest bytes; i_category is
+# DELTA_BYTE_ARRAY, pr_content DELTA_LENGTH_BYTE_ARRAY.
+XBB_V2_DICT = ("ss_store_sk", "inv_warehouse_sk")
+XBB_V2_FALLBACK = ("_item_sk", "_customer_sk", "_user_sk")
+XBB_V2_DBA = ("i_category",)
+
+
+def partition_columns(df):
+    """Per partition of a generated table: {name: (values, validity)};
+    STRING values as (offsets int64 [n + 1], UTF-8 bytes)."""
+    import numpy as np
+
+    out = []
+    for part in df._plan.partitions:
+        cols = {}
+        for i, a in enumerate(df.schema):
+            hosts = [b.columns[i] for b in part]
+            valid = np.concatenate([h.validity for h in hosts])
+            if a.data_type.is_string:
+                offs, raws, base = [np.zeros(1, np.int64)], [], 0
+                for h in hosts:
+                    o, r = h.utf8()
+                    o = o.astype(np.int64)
+                    offs.append(o[1:] + base)
+                    raws.append(r[:int(o[-1])])
+                    base += int(o[-1])
+                cols[a.name] = ((np.concatenate(offs),
+                                 np.concatenate(raws)), valid)
+            else:
+                cols[a.name] = (np.concatenate([h.data for h in hosts]),
+                                valid)
+        out.append(cols)
+    return out
+
+
+def xbb_v2_spec(name: str, dtype, values, valid):
+    import numpy as np
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+    opts = {} if valid.all() else {"valid": valid}
+    if dtype.is_string:
+        return v2_spec("dba" if name in XBB_V2_DBA else "dlba", values,
+                       PHYS_BYTE_ARRAY, CONV_UTF8, **opts)
+    if getattr(dtype, "is_decimal", False):
+        return v2_spec("flba", values.astype(np.int64), PHYS_FLBA,
+                       type_length=min_flba_bytes(dtype.precision),
+                       decimal=(dtype.precision, dtype.scale), **opts)
+    if dtype is DataType.TIMESTAMP:
+        return v2_spec("delta", values, PHYS_INT64, CONV_TIMESTAMP_MICROS,
+                       **opts)
+    if dtype is DataType.INT32:
+        return v2_spec("delta", values, PHYS_INT32, **opts)
+    if name in XBB_V2_DICT:
+        pool, codes = np.unique(values, return_inverse=True)
+        return ("dict", PHYS_INT64, None, (codes.ravel(), pool), opts)
+    if name.endswith(XBB_V2_FALLBACK) and name != "i_item_sk":
+        return v2_spec("dict_fallback", values.astype(np.int64),
+                       PHYS_INT64, fallback="delta", **opts)
+    return v2_spec("delta", values.astype(np.int64), PHYS_INT64, **opts)
+
+
+def write_xbb_v2(raw: dict, root: str, names=None, row_group: int = None,
+                 page_rows: int = None, dict_limit: int = None) -> dict:
+    """The TPCx-BB tables `names` (default all) of `raw` written in the v2
+    layout, one file a partition under root/<table>/, in row groups of
+    V2_ROW_GROUP and pages of V2_PAGE_ROWS rows with DICT_LIMIT (unless
+    given): {table: (directory, seconds, bytes)}."""
+    import glob
+
+    row_group = row_group or V2_ROW_GROUP
+    page_rows = page_rows or V2_PAGE_ROWS
+    dict_limit = dict_limit or DICT_LIMIT
+
+    out = {}
+    for name in sorted(names or raw):
+        df = raw[name]
+        d = os.path.join(root, name)
+        os.makedirs(d, exist_ok=True)
+        t = time.perf_counter()
+        for k, cols in enumerate(partition_columns(df)):
+            specs = {a.name: xbb_v2_spec(a.name, a.data_type,
+                                         *cols[a.name]) for a in df.schema}
+            write_parquet_fixture(os.path.join(d, f"part-{k:05d}.parquet"),
+                                  specs, row_group, page_rows, v2=True,
+                                  dict_limit=dict_limit)
+        out[name] = (d, time.perf_counter() - t, sum(
+            os.path.getsize(f) for f in glob.glob(os.path.join(d, "*"))))
+    return out
+
+
+TPCH_V2_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+                   "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+
+
+def run_parquet_v2_tpch(sess, raw, wants: dict, input_rows: dict,
+                        launches: dict, root: str) -> dict:
+    """Phase 4's SF 10 lineitem, the seven columns q1 and q6 read, written
+    one file a partition in the v2 layout Arrow writers use for floats
+    (the four DOUBLEs BYTE_STREAM_SPLIT, l_shipdate DELTA_BINARY_PACKED,
+    the two flags dictionaries), then q1 and q6 over it (one cold and
+    V2_WARM_REPS warm runs, paths parquet_v2_tpch_q1 / _q6) against phase
+    4's numpy rows. Also returns V2_ROW_GROUP values of l_extendedprice
+    for the kernel timings."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    df = raw["lineitem"]
+    sizes = [sum(b.num_rows for b in part) for part in df._plan.partitions]
+    cuts = np.cumsum([0] + sizes)
+    pools = {"l_returnflag": tpch._FLAGS, "l_linestatus": tpch._STATUS}
+    cols = table_columns(df, TPCH_V2_COLUMNS)
+    for name, pool in pools.items():
+        cols[name] = pool_index(df, name, pool).astype(np.int32)
+    d = os.path.join(root, "lineitem_v2")
+    os.makedirs(d, exist_ok=True)
+    t = time.perf_counter()
+    for k in range(len(sizes)):
+        a, b = int(cuts[k]), int(cuts[k + 1])
+        specs = {}
+        for name in TPCH_V2_COLUMNS:
+            v = cols[name][a:b]
+            if name in pools:
+                specs[name] = dict_spec(v, pool_bytes(pools[name]),
+                                        PHYS_BYTE_ARRAY, CONV_UTF8)
+            elif name == "l_shipdate":
+                specs[name] = v2_spec("delta", v, PHYS_INT32, CONV_DATE)
+            else:
+                specs[name] = v2_spec("bss", v, PHYS_DOUBLE)
+        write_parquet_fixture(os.path.join(d, f"part-{k:05d}.parquet"),
+                              specs, V2_ROW_GROUP, V2_PAGE_ROWS, v2=True)
+    out = {"lineitem_v2_write": {
+        "s": time.perf_counter() - t, "rows": int(cuts[-1]),
+        "bytes": sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d))}}
+    log(f"parquet v2: lineitem ({int(cuts[-1])} rows, 7 columns) written in "
+        f"{out['lineitem_v2_write']['s']:.3f} s, "
+        f"{out['lineitem_v2_write']['bytes']} bytes")
+    sample = cols["l_extendedprice"][:V2_ROW_GROUP].copy()
+    del cols
+    ptables = {"lineitem": sess.read.parquet(d)}
+    from spark_rapids_tpu_torch import cuda_build as CB
+
+    for q in ("q1", "q6"):
+        name = f"parquet_v2_tpch_{q}"
+        CB.reset_launch_counts()
+        r = run_query(sess, tpch.QUERIES[q](ptables), wants[f"tpch_{q}"],
+                      name, V2_WARM_REPS)
+        launches[name] = CB.launch_counts()
+        assert_file_leaves(sess)
+        host = scan_host_s(sess)
+        r.update(input_rows=input_rows[q],
+                 rows_per_s=input_rows[q] / r["warm_median_s"],
+                 last_run_scan_host_s=host,
+                 checked_against="numpy (phase 4)")
+        log(f"{name}: scan host {host:.3f} s of the last warm run "
+            f"({r['warm_s'][-1]:.3f} s)")
+        out[name] = r
+    return out, sample
+
+
+def run_parquet_v2_xbb(sess, raw: dict, cached: dict, table_rows: dict,
+                       launches: dict, names, warm_reps: int = 3,
+                       max_write_s: float = None, profile_dir=None) -> dict:
+    """The v2 phase over TPCx-BB tables: write the tables `names` read in
+    the v2 layout, then each query over read.parquet of those files, one
+    cold and warm_reps warm runs, every leaf a TpuFileScanExec, its rows
+    equal to the same query's over the cached tables (`cached`: path ->
+    rows; integers, decimals and strings exactly, DOUBLE within a relative
+    TPCH_REL); path parquet_v2_xbb_<q>. When writing the files took more
+    than max_write_s, the queries are left out and the result says so.
+    The files are removed at the end."""
+    import shutil
+    import tempfile
+
+    from spark_rapids_tpu_torch.benchmarks import tpcxbb
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_v2_")
+    out = {}
+    try:
+        need = set()
+        for q in names:
+            rec = TableRecorder(raw)
+            tpcxbb.QUERIES[q](rec)
+            need |= rec.seen
+        written = write_xbb_v2(raw, root, sorted(need))
+        for t, (_d, secs, nbytes) in written.items():
+            out[f"write_{t}"] = {"s": secs, "bytes": nbytes,
+                                 "rows": table_rows[t]}
+            log(f"parquet v2: wrote {t} ({table_rows[t]} rows) in "
+                f"{secs:.3f} s, {nbytes} bytes")
+        out["write_s"] = sum(v[1] for v in written.values())
+        if max_write_s is not None and out["write_s"] > max_write_s:
+            out["left_out"] = (f"{names}: writing their tables took "
+                               f"{out['write_s']:.1f} s, past "
+                               f"{max_write_s} s")
+            log(f"parquet v2: {out['left_out']}")
+            return out
+        ptables = {t: sess.read.parquet(d) for t, (d, _s, _b) in
+                   written.items()}
+        for q in names:
+            name = f"parquet_v2_xbb_{q.split('_')[0]}"
+            r = run_xbb_query(sess, name, tpcxbb.QUERIES[q], ptables,
+                              table_rows, cached[f"tpcxbb_{q}"], launches,
+                              warm_reps)
+            assert_file_leaves(sess)
+            r["last_run_scan_host_s"] = scan_host_s(sess)
+            r["checked_against"] = "the cached tables' rows"
+            log(f"{name}: scan host {r['last_run_scan_host_s']:.3f} s of "
+                f"the last warm run ({r['warm_s'][-1]:.3f} s)")
+            out[name] = r
+        for q in ("q05_like", "q02_like"):  # device kernels and cProfile
+            if profile_dir and q in names:
+                name = f"parquet_v2_xbb_{q.split('_')[0]}"
+                out[name]["profile"] = profile_query(
+                    tpcxbb.QUERIES[q](ptables), profile_dir, name)
+        out.update(no_fallback_check(sess, ptables))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def no_fallback_check(sess, ptables: dict) -> dict:
+    """A device session whose kernel library fails to load: a read of the
+    v2 files raises (nothing decodes elsewhere instead)."""
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    real = CB.library
+
+    def fail(name):
+        raise RuntimeError(f"kernel library {name} failed to load")
+
+    if sess.device.type != "cuda":  # CPU tensors take the plain versions
+        return {}
+    t = sorted(ptables)[0]
+    CB.library = fail
+    try:
+        try:
+            ptables[t].agg(F.count(ptables[t].schema[0].name)).collect()
+            raised = ""
+        except RuntimeError as e:
+            raised = str(e)
+    finally:
+        CB.library = real
+    check("failed to load" in raised, "parquet v2: a read with the kernel "
+          "library failing to load did not raise")
+    log(f"parquet v2: with the kernel library failing to load, a read of "
+        f"{t} raises ({raised})")
+    return {"no_fallback": raised}
+
+
+def geomean(xs) -> float:
+    import numpy as np
+
+    return float(np.exp(np.mean(np.log(xs))))
+
+
+def time_parquet_v2_kernels(dev, errs: dict, samples: dict) -> dict:
+    """K25, K26 and K21's BSS and FLBA modes at one 2^20-row row group of
+    v2 pages (2^17 rows each), each checked against its plain version
+    there: K25 over wcs_click_ts (DELTA), K21 FLBA over ss_net_paid (4-byte
+    FLBA), K21 BSS over l_extendedprice, K26 over an l_comment-like column
+    written as DELTA_BYTE_ARRAY (its two length streams through K25 first).
+    samples: 2^20 host values of each column from the phases' tables. A
+    bound counts each input read once (the chunk bytes the kernel reads,
+    its tables, the levels) and each output written once."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_device as PD
+
+    n = V2_ROW_GROUP
+    iters, plain_iters = 10, 2
+    rows = {}
+    # K25 on wcs_click_ts
+    hc, chunk, levels, cap = v2_chunk({"wcs_click_ts": v2_spec(
+        "delta", samples["wcs_click_ts"][:n], PHYS_INT64,
+        CONV_TIMESTAMP_MICROS)}, dev, "wcs_click_ts")
+    st = PD.delta_streams(hc.deltas, dev)
+    got = compare_k25(chunk, st, hc.present, "K25 wcs_click_ts", errs,
+                      samples["wcs_click_ts"][:n].astype(np.int64))
+    deltas = torch.diff(got, prepend=got[:1] * 0)
+    n_mbs = int(st.mb_width.shape[0])
+    stream_bytes = int(hc.buf.size) - (hc.byte_pos[0] if hc.byte_pos else 0)
+    rows["delta_expand"] = dict(
+        ms=cuda_ms(lambda: PD.delta_expand(chunk, st, hc.present), iters),
+        plain_ms=cuda_ms(lambda: PD.delta_expand_plain(chunk, st,
+                                                       hc.present),
+                         plain_iters),
+        library_ms=cuda_ms(lambda: torch.cumsum(deltas, 0), iters),
+        bound_ms=bound_ms(stream_bytes + 20 * n_mbs + 8 * hc.present),
+        shape=f"{hc.present} TIMESTAMP values like wcs_click_ts in "
+              f"{len(hc.kinds)} DELTA pages, {n_mbs} miniblocks, "
+              f"widths {int(st.mb_width.min())}-{int(st.mb_width.max())}")
+    # K21 FLBA on ss_net_paid
+    hc, chunk, levels, cap = v2_chunk({"ss_net_paid": v2_spec(
+        "flba", samples["ss_net_paid"][:n], PHYS_FLBA, type_length=4,
+        decimal=(9, 2))}, dev, "ss_net_paid")
+    src = PD.page_source(chunk, hc.kinds, hc.dense_end, hc.byte_pos)
+    compare_k21_pages(levels, n, cap, src, 4, torch.int64, True,
+                      "K21 FLBA ss_net_paid", errs)
+    rows["k21_flba"] = dict(
+        ms=cuda_ms(lambda: PD.page_decode_pages(levels, n, cap, src, 4,
+                                                torch.int64, True), iters),
+        plain_ms=cuda_ms(lambda: PD.page_decode_pages_plain(
+            levels, n, cap, src, 4, torch.int64, True), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * n + 4 * hc.present + 9 * cap),
+        shape=f"{n} rows like ss_net_paid, DECIMAL(9,2) in 4-byte "
+              f"FIXED_LEN_BYTE_ARRAY, {len(hc.kinds)} pages")
+    # K21 BSS on l_extendedprice
+    hc, chunk, levels, cap = v2_chunk({"l_extendedprice": v2_spec(
+        "bss", samples["l_extendedprice"][:n], PHYS_DOUBLE)}, dev,
+        "l_extendedprice")
+    src = PD.page_source(chunk, hc.kinds, hc.dense_end, hc.byte_pos)
+    compare_k21_pages(levels, n, cap, src, 8, torch.float64, False,
+                      "K21 BSS l_extendedprice", errs)
+    planes = chunk[hc.byte_pos[0]:hc.byte_pos[0] + 8 * n]
+    rows["k21_bss"] = dict(
+        ms=cuda_ms(lambda: PD.page_decode_pages(levels, n, cap, src, 8,
+                                                torch.float64), iters),
+        plain_ms=cuda_ms(lambda: PD.page_decode_pages_plain(
+            levels, n, cap, src, 8, torch.float64, False), plain_iters),
+        # one call regroups the byte planes (as if one page)
+        library_ms=cuda_ms(lambda: planes.view(8, n).t().contiguous(),
+                           iters),
+        bound_ms=bound_ms(4 * n + 8 * hc.present + 9 * cap),
+        shape=f"{n} DOUBLE rows like l_extendedprice in {len(hc.kinds)} "
+              "BYTE_STREAM_SPLIT pages")
+    # K26 on an l_comment-like column
+    pool = comment_pool(37)
+    codes = np.random.default_rng(37).integers(0, COMMENT_POOL, n)
+    lens = np.asarray([len(x) for x in pool], np.int64)[codes]
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    pool_b = [x.encode() for x in pool]
+    text = np.frombuffer(b"".join(pool_b[c] for c in codes), np.uint8)
+    hc, chunk, levels, cap = v2_chunk({"l_comment": v2_spec(
+        "dba", (offs, text), PHYS_BYTE_ARRAY, CONV_UTF8)}, dev, "l_comment")
+    dense = PD.delta_expand(chunk, PD.delta_streams(hc.deltas, dev),
+                            2 * hc.present)
+    lo_hi = [(lo, lo + m) for lo, m, _b, _e in hc.dba]
+    plen = torch.cat([dense[a:b] for a, b in lo_hi])
+    slen = torch.cat([dense[hc.present + a:hc.present + b]
+                      for a, b in lo_hi])
+    pl = np.zeros(len(hc.dba) + 1, np.int64)
+    np.cumsum([m for _lo, m, _b, _e in hc.dba], out=pl[1:])
+    base = np.asarray([b for _lo, _m, b, _e in hc.dba])
+    end = np.asarray([e for _lo, _m, _b, e in hc.dba])
+    got = compare_k26(chunk, plen, slen, pl, base, end, "K26 l_comment",
+                      errs)
+    check(bytes(got[0].cpu().numpy()) == text.tobytes(),
+          "K26 l_comment: bytes differ from the text")
+    total = int(offs[-1])
+    suffix = int(slen.sum())
+    rows["delta_byte_array"] = dict(
+        ms=cuda_ms(lambda: PD.delta_byte_array(chunk, plen, slen, pl, base,
+                                               end), iters),
+        plain_ms=cuda_ms(lambda: PD.delta_byte_array_plain(
+            chunk, plen, slen, pl, base, end), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(16 * n + suffix + 8 * n + 8 * (n + 1) + total),
+        shape=f"{n} l_comment-like strings ({total} bytes, {suffix} of "
+              f"suffixes) in {len(hc.dba)} DELTA_BYTE_ARRAY pages")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -4796,7 +5864,7 @@ def main(argv=None) -> int:
                          "slowest of phase 7, q_percentiles and "
                          "q_delinquency of phase 8, the Parquet q1 and "
                          "the encoded q_agg and q1 over dictionary files "
-                         "each with "
+                         "and q05 and q02 over v2 Parquet, each with "
                          "torch.profiler and cProfile and write their "
                          "device kernel and host function tables to DIR")
     ap.add_argument("--out", default=None,
@@ -4855,7 +5923,7 @@ def main(argv=None) -> int:
         join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
         window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
         slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
-        encoded_edge_cases(dev, errs)
+        encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -4879,6 +5947,8 @@ def main(argv=None) -> int:
     results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
                                      wants["input_rows"], launches,
                                      args.profile)
+    v2_samples = {"l_extendedprice": results["parquet"].pop(
+        "l_extendedprice_sample")}
     results["encoded"] = run_encoded(tpch_sess, raw, wants, launches,
                                      args.profile)
     for df in tables.values():
@@ -4887,7 +5957,9 @@ def main(argv=None) -> int:
     del raw, tables, li
     results["phase6_small_sf"] = run_small_sf()
     torch.cuda.empty_cache()
-    results["phase7"], pr_content = run_tpcxbb(launches, args.profile)
+    results["phase7"], pr_content, samples = run_tpcxbb(launches,
+                                                        args.profile)
+    v2_samples.update(samples)
     results["phase7_small_sf"] = run_xbb_small_sf()
     torch.cuda.empty_cache()
     results["phase8"] = run_mortgage(launches, args.profile)
@@ -4898,7 +5970,7 @@ def main(argv=None) -> int:
         results["profile"] = profile_flagship(sess, FLAGSHIP_ROWS,
                                               args.profile)
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
-        results["phase8"]["mortgage_q_delinquency_12"]["joins"]))
+        results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples)
     results["kernels"] = kernels
     results["total_s"] = time.perf_counter() - T0
     if args.out:
@@ -4906,6 +5978,8 @@ def main(argv=None) -> int:
                     exist_ok=True)
         with open(args.out, "w") as fh:
             json.dump(results, fh, indent=1)
+    if "left_out" in results["phase7"]["parquet_v2"]:
+        PATH_KERNELS.pop("parquet_v2_xbb_q02")
     for path, names in PATH_KERNELS.items():
         for name in names:
             check(launches[path].get(name, 0) > 0,
@@ -4929,7 +6003,12 @@ def main(argv=None) -> int:
         "small_sf": results["phase6_small_sf"],
         "tpcxbb": {k: ({kk: vv for kk, vv in v.items() if kk in keep +
                         ("tables", "sf")} if k.startswith("tpcxbb_") else v)
-                   for k, v in results["phase7"].items()},
+                   for k, v in results["phase7"].items()
+                   if k != "parquet_v2"},
+        "parquet_v2": {k: ({kk: vv for kk, vv in v.items() if kk in keep +
+                            ("tables", "last_run_scan_host_s")}
+                           if k.startswith("parquet_v2_") else v)
+                       for k, v in results["phase7"]["parquet_v2"].items()},
         "tpcxbb_small_sf": results["phase7_small_sf"],
         "mortgage": {k: ({kk: vv for kk, vv in v.items() if kk in keep +
                           ("tables", "sf", "peak_bytes")}

@@ -185,6 +185,12 @@ class DeviceDictionary:
         return DeviceDictionary.from_byte_table(buf, offsets.astype(np.int32))
 
     # -- host views ----------------------------------------------------------
+    def _fixed_keys(self) -> np.ndarray:
+        """A fixed dictionary's values as signed integers of their width:
+        integer equality is byte equality."""
+        w = self.value_dtype.to_np().itemsize
+        return self.host_bytes.view(np.dtype(f"<i{w}"))
+
     def _entries(self) -> List[bytes]:
         o = self.host_offsets
         raw = self.host_bytes.tobytes()
@@ -363,8 +369,18 @@ class DeviceDictionary:
             if other.did in self._remaps:
                 return self._remaps[other.did]
         table = np.full(max(self.size, 1), -1, dtype=np.int32)
-        for i, b in enumerate(self._entries()):
-            table[i] = other.code_of(b)
+        if self.is_fixed and other.value_dtype is self.value_dtype:
+            # fixed values: one sorted search, not a lookup an entry
+            mine, theirs = self._fixed_keys(), other._fixed_keys()
+            if len(theirs):
+                order = np.argsort(theirs, kind="stable")
+                at = np.minimum(np.searchsorted(theirs[order], mine),
+                                len(theirs) - 1)
+                hit = theirs[order[at]] == mine
+                table[:self.size] = np.where(hit, order[at], -1)
+        else:
+            for i, b in enumerate(self._entries()):
+                table[i] = other.code_of(b)
         with self._lock:
             return self._remaps.setdefault(other.did, table)
 
@@ -667,27 +683,54 @@ def align_encoded(cols: Sequence[DictionaryColumn]
     dicts = [c.dictionary for c in cols]
     if all(d is base for d in dicts):
         return base, list(cols)
+    union = _union_fixed(base, dicts) if base.is_fixed else \
+        _union_entries(base, dicts)
+    return union, [apply_remap(c, c.dictionary.remap_to(union), union)
+                   for c in cols]
+
+
+def _later_dicts(base: DeviceDictionary, dicts) -> List[DeviceDictionary]:
+    """dicts[1:] without base and repeats, in order."""
+    seen, out = {base.did}, []
+    for d in dicts[1:]:
+        if d.did not in seen:
+            seen.add(d.did)
+            out.append(d)
+    return out
+
+
+def _union_entries(base: DeviceDictionary, dicts) -> DeviceDictionary:
+    """base's entries, then each value a later dictionary adds, in order."""
     entries = base._entries()
     mapping = {b: i for i, b in enumerate(entries)}
-    seen = {base.did}
-    for d in dicts[1:]:
-        if d.did in seen:
-            continue
-        seen.add(d.did)
+    for d in _later_dicts(base, dicts):
         for b in d._entries():
             if b not in mapping:
                 mapping[b] = len(mapping)
                 entries.append(b)
     if len(entries) == base.size:
-        union = base
-    else:
-        offsets = np.zeros(len(entries) + 1, dtype=np.int64)
-        np.cumsum([len(b) for b in entries], out=offsets[1:])
-        union = DeviceDictionary.from_byte_table(
-            np.frombuffer(b"".join(entries), dtype=np.uint8),
-            offsets.astype(np.int32), base.value_dtype)
-    return union, [apply_remap(c, c.dictionary.remap_to(union), union)
-                   for c in cols]
+        return base
+    offsets = np.zeros(len(entries) + 1, dtype=np.int64)
+    np.cumsum([len(b) for b in entries], out=offsets[1:])
+    return DeviceDictionary.from_byte_table(
+        np.frombuffer(b"".join(entries), dtype=np.uint8),
+        offsets.astype(np.int32), base.value_dtype)
+
+
+def _union_fixed(base: DeviceDictionary, dicts) -> DeviceDictionary:
+    """_union_entries for fixed values, vectorised: the values the later
+    dictionaries add, in the order they first appear."""
+    later = _later_dicts(base, dicts)
+    if not later:
+        return base
+    cat = np.concatenate([d._fixed_keys() for d in later])
+    cand = cat[~np.isin(cat, base._fixed_keys())]
+    if not len(cand):
+        return base
+    _, first = np.unique(cand, return_index=True)
+    keys = np.concatenate([base._fixed_keys(), cand[np.sort(first)]])
+    return DeviceDictionary.from_fixed_values(
+        keys.view(base.value_dtype.to_np()), base.value_dtype)
 
 
 def union_rank_tables(dicts: Sequence[DeviceDictionary]

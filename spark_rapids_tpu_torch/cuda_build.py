@@ -34,7 +34,7 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "hash_join", "string_search", "substring", "window_segments",
            "window_rank_offset", "window_frame_agg", "string_chars",
            "explode", "segment_percentile", "parquet_decode",
-           "parquet_encode", "dict_encoded")
+           "parquet_encode", "dict_encoded", "parquet_delta")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -261,12 +261,28 @@ _SIGNATURES = {
             ctypes.c_longlong, _VOIDP]),
         "srt_page_decode_scratch_bytes": (ctypes.c_size_t,
                                           [ctypes.c_longlong]),
-        "srt_page_decode_fixed": (ctypes.c_int, [
-            _VOIDP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
-            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP,
-            ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP,
+        "srt_page_decode_pages": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, ctypes.c_longlong, _VOIDP,
+            ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            ctypes.c_int, _VOIDP, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_size_t, _VOIDP]),
+        "srt_delta_expand_scratch_bytes": (ctypes.c_size_t,
+                                           [ctypes.c_longlong]),
+        "srt_delta_expand": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_longlong, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
             _VOIDP, ctypes.c_size_t, _VOIDP]),
+    },
+    "parquet_delta": {
+        "srt_dba_plan": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            _VOIDP, _VOIDP, _VOIDP]),
+        "srt_dba_copy": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP]),
     },
     "parquet_encode": {
         "srt_encode_scratch_bytes": (ctypes.c_size_t, [ctypes.c_longlong]),

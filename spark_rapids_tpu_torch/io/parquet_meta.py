@@ -10,8 +10,10 @@ The schema must be flat: a group column or a repeated column raises an
 error that names it. Each leaf column maps to the port's SQL type the way
 the reference's Arrow mapping does (io/arrow_convert.py:37): DATE from
 INT32 with DATE, TIMESTAMP from INT64 with microsecond TIMESTAMP, DECIMAL
-(precision <= 18) from INT32 / INT64, STRING from BYTE_ARRAY. A column of
-another type (INT96, FIXED_LEN_BYTE_ARRAY, millisecond or nanosecond
+(precision <= 18) from INT32 / INT64 and from FIXED_LEN_BYTE_ARRAY of 1 to
+16 bytes (the reference's scan, io/scan.py:995, `flba_len`), STRING from
+BYTE_ARRAY. A column of another type (INT96, FIXED_LEN_BYTE_ARRAY that is
+not such a decimal, a decimal past precision 18, millisecond or nanosecond
 timestamps, unsigned integers) has `dtype` None and `unsupported` saying
 why; reading it raises that reason.
 """
@@ -125,13 +127,16 @@ def _sql_type(c: ColumnSchema):
         dl = lg.get(5) or {}
         scale = dl.get(1, c.scale)
         precision = dl.get(2, c.precision)
-        if c.physical not in (T_INT32, T_INT64):
-            return None, (f"{what} DECIMAL): only INT32 / INT64 decimals "
-                          "are read; FIXED_LEN_BYTE_ARRAY and BYTE_ARRAY "
-                          "decimals are queued")
+        if c.physical not in (T_INT32, T_INT64, T_FLBA):
+            return None, (f"{what} DECIMAL): INT32, INT64 and "
+                          "FIXED_LEN_BYTE_ARRAY decimals are read; "
+                          "BYTE_ARRAY decimals are queued")
         if precision > DecimalType.MAX_PRECISION:
             return None, (f"{what} DECIMAL({precision}, {scale})): "
                           f"precision past {DecimalType.MAX_PRECISION}")
+        if c.physical == T_FLBA and not 1 <= c.type_length <= 16:
+            return None, (f"{what} DECIMAL({precision}, {scale})): "
+                          f"byte length {c.type_length} (1 to 16 are read)")
         return DecimalType(precision, scale), ""
     if c.physical == T_BOOLEAN:
         return DataType.BOOL, ""

@@ -215,7 +215,8 @@ class _FileScanBase(PhysicalExec):
                 return PD.keep_encoded(PD.prepare_chunk(
                     read_chunk(split.path, chunk), col.dtype, rows,
                     col.max_def, chunk.codec, col.physical, col.name,
-                    device.type == "cuda"), frac)
+                    device.type == "cuda", type_length=col.type_length),
+                    frac)
 
             t0 = time.perf_counter()
             with ThreadPoolExecutor(max_workers=min(HOST_THREADS,

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "srt_parse_pages": (_I64, [_P, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                _I64, _P]),
     "srt_plain_strings": (_I64, [_P, _I64, _I64, _I64, _P, _P]),
+    "srt_parse_delta": (_I64, [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P]),
     "srt_snappy_max_compressed": (_I64, [_I64]),
     "srt_snappy_compress": (_I64, [_P, _I64, _P]),
     "srt_snappy_uncompressed_length": (_I64, [_P, _I64]),
@@ -190,6 +191,42 @@ def plain_strings(chunk, pos: int, end: int, n: int):
                              _ptr(lens)) != n:
         raise ValueError("truncated or malformed PLAIN byte-array values")
     return starts[:n], lens[:n]
+
+
+class DeltaFormatError(ValueError):
+    pass
+
+
+_DELTA_ERRORS = {-2: "truncated DELTA_BINARY_PACKED stream",
+                 -3: "DELTA_BINARY_PACKED value count differs from the "
+                     "page's",
+                 -4: "bad DELTA_BINARY_PACKED block geometry",
+                 -5: "DELTA_BINARY_PACKED miniblock bit width past 64"}
+
+
+def parse_delta(chunk, pos: int, end: int, n_values: int):
+    """(first value, values per miniblock, mb_bit_off int64, mb_width int32,
+    mb_min_delta int64, the byte past the stream) of the DELTA_BINARY_PACKED
+    stream chunk[pos:end) holding n_values values."""
+    lib = library()
+    arr, base = _buf(chunk)
+    if not 0 <= pos <= end <= arr.size:
+        raise ValueError(f"delta stream [{pos}, {end}) outside the chunk")
+    meta = np.zeros(4, np.int64)
+    tabs = [np.empty(1, t) for t in (np.int64, np.int32, np.int64)]
+    n = lib.srt_parse_delta(base, pos, end, n_values, 0,
+                            *[_ptr(t) for t in tabs], _ptr(meta))
+    if n == -1:
+        tabs = [np.empty(int(meta[3]), t)
+                for t in (np.int64, np.int32, np.int64)]
+        n = lib.srt_parse_delta(base, pos, end, n_values, int(meta[3]),
+                                *[_ptr(t) for t in tabs], _ptr(meta))
+    if n < 0:
+        raise DeltaFormatError(_DELTA_ERRORS.get(n, "malformed "
+                                                 "DELTA_BINARY_PACKED "
+                                                 "stream"))
+    return (int(meta[0]), int(meta[1]), tabs[0][:n], tabs[1][:n],
+            tabs[2][:n], int(meta[2]))
 
 
 def snappy_compress(data) -> bytes:

@@ -422,6 +422,62 @@ SRT_API int64_t srt_plain_strings(const uint8_t* buf, int64_t pos, int64_t end,
   return n;
 }
 
+// The header walk of one DELTA_BINARY_PACKED stream in buf[pos:end) that
+// holds n_values values (port of the reference's _parse_delta_header :468):
+// per miniblock that carries data its absolute bit offset, bit width and
+// the min delta of its block. meta[0..3]: first value, values per
+// miniblock, the byte just past the stream, the miniblocks it needs (set
+// before any other check, so a first call with max_mbs = 0 sizes the
+// tables). Trailing miniblocks of the last block carry no bytes. Widths go
+// to 64, the format's limit. Returns the miniblock count, or -1 when
+// max_mbs is too small, -2 truncated, -3 a count that is not n_values, -4
+// a bad block geometry, -5 a width past 64.
+SRT_API int64_t srt_parse_delta(const uint8_t* buf, int64_t pos, int64_t end,
+                                int64_t n_values, int64_t max_mbs,
+                                int64_t* mb_bit_off, int32_t* mb_width,
+                                int64_t* mb_min_delta, int64_t* meta) {
+  Reader r{buf, pos, end};
+  const uint64_t block_size = r.varint();
+  const uint64_t mbs = r.varint();
+  const uint64_t total = r.varint();
+  const int64_t first = r.zigzag();
+  if (r.err) return -2;
+  if ((int64_t)total != n_values || total > (1ull << 62)) return -3;
+  if (mbs == 0 || block_size == 0 || mbs > block_size ||
+      block_size % (8 * mbs) != 0 || block_size > (1ull << 31))
+    return -4;
+  const int64_t vpm = (int64_t)(block_size / mbs);
+  const int64_t ndeltas = n_values > 0 ? n_values - 1 : 0;
+  const int64_t needed = (ndeltas + vpm - 1) / vpm;
+  meta[0] = first;
+  meta[1] = vpm;
+  meta[2] = r.pos;
+  meta[3] = needed;
+  if (needed > max_mbs) return -1;
+  int64_t n = 0;
+  int64_t idx = 0;
+  while (idx < ndeltas) {
+    if (r.pos >= end) return -2;
+    const int64_t min_delta = r.zigzag();
+    if (r.err || (int64_t)mbs > end - r.pos) return -2;
+    const uint8_t* widths = buf + r.pos;
+    r.pos += (int64_t)mbs;
+    for (uint64_t k = 0; k < mbs && idx < ndeltas; ++k) {
+      const int w = widths[k];
+      if (w > 64) return -5;
+      mb_bit_off[n] = r.pos * 8;
+      mb_width[n] = w;
+      mb_min_delta[n] = min_delta;
+      ++n;
+      r.pos += vpm * w / 8;
+      idx += vpm;
+    }
+    if (r.pos > end) return -2;
+  }
+  meta[2] = r.pos;
+  return n;
+}
+
 // ------------------------------------------------------------ snappy
 SRT_API int64_t srt_snappy_max_compressed(int64_t n) { return 32 + n + n / 6; }
 

@@ -3,7 +3,8 @@ and all 30 TPCx-BB-like queries (with the window-frames path) through its
 own generators on the CPU, loads no JAX and nothing of the JAX package,
 and its default device is the card (no silent CPU fallback). The 6
 mortgage queries run in a process of their own, jax-free too, and so do a
-Parquet write, read and q1, which load neither jax nor pyarrow."""
+Parquet write, read and q1, and a read of a Parquet v2 file, which load
+neither jax nor pyarrow."""
 
 import os
 import subprocess
@@ -187,6 +188,70 @@ def test_encoded_path_imports_no_jax_or_pyarrow():
     chip_smoke.py's fixture writer) run encoded with neither jax nor
     pyarrow loaded."""
     proc = subprocess.run([sys.executable, "-c", _ENCODED_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
+
+
+_V2_PROBE = r"""
+import sys, tempfile
+import numpy as np
+import spark_rapids_tpu_torch as srt
+import chip_smoke as CS
+cpu = srt.new_session(device="cpu")
+rng = np.random.default_rng(9)
+n = 3000
+valid = rng.random(n) > 0.1
+words = [b"", b"a", b"tail", b"tailor", b"x" * 40]
+codes = np.sort(rng.integers(0, len(words), n))
+offs = np.zeros(n + 1, np.int64)
+np.cumsum([len(words[c]) for c in codes], out=offs[1:])
+text = np.frombuffer(b"".join(words[c] for c in codes), np.uint8)
+ts = rng.integers(0, 2**50, n)
+keys = rng.integers(0, 2000, n)
+price = rng.integers(-10**6, 10**6, n)
+dbl = rng.standard_normal(n)
+with tempfile.TemporaryDirectory() as d:
+    path = d + "/v2.parquet"
+    CS.write_parquet_fixture(path, {
+        "ts": CS.v2_spec("delta", ts, CS.PHYS_INT64,
+                         CS.CONV_TIMESTAMP_MICROS, valid=valid),
+        "k": CS.v2_spec("dict_fallback", keys, CS.PHYS_INT64),
+        "p": CS.v2_spec("flba", price, CS.PHYS_FLBA, type_length=4,
+                        decimal=(9, 2), valid=valid),
+        "f": CS.v2_spec("bss", dbl, CS.PHYS_DOUBLE),
+        "s": CS.v2_spec("dba", (offs, text), CS.PHYS_BYTE_ARRAY,
+                        CS.CONV_UTF8),
+        "l": CS.v2_spec("dlba", (offs, text), CS.PHYS_BYTE_ARRAY,
+                        CS.CONV_UTF8, valid=valid)}, 1024, 128, v2=True,
+        dict_limit=4096)
+    rows = cpu.read.parquet(path).collect()
+assert len(rows) == n
+strs = [bytes(text[offs[i]:offs[i + 1]]).decode() for i in range(n)]
+for i, r in enumerate(rows):
+    ok = bool(valid[i])
+    assert r[0] == (int(ts[i]) if ok else None), (i, r)
+    assert r[1] == int(keys[i]), (i, r)
+    assert (r[2] is None) == (not ok) and (not ok or
+                                           int(r[2] * 100) == price[i]), r
+    assert r[3] == float(dbl[i]) and r[4] == strs[i], r
+    assert r[5] == (strs[i] if ok else None), r
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(
+                 ("jax.", "jaxlib", "pyarrow."))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_parquet_v2_read_imports_no_jax_or_pyarrow():
+    """A v2 file written by chip_smoke.py's fixture writer (DELTA,
+    dictionary -> DELTA fallback, FLBA, BYTE_STREAM_SPLIT,
+    DELTA_BYTE_ARRAY, DELTA_LENGTH_BYTE_ARRAY; NULLs) reads back to its
+    inputs with neither jax nor pyarrow loaded."""
+    proc = subprocess.run([sys.executable, "-c", _V2_PROBE], cwd=REPO,
                           env=ENV, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr

@@ -170,24 +170,25 @@ def test_flat_kernels_match_reference(null_frac):
             torch.full((len(cols[0]),), width, dtype=torch.int32), total)
 
     levels = PD.hybrid_expand(chunk_t, runs(dtabs, 1, rows), cap)
-    plain = PD.PlainSource(chunk_t, torch.as_tensor(meta[0]),
-                           torch.as_tensor(meta[1]))
-    got = PD.page_decode_fixed(levels, num_rows, cap, plain, 8, torch.int64)
+    plain = PD.page_source(chunk_t, [PD.KIND_PLAIN] * len(pages), meta[0],
+                           meta[1])
+    got = PD.page_decode_pages(levels, num_rows, cap, plain, 8, torch.int64)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref_plain[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref_plain[1]))
     idx = PD.hybrid_expand(chunk_t, runs(vtabs, bw, present), cap_p)
-    src = PD.DictSource(idx, chunk_t[dict_start:dict_start + 8 * n_dict])
-    got = PD.page_decode_fixed(levels, num_rows, cap, src, 8, torch.int64)
+    src = PD.page_source(chunk_t, [PD.KIND_DICT] * len(pages), meta[0],
+                         meta[1], idx=idx, dict_bytes=chunk_t[
+                             dict_start:dict_start + 8 * n_dict])
+    got = PD.page_decode_pages(levels, num_rows, cap, src, 8, torch.int64)
     np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref_dict[0]))
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(ref_dict[1]))
     # K21's one-page spread is _assemble
     dense = rng.integers(-9, 9, cap_p).astype(np.int32)
     valid = got[1]
     want = RPD._assemble(jnp.asarray(valid.numpy()), jnp.asarray(dense), cap)
-    one = PD.PlainSource(torch.as_tensor(dense).view(torch.uint8),
-                         torch.as_tensor([cap_p]), torch.zeros(1,
-                                                               dtype=torch.int64))
-    spread, _ = PD.page_decode_fixed(valid.to(torch.int32), cap, cap, one, 4,
+    one = PD.page_source(torch.as_tensor(dense).view(torch.uint8),
+                         [PD.KIND_PLAIN], [cap_p], [0])
+    spread, _ = PD.page_decode_pages(valid.to(torch.int32), cap, cap, one, 4,
                                      torch.int32)
     np.testing.assert_array_equal(spread.numpy(), np.asarray(want))
 

@@ -143,9 +143,10 @@ def test_column_pruning_decodes_only_kept_columns(port, written,
     decoded = []
     real = PD.prepare_chunk
 
-    def spy(chunk, dtype, rows, max_def, codec, physical, name, pin):
+    def spy(chunk, dtype, rows, max_def, codec, physical, name, pin, **kw):
         decoded.append(name)
-        return real(chunk, dtype, rows, max_def, codec, physical, name, pin)
+        return real(chunk, dtype, rows, max_def, codec, physical, name, pin,
+                    **kw)
 
     monkeypatch.setattr(PD, "prepare_chunk", spy)
     PT.q6(_read(port, root)).collect()

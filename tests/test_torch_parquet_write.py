@@ -12,8 +12,10 @@ version, the native Snappy codec) against the JAX package and pyarrow.
   the port's Snappy decompresses pa.Codec("snappy")'s output and pyarrow
   decompresses the port's.
 - The save modes, `_SUCCESS`, and errors that name what is not supported:
-  DELTA / BYTE_STREAM_SPLIT encodings, ZSTD, FIXED_LEN_BYTE_ARRAY decimals,
-  INT96, nested columns, Hive-partitioned directories and partitionBy.
+  ZSTD, FIXED_LEN_BYTE_ARRAY decimals past precision 18, INT96, nested
+  columns, Hive-partitioned directories and partitionBy; files in the
+  DELTA / BYTE_STREAM_SPLIT encodings, which raised before the v2 decode,
+  read equal to pyarrow.
 """
 
 import decimal
@@ -252,10 +254,31 @@ def test_save_modes_and_success_marker(tmp_path):
         df.collect(), key=str)
 
 
+@pytest.mark.parametrize("case", ["delta_int", "delta_string",
+                                  "byte_stream_split"])
+def test_v2_encodings_read_like_pyarrow(tmp_path, case):
+    """The files that raised before the v2 decode (DELTA_BINARY_PACKED,
+    DELTA_BYTE_ARRAY, BYTE_STREAM_SPLIT) read equal to pyarrow's values."""
+    n = 100
+    rng = np.random.default_rng(1)
+    path = str(tmp_path / f"{case}.parquet")
+    if case == "delta_int":
+        t = pa.table({"x": pa.array(rng.integers(0, 1000, n))})
+        kw = dict(use_dictionary=False,
+                  column_encoding={"x": "DELTA_BINARY_PACKED"})
+    elif case == "delta_string":
+        t = pa.table({"x": pa.array([f"s{i}" for i in range(n)])})
+        kw = dict(use_dictionary=False,
+                  column_encoding={"x": "DELTA_BYTE_ARRAY"})
+    else:
+        t = pa.table({"x": pa.array(rng.random(n))})
+        kw = dict(use_dictionary=False, use_byte_stream_split=True)
+    pq.write_table(t, path, **kw)
+    got = [r[0] for r in _session().read.parquet(path).collect()]
+    assert got == t.column("x").to_pylist()
+
+
 @pytest.mark.parametrize("case,match", [
-    ("delta_int", "DELTA_BINARY_PACKED"),
-    ("delta_string", "DELTA"),
-    ("byte_stream_split", "BYTE_STREAM_SPLIT"),
     ("zstd", "ZSTD"),
     ("flba_decimal", "FIXED_LEN_BYTE_ARRAY"),
     ("int96", "INT96"),
@@ -267,18 +290,7 @@ def test_unsupported_files_raise_by_name(tmp_path, case, match):
     ints = pa.array(rng.integers(0, 1000, n))
     path = str(tmp_path / f"{case}.parquet")
     kw = {}
-    if case == "delta_int":
-        t = pa.table({"x": ints})
-        kw = dict(use_dictionary=False,
-                  column_encoding={"x": "DELTA_BINARY_PACKED"})
-    elif case == "delta_string":
-        t = pa.table({"x": pa.array([f"s{i}" for i in range(n)])})
-        kw = dict(use_dictionary=False,
-                  column_encoding={"x": "DELTA_BYTE_ARRAY"})
-    elif case == "byte_stream_split":
-        t = pa.table({"x": pa.array(rng.random(n))})
-        kw = dict(use_dictionary=False, use_byte_stream_split=True)
-    elif case == "zstd":
+    if case == "zstd":
         t = pa.table({"x": ints})
         kw = dict(compression="zstd")
     elif case == "flba_decimal":
