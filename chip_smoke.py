@@ -176,6 +176,29 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    chunks with a mixed dictionary -> DELTA chunk) and times each at one
    2^20-row row group (K25 on wcs_click_ts, K21 FLBA on ss_net_paid, K21
    BSS on l_extendedprice, K26 on an l_comment-like column).
+12. ORC (after the Parquet phase, on phase 4's cached SF 10 tables): the
+   six tables q1-q5 read written with df.write.orc (SNAPPY, Spark's ORC
+   codec; a stripe a partition, encoded on the card by K29 and K22's ORC
+   mode), orders also ZLIB and read back bit for bit; a 4M-row host
+   table with NULLs in BOOLEAN, SHORT, INT, LONG, DATE, FLOAT, DOUBLE and
+   STRING columns written (the writer uploads it; K29 and K22's ORC mode
+   must launch) and read back bit for bit (K28 over PRESENT and BOOLEAN
+   streams); q1, q6, q3 and q5 over read.orc, one cold and ORC_WARM_REPS
+   warm runs each (K27, K21, K7's span entry), every leaf a
+   TpuFileScanExec, rows against phases 4-5's numpy, with each query's
+   scan host seconds; then lineitem's q1 / q6 columns written one file a
+   partition by write_orc_fixture in the layout of Hive's and Spark's
+   (Java) writer, without pyarrow: ZLIB blocks of 256 KiB, stripes of
+   2^21 rows, the flags DICTIONARY_V2, l_shipdate RLEv2 with every
+   sub-encoding (the log gives each kind's runs), and q1 and q6 over it
+   against numpy, then a read with the kernel library failing to load
+   must raise. Phase 3 holds K27 (rlev2_expand), K28 (present_expand),
+   K29 (orc_encode_direct) and K22's ORC mode (orc_pack_present) bit for
+   bit to their plain versions (every sub-encoding, widths 1-64, runs of
+   1, 3, 10 and 512, patches at run ends, byte-RLE across byte and run
+   boundaries, empty and all-NULL stripes, BOOLEAN, TIMESTAMP, FLOAT,
+   SHORT and INT stripe columns) and times them at one 15M-row lineitem
+   stripe (K27 also over a Hive stripe's flag indices).
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -187,7 +210,8 @@ parquet_tpch_q6, parquet_tpch_q3, parquet_tpch_q5, parquet_decode_shape
 and parquet_decode_shape_off of phase 9, encoded_q_agg ...
 encoded_tpch_q12 and their _off runs of phase 10, parquet_v2_tpch_q1,
 parquet_v2_tpch_q6 and parquet_v2_xbb_q01 ... parquet_v2_xbb_q30 of
-phase 11);
+phase 11, orc_write, orc_round_trip, orc_tpch_q1, orc_tpch_q6,
+orc_tpch_q3, orc_tpch_q5, orc_hive_q1 and orc_hive_q6 of phase 12);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -320,6 +344,18 @@ KERNELS = {
     "hash_partition_codes": (
         "spark_rapids_tpu_torch/csrc/hash_partition.cu",
         "spark_rapids_tpu/shuffle/exchange.py:1181", "encoded_q_join"),
+    "rlev2_expand": (
+        "spark_rapids_tpu_torch/csrc/orc_decode.cu",
+        "spark_rapids_tpu/io/orc_device.py:665", "orc_tpch_q1"),
+    "present_expand": (
+        "spark_rapids_tpu_torch/csrc/orc_decode.cu",
+        "spark_rapids_tpu/io/orc_device.py:714", "orc_round_trip"),
+    "orc_encode_direct": (
+        "spark_rapids_tpu_torch/csrc/orc_encode.cu",
+        "spark_rapids_tpu/io/orc_encode_device.py:130", "orc_write"),
+    "orc_pack_present": (
+        "spark_rapids_tpu_torch/csrc/parquet_encode.cu",
+        "spark_rapids_tpu/io/orc_encode_device.py:162", "orc_write"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -424,6 +460,24 @@ PATH_KERNELS.update({
     "parquet_v2_tpch_q1": _Q1[:3] + _V2_READ + ("k21_bss",),
     "parquet_v2_tpch_q6": ("segment_reduce",) + _V2_READ + ("k21_bss",),
 })
+# the ORC phase: K29 and K22's ORC mode write; every read expands RLEv2
+# streams (K27) and spreads values (K21); STRING columns gather their spans
+# (K7), or stay encoded (K21's codes mode) where the Hive layout writes
+# them DICTIONARY_V2; PRESENT and BOOLEAN streams (K28) where a table has
+# NULLs or booleans (the host-table round trip)
+_ORC_READ = ("rlev2_expand", "page_decode_fixed")
+_ORC_WRITE = ("orc_encode_direct", "orc_pack_present")
+PATH_KERNELS.update({
+    "orc_write": _ORC_WRITE,
+    "orc_round_trip": _ORC_WRITE + _ORC_READ + ("present_expand",
+                                                "gather_string_spans"),
+    "orc_tpch_q1": _Q1 + _ORC_READ + ("gather_string_spans",),
+    "orc_tpch_q6": ("segment_reduce",) + _ORC_READ,
+    "orc_tpch_q3": _Q3 + _ORC_READ + ("gather_string_spans",),
+    "orc_tpch_q5": _Q5 + _ORC_READ + ("gather_string_spans",),
+    "orc_hive_q1": _Q1[:3] + _ORC_READ + ("page_decode_codes",),
+    "orc_hive_q6": ("segment_reduce",) + _ORC_READ,
+})
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -433,10 +487,10 @@ ALL_SHUFFLED = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
                 "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": False}
 C_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
               "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": True}
-# the Parquet v2 phase: warm runs a query (cut to 2 first if the run
-# outgrows its time), and the most seconds q02's SF 5 tables may take to
-# write before q02 is left out of it
-V2_WARM_REPS = 3
+# the Parquet v2 phase: warm runs a query (cut from 3 to 1 to pay for the
+# ORC phase), and the most seconds q02's SF 5 tables may take to write
+# before q02 is left out of it
+V2_WARM_REPS = 1
 Q02_V2_MAX_WRITE_S = 30.0
 # phase 7: bench.py --tpcxbb's layout (4 partitions, every table cached)
 TPCXBB_SF = 10
@@ -2862,6 +2916,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows.update(time_parquet_kernels(dev, errs))
     rows.update(time_encoded_kernels(dev, errs))
     rows.update(time_parquet_v2_kernels(dev, errs, v2_samples))
+    rows.update(time_orc_kernels(dev, errs))
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -4309,17 +4364,18 @@ def time_parquet_kernels(dev, errs: dict) -> dict:
     return rows
 
 
-def check_round_trip(sess, raw_df, path: str, what: str) -> int:
-    """The table read back from `path` equals the generated one column for
-    column, bit for bit (fixed-width data and validity; STRING offsets and
-    bytes), compared on the card."""
+def check_round_trip(sess, raw_df, path: str, what: str,
+                     fmt: str = "parquet") -> int:
+    """The table read back from `path` (Parquet or ORC) equals the
+    generated one column for column, bit for bit (fixed-width data and
+    validity; STRING offsets and bytes), compared on the card."""
     import numpy as np
     import torch
 
     from spark_rapids_tpu_torch.columnar.batch import concat_batches
     from spark_rapids_tpu_torch.exec.base import ExecContext
 
-    df = sess.read.parquet(path)
+    df = getattr(sess.read, fmt)(path)
     plan = sess._physical_plan(df._plan)
     assert_on_device(sess)
     pb = plan.children[0].execute(ExecContext(sess.conf, sess.device))
@@ -5554,8 +5610,10 @@ def write_xbb_v2(raw: dict, root: str, names=None, row_group: int = None,
     """The TPCx-BB tables `names` (default all) of `raw` written in the v2
     layout, one file a partition under root/<table>/, in row groups of
     V2_ROW_GROUP and pages of V2_PAGE_ROWS rows with DICT_LIMIT (unless
-    given): {table: (directory, seconds, bytes)}."""
+    given): {table: (directory, seconds, bytes)}. A table's partitions
+    write on threads."""
     import glob
+    from concurrent.futures import ThreadPoolExecutor
 
     row_group = row_group or V2_ROW_GROUP
     page_rows = page_rows or V2_PAGE_ROWS
@@ -5567,12 +5625,17 @@ def write_xbb_v2(raw: dict, root: str, names=None, row_group: int = None,
         d = os.path.join(root, name)
         os.makedirs(d, exist_ok=True)
         t = time.perf_counter()
-        for k, cols in enumerate(partition_columns(df)):
+
+        def part(kc):
+            k, cols = kc
             specs = {a.name: xbb_v2_spec(a.name, a.data_type,
                                          *cols[a.name]) for a in df.schema}
             write_parquet_fixture(os.path.join(d, f"part-{k:05d}.parquet"),
                                   specs, row_group, page_rows, v2=True,
                                   dict_limit=dict_limit)
+
+        with ThreadPoolExecutor(max_workers=4) as ex:
+            list(ex.map(part, enumerate(partition_columns(df))))
         out[name] = (d, time.perf_counter() - t, sum(
             os.path.getsize(f) for f in glob.glob(os.path.join(d, "*"))))
     return out
@@ -5710,9 +5773,10 @@ def run_parquet_v2_xbb(sess, raw: dict, cached: dict, table_rows: dict,
     return out
 
 
-def no_fallback_check(sess, ptables: dict) -> dict:
+def no_fallback_check(sess, ptables: dict, label: str = "parquet v2"
+                      ) -> dict:
     """A device session whose kernel library fails to load: a read of the
-    v2 files raises (nothing decodes elsewhere instead)."""
+    files raises (nothing decodes elsewhere instead)."""
     from spark_rapids_tpu_torch import cuda_build as CB
     from spark_rapids_tpu_torch.plan import functions as F
 
@@ -5733,9 +5797,9 @@ def no_fallback_check(sess, ptables: dict) -> dict:
             raised = str(e)
     finally:
         CB.library = real
-    check("failed to load" in raised, "parquet v2: a read with the kernel "
+    check("failed to load" in raised, f"{label}: a read with the kernel "
           "library failing to load did not raise")
-    log(f"parquet v2: with the kernel library failing to load, a read of "
+    log(f"{label}: with the kernel library failing to load, a read of "
         f"{t} raises ({raised})")
     return {"no_fallback": raised}
 
@@ -5856,6 +5920,1050 @@ def time_parquet_v2_kernels(dev, errs: dict, samples: dict) -> dict:
     return rows
 
 
+# ------------------------------------------------- ORC phase (slice 10)
+ORC_WARM_REPS = 1
+ORC_ROUND_TRIP_ROWS = 1 << 22    # the host table written and read back
+ORC_HIVE_STRIPE_ROWS = 1 << 21   # ~64 MiB of the seven columns a stripe
+ORC_HIVE_BLOCK = 256 << 10       # ZLIB blocks (orc.compress.size)
+ORC_HIVE_ZLIB_LEVEL = 1
+ORC_DATE_WINDOW = 128            # l_shipdate's literal runs
+ORC_SHAPE_ROWS = PARQUET_SHAPE_ROWS  # one port-written lineitem stripe
+ORC_WIDTHS = tuple(range(1, 25)) + (26, 28, 30, 32, 40, 48, 56, 64)
+ORC_KINDS = ("SHORT_REPEAT", "DIRECT", "DELTA", "PATCHED_BASE")
+
+
+def orc_fixed_bits(x):
+    """ORC's closest fixed width of at least max(x, 1), per value."""
+    import numpy as np
+
+    t = np.asarray(ORC_WIDTHS)
+    return t[np.searchsorted(t, np.maximum(np.asarray(x), 1))]
+
+
+def orc_width_code(w):
+    import numpy as np
+
+    return np.searchsorted(np.asarray(ORC_WIDTHS), w)
+
+
+def small_bit_length(u):
+    """Bits of each value below 2^53 (0 for 0)."""
+    import numpy as np
+
+    u = np.asarray(u, np.int64)
+    return np.where(u > 0, np.frexp(u.astype(np.float64))[1], 0).astype(
+        np.int64)
+
+
+def pack_fields(nbytes: int, bitpos, width, value):
+    """Big-endian bit fields (widths 1-32, not overlapping) written at
+    absolute bit positions of an nbytes buffer, vectorised."""
+    import numpy as np
+
+    bitpos = np.asarray(bitpos, np.int64)
+    width = np.asarray(width, np.int64)
+    check(bool((width <= 32).all()), "pack_fields takes widths to 32")
+    out = np.zeros(nbytes + 8, np.float64)
+    if len(bitpos) == 0:
+        return np.zeros(nbytes, np.uint8)
+    s = bitpos & 7
+    mask = (np.ones_like(width) << width) - 1
+    x = (np.asarray(value, np.int64) & mask) << (40 - s - width)
+    base = bitpos >> 3
+    for k in range(int(((s + width + 7) // 8).max())):
+        part = (x >> (32 - 8 * k)) & 0xFF
+        nz = part != 0
+        out += np.bincount(base[nz] + k, weights=part[nz],
+                           minlength=nbytes + 8)
+    return out[:nbytes].astype(np.uint8)
+
+
+def rlev2_encode(values, signed: bool, window: int = 512,
+                 patch_every: int = 0):
+    """An RLEv2 stream of `values`, vectorised, laid out as ORC's writer
+    chooses (RunLengthIntegerWriterV2): 3-10 equal values a SHORT_REPEAT
+    run, more a fixed DELTA run (512 at most, near-equal pieces), the
+    values between them DIRECT runs of at most `window`. With
+    patch_every = k, every k-th such window is a PATCHED_BASE run instead
+    when its base-reduced values fit one bit fewer than the largest but
+    for 1-31 of them (ORC's writer patches such outliers). Returns (bytes,
+    runs of each kind)."""
+    import numpy as np
+
+    v = np.asarray(values, np.int64)
+    n = len(v)
+    counts = dict.fromkeys(ORC_KINDS, 0)
+    if n == 0:
+        return b"", counts
+    starts = np.flatnonzero(np.r_[True, v[1:] != v[:-1]])
+    lens = np.diff(np.r_[starts, n])
+    rep = lens >= 3
+    new = rep | np.r_[True, rep[:-1]]
+    seg = np.cumsum(new) - 1
+    seg_start = starts[new]
+    seg_len = np.bincount(seg, weights=lens).astype(np.int64)
+    seg_rep = rep[new]
+    npieces = -(-seg_len // np.where(seg_rep, 512, window))
+    pid = np.repeat(np.arange(len(seg_len)), npieces)
+    k = np.arange(len(pid)) - np.repeat(np.cumsum(npieces) - npieces,
+                                        npieces)
+    L, P, rp = seg_len[pid], npieces[pid], seg_rep[pid]
+    plen = np.where(rp, L // P + (k < L % P), np.minimum(window,
+                                                         L - k * window))
+    pstart = seg_start[pid] + np.where(rp, k * (L // P) + np.minimum(
+        k, L % P), k * window)
+    first = v[pstart]
+    u_first = (first << 1) ^ (first >> 63) if signed else first
+    kind = np.where(rp & (plen <= 10), 0, np.where(rp, 2, 1))
+    # literal pieces: their values' zigzag (DIRECT) or base-reduced (PB)
+    elem_piece = np.repeat(np.arange(len(plen)), plen)
+    zz = (v << 1) ^ (v >> 63) if signed else v
+    maxu = np.maximum.reduceat(zz, pstart)
+    w_direct = orc_fixed_bits(small_bit_length(maxu))
+    lo = np.minimum.reduceat(v, pstart)
+    red = v - lo[elem_piece]
+    full = small_bit_length(np.maximum.reduceat(red, pstart))
+    wl = orc_fixed_bits(np.maximum(full - 1, 1))
+    over = (red >> wl[elem_piece]) > 0
+    n_over = np.bincount(elem_piece, weights=over,
+                         minlength=len(plen)).astype(np.int64)
+    lit_idx = np.cumsum(kind == 1) - 1
+    if patch_every:
+        pb = (kind == 1) & (lit_idx % patch_every == 0) & (full >= 2) & \
+            (n_over >= 1) & (n_over <= 31) & (plen <= 256)
+        kind = np.where(pb, 3, kind)
+    is_pb = kind == 3
+    # PATCHED_BASE geometry
+    oe = over & is_pb[elem_piece]
+    o_idx = np.flatnonzero(oe)
+    o_piece = elem_piece[o_idx]
+    o_pos = o_idx - pstart[o_piece]
+    prev = np.r_[-1, o_piece[:-1]]
+    gap = np.where(prev == o_piece, o_pos - np.r_[0, o_pos[:-1]], o_pos)
+    pval = red[o_idx] >> wl[o_piece]
+    pw = np.zeros(len(plen), np.int64)
+    pgw = np.zeros(len(plen), np.int64)
+    np.maximum.at(pw, o_piece, small_bit_length(pval))
+    np.maximum.at(pgw, o_piece, small_bit_length(gap))
+    pw = orc_fixed_bits(pw)
+    pgw = np.maximum(pgw, 1)
+    plw = orc_fixed_bits(pgw + pw)
+    mag = np.abs(lo)
+    bw = np.maximum((small_bit_length(mag) + 1 + 7) // 8, 1)
+    # DELTA's base varint; SHORT_REPEAT's value bytes
+    vmat, vlen = uvarint_matrix(u_first.view(np.uint64))
+    sr_w = np.maximum((small_bit_length(u_first) + 7) // 8, 1)
+    size = np.select(
+        [kind == 0, kind == 2, kind == 1],
+        [1 + sr_w, 2 + vlen + 1, 2 + (plen * w_direct + 7) // 8],
+        4 + bw + (plen * wl + 7) // 8 + (n_over * plw + 7) // 8)
+    off = np.cumsum(size) - size
+    total = int(size.sum())
+    # bit fields: DIRECT values, PB low bits and patch entries
+    ep = elem_piece
+    lit_e = (kind[ep] == 1) | (kind[ep] == 3)
+    e_idx = np.flatnonzero(lit_e)
+    pe = ep[e_idx]
+    within = e_idx - pstart[pe]
+    d = kind[pe] == 1
+    fw = np.where(d, w_direct[pe], wl[pe])
+    fstart = np.where(d, off[pe] + 2, off[pe] + 4 + bw[pe]) * 8
+    fval = np.where(d, zz[e_idx], red[e_idx])
+    list_start = (off[o_piece] + 4 + bw[o_piece] +
+                  (plen[o_piece] * wl[o_piece] + 7) // 8) * 8
+    entry_k = np.arange(len(o_idx)) - np.searchsorted(o_piece, o_piece)
+    out = pack_fields(
+        total, np.r_[fstart + within * fw, list_start + entry_k *
+                     plw[o_piece]],
+        np.r_[fw, plw[o_piece]],
+        np.r_[fval, (gap << pw[o_piece]) | pval])
+    # headers
+    i0 = np.flatnonzero(kind == 0)
+    out[off[i0]] = ((sr_w[i0] - 1) << 3) | (plen[i0] - 3)
+    for j in range(8):
+        sel = i0[sr_w[i0] > j]
+        out[off[sel] + 1 + j] = (u_first[sel] >> (8 * (sr_w[sel] - 1 - j))) \
+            & 0xFF
+    for kd, code, wid in ((1, 1, w_direct), (2, 3, None), (3, 2, wl)):
+        ii = np.flatnonzero(kind == kd)
+        c = orc_width_code(wid[ii]) if wid is not None else 0
+        out[off[ii]] = (code << 6) | (c << 1) | ((plen[ii] - 1) >> 8)
+        out[off[ii] + 1] = (plen[ii] - 1) & 0xFF
+    i2 = np.flatnonzero(kind == 2)
+    for j in range(10):
+        sel = i2[vlen[i2] > j]
+        out[off[sel] + 2 + j] = vmat[sel, j]
+    out[off[i2] + 2 + vlen[i2]] = 0  # delta 0
+    i3 = np.flatnonzero(kind == 3)
+    out[off[i3] + 2] = ((bw[i3] - 1) << 5) | orc_width_code(pw[i3])
+    out[off[i3] + 3] = ((pgw[i3] - 1) << 5) | n_over[i3]
+    bval = mag[i3] | np.where(lo[i3] < 0, 1 << (8 * bw[i3] - 1), 0)
+    for j in range(8):
+        sel = bw[i3] > j
+        out[off[i3][sel] + 4 + j] = (bval[sel] >> (
+            8 * (bw[i3][sel] - 1 - j))) & 0xFF
+    for kd, name in enumerate(ORC_KINDS):
+        counts[name] = int((kind == kd).sum())
+    return out.tobytes(), counts
+
+
+def _orc_framed(payload: bytes, block: int, level: int) -> bytes:
+    """ZLIB blocks of `block` bytes in ORC's framing."""
+    import zlib
+
+    out = []
+    for i in range(0, len(payload), block):
+        chunk = payload[i:i + block]
+        c = zlib.compressobj(level, zlib.DEFLATED, -15)
+        comp = c.compress(chunk) + c.flush()
+        h, body = (len(comp) << 1, comp) if len(comp) < len(chunk) else \
+            ((len(chunk) << 1) | 1, chunk)
+        out.append(bytes((h & 0xFF, (h >> 8) & 0xFF, h >> 16)) + body)
+    return b"".join(out)
+
+
+def _pb_varint(v: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = v & 0x7F
+        v >>= 7
+        if v:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _pb_int(f: int, v: int) -> bytes:
+    return _pb_varint(f << 3) + _pb_varint(v)
+
+
+def _pb_bytes(f: int, b: bytes) -> bytes:
+    return _pb_varint((f << 3) | 2) + _pb_varint(len(b)) + b
+
+
+def orc_fixture_columns(rng, n: int) -> dict:
+    """lineitem's q1 / q6 columns at n rows, shaped as the generator makes
+    them, for write_orc_fixture: {name: (kind, values, pool)}."""
+    import numpy as np
+
+    return {
+        "l_returnflag": ("dict", rng.integers(0, 3, n), ["A", "N", "R"]),
+        "l_linestatus": ("dict", rng.integers(0, 2, n), ["F", "O"]),
+        "l_quantity": ("double", rng.integers(1, 51, n).astype(np.float64),
+                       None),
+        "l_extendedprice": ("double", (rng.random(n) * 1e5).round(2), None),
+        "l_discount": ("double", rng.integers(0, 11, n) / 100.0, None),
+        "l_tax": ("double", rng.integers(0, 9, n) / 100.0, None),
+        "l_shipdate": ("date", rng.integers(8035, 10561, n).astype(np.int32),
+                       None)}
+
+
+def write_orc_fixture(path: str, cols: dict, stripe_rows: int,
+                      block: int = ORC_HIVE_BLOCK,
+                      level: int = ORC_HIVE_ZLIB_LEVEL) -> dict:
+    """An ORC file laid out as Hive's and Spark's writers (ORC's Java
+    writer) lay it out, with numpy only: ZLIB in `block`-byte blocks,
+    stripes of stripe_rows rows, DOUBLE columns raw, DATE columns RLEv2
+    (every second literal run of ORC_DATE_WINDOW values a PATCHED_BASE
+    run where its outliers allow), STRING columns DICTIONARY_V2 (a sorted
+    dictionary a stripe; indices and lengths RLEv2). cols: {name: (kind,
+    values, pool)} with kind "double", "date" or "dict" (values: indices
+    into pool). Returns the runs of each RLEv2 kind and the stripe count;
+    stripes encode and compress on 8 threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    names = list(cols)
+    n = len(next(iter(cols.values()))[1])
+    kinds = dict.fromkeys(ORC_KINDS, 0)
+    sorted_pools = {}
+    for name, (kind, _v, pool) in cols.items():
+        if kind == "dict":
+            order = sorted(range(len(pool)), key=lambda i: pool[i].encode())
+            rank = np.empty(len(pool), np.int64)
+            rank[order] = np.arange(len(pool))
+            sorted_pools[name] = ([pool[i].encode() for i in order], rank)
+
+    def stripe(a: int):
+        """A stripe's compressed streams and footer, and its run counts
+        (numpy and zlib release the GIL, so stripes encode on threads)."""
+        b = min(n, a + stripe_rows)
+        streams, encodings = [], [_pb_int(1, 0)]
+        runs = dict.fromkeys(ORC_KINDS, 0)
+
+        def add(c):
+            for key in ORC_KINDS:
+                runs[key] += c[key]
+
+        for ci, name in enumerate(names):
+            kind, values, _pool = cols[name]
+            v = values[a:b]
+            if kind == "double":
+                streams.append((1, ci + 1, np.ascontiguousarray(
+                    v, dtype="<f8").tobytes()))
+                encodings.append(_pb_int(1, 0))
+            elif kind == "date":
+                data, c = rlev2_encode(v, True, ORC_DATE_WINDOW, 2)
+                add(c)
+                streams.append((1, ci + 1, data))
+                encodings.append(_pb_int(1, 2))
+            else:
+                entries, rank = sorted_pools[name]
+                data, c = rlev2_encode(rank[v], False)
+                add(c)
+                lens, c2 = rlev2_encode([len(e) for e in entries], False)
+                add(c2)
+                streams += [(1, ci + 1, data), (2, ci + 1, lens),
+                            (3, ci + 1, b"".join(entries))]
+                encodings.append(_pb_int(1, 3) + _pb_int(2, len(entries)))
+        wires = [_orc_framed(p, block, level) for _k, _c, p in streams]
+        footer = b"".join(_pb_bytes(1, _pb_int(1, k) + _pb_int(2, c) +
+                                    _pb_int(3, len(w)))
+                          for (k, c, _p), w in zip(streams, wires))
+        footer += b"".join(_pb_bytes(2, e) for e in encodings)
+        footer = _orc_framed(footer + _pb_bytes(3, b"UTC"), block, level)
+        return wires, footer, b - a, runs
+
+    stripes = []
+    with open(path, "wb") as f, ThreadPoolExecutor(max_workers=8) as ex:
+        f.write(b"ORC")
+        offset = 3
+        for wires, footer, rows, runs in ex.map(stripe, range(
+                0, n, stripe_rows)):
+            dlen = sum(len(w) for w in wires)
+            for w in wires:
+                f.write(w)
+            f.write(footer)
+            stripes.append((offset, dlen, len(footer), rows))
+            offset += dlen + len(footer)
+            for key in ORC_KINDS:
+                kinds[key] += runs[key]
+        type_id = {"double": 6, "date": 15, "dict": 7}
+        root = _pb_int(1, 12) + b"".join(_pb_int(2, i + 1)
+                                         for i in range(len(names)))
+        root += b"".join(_pb_bytes(3, nm.encode()) for nm in names)
+        footer = _pb_int(1, 3) + _pb_int(2, offset)
+        footer += b"".join(_pb_bytes(3, _pb_int(1, o) + _pb_int(2, 0) +
+                                     _pb_int(3, d) + _pb_int(4, fl) +
+                                     _pb_int(5, r))
+                           for o, d, fl, r in stripes)
+        footer += _pb_bytes(4, root) + b"".join(
+            _pb_bytes(4, _pb_int(1, type_id[cols[nm][0]])) for nm in names)
+        footer += _pb_int(6, n) + _pb_int(8, 0)
+        footer = _orc_framed(footer, block, level)
+        ps = (_pb_int(1, len(footer)) + _pb_int(2, 1) + _pb_int(3, block) +
+              _pb_int(4, 0) + _pb_int(4, 12) + _pb_int(5, 0) + _pb_int(6, 1)
+              + _pb_bytes(8000, b"ORC"))
+        f.write(footer + ps + bytes([len(ps)]))
+    kinds["stripes"] = len(stripes)
+    return kinds
+
+
+def orc_round_trip(sess, root: str, launches: dict) -> dict:
+    """A host table with NULLs in every column type the writer takes
+    (BOOLEAN, SHORT, INT, LONG, DATE, FLOAT, DOUBLE, STRING;
+    ORC_ROUND_TRIP_ROWS rows), written by df.write.orc (SNAPPY) from the
+    host (the writer uploads it:
+    K29 and K22's ORC mode must launch) and read back bit for bit on the
+    card (K27, K28: PRESENT streams and BOOLEAN values); path
+    orc_round_trip. The files are removed at the end."""
+    import shutil
+
+    import numpy as np
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnVector
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+    n = ORC_ROUND_TRIP_ROWS
+    rng = np.random.default_rng(41)
+    spec = [("b", DataType.BOOL, rng.random(n) < 0.5),
+            ("s16", DataType.INT16, rng.integers(-2**15, 2**15, n).astype(
+                np.int16)),
+            ("i32", DataType.INT32, rng.integers(-2**31, 2**31, n).astype(
+                np.int32)),
+            ("i64", DataType.INT64, rng.integers(-2**62, 2**62, n)),
+            ("d", DataType.DATE, rng.integers(-5000, 20000, n).astype(
+                np.int32)),
+            ("f32", DataType.FLOAT32, rng.standard_normal(n).astype(
+                np.float32)),
+            ("f64", DataType.FLOAT64, rng.standard_normal(n))]
+    cols, schema = {}, []
+    for i, (name, dt, data) in enumerate(spec):
+        valid = rng.random(n) >= 0.01 * (i + 1)
+        cols[name] = HostColumnVector(dt, np.where(valid, data, np.zeros(
+            (), data.dtype)), valid)
+        schema.append((name, dt))
+    s = HostColumnVector.from_pool(comment_pool(43),
+                                   rng.integers(0, COMMENT_POOL, n))
+    s_valid = rng.random(n) >= 0.05
+    offs, raw = s.utf8()
+    lens = np.where(s_valid, np.diff(offs), 0)
+    new_offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=new_offs[1:])
+    src = np.repeat(offs[:-1].astype(np.int64) - new_offs[:-1], lens) + \
+        np.arange(int(new_offs[-1]))
+    cols["s"] = HostColumnVector(DataType.STRING, s.data, s_valid, (
+        new_offs.astype(np.int32), raw[src]))
+    schema.append(("s", DataType.STRING))
+    df = sess.createDataFrame(cols, [(k, dt.value) for k, dt in schema])
+    path = os.path.join(root, "round_trip")
+    CB.reset_launch_counts()
+    t = time.perf_counter()
+    df.write.option("compression", "snappy").orc(path)
+    write_s = time.perf_counter() - t
+    assert_on_device(sess)
+    got = CB.launch_counts()
+    k29, k30 = got.get("orc_encode_direct", 0), got.get("orc_pack_present",
+                                                         0)
+    check(sess.device.type != "cuda" or (k29 > 0 and k29 * 4 == k30 * 5),
+          "orc round trip: K29 / K22 "
+          f"ORC-mode launches {got} (5 and 4 a stripe)")
+    t = time.perf_counter()
+    rows = check_round_trip(sess, df, path, "orc round trip", "orc")
+    read_s = time.perf_counter() - t
+    launches["orc_round_trip"] = CB.launch_counts()
+    shutil.rmtree(path, ignore_errors=True)
+    log(f"orc: a host table of {rows} rows with NULLs in 8 types written "
+        f"(SNAPPY) in {write_s:.3f} s and read back bit for bit in "
+        f"{read_s:.3f} s")
+    return {"rows": rows, "write_s": write_s, "read_and_check_s": read_s}
+
+
+def run_orc(sess, raw, tables, wants: dict, input_rows: dict,
+            launches: dict, profile_dir=None) -> dict:
+    """The ORC phase, over phase 4's cached SF 10 tables: write the six
+    q1-q5 tables with df.write.orc (SNAPPY; orders also ZLIB), read the
+    ZLIB orders back bit for bit, the host-table round trip, q1, q6, q3
+    and q5 over the SNAPPY files (one cold and ORC_WARM_REPS warm runs,
+    every leaf a TpuFileScanExec, rows against numpy), then the Hive-layout
+    lineitem (run_orc_hive); the files are removed at the end."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_orc_")
+    out = {"write": {}}
+    try:
+        CB.reset_launch_counts()
+        for name, codec in [(t, "snappy") for t in PARQUET_TABLES] + [
+                ("orders", "zlib")]:
+            path = os.path.join(root, name if codec == "snappy" else
+                                f"{name}_{codec}")
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            tables[name].write.option("compression", codec).orc(path)
+            secs = time.perf_counter() - t
+            assert_on_device(sess)
+            nbytes = sum(os.path.getsize(p) for p in glob.glob(
+                os.path.join(path, "*.orc")))
+            out["write"][f"{name}_{codec}"] = {"s": secs, "bytes": nbytes}
+            log(f"orc: wrote {name} ({codec}) in {secs:.3f} s, {nbytes} "
+                "bytes")
+        launches["orc_write"] = CB.launch_counts()
+        t = time.perf_counter()
+        n = check_round_trip(sess, raw["orders"], os.path.join(
+            root, "orders_zlib"), "orc orders round trip", "orc")
+        out["orders_round_trip"] = {"rows": n, "s": time.perf_counter() - t}
+        log(f"orc: orders ({n} rows, ZLIB) read back bit for bit")
+        out["round_trip"] = orc_round_trip(sess, root, launches)
+        otables = {k: sess.read.orc(os.path.join(root, k))
+                   for k in PARQUET_TABLES}
+        for q in ("q1", "q6", "q3", "q5"):
+            name = f"orc_tpch_{q}"
+            CB.reset_launch_counts()
+            out[name] = run_query(sess, tpch.QUERIES[q](otables),
+                                  wants[f"tpch_{q}"], name, ORC_WARM_REPS)
+            launches[name] = CB.launch_counts()
+            assert_file_leaves(sess)
+            host = scan_host_s(sess)
+            warm = out[name]["warm_median_s"]
+            out[name].update(input_rows=input_rows[q],
+                             rows_per_s=input_rows[q] / warm,
+                             last_run_scan_host_s=host,
+                             checked_against="numpy (phases 4-5)")
+            log(f"{name}: scan host {host:.3f} s of the last warm run "
+                f"({out[name]['warm_s'][-1]:.3f} s)")
+        if profile_dir:
+            out["orc_tpch_q1"]["profile"] = profile_query(
+                tpch.q1(otables), profile_dir, "orc_tpch_q1")
+        for k in PARQUET_TABLES:
+            shutil.rmtree(os.path.join(root, k), ignore_errors=True)
+        out.update(run_orc_hive(sess, raw, wants, input_rows, launches,
+                                root))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+def run_orc_hive(sess, raw, wants: dict, input_rows: dict, launches: dict,
+                 root: str) -> dict:
+    """Phase 4's SF 10 lineitem, the seven columns q1 and q6 read, written
+    one file a partition by write_orc_fixture (Hive's layout: ZLIB blocks
+    of 256 KiB, stripes of 2^21 rows, the flags DICTIONARY_V2, every RLEv2
+    sub-encoding), then q1 and q6 over it (paths orc_hive_q1 / _q6, one
+    cold and ORC_WARM_REPS warm runs) against phase 4's numpy rows, then a
+    read with the kernel library failing to load must raise."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch import cuda_build as CB
+
+    df = raw["lineitem"]
+    sizes = [sum(b.num_rows for b in part) for part in df._plan.partitions]
+    cuts = np.cumsum([0] + sizes)
+    pools = {"l_returnflag": tpch._FLAGS, "l_linestatus": tpch._STATUS}
+    cols = table_columns(df, TPCH_V2_COLUMNS)
+    for name, pool in pools.items():
+        cols[name] = pool_index(df, name, pool)
+    d = os.path.join(root, "lineitem_hive")
+    os.makedirs(d, exist_ok=True)
+    kinds = dict.fromkeys(ORC_KINDS + ("stripes",), 0)
+    t = time.perf_counter()
+    for k in range(len(sizes)):
+        a, b = int(cuts[k]), int(cuts[k + 1])
+        spec = {}
+        for name in TPCH_V2_COLUMNS:
+            v = cols[name][a:b]
+            spec[name] = ("dict", v, pools[name]) if name in pools else \
+                ("date", v, None) if name == "l_shipdate" else \
+                ("double", v, None)
+        got = write_orc_fixture(os.path.join(d, f"part-{k:05d}.orc"), spec,
+                                ORC_HIVE_STRIPE_ROWS)
+        for key in kinds:
+            kinds[key] += got[key]
+    out = {"lineitem_hive_write": {
+        "s": time.perf_counter() - t, "rows": int(cuts[-1]),
+        "bytes": sum(os.path.getsize(os.path.join(d, f))
+                     for f in os.listdir(d)), "runs": kinds}}
+    check(all(kinds[k] > 0 for k in ORC_KINDS),
+          f"orc hive lineitem lacks an RLEv2 sub-encoding: {kinds}")
+    log(f"orc hive: lineitem ({int(cuts[-1])} rows, 7 columns, "
+        f"{kinds['stripes']} stripes) written in "
+        f"{out['lineitem_hive_write']['s']:.3f} s, "
+        f"{out['lineitem_hive_write']['bytes']} bytes; RLEv2 runs {kinds}")
+    del cols
+    htables = {"lineitem": sess.read.orc(d)}
+    for q in ("q1", "q6"):
+        name = f"orc_hive_{q}"
+        CB.reset_launch_counts()
+        r = run_query(sess, tpch.QUERIES[q](htables), wants[f"tpch_{q}"],
+                      name, ORC_WARM_REPS)
+        launches[name] = CB.launch_counts()
+        assert_file_leaves(sess)
+        host = scan_host_s(sess)
+        r.update(input_rows=input_rows[q],
+                 rows_per_s=input_rows[q] / r["warm_median_s"],
+                 last_run_scan_host_s=host,
+                 checked_against="numpy (phase 4)")
+        log(f"{name}: scan host {host:.3f} s of the last warm run "
+            f"({r['warm_s'][-1]:.3f} s)")
+        out[name] = r
+    out.update(no_fallback_check(sess, htables, "orc"))
+    return out
+
+
+# ---------------------------------------------- ORC kernel checks (phase 3)
+def be_pack(values, w: int) -> bytes:
+    """Python ints as one big-endian bit string of w bits each, padded to
+    a byte."""
+    acc = 0
+    for v in values:
+        acc = (acc << w) | (int(v) & ((1 << w) - 1))
+    nbits = len(values) * w
+    pad = (-nbits) % 8
+    return (acc << pad).to_bytes((nbits + pad) // 8, "big") if nbits else b""
+
+
+def rle_sr(value: int, count: int, signed: bool) -> bytes:
+    u = ((value << 1) ^ (value >> 63)) & ((1 << 64) - 1) if signed else value
+    vw = max(1, (u.bit_length() + 7) // 8)
+    return bytes([((vw - 1) << 3) | (count - 3)]) + u.to_bytes(vw, "big")
+
+
+def _hdr(enc: int, w: int, n: int) -> bytes:
+    code = ORC_WIDTHS.index(w) if w else 0
+    return bytes([(enc << 6) | (code << 1) | ((n - 1) >> 8), (n - 1) & 0xFF])
+
+
+def rle_direct(values, w: int, signed: bool) -> bytes:
+    """DIRECT runs of at most 512 values."""
+    us = [((v << 1) ^ (v >> 63)) & ((1 << 64) - 1) if signed else v
+          for v in values]
+    return b"".join(_hdr(1, w, len(us[i:i + 512])) + be_pack(us[i:i + 512],
+                                                              w)
+                    for i in range(0, len(us), 512))
+
+
+def _svarint(v: int) -> bytes:
+    return _pb_varint(((v << 1) ^ (v >> 63)) & ((1 << 64) - 1))
+
+
+def rle_delta(base: int, d0: int, deltas, w: int, n: int,
+              signed: bool) -> bytes:
+    """A DELTA run of n values: base, then + d0, then +/- the unsigned
+    deltas (n - 2 of them, width w; w = 0: a fixed step d0)."""
+    head = _hdr(3, w, n) + (_svarint(base) if signed else _pb_varint(base))
+    return head + _svarint(d0) + (be_pack(deltas, w) if w else b"")
+
+
+def rle_pb(base: int, lows, w: int, patches, pw: int, pgw: int) -> bytes:
+    """A PATCHED_BASE run: base + low bits (width w), patch entries (gap,
+    value) of pw value bits and pgw gap bits."""
+    mag = abs(base)
+    bw = max(1, (mag.bit_length() + 1 + 7) // 8)
+    bval = mag | ((1 << (8 * bw - 1)) if base < 0 else 0)
+    plw = next(x for x in ORC_WIDTHS if x >= pgw + pw)
+    n = len(lows)
+    return (_hdr(2, w, n) + bytes([((bw - 1) << 5) | ORC_WIDTHS.index(pw),
+                                   ((pgw - 1) << 5) | len(patches)]) +
+            bval.to_bytes(bw, "big") + be_pack(lows, w) +
+            be_pack([(g << pw) | p for g, p in patches], plw))
+
+
+def orc_nano_code(v: int) -> int:
+    """Nanoseconds as ORC's writers store them: trailing zeros counted in
+    the low 3 bits (TimestampTreeWriter.formatNanos)."""
+    if v == 0 or v % 100:
+        return v << 3
+    v //= 100
+    z = 1
+    while v % 10 == 0 and z < 7:
+        v //= 10
+        z += 1
+    return (v << 3) | z
+
+
+def byte_rle(pieces) -> bytes:
+    """('run', byte, count 3-130) / ('lit', bytes 1-128) pieces."""
+    out = bytearray()
+    for p in pieces:
+        if p[0] == "run":
+            out += bytes([p[2] - 3, p[1]])
+        else:
+            out.append(256 - len(p[1]))
+            out += p[1]
+    return bytes(out)
+
+
+def compare_k27(buf: bytes, n: int, signed: bool, cap: int, label: str,
+                errs: dict, dev) -> int:
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.io import orc_device as OD
+
+    arr = np.frombuffer(buf, np.uint8) if buf else np.zeros(1, np.uint8)
+    rt = OD.parse_rlev2(arr, 0, len(buf), n, signed)
+    got = OD.rlev2_expand(torch.from_numpy(arr.copy()).to(dev),
+                          OD.device_rlev2(rt, dev), cap)
+    want = OD.rlev2_expand_plain(torch.from_numpy(arr.copy()),
+                                 OD.device_rlev2(rt, "cpu"), cap)
+    check(torch.equal(got.cpu(), want), f"{label}: K27 differs from its "
+          "plain version")
+    errs["rlev2_expand"] = max(errs.get("rlev2_expand", 0.0),
+                               max_abs_err(got.cpu(), want))
+    return rt.produced
+
+
+def compare_k28(buf: bytes, cap: int, label: str, errs: dict, dev) -> None:
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.io import orc_device as OD
+
+    arr = np.frombuffer(buf, np.uint8) if buf else np.zeros(1, np.uint8)
+    bt = OD.parse_byte_rle(arr, 0, len(buf), cap)
+    got = OD.present_expand(torch.from_numpy(arr.copy()).to(dev),
+                            OD.device_byte_rle(bt, dev), cap)
+    want = OD.present_expand_plain(torch.from_numpy(arr.copy()),
+                                   OD.device_byte_rle(bt, "cpu"), cap)
+    check(torch.equal(got.cpu(), want), f"{label}: K28 differs from its "
+          "plain version")
+
+
+def compare_k29(data, valid, n: int, signed: bool, label: str,
+                errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.io import orc_encode_device as OE
+
+    got = OE.encode_direct(data, valid, n, signed)
+    want = OE.encode_direct_plain(data.cpu(), None if valid is None else
+                                  valid.cpu(), n, signed)
+    counts = got[2].cpu()
+    check(torch.equal(counts, want[2]), f"{label}: K29 counts "
+          f"{counts.tolist()} vs {want[2].tolist()}")
+    nb = int(counts[2])
+    check(torch.equal(got[0][:nb].cpu(), want[0][:nb]),
+          f"{label}: K29 stream differs")
+    check(torch.equal(got[1].cpu(), want[1]), f"{label}: K29 PRESENT "
+          "bits differ")
+
+
+def compare_k30(col, n: int, label: str, errs: dict) -> None:
+    import torch
+
+    from spark_rapids_tpu_torch.io import parquet_encode_device as PE
+
+    got = PE.encode_plain_page(col, n, orc=True)
+    want = PE.encode_plain_page_plain(col, n, orc=True)
+    counts = got[2].cpu()
+    check(torch.equal(counts, want[2].cpu()), f"{label}: K22 ORC mode "
+          f"counts {counts.tolist()} vs {want[2].tolist()}")
+    nb = int(counts[1])
+    check(torch.equal(got[0][:nb], want[0][:nb]) and
+          torch.equal(got[1], want[1]), f"{label}: K22 ORC mode differs")
+
+
+def orc_edge_cases(dev, errs: dict) -> int:
+    """K27-K29 and K22's ORC mode against their plain versions, bit for
+    bit: every RLEv2 sub-encoding, DIRECT and DELTA widths 1-64, runs of 1,
+    3, 10 and 512, patches at a run's first and last value, signed and
+    unsigned streams, an empty stream and slots past the runs; byte-RLE
+    runs and literals across byte and run boundaries; encodes of every
+    integer width with NULLs, no live row and every row live; whole stripe
+    columns (BOOLEAN, SHORT, INT, FLOAT, STRING, a UTC TIMESTAMP, an
+    all-NULL column) decoded on the card against the CPU."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import ColumnVector
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+    rng = np.random.default_rng(61)
+    sets = 0
+    # every DIRECT width, runs of 1, 3, 10 and 512, signed and unsigned
+    for signed in (True, False):
+        parts, n = [], 0
+        for w in ORC_WIDTHS:
+            for cnt in (1, 3, 10, 512):
+                if signed:
+                    lo, hi = -(1 << (w - 1)), (1 << (w - 1)) - 1
+                else:
+                    lo, hi = 0, (1 << min(w, 63)) - 1
+                vals = [int(x) for x in rng.integers(lo, hi, cnt,
+                                                     endpoint=True)]
+                vals[-1] = hi
+                parts.append(rle_direct(vals, w, signed))
+                n += cnt
+        compare_k27(b"".join(parts), n, signed, n + 100,
+                    f"DIRECT widths 1-64 ({'signed' if signed else 'unsigned'})",
+                    errs, dev)
+        sets += 1
+    # SHORT_REPEAT values of 1-8 bytes, 3-10 repeats
+    parts, n = [], 0
+    for vw in range(1, 9):
+        for cnt in range(3, 11):
+            v = int(rng.integers(-(1 << (8 * vw - 2)), 1 << (8 * vw - 2)))
+            parts.append(rle_sr(v, cnt, True))
+            n += cnt
+    compare_k27(b"".join(parts), n, True, n, "SHORT_REPEAT", errs, dev)
+    sets += 1
+    # DELTA: varying widths to 64, both directions, fixed steps
+    parts, n = [], 0
+    for w in (2, 7, 13, 32, 48, 56, 64):  # DELTA has no width 1 (code 0)
+        for cnt in (3, 10, 512):
+            deltas = [int(x) for x in rng.integers(0, 1 << min(w, 62),
+                                                   cnt - 2)]
+            for d0 in (5, -5):
+                parts.append(rle_delta(int(rng.integers(-1000, 1000)), d0,
+                                       deltas, w, cnt, True))
+                n += cnt
+    for cnt in (1, 2, 3, 10, 511, 512):
+        parts.append(rle_delta(7, -3, [], 0, cnt, True))
+        n += cnt
+    compare_k27(b"".join(parts), n, True, n + 8, "DELTA", errs, dev)
+    compare_k27(rle_delta(1 << 40, 3, [1, 2, 3], 2, 5, False), 5, False, 8,
+                "DELTA unsigned", errs, dev)
+    sets += 2
+    # PATCHED_BASE: patches on the first and last value, wide patches
+    parts, n = [], 0
+    for w, pw in ((1, 1), (3, 8), (11, 4), (20, 40), (32, 30), (56, 7)):
+        for cnt in (1, 10, 512):
+            lows = [int(x) for x in rng.integers(0, 1 << w, cnt)]
+            patches, prev = [], 0
+            for p in sorted({0, cnt // 2, cnt - 1}):
+                g = p - prev
+                while g > 255:  # a gap past 8 bits takes filler entries
+                    patches.append((255, 0))
+                    g -= 255
+                patches.append((g, int(rng.integers(1, 1 << pw))))
+                prev = p
+            pgw = max(1, max(g for g, _ in patches).bit_length())
+            parts.append(rle_pb(int(rng.integers(-10**6, 10**6)), lows, w,
+                                patches, pw, pgw))
+            n += cnt
+    compare_k27(b"".join(parts), n, True, n, "PATCHED_BASE", errs, dev)
+    sets += 1
+    # a stream mixing every kind; an empty one; the fixture's encoder
+    mixed = rle_sr(9, 4, True) + rle_direct([1, -2, 3], 4, True) + \
+        rle_delta(100, -2, [1, 0, 3], 2, 5, True) + \
+        rle_pb(-7, [1, 2, 3, 0], 2, [(3, 1)], 1, 2)
+    compare_k27(mixed, 16, True, 40, "mixed", errs, dev)
+    compare_k27(b"", 0, True, 8, "empty stream", errs, dev)
+    flags = rng.integers(0, 3, 1 << 16)
+    buf, _ = rlev2_encode(flags, False)
+    check(compare_k27(buf, len(flags), False, len(flags), "fixture flags",
+                      errs, dev) == len(flags), "fixture flags: short")
+    dates = rng.integers(8035, 10561, 1 << 16)
+    buf, c = rlev2_encode(dates, True, ORC_DATE_WINDOW, 2)
+    check(c["PATCHED_BASE"] > 0, "fixture dates: no PATCHED_BASE run")
+    compare_k27(buf, len(dates), True, len(dates), "fixture dates", errs,
+                dev)
+    sets += 4
+    # byte-RLE: runs and literals across byte boundaries, a ragged end
+    pieces = [("run", 0xFF, 3), ("lit", bytes([0x80, 0x01, 0x55])),
+              ("run", 0x00, 130), ("lit", bytes(range(128))),
+              ("run", 0xA5, 4), ("lit", bytes([0x7F]))]
+    buf = byte_rle(pieces)
+    total = 3 + 3 + 130 + 128 + 4 + 1
+    for cap in (total * 8 - 5, total * 8, total * 8 + 64, 8):
+        compare_k28(buf, cap, f"byte-RLE cap {cap}", errs, dev)
+    compare_k28(b"", 16, "empty byte-RLE", errs, dev)
+    sets += 5
+    # K29: every integer width, NULLs, short, none and all live
+    cap = 1040
+    for dt, bits in ((torch.int16, 16), (torch.int32, 32),
+                     (torch.int64, 64)):
+        for w in (1, 2, 4, 8, 13, 16, 24, 31, 40, 48, 56, 64):
+            if w > bits:
+                continue
+            hi = (1 << (w - 1)) - 1
+            vals = rng.integers(-hi - 1, hi, cap, endpoint=True)
+            data = torch.from_numpy(vals).to(dt).to(dev)
+            for case, valid, n in (
+                    ("nulls", rng.random(cap) < 0.7, cap - 5),
+                    ("none", np.zeros(cap, bool), cap),
+                    ("all", None, cap)):
+                v = None if valid is None else torch.from_numpy(valid).to(
+                    dev)
+                compare_k29(data, v, n, True, f"K29 {dt} w{w} {case}", errs)
+                sets += 1
+    lens = torch.from_numpy(rng.integers(0, 300, cap).astype(
+        np.int32)).to(dev)
+    compare_k29(lens, None, cap - 3, False, "K29 lengths", errs)
+    sets += 1
+    # K22's ORC mode
+    valid = torch.from_numpy(rng.random(64) < 0.6).to(dev)
+    for dtype, data in ((DataType.FLOAT32, torch.randn(64)),
+                        (DataType.FLOAT64, torch.randn(64, dtype=torch.float64)),
+                        (DataType.BOOL, torch.rand(64) < 0.5)):
+        col = ColumnVector(dtype, data.to(dev), valid)
+        compare_k30(col, 61, f"K22 ORC mode {dtype.name}", errs)
+        compare_k30(ColumnVector(dtype, data.to(dev), torch.zeros_like(
+            valid)), 64, f"K22 ORC mode {dtype.name} all NULL", errs)
+        sets += 2
+    offs, raw, sv = pool_column(comment_pool(7), 64, 7, dev)
+    compare_k30(ColumnVector(DataType.STRING, raw, sv & valid, offs, 64), 60,
+                "K22 ORC mode STRING", errs)
+    sets += 1
+    sets += orc_stripe_edge_cases(dev, errs, rng)
+    return sets
+
+
+def orc_stripe_edge_cases(dev, errs: dict, rng) -> int:
+    """Whole stripe columns built in memory (streams, encodings, a UTC
+    time zone) decoded on the card and on the CPU, equal bit for bit:
+    BOOLEAN with NULLs, SHORT, INT, FLOAT, DOUBLE, DIRECT_V2 and
+    DICTIONARY_V2 STRING, TIMESTAMP (pre-1970 fractions too), an all-NULL
+    INT column and a stripe of no rows."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import orc_device as OD
+    from spark_rapids_tpu_torch.io import orc_meta as OM
+
+    def image(rows, streams, encodings):
+        buf, locs = bytearray(), []
+        for kind, cid, payload in streams:
+            locs.append(OM.StreamLoc(kind, cid, len(buf), len(payload)))
+            buf += payload
+        return OM.StripeImage(np.frombuffer(bytes(buf) or b"\0", np.uint8),
+                              locs, encodings, "UTC", rows)
+
+    def lits(bits):
+        return byte_rle([("lit", bytes(np.packbits(bits)[i:i + 128]))
+                         for i in range(0, (len(bits) + 7) // 8, 128)])
+
+    rows = 1000
+    valid = rng.random(rows) < 0.8
+    n = int(valid.sum())
+    pres = lits(valid)
+    secs = [int(x) for x in rng.integers(-2 * 10**9, 10**9, n)]
+    nanos = [int(x) for x in rng.integers(0, 10**9, n)]
+
+
+    cols = [
+        (DataType.BOOL, 0, [(1, lits(rng.random(n) < 0.5))]),
+        (DataType.INT16, 2, [(1, rle_direct([int(x) for x in rng.integers(
+            -2**15, 2**15, n)], 16, True))]),
+        (DataType.INT32, 2, [(1, rle_direct([int(x) for x in rng.integers(
+            -2**31, 2**31, n)], 32, True))]),
+        (DataType.FLOAT32, 0, [(1, rng.standard_normal(n).astype(
+            "<f4").tobytes())]),
+        (DataType.FLOAT64, 0, [(1, rng.standard_normal(n).astype(
+            "<f8").tobytes())]),
+        (DataType.STRING, 2, [(1, b"ab" * n), (2, rle_direct(
+            [2] * n, 2, False))]),
+        (DataType.STRING, 3, [(1, rle_direct([int(x) for x in rng.integers(
+            0, 3, n)], 2, False)), (2, rle_direct([0, 1, 3], 2, False)),
+            (3, b"xyyzzz")]),
+        (DataType.TIMESTAMP, 2, [(1, rle_direct(secs, 64, True)),
+                                 (5, rle_direct([orc_nano_code(v) for v in
+                                                 nanos], 64, False))]),
+    ]
+    count = 0
+    for i, (dt, enc, streams) in enumerate(cols):
+        encs = {0: (0, 0), 1: (enc, 3 if enc == 3 else 0)}
+        img = image(rows, [(0, 1, pres)] + [(k, 1, p) for k, p in streams],
+                    encs)
+        plan = OD.plan_column(img, 1, dt, f"edge {dt.name}")
+        cap = bucket_capacity(rows)
+        got = OD.decode_column(plan, torch.from_numpy(img.buf.copy()).to(
+            dev), cap, img.buf)
+        want = OD.decode_column(plan, torch.from_numpy(img.buf.copy()), cap,
+                                img.buf)
+        check(torch.equal(got.validity.cpu(), want.validity),
+              f"orc stripe {dt.name} ({i}): validity differs")
+        if dt is DataType.STRING:
+            check(torch.equal(got.offsets.cpu(), want.offsets) and
+                  torch.equal(got.data[:int(want.offsets[-1])].cpu(),
+                              want.data[:int(want.offsets[-1])]),
+                  f"orc stripe STRING ({i}): values differ")
+        else:
+            check(torch.equal(got.data.cpu().view(torch.uint8),
+                              want.data.view(torch.uint8)),
+                  f"orc stripe {dt.name} ({i}): values differ")
+        count += 1
+    # an all-NULL INT column, and a stripe of no rows
+    for r, p in ((rows, lits(np.zeros(rows, bool))), (0, b"")):
+        img = image(r, [(0, 1, p), (1, 1, b"")], {0: (0, 0), 1: (2, 0)})
+        plan = OD.plan_column(img, 1, DataType.INT32, "edge all NULL")
+        cap = bucket_capacity(max(r, 1))
+        got = OD.decode_column(plan, torch.from_numpy(img.buf.copy()).to(
+            dev), cap, img.buf)
+        check(not bool(got.validity.any()) and not bool(
+            got.data.any()), f"orc stripe of {r} NULL rows: not all NULL")
+        count += 1
+    return count
+
+
+def time_orc_kernels(dev, errs: dict) -> dict:
+    """K27-K29 and K22's ORC mode at the SF 10 lineitem stripe shape (one
+    15M-row stripe, as df.write.orc writes a partition): K29 encoding
+    l_shipdate-like dates (99% present) and K27 expanding its stream back,
+    K28 expanding the PRESENT stream of that column, K22's ORC mode
+    compacting l_extendedprice-like DOUBLEs; beside them K27 over one
+    Hive-layout stripe's l_returnflag index stream (2^21 rows: SHORT_REPEAT
+    and DIRECT runs). Each is checked against its plain version there, bit
+    for bit. A bound counts each input read once and each output written
+    once (run tables at their bytes)."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import orc_device as OD
+    from spark_rapids_tpu_torch.io import orc_encode_device as OE
+    from spark_rapids_tpu_torch.io import parquet_encode_device as PE
+
+    n = ORC_SHAPE_ROWS
+    cap = CBT.bucket_capacity(n)
+    rng = np.random.default_rng(67)
+    iters, plain_iters = 10, 2
+    rows = {}
+    dates = torch.from_numpy(rng.integers(8035, 10561, cap).astype(
+        np.int32)).to(dev)
+    valid = torch.from_numpy(rng.random(cap) < 0.99).to(dev)
+    compare_k29(dates, valid, n, True, "K29 15M dates", errs)
+    stream, present, counts = OE.encode_direct(dates, valid, n, True)
+    live, width, nbytes = counts.tolist()
+    rows["orc_encode_direct"] = dict(
+        ms=cuda_ms(lambda: OE.encode_direct(dates, valid, n, True), iters),
+        plain_ms=cuda_ms(lambda: OE.encode_direct_plain(dates, valid, n,
+                                                        True), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * n + n + nbytes + cap // 8 + 24),
+        shape=f"{n} DATE rows like l_shipdate, {live} live, width {width}, "
+              f"{nbytes} stream bytes")
+    s_np = stream[:nbytes].cpu().numpy()
+    rt = OD.parse_rlev2(s_np, 0, nbytes, live, True)
+    buf = stream[:nbytes].contiguous()
+    drt = OD.device_rlev2(rt, dev)
+    cap_p = CBT.bucket_capacity(live)
+    got = OD.rlev2_expand(buf, drt, cap_p)
+    want = OD.rlev2_expand_plain(buf, drt, cap_p)
+    check(torch.equal(got, want), "K27 15M dates: differs from its plain "
+          "version")
+    dense = dates[:n][valid[:n]].long()
+    check(torch.equal(got[:live], dense), "K27 15M dates: not the values "
+          "K29 encoded")
+    runs = len(rt.kind)
+    hive = rng.integers(0, 3, ORC_HIVE_STRIPE_ROWS)
+    hbuf, hkinds = rlev2_encode(hive, False)
+    hnp = np.frombuffer(hbuf, np.uint8)
+    hrt = OD.parse_rlev2(hnp, 0, len(hbuf), len(hive), False)
+    hdev = torch.from_numpy(hnp.copy()).to(dev)
+    hdrt = OD.device_rlev2(hrt, dev)
+    hcap = CBT.bucket_capacity(len(hive))
+    check(torch.equal(OD.rlev2_expand(hdev, hdrt, hcap),
+                      OD.rlev2_expand_plain(hdev, hdrt, hcap)),
+          "K27 hive flags: differs from its plain version")
+    rows["rlev2_expand"] = dict(
+        ms=cuda_ms(lambda: OD.rlev2_expand(buf, drt, cap_p), iters),
+        plain_ms=cuda_ms(lambda: OD.rlev2_expand_plain(buf, drt, cap_p),
+                         plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(nbytes + 38 * runs + 8 * cap_p),
+        ms_hive=cuda_ms(lambda: OD.rlev2_expand(hdev, hdrt, hcap), iters),
+        plain_ms_hive=cuda_ms(lambda: OD.rlev2_expand_plain(hdev, hdrt,
+                                                            hcap),
+                              plain_iters),
+        bound_ms_hive=bound_ms(len(hbuf) + 38 * len(hrt.kind) + 8 * hcap),
+        shape=f"{live} DATE values in {runs} DIRECT runs of width {width} "
+              f"(hive: {len(hive)} flag indices in {len(hrt.kind)} runs, "
+              f"{hkinds})")
+    pbytes = OE._present_stream(present[:(n + 7) // 8].cpu().numpy()
+                                .tobytes())
+    pnp = np.frombuffer(pbytes, np.uint8)
+    bt = OD.parse_byte_rle(pnp, 0, len(pbytes), n)
+    pdev = torch.from_numpy(pnp.copy()).to(dev)
+    dbt = OD.device_byte_rle(bt, dev)
+    compare_k28(pbytes, cap, "K28 15M PRESENT", errs, dev)
+    check(torch.equal(OD.present_expand(pdev, dbt, cap)[:n], valid[:n]),
+          "K28 15M PRESENT: not the validity K29 packed")
+    rows["present_expand"] = dict(
+        ms=cuda_ms(lambda: OD.present_expand(pdev, dbt, cap), iters),
+        plain_ms=cuda_ms(lambda: OD.present_expand_plain(pdev, dbt, cap),
+                         plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(len(pbytes) + 22 * len(bt.count) + cap),
+        shape=f"{n} rows' PRESENT stream ({len(bt.count)} literal runs)")
+    price = torch.from_numpy(rng.random(cap) * 1e5).to(dev)
+    pvalid = torch.arange(cap, device=dev) < n
+    pcol = CBT.ColumnVector(DataType.FLOAT64, price, pvalid)
+    compare_k30(pcol, n, "K22 ORC mode 15M DOUBLE", errs)
+    rows["orc_pack_present"] = dict(
+        ms=cuda_ms(lambda: PE.encode_plain_page(pcol, n, orc=True), iters),
+        plain_ms=cuda_ms(lambda: PE.encode_plain_page_plain(pcol, n,
+                                                            orc=True),
+                         plain_iters),
+        library_ms=cuda_ms(lambda: price[pvalid], iters),
+        bound_ms=bound_ms(n + 8 * n + 8 * n + cap // 8 + 16),
+        shape=f"{n} DOUBLE rows like l_extendedprice")
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -5923,7 +7031,8 @@ def main(argv=None) -> int:
         join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
         window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
         slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
-        encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs)
+        encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
+        orc_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -5949,6 +7058,8 @@ def main(argv=None) -> int:
                                      args.profile)
     v2_samples = {"l_extendedprice": results["parquet"].pop(
         "l_extendedprice_sample")}
+    results["orc"] = run_orc(tpch_sess, raw, tables, wants,
+                             wants["input_rows"], launches, args.profile)
     results["encoded"] = run_encoded(tpch_sess, raw, wants, launches,
                                      args.profile)
     for df in tables.values():
@@ -6019,6 +7130,10 @@ def main(argv=None) -> int:
             "last_run_scan_host_s", "last_run_rest_s", "gbps",
             "file_bytes")} if k.startswith("parquet_") else v)
             for k, v in results["parquet"].items()},
+        "orc": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "last_run_scan_host_s", "runs", "rows", "bytes", "s")}
+            if k.startswith(("orc_", "lineitem_")) else v)
+            for k, v in results["orc"].items()},
         "encoded": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
             "encodedColumns", "lateMaterializations", "k23_launches",
             "k24_launches", "k4_code_launches", "peak_device_bytes",

@@ -304,31 +304,39 @@ CSV_DEVICE_MAX_SPLIT_BYTES = _conf(
     "(reference bounds CSV reads with line-aligned chunks the same way, "
     "GpuBatchScanExec.scala:322-520)."
 ).bytes(256 << 20)
-ORC_READ_ENABLED = _conf("rapids.tpu.sql.format.orc.read.enabled").boolean(True)
+ORC_READ_ENABLED = _conf("rapids.tpu.sql.format.orc.read.enabled").doc(
+    "Read ORC files. The port decodes them on the device only, so false "
+    "raises when a device session plans an ORC scan; the CPU engine "
+    "decodes on the host either way."
+).boolean(True)
 ORC_DEVICE_DECODE = _conf(
     "rapids.tpu.sql.format.orc.deviceDecode.enabled").doc(
-    "Decode eligible ORC columns ON the device: the host walks the "
-    "protobuf metadata and RLEv2/byte-RLE run headers (all four RLEv2 "
-    "sub-encodings incl. PATCHED_BASE, widths <= 56 bits), raw stripe "
-    "bytes upload once (zlib/snappy/zstd blocks host-decompressed "
-    "first), and jitted kernels expand the runs — integers, strings "
-    "(DIRECT_V2 + DICTIONARY_V2), floats, timestamps, and booleans — the "
-    "reference decodes ORC on the accelerator the same way "
-    "(GpuOrcScan.scala:284,709). LZO/LZ4 (no per-block decompressed size "
-    "for Arrow's raw codec) and nested types fall back to the host Arrow "
-    "reader."
+    "Decode ORC columns ON the device: the host walks the protobuf "
+    "metadata and the RLEv2 / byte-RLE run headers (all four RLEv2 "
+    "sub-encodings, widths to 64 bits) after inflating ZLIB / SNAPPY "
+    "blocks, each stripe's bytes upload once, and hand-written kernels "
+    "expand the runs (K27, K28) and spread values and strings onto rows "
+    "(K21, K7): BOOLEAN, SHORT, INT, LONG, DATE, FLOAT, DOUBLE, STRING "
+    "(DIRECT_V2, DICTIONARY_V2) and UTC TIMESTAMP columns (reference: "
+    "GpuOrcScan.scala:284,709). The port has no host reader, so false "
+    "raises when a device session plans an ORC scan, and so do ZSTD / "
+    "LZ4 / LZO files and other types."
 ).boolean(True)
-ORC_WRITE_ENABLED = _conf("rapids.tpu.sql.format.orc.write.enabled").boolean(True)
+ORC_WRITE_ENABLED = _conf("rapids.tpu.sql.format.orc.write.enabled").doc(
+    "Write ORC files. The port encodes them on the device only, so false "
+    "raises when a device session writes ORC; the CPU engine encodes on "
+    "the host either way."
+).boolean(True)
 ORC_DEVICE_ENCODE = _conf(
     "rapids.tpu.sql.format.orc.deviceEncode.enabled").doc(
-    "Encode ORC ON the device (reference encodes on the accelerator, "
-    "GpuOrcFileFormat.scala / ColumnarOutputWriter.scala:62-177): "
-    "non-null values compact, zigzag-encode and bit-pack into the RLEv2 "
-    "DIRECT payload (strings via a byte gather + RLEv2 LENGTH stream, "
-    "floats/bools as raw/bit streams) in jitted kernels per column; only "
-    "the encoded stream payload downloads, then the host block-compresses "
-    "in ORC framing (none/zlib/snappy). Applies to flat schemas without "
-    "partitionBy; decimal/nested types use the host Arrow writer."
+    "Encode ORC ON the device (reference: GpuOrcFileFormat.scala, "
+    "ColumnarOutputWriter.scala:62-177): live values compact, zigzag-"
+    "encode and bit-pack into RLEv2 DIRECT streams with their run headers "
+    "(K29), floats, booleans, string bytes and PRESENT bits compact and "
+    "pack in K22's ORC mode; only stream payloads download, then the host "
+    "block-compresses them in ORC framing (uncompressed / zlib / snappy). "
+    "Flat schemas without partitionBy; the port has no host encoder, so "
+    "false raises when a device session writes ORC."
 ).boolean(True)
 
 ENABLE_FLOAT_AGG = _conf("rapids.tpu.sql.variableFloatAgg.enabled").doc(

@@ -18,6 +18,12 @@
 // The reference compacts with a stable argsort of ~live; a flag scan gives
 // the same order in linear work.
 //
+// ORC mode (orc = 1; io/orc_encode_device.py, counted as orc_pack_present):
+// the same compaction with ORC's layouts, replacing the reference's
+// orc_encode_device.py:_pack_present (:162) and _compact_fixed (:225):
+// bits pack MSB first (PRESENT bytes, BOOLEAN values) and STRING values
+// carry no length prefix (the DATA stream; their lengths go to K29).
+//
 // Bound: memory. Each row's flag and value are read once and the compacted
 // values and packed bits written once; the scan adds 8 bytes a row.
 #include <algorithm>
@@ -36,13 +42,15 @@ __global__ void live_flags_kernel(const uint8_t* __restrict__ validity,
                                   long long num_rows, long long cap,
                                   const int32_t* __restrict__ offsets,
                                   uint32_t* __restrict__ flags,
-                                  uint32_t* __restrict__ pieces) {
+                                  uint32_t* __restrict__ pieces,
+                                  uint32_t prefix) {
   for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        j <= cap; j += (long long)gridDim.x * blockDim.x) {
     const bool live = j < cap && j < num_rows && validity[j] != 0;
     if (j < cap) flags[j] = live ? 1u : 0u;
     if (pieces != nullptr)
-      pieces[j] = live ? (uint32_t)(offsets[j + 1] - offsets[j]) + 4u : 0u;
+      pieces[j] =
+          live ? (uint32_t)(offsets[j + 1] - offsets[j]) + prefix : 0u;
   }
 }
 
@@ -65,17 +73,17 @@ __global__ void scatter_fixed_kernel(const uint8_t* __restrict__ data,
   }
 }
 
-// byte b of out: bit k is in[8b + k] != 0, for 8b + k below n (n read from
-// n_dev when given)
+// byte b of out: bit k (bit 7 - k when msb) is in[8b + k] != 0, for
+// 8b + k below n (n read from n_dev when given)
 __global__ void pack_bits_u32_kernel(const uint32_t* __restrict__ in,
                                      long long n, long long n_bytes,
-                                     uint8_t* __restrict__ out) {
+                                     uint8_t* __restrict__ out, int msb) {
   for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        b < n_bytes; b += (long long)gridDim.x * blockDim.x) {
     uint32_t v = 0;
     for (int k = 0; k < 8; ++k) {
       const long long i = 8 * b + k;
-      if (i < n && in[i]) v |= 1u << k;
+      if (i < n && in[i]) v |= 1u << (msb ? 7 - k : k);
     }
     out[b] = (uint8_t)v;
   }
@@ -84,14 +92,14 @@ __global__ void pack_bits_u32_kernel(const uint32_t* __restrict__ in,
 __global__ void pack_bits_u8_kernel(const uint8_t* __restrict__ in,
                                     const long long* __restrict__ n_dev,
                                     long long n_bytes,
-                                    uint8_t* __restrict__ out) {
+                                    uint8_t* __restrict__ out, int msb) {
   const long long n = *n_dev;
   for (long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        b < n_bytes; b += (long long)gridDim.x * blockDim.x) {
     uint32_t v = 0;
     for (int k = 0; k < 8; ++k) {
       const long long i = 8 * b + k;
-      if (i < n && in[i]) v |= 1u << k;
+      if (i < n && in[i]) v |= 1u << (msb ? 7 - k : k);
     }
     out[b] = (uint8_t)v;
   }
@@ -115,7 +123,7 @@ __global__ void string_copy_kernel(const int32_t* __restrict__ offsets,
                                    const uint32_t* __restrict__ flags,
                                    const uint32_t* __restrict__ out_off,
                                    long long cap, uint8_t* __restrict__ out,
-                                   long long byte_cap) {
+                                   long long byte_cap, int prefix) {
   const int lane = threadIdx.x & 31;
   const long long warps = (long long)gridDim.x * (blockDim.x / 32);
   for (long long j = ((long long)blockIdx.x * blockDim.x + threadIdx.x) / 32;
@@ -124,10 +132,10 @@ __global__ void string_copy_kernel(const int32_t* __restrict__ offsets,
     const long long dst = out_off[j];
     const long long src = offsets[j];
     const long long len = (long long)offsets[j + 1] - src;
-    if (lane < 4 && dst + lane < byte_cap)
+    if (lane < prefix && dst + lane < byte_cap)
       out[dst + lane] = (uint8_t)((uint32_t)len >> (8 * lane));
-    for (long long k = lane; k < len && dst + 4 + k < byte_cap; k += 32)
-      out[dst + 4 + k] = data[src + k];
+    for (long long k = lane; k < len && dst + prefix + k < byte_cap; k += 32)
+      out[dst + prefix + k] = data[src + k];
   }
 }
 
@@ -150,10 +158,10 @@ SRT_API size_t srt_encode_scratch_bytes(long long cap) {
 // Fixed-width and BOOLEAN columns. data: cap values of w bytes (BOOLEAN:
 // one byte each, as_bool = 1); validity: bool [cap]; dense: uint8 [cap * w]
 // (BOOLEAN: [cap / 8] packed value bits); packed_valid: uint8 [cap / 8];
-// counts: int64 [2]. cap is a multiple of 8.
+// counts: int64 [2]. cap is a multiple of 8. orc: MSB-first bits.
 SRT_API int srt_encode_plain_page(const uint8_t* data, const uint8_t* validity,
                                   long long num_rows, long long cap, int w,
-                                  int as_bool, uint8_t* dense,
+                                  int as_bool, int orc, uint8_t* dense,
                                   uint8_t* packed_valid, long long* counts,
                                   void* scratch, size_t scratch_bytes,
                                   void* stream) {
@@ -168,21 +176,21 @@ SRT_API int srt_encode_plain_page(const uint8_t* data, const uint8_t* validity,
   uint32_t* scan_scratch = c.take<uint32_t>(scan_scratch_elems(cap + 1));
   uint8_t* bool_dense = c.take<uint8_t>(cap);
   live_flags_kernel<<<grid_for(cap + 1), kThreads, 0, st>>>(
-      validity, num_rows, cap, nullptr, flags, nullptr);
+      validity, num_rows, cap, nullptr, flags, nullptr, 0u);
   SRT_LAUNCHED("live_flags_kernel");
   SRT_TRY(scan_u32(flags, slots, cap, scan_scratch, nullptr, false, st));
   scatter_fixed_kernel<<<grid_for(cap), kThreads, 0, st>>>(
       data, flags, slots, cap, w, as_bool, as_bool ? bool_dense : dense);
   SRT_LAUNCHED("scatter_fixed_kernel");
   pack_bits_u32_kernel<<<grid_for(cap / 8), kThreads, 0, st>>>(
-      flags, cap, cap / 8, packed_valid);
+      flags, cap, cap / 8, packed_valid, orc);
   SRT_LAUNCHED("pack_bits_u32_kernel");
   counts_kernel<<<1, 1, 0, st>>>(flags, slots, cap, w, as_bool, nullptr,
                                  counts);
   SRT_LAUNCHED("counts_kernel");
   if (as_bool) {
     pack_bits_u8_kernel<<<grid_for(cap / 8), kThreads, 0, st>>>(
-        bool_dense, counts, cap / 8, dense);
+        bool_dense, counts, cap / 8, dense, orc);
     SRT_LAUNCHED("pack_bits_u8_kernel");
   }
   return 0;
@@ -190,10 +198,11 @@ SRT_API int srt_encode_plain_page(const uint8_t* data, const uint8_t* validity,
 
 // STRING columns. offsets int32 [cap + 1], data uint8, validity bool [cap];
 // out: uint8 [byte_cap] (at least the live bytes plus 4 a live row);
-// packed_valid: uint8 [cap / 8]; counts: int64 [2].
+// packed_valid: uint8 [cap / 8]; counts: int64 [2]. orc: no length
+// prefixes, MSB-first bits.
 SRT_API int srt_encode_string_page(const int32_t* offsets, const uint8_t* data,
                                    const uint8_t* validity,
-                                   long long num_rows, long long cap,
+                                   long long num_rows, long long cap, int orc,
                                    uint8_t* out, long long byte_cap,
                                    uint8_t* packed_valid, long long* counts,
                                    void* scratch, size_t scratch_bytes,
@@ -209,17 +218,17 @@ SRT_API int srt_encode_string_page(const int32_t* offsets, const uint8_t* data,
   uint32_t* scan_scratch = c.take<uint32_t>(scan_scratch_elems(cap + 1));
   uint32_t* out_off = slots;  // the piece scan; row counts use flags
   live_flags_kernel<<<grid_for(cap + 1), kThreads, 0, st>>>(
-      validity, num_rows, cap, offsets, flags, pieces);
+      validity, num_rows, cap, offsets, flags, pieces, orc ? 0u : 4u);
   SRT_LAUNCHED("live_flags_kernel");
   SRT_TRY(scan_u32(pieces, out_off, cap + 1, scan_scratch, nullptr, false,
                    st));
   const long long blocks =
       std::min<long long>(ceil_div(cap * 32, kThreads), 65536);
   string_copy_kernel<<<(unsigned)blocks, kThreads, 0, st>>>(
-      offsets, data, flags, out_off, cap, out, byte_cap);
+      offsets, data, flags, out_off, cap, out, byte_cap, orc ? 0 : 4);
   SRT_LAUNCHED("string_copy_kernel");
   pack_bits_u32_kernel<<<grid_for(cap / 8), kThreads, 0, st>>>(
-      flags, cap, cap / 8, packed_valid);
+      flags, cap, cap / 8, packed_valid, orc);
   SRT_LAUNCHED("pack_bits_u32_kernel");
   // live rows: the flags scanned into `pieces` (free after the copy)
   SRT_TRY(scan_u32(flags, pieces, cap, scan_scratch, nullptr, false, st));

@@ -34,7 +34,8 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "hash_join", "string_search", "substring", "window_segments",
            "window_rank_offset", "window_frame_agg", "string_chars",
            "explode", "segment_percentile", "parquet_decode",
-           "parquet_encode", "dict_encoded", "parquet_delta")
+           "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
+           "orc_encode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -288,12 +289,29 @@ _SIGNATURES = {
         "srt_encode_scratch_bytes": (ctypes.c_size_t, [ctypes.c_longlong]),
         "srt_encode_plain_page": (ctypes.c_int, [
             _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong,
-            ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
-            _VOIDP, ctypes.c_size_t, _VOIDP]),
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, ctypes.c_size_t, _VOIDP]),
         "srt_encode_string_page": (ctypes.c_int, [
             _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_longlong,
-            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_int, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP,
             ctypes.c_size_t, _VOIDP]),
+    },
+    "orc_decode": {
+        "srt_rlev2_expand": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP]),
+        "srt_present_expand": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP]),
+    },
+    "orc_encode": {
+        "srt_orc_direct_scratch_bytes": (ctypes.c_size_t,
+                                         [ctypes.c_longlong]),
+        "srt_orc_encode_direct": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_int, _VOIDP, ctypes.c_longlong,
+            ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_size_t, _VOIDP]),
     },
     "dict_encoded": {
         "srt_dict_materialize_fixed": (ctypes.c_int, [

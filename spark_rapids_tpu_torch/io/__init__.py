@@ -1,3 +1,4 @@
-"""Parquet read and write for the port (port of spark_rapids_tpu/io/):
-the footer reader, the device decode and encode, the scan execs, the
-DataFrame reader and the writer. No Arrow on any path."""
+"""Parquet and ORC read and write for the port (port of
+spark_rapids_tpu/io/): the footer readers, the device decodes and
+encodes, the scan execs, the DataFrame reader and the writer. No Arrow on
+any path."""

@@ -110,62 +110,70 @@ def compress(codec: str, payload: bytes) -> bytes:
 # ---------------------------------------------------------------------------
 # K22 encode_plain_page
 # ---------------------------------------------------------------------------
-def pack_bits_plain(flags: torch.Tensor) -> torch.Tensor:
+def pack_bits_plain(flags: torch.Tensor, msb: bool = False) -> torch.Tensor:
     """Flags [8k] -> k bytes, LSB first (reference: _pack_validity_bits
-    :229)."""
+    :229), or MSB first (ORC: orc_encode_device.py:_pack_present :162)."""
     n = int(flags.shape[0])
     pad = (-n) % 8
     if pad:
         flags = torch.cat([flags, torch.zeros(pad, dtype=flags.dtype,
                                               device=flags.device)])
     bits = flags.reshape(-1, 8).to(torch.int32)
-    weights = torch.tensor([1 << k for k in range(8)], dtype=torch.int32,
-                           device=flags.device)
+    weights = torch.tensor([1 << (7 - k if msb else k) for k in range(8)],
+                           dtype=torch.int32, device=flags.device)
     return (bits * weights).sum(1).to(torch.uint8)
 
 
-def encode_plain_page_plain(col: ColumnVector, num_rows: int):
+def encode_plain_page_plain(col: ColumnVector, num_rows: int,
+                            orc: bool = False):
     """(values uint8, packed validity uint8 [cap / 8], counts int64 [2]:
     live rows and value bytes) of one column (reference: _encode_fixed
     :116, _pack_validity_bits :229, _encode_string_plan :133,
-    _encode_string_bytes :153)."""
+    _encode_string_bytes :153). orc: bits MSB first and strings without
+    length prefixes (reference: orc_encode_device.py:_pack_present :162,
+    _compact_fixed :225)."""
     cap = col.capacity
     dev = col.validity.device
     live = col.validity & (torch.arange(cap, device=dev) < num_rows)
-    packed = pack_bits_plain(live)
+    packed = pack_bits_plain(live, orc)
+    prefix = 0 if orc else 4
     n = int(live.sum())
     if col.dtype is DataType.STRING:
         sel = torch.nonzero(live).flatten()
         starts = col.offsets[sel].long()
         lens = (col.offsets[sel + 1] - col.offsets[sel]).long()
-        piece = lens + 4
+        piece = lens + prefix
         out_off = torch.cumsum(piece, 0) - piece
         total = int(piece.sum())
         row = torch.repeat_interleave(torch.arange(n, device=dev), piece)
         within = torch.arange(total, device=dev) - out_off[row]
         len_byte = (lens[row] >> (8 * within.clamp(max=3))) & 0xFF
-        src = (starts[row] + within - 4).clamp(0, max(
+        src = (starts[row] + within - prefix).clamp(0, max(
             int(col.data.shape[0]) - 1, 0))
         body = col.data[src].long() if total else len_byte
-        values = torch.where(within < 4, len_byte, body).to(torch.uint8)
+        values = torch.where(within < prefix, len_byte, body).to(
+            torch.uint8)
         return values, packed, torch.tensor([n, total], dtype=torch.int64,
                                             device=dev)
     dense = col.data[live]
     if col.dtype is DataType.BOOL:
-        values = pack_bits_plain(dense)
+        values = pack_bits_plain(dense, orc)
     else:
         values = dense.contiguous().view(torch.uint8)
     return values, packed, torch.tensor(
         [n, int(values.shape[0])], dtype=torch.int64, device=dev)
 
 
-def encode_plain_page(col: ColumnVector, num_rows: int):
+def encode_plain_page(col: ColumnVector, num_rows: int, orc: bool = False):
     """K22 (replaces parquet_encode_device.py:_encode_fixed :116,
     _pack_validity_bits :229, _encode_string_plan :133 and
     _encode_string_bytes :153): (values, packed validity, counts) with
-    values[:counts[1]] the page's PLAIN values."""
+    values[:counts[1]] the page's PLAIN values. orc: K22's ORC mode,
+    counted as orc_pack_present (replaces orc_encode_device.py:
+    _pack_present :162 and _compact_fixed :225): MSB-first bits, strings
+    without length prefixes."""
     if col.validity.device.type == "cpu":
-        return encode_plain_page_plain(col, num_rows)
+        return encode_plain_page_plain(col, num_rows, orc)
     cap = col.capacity
     dev = col.validity.device
     validity = col.validity.contiguous()
@@ -180,14 +188,14 @@ def encode_plain_page(col: ColumnVector, num_rows: int):
     if col.dtype is DataType.STRING:
         offsets = col.offsets.contiguous()
         CB.require_cuda(offsets)
-        byte_cap = int(data.shape[0]) + 4 * cap
+        byte_cap = int(data.shape[0]) + (0 if orc else 4 * cap)
         if byte_cap >= 1 << 32:
             raise ValueError("a string page past 4 GiB: write smaller "
                              "batches")
         values = torch.empty(max(byte_cap, 1), dtype=torch.uint8, device=dev)
         rc = lib.srt_encode_string_page(
             offsets.data_ptr(), data.data_ptr(), validity.data_ptr(),
-            int(num_rows), cap, values.data_ptr(), byte_cap,
+            int(num_rows), cap, 1 if orc else 0, values.data_ptr(), byte_cap,
             packed.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
             scratch.numel(), stream)
     else:
@@ -197,11 +205,13 @@ def encode_plain_page(col: ColumnVector, num_rows: int):
                              dtype=torch.uint8, device=dev)
         rc = lib.srt_encode_plain_page(
             data.view(torch.uint8).data_ptr(), validity.data_ptr(),
-            int(num_rows), cap, w, 1 if as_bool else 0, values.data_ptr(),
+            int(num_rows), cap, w, 1 if as_bool else 0, 1 if orc else 0,
+            values.data_ptr(),
             packed.data_ptr(), counts.data_ptr(), scratch.data_ptr(),
             scratch.numel(), stream)
-    CB.count_launch("encode_plain_page")
-    CB.check(lib, rc, "encode_plain_page")
+    label = "orc_pack_present" if orc else "encode_plain_page"
+    CB.count_launch(label)
+    CB.check(lib, rc, label)
     return values, packed, counts
 
 

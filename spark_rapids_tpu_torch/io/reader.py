@@ -1,11 +1,12 @@
 """DataFrameReader, the spark.read analog (port of
 spark_rapids_tpu/io/reader.py:19).
 
-`read.parquet(path, ...)` resolves the schema from the first file's footer
-(io/parquet_meta.py, no pyarrow) unless `schema(...)` gave one, and plans a
-FileScan over every file. `format("parquet").load(...)` works as in the
-reference. The Parquet scan takes no read option, so a read given one by
-`option` / `options` raises and names it; CSV and ORC are queued and raise.
+`read.parquet(path, ...)` and `read.orc(path, ...)` resolve the schema
+from the first file's footer (io/parquet_meta.py, io/orc_meta.py; no
+pyarrow) unless `schema(...)` gave one, and plan a FileScan over every
+file. `format("parquet" | "orc").load(...)` works as in the reference.
+The scans take no read option, so a read given one by `option` /
+`options` raises and names it; CSV is queued and raises.
 """
 
 from __future__ import annotations
@@ -13,11 +14,12 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.io import orc_meta as OM
 from spark_rapids_tpu_torch.io.parquet_meta import (
     ParquetFormatError,
     read_footer,
 )
-from spark_rapids_tpu_torch.io.scan import expand_paths
+from spark_rapids_tpu_torch.io.scan import FORMAT_SUFFIXES, expand_paths
 from spark_rapids_tpu_torch.ops.base import AttributeReference
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.dataframe import DataFrame
@@ -49,19 +51,23 @@ class DataFrameReader:
     def parquet(self, *paths: str) -> DataFrame:
         return self._load("parquet", list(paths))
 
+    def orc(self, *paths: str) -> DataFrame:
+        return self._load("orc", list(paths))
+
     def format(self, fmt: str) -> "_FormatReader":
         return _FormatReader(self, fmt)
 
     def _load(self, fmt: str, paths: List[str]) -> DataFrame:
-        if fmt != "parquet":
+        if fmt not in FORMAT_SUFFIXES:
             raise NotImplementedError(f"{fmt} reads are queued (Parquet "
-                                      "only)")
+                                      "and ORC only)")
         if self._options:
             raise NotImplementedError(
-                "the Parquet scan takes no read option: "
+                f"the {fmt} scan takes no read option: "
                 f"{', '.join(sorted(map(str, self._options)))}")
-        files = expand_paths(paths)
-        attrs = self._schema or _file_schema(files[0])
+        files = expand_paths(paths, FORMAT_SUFFIXES[fmt])
+        attrs = self._schema or (_file_schema(files[0]) if fmt == "parquet"
+                                 else _orc_schema(files[0]))
         plan = L.FileScan(fmt, paths, attrs, files=files)
         return DataFrame(plan, self._session)
 
@@ -74,6 +80,19 @@ def _file_schema(path: str) -> List[AttributeReference]:
         if c.dtype is None:
             raise ParquetFormatError(f"{path}: {c.unsupported}")
         out.append(AttributeReference(c.name, c.dtype, c.nullable))
+    return out
+
+
+def _orc_schema(path: str) -> List[AttributeReference]:
+    """The columns of one ORC file's footer (reference: _resolve_file_schema
+    :98-104, through pyarrow.orc there); a column of a type the port does
+    not read raises."""
+    out = []
+    for c in OM.read_file_meta(path).columns:
+        if c.dtype is None:
+            raise OM.OrcFormatError(f"{path}: column {c.name!r}: "
+                                    f"{c.unsupported}")
+        out.append(AttributeReference(c.name, c.dtype, True))
     return out
 
 

@@ -1,5 +1,5 @@
-"""Parquet file scan execs (port of spark_rapids_tpu/io/scan.py; reference:
-GpuParquetScan.scala).
+"""Parquet and ORC file scan execs (port of spark_rapids_tpu/io/scan.py;
+reference: GpuParquetScan.scala, GpuOrcScan.scala).
 
 - `plan_splits` groups each file's row groups into read tasks of at most
   rapids.tpu.sql.reader.batchSizeRows rows (reference :267,
@@ -18,10 +18,23 @@ them by name). The device scan keeps a dictionary chunk encoded under
 rapids.tpu.sql.encoded.* (`encode_fraction`; reference: the scan's
 `encoded_ok` plumbing): a STRING chunk, and an INT64 / DATE / TIMESTAMP
 chunk unless fixedDictionaries is off, whose ndv / rows is at most
-maxDictFraction. The CPU engine's scan emits plain columns. Hive-partitioned directories (`k=v` parts), CSV and ORC are
-queued and raise; so does a column the decoder does not take
-(parquet_device.unsupported_reason) — there is no other decoder to fall
-back to.
+maxDictFraction. The CPU engine's scan emits plain columns.
+
+ORC (reference `_read_device_orc` :611, `_orc_stripe_batches` :687):
+stripes group into read tasks as row groups do. A task first reads every
+stripe's footer and checks each column's encoding (and, for TIMESTAMP
+columns, the writer's time zone), so a file the decoder does not take
+raises before any byte moves to the device. Then, one stripe at a time,
+the host reads the stripe, inflates the streams of the columns kept on
+threads, walks their runs (io/orc_device.py:plan_column) and uploads the
+stripe once, and the device decodes it (K27, K28, K21, K7's span entry):
+one stripe's bytes are in memory at a time. A DICTIONARY_V2 STRING column
+stays encoded under the same keys as a Parquet dictionary chunk.
+
+Hive-partitioned directories (`k=v` parts) and CSV are queued and raise;
+so does a column the decoders do not take (parquet_device.
+unsupported_reason, orc_meta's column types) — there is no other decoder
+to fall back to.
 """
 
 from __future__ import annotations
@@ -40,6 +53,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     bucket_capacity,
     gather_batch,
 )
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
     ExecContext,
@@ -48,6 +62,8 @@ from spark_rapids_tpu_torch.exec.base import (
     TpuExec,
     count_output,
 )
+from spark_rapids_tpu_torch.io import orc_device as OD
+from spark_rapids_tpu_torch.io import orc_meta as OM
 from spark_rapids_tpu_torch.io import parquet_device as PD
 from spark_rapids_tpu_torch.io.parquet_meta import (
     ParquetFormatError,
@@ -57,6 +73,7 @@ from spark_rapids_tpu_torch.io.parquet_meta import (
 from spark_rapids_tpu_torch.ops.base import AttributeReference
 
 SUFFIXES = (".parquet", ".parq")
+FORMAT_SUFFIXES = {"parquet": SUFFIXES, "orc": (".orc",)}
 # host seconds of a scan: file reads, decompression, page and run walks
 SCAN_HOST_SECONDS = "scanHostSeconds"
 # threads for the host part of a row group's columns
@@ -65,7 +82,8 @@ HOST_THREADS = 8
 
 @dataclass(frozen=True)
 class FileSplit:
-    """One read task: a file and the row groups to read (reference :47)."""
+    """One read task: a file and the row groups (ORC: stripes) to read
+    (reference :47)."""
 
     path: str
     fmt: str
@@ -100,22 +118,25 @@ def expand_paths(paths: List[str],
 def plan_splits(fmt: str, paths: List[str], conf,
                 files: Optional[List[str]] = None) -> List[FileSplit]:
     """Split input files into read tasks of at most batchSizeRows rows,
-    whole row groups each (reference :267)."""
-    if fmt != "parquet":
-        raise NotImplementedError(f"{fmt} reads are queued (Parquet only)")
-    files = files or expand_paths(paths)
+    whole row groups (ORC: stripes) each (reference :267)."""
+    if fmt not in FORMAT_SUFFIXES:
+        raise NotImplementedError(f"{fmt} reads are queued (Parquet and ORC "
+                                  "only)")
+    files = files or expand_paths(paths, FORMAT_SUFFIXES[fmt])
     max_rows = conf.get(C.MAX_READ_BATCH_SIZE_ROWS)
     splits: List[FileSplit] = []
     for f in files:
-        md = read_footer(f)
+        counts = [g.num_rows for g in read_footer(f).row_groups] \
+            if fmt == "parquet" else \
+            [si.num_rows for si in OM.read_file_meta(f).stripes]
         group: List[int] = []
         rows = 0
-        for rg, g in enumerate(md.row_groups):
-            if group and rows + g.num_rows > max_rows:
+        for rg, n in enumerate(counts):
+            if group and rows + n > max_rows:
                 splits.append(FileSplit(f, fmt, tuple(group)))
                 group, rows = [], 0
             group.append(rg)
-            rows += g.num_rows
+            rows += n
         if group:
             splits.append(FileSplit(f, fmt, tuple(group)))
     return splits
@@ -124,7 +145,6 @@ def plan_splits(fmt: str, paths: List[str], conf,
 def encode_fraction(conf, dtype) -> Optional[float]:
     """maxDictFraction when a dictionary chunk of `dtype` may stay encoded
     under the session's conf, else None."""
-    from spark_rapids_tpu_torch.columnar.dtypes import DataType
     from spark_rapids_tpu_torch.columnar.encoded import FIXED_DICT_DTYPES
 
     if not conf.get(C.ENCODED_ENABLED):
@@ -184,6 +204,8 @@ class _FileScanBase(PhysicalExec):
         each column (read, decompress, walk pages and runs) runs on
         threads; then each column uploads once and decodes on the card.
         encode: dictionary chunks may stay encoded (the device scan)."""
+        if split.fmt == "orc":
+            return self._decode_orc_split(split, conf, device, encode)
         md = read_footer(split.path)
         cols = {c.name: c for c in md.columns}
         groups = split.row_groups if split.row_groups is not None else \
@@ -228,6 +250,66 @@ class _FileScanBase(PhysicalExec):
             out.extend(_slices(ColumnarBatch(vecs, rows), max_rows))
         return out
 
+    def _orc_columns(self, path: str, meta: OM.OrcMeta):
+        """(attribute, column) pairs, checked against the file's types."""
+        out = []
+        for a in self.attrs:
+            col = meta.column(a.name)
+            if col.dtype is None:
+                raise OM.OrcFormatError(f"{path}: column {a.name!r}: "
+                                        f"{col.unsupported}")
+            if col.dtype != a.data_type:
+                raise OM.OrcFormatError(
+                    f"{path}: column {a.name!r} is {col.dtype.name} in the "
+                    f"file, {a.data_type.name} in the schema")
+            out.append((a, col))
+        return out
+
+    def _decode_orc_split(self, split: FileSplit, conf,
+                          device: torch.device,
+                          encode: bool) -> List[ColumnarBatch]:
+        """The stripes of an ORC split decoded on `device`, one at a time,
+        sliced to batchSizeRows (reference: _read_device_orc :611 and
+        _orc_stripe_batches :687)."""
+        t0 = time.perf_counter()
+        meta = OM.read_file_meta(split.path)
+        cols = self._orc_columns(split.path, meta)
+        cids = {c.cid for _, c in cols}
+        stripes = split.row_groups if split.row_groups is not None else \
+            tuple(range(len(meta.stripes)))
+        for sidx in stripes:  # every stripe's encodings before any upload
+            OM.check_stripe(split.path, meta, meta.stripes[sidx], cols)
+        self.metrics[SCAN_HOST_SECONDS] += time.perf_counter() - t0
+        max_rows = conf.get(C.MAX_READ_BATCH_SIZE_ROWS)
+        frac = encode_fraction(conf, DataType.STRING) if encode else None
+        pin = device.type == "cuda"
+        out: List[ColumnarBatch] = []
+        for sidx in stripes:
+            t0 = time.perf_counter()
+            held = {}
+
+            def pinned(n: int):
+                held["t"] = torch.empty(n, dtype=torch.uint8,
+                                        pin_memory=True)
+                return held["t"].numpy()
+
+            img = OM.read_stripe(split.path, meta.stripes[sidx],
+                                 meta.compression, cids,
+                                 pinned if pin else None)
+            with ThreadPoolExecutor(max_workers=min(HOST_THREADS,
+                                                    len(cols))) as ex:
+                plans = list(ex.map(lambda ac: OD.plan_column(
+                    img, ac[1].cid, ac[0].data_type, ac[0].name), cols))
+            self.metrics[SCAN_HOST_SECONDS] += time.perf_counter() - t0
+            rows = img.num_rows
+            buf_t = held["t"].to(device, non_blocking=True) if pin else \
+                torch.from_numpy(img.buf)
+            cap = bucket_capacity(max(rows, 1))
+            vecs = [OD.decode_column(p, buf_t, cap, img.buf, frac)
+                    for p in plans]
+            out.extend(_slices(ColumnarBatch(vecs, rows), max_rows))
+        return out
+
 
 class CpuFileScanExec(_FileScanBase, CpuExec):
     """The CPU engine's scan: the same decoder on CPU tensors (the plain
@@ -249,8 +331,9 @@ class CpuFileScanExec(_FileScanBase, CpuExec):
 
 
 class TpuFileScanExec(_FileScanBase, TpuExec):
-    """Parquet decoded on the device from raw chunk bytes (reference :454,
-    GpuParquetScan.scala:536-556)."""
+    """Parquet and ORC decoded on the device from raw chunk and stripe
+    bytes (reference :454, GpuParquetScan.scala:536-556,
+    GpuOrcScan.scala:284,709)."""
 
     placement = "tpu"
 

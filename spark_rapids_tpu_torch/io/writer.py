@@ -2,16 +2,20 @@
 :37; reference: GpuFileFormatWriter, ColumnarOutputWriter.scala).
 
 Save modes error (the default; also "errorifexists"), ignore, overwrite
-and append; one `part-{pidx:05d}-{id}.parquet` file per partition of the
-plan, then a `_SUCCESS` marker. The device plan's root DeviceToHostExec is
-peeled and the device batches go to the device encoder (K22), so only page
-payloads download (reference :62-97); host batches (a plan that is only a
-host scan) upload to the session's device first. The CPU engine
-(rapids.tpu.sql.enabled=false) hands host batches, which the same encoder
-takes as CPU tensors (its plain version). A device session with
-rapids.tpu.sql.format.parquet.deviceEncode.enabled=false raises: the port
-has no host encoder to move the write to. The one write option is
-`compression`; `partitionBy`, other options, CSV and ORC raise.
+and append; one `part-{pidx:05d}-{id}.parquet` (`.orc`) file per partition
+of the plan, then a `_SUCCESS` marker. The device plan's root
+DeviceToHostExec is peeled and the device batches go to the device encoder
+(Parquet: K22; ORC: K29 and K22's ORC mode, io/orc_encode_device.py), so
+only page and stream payloads download (reference :62-121); host batches
+(a plan that is only a host scan) upload to the session's device first.
+The CPU engine (rapids.tpu.sql.enabled=false) hands host batches, which
+the same encoders take as CPU tensors (their plain versions). A device
+session with rapids.tpu.sql.format.parquet.deviceEncode.enabled, or
+rapids.tpu.sql.format.orc.write.enabled / deviceEncode.enabled, false
+raises: the port has no host encoder to move the write to. The one write
+option is `compression` (Parquet: snappy by default; ORC: uncompressed by
+default, as the reference's writer, or zlib / snappy); `partitionBy`,
+other options and CSV raise.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
 from spark_rapids_tpu_torch.columnar.encoded import decode_batch
 from spark_rapids_tpu_torch.exec.base import ExecContext, rows_of
 from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
+from spark_rapids_tpu_torch.io import orc_encode_device as OE
 from spark_rapids_tpu_torch.io import parquet_encode_device as PE
 from spark_rapids_tpu_torch.plan import logical as L
 
@@ -39,31 +44,38 @@ class WriteError(RuntimeError):
 
 
 def execute_write(session, plan: L.WriteFile) -> None:
-    if plan.fmt != "parquet":
+    if plan.fmt not in ("parquet", "orc"):
         raise NotImplementedError(f"{plan.fmt} writes are queued (Parquet "
-                                  "only)")
+                                  "and ORC only)")
     if plan.partition_by:
         raise NotImplementedError("partitionBy is queued: the port writes "
-                                  "unpartitioned Parquet directories")
+                                  f"unpartitioned {plan.fmt} directories")
     mode = _MODES.get(str(plan.mode).lower())
     if mode is None:
         raise ValueError(f"unknown save mode {plan.mode!r}")
     unknown = sorted(set(map(str, plan.options)) - {"compression"})
     if unknown:
-        raise NotImplementedError("the Parquet writer takes only the "
+        raise NotImplementedError(f"the {plan.fmt} writer takes only the "
                                   f"compression option: {', '.join(unknown)}")
+    orc = plan.fmt == "orc"
     device = session.conf.sql_enabled
-    if device and not session.conf.get(C.PARQUET_DEVICE_ENCODE):
-        raise ValueError(
-            f"{C.PARQUET_DEVICE_ENCODE.key}=false: a device session encodes "
-            "Parquet on the device only (the CPU engine, "
-            "rapids.tpu.sql.enabled=false, encodes on the host)")
-    compression = str(plan.options.get("compression", "snappy"))
-    PE.require_codec(compression)
+    keys = (C.ORC_WRITE_ENABLED, C.ORC_DEVICE_ENCODE) if orc else \
+        (C.PARQUET_DEVICE_ENCODE,)
+    for key in keys:
+        if device and not session.conf.get(key):
+            raise ValueError(
+                f"{key.key}=false: a device session encodes {plan.fmt} on "
+                "the device only (the CPU engine, rapids.tpu.sql.enabled="
+                "false, encodes on the host)")
+    enc = OE if orc else PE
+    compression = str(plan.options.get("compression",
+                                       "uncompressed" if orc else "snappy"))
+    enc.require_codec(compression)
     attrs = plan.children[0].output
-    bad = PE.schema_encodable(attrs)
-    if bad:
-        raise WriteError(f"cannot write column(s) {', '.join(bad)}")
+    bad = enc.schema_encodable(attrs)
+    if bad:  # ORC: a ValueError, as every ORC shape the port does not take
+        raise (OE.OrcFormatError if orc else WriteError)(
+            f"cannot write column(s) {', '.join(bad)} as {plan.fmt}")
     path = plan.path
     if os.path.exists(path):
         if mode == "error":
@@ -90,8 +102,8 @@ def execute_write(session, plan: L.WriteFile) -> None:
                    if rows_of(b) > 0]
         if not batches:
             continue
-        fname = f"part-{pidx:05d}-{write_id}.parquet"
-        PE.write_file(os.path.join(path, fname), attrs, batches,
-                      compression=compression)
+        fname = f"part-{pidx:05d}-{write_id}.{plan.fmt}"
+        enc.write_file(os.path.join(path, fname), attrs, batches,
+                       compression=compression)
     with open(os.path.join(path, "_SUCCESS"), "w"):
         pass

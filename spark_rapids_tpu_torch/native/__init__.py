@@ -1,4 +1,4 @@
-"""The port's host library for Parquet I/O (native/srt_io.cpp), built with
+"""The port's host library for Parquet and ORC I/O (native/srt_io.cpp), built with
 the host C++ compiler at first use and bound with ctypes.
 
 The library goes into `build/native/<hash of the source>/` under the
@@ -38,6 +38,14 @@ _SIGNATURES = {
                                _I64, _P]),
     "srt_plain_strings": (_I64, [_P, _I64, _I64, _I64, _P, _P]),
     "srt_parse_delta": (_I64, [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P]),
+    "srt_parse_rlev2": (_I64, [_P, _I64, _I64, _I64, ctypes.c_int32, _I64,
+                               _P, _P, _P, _P, _P, _P, _P, _I64, _P, _P,
+                               _P]),
+    "srt_parse_byte_rle": (_I64, [_P, _I64, _I64, _I64, _I64, _P, _P, _P,
+                                  _P, _P, _P]),
+    "srt_orc_snappy_stream": (_I64, [_P, _I64, _I64, _P, _I64]),
+    "srt_orc_snappy_framed_max": (_I64, [_I64, _I64]),
+    "srt_orc_snappy_framed": (_I64, [_P, _I64, _I64, _P]),
     "srt_snappy_max_compressed": (_I64, [_I64]),
     "srt_snappy_compress": (_I64, [_P, _I64, _P]),
     "srt_snappy_uncompressed_length": (_I64, [_P, _I64]),
@@ -58,7 +66,7 @@ def _compiler() -> str:
         found = shutil.which(name)
         if found:
             return found
-    raise RuntimeError("no C++ compiler found: the Parquet host library "
+    raise RuntimeError("no C++ compiler found: the host I/O library "
                        "(spark_rapids_tpu_torch/native/srt_io.cpp) cannot "
                        "be built")
 
@@ -78,7 +86,7 @@ def library() -> ctypes.CDLL:
                                   capture_output=True, text=True,
                                   timeout=300)
             if proc.returncode != 0:
-                raise RuntimeError("building the Parquet host library "
+                raise RuntimeError("building the host I/O library "
                                    f"failed:\n{proc.stderr}")
             os.replace(tmp, target)
         lib = ctypes.CDLL(target)
@@ -227,6 +235,105 @@ def parse_delta(chunk, pos: int, end: int, n_values: int):
                                                  "stream"))
     return (int(meta[0]), int(meta[1]), tabs[0][:n], tabs[1][:n],
             tabs[2][:n], int(meta[2]))
+
+
+class OrcStreamError(ValueError):
+    pass
+
+
+_RLEV2_ERRORS = {-2: "truncated RLEv2 stream",
+                 -3: "RLEv2 PATCHED_BASE value and patch widths pass 64",
+                 -4: "RLEv2 value out of int64 range"}
+
+
+def parse_rlev2(buf, start: int, end: int, num_values: int, signed: bool):
+    """The RLEv2 stream buf[start:end) up to num_values values: (kind int8,
+    out_start int64, count int32, base int64, delta0 int64, bit_off int64,
+    width int8, patch_pos int64, patch_add int64, produced) (run kinds 0
+    SHORT_REPEAT, 1 DIRECT, 2 DELTA, 3 PATCHED_BASE)."""
+    lib = library()
+    arr, ptr = _buf(buf)
+    if not 0 <= start <= end <= arr.size:
+        raise ValueError(f"RLEv2 stream [{start}, {end}) outside its buffer")
+    # a run holds at least one value and takes at least two bytes
+    max_runs = max(min(num_values, (end - start) // 2 + 1), 1)
+    max_patches = 256
+    while True:
+        tabs = [np.empty(max_runs, t) for t in (
+            np.int8, np.int64, np.int32, np.int64, np.int64, np.int64,
+            np.int8)]
+        patches = [np.empty(max_patches, np.int64) for _ in range(2)]
+        meta = np.zeros(2, np.int64)
+        n = lib.srt_parse_rlev2(ptr, start, end, num_values,
+                                1 if signed else 0, max_runs,
+                                *[_ptr(t) for t in tabs], max_patches,
+                                *[_ptr(t) for t in patches], _ptr(meta))
+        if n == -1 and meta[1] > max_patches:
+            max_patches = int(meta[1])
+            continue
+        if n < 0:
+            raise OrcStreamError(_RLEV2_ERRORS.get(n, "malformed RLEv2 "
+                                                   "stream"))
+        n_p = int(meta[1])
+        return (*[t[:n] for t in tabs], patches[0][:n_p], patches[1][:n_p],
+                int(meta[0]))
+
+
+def parse_byte_rle(buf, start: int, end: int, num_bits: int):
+    """The byte-RLE stream buf[start:end): (out_start int64, count int32,
+    is_run bool, value uint8, lit_off int64, produced bytes, set bits among
+    the first num_bits)."""
+    lib = library()
+    arr, ptr = _buf(buf)
+    if not 0 <= start <= end <= arr.size:
+        raise ValueError(f"byte-RLE stream [{start}, {end}) outside its "
+                         "buffer")
+    max_runs = max((end - start) // 2 + 1, 1)
+    tabs = [np.empty(max_runs, t) for t in (np.int64, np.int32, np.uint8,
+                                            np.uint8, np.int64)]
+    meta = np.zeros(2, np.int64)
+    n = lib.srt_parse_byte_rle(ptr, start, end, num_bits, max_runs,
+                               *[_ptr(t) for t in tabs], _ptr(meta))
+    if n < 0:
+        raise OrcStreamError("truncated byte-RLE stream")
+    out = [t[:n] for t in tabs]
+    out[2] = out[2].astype(bool)
+    return (*out, int(meta[0]), int(meta[1]))
+
+
+def orc_snappy_stream(buf, start: int, length: int, out=None) -> int:
+    """An ORC stream of Snappy blocks at buf[start:start + length): its
+    uncompressed size, or (out: a contiguous uint8 array of that size) the
+    stream decompressed into out."""
+    lib = library()
+    arr, ptr = _buf(buf)
+    if not 0 <= start <= start + length <= arr.size:
+        raise ValueError(f"ORC stream [{start}, {start + length}) outside "
+                         "its buffer")
+    optr, olen = (0, 0) if out is None else (_buf(out)[1], out.size)
+    if out is not None and not out.flags.c_contiguous:
+        raise ValueError("the output must be contiguous")
+    got = lib.srt_orc_snappy_stream(ptr, start, start + length, optr or None,
+                                    olen)
+    if got < 0:
+        raise ValueError({-2: "a Snappy block overruns its ORC stream",
+                          -3: "an ORC stream's Snappy blocks do not fill "
+                              "their output"}.get(got, "malformed Snappy "
+                                                  "block"))
+    return int(got)
+
+
+def orc_snappy_framed(data, block: int) -> bytes:
+    """data as an ORC stream of Snappy blocks of `block` bytes, in ORC's
+    framing, in one call."""
+    lib = library()
+    arr, ptr = _buf(data)
+    out = np.empty(max(lib.srt_orc_snappy_framed_max(arr.size, block), 1),
+                   np.uint8)
+    n = lib.srt_orc_snappy_framed(ptr, arr.size, block, _ptr(out))
+    if n < 0:
+        raise ValueError(f"ORC compression block of {block} bytes")
+    return out[:n].tobytes()
 
 
 def snappy_compress(data) -> bytes:

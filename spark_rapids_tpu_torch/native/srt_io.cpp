@@ -1,5 +1,6 @@
-// Host half of the port's Parquet I/O: the byte-level loops that walk a
-// column chunk's structure, and the raw Snappy block codec.
+// Host half of the port's Parquet and ORC I/O: the byte-level loops that
+// walk a column chunk's or an ORC stream's structure, and the raw Snappy
+// block codec.
 //
 // Port of spark_rapids_tpu/native/srt_native.cpp (srt_parse_runs :120,
 // srt_parse_pages :179, srt_plain_strings :299), widened where SF 10 needs
@@ -478,6 +479,207 @@ SRT_API int64_t srt_parse_delta(const uint8_t* buf, int64_t pos, int64_t end,
   return n;
 }
 
+// ------------------------------------------------------------ ORC
+// The run walks of ORC's integer and byte streams (port of the reference's
+// parse_rlev2 :466 and parse_byte_rle :610 in io/orc_device.py): headers,
+// varints and patch lists only; the device expands the values (csrc/
+// orc_decode.cu). Widths go to 64 where the reference stops at 56.
+
+static const int kOrcWidths[32] = {1,  2,  3,  4,  5,  6,  7,  8,
+                                   9,  10, 11, 12, 13, 14, 15, 16,
+                                   17, 18, 19, 20, 21, 22, 23, 24,
+                                   26, 28, 30, 32, 40, 48, 56, 64};
+
+static int orc_closest_fixed_bits(int x) {
+  for (int w : kOrcWidths)
+    if (w >= x) return w;
+  return 64;
+}
+
+// `width` bits (1-64) at absolute bit `bitpos` of buf, most significant
+// first; bytes at or past `end` read as 0.
+static uint64_t orc_be_bits(const uint8_t* buf, int64_t end, int64_t bitpos,
+                            int width) {
+  const int64_t byte = bitpos >> 3;
+  const int s = (int)(bitpos & 7);
+  uint64_t hi = 0;
+  for (int i = 0; i < 8; ++i)
+    hi = (hi << 8) | (byte + i < end ? buf[byte + i] : 0u);
+  const uint64_t lo = byte + 8 < end ? buf[byte + 8] : 0u;
+  const uint64_t win = s ? (hi << s) | (lo >> (8 - s)) : hi;
+  return width == 64 ? win : win >> (64 - width);
+}
+
+// The RLEv2 stream buf[start:end) up to num_values values, as a run table:
+// per run its kind (0 SHORT_REPEAT, 1 DIRECT, 2 DELTA, 3 PATCHED_BASE),
+// first output slot, value count, base (SHORT_REPEAT value, DELTA first
+// value, PATCHED_BASE base), DELTA's first delta, the absolute bit offset
+// and width of its packed payload; and PATCHED_BASE's patches as (output
+// slot, value << width). Signed streams zigzag-decode SHORT_REPEAT values
+// and DELTA bases (DIRECT payloads on the device). meta[0] = values
+// produced, meta[1] = patches (set even when max_patches is too small).
+// Returns the run count, or -1 max_runs / max_patches too small, -2 a
+// truncated stream, -3 a PATCHED_BASE run whose value and patch widths
+// pass 64, -4 a value outside the int64 range (as the reference's
+// OverflowError :595).
+SRT_API int64_t srt_parse_rlev2(const uint8_t* buf, int64_t start,
+                                int64_t end, int64_t num_values,
+                                int32_t is_signed, int64_t max_runs,
+                                int8_t* kind, int64_t* out_start,
+                                int32_t* count, int64_t* base,
+                                int64_t* delta0, int64_t* bit_off,
+                                int8_t* width, int64_t max_patches,
+                                int64_t* patch_pos, int64_t* patch_add,
+                                int64_t* meta) {
+  int64_t pos = start, produced = 0, n = 0, np = 0;
+  const uint64_t kMax = (uint64_t)INT64_MAX;
+  while (produced < num_values && pos < end) {
+    if (n >= max_runs) return -1;
+    const uint8_t h = buf[pos];
+    const int enc = h >> 6;
+    int64_t runs_base = 0, d0 = 0, boff = 0;
+    int w = 0, cnt = 0;
+    if (enc == 0) {  // SHORT_REPEAT
+      const int vw = ((h >> 3) & 7) + 1;
+      cnt = (h & 7) + 3;
+      if (pos + 1 + vw > end) return -2;
+      uint64_t v = 0;
+      for (int i = 0; i < vw; ++i) v = (v << 8) | buf[pos + 1 + i];
+      if (is_signed) {
+        runs_base = (int64_t)(v >> 1) ^ -(int64_t)(v & 1);
+      } else {
+        if (v > kMax) return -4;
+        runs_base = (int64_t)v;
+      }
+      pos += 1 + vw;
+    } else {
+      if (pos + 2 > end) return -2;
+      cnt = (((h & 1) << 8) | buf[pos + 1]) + 1;
+      const int code = (h >> 1) & 0x1F;
+      if (enc == 1) {  // DIRECT
+        w = kOrcWidths[code];
+        boff = (pos + 2) * 8;
+        pos += 2 + ((int64_t)cnt * w + 7) / 8;
+        if (pos > end) return -2;
+      } else if (enc == 3) {  // DELTA
+        w = code == 0 ? 0 : kOrcWidths[code];
+        Reader r{buf, pos + 2, end};
+        if (is_signed) {
+          runs_base = r.zigzag();
+        } else {
+          const uint64_t v = r.varint();
+          if (!r.err && v > kMax) return -4;
+          runs_base = (int64_t)v;
+        }
+        d0 = r.zigzag();
+        if (r.err) return -2;
+        boff = r.pos * 8;
+        pos = r.pos + (w ? ((int64_t)(cnt > 2 ? cnt - 2 : 0) * w + 7) / 8 : 0);
+        if (pos > end) return -2;
+      } else {  // PATCHED_BASE
+        w = kOrcWidths[code];
+        if (pos + 4 > end) return -2;
+        const uint8_t b3 = buf[pos + 2], b4 = buf[pos + 3];
+        const int bw = ((b3 >> 5) & 7) + 1;
+        const int pw = kOrcWidths[b3 & 0x1F];
+        const int pgw = ((b4 >> 5) & 7) + 1;
+        const int pl = b4 & 0x1F;
+        if (w + pw > 64) return -3;
+        int64_t p = pos + 4;
+        if (p + bw > end) return -2;
+        uint64_t b = 0;
+        for (int i = 0; i < bw; ++i) b = (b << 8) | buf[p + i];
+        const uint64_t msb = 1ull << (bw * 8 - 1);
+        runs_base = (b & msb) ? -(int64_t)(b & (msb - 1)) : (int64_t)b;
+        p += bw;
+        boff = p * 8;
+        p += ((int64_t)cnt * w + 7) / 8;
+        const int plw = orc_closest_fixed_bits(pgw + pw);
+        const int64_t list_end = p + ((int64_t)pl * plw + 7) / 8;
+        if (list_end > end) return -2;
+        int64_t out_idx = produced;
+        for (int e = 0; e < pl; ++e) {
+          const uint64_t entry = orc_be_bits(buf, list_end,
+                                             p * 8 + (int64_t)e * plw, plw);
+          const uint64_t gap = pw == 64 ? 0 : entry >> pw;
+          const uint64_t pval = pw == 64 ? entry : entry & ((1ull << pw) - 1);
+          out_idx += (int64_t)gap;
+          if (!pval) continue;
+          if (w > 0 && pval > (kMax >> w)) return -4;
+          if (np < max_patches) {
+            patch_pos[np] = out_idx;
+            patch_add[np] = (int64_t)(pval << w);
+          }
+          ++np;
+        }
+        pos = list_end;
+      }
+    }
+    kind[n] = (int8_t)(enc == 0 ? 0 : enc == 1 ? 1 : enc == 3 ? 2 : 3);
+    out_start[n] = produced;
+    count[n] = cnt;
+    base[n] = runs_base;
+    delta0[n] = d0;
+    bit_off[n] = boff;
+    width[n] = (int8_t)w;
+    ++n;
+    produced += cnt;
+  }
+  meta[0] = produced;
+  meta[1] = np;
+  return np > max_patches ? -1 : n;
+}
+
+// The byte-RLE stream buf[start:end) (ORC's PRESENT and BOOLEAN streams)
+// as a run table: per run its first output byte, byte count, whether it
+// repeats one byte (and which), and the offset of its literal bytes.
+// meta[0] = bytes produced, meta[1] = set bits among the first num_bits.
+// Returns the run count, or -1 max_runs too small, -2 a truncated stream.
+SRT_API int64_t srt_parse_byte_rle(const uint8_t* buf, int64_t start,
+                                   int64_t end, int64_t num_bits,
+                                   int64_t max_runs, int64_t* out_start,
+                                   int32_t* count, uint8_t* is_run,
+                                   uint8_t* value, int64_t* lit_off,
+                                   int64_t* meta) {
+  int64_t pos = start, produced = 0, n = 0, ones = 0;
+  const int64_t nbytes = (num_bits + 7) / 8;
+  auto add_ones = [&](uint8_t b, int64_t at) {
+    if (at >= nbytes) return;
+    if (at == nbytes - 1 && (num_bits & 7))
+      b &= (uint8_t)(0xFF00u >> (num_bits & 7));
+    ones += __builtin_popcount(b);
+  };
+  while (pos < end) {
+    if (n >= max_runs) return -1;
+    const uint8_t h = buf[pos];
+    int cnt;
+    if (h < 128) {
+      cnt = h + 3;
+      if (pos + 2 > end) return -2;
+      is_run[n] = 1;
+      value[n] = buf[pos + 1];
+      lit_off[n] = 0;
+      for (int k = 0; k < cnt; ++k) add_ones(buf[pos + 1], produced + k);
+      pos += 2;
+    } else {
+      cnt = 256 - h;
+      if (pos + 1 + cnt > end) return -2;
+      is_run[n] = 0;
+      value[n] = 0;
+      lit_off[n] = pos + 1;
+      for (int k = 0; k < cnt; ++k) add_ones(buf[pos + 1 + k], produced + k);
+      pos += 1 + cnt;
+    }
+    out_start[n] = produced;
+    count[n] = cnt;
+    ++n;
+    produced += cnt;
+  }
+  meta[0] = produced;
+  meta[1] = ones;
+  return n;
+}
+
 // ------------------------------------------------------------ snappy
 SRT_API int64_t srt_snappy_max_compressed(int64_t n) { return 32 + n + n / 6; }
 
@@ -584,6 +786,74 @@ SRT_API int64_t srt_snappy_decompress(const uint8_t* src, int64_t n,
     op += len;
   }
   return op == out_len ? op : -1;
+}
+
+// One ORC stream of Snappy blocks, buf[start:end) in ORC's framing (a
+// 3-byte little-endian header, length << 1 | is_original, before each
+// block). With out == nullptr: the stream's uncompressed size; else the
+// stream decompressed into out[0:out_len) (out_len that size). Returns
+// the size, or -1 a malformed block, -2 a block past the stream, -3 an
+// out_len that is not the size. One call a stream: the caller's threads
+// take streams in parallel without a per-block round trip.
+SRT_API int64_t srt_orc_snappy_stream(const uint8_t* buf, int64_t start,
+                                      int64_t end, uint8_t* out,
+                                      int64_t out_len) {
+  int64_t pos = start, total = 0;
+  while (pos < end) {
+    if (pos + 3 > end) return -2;
+    const uint32_t h = buf[pos] | (buf[pos + 1] << 8) | (buf[pos + 2] << 16);
+    pos += 3;
+    const int64_t blen = h >> 1;
+    if (pos + blen > end) return -2;
+    const int64_t ulen =
+        (h & 1) ? blen : srt_snappy_uncompressed_length(buf + pos, blen);
+    if (ulen < 0) return -1;
+    if (out != nullptr) {
+      if (total + ulen > out_len) return -3;
+      if (h & 1) {
+        memcpy(out + total, buf + pos, (size_t)blen);
+      } else if (ulen &&
+                 srt_snappy_decompress(buf + pos, blen, out + total, ulen) !=
+                     ulen) {
+        return -1;
+      }
+    }
+    total += ulen;
+    pos += blen;
+  }
+  return out != nullptr && total != out_len ? -3 : total;
+}
+
+// ORC's framing of Snappy blocks (the writer's side of
+// srt_orc_snappy_stream): src[0:n) cut into blocks of `block` bytes, each
+// compressed, or kept where compression does not shrink it, after its
+// 3-byte little-endian header (length << 1 | is_original). dst holds
+// srt_orc_snappy_framed_max(n, block) bytes; returns the bytes written.
+SRT_API int64_t srt_orc_snappy_framed_max(int64_t n, int64_t block) {
+  const int64_t blocks = block > 0 ? (n + block - 1) / block : 0;
+  return blocks * (3 + srt_snappy_max_compressed(block));
+}
+
+SRT_API int64_t srt_orc_snappy_framed(const uint8_t* src, int64_t n,
+                                      int64_t block, uint8_t* dst) {
+  if (block <= 0 || block >= (1 << 23)) return -1;
+  uint8_t* op = dst;
+  for (int64_t off = 0; off < n; off += block) {
+    const int64_t len = n - off < block ? n - off : block;
+    const int64_t c = srt_snappy_compress(src + off, len, op + 3);
+    uint32_t h;
+    if (c < len) {
+      h = (uint32_t)c << 1;
+    } else {
+      memcpy(op + 3, src + off, (size_t)len);
+      h = ((uint32_t)len << 1) | 1u;
+    }
+    op[0] = (uint8_t)h;
+    op[1] = (uint8_t)(h >> 8);
+    op[2] = (uint8_t)(h >> 16);
+    op += 3 + (h >> 1);
+  }
+  return op - dst;
 }
 
 }  // extern "C"

@@ -291,7 +291,8 @@ class DataFrame:
 
 class DataFrameWriter:
     """df.write (reference: dataframe.py:489-520): mode, option and
-    parquet; partitionBy, orc and csv are queued and raise at the write."""
+    parquet and orc; partitionBy and csv are queued and raise at the
+    write."""
 
     def __init__(self, df: DataFrame):
         self._df = df

@@ -249,15 +249,18 @@ def _register_exec_rules():
     )
 
     def _tag_scan(m: ExecMeta) -> None:
-        """Reference :490-511; the port reads Parquet only. A device
-        session decodes on the device or not at all: either key set false,
-        or a column type the device does not take, raises where the
-        reference would fall back to its host scan."""
-        for key in (C.PARQUET_READ_ENABLED, C.PARQUET_DEVICE_DECODE):
+        """Reference :490-511; the port reads Parquet and ORC. A device
+        session decodes on the device or not at all: either key of the
+        format set false, or a column type the device does not take,
+        raises where the reference would fall back to its host scan."""
+        keys = (C.ORC_READ_ENABLED, C.ORC_DEVICE_DECODE) \
+            if m.plan.fmt == "orc" else \
+            (C.PARQUET_READ_ENABLED, C.PARQUET_DEVICE_DECODE)
+        for key in keys:
             if not m.conf.get(key):
                 raise ValueError(
-                    f"{key.key}=false: a device session decodes Parquet on "
-                    "the device only (the CPU engine, "
+                    f"{key.key}=false: a device session decodes "
+                    f"{m.plan.fmt} on the device only (the CPU engine, "
                     "rapids.tpu.sql.enabled=false, decodes on the host)")
         for a in m.plan.output:
             if not MT.is_supported_type(a.data_type):
@@ -265,7 +268,8 @@ def _register_exec_rules():
                                  f"not take {a.data_type}")
 
     register_exec(
-        CpuFileScanExec, "Parquet scan decoded on the device (K20, K21, K7)",
+        CpuFileScanExec, "Parquet / ORC scan decoded on the device (K20, "
+        "K21, K7; K27, K28)",
         lambda cpu, ch: TpuFileScanExec(cpu.attrs, cpu.splits, cpu.fmt),
         tag_fn=_tag_scan)
 

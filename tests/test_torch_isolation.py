@@ -4,7 +4,8 @@ own generators on the CPU, loads no JAX and nothing of the JAX package,
 and its default device is the card (no silent CPU fallback). The 6
 mortgage queries run in a process of their own, jax-free too, and so do a
 Parquet write, read and q1, and a read of a Parquet v2 file, which load
-neither jax nor pyarrow."""
+neither jax nor pyarrow, and so do an ORC write, read and q1 and a read of
+the Hive-layout ORC fixture."""
 
 import os
 import subprocess
@@ -252,6 +253,48 @@ def test_parquet_v2_read_imports_no_jax_or_pyarrow():
     DELTA_BYTE_ARRAY, DELTA_LENGTH_BYTE_ARRAY; NULLs) reads back to its
     inputs with neither jax nor pyarrow loaded."""
     proc = subprocess.run([sys.executable, "-c", _V2_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
+
+
+_ORC_PROBE = r"""
+import sys, tempfile
+import numpy as np
+import spark_rapids_tpu_torch as srt
+import spark_rapids_tpu_torch.io.orc_device
+import spark_rapids_tpu_torch.io.orc_encode_device
+import spark_rapids_tpu_torch.io.orc_meta
+from spark_rapids_tpu_torch.benchmarks import tpch
+import chip_smoke as CS
+cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True,
+                       "rapids.tpu.sql.test.enabled": True}, device="cpu")
+raw = tpch.gen_tables(cpu, sf=0.0005, num_partitions=2)
+with tempfile.TemporaryDirectory() as d:
+    raw["lineitem"].write.option("compression", "snappy").orc(d + "/li")
+    rows = tpch.q1({"lineitem": cpu.read.orc(d + "/li")}).collect()
+    assert rows == tpch.q1({"lineitem": raw["lineitem"]}).collect(), rows
+    assert len(rows) == 6, rows
+    cols = CS.orc_fixture_columns(np.random.default_rng(3), 3000)
+    kinds = CS.write_orc_fixture(d + "/hive.orc", cols, 1000, 4096)
+    assert min(kinds[k] for k in CS.ORC_KINDS) > 0, kinds
+    got = cpu.read.format("orc").load(d + "/hive.orc").collect()
+    assert [r[6] for r in got] == cols["l_shipdate"][1].tolist()
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(
+                 ("jax.", "jaxlib", "pyarrow."))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_orc_write_read_imports_no_jax_or_pyarrow():
+    """The ORC modules, a SNAPPY ORC write, read and q1, and a read of
+    chip_smoke.py's Hive-layout fixture (ZLIB, DICTIONARY_V2, every RLEv2
+    sub-encoding) load neither jax, pyarrow nor the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", _ORC_PROBE], cwd=REPO,
                           env=ENV, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
