@@ -66,7 +66,7 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    q12, q13, q14 and q22 are checked against a direct numpy computation
    over the generated columns (keys and counts exact, DOUBLE within a
    relative 1e-9, rows in ORDER BY order), the others' warm rows against
-   their cold run; then all 22 queries at SF 0.1 on the card against the
+   their cold run; then all 22 queries at SMALL_SF on the card against the
    port's own numpy CPU engine (rapids.tpu.sql.enabled=false: the same
    planner, none of the device kernels), rows in order;
 7. the TPCx-BB-like suite (BASELINE config 5) after the TPC-H tables are
@@ -74,8 +74,9 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    60M web_clickstreams, 14.4M web_sales, 7.2M inventory, 2.88M
    store_returns, 600,000 product_reviews, 180,000 items), 4 partitions,
    every table cached, 8 shuffle partitions, as bench.py --tpcxbb lays it
-   out; all 30 queries one cold and 3 warm runs each (q02 at Q02_SF on
-   its own tables: its self-join's pairs, PERF.md), every plan asserted
+   out; all 30 queries one cold and SUITE_WARM_REPS warm runs each (q02
+   at Q02_SF on its own tables: its self-join's pairs, PERF.md), every
+   plan asserted
    all on the device, with the geomean of the warm medians; q16 (decimal
    sums in int64 cents, exact, and before + after == total), q05
    (sessions and clicks per user from a sort by user and click time), q01
@@ -94,8 +95,9 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    mortgage.gen_tables at SF 10 (4,000,000 acquisition rows, 96,000,000
    performance rows), 4 partitions, every table cached, 8 shuffle
    partitions, as bench.py --mortgage lays it out; all 6 queries one cold
-   and 3 warm runs each (q_delinquency_12 at MORTGAGE_D12_SF on its own
-   tables: its explode, PERF.md), every plan asserted all on the device,
+   and SUITE_WARM_REPS warm runs each (q_delinquency_12 at
+   MORTGAGE_D12_SF on its own tables: its explode, PERF.md), every plan
+   asserted all on the device,
    the log stating how each join ran; q_percentiles (min, max, avg and the
    exact 50/75/90/99th percentiles by np.lexsort), q_delinquency
    (conditional sums and counts by np.bincount, minimum by
@@ -118,7 +120,8 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    temporary directory, with the seconds and bytes of each; orders read
    back and compared with the generated table on the card, column for
    column, bit for bit; q1, q6, q3 and q5 over read.parquet, one cold and
-   3 warm runs each (every scan decodes on the card: K20, K21, K7's span
+   PARQUET_WARM_REPS warm runs each (every scan decodes on the card: K20,
+   K21, K7's span
    entry), every leaf a TpuFileScanExec, rows against phases 4-5's numpy
    results, with each query's scan host seconds (file reads, Snappy, page
    and run walks) beside its wall time; the reference's decode shape
@@ -138,7 +141,8 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    phase 4's SF 10 lineitem and orders with dictionary chunks for their
    STRING and DATE columns (PLAIN keys and DOUBLEs), all written by
    write_parquet_fixture without pyarrow; q_agg, q_join (shuffled),
-   q_sort, q_minmax, TPC-H q1 and q12, each one cold and 3 warm runs with
+   q_sort, q_minmax, TPC-H q1 and q12, each one cold and ENCODED_WARM_REPS
+   warm runs with
    rapids.tpu.sql.encoded.enabled true and then false, against numpy,
    with the encoded columns the scan emitted, the device decodes (K23
    launches) before the sink, K24 and K4-code launches and peak device
@@ -199,6 +203,28 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    boundaries, empty and all-NULL stripes, BOOLEAN, TIMESTAMP, FLOAT,
    SHORT and INT stripe columns) and times them at one 15M-row lineitem
    stripe (K27 also over a Hive stripe's flag indices).
+13. the memory layer, after the encoded phase: (a) phase 4's six q1-q5
+   host tables at SF 10 cached in a session whose device budget
+   (hbm.sizeOverride, allocFraction 1) is half their device bytes and
+   whose host tier is a quarter of them, q5 and q1 once each against
+   numpy, with the bytes spilled device -> host and host -> disk, the
+   rematerialisations and the peak device bytes beside the budget (both
+   tiers must be used); (b) lineitem's q1 columns cached, then a ballast
+   tensor
+   from torch.cuda.mem_get_info leaves free half of what q1 needed above
+   it: q1's CUDA OutOfMemoryError becomes TpuRetryOOM, spills the device
+   store and runs again, against numpy with retries >= 1; (c) q1 at SF 1
+   with fusion off under injected OOMs at the filter and project sites
+   (the reference's keys and decisions): a seed whose first filter batch
+   bisects (splitRetries >= 1, K31 and K32 in the halves), then rate 1 at
+   the filter site, where every filter batch runs on the CPU engine
+   (cpuFallbackEvents >= 1) and the breaker opens; rows against numpy each
+   time. Phase 3 holds K31
+   (compact_fixed) and K32 (gather_fixed) bit for bit to their plain
+   versions (every fixed dtype, 0 rows, none / all kept, out-of-range,
+   negative and masked indices, a four-piece concat) and times them at a
+   15M-row lineitem partition under q1's filter, at q5's join emit and at
+   a split half.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -211,7 +237,9 @@ and parquet_decode_shape_off of phase 9, encoded_q_agg ...
 encoded_tpch_q12 and their _off runs of phase 10, parquet_v2_tpch_q1,
 parquet_v2_tpch_q6 and parquet_v2_xbb_q01 ... parquet_v2_xbb_q30 of
 phase 11, orc_write, orc_round_trip, orc_tpch_q1, orc_tpch_q6,
-orc_tpch_q3, orc_tpch_q5, orc_hive_q1 and orc_hive_q6 of phase 12);
+orc_tpch_q3, orc_tpch_q5, orc_hive_q1 and orc_hive_q6 of phase 12,
+memory_spill_q5, memory_spill_q1, memory_oom_q1, memory_split and
+memory_fallback of phase 13);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -356,6 +384,12 @@ KERNELS = {
     "orc_pack_present": (
         "spark_rapids_tpu_torch/csrc/parquet_encode.cu",
         "spark_rapids_tpu/io/orc_encode_device.py:162", "orc_write"),
+    "compact_fixed": (
+        "spark_rapids_tpu_torch/csrc/compact_gather.cu",
+        "spark_rapids_tpu/columnar/batch.py:1623", "tpch_q1"),
+    "gather_fixed": (
+        "spark_rapids_tpu_torch/csrc/compact_gather.cu",
+        "spark_rapids_tpu/columnar/batch.py:1425", "tpch_q5"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -368,14 +402,15 @@ _JOIN = ("join_build", "join_probe", "join_expand")
 _KEYED_JOIN = _GROUP_BY + _JOIN
 _STR_KEYS = ("string_hash_words", "gather_strings")
 # the kernels each path must launch
+_B5 = ("compact_fixed", "gather_fixed")
 PATH_KERNELS = {
     "flagship": _GROUP_BY,
     "high_cardinality": _GROUP_BY + ("route_plan",),
-    "tpch_q1": _Q1,
+    "tpch_q1": _Q1 + _B5,
     "tpch_q6": ("segment_reduce",),
     "tpch_q1_routed": _Q1 + ("route_plan",),
     "tpch_q3": _Q3,
-    "tpch_q5": _Q5,
+    "tpch_q5": _Q5 + ("gather_fixed",),
     "tpch_q5_shuffled": _Q5 + ("route_plan",),
     "tpch_q2": _KEYED_JOIN + ("string_search", "string_compare"),
     "tpch_q4": _KEYED_JOIN + _STR_KEYS,
@@ -478,6 +513,16 @@ PATH_KERNELS.update({
     "orc_hive_q1": _Q1[:3] + _ORC_READ + ("page_decode_codes",),
     "orc_hive_q6": ("segment_reduce",) + _ORC_READ,
 })
+# phase 13: the spill, OOM and injected-fault runs (K31 compacts and K32
+# gathers in every one; the fallback run's filter and project run on the
+# CPU engine, its aggregate on the card)
+PATH_KERNELS.update({
+    "memory_spill_q5": _Q5 + ("gather_fixed",),
+    "memory_spill_q1": _Q1 + _B5,
+    "memory_oom_q1": _Q1 + _B5,
+    "memory_split": _GROUP_BY + _B5,
+    "memory_fallback": ("radix_sort_pairs", "segment_reduce"),
+})
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -491,6 +536,13 @@ C_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
 # ORC phase), and the most seconds q02's SF 5 tables may take to write
 # before q02 is left out of it
 V2_WARM_REPS = 1
+# the Parquet and encoded phases' warm runs a query, cut from 3 to 1 to
+# pay for phase 13 (the memory layer)
+PARQUET_WARM_REPS = 1
+ENCODED_WARM_REPS = 1
+# phases 7 and 8: warm runs a query, cut from 3 to 2 for phase 13 too
+# (the TPCx-BB geomean is then of medians of two)
+SUITE_WARM_REPS = 2
 Q02_V2_MAX_WRITE_S = 30.0
 # phase 7: bench.py --tpcxbb's layout (4 partitions, every table cached)
 TPCXBB_SF = 10
@@ -812,12 +864,24 @@ def check_rows(got, want, what: str) -> float:
     return worst
 
 
+# the memory layer's counters of work that left the plain device path
+FAULT_COUNTERS = ("retries", "splitRetries", "cpuFallbackEvents")
+
+
+def fault_counts(before: dict) -> dict:
+    """FAULT_COUNTERS since `before` (a memory_totals())."""
+    d = memory_delta(before)
+    return {k: d[k] for k in FAULT_COUNTERS}
+
+
 def run_query(sess, q, want, what: str, warm_reps: int, cols=None,
-              keep_rows: bool = False):
+              keep_rows: bool = False, faults_ok: bool = False):
     """One cold and warm_reps warm runs, the plan asserted on the device;
     every run's rows (their columns `cols`, or all) against `want`, or
     (want None) the warm runs' against the cold run's; keep_rows: the
-    result holds the rows under "result_rows"."""
+    result holds the rows under "result_rows". Unless faults_ok (phase
+    13), a run that retried, split a batch or ran one on the CPU engine
+    fails: no timed run holds work that left the device path."""
     import torch
 
     def pick(rows):
@@ -825,28 +889,38 @@ def run_query(sess, q, want, what: str, warm_reps: int, cols=None,
             return rows
         return [tuple(r[i] for i in cols) for r in rows]
 
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    rows = q.collect()
-    torch.cuda.synchronize()
-    cold = time.perf_counter() - t
+    faults = dict.fromkeys(FAULT_COUNTERS, 0)
+
+    def timed():
+        before = memory_totals()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rows = q.collect()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        got = fault_counts(before)
+        check(faults_ok or not any(got.values()),
+              f"{what}: the run left the device path: {got}")
+        for k, v in got.items():
+            faults[k] += v
+        return rows, secs
+
+    rows, cold = timed()
     assert_on_device(sess)
     if want is None:
         want = rows
     worst = check_rows(pick(rows), want, what)
     warm = []
     for _ in range(warm_reps):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        rows = q.collect()
-        torch.cuda.synchronize()
-        warm.append(time.perf_counter() - t)
+        rows, secs = timed()
+        warm.append(secs)
         worst = max(worst, check_rows(pick(rows), want, what))
     log(f"{what}: {len(rows)} rows, cold {cold:.4f} s, warm {warm}, "
         f"max rel diff {worst:.3e}")
     out = {"cold_s": cold, "warm_s": warm,
            "warm_median_s": statistics.median(warm) if warm else None,
-           "max_rel_diff": worst, "rows": len(rows)}
+           "max_rel_diff": worst, "rows": len(rows),
+           "fault_counters": faults}
     if keep_rows:
         out["result_rows"] = rows
     return out
@@ -1057,6 +1131,7 @@ QUERY_TABLES = {
     "q17": "lineitem part", "q18": "customer orders lineitem",
     "q19": "lineitem part", "q20": "lineitem part partsupp supplier nation",
     "q21": "lineitem orders supplier nation", "q22": "customer orders"}
+# all 22 queries on the card against the CPU engine
 SMALL_SF = 0.1
 
 
@@ -1468,12 +1543,13 @@ def probe_memory(sfs, gen, table: str, query_of, label: str) -> list:
     """One query alone at each scale factor in `sfs` (ascending), on its
     own cached tables as its phase lays them out (4 partitions, 8 shuffle
     partitions): per scale factor the device bytes its tables hold, then
-    the time, rows and peak device bytes of three runs, up to the first
-    that runs out of device memory. `gen` makes the tables, `table` is the
+    the time, rows, peak device bytes and FAULT_COUNTERS of three runs,
+    up to the first that runs out of device memory. `gen` makes the tables, `table` is the
     one uploaded before the runs. The readings that set Q02_SF and
     MORTGAGE_D12_SF."""
     import torch
 
+    from spark_rapids_tpu_torch.engine import retry as R
     from spark_rapids_tpu_torch.plan import functions as F
 
     out = []
@@ -1487,17 +1563,22 @@ def probe_memory(sfs, gen, table: str, query_of, label: str) -> list:
         out.append(r)
         for _ in range(3):
             torch.cuda.reset_peak_memory_stats()
+            before = memory_totals()
             t = time.perf_counter()
             try:
                 n = len(q.collect())
                 torch.cuda.synchronize()
-            except torch.OutOfMemoryError as e:
+            except (torch.OutOfMemoryError, R.TpuRetryOOM) as e:
+                # the memory layer's escalation names the site
                 r["out_of_memory"] = str(e).splitlines()[0]
                 r["peak_bytes"] = torch.cuda.max_memory_allocated()
                 break
+            # a run that fits only through retries, splits or the CPU
+            # engine says so
             r["runs"].append({"s": time.perf_counter() - t, "rows": n,
                               "peak_bytes":
-                              torch.cuda.max_memory_allocated()})
+                              torch.cuda.max_memory_allocated(),
+                              "fault_counters": fault_counts(before)})
         log(f"{label} probe at SF {sf}: {r}")
         del q, raw
         release(sess, tables)
@@ -1547,7 +1628,7 @@ def run_tpcxbb(launches: dict, profile_dir=None):
     raw, tables, rows, _ = gen_xbb(sess, Q02_SF)
     torch.cuda.reset_peak_memory_stats()
     r = run_xbb_query(sess, "tpcxbb_q02_like", tpcxbb.q02_like, tables,
-                      rows, None, launches, 3, keep_rows=True)
+                      rows, None, launches, SUITE_WARM_REPS, keep_rows=True)
     r["sf"] = Q02_SF
     r["peak_bytes"] = torch.cuda.max_memory_allocated()
     r["checked_against"] = "its own cold run"
@@ -1599,7 +1680,7 @@ def run_tpcxbb(launches: dict, profile_dir=None):
         path = f"tpcxbb_{name}"
         fn = tpcxbb.QUERIES[name]
         r = run_xbb_query(sess, path, fn, tables, rows, want.get(name),
-                          launches, 3, keep_rows=True)
+                          launches, SUITE_WARM_REPS, keep_rows=True)
         r["checked_against"] = "numpy" if name in want else \
             "its own cold run"
         if name == "q16_like":
@@ -2586,11 +2667,15 @@ def time_join_kernels(dev, errs: dict) -> dict:
         bound_ms=bound_ms(n_stream * (10 + 4 + 12) + found * 16),
         shape=f"{n_stream} stream rows, {found} with a match, "
               f"{probe.total} output rows; plain: the union plan")
+    # one call gives the expansion's stream side: each stream row repeated
+    # by its match count
+    match_cnt = plan[4].long()
     rows["join_expand"] = dict(
         ms=cuda_ms(lambda: J.join_expand(probe, out_cap), iters),
         plain_ms=cuda_ms(lambda: J.join_expand_plain(
             plan[0], plan[4], plan[3], plan[2], out_cap), plain_iters),
-        library_ms=None,
+        library_ms=cuda_ms(lambda: torch.repeat_interleave(
+            match_cnt, output_size=probe.total), iters),
         bound_ms=bound_ms(12 * n_stream + 4 + 4 * probe.total +
                           8 * out_cap),
         shape=f"{probe.total} output rows in {out_cap} lanes")
@@ -2917,6 +3002,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows.update(time_encoded_kernels(dev, errs))
     rows.update(time_parquet_v2_kernels(dev, errs, v2_samples))
     rows.update(time_orc_kernels(dev, errs))
+    rows.update(time_memory_kernels(dev, errs))
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -3109,7 +3195,7 @@ def run_mortgage(launches: dict, profile_dir=None) -> dict:
         raw, tables, rows, _ = gen_mortgage(sess, MORTGAGE_D12_SF)
         torch.cuda.reset_peak_memory_stats()
         r = run_xbb_query(sess, d12, mortgage.q_delinquency_12, tables,
-                          rows, None, launches, 3)
+                          rows, None, launches, SUITE_WARM_REPS)
         r["sf"] = MORTGAGE_D12_SF
         r["peak_bytes"] = torch.cuda.max_memory_allocated()
         r["checked_against"] = "its own cold run"
@@ -3142,7 +3228,7 @@ def run_mortgage(launches: dict, profile_dir=None) -> dict:
         ref, cols = want.get(name, (None, None))
         torch.cuda.reset_peak_memory_stats()
         r = run_xbb_query(sess, path, mortgage.QUERIES[name], tables, rows,
-                          ref, launches, 3, cols=cols)
+                          ref, launches, SUITE_WARM_REPS, cols=cols)
         r["peak_bytes"] = torch.cuda.max_memory_allocated()
         r["checked_against"] = "numpy" if name in want else \
             "its own cold run"
@@ -4373,12 +4459,11 @@ def check_round_trip(sess, raw_df, path: str, what: str,
     import torch
 
     from spark_rapids_tpu_torch.columnar.batch import concat_batches
-    from spark_rapids_tpu_torch.exec.base import ExecContext
 
     df = getattr(sess.read, fmt)(path)
     plan = sess._physical_plan(df._plan)
     assert_on_device(sess)
-    pb = plan.children[0].execute(ExecContext(sess.conf, sess.device))
+    pb = plan.children[0].execute(sess.exec_context())
     got = concat_batches([b for p in range(pb.num_partitions)
                           for b in pb.iterator(p)])
     n = got.host_rows()
@@ -4486,7 +4571,8 @@ def run_parquet(sess, raw, tables, wants: dict, input_rows: dict,
                 launches: dict, profile_dir=None) -> dict:
     """The Parquet phase, over phase 4's cached SF 10 tables: write six
     tables (K22), read orders and an l_comment-like column back bit for
-    bit, q1, q6, q3 and q5 over the files (one cold and 3 warm runs each,
+    bit, q1, q6, q3 and q5 over the files (one cold and PARQUET_WARM_REPS
+    warm runs each,
     every leaf a TpuFileScanExec, rows against numpy), then the
     reference's decode shape; the files are removed at the end."""
     import glob
@@ -4529,7 +4615,8 @@ def run_parquet(sess, raw, tables, wants: dict, input_rows: dict,
             name = f"parquet_tpch_{q}"
             CB.reset_launch_counts()
             out[name] = run_query(sess, tpch.QUERIES[q](ptables),
-                                  wants[f"tpch_{q}"], name, 3)
+                                  wants[f"tpch_{q}"], name,
+                                  PARQUET_WARM_REPS)
             launches[name] = CB.launch_counts()
             assert_file_leaves(sess)
             host = scan_host_s(sess)
@@ -4582,7 +4669,7 @@ def run_decode_shape(sess, root: str, launches: dict) -> dict:
         name = f"parquet_decode_shape{label}"
         sess.set_conf("rapids.tpu.sql.encoded.enabled", on)
         CB.reset_launch_counts()
-        res = run_query(sess, q, want, name, 3)
+        res = run_query(sess, q, want, name, PARQUET_WARM_REPS)
         launches[name] = CB.launch_counts()
         assert_file_leaves(sess)
         res.update(rows=n, file_bytes=os.path.getsize(path),
@@ -4844,7 +4931,8 @@ def tpch_dict_files(root: str, raw) -> dict:
 
 def run_encoded_query(sess, q, want, name: str, launches: dict,
                       ordered: bool, input_rows: int) -> dict:
-    """One path: a cold and 3 warm runs (rows against numpy), its launch
+    """One path: a cold and ENCODED_WARM_REPS warm runs (rows against
+    numpy), its launch
     counts, the encoded columns the scan emitted and the device decodes
     over the path's 4 runs, the last run's scan host seconds and the peak
     device bytes."""
@@ -4866,7 +4954,8 @@ def run_encoded_query(sess, q, want, name: str, launches: dict,
     CB.reset_launch_counts()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
-    res = run_query(sess, q if ordered else Sorted(q), want, name, 3)
+    res = run_query(sess, q if ordered else Sorted(q), want, name,
+                    ENCODED_WARM_REPS)
     launches[name] = CB.launch_counts()
     # above what the phase already held (phase 4's cached tables)
     res["peak_device_bytes"] = torch.cuda.max_memory_allocated() - held
@@ -6964,6 +7053,491 @@ def time_orc_kernels(dev, errs: dict) -> dict:
     return rows
 
 
+# ------------------------------------------- memory phase 13 (slice 11)
+# K31 / K32 over every fixed lane type: (name, numpy dtype name)
+MEMORY_DTYPES = (("BOOL", "bool"), ("INT8", "int8"), ("INT16", "int16"),
+                 ("INT32", "int32"), ("INT64", "int64"),
+                 ("FLOAT", "float32"), ("DOUBLE", "float64"),
+                 ("DATE", "int32"), ("TIMESTAMP", "int64"),
+                 ("DECIMAL(18,4)", "int64"), ("codes", "int32"))
+# one lineitem partition at SF 10 under q1's filter (l_shipdate <=
+# 1998-09-02); lineitem's fixed columns: four int64 keys, l_linenumber
+# int32, four DOUBLEs, three DATEs
+K31_ROWS = 15_000_000
+LINEITEM_FIXED = ("int64", "int64", "int64", "int32", "float64", "float64",
+                  "float64", "float64", "int32", "int32", "int32")
+# phase 13(c): the injected-fault runs' scale factor and rates
+SPLIT_SF = 1
+SPLIT_RATE = 0.6
+FALLBACK_RATE = 1.0
+Q1_COLUMNS = ("l_returnflag", "l_linestatus", "l_quantity",
+              "l_extendedprice", "l_discount", "l_tax", "l_shipdate")
+# phase 13(b): the host tier takes what the OOM's spills move (the disk
+# tier is 13(a)'s to show)
+OOM_HOST_TIER = 32 << 30
+
+
+def memory_column(rng, tdt: str, cap: int, n: int, dev):
+    """(data, validity) [cap] of one fixed column in the batch invariant:
+    NULLs and lanes past n hold 0."""
+    import numpy as np
+    import torch
+
+    npdt = np.dtype(tdt)
+    if npdt == np.bool_:
+        data = rng.random(cap) < 0.5
+    elif np.issubdtype(npdt, np.floating):
+        data = (rng.standard_normal(cap) * 1e3).astype(npdt)
+        data[::7] = np.nan
+    else:
+        info = np.iinfo(npdt)
+        data = rng.integers(info.min, info.max, cap, dtype=npdt,
+                            endpoint=True)
+    valid = (rng.random(cap) < 0.8) & (np.arange(cap) < n)
+    data[~valid] = 0
+    return (torch.from_numpy(data).to(dev), torch.from_numpy(valid).to(dev))
+
+
+def compare_k31(pieces, lives, cap_out: int, label: str, errs: dict):
+    """K31 against its plain version on the same inputs, bit for bit."""
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+
+    got, n = CBT.compact_fixed(pieces, lives, cap_out)
+    want, wn = CBT.compact_fixed_plain(pieces, lives, cap_out)
+    check(int(n) == int(wn), f"{label}: K31 kept {int(n)}, plain {int(wn)}")
+    for k, (g, w) in enumerate(zip(got, want)):
+        check(bits_equal(g, w), f"{label}: K31 column {k} differs from its "
+              "plain version")
+    errs.setdefault("compact_fixed", 0.0)
+
+
+def compare_k32(datas, valids, idx, out_rows: int, ivalid, cap: int,
+                label: str, errs: dict):
+    """K32 against its plain version on the same inputs, bit for bit."""
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+
+    got = CBT.gather_fixed(datas, valids, idx, out_rows, ivalid, cap)
+    want = CBT.gather_fixed_plain(datas, valids, idx, out_rows, ivalid, cap)
+    for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        check(bits_equal(gd, wd) and bits_equal(gv, wv),
+              f"{label}: K32 column {k} differs from its plain version")
+    errs.setdefault("gather_fixed", 0.0)
+
+
+def memory_edge_cases(dev, errs: dict) -> int:
+    """K31 and K32 bit for bit against their plain versions: every fixed
+    lane type (BOOL, INT8-64, FLOAT, DOUBLE, DATE, TIMESTAMP, DECIMAL,
+    encoded codes), 0 rows, none kept, all kept, a kept tail, int32 and
+    int64 indices that are out of range, negative or masked off, an index
+    vector and a mask shorter than the output, a multi-piece concat (an
+    empty piece among them), and tiles that are full, partial and many."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(131)
+    count = 0
+    for rows, cap in ((0, 8), (5, 8), (3000, 4096), (70_000, 1 << 17)):
+        cols = [memory_column(rng, t, cap, rows, dev)
+                for _, t in MEMORY_DTYPES]
+        piece = [t for c in cols for t in c]
+        lane = torch.arange(cap, device=dev)
+        for kind in ("random", "none", "all", "tail"):
+            keep = {"random": torch.from_numpy(rng.random(cap) < 0.4).to(dev),
+                    "none": torch.zeros(cap, dtype=torch.bool, device=dev),
+                    "all": torch.ones(cap, dtype=torch.bool, device=dev),
+                    "tail": lane >= max(rows - 3, 0)}[kind] & (lane < rows)
+            compare_k31([piece], [keep], cap, f"K31 {rows} rows {kind}",
+                        errs)
+            count += 1
+        out_rows = max(rows, 1) + 7
+        ocap = 1 << max(3, (out_rows - 1).bit_length())
+        iv = None
+        for itype in (np.int32, np.int64):
+            idx = torch.from_numpy(rng.integers(-3, cap + 3, ocap).astype(
+                itype)).to(dev)
+            for masked in (False, True):
+                iv = torch.from_numpy(rng.random(ocap) < 0.7).to(dev) \
+                    if masked else None
+                compare_k32([c[0] for c in cols], [c[1] for c in cols], idx,
+                            out_rows, iv, ocap,
+                            f"K32 {rows} rows {itype.__name__}", errs)
+                count += 1
+        compare_k32([c[0] for c in cols], [c[1] for c in cols],
+                    idx[:ocap // 2], out_rows, iv[:ocap // 4], ocap,
+                    f"K32 {rows} rows short indices", errs)
+        count += 1
+    caps, rows = (1024, 8, 4096 * 3 + 5, 512), (1000, 0, 4096 * 3, 300)
+    pieces, lives = [], []
+    for cap, n in zip(caps, rows):
+        cols = [memory_column(rng, t, cap, n, dev) for _, t in MEMORY_DTYPES]
+        pieces.append([t for c in cols for t in c])
+        lives.append(torch.from_numpy((rng.random(cap) < 0.5) &
+                                      (np.arange(cap) < n)).to(dev))
+    cap_out = 1 << (sum(caps) - 1).bit_length()
+    compare_k31(pieces, lives, cap_out, "K31 four-piece concat", errs)
+    return count + 1
+
+
+def time_memory_kernels(dev, errs: dict) -> dict:
+    """K31 on one 15M-row lineitem partition's fixed columns under q1's
+    filter mask, and on the half split-and-retry gives (7.5M rows); K32 at
+    q5's join emit (the stream side's l_orderkey, l_suppkey,
+    l_extendedprice, l_discount gathered by 2^22 matched rows of a
+    2^22-row stream batch, JOIN_SHAPE) and as the slice that makes a half.
+    Each is checked against its plain version there, bit for bit. Bound:
+    K31 reads the mask and every column once and writes the kept rows;
+    K32 reads the indices and the gathered lanes and writes every output
+    lane. Library: `data[mask]` (K31) and `index_select` (K32) over the
+    columns and their validity."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import batch as CBT
+
+    iters, plain_iters = 10, 2
+    rng = np.random.default_rng(137)
+    n = K31_ROWS
+    cap = CBT.bucket_capacity(n)
+    cols = [memory_column(rng, t, cap, n, dev) for t in LINEITEM_FIXED]
+    piece = [t for c in cols for t in c]
+    lane = torch.arange(cap, device=dev)
+    shipdate = torch.from_numpy(rng.integers(8035, 10561, cap).astype(
+        np.int32)).to(dev)
+    mask = (shipdate <= 10471) & (lane < n)  # 1998-09-02
+    kept = int(mask.sum())
+    compare_k31([piece], [mask], cap, "K31 15M lineitem", errs)
+    widths = sum(t.element_size() + 1 for t, _ in cols)
+
+    def k31_bytes(lanes, kept_rows):
+        return lanes + widths * lanes + widths * kept_rows
+
+    half = n // 2
+    hcap = CBT.bucket_capacity(n - half)
+    hidx = torch.arange(half, half + hcap, device=dev)
+    halves = CBT.gather_fixed([c[0] for c in cols], [c[1] for c in cols],
+                              hidx, n - half, None, hcap)
+    hpiece = [t for d, v in halves for t in (d, v)]
+    hmask = (shipdate[half:half + hcap] <= 10471) & (
+        torch.arange(hcap, device=dev) < n - half)
+    hkept = int(hmask.sum())
+    compare_k31([hpiece], [hmask], hcap, "K31 split half", errs)
+    compare_k32([c[0] for c in cols], [c[1] for c in cols], hidx, n - half,
+                None, hcap, "K32 split half", errs)
+
+    def lib_compact(ts, m):
+        return [t[m] for t in ts]
+
+    rows = {"compact_fixed": dict(
+        ms=cuda_ms(lambda: CBT.compact_fixed([piece], [mask], cap), iters),
+        plain_ms=cuda_ms(lambda: CBT.compact_fixed_plain([piece], [mask],
+                                                         cap), plain_iters),
+        library_ms=cuda_ms(lambda: lib_compact(piece, mask), iters),
+        bound_ms=bound_ms(k31_bytes(cap, kept)),
+        ms_half=cuda_ms(lambda: CBT.compact_fixed([hpiece], [hmask], hcap),
+                        iters),
+        plain_ms_half=cuda_ms(lambda: CBT.compact_fixed_plain(
+            [hpiece], [hmask], hcap), plain_iters),
+        library_ms_half=cuda_ms(lambda: lib_compact(hpiece, hmask), iters),
+        bound_ms_half=bound_ms(k31_bytes(hcap, hkept)),
+        shape=f"{n} rows x {len(cols)} fixed columns (lineitem's), "
+              f"{kept} kept by q1's filter; half: {n - half} rows, {hkept} "
+              f"kept")}
+    _, s_rows, _ = JOIN_SHAPE
+    out_rows = s_rows
+    ocap = CBT.bucket_capacity(out_rows)
+    scols = [memory_column(rng, t, s_rows, s_rows, dev)
+             for t in ("int64", "int64", "float64", "float64")]
+    # the matched stream rows in stream order, some repeated (join_expand)
+    sidx = torch.sort(torch.from_numpy(rng.integers(
+        0, s_rows, ocap).astype(np.int32)).to(dev)).values
+    compare_k32([c[0] for c in scols], [c[1] for c in scols], sidx,
+                out_rows, None, ocap, "K32 q5 join emit", errs)
+    swidth = sum(d.element_size() + 1 for d, _ in scols)
+
+    def lib_gather(ts, idx):
+        return [t.index_select(0, idx) for t in ts]
+
+    sflat = [t for c in scols for t in c]
+    rows["gather_fixed"] = dict(
+        ms=cuda_ms(lambda: CBT.gather_fixed(
+            [c[0] for c in scols], [c[1] for c in scols], sidx, out_rows,
+            None, ocap), iters),
+        plain_ms=cuda_ms(lambda: CBT.gather_fixed_plain(
+            [c[0] for c in scols], [c[1] for c in scols], sidx, out_rows,
+            None, ocap), plain_iters),
+        library_ms=cuda_ms(lambda: lib_gather(sflat, sidx), iters),
+        bound_ms=bound_ms(4 * ocap + 2 * swidth * ocap),
+        ms_half=cuda_ms(lambda: CBT.gather_fixed(
+            [c[0] for c in cols], [c[1] for c in cols], hidx, n - half, None,
+            hcap), iters),
+        plain_ms_half=cuda_ms(lambda: CBT.gather_fixed_plain(
+            [c[0] for c in cols], [c[1] for c in cols], hidx, n - half, None,
+            hcap), plain_iters),
+        library_ms_half=cuda_ms(lambda: lib_gather(piece, hidx), iters),
+        bound_ms_half=bound_ms(8 * hcap + 2 * widths * hcap),
+        shape=f"{out_rows} rows x {len(scols)} stream columns of a "
+              f"{s_rows}-row batch (q5's emit); half: {n - half} rows x "
+              f"{len(cols)} lineitem columns")
+    return rows
+
+
+def table_device_bytes(df) -> int:
+    """The device bytes a host table takes once uploaded: every column at
+    its partition's bucketed capacity (strings: offsets, bytes, validity)."""
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+
+    total = 0
+    for part in df._plan.partitions:
+        for b in part:
+            cap = bucket_capacity(b.num_rows)
+            for c in b.columns:
+                if c.dtype.is_string:
+                    nbytes = int(c.utf8()[0][b.num_rows])
+                    total += 4 * (cap + 1) + bucket_capacity(
+                        max(nbytes, 1)) + cap
+                else:
+                    total += (c.dtype.to_np().itemsize + 1) * cap
+    return total
+
+
+def in_session(sess, tables: dict, names) -> dict:
+    """Host tables as DataFrames of another session, cached there."""
+    from spark_rapids_tpu_torch.plan.dataframe import DataFrame
+
+    return {k: DataFrame(tables[k]._plan, sess).cache() for k in names}
+
+
+def memory_totals() -> dict:
+    from spark_rapids_tpu_torch.utils import metrics as M
+
+    return {k: M.total(k) for k in (M.SPILL_TO_HOST_BYTES,
+                                    M.SPILL_TO_DISK_BYTES, M.UNSPILLS,
+                                    M.RETRIES, M.SPLIT_RETRIES,
+                                    M.CPU_FALLBACK_EVENTS)}
+
+
+def memory_delta(before: dict) -> dict:
+    now = memory_totals()
+    return {k: now[k] - before[k] for k in now}
+
+
+def run_memory_spill(raw, wants: dict, launches: dict) -> dict:
+    """Phase 13(a): phase 4's SF 10 host tables of q1-q5 cached in a session
+    whose device budget (hbm.sizeOverride, allocFraction 1) is half their
+    device bytes and whose host tier holds a quarter of them, then q5 and
+    q1 once each against phases 5's and 4's numpy rows: cached batches
+    spill device -> host -> disk and come back."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    dev_bytes = sum(table_device_bytes(raw[k]) for k in PARQUET_TABLES)
+    spill_dir = tempfile.mkdtemp(prefix="chip-smoke-spill-")
+    sess = srt.new_session(dict(TPCH_CONF, **{
+        "rapids.tpu.memory.hbm.sizeOverride": dev_bytes // 2,
+        "rapids.tpu.memory.hbm.allocFraction": 1.0,
+        "rapids.tpu.memory.host.spillStorageSize": dev_bytes // 4,
+        "rapids.tpu.memory.spill.dir": spill_dir}))
+    out = {"tables_device_bytes": dev_bytes,
+           "budget": sess.spill.watermark.budget,
+           "host_tier_bytes": dev_bytes // 4}
+    try:
+        tables = in_session(sess, raw, PARQUET_TABLES)
+        before = memory_totals()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for q in ("q5", "q1"):
+            name = f"memory_spill_{q}"
+            q_before = memory_totals()
+            CB.reset_launch_counts()
+            out[name] = run_query(sess, tpch.QUERIES[q](tables),
+                                  wants[f"tpch_{q}"], name, 0,
+                                  faults_ok=True)
+            launches[name] = CB.launch_counts()
+            out[name]["metrics"] = memory_delta(q_before)
+            log(f"{name}: {out[name]['metrics']}")
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        out["metrics"] = memory_delta(before)
+        out["tiers"] = sess.spill.snapshot()
+        m = out["metrics"]
+        check(m["spillDeviceToHostBytes"] > 0 and
+              m["spillHostToDiskBytes"] > 0,
+              f"phase 13(a): both spill tiers must be used: {m}")
+        check(m["spillRematerializations"] > 0,
+              f"phase 13(a): no spilled batch came back: {m}")
+        log(f"phase 13(a): tables {dev_bytes} device bytes, budget "
+            f"{out['budget']}, peak {out['peak_bytes']}: {m}; "
+            f"tiers {out['tiers']}")
+        for df in tables.values():
+            df.unpersist()
+    finally:
+        sess.stop()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return out
+
+
+def run_memory_oom(raw, wants: dict, launches: dict) -> dict:
+    """Phase 13(b): lineitem's q1 columns cached on the card (the default
+    budget);
+    after empty_cache a ballast tensor leaves free only half of what q1's
+    warm run needed above its cached table, so q1 runs out of device
+    memory: the CUDA OutOfMemoryError becomes TpuRetryOOM, spills the
+    device store, and q1 runs again to numpy's rows."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.plan.dataframe import DataFrame
+
+    spill_dir = tempfile.mkdtemp(prefix="chip-smoke-oom-")
+    sess = srt.new_session(dict(TPCH_CONF, **{
+        "rapids.tpu.execution.retry.oomRetries": 4,
+        "rapids.tpu.memory.host.spillStorageSize": OOM_HOST_TIER,
+        "rapids.tpu.memory.spill.dir": spill_dir}))
+    out = {}
+    try:
+        li = DataFrame(raw["lineitem"]._plan, sess).select(*Q1_COLUMNS)
+        tables = {"lineitem": li.cache()}
+        q = tpch.q1(tables)
+        q.collect()  # caches lineitem's q1 columns on the card
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        check_rows(q.collect(), wants["tpch_q1"], "memory_oom_q1 warm")
+        torch.cuda.synchronize()
+        need = torch.cuda.max_memory_allocated() - base
+        torch.cuda.empty_cache()
+        free, _ = torch.cuda.mem_get_info()
+        leave = need // 2
+        ballast = torch.empty(max(free - leave, 0), dtype=torch.uint8,
+                              device="cuda")
+        out.update(cached_bytes=base, q1_needs_bytes=need,
+                   free_before_ballast=free, ballast_bytes=ballast.numel(),
+                   left_free=leave)
+        log(f"phase 13(b): ballast {ballast.numel()} bytes leaves {leave} "
+            f"free; q1 needed {need} above its {base} cached")
+        before = memory_totals()
+        CB.reset_launch_counts()
+        try:
+            out["memory_oom_q1"] = run_query(sess, q, wants["tpch_q1"],
+                                             "memory_oom_q1", 0,
+                                             faults_ok=True)
+        finally:
+            del ballast
+        launches["memory_oom_q1"] = CB.launch_counts()
+        out["metrics"] = memory_delta(before)
+        log(f"phase 13(b): {out['metrics']}")
+        check(out["metrics"]["retries"] >= 1,
+              f"phase 13(b): q1 ran without a retry: {out['metrics']}")
+        for df in tables.values():
+            df.unpersist()
+    finally:
+        sess.stop()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+    return out
+
+
+def escalating_seed(rate: float) -> int:
+    """A fault-injection seed whose first three 'filter' rolls inject (the
+    first batch spends both OOM retries and bisects) and not all of whose
+    next nine do (the halves get through): the decision the JAX package
+    makes too. The PRF is a CRC, so runs of injections are rarer than the
+    rate alone suggests."""
+    from spark_rapids_tpu_torch.utils import faultinject as FI
+
+    for seed in range(10_000):
+        inj = FI.FaultInjector(seed, "filter", rate)
+        rolls = [inj.decide("filter", i) for i in range(12)]
+        if all(rolls[:3]) and not all(rolls[3:]):
+            return seed
+    raise SmokeFailure("no escalating seed")
+
+
+def run_memory_faults(launches: dict) -> dict:
+    """Phase 13(c): TPC-H q1 at SF 1 (lineitem cached with q1's columns)
+    with fusion off (its filter and project run as operators) under the
+    reference's fault-injection keys at the filter and project sites:
+    first at SPLIT_RATE with a seed whose first
+    filter batch bisects (K32 slices the halves, K31 compacts them), then at
+    FALLBACK_RATE at the filter site, where every filter batch exhausts its
+    device retries and runs on the CPU engine, and the circuit breaker
+    opens (and, the query complete, closes again). Rows against numpy each
+    time."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    seed = escalating_seed(SPLIT_RATE)
+    spill_dir = tempfile.mkdtemp(prefix="chip-smoke-faults-")
+    sess = srt.new_session(dict(TPCH_CONF, **{
+        "rapids.tpu.memory.spill.dir": spill_dir,
+        "rapids.tpu.sql.fusion.enabled": False,
+        "rapids.tpu.engine.retryBackoffMs": 0.0,
+        "rapids.tpu.test.faultInjection.enabled": True,
+        "rapids.tpu.test.faultInjection.sites": "filter,project",
+        "rapids.tpu.test.faultInjection.rate": SPLIT_RATE,
+        "rapids.tpu.test.faultInjection.seed": seed}))
+    out = {"sf": SPLIT_SF, "seed": seed}
+    try:
+        raw = tpch.gen_tables(sess, sf=SPLIT_SF,
+                              num_partitions=TPCH_PARTITIONS)
+        want = numpy_q1(lineitem_columns(raw["lineitem"]))
+        # q1's columns only: a CPU fallback moves what the query reads
+        tables = {"lineitem": raw["lineitem"].select(*Q1_COLUMNS).cache()}
+        for name, sites, rate in (
+                ("memory_split", "filter,project", SPLIT_RATE),
+                ("memory_fallback", "filter", FALLBACK_RATE)):
+            sess.set_conf("rapids.tpu.test.faultInjection.sites", sites)
+            sess.set_conf("rapids.tpu.test.faultInjection.rate", rate)
+            before = memory_totals()
+            CB.reset_launch_counts()
+            out[name] = run_query(sess, tpch.q1(tables), want, name, 0,
+                                  faults_ok=True)
+            launches[name] = CB.launch_counts()
+            out[name]["metrics"] = memory_delta(before)
+            # a device query that completes closes a tripped breaker
+            # (note_success, as the reference's session): its transitions
+            # show that it opened
+            out[name]["breaker"] = sess.breaker.transitions()
+            log(f"{name} (rate {rate}): {out[name]['metrics']}, breaker "
+                f"{out[name]['breaker']}")
+        m = out["memory_split"]["metrics"]
+        check(m["splitRetries"] >= 1, f"phase 13(c): no split: {m}")
+        m = out["memory_fallback"]["metrics"]
+        check(m["cpuFallbackEvents"] >= 1 and
+              out["memory_fallback"]["breaker"]["opened"] >= 1,
+              f"phase 13(c): no fallback or the breaker never opened: {m}")
+        for df in tables.values():
+            df.unpersist()
+    finally:
+        sess.stop()
+        shutil.rmtree(spill_dir, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_memory(raw, wants: dict, launches: dict) -> dict:
+    """Phase 13: (a) spill under a budget, (b) a real CUDA OOM, (c) injected
+    splits and CPU fallback."""
+    return {"spill": run_memory_spill(raw, wants, launches),
+            "oom": run_memory_oom(raw, wants, launches),
+            "faults": run_memory_faults(launches)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -7027,12 +7601,13 @@ def main(argv=None) -> int:
 
     errs: dict = {}
     results = {"card": card, "build_s": build_s}
+    start_counters = memory_totals()
     n_edge = edge_cases(dev, errs) + string_edge_cases(dev, errs) + \
         join_edge_cases(dev, errs) + search_edge_cases(dev, errs) + \
         window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
         slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
         encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
-        orc_edge_cases(dev, errs)
+        orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -7065,6 +7640,10 @@ def main(argv=None) -> int:
     for df in tables.values():
         df.unpersist()
     tpch_sess.last_physical_plan = None
+    torch.cuda.empty_cache()
+    before = memory_totals()
+    results["memory"] = run_memory(raw, wants, launches)
+    phase13_faults = fault_counts(before)
     del raw, tables, li
     results["phase6_small_sf"] = run_small_sf()
     torch.cuda.empty_cache()
@@ -7083,6 +7662,15 @@ def main(argv=None) -> int:
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
         results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples)
     results["kernels"] = kernels
+    # no run outside phase 13 (timed or not) retried, split or fell back
+    every = fault_counts(start_counters)
+    results["fault_counters"] = {
+        "phase13": phase13_faults,
+        "outside_phase13": {k: every[k] - phase13_faults[k]
+                            for k in FAULT_COUNTERS}}
+    check(not any(results["fault_counters"]["outside_phase13"].values()),
+          f"a run outside phase 13 left the device path: "
+          f"{results['fault_counters']}")
     results["total_s"] = time.perf_counter() - T0
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)),
@@ -7140,6 +7728,8 @@ def main(argv=None) -> int:
             "scan_host_s", "warm_speedup_vs_off")}
             if k.startswith("encoded_") else v)
             for k, v in results["encoded"].items()},
+        "memory": results["memory"],
+        "fault_counters": results["fault_counters"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

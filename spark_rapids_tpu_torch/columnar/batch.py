@@ -25,8 +25,12 @@ offsets) and a copy launch (one warp per output row). Its output byte
 buffer is sized from a host-known bound (the source buffer for a gather
 that repeats no row, `rows * max_len` otherwise), so no string gather reads
 a count back from the card. Concat and compaction of string columns are K7
-gathers over the pieces laid end to end. Fixed-width compaction, concat
-and gather stay plain torch ops (B5 compaction is queued in ROADMAP.md).
+gathers over the pieces laid end to end. Fixed-width columns move through
+two more kernels of csrc/compact_gather.cu: K31 `compact_fixed` (filter
+compaction and the masked concat, replacing the reference's `_compact_plan`
+:1623 and the fixed half of `compact_batch` :1630) and K32 `gather_fixed`
+(every fixed column of a gather in one launch, replacing
+`_gather_fixed_cols` :1425).
 
 Encoded columns (columnar/encoded.py, a DictionaryColumn: int32 codes and
 a shared dictionary) move as fixed int32 lanes and keep their dictionary
@@ -688,11 +692,25 @@ def _compact_strings(cols: Sequence[ColumnVector], lives, cap_out: int
                               unique=True)
 
 
-def _scatter_compact(pieces, lives, cap_out: int):
-    """Stable compaction of the live lanes of pieces (lists of tensors per
-    piece, same column order) into cap_out lanes: one cumsum over the
-    concatenated live masks, one scatter per column. No host sync; the
-    row count stays on the card."""
+# ---------------------------------------------------------------------------
+# K31 compact_fixed and K32 gather_fixed (csrc/compact_gather.cu)
+# ---------------------------------------------------------------------------
+_COMPACT_TILE = 4096  # lanes a block of K31 takes (kTile in common.cuh)
+
+
+def _device_words(words: Sequence[int], device) -> torch.Tensor:
+    """An int64 table on the card through pinned memory: no host sync (the
+    caching host allocator keeps the buffer until the copy ends)."""
+    host = torch.tensor(list(words), dtype=torch.int64).pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def compact_fixed_plain(pieces, lives, cap_out: int):
+    """(outputs [cap_out] per column, kept-row count as an int32 on the
+    tensors' device): the live lanes of the pieces (lists of tensors per
+    piece, same column order, each at least as long as its live mask),
+    stably in order; lanes past the count zero (False for validity).
+    Reference: _compact_plan + _gather_fixed_cols, batch.py:1623, :1425."""
     live = torch.cat(lives) if len(lives) > 1 else lives[0]
     pos = torch.cumsum(live.to(torch.int64), 0) - 1
     dest = torch.where(live, pos, torch.full((), cap_out, dtype=torch.int64,
@@ -700,12 +718,119 @@ def _scatter_compact(pieces, lives, cap_out: int):
     total = live.sum(dtype=torch.int32)
     outs = []
     for ci in range(len(pieces[0])):
-        src = torch.cat([p[ci] for p in pieces]) if len(pieces) > 1 \
-            else pieces[0][ci]
+        srcs = [p[ci][:int(lv.shape[0])] for p, lv in zip(pieces, lives)]
+        src = torch.cat(srcs) if len(srcs) > 1 else srcs[0]
         buf = _zeros_like_col(src, cap_out + 1)
         buf.scatter_(0, dest, src)
         outs.append(buf[:cap_out])
     return outs, total
+
+
+def compact_fixed(pieces, lives, cap_out: int):
+    """K31: compact_fixed_plain's outputs in one flagged select over every
+    piece and column (count, scan of the tile counts, scatter). CPU
+    tensors run the plain version, CUDA tensors the kernel."""
+    if lives[0].device.type == "cpu":
+        return compact_fixed_plain(pieces, lives, cap_out)
+    lives = [lv.contiguous() for lv in lives]
+    pieces = [[t.contiguous() for t in p] for p in pieces]
+    CB.require_cuda(*lives, *[t for p in pieces for t in p])
+    dev = lives[0].device
+    ncols = len(pieces[0])
+    caps = [int(lv.shape[0]) for lv in lives]
+    for p, cap in zip(pieces, caps):
+        if len(p) != ncols or any(int(t.shape[0]) < cap for t in p):
+            raise ValueError("compact_fixed: a piece's columns are shorter "
+                             "than its live mask or differ in number")
+    tile_base = [0]
+    for cap in caps:
+        tile_base.append(tile_base[-1] + -(-cap // _COMPACT_TILE))
+    ntiles = tile_base[-1]
+    outs = [torch.empty(cap_out, dtype=t.dtype, device=dev)
+            for t in pieces[0]]
+    table = _device_words(
+        tile_base + caps + [lv.data_ptr() for lv in lives]
+        + [t.data_ptr() for p in pieces for t in p]
+        + [o.data_ptr() for o in outs]
+        + [t.element_size() for t in pieces[0]], dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    lib = CB.library("compact_gather")
+    scratch = torch.empty(int(lib.srt_compact_scratch_bytes(ntiles)),
+                          dtype=torch.uint8, device=dev)
+    rc = lib.srt_compact_fixed(table.data_ptr(), len(pieces), ncols, ntiles,
+                               cap_out, count.data_ptr(), scratch.data_ptr(),
+                               scratch.numel(), CB.stream_of(count))
+    CB.count_launch("compact_fixed")
+    CB.check(lib, rc, "compact_fixed")
+    return outs, count
+
+
+def gather_fixed_plain(datas, valids, indices, out_rows: int,
+                       indices_valid, cap: int):
+    """(data, validity) [cap] of every fixed column gathered by `indices`:
+    a lane is NULL with zero data at or past out_rows or the index vector,
+    for an index out of [0, source capacity), where indices_valid is
+    False, or where the source row is NULL (reference: _gather_fixed_body,
+    batch.py:1434)."""
+    dev = indices.device
+    n_idx = int(indices.shape[0])
+    idx = indices[:cap].to(torch.int64)
+    lane = torch.arange(cap, device=dev)
+    if idx.shape[0] < cap:
+        idx = torch.cat([idx, torch.zeros(cap - idx.shape[0],
+                                          dtype=torch.int64, device=dev)])
+    src_cap = min(int(t.shape[0]) for t in list(datas) + list(valids))
+    ok = (lane < out_rows) & (lane < n_idx) & (idx >= 0) & (idx < src_cap)
+    if indices_valid is not None:
+        iv = indices_valid[:cap]
+        if iv.shape[0] < cap:
+            iv = torch.cat([iv, torch.zeros(cap - iv.shape[0],
+                                            dtype=torch.bool, device=dev)])
+        ok = ok & iv
+    safe = torch.where(ok, idx, torch.zeros((), dtype=torch.int64,
+                                            device=dev))
+    outs = []
+    for d, v in zip(datas, valids):
+        valid = v[safe] & ok
+        outs.append((torch.where(valid, d[safe], torch.zeros(
+            (), dtype=d.dtype, device=dev)), valid))
+    return outs
+
+
+def gather_fixed(datas, valids, indices, out_rows: int, indices_valid,
+                 cap: int):
+    """K32: gather_fixed_plain's outputs for every column in one launch.
+    CPU tensors run the plain version, CUDA tensors the kernel."""
+    if indices.device.type == "cpu":
+        return gather_fixed_plain(datas, valids, indices, out_rows,
+                                  indices_valid, cap)
+    idx = indices if indices.dtype in (torch.int32, torch.int64) else \
+        indices.to(torch.int64)
+    idx = idx.contiguous()
+    datas = [d.contiguous() for d in datas]
+    valids = [v.contiguous() for v in valids]
+    CB.require_cuda(idx, *datas, *valids)
+    if indices_valid is not None:
+        indices_valid = indices_valid.contiguous()
+        CB.require_cuda(indices_valid)
+    dev = idx.device
+    src_cap = min(int(t.shape[0]) for t in datas + valids)
+    out_d = [torch.empty(cap, dtype=d.dtype, device=dev) for d in datas]
+    out_v = [torch.empty(cap, dtype=torch.bool, device=dev) for _ in datas]
+    table = _device_words(
+        [d.data_ptr() for d in datas] + [v.data_ptr() for v in valids]
+        + [o.data_ptr() for o in out_d] + [o.data_ptr() for o in out_v]
+        + [d.element_size() for d in datas], dev)
+    lib = CB.library("compact_gather")
+    rc = lib.srt_gather_fixed(
+        table.data_ptr(), len(datas), idx.data_ptr(), idx.element_size(),
+        int(idx.shape[0]),
+        indices_valid.data_ptr() if indices_valid is not None else None,
+        int(indices_valid.shape[0]) if indices_valid is not None else 0,
+        int(out_rows), src_cap, cap, CB.stream_of(idx))
+    CB.count_launch("gather_fixed")
+    CB.check(lib, rc, "gather_fixed")
+    return list(zip(out_d, out_v))
 
 
 def _compact_pieces(batches: Sequence[ColumnarBatch], lives, cap_out: int):
@@ -718,7 +843,7 @@ def _compact_pieces(batches: Sequence[ColumnarBatch], lives, cap_out: int):
         pieces = [[t for i in fixed for t in (b.columns[i].data,
                                               b.columns[i].validity)]
                   for b in batches]
-        outs, total = _scatter_compact(pieces, lives, cap_out)
+        outs, total = compact_fixed(pieces, lives, cap_out)
         for k, i in enumerate(fixed):
             cols[i] = batches[0].columns[i].with_data(outs[2 * k],
                                                       outs[2 * k + 1])
@@ -807,38 +932,49 @@ def gather_batch(batch: ColumnarBatch, indices, out_rows: int,
                  indices_valid=None, unique_indices: bool = False
                  ) -> ColumnarBatch:
     """Rows by index into a new batch of `out_rows` rows (reference:
-    batch.py:1501); lanes past out_rows, out of range or masked off by
-    `indices_valid` are null. unique_indices promises no source row
-    repeats, which bounds the string bytes by the source buffer."""
+    batch.py:1501); lanes past out_rows or the index vector, out of range
+    or masked off by `indices_valid` are null. Every fixed column (and an
+    encoded column's codes) goes through one K32 launch, every string
+    column through K7. unique_indices promises no source row repeats,
+    which bounds the string bytes by the source buffer."""
     cap = bucket_capacity(max(out_rows, 1))
-    src_cap = batch.capacity
-    idx = indices[:cap].to(torch.int64)
-    ivalid = None if indices_valid is None else indices_valid[:cap]
-    if idx.shape[0] < cap:
-        pad = cap - idx.shape[0]
-        idx = torch.cat([idx, torch.zeros(pad, dtype=torch.int64,
-                                          device=idx.device)])
-        if ivalid is not None:
-            ivalid = torch.cat([ivalid, torch.zeros(
-                pad, dtype=torch.bool, device=idx.device)])
-    lane = torch.arange(cap, device=idx.device)
-    ok = (lane < out_rows) & (idx >= 0) & (idx < src_cap)
-    if ivalid is not None:
-        ok = ok & ivalid
-    safe = torch.where(ok, idx, torch.zeros((), dtype=torch.int64,
-                                            device=idx.device))
-    cols = []
-    for c in batch.columns:
-        if c.offsets is not None:
-            cols.append(gather_string_col(c, idx, out_rows, ivalid,
-                                           unique_indices))
-            continue
-        valid = c.validity[safe] & ok
-        data = torch.where(valid, c.data[safe],
-                           torch.zeros((), dtype=c.data.dtype,
-                                       device=c.data.device))
-        cols.append(c.with_data(data, valid))
+    cols: List[Optional[ColumnVector]] = [None] * batch.num_columns
+    fixed = [i for i, c in enumerate(batch.columns) if c.offsets is None]
+    if fixed:
+        outs = gather_fixed([batch.columns[i].data for i in fixed],
+                            [batch.columns[i].validity for i in fixed],
+                            indices, out_rows, indices_valid, cap)
+        for i, (data, valid) in zip(fixed, outs):
+            cols[i] = batch.columns[i].with_data(data, valid)
+    strings = [i for i, c in enumerate(batch.columns) if c.offsets is not None]
+    if strings:
+        idx = indices[:cap].to(torch.int64)
+        ivalid = None if indices_valid is None else indices_valid[:cap]
+        if idx.shape[0] < cap or (ivalid is not None and
+                                  ivalid.shape[0] < cap):
+            # lanes past the index vector are NULL, as in K32
+            dev = idx.device
+            lane_ok = torch.arange(cap, device=dev) < idx.shape[0]
+            if ivalid is not None:
+                lane_ok[:ivalid.shape[0]] &= ivalid
+                lane_ok[ivalid.shape[0]:] = False
+            ivalid = lane_ok
+            idx = torch.cat([idx, torch.zeros(cap - idx.shape[0],
+                                              dtype=torch.int64, device=dev)])
+        for i in strings:
+            cols[i] = gather_string_col(batch.columns[i], idx, out_rows,
+                                        ivalid, unique_indices)
     return ColumnarBatch(cols, out_rows)
+
+
+def slice_batch_host(batch: ColumnarBatch, start: int,
+                     length: int) -> ColumnarBatch:
+    """Rows [start, start + length) of a batch, clipped to its rows, by a
+    gather (reference: batch.py:1696; used by split-and-retry)."""
+    length = max(0, min(length, batch.host_rows() - start))
+    idx = torch.arange(start, start + bucket_capacity(max(length, 1)),
+                       dtype=torch.int64, device=batch.device)
+    return gather_batch(batch, idx, length, unique_indices=True)
 
 
 def compact_batch(batch: ColumnarBatch, keep_mask, sync: bool) -> ColumnarBatch:

@@ -572,9 +572,17 @@ _MATERIALIZE_BOUND_BUDGET = 64 << 20
 def materialize(cv: DictionaryColumn) -> ColumnVector:
     """Decode an encoded column to a plain device column (reference :550):
     K23 over the dictionary's value table (fixed), or K23's spans plus
-    K7's span entry (STRING)."""
+    K7's span entry (STRING). The decode runs under with_retry at the
+    `encoded.materialize` site (reference :569-596): it is pure over the
+    codes, so a CUDA OOM spills and decodes again."""
+    from spark_rapids_tpu_torch.engine.retry import with_retry
+
     assert is_encoded(cv)
     _count("lateMaterializations")
+    return with_retry(lambda: _materialize(cv), site="encoded.materialize")
+
+
+def _materialize(cv: DictionaryColumn) -> ColumnVector:
     d = cv.dictionary
     dev = cv.data.device
     if d.is_fixed:

@@ -35,7 +35,7 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "window_rank_offset", "window_frame_agg", "string_chars",
            "explode", "segment_percentile", "parquet_decode",
            "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
-           "orc_encode")
+           "orc_encode", "compact_gather")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -312,6 +312,16 @@ _SIGNATURES = {
             _VOIDP, ctypes.c_int, ctypes.c_int, _VOIDP, ctypes.c_longlong,
             ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
             _VOIDP, ctypes.c_size_t, _VOIDP]),
+    },
+    "compact_gather": {
+        "srt_compact_scratch_bytes": (ctypes.c_size_t, [ctypes.c_longlong]),
+        "srt_compact_fixed": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_size_t, _VOIDP]),
+        "srt_gather_fixed": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, _VOIDP, ctypes.c_int, ctypes.c_longlong,
+            _VOIDP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+            ctypes.c_longlong, _VOIDP]),
     },
     "dict_encoded": {
         "srt_dict_materialize_fixed": (ctypes.c_int, [

@@ -42,8 +42,11 @@ concat has unioned their dictionaries) and the value is gathered at the
 sink. min / max over a plain STRING input reduce the dense ranks of its
 values (K6 order words, K1, K2), then K7 gathers each group's winner.
 
-Left out so far (ROADMAP.md): run-aware collapse, buffer donation, the
-retry combinators.
+Every update, merge and finalize runs under engine/retry.with_retry
+(sites agg.update, agg.merge, agg.finalize, as the reference :796, :658,
+:490): a CUDA OOM spills the device store and runs the step again; the
+reference does not bisect an aggregate's input, and neither does the port.
+Left out so far (ROADMAP.md): run-aware collapse, buffer donation.
 """
 
 from __future__ import annotations
@@ -67,6 +70,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
 )
 from spark_rapids_tpu_torch.columnar import encoded as E
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
+from spark_rapids_tpu_torch.engine.retry import with_retry
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -546,13 +550,16 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
                     continue
                 batch = ensure_compact(batch)
                 if do_update:
-                    local = update(batch)
-                    running = local if running is None else \
-                        merge(concat_batches([running, local]))
+                    local = with_retry(lambda: update(batch),
+                                       site="agg.update")
+                    running = local if running is None else with_retry(
+                        lambda: merge(concat_batches([running, local])),
+                        site="agg.merge")
                 else:
-                    merged = batch if running is None else \
-                        concat_batches([running, batch])
-                    running = merge(merged)
+                    running = with_retry(
+                        lambda: merge(batch if running is None else
+                                      concat_batches([running, batch])),
+                        site="agg.merge")
             yield from self._emit(running, pidx, device)
 
         return PartitionedBatches(
@@ -576,8 +583,9 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
             else:
                 return
         rewritten = rewrite_result_exprs(self.agg_exprs, self.specs)
-        yield DeviceProjector(bind_all(rewritten, self._inter_attrs)).project(
-            running)
+        projector = DeviceProjector(bind_all(rewritten, self._inter_attrs))
+        yield with_retry(lambda: projector.project(running),
+                         site="agg.finalize")
 
 
 # ===========================================================================

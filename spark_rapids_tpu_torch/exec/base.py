@@ -37,13 +37,15 @@ class PartitionedBatches:
 
 
 class ExecContext:
-    """Carried through execute(): the session conf and device."""
+    """Carried through execute(): the session conf, device and spill
+    framework (memory/spill.py)."""
 
-    __slots__ = ("conf", "device")
+    __slots__ = ("conf", "device", "spill")
 
-    def __init__(self, conf, device):
+    def __init__(self, conf, device, spill):
         self.conf = conf
         self.device = device
+        self.spill = spill
 
 
 class PhysicalExec:

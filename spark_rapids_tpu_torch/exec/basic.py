@@ -2,7 +2,12 @@
 scan, project, filter, union :296, the limits and partition coalescing;
 reference:
 basicPhysicalOperators.scala — GpuProjectExec :34-95, GpuFilterExec
-:96-177, GpuCoalesceExec :201-240 — and limit.scala:39-123)."""
+:96-177, GpuCoalesceExec :201-240 — and limit.scala:39-123).
+
+Project and filter run each batch through engine/retry's
+device_op_with_fallback, as the reference (:152, :248): a CUDA OOM spills
+and runs again, an OOM that persists bisects the batch, and a batch the
+device cannot finish runs through the CPU engine."""
 
 from __future__ import annotations
 
@@ -17,6 +22,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     bucket_capacity,
     ensure_compact,
 )
+from spark_rapids_tpu_torch.engine import retry as R
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
     ExecContext,
@@ -66,8 +72,8 @@ class TpuProjectExec(TpuExec):
     def __init__(self, project_list: Sequence[Expression], child: PhysicalExec):
         super().__init__(child)
         self.project_list = list(project_list)
-        self._projector = DeviceProjector(bind_all(self.project_list,
-                                                   child.output))
+        self._bound = bind_all(self.project_list, child.output)
+        self._projector = DeviceProjector(self._bound)
 
     @property
     def output(self):
@@ -82,10 +88,22 @@ class TpuProjectExec(TpuExec):
     def execute(self, ctx: ExecContext) -> PartitionedBatches:
         child_pb = self.children[0].execute(ctx)
         projector = self._projector
+        bound = self._bound
 
         def factory(pidx: int) -> Iterator:
             for batch in child_pb.iterator(pidx):
-                yield projector.project(batch, partition_id=pidx)
+                # spill + retry around the projection, bisection of the
+                # batch, then the CPU engine (reference :152); `off` is a
+                # split piece's first row in the batch
+                yield from R.device_op_with_fallback(
+                    lambda b, off: R.with_retry(
+                        lambda: projector.project(b, partition_id=pidx,
+                                                  row_start=off),
+                        site="project"),
+                    batch,
+                    lambda hb, off: cpu_project(bound, hb, partition_id=pidx,
+                                                row_start=off),
+                    site="project")
 
         return PartitionedBatches(
             child_pb.num_partitions,
@@ -125,7 +143,8 @@ class TpuFilterExec(TpuExec):
     def __init__(self, condition: Expression, child: PhysicalExec):
         super().__init__(child)
         self.condition = condition
-        self._filter = DeviceFilter(bind_references(condition, child.output))
+        self._bound = bind_references(condition, child.output)
+        self._filter = DeviceFilter(self._bound)
 
     @property
     def output(self):
@@ -144,10 +163,19 @@ class TpuFilterExec(TpuExec):
         # microseconds, so 'auto' syncs and shrinks the capacity; 'never'
         # keeps the count on the card (reference: exec/basic.py:221-235)
         sync = ctx.conf.get(C.FILTER_COMPACT_SYNC) != "never"
+        bound = self._bound
 
         def factory(pidx: int) -> Iterator:
             for batch in child_pb.iterator(pidx):
-                yield filt.apply(batch, partition_id=pidx, sync=sync)
+                yield from R.device_op_with_fallback(
+                    lambda b, off: R.with_retry(
+                        lambda: filt.apply(b, partition_id=pidx,
+                                           row_start=off, sync=sync),
+                        site="filter"),
+                    batch,
+                    lambda hb, off: cpu_filter(bound, hb, partition_id=pidx,
+                                               row_start=off),
+                    site="filter")
 
         return PartitionedBatches(
             child_pb.num_partitions,

@@ -51,8 +51,12 @@ build rows. Pass-through encoded columns stay encoded in the emit.
 Per stream batch there is one host sync, the read of the output row count
 (reference :457), which sizes the gathers; the reference's depth-1
 pipeline (:483-520) is not kept: the count is read right after the probe.
-Waiting for later queue items: retries
-(`with_retry`), the serialized broadcast (:783-792), the coordinated
+The probe and the emit of each stream batch run under
+engine/retry.with_retry (site join, as reference :495-518): both are pure
+over (stream batch, build side), so a CUDA OOM spills and runs them
+again; the build side is device state, so nothing bisects.
+Waiting for later queue items: the serialized broadcast (:783-792), the
+coordinated
 adaptive coalescing of both inputs (`coalesce_join_inputs` :681; the port
 reads adaptive coalescing as off, so a shuffled join takes its inputs as
 the exchanges give them).
@@ -83,6 +87,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     gather_batch,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
+from spark_rapids_tpu_torch.engine.retry import with_retry
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -505,22 +510,14 @@ class _TpuJoinMixin:
             stream_batch = ensure_compact(stream_batch)
             if stream_batch.host_rows() == 0:
                 continue
-            probe = joiner.probe(stream_batch, table)
-            n_out = probe.total
-            if n_out == 0:
+            probe = with_retry(lambda: joiner.probe(stream_batch, table),
+                               site="join")
+            if probe.total == 0:
                 continue
-            s_idx, b_idx = join_expand(probe, bucket_capacity(n_out))
-            s_out = gather_batch(stream_batch, s_idx, n_out)
-            if emit_build_cols:
-                # negative (unmatched) indices gather NULL rows
-                b_out = gather_batch(build, b_idx, n_out)
-                cols = (b_out.columns + s_out.columns) if build_left \
-                    else (s_out.columns + b_out.columns)
-                joined = ColumnarBatch(cols, n_out)
-            else:
-                joined = s_out
-            if cond_filter is not None:
-                joined = cond_filter.apply(joined)
+            joined = with_retry(lambda: _emit_joined(
+                stream_batch, build, probe, emit_build_cols, build_left,
+                cond_filter), site="join")
+            del probe
             yield joined
         if emit_build_tail and build.host_rows() > 0:
             # full outer: the unmatched build rows with NULL stream columns
@@ -535,6 +532,27 @@ class _TpuJoinMixin:
             cols = (_null_batch(self.children[0].output, n_out,
                                 build.device).columns + b_out.columns)
             yield ColumnarBatch(cols, n_out)
+
+
+def _emit_joined(stream_batch: ColumnarBatch, build: ColumnarBatch, probe,
+                 emit_build_cols: bool, build_left: bool,
+                 cond_filter) -> ColumnarBatch:
+    """One stream batch's joined rows: K11 expands the probe's matches,
+    K32 (and K7 for strings) gathers both sides."""
+    n_out = probe.total
+    s_idx, b_idx = join_expand(probe, bucket_capacity(n_out))
+    s_out = gather_batch(stream_batch, s_idx, n_out)
+    if emit_build_cols:
+        # negative (unmatched) indices gather NULL rows
+        b_out = gather_batch(build, b_idx, n_out)
+        cols = (b_out.columns + s_out.columns) if build_left \
+            else (s_out.columns + b_out.columns)
+        joined = ColumnarBatch(cols, n_out)
+    else:
+        joined = s_out
+    if cond_filter is not None:
+        joined = cond_filter.apply(joined)
+    return joined
 
 
 def _null_batch(attrs: List[AttributeReference], n_rows: int,

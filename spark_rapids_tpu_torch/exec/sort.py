@@ -29,6 +29,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     gather_batch,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.engine.retry import with_retry
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -97,8 +98,11 @@ class TpuSortExec(_SortBase, TpuExec):
                 if n == 0:
                     yield batch
                     continue
-                perm = sort_batch_permutation(batch, bound)
-                yield gather_batch(batch, perm, n, unique_indices=True)
+                # no bisection: a sort's consumers want one batch a
+                # partition (reference :230)
+                yield with_retry(lambda: gather_batch(
+                    batch, sort_batch_permutation(batch, bound), n,
+                    unique_indices=True), site="sort")
 
         return PartitionedBatches(
             child_pb.num_partitions,

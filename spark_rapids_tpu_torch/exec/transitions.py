@@ -5,6 +5,11 @@ Reference parity: HostToDeviceExec <- HostColumnarToGpu (grouped upload),
 DeviceToHostExec <- GpuColumnarToRowExec / GpuBringBackToHost (grouped
 download), the CoalesceGoal algebra and the accumulate-until-target
 iterator of GpuCoalesceBatches.scala:90-362.
+
+An upload acquires the task's semaphore permit, makes room under the
+device budget and runs under with_retry (site transfer.upload); the
+download runs under with_retry (site transfer.download), as the reference
+(:123, :160-174).
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     concat_batches,
     to_host_many,
 )
+from spark_rapids_tpu_torch.engine.retry import with_retry
 from spark_rapids_tpu_torch.exec.base import (
     ExecContext,
     PartitionedBatches,
@@ -26,6 +32,7 @@ from spark_rapids_tpu_torch.exec.base import (
     TpuExec,
     count_output,
 )
+from spark_rapids_tpu_torch.memory.semaphore import acquire_for_task
 
 
 class CoalesceGoal:
@@ -77,7 +84,11 @@ class HostToDeviceExec(TpuExec):
 
         def factory(pidx: int) -> Iterator:
             for hb in child_pb.iterator(pidx):
-                yield hb.to_device(device)
+                acquire_for_task()
+                ctx.spill.watermark.ensure_headroom(
+                    hb.estimated_size_bytes())
+                yield with_retry(lambda: hb.to_device(device),
+                                 site="transfer.upload")
 
         return PartitionedBatches(
             child_pb.num_partitions,
@@ -103,7 +114,9 @@ class DeviceToHostExec(PhysicalExec):
         child_pb = self.children[0].execute(ctx)
 
         def factory(pidx: int) -> Iterator:
-            yield from to_host_many(list(child_pb.iterator(pidx)))
+            run = list(child_pb.iterator(pidx))
+            yield from with_retry(lambda: to_host_many(run),
+                                  site="transfer.download")
 
         return PartitionedBatches(
             child_pb.num_partitions,

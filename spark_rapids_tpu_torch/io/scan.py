@@ -54,6 +54,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     gather_batch,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.engine.retry import with_retry
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
     ExecContext,
@@ -70,6 +71,7 @@ from spark_rapids_tpu_torch.io.parquet_meta import (
     read_chunk,
     read_footer,
 )
+from spark_rapids_tpu_torch.memory.semaphore import acquire_for_task
 from spark_rapids_tpu_torch.ops.base import AttributeReference
 
 SUFFIXES = (".parquet", ".parq")
@@ -339,7 +341,14 @@ class TpuFileScanExec(_FileScanBase, TpuExec):
 
     def execute(self, ctx: ExecContext) -> PartitionedBatches:
         def factory(pidx: int):
-            return count_output(self.metrics, iter(self._decode_split(
-                self.splits[pidx], ctx.conf, ctx.device, encode=True)))
+            # a split's decode is pure over (its bytes, conf): a CUDA OOM
+            # spills and decodes it again (reference :481-510, where the
+            # device ORC path is a generator and is left unwrapped; here
+            # both formats decode a split into a list)
+            acquire_for_task()
+            return count_output(self.metrics, iter(with_retry(
+                lambda: self._decode_split(self.splits[pidx], ctx.conf,
+                                           ctx.device, encode=True),
+                site="scan")))
 
         return PartitionedBatches(len(self.splits), factory)

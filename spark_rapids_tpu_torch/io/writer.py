@@ -29,10 +29,11 @@ import torch
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
 from spark_rapids_tpu_torch.columnar.encoded import decode_batch
-from spark_rapids_tpu_torch.exec.base import ExecContext, rows_of
+from spark_rapids_tpu_torch.exec.base import rows_of
 from spark_rapids_tpu_torch.exec.transitions import DeviceToHostExec
 from spark_rapids_tpu_torch.io import orc_encode_device as OE
 from spark_rapids_tpu_torch.io import parquet_encode_device as PE
+from spark_rapids_tpu_torch.memory.semaphore import task_scope
 from spark_rapids_tpu_torch.plan import logical as L
 
 _MODES = {"error": "error", "errorifexists": "error", "default": "error",
@@ -87,23 +88,28 @@ def execute_write(session, plan: L.WriteFile) -> None:
             shutil.rmtree(path, ignore_errors=True)
     os.makedirs(path, exist_ok=True)
 
-    physical = session._physical_plan(plan.children[0])
-    if device and isinstance(physical, DeviceToHostExec):
-        physical = physical.children[0]
-    pb = physical.execute(ExecContext(session.conf, session.device))
-    write_id = uuid.uuid4().hex[:12]
-    # host batches (a plan that is a host scan alone, or the CPU engine's)
-    # go to the session's device, so a device session encodes with K22
-    target = session.device if device else torch.device("cpu")
-    for pidx in range(pb.num_partitions):
-        # the encoder writes values: encoded columns decode here
-        batches = [b.to_device(target) if isinstance(b, HostColumnarBatch)
-                   else decode_batch(b) for b in pb.iterator(pidx)
-                   if rows_of(b) > 0]
-        if not batches:
-            continue
-        fname = f"part-{pidx:05d}-{write_id}.{plan.fmt}"
-        enc.write_file(os.path.join(path, fname), attrs, batches,
-                       compression=compression)
+    # under a QueryContext, as a query: an OOM retry spills the
+    # session's buffers
+    with session.query_scope():
+        physical = session._physical_plan(plan.children[0])
+        if device and isinstance(physical, DeviceToHostExec):
+            physical = physical.children[0]
+        pb = physical.execute(session.exec_context())
+        write_id = uuid.uuid4().hex[:12]
+        # host batches (a plan that is a host scan alone, or the CPU engine's)
+        # go to the session's device, so a device session encodes with K22
+        target = session.device if device else torch.device("cpu")
+        for pidx in range(pb.num_partitions):
+            # the encoder writes values: encoded columns decode here
+            with task_scope():
+                batches = [b.to_device(target)
+                           if isinstance(b, HostColumnarBatch)
+                           else decode_batch(b) for b in pb.iterator(pidx)
+                           if rows_of(b) > 0]
+            if not batches:
+                continue
+            fname = f"part-{pidx:05d}-{write_id}.{plan.fmt}"
+            enc.write_file(os.path.join(path, fname), attrs, batches,
+                           compression=compression)
     with open(os.path.join(path, "_SUCCESS"), "w"):
         pass

@@ -13,6 +13,21 @@ or the lifted-sink async path). The spmd, placement, adaptive, admission
 and plan-cache keys of conf.py are read as off; those layers are later
 queue items (ROADMAP.md queue 1).
 
+The memory and failure layer is present (reference :173-185, :315): a
+session sizes its device budget (memory/device_manager.py) and owns its
+spill framework (memory/spill.py: cached device batches spill device ->
+host -> disk) and circuit breaker, and every query or write runs under a
+QueryContext (utils/metrics.py) that carries them with the conf's retry
+policy and fault injector (engine/retry.py, utils/faultinject.py);
+`last_query_metrics` holds its counters. Each session's budget reads the
+whole card's allocated bytes, so sessions side by side each spill their
+own buffers when the card passes their budget; stopping one touches no
+other. The admission semaphore is one per process: the first live
+session starts it and the last one's `stop()` shuts it down (reference
+:271-272). The reference's query-scoped spill buffers (shuffle pieces,
+staged batches; released at :879-896) have no counterpart in the port
+yet: its only spillable buffers are the relation cache's.
+
 A session runs on one device: `cuda:0` unless the caller asks for
 `device="cpu"`, the only way onto the CPU. Without a CUDA device and
 without that argument the session raises instead of carrying on on the
@@ -21,7 +36,10 @@ CPU.
 
 from __future__ import annotations
 
+import contextlib
 import decimal
+import threading
+import weakref
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -33,7 +51,12 @@ from spark_rapids_tpu_torch.columnar.batch import (
     HostColumnVector,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
+from spark_rapids_tpu_torch.engine import retry as R
+from spark_rapids_tpu_torch.engine.retry import CircuitBreaker
 from spark_rapids_tpu_torch.exec.base import ExecContext, PhysicalExec
+from spark_rapids_tpu_torch.memory.device_manager import TpuDeviceManager
+from spark_rapids_tpu_torch.memory.semaphore import TpuSemaphore, task_scope
+from spark_rapids_tpu_torch.memory.spill import SpillFramework
 from spark_rapids_tpu_torch.ops.base import AttributeReference
 from spark_rapids_tpu_torch.plan import logical as L
 from spark_rapids_tpu_torch.plan.dataframe import DataFrame
@@ -44,6 +67,14 @@ from spark_rapids_tpu_torch.plan.planner import plan_physical
 from spark_rapids_tpu_torch.plan.transition_overrides import (
     TpuTransitionOverrides,
 )
+from spark_rapids_tpu_torch.utils import faultinject as FI
+from spark_rapids_tpu_torch.utils import metrics as M
+
+
+# the sessions not yet stopped: the semaphore lives from the first one's
+# start to the last one's stop (reference :173-185, :271-272)
+_RUNTIME_LOCK = threading.Lock()
+_LIVE_SESSIONS: "weakref.WeakSet[TpuSession]" = weakref.WeakSet()
 
 
 def resolve_device(device=None) -> torch.device:
@@ -68,6 +99,35 @@ class TpuSession:
         self.device = resolve_device(device)
         # the final physical plan of the most recent query
         self.last_physical_plan: Optional[PhysicalExec] = None
+        # the counters of the most recent query (utils/metrics.py)
+        self.last_query_metrics: Dict[str, int] = {}
+        # executor bring-up (reference :173-185): this session's budget,
+        # spill store chain and breaker, sized from its conf
+        self.device_manager = TpuDeviceManager(self.conf, self.device)
+        self.spill = SpillFramework(
+            self.conf, self.device_manager.hbm_budget,
+            self.device_manager.bytes_in_use, self.device)
+        self.breaker = CircuitBreaker()
+        self._stopped = False
+        with _RUNTIME_LOCK:
+            if not _LIVE_SESSIONS:
+                TpuSemaphore.shutdown()
+                TpuSemaphore.initialize(self.conf.concurrent_tpu_tasks)
+            _LIVE_SESSIONS.add(self)
+
+    def stop(self) -> None:
+        """Stop the session (reference :315): disarm the process-wide
+        fault-injection slot and, when this is the last live session,
+        shut the semaphore down. Other sessions keep their layer, and
+        buffers already handed out keep their framework."""
+        with _RUNTIME_LOCK:
+            if self._stopped:
+                return
+            self._stopped = True
+            _LIVE_SESSIONS.discard(self)
+            FI.disable_global()
+            if not _LIVE_SESSIONS:
+                TpuSemaphore.shutdown()
 
     def set_conf(self, key: str, value: Any) -> None:
         self.conf.set(key, value)
@@ -113,11 +173,41 @@ class TpuSession:
         return "\n".join(parts)
 
     # -- actions --------------------------------------------------------------
+    @contextlib.contextmanager
+    def query_scope(self):
+        """The QueryContext a query or a write runs under: this conf's
+        retry policy and fault injector, the session's breaker and spill
+        framework; `last_query_metrics` takes its counters."""
+        qctx = M.QueryContext()
+        qctx.breaker = self.breaker.configure(self.conf)
+        qctx.spill = self.spill
+        FI.configure(self.conf, qctx)
+        R.set_policy_from_conf(self.conf, qctx)
+        token = M.push_query_ctx(qctx)
+        try:
+            qctx.breaker.note_probe()
+            yield qctx
+            qctx.breaker.note_success()
+        finally:
+            M.pop_query_ctx(token)
+            self.last_query_metrics = qctx.snapshot()
+
+    def exec_context(self) -> ExecContext:
+        return ExecContext(self.conf, self.device, self.spill)
+
     def execute_partitions(self, plan: L.LogicalPlan
                            ) -> List[List[HostColumnarBatch]]:
-        physical = self._physical_plan(plan)
-        pb = physical.execute(ExecContext(self.conf, self.device))
-        return [list(pb.iterator(p)) for p in range(pb.num_partitions)]
+        """Run a query under its QueryContext; each partition is one task,
+        whose semaphore permits are released when it ends (reference:
+        engine/scheduler.run_serial)."""
+        with self.query_scope():
+            physical = self._physical_plan(plan)
+            pb = physical.execute(self.exec_context())
+            out = []
+            for p in range(pb.num_partitions):
+                with task_scope():
+                    out.append(list(pb.iterator(p)))
+            return out
 
     def execute_batches(self, plan: L.LogicalPlan) -> List[HostColumnarBatch]:
         return [b for part in self.execute_partitions(plan) for b in part]

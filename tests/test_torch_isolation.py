@@ -5,7 +5,9 @@ and its default device is the card (no silent CPU fallback). The 6
 mortgage queries run in a process of their own, jax-free too, and so do a
 Parquet write, read and q1, and a read of a Parquet v2 file, which load
 neither jax nor pyarrow, and so do an ORC write, read and q1 and a read of
-the Hive-layout ORC fixture."""
+the Hive-layout ORC fixture. The memory and failure layer (memory/,
+engine/, utils/, serde, the K31 / K32 wrappers) loads no JAX either,
+with a cached query spilling under a tiny budget and injected faults."""
 
 import os
 import subprocess
@@ -295,6 +297,53 @@ def test_orc_write_read_imports_no_jax_or_pyarrow():
     chip_smoke.py's Hive-layout fixture (ZLIB, DICTIONARY_V2, every RLEv2
     sub-encoding) load neither jax, pyarrow nor the JAX package."""
     proc = subprocess.run([sys.executable, "-c", _ORC_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"
+
+
+_MEMORY_PROBE = r"""
+import sys
+import spark_rapids_tpu_torch as srt
+import spark_rapids_tpu_torch.engine.cancel
+import spark_rapids_tpu_torch.engine.retry
+import spark_rapids_tpu_torch.memory.device_manager
+import spark_rapids_tpu_torch.memory.semaphore
+import spark_rapids_tpu_torch.memory.spill
+import spark_rapids_tpu_torch.utils.faultinject
+import spark_rapids_tpu_torch.utils.metrics
+from spark_rapids_tpu_torch.columnar.batch import compact_fixed, gather_fixed
+from spark_rapids_tpu_torch.columnar.serde import serialize_batch
+from spark_rapids_tpu_torch.benchmarks import tpch
+cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True,
+                       "rapids.tpu.memory.hbm.sizeOverride": 65536,
+                       "rapids.tpu.memory.host.spillStorageSize": 65536,
+                       "rapids.tpu.test.faultInjection.enabled": True,
+                       "rapids.tpu.test.faultInjection.sites": "filter",
+                       "rapids.tpu.test.faultInjection.rate": 0.5,
+                       "rapids.tpu.engine.retryBackoffMs": 0.0},
+                      device="cpu")
+tables = {k: v.cache() for k, v in
+          tpch.gen_tables(cpu, sf=0.0005, num_partitions=2).items()}
+assert len(tpch.q1(tables).collect()) == 6
+assert len(tpch.q3(tables).collect()) == 10
+snap = cpu.spill.snapshot()
+assert snap["events"] > 0, snap
+cpu.stop()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib"))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_memory_layer_imports_no_jax():
+    """memory/, engine/, utils/, serde and the K31 / K32 wrappers load no
+    JAX, and a cached query spills under a tiny budget with faults
+    injected."""
+    proc = subprocess.run([sys.executable, "-c", _MEMORY_PROBE], cwd=REPO,
                           env=ENV, capture_output=True, text=True,
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
