@@ -128,7 +128,7 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    (bench.py:_worker_decode: 4 << 20 rows, int64 a, b and int32 c from
    seed 7, v1 dictionary pages, SNAPPY, row groups of 2^19, written by
    write_dict_fixture without pyarrow) summed against numpy, with its GB/s
-   (20 bytes a row over the warm median); the files are removed at the
+   (20 bytes a row over the run's seconds); the files are removed at the
    end. Phase 3 holds K20-K22 and K7's span entry bit for bit (bit widths
    1-32; RLE, bit-packed and mixed streams; 0 rows, all-NULL pages,
    required columns, several pages, every element width; empty, non-ASCII
@@ -171,7 +171,7 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    then all 30 queries over read.parquet of them, one cold and
    V2_WARM_REPS warm runs each, every leaf a TpuFileScanExec, rows equal
    to the same query's over the cached tables, with each query's scan
-   host seconds and the geomean of the warm medians beside phase 7's;
+   host seconds and the geomean of their times (best_s) beside phase 7's;
    then a read with the kernel library failing to load must raise. Phase
    3 holds K25 (delta_expand), K26 (delta_byte_array) and K21's BSS and
    FLBA modes bit for bit to their plain versions (empty and one-value
@@ -225,6 +225,30 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    negative and masked indices, a four-piece concat) and times them at a
    15M-row lineitem partition under q1's filter, at q5's join emit and at
    a split half.
+14. CSV, after phase 13 releases the SF 10 tables: the port's
+   tpch.gen_tables at CSV_SF 3 with 12 partitions (18M lineitem rows, 4.5M
+   orders, 450,000 customers, 30,000 suppliers), each of q1-q5's six
+   tables written with df.write.option("sep", "|").option("header",
+   False).csv (the seconds and bytes of each; SF 10's lineitem would be
+   ~6.6 GB of text), read back with read.schema(...).option("sep",
+   "|").csv, and q1, q6, q3 and q5 over them, one cold and CSV_WARM_REPS
+   warm runs each, every plan on the device and every leaf a
+   TpuFileScanExec, rows against numpy over the generated columns (the
+   phase 4 / 5 checkers) and bit for bit against the same query over the
+   SF 3 tables cached on the card (the session reads a file as one batch,
+   as a cached partition is); each query's scan host seconds (file reads
+   and field plans) beside its wall time, and csvHostSplits, which must be
+   0. Phase 3 holds K33 (csv_parse_int), K34 (csv_parse_float), K35
+   (csv_parse_datetime) and K36 (csv_null_sentinels) bit for bit to their
+   plain versions (empty and NULL-spelled fields, quoted and bare; -0,
+   int64 max, max + 1 and min; 19 and 20 digits; INT8 / INT16 / INT32 out
+   of range; 15 and 16 significant and 22 and 23 fractional digits; 1e5;
+   2000-02-29, 1900-02-29 and 2023-02-30; every zone form, 6 and 7
+   fraction digits; CRLF; a field at raw's last byte); phase 14 times
+   them, again bit for bit with their plain versions, over the first
+   lineitem file it wrote (1.5M rows of 14 columns, planned as the scan
+   plans it; K35's timestamp mode over the same text with a time and zone
+   after each l_shipdate).
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -239,7 +263,8 @@ parquet_v2_tpch_q6 and parquet_v2_xbb_q01 ... parquet_v2_xbb_q30 of
 phase 11, orc_write, orc_round_trip, orc_tpch_q1, orc_tpch_q6,
 orc_tpch_q3, orc_tpch_q5, orc_hive_q1 and orc_hive_q6 of phase 12,
 memory_spill_q5, memory_spill_q1, memory_oom_q1, memory_split and
-memory_fallback of phase 13);
+memory_fallback of phase 13, csv_tpch_q1, csv_tpch_q6, csv_tpch_q3 and
+csv_tpch_q5 of phase 14);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -390,6 +415,18 @@ KERNELS = {
     "gather_fixed": (
         "spark_rapids_tpu_torch/csrc/compact_gather.cu",
         "spark_rapids_tpu/columnar/batch.py:1425", "tpch_q5"),
+    "csv_parse_int": (
+        "spark_rapids_tpu_torch/csrc/csv_parse.cu",
+        "spark_rapids_tpu/io/csv_device.py:285", "csv_tpch_q1"),
+    "csv_parse_float": (
+        "spark_rapids_tpu_torch/csrc/csv_parse.cu",
+        "spark_rapids_tpu/io/csv_device.py:322", "csv_tpch_q1"),
+    "csv_parse_datetime": (
+        "spark_rapids_tpu_torch/csrc/csv_parse.cu",
+        "spark_rapids_tpu/io/csv_device.py:417", "csv_tpch_q1"),
+    "csv_null_sentinels": (
+        "spark_rapids_tpu_torch/csrc/csv_parse.cu",
+        "spark_rapids_tpu/io/csv_device.py:594", "csv_tpch_q1"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -523,6 +560,17 @@ PATH_KERNELS.update({
     "memory_split": _GROUP_BY + _B5,
     "memory_fallback": ("radix_sort_pairs", "segment_reduce"),
 })
+# phase 14: every CSV read parses its integers (K33), doubles (K34) and
+# dates (K35) on the card; STRING columns match the null spellings (K36)
+# and gather their spans (K7's span entry)
+_CSV_READ = ("csv_parse_int", "csv_parse_float", "csv_parse_datetime",
+             "csv_null_sentinels", "gather_string_spans")
+PATH_KERNELS.update({
+    "csv_tpch_q1": _Q1 + _CSV_READ,
+    "csv_tpch_q6": ("segment_reduce",) + _CSV_READ,
+    "csv_tpch_q3": _Q3 + _CSV_READ,
+    "csv_tpch_q5": _Q5 + _CSV_READ,
+})
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -532,17 +580,22 @@ ALL_SHUFFLED = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 0,
                 "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": False}
 C_DEFAULTS = {"rapids.tpu.sql.autoBroadcastJoinThreshold": 10 << 20,
               "rapids.tpu.sql.adaptive.runtimeBroadcastJoin.enabled": True}
-# the Parquet v2 phase: warm runs a query (cut from 3 to 1 to pay for the
-# ORC phase), and the most seconds q02's SF 5 tables may take to write
-# before q02 is left out of it
-V2_WARM_REPS = 1
-# the Parquet and encoded phases' warm runs a query, cut from 3 to 1 to
-# pay for phase 13 (the memory layer)
-PARQUET_WARM_REPS = 1
-ENCODED_WARM_REPS = 1
-# phases 7 and 8: warm runs a query, cut from 3 to 2 for phase 13 too
-# (the TPCx-BB geomean is then of medians of two)
-SUITE_WARM_REPS = 2
+# the file phases' warm runs a query: Parquet v2 (cut from 3 to 1 to pay
+# for the ORC phase), Parquet and encoded (3 to 1 for phase 13), then all
+# of them and ORC's to 0 for phase 13(a)'s q5 beside phase 14. The port
+# compiles nothing, so a file query's cold run does a warm run's work: it
+# reads the same files from the same page cache (cold and warm sums agreed
+# within 5% in every file phase, PERF.md). The timed number of a path is
+# then its cold run (best_s).
+V2_WARM_REPS = 0
+PARQUET_WARM_REPS = 0
+ENCODED_WARM_REPS = 0
+# phases 7 and 8: warm runs a query, cut from 3 to 2 for phase 13 and
+# to 1 for phase 14 beside phase 13(a)'s q5 (the TPCx-BB geomean is then
+# of single warm runs)
+SUITE_WARM_REPS = 1
+# the most seconds q02's SF 5 tables may take to write in the v2 layout
+# before q02 is left out of the v2 phase
 Q02_V2_MAX_WRITE_S = 30.0
 # phase 7: bench.py --tpcxbb's layout (4 partitions, every table cached)
 TPCXBB_SF = 10
@@ -1595,6 +1648,17 @@ def probe_q02(sfs) -> list:
                         "q02")
 
 
+def best_s(r: dict) -> float:
+    """A path's time: its warm median, or its cold run where it ran no
+    warm run."""
+    return r["cold_s"] if r["warm_median_s"] is None else r["warm_median_s"]
+
+
+def last_s(r: dict) -> float:
+    """The seconds of a path's last run."""
+    return (r["warm_s"] or [r["cold_s"]])[-1]
+
+
 def run_xbb_query(sess, name, fn, tables, table_rows, want, launches,
                   warm_reps: int, cols=None, keep_rows: bool = False) -> dict:
     from spark_rapids_tpu_torch import cuda_build as CB
@@ -1607,7 +1671,7 @@ def run_xbb_query(sess, name, fn, tables, table_rows, want, launches,
     rows_in = sum(table_rows[t] for t in sorted(rec.seen))
     r["tables"] = sorted(rec.seen)
     r["input_rows"] = rows_in
-    r["rows_per_s"] = rows_in / r["warm_median_s"]
+    r["rows_per_s"] = rows_in / best_s(r)
     r["joins"] = join_strategies(sess)
     return r
 
@@ -1748,13 +1812,13 @@ def run_tpcxbb(launches: dict, profile_dir=None):
             :V2_ROW_GROUP].copy(),
         "ss_net_paid": table_columns(raw["store_sales"], ("ss_net_paid",))[
             "ss_net_paid"][:V2_ROW_GROUP].copy()}
-    warm_v2 = [v2[k]["warm_median_s"] for k in v2
-               if k.startswith("parquet_v2_xbb_")]
-    v2["geomean_warm_s"] = geomean(warm_v2)
-    v2["queries"] = len(warm_v2)
+    v2_s = [best_s(v2[k]) for k in v2 if k.startswith("parquet_v2_xbb_")]
+    v2["geomean_s"] = geomean(v2_s)
+    v2["geomean_of"] = "warm medians" if V2_WARM_REPS else "cold runs"
+    v2["queries"] = len(v2_s)
     v2["cached_geomean_warm_s"] = out["geomean_warm_s"]
-    log(f"parquet v2: geomean of the {len(warm_v2)} warm medians over v2 "
-        f"Parquet {v2['geomean_warm_s']:.4f} s (cached tables "
+    log(f"parquet v2: geomean of the {len(v2_s)} {v2['geomean_of']} over "
+        f"v2 Parquet {v2['geomean_s']:.4f} s (cached tables' warm medians "
         f"{out['geomean_warm_s']:.4f} s)")
     out["parquet_v2"] = v2
     del raw
@@ -2892,7 +2956,7 @@ def time_search_kernels(dev, errs: dict) -> dict:
 
 
 def time_kernels(dev, errs: dict, launches: dict, pr_content,
-                 d12_rows: int, v2_samples: dict):
+                 d12_rows: int, v2_samples: dict, csv_rows: dict):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
     the high-cardinality partial output (2^22 rows) for K4."""
@@ -3003,6 +3067,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows.update(time_parquet_v2_kernels(dev, errs, v2_samples))
     rows.update(time_orc_kernels(dev, errs))
     rows.update(time_memory_kernels(dev, errs))
+    rows.update(csv_rows)
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -4620,14 +4685,13 @@ def run_parquet(sess, raw, tables, wants: dict, input_rows: dict,
             launches[name] = CB.launch_counts()
             assert_file_leaves(sess)
             host = scan_host_s(sess)
-            warm = out[name]["warm_median_s"]
             out[name].update(
                 input_rows=input_rows[q],
-                rows_per_s=input_rows[q] / warm,
+                rows_per_s=input_rows[q] / best_s(out[name]),
                 last_run_scan_host_s=host,
-                last_run_rest_s=out[name]["warm_s"][-1] - host)
-            log(f"{name}: scan host {host:.3f} s of the last warm run "
-                f"({out[name]['warm_s'][-1]:.3f} s)")
+                last_run_rest_s=last_s(out[name]) - host)
+            log(f"{name}: scan host {host:.3f} s of the last run "
+                f"({last_s(out[name]):.3f} s)")
         if profile_dir:
             out["parquet_tpch_q1"]["profile"] = profile_query(
                 tpch.q1(ptables), profile_dir, "parquet_tpch_q1")
@@ -4674,11 +4738,11 @@ def run_decode_shape(sess, root: str, launches: dict) -> dict:
         assert_file_leaves(sess)
         res.update(rows=n, file_bytes=os.path.getsize(path),
                    fixture_write_s=write_s, decoded_bytes=n * 20,
-                   gbps=n * 20 / res["warm_median_s"] / 1e9,
+                   gbps=n * 20 / best_s(res) / 1e9,
                    last_run_scan_host_s=scan_host_s(sess),
                    encoded="on" if on else "off")
         log(f"{name} (encoding {res['encoded']}): {res['gbps']:.3f} GB/s "
-            f"decoded (warm median {res['warm_median_s']:.4f} s)")
+            f"decoded ({best_s(res):.4f} s)")
         out[name] = res
     sess.set_conf("rapids.tpu.sql.encoded.enabled", True)
     return out
@@ -4963,7 +5027,7 @@ def run_encoded_query(sess, q, want, name: str, launches: dict,
     res.update(E.counters())
     res["scan_host_s"] = scan_host_s(sess)
     res["input_rows"] = input_rows
-    res["rows_per_s"] = input_rows / res["warm_median_s"]
+    res["rows_per_s"] = input_rows / best_s(res)
     res["k23_launches"] = {k: launches[name].get(k, 0) for k in (
         "dict_materialize_fixed", "dict_materialize_strings")}
     res["k24_launches"] = launches[name].get("remap_codes", 0)
@@ -5046,10 +5110,9 @@ def run_encoded(tpch_sess, raw, wants: dict, launches: dict,
         for name in list(out):
             if name.startswith("encoded_") and not name.endswith("_off"):
                 off = out[f"{name}_off"]
-                out[name]["warm_speedup_vs_off"] = \
-                    off["warm_median_s"] / out[name]["warm_median_s"]
-                log(f"{name}: warm {out[name]['warm_median_s']:.4f} s on, "
-                    f"{off['warm_median_s']:.4f} s off")
+                out[name]["speedup_vs_off"] = best_s(off) / best_s(out[name])
+                log(f"{name}: {best_s(out[name]):.4f} s on, "
+                    f"{best_s(off):.4f} s off")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return out
@@ -5792,11 +5855,11 @@ def run_parquet_v2_tpch(sess, raw, wants: dict, input_rows: dict,
         assert_file_leaves(sess)
         host = scan_host_s(sess)
         r.update(input_rows=input_rows[q],
-                 rows_per_s=input_rows[q] / r["warm_median_s"],
+                 rows_per_s=input_rows[q] / best_s(r),
                  last_run_scan_host_s=host,
                  checked_against="numpy (phase 4)")
-        log(f"{name}: scan host {host:.3f} s of the last warm run "
-            f"({r['warm_s'][-1]:.3f} s)")
+        log(f"{name}: scan host {host:.3f} s of the last run "
+            f"({last_s(r):.3f} s)")
         out[name] = r
     return out, sample
 
@@ -5849,7 +5912,7 @@ def run_parquet_v2_xbb(sess, raw: dict, cached: dict, table_rows: dict,
             r["last_run_scan_host_s"] = scan_host_s(sess)
             r["checked_against"] = "the cached tables' rows"
             log(f"{name}: scan host {r['last_run_scan_host_s']:.3f} s of "
-                f"the last warm run ({r['warm_s'][-1]:.3f} s)")
+                f"the last run ({last_s(r):.3f} s)")
             out[name] = r
         for q in ("q05_like", "q02_like"):  # device kernels and cProfile
             if profile_dir and q in names:
@@ -6010,7 +6073,7 @@ def time_parquet_v2_kernels(dev, errs: dict, samples: dict) -> dict:
 
 
 # ------------------------------------------------- ORC phase (slice 10)
-ORC_WARM_REPS = 1
+ORC_WARM_REPS = 0  # see V2_WARM_REPS
 ORC_ROUND_TRIP_ROWS = 1 << 22    # the host table written and read back
 ORC_HIVE_STRIPE_ROWS = 1 << 21   # ~64 MiB of the seven columns a stripe
 ORC_HIVE_BLOCK = 256 << 10       # ZLIB blocks (orc.compress.size)
@@ -6473,13 +6536,12 @@ def run_orc(sess, raw, tables, wants: dict, input_rows: dict,
             launches[name] = CB.launch_counts()
             assert_file_leaves(sess)
             host = scan_host_s(sess)
-            warm = out[name]["warm_median_s"]
             out[name].update(input_rows=input_rows[q],
-                             rows_per_s=input_rows[q] / warm,
+                             rows_per_s=input_rows[q] / best_s(out[name]),
                              last_run_scan_host_s=host,
                              checked_against="numpy (phases 4-5)")
-            log(f"{name}: scan host {host:.3f} s of the last warm run "
-                f"({out[name]['warm_s'][-1]:.3f} s)")
+            log(f"{name}: scan host {host:.3f} s of the last run "
+                f"({last_s(out[name]):.3f} s)")
         if profile_dir:
             out["orc_tpch_q1"]["profile"] = profile_query(
                 tpch.q1(otables), profile_dir, "orc_tpch_q1")
@@ -6549,11 +6611,11 @@ def run_orc_hive(sess, raw, wants: dict, input_rows: dict, launches: dict,
         assert_file_leaves(sess)
         host = scan_host_s(sess)
         r.update(input_rows=input_rows[q],
-                 rows_per_s=input_rows[q] / r["warm_median_s"],
+                 rows_per_s=input_rows[q] / best_s(r),
                  last_run_scan_host_s=host,
                  checked_against="numpy (phase 4)")
-        log(f"{name}: scan host {host:.3f} s of the last warm run "
-            f"({r['warm_s'][-1]:.3f} s)")
+        log(f"{name}: scan host {host:.3f} s of the last run "
+            f"({last_s(r):.3f} s)")
         out[name] = r
     out.update(no_fallback_check(sess, htables, "orc"))
     return out
@@ -7538,6 +7600,369 @@ def run_memory(raw, wants: dict, launches: dict) -> dict:
             "faults": run_memory_faults(launches)}
 
 
+# ------------------------------------------------- phase 14 (slice 12)
+# TPC-H over CSV: the six q1-q5 tables at CSV_SF (SF 10's lineitem would
+# be ~6.6 GB of text), CSV_PARTITIONS files a table (~175 MB a lineitem
+# file, under the 256 MiB split limit), written and read with sep '|' and
+# no header, as TPC-H's generator lays its text out
+CSV_SF = 3
+CSV_PARTITIONS = 12
+# warm runs a query: 0, the first cut that pays for the phase (a CSV run
+# reads its files again, so a warm run is one more cold read)
+CSV_WARM_REPS = 0
+# a file one batch, as a cached partition is, so the float sums add in the
+# cached tables' order and the rows equal theirs bit for bit
+CSV_CONF = dict(TPCH_CONF, **{"rapids.tpu.sql.reader.batchSizeRows": 1 << 21})
+CSV_INT_EDGES = [
+    b"", b"0", b"-0", b"7", b"007", b"9223372036854775807",
+    b"9223372036854775808", b"-9223372036854775808", b"-9223372036854775807",
+    b"1234567890123456789", b"12345678901234567890", b"+5", b" 5", b"-",
+    b"1.0", b"1e5", b"NA", b"127", b"128", b"-128", b"-129", b"32767",
+    b"32768", b"-32769", b"2147483647", b"2147483648", b"-2147483649"]
+CSV_FLOAT_EDGES = [
+    b"", b"0", b"-0", b"17", b"0.07", b"-1.5", b".5", b"5.", b"-.5", b".",
+    b"1..2", b"1e5", b"inf", b"nan", b"+1.5", b"123456789012345",
+    b"1234567890123456", b"99999.99", b"0.1234567890123456789012",
+    b"0.12345678901234567890123", b"0.0000000000000000000001",
+    b"12345678.90123456", b"-999999999999999"]
+CSV_DATE_EDGES = [
+    b"", b"2020-01-01", b"2000-02-29", b"1900-02-29", b"2023-02-30",
+    b"0000-01-01", b"9999-12-31", b"2020-1-01", b"2020-01-01 ", b"2020-13-01",
+    b"2020-01-00", b"NA"]
+CSV_TS_EDGES = [
+    b"", b"2020-01-01 01:02:03Z", b"2020-01-01T01:02:03Z",
+    b"2020-01-01 01:02:03+05", b"2020-01-01 01:02:03+0530",
+    b"2020-01-01 01:02:03+05:30", b"2020-01-01 01:02:03-05:30",
+    b"2020-01-01 01:02:03.123456Z", b"2020-01-01 01:02:03.1234567Z",
+    b"2020-01-01 01:02:03", b"2020-01-01 24:00:00Z",
+    b"2020-01-01 01:02:03+24", b"2020-01-01 01:02:03+23:60",
+    b"2020-01-01 01:02:03.Z", b"1969-12-31 23:59:59.999999Z"]
+
+
+def csv_spans(fields, crlf: bool, trailing: bool, dev):
+    """(raw, starts, lens) on `dev` of `fields` one a line; trailing=False:
+    the last field ends at raw's last byte."""
+    import numpy as np
+    import torch
+
+    nl = b"\r\n" if crlf else b"\n"
+    raw = nl.join(fields) + (nl if trailing else b"")
+    lens = np.array([len(f) for f in fields], dtype=np.int32)
+    starts = np.concatenate(([0], np.cumsum(lens + len(nl))[:-1])).astype(
+        np.int32)
+    return (torch.frombuffer(bytearray(raw), dtype=torch.uint8).to(dev),
+            torch.from_numpy(starts).to(dev), torch.from_numpy(lens).to(dev))
+
+
+def compare_csv(kernel: str, raw, starts, lens, label: str, errs: dict,
+                dtype=None, timestamp: bool = False) -> None:
+    """One K33-K36 launch on the card against its plain version on the CPU
+    over the same fields, bit for bit (values, validity, the flag)."""
+    import torch
+
+    from spark_rapids_tpu_torch.io import csv_device as CD
+
+    cap = max(int(starts.shape[0]) + 5, 8)
+    outs = []
+    for d in (raw.device, torch.device("cpu")):
+        r, st, ln = raw.to(d), starts.to(d), lens.to(d)
+        flag = torch.zeros(1, dtype=torch.int32, device=d)
+        if kernel == "csv_parse_int":
+            got = CD.csv_parse_int(r, st, ln, cap, dtype, flag)
+        elif kernel == "csv_parse_float":
+            got = CD.csv_parse_float(r, st, ln, cap, flag)
+        elif kernel == "csv_parse_datetime":
+            got = CD.csv_parse_datetime(r, st, ln, cap, timestamp, flag)
+        else:
+            got = (CD.csv_null_sentinels(r, st, ln, cap),)
+        outs.append([t.cpu() for t in got] + [flag.cpu()])
+    for a, b in zip(*outs):
+        check(bits_equal(a, b), f"{kernel} {label}: differs from its plain "
+              f"version: {a.tolist()} vs {b.tolist()}")
+        errs[kernel] = max(errs.get(kernel, 0.0), max_abs_err(a, b))
+
+
+def csv_edge_cases(dev, errs: dict) -> int:
+    """K33-K36 against their plain versions bit for bit: the edge fields
+    (empty and NULL-spelled, -0, int64 max, max + 1 and min, 19 and 20
+    digits, narrow types out of range, 15 and 16 significant and 22 and 23
+    fractional digits, 1e5, 2000-02-29, 1900-02-29, 2023-02-30, every zone
+    form, 6 and 7 fraction digits) one a line, with LF and CRLF, and with
+    the last field at raw's last byte; then a quoted CRLF file planned by
+    the native sweep, each column through its kernel."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import csv_device as CD
+
+    n = 0
+    for crlf in (False, True):
+        for trailing in (True, False):
+            tag = f"crlf={crlf} trailing={trailing}"
+            spans = csv_spans(CSV_INT_EDGES, crlf, trailing, dev)
+            for dt in (DataType.INT8, DataType.INT16, DataType.INT32,
+                       DataType.INT64):
+                compare_csv("csv_parse_int", *spans, f"{dt.name} {tag}",
+                            errs, dtype=dt)
+            compare_csv("csv_parse_float", *csv_spans(
+                CSV_FLOAT_EDGES, crlf, trailing, dev), tag, errs)
+            compare_csv("csv_parse_datetime", *csv_spans(
+                CSV_DATE_EDGES, crlf, trailing, dev), tag, errs)
+            compare_csv("csv_parse_datetime", *csv_spans(
+                CSV_TS_EDGES, crlf, trailing, dev), tag, errs,
+                timestamp=True)
+            sentinels = [v.encode() for v in CD.NULL_VALUES] + [
+                b"nul", b"NA ", b"null!", b"#N/A N/B", b"x"]
+            compare_csv("csv_null_sentinels", *csv_spans(
+                sentinels, crlf, trailing, dev), tag, errs)
+            n += 8
+    import numpy as np
+    import torch
+
+    text = (b'1,"NA",2020-01-01,"2020-01-01 01:02:03Z",1.5\r\n'
+            b'"-7",NA,"2000-02-29",2020-01-01 01:02:03+05:30,"-0"\r\n'
+            b',"",,,\r\n'
+            b'"9223372036854775807","a,""b""",1900-02-29,,0.07')
+    table = CD.plan_fields(np.frombuffer(text, dtype=np.uint8).copy(), 5,
+                           False, ",")
+    check(table is not None and table.num_rows == 4,
+          "csv: the quoted CRLF fixture did not plan")
+    raw = torch.from_numpy(table.raw.copy()).to(dev)
+    for j, (kernel, kw) in enumerate((
+            ("csv_parse_int", {"dtype": DataType.INT64}),
+            ("csv_null_sentinels", {}), ("csv_parse_datetime", {}),
+            ("csv_parse_datetime", {"timestamp": True}),
+            ("csv_parse_float", {}))):
+        st = torch.from_numpy(np.ascontiguousarray(table.starts[:, j])).to(dev)
+        ln = torch.from_numpy(np.ascontiguousarray(table.lens[:, j])).to(dev)
+        compare_csv(kernel, raw, st, ln, f"quoted CRLF column {j}", errs,
+                    **kw)
+        if kernel == "csv_null_sentinels":
+            compare_csv("csv_parse_int", raw, st, ln, "quoted NA",
+                        errs, dtype=DataType.INT32)
+        n += 1
+    return n
+
+
+def time_csv_kernels(dev, errs: dict, path: str, names) -> dict:
+    """K33-K36 at the path's own layout: one lineitem file that phase 14
+    wrote (columns `names`, sep '|'), planned as the scan plans it. K33 on
+    l_orderkey, K34 on l_extendedprice, K35 on l_shipdate, K36 on
+    l_shipmode; K35's timestamp mode on the same text with
+    ' 01:02:03.123456Z' after every l_shipdate (TPC-H has no TIMESTAMP
+    column). Each beside its plain version on the card and its bound (the
+    field bytes, starts and lengths read once, the values and validity
+    written once). No PyTorch call parses decimal text: library_ms is
+    null."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.io import csv_device as CD
+
+    table = CD.plan_fields(np.fromfile(path, dtype=np.uint8), len(names),
+                           False, "|")
+    check(table is not None, f"csv: {path} did not plan")
+    n = table.num_rows
+    cap = 1 << (n - 1).bit_length()
+    raw = torch.from_numpy(table.raw).to(dev)
+    flag = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def col(name):
+        j = names.index(name)
+        return (torch.from_numpy(np.ascontiguousarray(table.starts[:, j]))
+                .to(dev), torch.from_numpy(np.ascontiguousarray(
+                    table.lens[:, j])).to(dev), table.field_bytes(j), j)
+
+    rows = {}
+    iters = 10
+    specs = (
+        ("csv_parse_int", "l_orderkey", lambda r, s, ln: CD.csv_parse_int(
+            r, s, ln, cap, DataType.INT64, flag), CD.parse_int_plain, 9),
+        ("csv_parse_float", "l_extendedprice",
+         lambda r, s, ln: CD.csv_parse_float(r, s, ln, cap, flag),
+         CD.parse_float_plain, 9),
+        ("csv_parse_datetime", "l_shipdate",
+         lambda r, s, ln: CD.csv_parse_datetime(r, s, ln, cap, False, flag),
+         CD.parse_date_plain, 5),
+        ("csv_null_sentinels", "l_shipmode",
+         lambda r, s, ln: CD.csv_null_sentinels(r, s, ln, cap),
+         CD.null_sentinels_plain, 1))
+    shape = (f"one lineitem file: {n} rows of {len(names)} columns, "
+             f"{table.raw.size} bytes")
+    for name, column, fn, plain, out_bytes in specs:
+        st, ln, fbytes, j = col(column)
+        got = fn(raw, st, ln)
+        want = plain(raw, st, ln)
+        for a, b in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            check(bits_equal(a[:n], b), f"{name} at the lineitem layout: "
+                  "differs from its plain version")
+            errs[name] = max(errs.get(name, 0.0), max_abs_err(a[:n], b))
+        rows[name] = dict(
+            ms=cuda_ms(lambda: fn(raw, st, ln), iters),
+            plain_ms=cuda_ms(lambda: plain(raw, st, ln), 2),
+            library_ms=None,
+            bound_ms=bound_ms(fbytes + 8 * n + out_bytes * n),
+            shape=f"{shape}; {column} (column {j}), {fbytes} field bytes")
+    check(int(flag.item()) == 0, "csv: a lineitem field was malformed")
+    # the timestamp mode: the suffix inserted after each l_shipdate
+    j = names.index("l_shipdate")
+    suffix = np.frombuffer(b" 01:02:03.123456Z", dtype=np.uint8)
+    k = suffix.size
+    st = np.ascontiguousarray(table.starts[:, j]).astype(np.int64)
+    ln = np.ascontiguousarray(table.lens[:, j])
+    ts_raw = np.insert(table.raw, np.repeat(st + ln, k), np.tile(suffix, n))
+    rt = torch.from_numpy(ts_raw).to(dev)
+    st = torch.from_numpy((st + k * np.arange(n)).astype(np.int32)).to(dev)
+    ln = torch.from_numpy(ln + k).to(dev)
+    days = CD.csv_parse_datetime(raw, *col("l_shipdate")[:2], cap, False,
+                                 flag)[0][:n]
+    ts = lambda: CD.csv_parse_datetime(rt, st, ln, cap, True, flag)  # noqa
+    got = ts()
+    want = CD.parse_timestamp_plain(rt, st, ln)
+    for a, b in zip(got, want):
+        check(bits_equal(a[:n], b), "csv_parse_datetime timestamps at the "
+              "lineitem layout: differ from the plain version")
+    check(bool(got[1][:n].all()) and bool((got[0][:n] == days.long() *
+          86_400_000_000 + 3_723_123_456).all()),
+          "csv_parse_datetime: a lineitem timestamp parsed wrong")
+    rows["csv_parse_datetime"].update(
+        ms_timestamp=cuda_ms(ts, iters),
+        plain_ms_timestamp=cuda_ms(lambda: CD.parse_timestamp_plain(
+            rt, st, ln), 2),
+        bound_ms_timestamp=bound_ms(int(ln.sum()) + 8 * n + 9 * n))
+    check(int(flag.item()) == 0, "csv: a timestamp field was malformed")
+    return rows
+
+
+def csv_host_splits(sess) -> int:
+    from spark_rapids_tpu_torch.io.scan import CSV_HOST_SPLITS, \
+        TpuFileScanExec
+
+    return sum(x.metrics.get(CSV_HOST_SPLITS, 0) for x in
+               sess.last_physical_plan.collect_nodes(
+                   lambda x: isinstance(x, TpuFileScanExec)))
+
+
+def run_csv(launches: dict, dev, errs: dict) -> dict:
+    """Phase 14: the six q1-q5 tables at CSV_SF generated (CSV_PARTITIONS
+    partitions), written with df.write.csv (sep '|', no header; the seconds
+    and bytes of each), K33-K36 timed over the first lineitem file
+    (time_csv_kernels: "kernel_rows"), read back with
+    read.schema(...).csv, and q1, q6,
+    q3 and q5 over them (one cold and CSV_WARM_REPS warm runs, every leaf a
+    TpuFileScanExec, no split through the host grammar) against numpy over
+    the generated columns and, bit for bit, against the same query over
+    the tables cached on the card; each query's scan host seconds beside
+    its wall time. The files are removed at the end."""
+    import glob
+    import shutil
+    import tempfile
+
+    import torch
+
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    sess = srt.new_session(CSV_CONF)
+    t = time.perf_counter()
+    raw = tpch.gen_tables(sess, sf=CSV_SF, num_partitions=CSV_PARTITIONS)
+    gen_s = time.perf_counter() - t
+    li = lineitem_columns(raw["lineitem"])
+    o = table_columns(raw["orders"], ("o_orderkey", "o_custkey",
+                                      "o_orderdate", "o_shippriority"))
+    c = table_columns(raw["customer"], ("c_custkey", "c_mktsegment",
+                                        "c_nationkey"))
+    s = table_columns(raw["supplier"], ("s_suppkey", "s_nationkey"))
+    n = table_columns(raw["nation"], ("n_nationkey", "n_regionkey",
+                                      "n_name"))
+    r = table_columns(raw["region"], ("r_regionkey", "r_name"))
+    wants = {"q1": numpy_q1(li), "q6": numpy_q6(li),
+             "q3": numpy_q3(li, o, c), "q5": numpy_q5(li, o, c, s, n, r)}
+    n_li, n_ord = len(li["l_orderkey"]), len(o["o_orderkey"])
+    n_cust, n_supp = len(c["c_custkey"]), len(s["s_suppkey"])
+    input_rows = {"q1": n_li, "q6": n_li, "q3": n_li + n_ord + n_cust,
+                  "q5": n_li + n_ord + n_cust + n_supp + 25 + 5}
+    del li, o, c, s, n, r
+    log(f"phase 14: SF {CSV_SF} generated in {gen_s:.1f} s, lineitem "
+        f"{n_li} rows")
+    root = tempfile.mkdtemp(prefix="chip_smoke_csv_")
+    out = {"sf": CSV_SF, "gen_s": gen_s, "lineitem_rows": n_li,
+           "write": {}}
+    cached = {}
+    try:
+        for name in PARQUET_TABLES:
+            path = os.path.join(root, name)
+            t = time.perf_counter()
+            raw[name].write.option("sep", "|").option("header", False) \
+                .csv(path)
+            secs = time.perf_counter() - t
+            nbytes = sum(os.path.getsize(f) for f in
+                         glob.glob(os.path.join(path, "*.csv")))
+            out["write"][name] = {"s": secs, "bytes": nbytes,
+                                  "mb_per_s": nbytes / secs / 1e6}
+            log(f"csv: wrote {name} in {secs:.3f} s, {nbytes} bytes")
+        first = sorted(glob.glob(os.path.join(root, "lineitem", "*.csv")))[0]
+        out["kernel_rows"] = time_csv_kernels(
+            dev, errs, first, [a.name for a in raw["lineitem"].schema])
+        cached = {k: raw[k].cache() for k in PARQUET_TABLES}
+        ctables = {k: sess.read.schema([(a.name, a.data_type)
+                                        for a in raw[k].schema])
+                   .option("sep", "|").csv(os.path.join(root, k))
+                   for k in PARQUET_TABLES}
+        for q in ("q1", "q6", "q3", "q5"):
+            name = f"csv_tpch_{q}"
+            query = tpch.QUERIES[q]
+            want_cached = query(cached).collect()
+            check_rows(want_cached, wants[q], f"{name} cached")
+            cached_joins = [j["ran_as"] for j in join_strategies(sess)]
+            CB.reset_launch_counts()
+            res = run_query(sess, query(ctables), wants[q], name,
+                            CSV_WARM_REPS, keep_rows=True)
+            launches[name] = CB.launch_counts()
+            assert_file_leaves(sess)
+            host, splits = scan_host_s(sess), csv_host_splits(sess)
+            joins = [j["ran_as"] for j in join_strategies(sess)]
+            check(splits == 0, f"{name}: {splits} splits took the host "
+                  "route")
+            rows = res.pop("result_rows")
+            if joins != cached_joins:
+                # the planner knows a cached table's rows and no file's,
+                # so the plans may join (and sum) in another order: both
+                # run again with every join shuffled
+                log(f"{name}: joins {joins}, cached {cached_joins}: "
+                    "compared with every join shuffled")
+                for k, v in ALL_SHUFFLED.items():
+                    sess.set_conf(k, v)
+                try:
+                    want_cached = query(cached).collect()
+                    rows = query(ctables).collect()
+                finally:
+                    for k in ALL_SHUFFLED:
+                        sess.set_conf(k, C_DEFAULTS[k])
+            check(rows == want_cached,
+                  f"{name}: rows differ from the cached tables' run")
+            warm = best_s(res)
+            res.update(input_rows=input_rows[q],
+                       rows_per_s=input_rows[q] / warm,
+                       last_run_scan_host_s=host, csv_host_splits=splits,
+                       joins=joins, cached_joins=cached_joins,
+                       checked_against="numpy and the cached tables "
+                                       "(bit for bit)")
+            out[name] = res
+            log(f"{name}: scan host {host:.3f} s of the last run "
+                f"({last_s(res):.3f} s), "
+                f"csvHostSplits {splits}, rows equal the cached run's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        for df in cached.values():
+            df.unpersist()
+        sess.last_physical_plan = None
+        torch.cuda.empty_cache()
+    return out
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -7607,7 +8032,8 @@ def main(argv=None) -> int:
         window_edge_cases(dev, errs) + string_chars_edge_cases(dev, errs) + \
         slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
         encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
-        orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs)
+        orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs) + \
+        csv_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -7645,6 +8071,9 @@ def main(argv=None) -> int:
     results["memory"] = run_memory(raw, wants, launches)
     phase13_faults = fault_counts(before)
     del raw, tables, li
+    torch.cuda.empty_cache()
+    results["csv"] = run_csv(launches, dev, errs)
+    csv_rows = results["csv"].pop("kernel_rows")
     results["phase6_small_sf"] = run_small_sf()
     torch.cuda.empty_cache()
     results["phase7"], pr_content, samples = run_tpcxbb(launches,
@@ -7660,7 +8089,8 @@ def main(argv=None) -> int:
         results["profile"] = profile_flagship(sess, FLAGSHIP_ROWS,
                                               args.profile)
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
-        results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples)
+        results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples,
+        csv_rows)
     results["kernels"] = kernels
     # no run outside phase 13 (timed or not) retried, split or fell back
     every = fault_counts(start_counters)
@@ -7725,10 +8155,14 @@ def main(argv=None) -> int:
         "encoded": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
             "encodedColumns", "lateMaterializations", "k23_launches",
             "k24_launches", "k4_code_launches", "peak_device_bytes",
-            "scan_host_s", "warm_speedup_vs_off")}
+            "scan_host_s", "speedup_vs_off")}
             if k.startswith("encoded_") else v)
             for k, v in results["encoded"].items()},
         "memory": results["memory"],
+        "csv": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "last_run_scan_host_s", "csv_host_splits")}
+            if k.startswith("csv_") else v)
+            for k, v in results["csv"].items()},
         "fault_counters": results["fault_counters"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))

@@ -286,23 +286,28 @@ PARQUET_DEVICE_ENCODE = _conf(
 CSV_READ_ENABLED = _conf("rapids.tpu.sql.format.csv.read.enabled").boolean(True)
 CSV_DEVICE_PARSE = _conf(
     "rapids.tpu.sql.format.csv.deviceParse.enabled").doc(
-    "Parse eligible CSV columns ON the device: the host finds field "
-    "boundaries in one vectorized pass (quote-aware), raw bytes + offsets "
-    "upload once, and jitted kernels fold the values — integers, floats, "
-    "strings, dates, and zoned timestamps, including quoted fields and "
-    "escaped \"\" quotes (unescaped in the host control plane before "
-    "upload; reference parses CSV on the accelerator the same way, "
-    "GpuBatchScanExec.scala:474-502). Ragged files fall back to the host "
-    "Arrow parser."
+    "Parse CSV columns on the device: the host finds every field's span "
+    "in one native sweep (quote-aware; \"\" escapes unescaped in place), "
+    "the bytes and spans upload once, and hand-written kernels parse the "
+    "integers, doubles, dates, zoned timestamps and null spellings (K33-"
+    "K36), STRING columns gathering their spans (K7); reference "
+    "GpuBatchScanExec.scala:474-502. A chunk the device path does not "
+    "take (a ragged line, another quote layout, a malformed field) is "
+    "parsed alone by the host grammar (io/csv_host.py) and uploaded, "
+    "counted in the scan's csvHostSplits. The port parses CSV on the "
+    "device only, so false raises when a device session plans a CSV "
+    "scan; the CPU engine then parses every chunk on the host."
 ).boolean(True)
 CSV_DEVICE_MAX_SPLIT_BYTES = _conf(
     "rapids.tpu.sql.format.csv.deviceParse.maxSplitBytes").doc(
-    "Largest CSV split the device parser will load whole into host memory "
-    "(the boundary plan builds rows*cols int32 tables before value "
-    "eligibility is known, so a near-2GiB split would cost several GiB of "
-    "host RAM); bigger splits use the streaming host Arrow reader "
-    "(reference bounds CSV reads with line-aligned chunks the same way, "
-    "GpuBatchScanExec.scala:322-520)."
+    "Largest piece of a CSV file the scan reads at once, which bounds its "
+    "host memory (the bytes, the span tables and, on the host route, the "
+    "host grammar's tokens): a larger file is read in line-aligned chunks "
+    "of at most this size (cut after a newline outside quotes, the header "
+    "taken from the first; a longer line is a chunk of its own), each "
+    "planned, uploaded and parsed on its own, or sent alone through the "
+    "host grammar (reference bounds CSV reads with line-aligned chunks the "
+    "same way, GpuBatchScanExec.scala:322-520)."
 ).bytes(256 << 20)
 ORC_READ_ENABLED = _conf("rapids.tpu.sql.format.orc.read.enabled").doc(
     "Read ORC files. The port decodes them on the device only, so false "

@@ -35,7 +35,7 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "window_rank_offset", "window_frame_agg", "string_chars",
            "explode", "segment_percentile", "parquet_decode",
            "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
-           "orc_encode", "compact_gather")
+           "orc_encode", "compact_gather", "csv_parse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -322,6 +322,22 @@ _SIGNATURES = {
             _VOIDP, ctypes.c_int, _VOIDP, ctypes.c_int, ctypes.c_longlong,
             _VOIDP, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
             ctypes.c_longlong, _VOIDP]),
+    },
+    "csv_parse": {
+        "srt_csv_parse_int": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP]),
+        "srt_csv_parse_float": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+        "srt_csv_parse_datetime": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            _VOIDP]),
+        "srt_csv_null_sentinels": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            ctypes.c_longlong, _VOIDP, _VOIDP]),
     },
     "dict_encoded": {
         "srt_dict_materialize_fixed": (ctypes.c_int, [

@@ -1,4 +1,4 @@
-"""Parquet and ORC read and write for the port (port of
+"""Parquet, ORC and CSV read and write for the port (port of
 spark_rapids_tpu/io/): the footer readers, the device decodes and
-encodes, the scan execs, the DataFrame reader and the writer. No Arrow on
-any path."""
+encodes, the CSV field plans, parse kernels and host grammar, the scan
+execs, the DataFrame reader and the writer. No Arrow on any path."""

@@ -1,5 +1,6 @@
-"""Parquet and ORC file scan execs (port of spark_rapids_tpu/io/scan.py;
-reference: GpuParquetScan.scala, GpuOrcScan.scala).
+"""Parquet, ORC and CSV file scan execs (port of
+spark_rapids_tpu/io/scan.py; reference: GpuParquetScan.scala,
+GpuOrcScan.scala, GpuBatchScanExec.scala).
 
 - `plan_splits` groups each file's row groups into read tasks of at most
   rapids.tpu.sql.reader.batchSizeRows rows (reference :267,
@@ -31,10 +32,27 @@ stripe once, and the device decodes it (K27, K28, K21, K7's span entry):
 one stripe's bytes are in memory at a time. A DICTIONARY_V2 STRING column
 stays encoded under the same keys as a Parquet dictionary chunk.
 
-Hive-partitioned directories (`k=v` parts) and CSV are queued and raise;
-so does a column the decoders do not take (parquet_device.
-unsupported_reason, orc_meta's column types) — there is no other decoder
-to fall back to.
+CSV (reference `_read_device_csv` :516): a split a file (reference
+:272-274). The device path reads a file whole, or in line-aligned chunks
+of at most rapids.tpu.sql.format.csv.deviceParse.maxSplitBytes (cut after
+a newline outside quotes; the header is the first chunk's), each into
+pinned memory. The first line gives the column count; the native sweep
+plans every field's span (io/csv_device.py:plan_fields); the chunk, its
+span tables and a malformed flag go to the device once, and K33-K36 and
+K7's span entry parse the columns; DECIMAL, BOOLEAN and FLOAT32 columns
+parse on the host from the same spans (io/csv_host.py:parse_column) and
+upload. One host sync reads the flag of every column. A chunk the device
+path does not take (a ragged line, another quote layout, a malformed field,
+invalid UTF-8 under a STRING column, a header without a schema column) is
+parsed alone by the host grammar (io/csv_host.py:parse_split), the
+reference's host route, and counted in the scan's csvHostSplits metric;
+the other chunks keep their device batches. ...csv.deviceParse.enabled
+false raises in a device session; the CPU engine then parses every chunk
+with the host grammar.
+
+Hive-partitioned directories (`k=v` parts) are queued and raise; so does a
+column the decoders do not take (parquet_device.unsupported_reason,
+orc_meta's column types) — there is no other decoder to fall back to.
 """
 
 from __future__ import annotations
@@ -48,8 +66,10 @@ from typing import List, Optional, Tuple
 import torch
 
 from spark_rapids_tpu_torch import conf as C
+from spark_rapids_tpu_torch import native
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
+    HostColumnarBatch,
     bucket_capacity,
     gather_batch,
 )
@@ -63,6 +83,8 @@ from spark_rapids_tpu_torch.exec.base import (
     TpuExec,
     count_output,
 )
+from spark_rapids_tpu_torch.io import csv_device as CD
+from spark_rapids_tpu_torch.io import csv_host as CH
 from spark_rapids_tpu_torch.io import orc_device as OD
 from spark_rapids_tpu_torch.io import orc_meta as OM
 from spark_rapids_tpu_torch.io import parquet_device as PD
@@ -75,9 +97,15 @@ from spark_rapids_tpu_torch.memory.semaphore import acquire_for_task
 from spark_rapids_tpu_torch.ops.base import AttributeReference
 
 SUFFIXES = (".parquet", ".parq")
-FORMAT_SUFFIXES = {"parquet": SUFFIXES, "orc": (".orc",)}
-# host seconds of a scan: file reads, decompression, page and run walks
+FORMAT_SUFFIXES = {"parquet": SUFFIXES, "orc": (".orc",),
+                   "csv": (".csv", ".txt", ".tsv")}
+# host seconds of a scan: file reads, decompression, page and run walks,
+# CSV field plans
 SCAN_HOST_SECONDS = "scanHostSeconds"
+# CSV chunks (a file, or a piece of one past maxSplitBytes) parsed by the
+# host grammar instead of the device
+CSV_HOST_SPLITS = "csvHostSplits"
+_BOM = b"\xef\xbb\xbf"
 # threads for the host part of a row group's columns
 HOST_THREADS = 8
 
@@ -122,9 +150,11 @@ def plan_splits(fmt: str, paths: List[str], conf,
     """Split input files into read tasks of at most batchSizeRows rows,
     whole row groups (ORC: stripes) each (reference :267)."""
     if fmt not in FORMAT_SUFFIXES:
-        raise NotImplementedError(f"{fmt} reads are queued (Parquet and ORC "
-                                  "only)")
+        raise NotImplementedError(f"{fmt} reads are not supported (Parquet, "
+                                  "ORC and CSV)")
     files = files or expand_paths(paths, FORMAT_SUFFIXES[fmt])
+    if fmt == "csv":  # a split a file (reference :272-274)
+        return [FileSplit(f, fmt) for f in files]
     max_rows = conf.get(C.MAX_READ_BATCH_SIZE_ROWS)
     splits: List[FileSplit] = []
     for f in files:
@@ -173,14 +203,92 @@ def _slices(batch: ColumnarBatch, max_rows: int) -> List[ColumnarBatch]:
     return out
 
 
+def to_bool(v) -> bool:
+    """A read option's truth (reference scan.py:_to_bool)."""
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("1", "true", "yes")
+
+
+def csv_separator(sep) -> str:
+    """A CSV separator, which is one byte, as the reference's parser and
+    writer require."""
+    if not isinstance(sep, str) or len(sep.encode()) != 1:
+        raise ValueError(f"the CSV separator must be one byte: {sep!r}")
+    return sep
+
+
+def csv_options(options) -> Tuple[bool, str]:
+    """(header, separator) of a CSV read (reference :312-314)."""
+    return to_bool(options.get("header", False)), csv_separator(
+        options.get("sep", options.get("delimiter", ",")))
+
+
+def _first_line_fields(buf, sep: str) -> int:
+    """The fields of the first line, separators inside quotes not
+    counted."""
+    head = bytes(buf[:1 << 20])
+    sep_b = ord(sep)
+    inside = False
+    count = 1
+    for c in head:
+        if c == 0x22:
+            inside = not inside
+        elif not inside:
+            if c == 0x0A:
+                break
+            if c == sep_b:
+                count += 1
+    return count
+
+
+def _read_csv_chunk(fd: int, path: str, lo: int, size: int, limit: int,
+                    pin: bool):
+    """(buf, skip, end): the file's bytes from lo, at most `limit` of them
+    unless one line is longer, in pinned memory for a card; buf[skip:end]
+    is the chunk, whole lines ending outside quotes (skip: a BOM at the
+    file's start)."""
+    n = min(limit, size - lo)
+    while True:
+        buf = torch.empty(n, dtype=torch.uint8, pin_memory=pin).numpy()
+        _pread(fd, buf, lo, path)
+        skip = 3 if lo == 0 and bytes(buf[:3]) == _BOM else 0
+        end = n if lo + n == size else native.csv_last_line_end(buf, skip, n)
+        if end >= 0:
+            return buf, skip, end
+        n = min(2 * n, size - lo)  # a line longer than the chunk
+
+
+def _pread(fd: int, buf, offset: int, path: str) -> None:
+    """buf filled from the file at offset, in pieces on threads."""
+    n = buf.size
+    k = max(1, min(HOST_THREADS, n // (8 << 20)))
+    bounds = [n * i // k for i in range(k + 1)]
+    view = memoryview(buf)
+
+    def part(i):
+        a, b = bounds[i], bounds[i + 1]
+        while a < b:
+            got = os.preadv(fd, [view[a:b]], offset + a)
+            if got <= 0:
+                raise OSError(f"{path}: short read at {offset + a}")
+            a += got
+
+    with ThreadPoolExecutor(max_workers=k) as ex:
+        list(ex.map(part, range(k)))
+
+
 class _FileScanBase(PhysicalExec):
     def __init__(self, attrs: List[AttributeReference],
-                 splits: List[FileSplit], fmt: str):
+                 splits: List[FileSplit], fmt: str, options=None):
         super().__init__()
         self.attrs = attrs
         self.splits = splits
         self.fmt = fmt
+        self.options = dict(options or {})
         self.metrics[SCAN_HOST_SECONDS] = 0.0
+        if fmt == "csv":
+            self.metrics[CSV_HOST_SPLITS] = 0
 
     @property
     def output(self) -> List[AttributeReference]:
@@ -208,6 +316,8 @@ class _FileScanBase(PhysicalExec):
         encode: dictionary chunks may stay encoded (the device scan)."""
         if split.fmt == "orc":
             return self._decode_orc_split(split, conf, device, encode)
+        if split.fmt == "csv":
+            return self._decode_csv_split(split, conf, device)
         md = read_footer(split.path)
         cols = {c.name: c for c in md.columns}
         groups = split.row_groups if split.row_groups is not None else \
@@ -311,6 +421,126 @@ class _FileScanBase(PhysicalExec):
                     for p in plans]
             out.extend(_slices(ColumnarBatch(vecs, rows), max_rows))
         return out
+
+
+    # ------------------------------------------------------------- CSV
+    def _decode_csv_split(self, split: FileSplit, conf,
+                          device: torch.device) -> List[ColumnarBatch]:
+        """A CSV file parsed on `device` (reference _read_device_csv :516),
+        in line-aligned chunks of at most maxSplitBytes (a longer line is
+        a chunk of its own). A chunk the device path does not take goes
+        through the host grammar alone, the reference's host route; the
+        CPU engine with ...csv.deviceParse.enabled false sends every
+        chunk there (a device session raises at planning)."""
+        header, sep = csv_options(self.options)
+        size = os.path.getsize(split.path)
+        if not size:
+            raise CH.CsvFormatError(f"{split.path}: Empty CSV file")
+        device_parse = conf.get(C.CSV_DEVICE_PARSE)
+        limit = max(int(conf.get(C.CSV_DEVICE_MAX_SPLIT_BYTES)), 1)
+        max_rows = conf.get(C.MAX_READ_BATCH_SIZE_ROWS)
+        pin = device.type == "cuda"
+        names = None if header else [a.name for a in self.attrs]
+        ncols = 0
+        out: List[ColumnarBatch] = []
+        lo = 0
+        with open(split.path, "rb") as f:
+            while lo < size:
+                t0 = time.perf_counter()
+                buf, skip, end = _read_csv_chunk(f.fileno(), split.path, lo,
+                                                 size, limit, pin)
+                self.metrics[SCAN_HOST_SECONDS] += time.perf_counter() - t0
+                chunk = buf[skip:end]
+                first = header and lo == 0
+                res = None
+                if device_parse:
+                    if lo == 0:
+                        ncols = _first_line_fields(chunk, sep)
+                    res = self._device_csv_chunk(chunk, ncols, first, names,
+                                                 sep, device)
+                    if res is None:  # the plan may have unescaped it
+                        _pread(f.fileno(), chunk, lo + skip, split.path)
+                if res is None:
+                    res = self._host_csv_chunk(chunk, first, names, sep,
+                                               device)
+                batch, names = res
+                out.extend(_slices(batch, max_rows))
+                lo += end
+        return out
+
+    def _device_csv_chunk(self, chunk, ncols: int, header: bool, names,
+                          sep: str, device: torch.device):
+        """(batch, the file's column names) of one line-aligned chunk (a
+        writable uint8 array, in pinned memory for a card) through the
+        device path, or None when it is not eligible or a field is
+        malformed for the device grammar. header: the chunk starts with
+        the header row, which names the columns; else `names` do."""
+        t0 = time.perf_counter()
+        pin = device.type == "cuda"
+        alloc = (lambda k: torch.empty(k, dtype=torch.int32,
+                                       pin_memory=True).numpy()) \
+            if pin else None
+        table = CD.plan_fields(chunk, ncols, header, sep, alloc)
+        if table is not None and header:
+            names = table.header_names
+        ok = table is not None and self._csv_eligible(table, names)
+        self.metrics[SCAN_HOST_SECONDS] += time.perf_counter() - t0
+        if not ok:
+            return None
+        n = table.num_rows
+        # pinned: the copies run ahead; the flag's sync below ends them
+        # before the host buffers go
+        ds = CD.DeviceSplit(table, *(
+            torch.from_numpy(x).to(device, non_blocking=pin)
+            for x in (table.raw, table.starts_cm, table.lens_cm)))
+        cols = {}
+        rest = []
+        for a in self.attrs:
+            j = names.index(a.name)
+            if CD.device_parseable(a.data_type):
+                cols[a.name] = CD.decode_column(ds, j, a.data_type)
+            else:
+                rest.append((a, j))
+        if int(ds.flag.item()):  # one sync for every column's flag
+            return None
+        if rest:
+            t0 = time.perf_counter()
+            host = HostColumnarBatch([CH.parse_column(
+                a.name, a.data_type, table.raw, table.starts[:, j],
+                table.lens[:, j]) for a, j in rest], n)
+            self.metrics[SCAN_HOST_SECONDS] += time.perf_counter() - t0
+            up = host.to_device(device)
+            for (a, _j), v in zip(rest, up.columns):
+                cols[a.name] = v
+        return ColumnarBatch([cols[a.name] for a in self.attrs], n), names
+
+    def _csv_eligible(self, table, names) -> bool:
+        """Whether the device path takes a planned chunk: every schema
+        column is in the file, and the text is UTF-8 where a STRING column
+        reads it (the host grammar validates UTF-8 where a STRING
+        converts; the device carries raw bytes, so a chunk that is not
+        UTF-8 takes the host route, which raises as the reference does)."""
+        if len(names) != table.ncols or any(
+                a.name not in names for a in self.attrs):
+            return False
+        if any(a.data_type is DataType.STRING for a in self.attrs) and \
+                not table.ascii:
+            try:
+                str(memoryview(table.raw), "utf-8")
+            except UnicodeDecodeError:
+                return False
+        return True
+
+    def _host_csv_chunk(self, chunk, header: bool, names, sep: str,
+                        device: torch.device):
+        """(batch, the file's column names) of one chunk through the host
+        grammar, uploaded: the reference's host route (it raises where the
+        reference's parser does), counted in csvHostSplits."""
+        self.metrics[CSV_HOST_SPLITS] += 1
+        t0 = time.perf_counter()
+        hb, names = CH.parse_split(chunk, self.attrs, header, sep, names)
+        self.metrics[SCAN_HOST_SECONDS] += time.perf_counter() - t0
+        return hb.to_device(device), names
 
 
 class CpuFileScanExec(_FileScanBase, CpuExec):

@@ -1,5 +1,6 @@
-"""The port's host library for Parquet and ORC I/O (native/srt_io.cpp), built with
-the host C++ compiler at first use and bound with ctypes.
+"""The port's host library for Parquet, ORC and CSV I/O
+(native/srt_io.cpp), built with the host C++ compiler at first use and
+bound with ctypes.
 
 The library goes into `build/native/<hash of the source>/` under the
 repository root; each builder compiles to a file of its own and renames it
@@ -50,6 +51,12 @@ _SIGNATURES = {
     "srt_snappy_compress": (_I64, [_P, _I64, _P]),
     "srt_snappy_uncompressed_length": (_I64, [_P, _I64]),
     "srt_snappy_decompress": (_I64, [_P, _I64, _P, _I64]),
+    "srt_count_byte": (_I64, [_P, _I64, _I64, ctypes.c_int32]),
+    "srt_csv_stats": (None, [_P, _I64, _I64, _P]),
+    "srt_csv_plan": (_I64, [_P, _I64, _I64, ctypes.c_int32, ctypes.c_int32,
+                            _P, _P, _I64, _I64, _P]),
+    "srt_csv_last_line_end": (_I64, [_P, _I64, _I64]),
+    "srt_csv_next_line": (_I64, [_P, _I64, _I64, ctypes.c_int32]),
 }
 
 
@@ -368,3 +375,64 @@ def snappy_decompress(data, expected: Optional[int] = None) -> bytes:
     out = np.empty(ulen, np.uint8)
     snappy_decompress_into(data, out)
     return out.tobytes()
+
+
+def count_byte(data, byte: int, lo: int = 0, hi: Optional[int] = None) -> int:
+    """Occurrences of `byte` in data[lo:hi)."""
+    arr, base = _buf(data)
+    hi = arr.size if hi is None else hi
+    return int(library().srt_count_byte(base, lo, hi, byte)) if hi > lo \
+        else 0
+
+
+def csv_stats(data, lo: int = 0, hi: Optional[int] = None):
+    """(quotes, has a byte past 0x7F) of data[lo:hi), in one pass."""
+    arr, base = _buf(data)
+    hi = arr.size if hi is None else hi
+    meta = np.zeros(2, np.int64)
+    if hi > lo:
+        library().srt_csv_stats(base, lo, hi, _ptr(meta))
+    return int(meta[0]), bool(meta[1])
+
+
+def csv_plan(buf: np.ndarray, lo: int, hi: int, ncols: int, sep: int,
+             starts: np.ndarray, lens: np.ndarray, row0: int, stride: int,
+             max_rows: int):
+    """(rows, deleted, has a byte past 0x7F) of the quote-aware field plan
+    of buf[lo:hi) (reference: srt_csv_plan, made quote-aware), written
+    column-major into the int32 tables starts / lens at [col * stride +
+    row0 + row]; -3 when buf[lo:hi) holds more than max_rows rows, None
+    when a quote layout or a ragged line makes it ineligible. buf, a
+    writable uint8 array, loses the second quote of each "" pair in place
+    (the spans point into the rewritten bytes, which end at hi - deleted)."""
+    lib = library()
+    if not buf.flags.c_contiguous or not buf.flags.writeable:
+        raise ValueError("the buffer must be contiguous and writable")
+    if row0 + max_rows > stride or starts.size < ncols * stride or \
+            lens.size < ncols * stride:
+        raise ValueError("span tables too small")
+    meta = np.zeros(2, np.int64)
+    n = lib.srt_csv_plan(_ptr(buf), lo, hi, sep, ncols,
+                         _ptr(starts) + 4 * row0, _ptr(lens) + 4 * row0,
+                         stride, max_rows, _ptr(meta))
+    if n == -3:
+        return -3
+    return None if n < 0 else (int(n), int(meta[0]), bool(meta[1]))
+
+
+def csv_last_line_end(data, lo: int, hi: int) -> int:
+    """The position after the last newline of data[lo:hi) that lies
+    outside quotes (lo starts a line outside quotes); -1 when none."""
+    arr, base = _buf(data)
+    if not 0 <= lo <= hi <= arr.size:
+        raise ValueError(f"range [{lo}, {hi}) outside the buffer")
+    return int(library().srt_csv_last_line_end(base, lo, hi))
+
+
+def csv_next_line(data, lo: int, hi: int, inside: bool) -> int:
+    """The position after the first newline outside quotes in
+    data[lo:hi), lo inside quotes or not; hi when none."""
+    arr, base = _buf(data)
+    if not 0 <= lo <= hi <= arr.size:
+        raise ValueError(f"range [{lo}, {hi}) outside the buffer")
+    return int(library().srt_csv_next_line(base, lo, hi, 1 if inside else 0))

@@ -856,4 +856,164 @@ SRT_API int64_t srt_orc_snappy_framed(const uint8_t* src, int64_t n,
   return op - dst;
 }
 
+
+// ------------------------------------------------------------------ CSV
+// The field-boundary plans of the CSV scan (io/csv_device.py). Each writes
+// the (start, length) of every field column-major: field (row, col) at
+// [col * stride + row], so a column's spans are contiguous.
+
+// Occurrences of byte `b` in buf[lo, hi).
+SRT_API int64_t srt_count_byte(const uint8_t* buf, int64_t lo, int64_t hi,
+                               int32_t b) {
+  int64_t n = 0;
+  const uint8_t v = (uint8_t)b;
+  for (int64_t i = lo; i < hi; ++i) n += buf[i] == v;
+  return n;
+}
+
+// The quotes of buf[lo, hi), and whether it holds a byte past 0x7F
+// (meta[0], meta[1]), in one pass.
+SRT_API void srt_csv_stats(const uint8_t* buf, int64_t lo, int64_t hi,
+                           int64_t* meta) {
+  int64_t quotes = 0;
+  uint8_t acc = 0;
+  for (int64_t i = lo; i < hi; ++i) {
+    quotes += buf[i] == (uint8_t)'"';
+    acc |= buf[i];
+  }
+  meta[0] = quotes;
+  meta[1] = (acc & 0x80) ? 1 : 0;
+}
+
+// The field plan of buf[lo, hi): spark_rapids_tpu/native/srt_native.cpp:
+// srt_csv_plan (:257) made quote-aware, so that it gives the rows of
+// spark_rapids_tpu/io/csv_device.py:_plan_fields_quoted (:130) as well, in
+// one sweep. It checks the column count of every line and trims CRLF, as
+// the reference's sweep does; separators and newlines inside quotes are
+// not boundaries (a quote toggles the state after itself), a field that
+// starts and ends with a quote loses them, and the second quote of each
+// "" pair met inside quotes is deleted. Fields with any other quote
+// layout make the range ineligible. buf is rewritten in place when pairs
+// were deleted: the spans then point into the rewritten bytes, which end
+// at hi - meta[0]. meta[1] is 1 when a byte past 0x7F was seen. A range
+// that does not end in a newline ends with a virtual one. Returns the
+// rows, -1 (not eligible: a ragged line, a quote layout) or -3 (more than
+// max_rows rows).
+SRT_API int64_t srt_csv_plan(uint8_t* buf, int64_t lo, int64_t hi,
+                             int32_t sep, int32_t ncols, int32_t* starts,
+                             int32_t* lens, int64_t stride,
+                             int64_t max_rows, int64_t* meta) {
+  meta[0] = meta[1] = 0;
+  if (hi <= lo || ncols <= 0) return -1;
+  const uint8_t sp = (uint8_t)sep;
+  const bool virtual_end = buf[hi - 1] != (uint8_t)'\n';
+  bool inside = false, prev_first = false;
+  int64_t deleted = 0, row = 0;
+  int32_t col = 0;
+  int64_t fstart = lo, fdel = 0, quotes = 0;
+  uint8_t high = 0;
+  for (int64_t i = lo; i <= hi; ++i) {
+    bool is_nl;
+    if (i == hi) {
+      if (!virtual_end) break;
+      is_nl = true;
+    } else {
+      const uint8_t c = buf[i];
+      high |= c;
+      if (c == (uint8_t)'"') {
+        // the first quote of a "" pair is met inside quotes; its partner
+        // is deleted
+        const bool first =
+            inside && i + 1 < hi && buf[i + 1] == (uint8_t)'"';
+        if (prev_first) ++deleted;
+        prev_first = first;
+        ++quotes;
+        inside = !inside;
+        continue;
+      }
+      prev_first = false;
+      if (inside || (c != sp && c != (uint8_t)'\n')) continue;
+      is_nl = c == (uint8_t)'\n';
+    }
+    if (col < ncols - 1 ? is_nl : !is_nl) return -1;  // ragged line
+    if (row >= max_rows) return -3;
+    int64_t flen = i - fstart;
+    if (col == ncols - 1 && flen > 0 && buf[i - 1] == (uint8_t)'\r') --flen;
+    const bool quoted = flen >= 2 && buf[fstart] == (uint8_t)'"' &&
+                        buf[fstart + flen - 1] == (uint8_t)'"';
+    const int64_t pairs = deleted - fdel;
+    if (quoted ? quotes != 2 + 2 * pairs : quotes != 0) return -1;
+    const int64_t s = fstart + (quoted ? 1 : 0);
+    const int64_t l = flen - (quoted ? 2 : 0) - pairs;
+    starts[(int64_t)col * stride + row] = (int32_t)(s - fdel);
+    lens[(int64_t)col * stride + row] = (int32_t)l;
+    fstart = i + 1;
+    fdel = deleted;
+    quotes = 0;
+    if (is_nl) {
+      col = 0;
+      ++row;
+    } else {
+      ++col;
+    }
+  }
+  if (col != 0) return -1;
+  meta[0] = deleted;
+  meta[1] = (high & 0x80) ? 1 : 0;
+  if (deleted > 0) {
+    // delete the second quote of each pair, in place
+    inside = prev_first = false;
+    int64_t w = lo;
+    for (int64_t i = lo; i < hi; ++i) {
+      const uint8_t c = buf[i];
+      if (c == (uint8_t)'"') {
+        const bool first =
+            inside && i + 1 < hi && buf[i + 1] == (uint8_t)'"';
+        const bool skip = prev_first;
+        prev_first = first;
+        inside = !inside;
+        if (skip) continue;
+      } else {
+        prev_first = false;
+      }
+      buf[w++] = c;
+    }
+  }
+  return row;
+}
+
+// The end of the last line of buf[lo, hi) whose newline lies outside
+// quotes (lo starts a line outside quotes): the position after that
+// newline, or -1 when there is none.
+SRT_API int64_t srt_csv_last_line_end(const uint8_t* buf, int64_t lo,
+                                      int64_t hi) {
+  bool inside = false;
+  int64_t last = -1;
+  for (int64_t i = lo; i < hi; ++i) {
+    const uint8_t c = buf[i];
+    if (c == (uint8_t)'"') {
+      inside = !inside;
+    } else if (c == (uint8_t)'\n' && !inside) {
+      last = i + 1;
+    }
+  }
+  return last;
+}
+
+// The position after the first newline outside quotes in buf[lo, hi),
+// given whether lo lies inside quotes; hi when there is none.
+SRT_API int64_t srt_csv_next_line(const uint8_t* buf, int64_t lo,
+                                  int64_t hi, int32_t inside) {
+  bool in = inside != 0;
+  for (int64_t i = lo; i < hi; ++i) {
+    const uint8_t c = buf[i];
+    if (c == (uint8_t)'"') {
+      in = !in;
+    } else if (c == (uint8_t)'\n' && !in) {
+      return i + 1;
+    }
+  }
+  return hi;
+}
+
 }  // extern "C"

@@ -290,9 +290,8 @@ class DataFrame:
 
 
 class DataFrameWriter:
-    """df.write (reference: dataframe.py:489-520): mode, option and
-    parquet and orc; partitionBy and csv are queued and raise at the
-    write."""
+    """df.write (reference: dataframe.py:489-520): mode, option, parquet,
+    orc and csv; partitionBy is queued and raises at the write."""
 
     def __init__(self, df: DataFrame):
         self._df = df

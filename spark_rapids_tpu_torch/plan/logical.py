@@ -87,13 +87,16 @@ class FileScan(LogicalPlan):
 
     def __init__(self, fmt: str, paths: List[str],
                  schema: List[AttributeReference],
-                 files: Optional[List[str]] = None):
+                 files: Optional[List[str]] = None,
+                 options: Optional[Dict[str, Any]] = None):
         super().__init__()
         self.fmt = fmt
         self.paths = paths
         self.schema = schema
         # the files schema resolution found (no second directory walk)
         self.files = files
+        # the read options the scan consumes (CSV: header, sep / delimiter)
+        self.options = dict(options or {})
 
     @property
     def output(self):

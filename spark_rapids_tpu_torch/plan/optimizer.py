@@ -118,12 +118,16 @@ def _local(plan: L.LocalRelation, req):
 
 @_rule(L.FileScan)
 def _file_scan(plan: L.FileScan, req):
-    """Parquet projects by name: a narrowed schema means the pruned columns'
-    chunks are never read or decoded (reference :124)."""
+    """Parquet and ORC project by name: a narrowed schema means the pruned
+    columns' chunks are never read or decoded (reference :124). A CSV
+    schema is positional (it lays out the file), so the scan keeps every
+    field and a Project above it prunes."""
     kept = _keep(plan.output, req)
     if len(kept) == len(plan.output):
         return plan
-    return L.FileScan(plan.fmt, plan.paths, kept, plan.files)
+    if plan.fmt == "csv":
+        return _wrap_project(plan, req)
+    return L.FileScan(plan.fmt, plan.paths, kept, plan.files, plan.options)
 
 
 @_rule(L.WriteFile)

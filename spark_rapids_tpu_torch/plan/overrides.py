@@ -248,15 +248,20 @@ def _register_exec_rules():
         TpuFileScanExec,
     )
 
+    _SCAN_KEYS = {"parquet": (C.PARQUET_READ_ENABLED,
+                              C.PARQUET_DEVICE_DECODE),
+                  "orc": (C.ORC_READ_ENABLED, C.ORC_DEVICE_DECODE),
+                  "csv": (C.CSV_READ_ENABLED, C.CSV_DEVICE_PARSE)}
+
     def _tag_scan(m: ExecMeta) -> None:
-        """Reference :490-511; the port reads Parquet and ORC. A device
-        session decodes on the device or not at all: either key of the
-        format set false, or a column type the device does not take,
-        raises where the reference would fall back to its host scan."""
-        keys = (C.ORC_READ_ENABLED, C.ORC_DEVICE_DECODE) \
-            if m.plan.fmt == "orc" else \
-            (C.PARQUET_READ_ENABLED, C.PARQUET_DEVICE_DECODE)
-        for key in keys:
+        """Reference :490-511; the port reads Parquet, ORC and CSV. A device
+        session decodes on the device or not at all: a format's read key
+        or its device decode / parse key set false, or a column type the
+        device does not take, raises where the reference would fall back
+        to its host scan. (A CSV chunk malformed for the device grammar
+        still takes the host grammar, the reference's own semantics,
+        counted in csvHostSplits.)"""
+        for key in _SCAN_KEYS[m.plan.fmt]:
             if not m.conf.get(key):
                 raise ValueError(
                     f"{key.key}=false: a device session decodes "
@@ -268,9 +273,10 @@ def _register_exec_rules():
                                  f"not take {a.data_type}")
 
     register_exec(
-        CpuFileScanExec, "Parquet / ORC scan decoded on the device (K20, "
-        "K21, K7; K27, K28)",
-        lambda cpu, ch: TpuFileScanExec(cpu.attrs, cpu.splits, cpu.fmt),
+        CpuFileScanExec, "Parquet / ORC / CSV scan decoded on the device "
+        "(K20, K21, K7; K27, K28; K33-K36)",
+        lambda cpu, ch: TpuFileScanExec(cpu.attrs, cpu.splits, cpu.fmt,
+                                        cpu.options),
         tag_fn=_tag_scan)
 
     from spark_rapids_tpu_torch.exec.expand import (

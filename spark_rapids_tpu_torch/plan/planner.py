@@ -64,7 +64,7 @@ def _plan_file_scan(plan: L.FileScan, conf: C.TpuConf) -> PhysicalExec:
     from spark_rapids_tpu_torch.io.scan import CpuFileScanExec, plan_splits
 
     splits = plan_splits(plan.fmt, plan.paths, conf, files=plan.files)
-    return CpuFileScanExec(plan.output, splits, plan.fmt)
+    return CpuFileScanExec(plan.output, splits, plan.fmt, plan.options)
 
 
 @register_planner(L.Project)

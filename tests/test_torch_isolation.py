@@ -348,3 +348,44 @@ def test_memory_layer_imports_no_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "isolated"
+
+
+_CSV_PROBE = r"""
+import sys, tempfile
+import spark_rapids_tpu_torch as srt
+import spark_rapids_tpu_torch.io.csv_device
+import spark_rapids_tpu_torch.io.csv_host
+from spark_rapids_tpu_torch.benchmarks import tpch
+cpu = srt.new_session({"rapids.tpu.sql.variableFloatAgg.enabled": True,
+                       "rapids.tpu.sql.test.enabled": True}, device="cpu")
+raw = tpch.gen_tables(cpu, sf=0.0005, num_partitions=2)
+li = raw["lineitem"]
+with tempfile.TemporaryDirectory() as d:
+    li.write.option("sep", "|").option("header", False).csv(d + "/li")
+    schema = [(a.name, a.data_type) for a in li._plan.output]
+    back = cpu.read.schema(schema).option("sep", "|").csv(d + "/li")
+    rows = tpch.q1({"lineitem": back}).collect()
+    assert rows == tpch.q1({"lineitem": li}).collect(), rows
+    assert len(rows) == 6, rows
+    li.write.csv(d + "/hdr")
+    inferred = cpu.read.csv(d + "/hdr", header=True, inferSchema=True)
+    assert [a.name for a in inferred._plan.output] == \
+        [a.name for a in li._plan.output]
+    assert sorted(inferred.collect()) == sorted(li.collect())
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "pyarrow") or m.startswith(
+                 ("jax.", "jaxlib", "pyarrow."))
+             or m == "spark_rapids_tpu" or m.startswith("spark_rapids_tpu."))
+assert not bad, bad
+print("isolated")
+"""
+
+
+def test_csv_write_read_imports_no_jax_or_pyarrow():
+    """The CSV modules, a CSV write, read and q1, and an inferSchema read
+    with a header load neither jax, pyarrow nor the JAX package."""
+    proc = subprocess.run([sys.executable, "-c", _CSV_PROBE], cwd=REPO,
+                          env=ENV, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "isolated"

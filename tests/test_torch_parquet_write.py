@@ -320,8 +320,8 @@ def test_unsupported_writes_and_partitions_raise(tmp_path):
     pq.write_table(pa.table({"a": [1]}), str(part / "x.parquet"))
     with pytest.raises(NotImplementedError, match="Hive-partitioned"):
         s.read.parquet(str(tmp_path / "h"))
-    with pytest.raises(NotImplementedError, match="csv"):
-        df.write.csv(str(tmp_path / "o"))
+    with pytest.raises(NotImplementedError, match="partitionBy"):
+        df.write.partitionBy("a").csv(str(tmp_path / "o"))
 
 
 @pytest.mark.parametrize("key", [
