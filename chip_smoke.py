@@ -234,9 +234,10 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    "|").csv, and q1, q6, q3 and q5 over them, one cold and CSV_WARM_REPS
    warm runs each, every plan on the device and every leaf a
    TpuFileScanExec, rows against numpy over the generated columns (the
-   phase 4 / 5 checkers) and bit for bit against the same query over the
-   SF 3 tables cached on the card (the session reads a file as one batch,
-   as a cached partition is); each query's scan host seconds (file reads
+   phase 4 / 5 checkers) and against the same query over the SF 3 tables
+   cached on the card, bit for bit where both plans join alike (the
+   session reads a file as one batch, as a cached partition is), else
+   within TPCH_REL; each query's scan host seconds (file reads
    and field plans) beside its wall time, and csvHostSplits, which must be
    0. Phase 3 holds K33 (csv_parse_int), K34 (csv_parse_float), K35
    (csv_parse_datetime) and K36 (csv_null_sentinels) bit for bit to their
@@ -249,6 +250,26 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    lineitem file it wrote (1.5M rows of 14 columns, planned as the scan
    plans it; K35's timestamp mode over the same text with a time and zone
    after each l_shipdate).
+15. string cleaning, right after phase 6 over its cached SF 10 tables
+   with rapids.tpu.sql.incompatibleOps.enabled (the case maps are ASCII
+   on the card): STRING_PROGRAMS (strings_lineitem: a concat_ws key,
+   regexp_replace and replace of l_shipinstruct, trim of a nested concat,
+   grouped; strings_orders: substring_index codes of o_orderpriority under
+   lower / initcap, upper(lower(o_orderstatus)), grouped; strings_customer:
+   substring_index, replace, concat, lower, regexp_replace and ltrim of
+   c_phone and c_name, every row; strings_part: substring_index, initcap,
+   regexp_replace and rtrim(concat) of part's strings, grouped), one cold
+   and STRING_WARM_REPS warm runs each, every plan on the device, rows
+   (sorted by their keys) against numpy and Python string operations over
+   the generated columns; the same programs at SMALL_SF against the port's
+   CPU engine (in phase 6's small-SF pass). Phase 3 holds K37
+   (string_case_map), K38 (string_span_plan), K39 (string_replace) and K40
+   (string_concat) bit for bit to their plain versions (NULL, empty and
+   all-space rows, non-ASCII and NUL bytes, delimiters at a row's first and
+   last byte, counts -3..3 and an empty delimiter, replacements that grow,
+   shrink, keep the length or are empty, 1-5 concat members with literal
+   and NULL-literal members, a 1 MiB row, a 0-row batch, a buffer exactly
+   full); phase 15 times them over one 15M-row lineitem partition.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -264,7 +285,8 @@ phase 11, orc_write, orc_round_trip, orc_tpch_q1, orc_tpch_q6,
 orc_tpch_q3, orc_tpch_q5, orc_hive_q1 and orc_hive_q6 of phase 12,
 memory_spill_q5, memory_spill_q1, memory_oom_q1, memory_split and
 memory_fallback of phase 13, csv_tpch_q1, csv_tpch_q6, csv_tpch_q3 and
-csv_tpch_q5 of phase 14);
+csv_tpch_q5 of phase 14, strings_lineitem, strings_orders,
+strings_customer and strings_part of phase 15);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -427,6 +449,18 @@ KERNELS = {
     "csv_null_sentinels": (
         "spark_rapids_tpu_torch/csrc/csv_parse.cu",
         "spark_rapids_tpu/io/csv_device.py:594", "csv_tpch_q1"),
+    "string_case_map": (
+        "spark_rapids_tpu_torch/csrc/string_transform.cu",
+        "spark_rapids_tpu/columnar/strings.py:277", "strings_orders"),
+    "string_span_plan": (
+        "spark_rapids_tpu_torch/csrc/string_transform.cu",
+        "spark_rapids_tpu/columnar/strings.py:571", "strings_orders"),
+    "string_replace": (
+        "spark_rapids_tpu_torch/csrc/string_transform.cu",
+        "spark_rapids_tpu/columnar/strings.py:499", "strings_lineitem"),
+    "string_concat": (
+        "spark_rapids_tpu_torch/csrc/string_transform.cu",
+        "spark_rapids_tpu/columnar/strings.py:642", "strings_lineitem"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -565,6 +599,19 @@ PATH_KERNELS.update({
 # and gather their spans (K7's span entry)
 _CSV_READ = ("csv_parse_int", "csv_parse_float", "csv_parse_datetime",
              "csv_null_sentinels", "gather_string_spans")
+# phase 15: the case maps (K37), trims and substring_index (K38 plans, K7's
+# span entry copies), replaces (K39) and concats (K40) where each program's
+# text reaches them; the grouped programs group by string keys
+_K38 = ("string_span_plan", "gather_string_spans")
+PATH_KERNELS.update({
+    "strings_lineitem": _GROUP_BY + _STR_KEYS + _K38 + (
+        "string_case_map", "string_replace", "string_concat"),
+    "strings_orders": _GROUP_BY + _STR_KEYS + _K38 + ("string_case_map",),
+    "strings_customer": _K38 + ("string_case_map", "string_replace",
+                                "string_concat"),
+    "strings_part": _GROUP_BY + _STR_KEYS + _K38 + (
+        "string_case_map", "string_replace", "string_concat"),
+})
 PATH_KERNELS.update({
     "csv_tpch_q1": _Q1 + _CSV_READ,
     "csv_tpch_q6": ("segment_reduce",) + _CSV_READ,
@@ -904,6 +951,8 @@ def check_rows(got, want, what: str) -> float:
     TPCH_REL; returns the largest relative float difference."""
     check(len(got) == len(want), f"{what}: {len(got)} rows, numpy "
           f"{len(want)}")
+    if got == want:
+        return 0.0
     worst = 0.0
     for g, w in zip(got, want):
         for x, y in zip(g, w):
@@ -928,16 +977,20 @@ def fault_counts(before: dict) -> dict:
 
 
 def run_query(sess, q, want, what: str, warm_reps: int, cols=None,
-              keep_rows: bool = False, faults_ok: bool = False):
+              keep_rows: bool = False, faults_ok: bool = False, order=None):
     """One cold and warm_reps warm runs, the plan asserted on the device;
-    every run's rows (their columns `cols`, or all) against `want`, or
-    (want None) the warm runs' against the cold run's; keep_rows: the
-    result holds the rows under "result_rows". Unless faults_ok (phase
-    13), a run that retried, split a batch or ran one on the CPU engine
-    fails: no timed run holds work that left the device path."""
+    every run's rows (their columns `cols`, or all; sorted by the key
+    function `order` when the query's rows come in no set order) against
+    `want`, or (want None) the warm runs' against the cold run's;
+    keep_rows: the result holds the rows under "result_rows". Unless
+    faults_ok (phase 13), a run that retried, split a batch or ran one on
+    the CPU engine fails: no timed run holds work that left the device
+    path."""
     import torch
 
     def pick(rows):
+        if order is not None:
+            rows = sorted(rows, key=order)
         if want is None or cols is None:
             return rows
         return [tuple(r[i] for i in cols) for r in rows]
@@ -1325,20 +1378,23 @@ def run_queries(sess, raw, tables, li: dict, launches: dict,
     for keys in (o["o_orderkey"], c["c_custkey"], p["p_partkey"]):
         check(np.array_equal(keys, np.arange(len(keys))),
               "phase 6 reference: primary keys are not arange")
+    pools = {"pool_l_shipmode": pool_index(raw["lineitem"], "l_shipmode",
+                                           tpch._SHIPMODES),
+             "pool_o_orderpriority": pool_index(
+                 raw["orders"], "o_orderpriority", tpch._PRIORITIES),
+             "pool_p_type": pool_index(raw["part"], "p_type", tpch._TYPES)}
     want = {
-        "q12": numpy_q12(li, pool_index(raw["lineitem"], "l_shipmode",
-                                        tpch._SHIPMODES),
-                         pool_index(raw["orders"], "o_orderpriority",
-                                    tpch._PRIORITIES)),
+        "q12": numpy_q12(li, pools["pool_l_shipmode"],
+                         pools["pool_o_orderpriority"]),
         "q13": numpy_q13(o, len(c["c_custkey"]),
                          pool_index(raw["orders"], "o_comment",
                                     tpch._O_COMMENTS)),
-        "q14": numpy_q14(li, pool_index(raw["part"], "p_type",
-                                        tpch._TYPES)),
+        "q14": numpy_q14(li, pools["pool_p_type"]),
         "q22": numpy_q22(c, o)}
     log(f"phase 6: numpy references of {sorted(want)} ready")
     if wants is not None:
         wants["tpch_q12"] = want["q12"]
+        wants["pools"] = pools
     table_rows = {k: sum(b.num_rows for part in v._plan.partitions
                          for b in part) for k, v in raw.items()}
     out = {"table_rows": table_rows}
@@ -1396,6 +1452,22 @@ def run_small_sf() -> dict:
     log(f"phase 6: all 22 queries at SF {SMALL_SF} equal the CPU engine: "
         + ", ".join(f"{q} {v['rows']}" for q, v in out.items()
                     if q != "sf"))
+    # phase 15's programs on the same tables, incompatibleOps on the card
+    # (the rows are ASCII, so the case maps agree with Python's)
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    for k, v in STRING_CONF.items():
+        card.set_conf(k, v)
+    for name, fn in STRING_PROGRAMS.items():
+        key = STRING_KEYS[name]
+        got = sorted(fn(tabs[0], F).collect(), key=lambda r: r[:key])
+        assert_on_device(card)
+        want = sorted(fn(tabs[1], F).collect(), key=lambda r: r[:key])
+        out[name] = {"rows": len(got), "max_rel_diff": check_rows(
+            got, want, f"{name} at SF {SMALL_SF} vs the CPU engine")}
+    log(f"phase 15: the four programs at SF {SMALL_SF} equal the CPU "
+        "engine: " + ", ".join(f"{q} {out[q]['rows']}"
+                               for q in STRING_PROGRAMS))
     return out
 
 
@@ -2956,7 +3028,7 @@ def time_search_kernels(dev, errs: dict) -> dict:
 
 
 def time_kernels(dev, errs: dict, launches: dict, pr_content,
-                 d12_rows: int, v2_samples: dict, csv_rows: dict):
+                 d12_rows: int, v2_samples: dict, phase_rows: dict):
     """Each kernel at the flagship's shapes: the partial aggregate's update
     over one cached partition (2^25 rows of a 2^26-row table) for K1-K3,
     the high-cardinality partial output (2^22 rows) for K4."""
@@ -3057,17 +3129,23 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
            f"plain_ms_{many}": cuda_ms(lambda: X.route_plan_plain(
                ids_many, many), iters),
            f"bound_ms_{many}": bound_ms(8 * hcap + 4 * (many + 1))})
-    rows.update(time_string_kernels(dev, errs))
-    rows.update(time_join_kernels(dev, errs))
-    rows.update(time_search_kernels(dev, errs))
-    rows.update(time_window_kernels(dev, errs, pr_content))
-    rows.update(time_slice6_kernels(dev, errs, d12_rows))
-    rows.update(time_parquet_kernels(dev, errs))
-    rows.update(time_encoded_kernels(dev, errs))
-    rows.update(time_parquet_v2_kernels(dev, errs, v2_samples))
-    rows.update(time_orc_kernels(dev, errs))
-    rows.update(time_memory_kernels(dev, errs))
-    rows.update(csv_rows)
+    passes = (("strings", lambda: time_string_kernels(dev, errs)),
+              ("joins", lambda: time_join_kernels(dev, errs)),
+              ("searches", lambda: time_search_kernels(dev, errs)),
+              ("windows", lambda: time_window_kernels(dev, errs,
+                                                      pr_content)),
+              ("slice 6", lambda: time_slice6_kernels(dev, errs, d12_rows)),
+              ("parquet", lambda: time_parquet_kernels(dev, errs)),
+              ("encoded", lambda: time_encoded_kernels(dev, errs)),
+              ("parquet v2", lambda: time_parquet_v2_kernels(dev, errs,
+                                                             v2_samples)),
+              ("orc", lambda: time_orc_kernels(dev, errs)),
+              ("memory", lambda: time_memory_kernels(dev, errs)))
+    for label, timed in passes:
+        t = time.perf_counter()
+        rows.update(timed())
+        log(f"kernel timing: {label} in {time.perf_counter() - t:.1f} s")
+    rows.update(phase_rows)  # timed in phases 14 and 15
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -7851,9 +7929,10 @@ def run_csv(launches: dict, dev, errs: dict) -> dict:
     read.schema(...).csv, and q1, q6,
     q3 and q5 over them (one cold and CSV_WARM_REPS warm runs, every leaf a
     TpuFileScanExec, no split through the host grammar) against numpy over
-    the generated columns and, bit for bit, against the same query over
-    the tables cached on the card; each query's scan host seconds beside
-    its wall time. The files are removed at the end."""
+    the generated columns and against the same query over the tables
+    cached on the card (bit for bit where both plans join alike, else
+    within TPCH_REL); each query's scan host seconds beside its wall time.
+    The files are removed at the end."""
     import glob
     import shutil
     import tempfile
@@ -7926,29 +8005,25 @@ def run_csv(launches: dict, dev, errs: dict) -> dict:
             check(splits == 0, f"{name}: {splits} splits took the host "
                   "route")
             rows = res.pop("result_rows")
-            if joins != cached_joins:
+            if joins == cached_joins:
+                check(rows == want_cached,
+                      f"{name}: rows differ from the cached tables' run")
+            else:
                 # the planner knows a cached table's rows and no file's,
-                # so the plans may join (and sum) in another order: both
-                # run again with every join shuffled
+                # so the plans may join (and sum) in another order: the
+                # rows agree with the cached run's within TPCH_REL (both
+                # equal numpy within it above)
                 log(f"{name}: joins {joins}, cached {cached_joins}: "
-                    "compared with every join shuffled")
-                for k, v in ALL_SHUFFLED.items():
-                    sess.set_conf(k, v)
-                try:
-                    want_cached = query(cached).collect()
-                    rows = query(ctables).collect()
-                finally:
-                    for k in ALL_SHUFFLED:
-                        sess.set_conf(k, C_DEFAULTS[k])
-            check(rows == want_cached,
-                  f"{name}: rows differ from the cached tables' run")
+                    f"compared within a relative {TPCH_REL}")
+                check_rows(rows, want_cached, f"{name} vs the cached run")
             warm = best_s(res)
             res.update(input_rows=input_rows[q],
                        rows_per_s=input_rows[q] / warm,
                        last_run_scan_host_s=host, csv_host_splits=splits,
                        joins=joins, cached_joins=cached_joins,
                        checked_against="numpy and the cached tables "
-                                       "(bit for bit)")
+                                       "(bit for bit where the joins "
+                                       "agree)")
             out[name] = res
             log(f"{name}: scan host {host:.3f} s of the last run "
                 f"({last_s(res):.3f} s), "
@@ -7961,6 +8036,430 @@ def run_csv(launches: dict, dev, errs: dict) -> dict:
         torch.cuda.empty_cache()
     return out
 
+
+
+# ------------------------------------------------ phase 15 (slice 13)
+# The string-cleaning programs over phase 4's cached tables: F is either
+# package's functions module, so the CPU tests run the same text on both.
+def strings_lineitem(t, F):
+    """A composite key, rewritten literals and a padded mode, grouped."""
+    return (t["lineitem"].select(
+        F.concat_ws("|", "l_returnflag", "l_linestatus",
+                    F.lower("l_shipmode")).alias("k"),
+        F.regexp_replace("l_shipinstruct", "DELIVER IN PERSON",
+                         "HAND").alias("how"),
+        F.replace("l_shipinstruct", "COD", "CASH ON DELIVERY").alias("pay"),
+        F.trim(F.concat(F.concat(F.lit("  "), F.col("l_shipmode")),
+                        F.lit(" "))).alias("mode"),
+        "l_extendedprice")
+        .groupBy("k", "how", "pay", "mode")
+        .agg(F.sum("l_extendedprice").alias("price"),
+             F.count("*").alias("n")))
+
+
+def strings_orders(t, F):
+    """Codes split out of o_orderpriority ("4-NOT SPECIFIED" -> "4" and
+    "Not Specified") and a case round trip, grouped."""
+    return (t["orders"].select(
+        F.initcap(F.lower(F.substring_index("o_orderpriority", "-",
+                                            -1))).alias("name"),
+        F.substring_index("o_orderpriority", "-", 1).alias("code"),
+        F.upper(F.lower("o_orderstatus")).alias("status"),
+        "o_totalprice")
+        .groupBy("name", "code", "status")
+        .agg(F.sum("o_totalprice").alias("price"), F.count("*").alias("n")))
+
+
+def strings_customer(t, F):
+    """Per-row unique strings: every row's bytes are checked."""
+    return t["customer"].select(
+        "c_custkey",
+        F.substring_index("c_phone", "-", 1).alias("country"),
+        F.replace("c_phone", "-", "").alias("digits"),
+        F.concat(F.lower(F.substring_index("c_name", "#", 1)),
+                 F.substring_index("c_name", "#", -1)).alias("handle"),
+        F.ltrim(F.regexp_replace("c_name", "Customer#", " ")).alias("num"))
+
+
+def strings_part(t, F):
+    """The last word of p_type, title case, a rewritten colour and a padded
+    brand, grouped."""
+    return (t["part"].select(
+        F.substring_index("p_type", " ", -1).alias("metal"),
+        F.initcap("p_type").alias("title"),
+        F.regexp_replace("p_name", "green", "GREEN").alias("name"),
+        F.rtrim(F.concat("p_brand", F.lit("   "))).alias("brand"),
+        "p_size")
+        .groupBy("metal", "title", "name", "brand")
+        .agg(F.count("*").alias("n"), F.sum("p_size").alias("size")))
+
+
+STRING_PROGRAMS = {"strings_lineitem": strings_lineitem,
+                   "strings_orders": strings_orders,
+                   "strings_customer": strings_customer,
+                   "strings_part": strings_part}
+STRING_CONF = {"rapids.tpu.sql.incompatibleOps.enabled": True}
+# the key columns each program's rows are sorted by before a comparison
+STRING_KEYS = {"strings_lineitem": 4, "strings_orders": 3,
+               "strings_customer": 1, "strings_part": 4}
+
+
+STRING_WARM_REPS = 1
+# phase 3's inputs: NULL, empty and all-space rows, non-ASCII and NUL
+# bytes, delimiters at a row's first and last byte
+TRANSFORM_ROWS = [
+    b"", None, b"a", b" ", b"   ", b" a b ", b"Hello World", b"hELLO wORLD",
+    "héllo wörld".encode(), b"\x00", b"a\x00b", b" \x00 ", b"\xff\xfe",
+    b"#a#b#", b"#", b"##", b"a#", b"#a", b"abab", b"ab", b"COD",
+    b"COLLECT COD", b"DELIVER IN PERSON", b"4-NOT SPECIFIED", b"x-y-z-",
+    b"-", "日本 語".encode(), b"\x80abc", None, b"  REG AIR ", b"a b  c"]
+TRANSFORM_DELIMS = (b"#", b"-", b" ", b"ab", "é".encode(), b"")
+TRANSFORM_REPLACE = ((b"a", b"xyz"), (b"ab", b"Q"), (b"ab", b"ba"),
+                     (b"#", b""), (b"COD", b"CASH ON DELIVERY"),
+                     (b"\x00", b"0"))
+
+
+def transform_column(rows, dev, cap=None, pad: int = 8):
+    """(offsets, bytes, validity) on the card of raw byte rows (None is
+    NULL) in `cap` lanes (lanes past the rows empty and NULL), the buffer
+    `pad` bytes longer than the rows (0: exactly full)."""
+    import numpy as np
+    import torch
+
+    cap = len(rows) if cap is None else cap
+    lens = [len(r) if r is not None else 0 for r in rows]
+    offsets = np.zeros(cap + 1, np.int32)
+    offsets[1:len(rows) + 1] = np.cumsum(lens)
+    offsets[len(rows) + 1:] = offsets[len(rows)]
+    raw = b"".join(r for r in rows if r is not None) + bytes(pad)
+    valid = np.zeros(cap, bool)
+    valid[:len(rows)] = [r is not None for r in rows]
+    return (torch.from_numpy(offsets).to(dev),
+            torch.from_numpy(np.frombuffer(raw, np.uint8).copy()).to(dev),
+            torch.from_numpy(valid).to(dev))
+
+
+def one_row_source(value, dev):
+    """K40's source of a literal: one row every lane reads (None: NULL)."""
+    import torch
+
+    raw = b"" if value is None else value
+    return (torch.tensor([0, len(raw)], dtype=torch.int32, device=dev),
+            torch.tensor(list(raw + bytes(8)), dtype=torch.uint8,
+                         device=dev),
+            torch.tensor([value is not None], device=dev), False)
+
+
+def same_strings(got, want, label: str, errs: dict, name: str) -> None:
+    """(offsets, bytes[, validity]) of a kernel and its plain version: the
+    offsets and validity, and the bytes below the total, bit for bit."""
+    check(bits_equal(got[0], want[0]), f"{label}: offsets differ")
+    total = int(want[0][-1])
+    check(bits_equal(got[1][:total], want[1][:total]),
+          f"{label}: bytes differ")
+    if len(got) > 2:
+        check(bits_equal(got[2], want[2]), f"{label}: validity differs")
+    errs[name] = max(errs.get(name, 0.0), max_abs_err(
+        got[1][:total], want[1][:total]))
+
+
+def compare_transforms(col, label: str, errs: dict, dev) -> None:
+    """K37-K40 against their plain versions on one column, bit for bit."""
+    from spark_rapids_tpu_torch.columnar import strings as S
+
+    offsets, data, valid = col
+    cap = int(valid.shape[0])
+    for mode in ("upper", "lower", "initcap"):
+        got = S.case_map(offsets, data, mode)
+        want = S.case_map_plain(offsets, data, mode)
+        check(bits_equal(got, want), f"K37 {mode} {label} differs")
+        errs["string_case_map"] = max(errs.get("string_case_map", 0.0),
+                                      max_abs_err(got, want))
+    plans = [(side, b"", 0) for side in ("both", "left", "right")] + [
+        ("index", d, k) for d in TRANSFORM_DELIMS for k in range(-3, 4)]
+    for mode, delim, count in plans:
+        got = S.span_plan(offsets, data, valid, mode, delim, count)
+        want = S.span_plan_plain(offsets, data, valid, mode, delim, count)
+        check(bits_equal(got[0], want[0]) and bits_equal(got[1], want[1]),
+              f"K38 {mode} {delim!r} {count} {label} differs")
+        errs["string_span_plan"] = max(errs.get("string_span_plan", 0.0),
+                                       max_abs_err(got[0], want[0]))
+    for find, repl in TRANSFORM_REPLACE:
+        same_strings(S.string_replace(offsets, data, valid, find, repl),
+                     S.replace_plain(offsets, data, valid, find, repl),
+                     f"K39 {find!r} -> {repl!r} {label}", errs,
+                     "string_replace")
+    column = (offsets, data, valid, True)
+    flipped = (offsets, data, valid.flip(0).contiguous(), True)
+    members = [column, one_row_source(b"lit", dev), flipped,
+               one_row_source(None, dev), column]
+    for j in range(1, 6):
+        srcs = members[:j]
+        bound = sum(int(s[1].shape[0]) if s[3] else cap * int(s[0][1])
+                    for s in srcs) + 8
+        for sep in (None, b"", b", "):
+            byte_cap = bound + (len(sep or b"") * cap * (j - 1))
+            same_strings(S.string_concat(srcs, cap, sep, byte_cap),
+                         S.concat_plain(srcs, cap, sep, byte_cap),
+                         f"K40 J={j} sep {sep!r} {label}", errs,
+                         "string_concat")
+
+
+def string_transform_edge_cases(dev, errs: dict) -> int:
+    """K37-K40 against their plain versions on the card, bit for bit:
+    the edge rows (in 40 lanes), 20,000 random rows, a 1 MiB row, a 0-row
+    batch (8 NULL lanes) and a buffer exactly full with empty lanes after
+    the rows; every case map, trim, substring_index with each delimiter
+    ('' too) and counts -3..3, a replacement that grows, shrinks, keeps
+    the length and is empty, and concat / concat_ws of 1-5 members with
+    literal and NULL-literal members."""
+    import numpy as np
+
+    rng = np.random.default_rng(43)
+    alphabet = [b"a", b"b", b"A", b" ", b"#", b"-", b"COD", "é".encode(),
+                b"\x00", b"ab"]
+    many = [None if rng.random() < 0.1 else b"".join(
+        alphabet[int(i)] for i in rng.integers(0, len(alphabet),
+                                               int(rng.integers(0, 14))))
+        for _ in range(20_000)]
+    cases = [("edge rows", transform_column(TRANSFORM_ROWS, dev, cap=40)),
+             ("random rows", transform_column(many, dev)),
+             ("1 MiB row", transform_column(
+                 [b"ab #-" * 209_715 + b"x#y", b"", b"COD"], dev, cap=8)),
+             ("0 rows", transform_column([], dev, cap=8)),
+             ("exactly full", transform_column([b"ab", b"xy", b""], dev,
+                                               cap=8, pad=0))]
+    for label, col in cases:
+        compare_transforms(col, label, errs, dev)
+    return len(cases)
+
+
+def time_string_transform_kernels(dev, errs: dict, raw) -> dict:
+    """K37-K40 at the path's shapes: one 15M-row lineitem partition's
+    l_shipmode (K37 lower), l_shipinstruct (K38 substring_index ' ', -1;
+    K39 'COD' -> 'CASH ON DELIVERY') and the concat_ws of l_returnflag,
+    l_linestatus and l_shipmode (K40), each against its plain version bit
+    for bit. Bounds count what this data needs: the bytes read once (K38's
+    backward scan reads a row from its end to its last delimiter) and the
+    outputs written once."""
+    from spark_rapids_tpu_torch.columnar import strings as S
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+
+    names = [a.name for a in raw["lineitem"].schema]
+    part = raw["lineitem"]._plan.partitions[0]
+    check(len(part) == 1, "lineitem's first partition is one batch")
+    want = ("l_returnflag", "l_linestatus", "l_shipmode", "l_shipinstruct")
+    batch = HostColumnarBatch([part[0].columns[names.index(c)]
+                               for c in want]).to_device(dev)
+    cols = dict(zip(want, batch.columns))
+    n = part[0].num_rows
+    cap = batch.capacity  # the lanes each kernel runs over
+    iters, plain_iters = 10, 2
+    rows = {}
+
+    mode = cols["l_shipmode"]
+    got = S.case_map(mode.offsets, mode.data, "lower")
+    check(bits_equal(got, S.case_map_plain(mode.offsets, mode.data,
+                                           "lower")), "K37 lower differs")
+    total = int(mode.offsets[n])
+    rows["string_case_map"] = dict(
+        ms=cuda_ms(lambda: S.case_map(mode.offsets, mode.data, "lower"),
+                   iters),
+        plain_ms=cuda_ms(lambda: S.case_map_plain(mode.offsets, mode.data,
+                                                  "lower"), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(total + int(mode.data.shape[0]) + 8),
+        shape=f"l_shipmode lower, {n} rows, {total} bytes")
+
+    ins = cols["l_shipinstruct"]
+    args = (ins.offsets, ins.data, ins.validity, "index", b" ", -1)
+    spans, span_valid = S.span_plan(*args)
+    w_spans, w_valid = S.span_plan_plain(*args)
+    check(bits_equal(spans, w_spans) and bits_equal(span_valid, w_valid),
+          "K38 substring_index differs")
+    starts = ins.offsets[:-1].long()
+    a = w_spans[0:2 * cap:2].long()
+    ends = ins.offsets[1:].long()
+    read = int(((ends - a) + (a > starts).long()).sum())
+    rows["string_span_plan"] = dict(
+        ms=cuda_ms(lambda: S.span_plan(*args), iters),
+        plain_ms=cuda_ms(lambda: S.span_plan_plain(*args), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(4 * (cap + 1) + read + cap + 4 * (2 * cap + 1) +
+                          2 * cap),
+        shape=f"l_shipinstruct substring_index(' ', -1), {n} rows")
+
+    rep = (ins.offsets, ins.data, ins.validity, b"COD", b"CASH ON DELIVERY")
+    got = S.string_replace(*rep)
+    same_strings(got, S.replace_plain(*rep), "K39 path shape", errs,
+                 "string_replace")
+    out_total = int(got[0][-1])
+    in_total = int(ins.offsets[n])
+    rows["string_replace"] = dict(
+        ms=cuda_ms(lambda: S.string_replace(*rep), iters),
+        plain_ms=cuda_ms(lambda: S.replace_plain(*rep), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(in_total + 4 * (cap + 1) + cap + out_total +
+                          4 * (cap + 1)),
+        shape=f"l_shipinstruct 'COD' -> 'CASH ON DELIVERY', {n} rows, "
+              f"{in_total} -> {out_total} bytes")
+
+    srcs = [(c.offsets, c.data, c.validity, True) for c in (
+        cols["l_returnflag"], cols["l_linestatus"], mode)]
+    byte_cap = sum(int(c[1].shape[0]) for c in srcs) + cap * 2
+    got = S.string_concat(srcs, cap, b"|", byte_cap)
+    same_strings(got, S.concat_plain(srcs, cap, b"|", byte_cap),
+                 "K40 path shape", errs, "string_concat")
+    in_bytes = sum(int(c[0][cap]) + 4 * (cap + 1) + cap for c in srcs)
+    rows["string_concat"] = dict(
+        ms=cuda_ms(lambda: S.string_concat(srcs, cap, b"|", byte_cap),
+                   iters),
+        plain_ms=cuda_ms(lambda: S.concat_plain(srcs, cap, b"|", byte_cap),
+                         plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(in_bytes + int(got[0][cap]) + 4 * (cap + 1) +
+                          cap),
+        shape=f"concat_ws('|', l_returnflag, l_linestatus, l_shipmode), "
+              f"{n} rows")
+    del batch, cols, got
+    return rows
+
+
+def numpy_strings_wants(raw, li: dict, pools: dict) -> dict:
+    """The four programs' rows by numpy and Python string operations over
+    the generated columns: pool columns by their pool indices (each group a
+    bincount over the combined index), c_name and c_phone row by row."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    def idx(table, name, pool):
+        key = f"pool_{name}"
+        if key not in pools:
+            pools[key] = pool_index(raw[table], name, pool)
+        return pools[key]
+
+    def grouped(codes, dims, labels, sums, sum_kind):
+        flat = np.ravel_multi_index(codes, dims)
+        size = int(np.prod(dims))
+        n = np.bincount(flat, minlength=size)
+        total = np.bincount(flat, weights=sums, minlength=size)
+        rows = []
+        for g in np.nonzero(n)[0]:
+            parts = np.unravel_index(g, dims)
+            s = float(total[g]) if sum_kind is float else int(round(
+                total[g]))
+            rows.append((*labels(*parts), s, int(n[g])))
+        return rows
+
+    out = {}
+    # q1's one-byte keys are their UTF-8 bytes (phase 4's columns)
+    flag = np.searchsorted(np.frombuffer("".join(tpch._FLAGS).encode(),
+                                         np.uint8), li["l_returnflag"])
+    status = np.searchsorted(np.frombuffer("".join(tpch._STATUS).encode(),
+                                           np.uint8), li["l_linestatus"])
+    mode = idx("lineitem", "l_shipmode", tpch._SHIPMODES)
+    instr = idx("lineitem", "l_shipinstruct", tpch._INSTRUCT)
+
+    def li_labels(f, s, m, i):
+        ins = tpch._INSTRUCT[i]
+        return ("|".join([tpch._FLAGS[f], tpch._STATUS[s],
+                          tpch._SHIPMODES[m].lower()]),
+                ins.replace("DELIVER IN PERSON", "HAND"),
+                ins.replace("COD", "CASH ON DELIVERY"),
+                ("  " + tpch._SHIPMODES[m] + " ").strip(" "))
+
+    rows = grouped((flag, status, mode, instr),
+                   (len(tpch._FLAGS), len(tpch._STATUS),
+                    len(tpch._SHIPMODES), len(tpch._INSTRUCT)),
+                   li_labels, li["l_extendedprice"], float)
+    out["strings_lineitem"] = rows
+    o = table_columns(raw["orders"], ("o_totalprice",))
+    prio = idx("orders", "o_orderpriority", tpch._PRIORITIES)
+    ostat = idx("orders", "o_orderstatus", ["F", "O", "P"])
+
+    def o_labels(p, st):
+        code, name = tpch._PRIORITIES[p].split("-", 1)
+        return (" ".join(w[:1].upper() + w[1:] for w in
+                         name.lower().split(" ")), code, "FOP"[st])
+
+    out["strings_orders"] = grouped((prio, ostat), (len(tpch._PRIORITIES),
+                                                    3), o_labels,
+                                    o["o_totalprice"], float)
+    c = table_columns(raw["customer"], ("c_custkey", "c_name", "c_phone"))
+    # per-row unique strings (np.char-built in the generator): Python's
+    # string methods row by row, which here beat np.char's element loops
+    out["strings_customer"] = [
+        (k, p.split("-", 1)[0], p.replace("-", ""),
+         nm.split("#", 1)[0].lower() + nm.rsplit("#", 1)[-1],
+         nm.replace("Customer#", " ").lstrip(" "))
+        for k, p, nm in zip(c["c_custkey"].tolist(), c["c_phone"],
+                            c["c_name"])]
+    p = table_columns(raw["part"], ("p_size", "p_name", "p_brand"))
+
+    def numbered(values):
+        """(codes, distinct values): names and brands share their first
+        five bytes, so a dictionary, not pool_index, numbers them."""
+        seen = {}
+        codes = np.fromiter((seen.setdefault(v, len(seen)) for v in values),
+                            np.int64, len(values))
+        return codes, list(seen)
+
+    pname, names = numbered(p.pop("p_name"))
+    pbrand, brands = numbered(p.pop("p_brand"))
+    ptype = idx("part", "p_type", tpch._TYPES)
+
+    def p_labels(t, nm, b):
+        ty = tpch._TYPES[t]
+        return (ty.split(" ")[-1], " ".join(w[:1] + w[1:].lower()
+                                           for w in ty.split(" ")),
+                names[nm].replace("green", "GREEN"), brands[b])
+
+    rows = grouped((ptype, pname, pbrand), (len(tpch._TYPES), len(names),
+                                            len(brands)), p_labels,
+                   p["p_size"].astype(np.float64), int)
+    out["strings_part"] = [r[:4] + (r[5], r[4]) for r in rows]
+    for name, k in STRING_KEYS.items():
+        out[name].sort(key=lambda r: r[:k])
+    return out
+
+
+def run_strings(sess, raw, tables, li: dict, wants: dict, launches: dict,
+                dev, errs: dict) -> dict:
+    """Phase 15 (after phase 6, over phase 4's cached SF 10 tables): the
+    four string-cleaning programs with incompatibleOps on, one cold and
+    STRING_WARM_REPS warm runs each, every operator on the card, rows
+    (sorted) against numpy; K37-K40 timed at the path's shapes
+    ("kernel_rows")."""
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    t = time.perf_counter()
+    want = numpy_strings_wants(raw, li, wants.setdefault("pools", {}))
+    out = {"numpy_s": time.perf_counter() - t}
+    log(f"phase 15: numpy references ready in {out['numpy_s']:.1f} s")
+    table_rows = {k: sum(b.num_rows for part in v._plan.partitions
+                         for b in part) for k, v in raw.items()}
+    for k, v in STRING_CONF.items():
+        sess.set_conf(k, v)
+    try:
+        for name, fn in STRING_PROGRAMS.items():
+            CB.reset_launch_counts()
+            k = STRING_KEYS[name]
+            res = run_query(sess, fn(tables, F), want[name], name,
+                            STRING_WARM_REPS, order=lambda r: r[:k])
+            launches[name] = CB.launch_counts()
+            rows_in = table_rows[name.split("_")[1]]
+            res.update(input_rows=rows_in, rows_per_s=rows_in / best_s(res),
+                       checked_against="numpy (sorted rows)")
+            out[name] = res
+    finally:
+        for k in STRING_CONF:
+            sess.set_conf(k, False)
+    out["kernel_rows"] = time_string_transform_kernels(dev, errs, raw)
+    out["phase_s"] = time.perf_counter() - t
+    log(f"phase 15: {out['phase_s']:.1f} s")
+    return out
 
 
 def main(argv=None) -> int:
@@ -8033,7 +8532,7 @@ def main(argv=None) -> int:
         slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
         encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
         orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs) + \
-        csv_edge_cases(dev, errs)
+        csv_edge_cases(dev, errs) + string_transform_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -8054,6 +8553,9 @@ def main(argv=None) -> int:
                                   args.profile, wants)
     results["phase6"] = run_queries(tpch_sess, raw, tables, li, launches,
                                     args.profile, wants)
+    results["strings"] = run_strings(tpch_sess, raw, tables, li, wants,
+                                     launches, dev, errs)
+    string_rows = results["strings"].pop("kernel_rows")
     results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
                                      wants["input_rows"], launches,
                                      args.profile)
@@ -8090,7 +8592,7 @@ def main(argv=None) -> int:
                                               args.profile)
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
         results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples,
-        csv_rows)
+        {**csv_rows, **string_rows})
     results["kernels"] = kernels
     # no run outside phase 13 (timed or not) retried, split or fell back
     every = fault_counts(start_counters)
@@ -8163,6 +8665,9 @@ def main(argv=None) -> int:
             "last_run_scan_host_s", "csv_host_splits")}
             if k.startswith("csv_") else v)
             for k, v in results["csv"].items()},
+        "strings": {k: ({kk: vv for kk, vv in v.items() if kk in keep}
+                        if k.startswith("strings_") else v)
+                    for k, v in results["strings"].items()},
         "fault_counters": results["fault_counters"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))

@@ -193,8 +193,19 @@ class HostColumnVector:
     def to_pylist(self) -> List[Any]:
         dec_scale = self.dtype.scale if getattr(self.dtype, "is_decimal",
                                                 False) else None
-        if dec_scale is not None:
-            from spark_rapids_tpu_torch.ops.decimal_util import from_unscaled
+        if dec_scale is None:
+            # numpy's tolist gives Python scalars, as .item() does
+            out = self.data.tolist()
+            if self.data.dtype == object and \
+                    self.dtype is not DataType.STRING:
+                out = [v.item() if isinstance(v, np.generic) else v
+                       for v in out]
+            valid = np.asarray(self.validity, dtype=bool)
+            for i in np.flatnonzero(~valid).tolist():
+                out[i] = None
+            return out
+        from spark_rapids_tpu_torch.ops.decimal_util import from_unscaled
+
         out = []
         for i in range(len(self.data)):
             if not self.validity[i]:
@@ -203,9 +214,7 @@ class HostColumnVector:
             v = self.data[i]
             if isinstance(v, np.generic):
                 v = v.item()
-            if dec_scale is not None:
-                v = from_unscaled(v, dec_scale)
-            out.append(v)
+            out.append(from_unscaled(v, dec_scale))
         return out
 
 

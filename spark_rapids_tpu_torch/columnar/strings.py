@@ -44,8 +44,15 @@ of two bounding every row's byte length.
   literal needle's first match at or after a start character. Its plain
   version is the reference's cumsum formulation.
 
-The reference's other string functions (the rest of B15: concat_ws,
-upper / lower / initcap, replace, substring_index, trim) wait.
+- B15's rest (csrc/string_transform.cu): K37 `case_map` replaces
+  `upper_ascii` (:270), `lower_ascii` (:277) and `initcap_ascii` (:620);
+  K38 `span_plan` the plans of `trim_spaces` (:397) and `substring_index`
+  (:571), in K13's layout, which K7's span entry copies; K39
+  `string_replace` replaces `replace_literal` (:499); K40 `string_concat`
+  replaces `concat2` (:323) and `concat_ws` (:642). Their plain versions
+  are the reference's formulations (searchsorted row ids, segmented sums,
+  scatters); the kernels walk each row's own bytes. An output's max_len
+  bounds its rows: the sort words read max_len bytes (exec/rowkeys.py).
 """
 
 from __future__ import annotations
@@ -752,18 +759,11 @@ def locate_plain(offsets, data, needle: bytes, start: int):
                                       device=dev),
                            torch.zeros((), dtype=torch.int32, device=dev))
     byte_cap = int(data.shape[0])
-    pos = torch.arange(byte_cap, device=dev)
-    n = len(needle)
-    m = torch.ones(byte_cap, dtype=torch.bool, device=dev)
-    for k, b in enumerate(needle):
-        m &= data[(pos + k).clamp(max=byte_cap - 1)] == b
-    ends = offsets[1:].long()
-    row = torch.searchsorted(ends, pos, right=True).clamp(0, cap - 1)
+    m, row, pos = _match_starts_plain(offsets, data, needle)
     row_start = offsets[:-1].long()[row]
-    fits = (pos >= row_start) & (pos + n <= ends[row])
     cum = _char_starts_cum(data)
     char_pos = cum[pos] - cum[row_start.clamp(max=max(byte_cap - 1, 0))]
-    cand = m & fits & (char_pos >= start - 1)
+    cand = m & (char_pos >= start - 1)
     inf = 1 << 30
     first = torch.full((cap,), inf, dtype=torch.int32, device=dev)
     first.scatter_reduce_(0, row, torch.where(
@@ -804,3 +804,514 @@ def locate(offsets, data, needle: bytes, start: int):
     if offsets.device.type == "cpu":
         return locate_plain(offsets, data, needle, start)
     return _string_chars(offsets, data, needle, start, 1)
+
+
+# ---------------------------------------------------------------------------
+# B15's rest (reference :270-701): K37 case maps, K38 span plans (K7's
+# span entry copies the spans), K39 replace, K40 concat
+# ---------------------------------------------------------------------------
+def has_border(s: bytes) -> bool:
+    """True when some proper prefix of s equals a suffix ('aa', 'aba';
+    reference :473). A borderless needle cannot overlap itself, so its
+    matches never overlap and any scan that skips past a match finds them
+    all: the precondition of K38's substring_index and K39."""
+    return any(s[:k] == s[-k:] for k in range(1, len(s)))
+
+
+def _needle_bytes(needle: str) -> bytes:
+    """UTF-8 bytes of a literal needle (reference :349)."""
+    return needle.encode("utf-8")
+
+
+def _require_borderless(needle: bytes, what: str) -> None:
+    if len(needle) > 1 and has_border(needle):
+        raise ValueError(f"{what} needs a self-overlap-free needle, not "
+                         f"{needle!r} (the plan rewrite keeps such needles "
+                         "on the CPU engine)")
+
+
+def _row_of_bytes(offsets, byte_cap: int):
+    """(row int64 [byte_cap], position) of each byte: the row whose span
+    holds it (clamped to the last row past the total), as the reference's
+    searchsorted (:403)."""
+    cap = int(offsets.shape[0]) - 1
+    pos = torch.arange(byte_cap, device=offsets.device)
+    row = torch.searchsorted(offsets[1:].long(), pos, right=True)
+    return row.clamp(0, max(cap - 1, 0)), pos
+
+
+# -- K37: case maps (reference :270, :277, :620) ------------------------------
+_CASE_MODES = {"upper": 0, "lower": 1, "initcap": 2}
+
+
+def case_map_plain(offsets, data, mode: str):
+    """uint8 [byte_cap]: the ASCII case map of every row byte (bytes at or
+    past offsets[-1] are 0; non-ASCII bytes pass through). upper / lower:
+    the reference's bytewise where. initcap: a byte starts a word when it
+    is its row's first byte or the byte before it is 0x20; a word's first
+    letter is uppercased, its others lowercased. Row starts are marked at
+    the offsets that lie inside the bytes (the reference scatters its
+    clipped offsets[:-1], :631, which marks the buffer's last byte when it
+    is exactly full and trailing rows are empty)."""
+    d = data.long()
+    byte_cap = int(data.shape[0])
+    total = int(offsets[-1]) if offsets.numel() else 0
+    is_lower = (d >= ord("a")) & (d <= ord("z"))
+    is_upper = (d >= ord("A")) & (d <= ord("Z"))
+    if mode == "upper":
+        out = torch.where(is_lower, d - 32, d)
+    elif mode == "lower":
+        out = torch.where(is_upper, d + 32, d)
+    else:
+        prev = torch.full_like(d, ord(" "))
+        prev[1:] = d[:-1]
+        new_word = prev == ord(" ")
+        starts = offsets[:-1].long()
+        new_word[starts[starts < total]] = True
+        out = torch.where(new_word & is_lower, d - 32,
+                          torch.where(~new_word & is_upper, d + 32, d))
+    inside = torch.arange(byte_cap, device=data.device) < total
+    return torch.where(inside, out, torch.zeros((), dtype=torch.int64,
+                                                device=data.device)
+                       ).to(torch.uint8)
+
+
+def case_map(offsets, data, mode: str):
+    """K37 (csrc/string_transform.cu; replaces `upper_ascii` :270,
+    `lower_ascii` :277 and `initcap_ascii` :620): `case_map_plain`'s bytes.
+    The offsets, validity and max_len are the input's. CPU tensors run the
+    plain version, CUDA tensors the kernel."""
+    if offsets.device.type == "cpu":
+        return case_map_plain(offsets, data, mode)
+    offsets = offsets.contiguous()
+    CB.require_cuda(offsets, data)
+    byte_cap = int(data.shape[0])
+    out = torch.empty(byte_cap, dtype=torch.uint8, device=data.device)
+    vec = int(data.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    lib = CB.library("string_transform")
+    rc = lib.srt_string_case_map(offsets.data_ptr(),
+                                 int(offsets.shape[0]) - 1, data.data_ptr(),
+                                 out.data_ptr(), byte_cap, _CASE_MODES[mode],
+                                 vec, CB.stream_of(out))
+    CB.count_launch("string_case_map")
+    CB.check(lib, rc, "string_case_map")
+    return out
+
+
+def _case_col(col, mode: str):
+    return ColV(DataType.STRING, case_map(col.offsets, col.data, mode),
+                col.validity, col.offsets, col.max_len)
+
+
+def upper_ascii(col):
+    """Reference :270 (device engine): K37."""
+    return _case_col(col, "upper")
+
+
+def lower_ascii(col):
+    """Reference :277 (device engine): K37."""
+    return _case_col(col, "lower")
+
+
+def initcap_ascii(ctx, col):
+    """Reference :620 (device engine): K37."""
+    return _case_col(col, "initcap")
+
+
+# -- K38: trim and substring_index spans (reference :397, :571) ---------------
+_SPAN_MODES = {"both": 0, "left": 1, "right": 2, "index": 3}
+
+
+def _k13_layout(b_start, b_end, offsets, validity):
+    """Spans in K13's layout: row i at spans[2i]:spans[2i + 1], the total
+    at spans[2 cap], the row's validity at 2i."""
+    cap = int(validity.shape[0])
+    dev = validity.device
+    spans = torch.zeros(2 * cap + 1, dtype=torch.int32, device=dev)
+    spans[0:2 * cap:2] = b_start.to(torch.int32)
+    spans[1:2 * cap:2] = b_end.to(torch.int32)
+    spans[2 * cap] = offsets[cap]
+    span_valid = torch.zeros(2 * cap, dtype=torch.bool, device=dev)
+    span_valid[0::2] = validity
+    return spans, span_valid
+
+
+def _trim_plan(offsets, data, side: str):
+    """(new start, new end) per row, the reference's segmented formulation
+    (:397): the first and last non-space byte of each row; an all-space
+    (or empty) row becomes empty at its end (both, left) or start
+    (right)."""
+    cap = int(offsets.shape[0]) - 1
+    byte_cap = int(data.shape[0])
+    starts, ends = offsets[:-1].long(), offsets[1:].long()
+    row, pos = _row_of_bytes(offsets, byte_cap)
+    nonspace = (data != ord(" ")) & (pos >= starts[row]) & (pos < ends[row])
+    first = torch.full((cap,), byte_cap, dtype=torch.int64,
+                       device=data.device)
+    first.scatter_reduce_(0, row, torch.where(nonspace, pos, byte_cap),
+                          "amin")
+    last = torch.full((cap,), -1, dtype=torch.int64, device=data.device)
+    last.scatter_reduce_(0, row, torch.where(nonspace, pos, -1), "amax")
+    all_space = first >= byte_cap
+    new_start = torch.where(all_space, ends, first) \
+        if side in ("both", "left") else starts
+    new_end = torch.where(all_space, new_start, last + 1) \
+        if side in ("both", "right") else ends
+    return new_start, new_start + (new_end - new_start).clamp(min=0)
+
+
+def _match_starts_plain(offsets, data, needle: bytes):
+    """(match bool [byte_cap], row, position): where the needle's bytes
+    start inside their row (reference `_match_starts` :484)."""
+    byte_cap = int(data.shape[0])
+    row, pos = _row_of_bytes(offsets, byte_cap)
+    m = torch.ones(byte_cap, dtype=torch.bool, device=data.device)
+    for k, b in enumerate(needle):
+        m &= data[(pos + k).clamp(max=byte_cap - 1)] == b
+    fits = (pos >= offsets[:-1].long()[row]) & \
+        (pos + len(needle) <= offsets[1:].long()[row])
+    return m & fits, row, pos
+
+
+def _index_plan(offsets, data, delim: bytes, count: int):
+    """(new start, new end) per row of substring_index, the reference's
+    formulation (:571): each match's 0-based rank in its row by byte
+    order; the bytes before the count-th match (count > 0) or after the
+    |count|-th from the end (count < 0); the whole row when it has fewer
+    matches; empty for count 0 or an empty delimiter."""
+    cap = int(offsets.shape[0]) - 1
+    dev = data.device
+    starts, ends = offsets[:-1].long(), offsets[1:].long()
+    lens = ends - starts
+    if count == 0 or not delim or not data.numel():
+        return starts, starts
+    m, row, pos = _match_starts_plain(offsets, data, delim)
+    mi = m.long()
+    excl = torch.cumsum(mi, 0) - mi
+    base = torch.where(lens > 0, excl[starts.clamp(max=int(data.shape[0]) -
+                                                   1)], 0)
+    rank = excl - base[row]
+    total = torch.zeros(cap, dtype=torch.int64, device=dev)
+    total.index_add_(0, row, mi)
+    inf = 1 << 40
+    k = abs(count)
+    want = (count - 1) if count > 0 else (total - k)[row]
+    bpos = torch.full((cap,), inf, dtype=torch.int64, device=dev)
+    bpos.scatter_reduce_(0, row, torch.where(m & (rank == want), pos, inf),
+                         "amin")
+    if count > 0:
+        start_rel = torch.zeros_like(lens)
+        out_len = torch.where(total >= k, bpos - starts, lens)
+    else:
+        start_rel = torch.where(total >= k, bpos - starts + len(delim), 0)
+        out_len = lens - start_rel
+    out_len = torch.minimum(out_len.clamp(min=0), lens)
+    return starts + start_rel, starts + start_rel + out_len
+
+
+def span_plan_plain(offsets, data, validity, mode: str, delim: bytes = b"",
+                    count: int = 0):
+    """(spans int32 [2 cap + 1], span validity [2 cap]) in K13's layout of
+    TRIM / LTRIM / RTRIM of 0x20 (mode both / left / right; reference
+    `trim_spaces` :397) or substring_index(delim, count) (mode index;
+    reference :571). The validity is the input's."""
+    if mode == "index":
+        b_start, b_end = _index_plan(offsets, data, delim, count)
+    else:
+        b_start, b_end = _trim_plan(offsets, data, mode)
+    return _k13_layout(b_start, b_end, offsets, validity)
+
+
+def span_plan(offsets, data, validity, mode: str, delim: bytes = b"",
+              count: int = 0):
+    """K38 (csrc/string_transform.cu; replaces the plans of `trim_spaces`
+    :397 and `substring_index` :571): `span_plan_plain`'s spans, a thread
+    per row. substring_index's delimiter must be one byte or borderless.
+    CPU tensors run the plain version, CUDA tensors the kernel."""
+    if mode == "index":
+        _require_borderless(delim, "substring_index")
+    if validity.device.type == "cpu":
+        return span_plan_plain(offsets, data, validity, mode, delim, count)
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity)
+    cap = int(validity.shape[0])
+    dev = validity.device
+    nd = torch.frombuffer(bytearray(delim or b"\0"),
+                          dtype=torch.uint8).to(dev)
+    spans = torch.empty(2 * cap + 1, dtype=torch.int32, device=dev)
+    span_valid = torch.empty(2 * cap, dtype=torch.bool, device=dev)
+    lib = CB.library("string_transform")
+    rc = lib.srt_string_span_plan(offsets.data_ptr(), data.data_ptr(),
+                                  validity.data_ptr(), cap,
+                                  _SPAN_MODES[mode], nd.data_ptr(),
+                                  len(delim), int(count), spans.data_ptr(),
+                                  span_valid.data_ptr(), CB.stream_of(spans))
+    CB.count_launch("string_span_plan")
+    CB.check(lib, rc, "string_span_plan")
+    return spans, span_valid
+
+
+def _copy_spans(col, spans, span_valid):
+    """K7's span entry copies K13-layout spans of `col` under new offsets;
+    the bytes fit in the source's buffer and every row keeps within the
+    source's max_len."""
+    from spark_rapids_tpu_torch.columnar.batch import (
+        bucket_capacity,
+        gather_string_spans,
+    )
+
+    cap = int(col.validity.shape[0])
+    starts = spans[0:2 * cap:2]
+    bound = min(cap * (col.max_len or 1), int(col.data.shape[0]))
+    offs, data, valid = gather_string_spans(
+        col.data, starts.long(), spans[1:2 * cap:2] - starts,
+        span_valid[0::2], cap, bucket_capacity(max(bound, 1)))
+    return ColV(col.dtype, data, valid, offs, col.max_len)
+
+
+def trim_spaces(ctx, col, side: str = "both"):
+    """Reference :397 (device engine): K38 plans, K7's span entry
+    copies."""
+    return _copy_spans(col, *span_plan(col.offsets, col.data, col.validity,
+                                       side))
+
+
+def substring_index(ctx, col, delim: str, count: int):
+    """Reference :571 (device engine): K38 plans, K7's span entry copies.
+    The plan rewrite keeps a delimiter of more than one byte with a border on the
+    CPU engine."""
+    return _copy_spans(col, *span_plan(col.offsets, col.data, col.validity,
+                                       "index", _needle_bytes(delim),
+                                       count))
+
+
+# -- K39: replace a literal (reference :499) ----------------------------------
+def replace_plain(offsets, data, validity, find: bytes, repl: bytes):
+    """(offsets int32 [cap + 1], bytes) of replacing every match of a
+    non-empty borderless needle left to right, the reference's formulation
+    (:499): per-row match counts, each byte's earlier matches in its row,
+    pass-through bytes scattered to their shifted place, then the
+    replacement's bytes at each match. The buffer holds exactly the output
+    bytes (at least 8), zero past them."""
+    f, r = len(find), len(repl)
+    cap = int(validity.shape[0])
+    dev = data.device
+    byte_cap = int(data.shape[0])
+    starts, ends = offsets[:-1].long(), offsets[1:].long()
+    m, row, pos = _match_starts_plain(offsets, data, find)
+    mi = m.long()
+    excl = torch.cumsum(mi, 0) - mi
+    prior = excl - excl[starts.clamp(max=max(byte_cap - 1, 0))][row]
+    counts = torch.zeros(cap, dtype=torch.int64, device=dev)
+    counts.index_add_(0, row, mi)
+    out_len = torch.where(validity, ends - starts + counts * (r - f), 0)
+    new_offsets = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    new_offsets[1:] = torch.cumsum(out_len, 0)
+    total = int(new_offsets[-1])
+    out_cap = max(total, 8)
+    out = torch.zeros(out_cap + 1, dtype=torch.uint8, device=dev)
+    covered = torch.zeros(byte_cap, dtype=torch.bool, device=dev)
+    for k in range(f):
+        covered[k:] |= m[:byte_cap - k]
+    live = validity[row]
+    in_row = (pos >= starts[row]) & (pos < ends[row]) & live
+    out_pos = new_offsets[row] + (pos - starts[row]) + (r - f) * prior
+    keep = in_row & ~covered
+    out[torch.where(keep, out_pos, out_cap)] = data
+    for k, b in enumerate(repl):
+        out[torch.where(m & live, out_pos + k, out_cap)] = b
+    return new_offsets.to(torch.int32), out[:out_cap]
+
+
+def string_replace(offsets, data, validity, find: bytes, repl: bytes):
+    """K39 (csrc/string_transform.cu; replaces `replace_literal` :499):
+    `replace_plain`'s offsets and bytes. A count launch writes each row's
+    output length and their exclusive scan; the total is read back once (a
+    host read a call) to size the bytes, which a write launch fills. The
+    needle must be non-empty and one byte or borderless. CPU tensors run
+    the plain version, CUDA tensors the kernel."""
+    if not find:
+        raise ValueError("replace needs a non-empty search string")
+    _require_borderless(find, "replace")
+    if validity.device.type == "cpu":
+        return replace_plain(offsets, data, validity, find, repl)
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity)
+    cap = int(validity.shape[0])
+    dev = validity.device
+    needles = torch.frombuffer(bytearray(find + repl),
+                               dtype=torch.uint8).to(dev)
+    lib = CB.library("string_transform")
+    scratch = torch.empty(int(lib.srt_string_transform_scratch_bytes(cap)),
+                          dtype=torch.uint8, device=dev)
+    new_offsets = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    total_d = torch.empty(1, dtype=torch.int64, device=dev)
+    stream = CB.stream_of(new_offsets)
+    rc = lib.srt_string_replace_count(
+        offsets.data_ptr(), data.data_ptr(), validity.data_ptr(), cap,
+        needles.data_ptr(), len(find), len(repl), new_offsets.data_ptr(),
+        total_d.data_ptr(), scratch.data_ptr(), scratch.numel(), stream)
+    CB.count_launch("string_replace")
+    CB.check(lib, rc, "string_replace count")
+    total = int(total_d)  # the call's one host read
+    if total >= (1 << 31):
+        raise ValueError("replace's output passes 2 GiB of bytes")
+    out = torch.empty(max(total, 8), dtype=torch.uint8, device=dev)
+    rc = lib.srt_string_replace_write(
+        offsets.data_ptr(), data.data_ptr(), validity.data_ptr(), cap,
+        needles.data_ptr(), len(find), len(repl), new_offsets.data_ptr(),
+        out.data_ptr(), out.numel(), stream)
+    CB.check(lib, rc, "string_replace write")
+    return new_offsets, out
+
+
+def replace_literal(ctx, col, find: str, repl: str):
+    """Reference :499 (device engine): K39. max_len grows by the
+    replacement's extra bytes for every match a row can hold."""
+    fb, rb = _needle_bytes(find), _needle_bytes(repl)
+    offs, data = string_replace(col.offsets, col.data, col.validity, fb, rb)
+    max_len = col.max_len or 1
+    if len(rb) > len(fb):
+        max_len = len_bucket(max_len + (max_len // len(fb)) *
+                             (len(rb) - len(fb)))
+    return ColV(DataType.STRING, data, col.validity, offs, max_len)
+
+
+# -- K40: concat and concat_ws (reference :323, :642) -------------------------
+def _sources_of(ctx, vals):
+    """K40's sources: (offsets, bytes, validity, per-lane) of each operand,
+    a scalar as a one-row column every lane reads (stride 0), as
+    `_string_source` builds it; and the output's byte bound and max_len
+    bound (sums over the operands)."""
+    sources, byte_cap, max_len = [], 0, 0
+    for v in vals:
+        col, per_lane = _string_source(ctx, v)
+        sources.append((col.offsets, col.data, col.validity, per_lane))
+        byte_cap += plan_byte_cap(ctx, v)
+        max_len += col.max_len or 1
+    return sources, byte_cap, max_len
+
+
+def concat_plain(sources, cap: int, sep, byte_cap: int):
+    """(offsets int32 [cap + 1], bytes [byte_cap], validity [cap]) of
+    joining each lane's pieces, the reference's piece table (`concat_ws`
+    :642; `concat2` :323). sep None is concat: NULL when any piece is NULL.
+    Otherwise concat_ws: never NULL; a NULL piece is left out, and sep goes
+    before every piece that has a non-NULL piece before it."""
+    dev = sources[0][2].device
+    lane = torch.arange(cap, device=dev)
+    views = []
+    for offs, data, valid, per_lane in sources:
+        at = lane if per_lane else torch.zeros_like(lane)
+        start = offs.long()[at]
+        views.append((data, start, offs.long()[at + 1] - start, valid[at]))
+    slen = len(sep) if sep is not None else 0
+    validity = torch.ones(cap, dtype=torch.bool, device=dev)
+    if sep is None:
+        for _, _, _, v in views:
+            validity = validity & v
+    any_before = torch.zeros(cap, dtype=torch.bool, device=dev)
+    pieces = []  # (data, source start, sep length, piece length)
+    for data, start, lens, v in views:
+        keep = v & validity
+        sl = torch.where(keep & any_before, slen, 0)
+        pieces.append((data, start, sl, torch.where(keep, lens, 0)))
+        any_before = any_before | keep
+    out_len = torch.zeros(cap, dtype=torch.int64, device=dev)
+    piece_off = []
+    for _, _, sl, pl in pieces:
+        piece_off.append(out_len)
+        out_len = out_len + sl + pl
+    offsets = torch.zeros(cap + 1, dtype=torch.int64, device=dev)
+    offsets[1:] = torch.cumsum(out_len, 0)
+    total = int(offsets[-1])
+    if total > byte_cap:
+        raise ValueError("concat's bytes pass their bound")
+    out = torch.zeros(byte_cap, dtype=torch.uint8, device=dev)
+    if total:
+        pos = torch.arange(total, device=dev)
+        row = torch.searchsorted(offsets[1:], pos, right=True)
+        within = pos - offsets[row]
+        sep_t = torch.tensor(list(sep or b"\0"), dtype=torch.uint8,
+                             device=dev)
+        res = torch.zeros(total, dtype=torch.uint8, device=dev)
+        for (data, start, sl, pl), off in zip(pieces, piece_off):
+            rel = within - off[row]
+            s, p = sl[row], pl[row]
+            in_sep = (rel >= 0) & (rel < s)
+            in_val = (rel >= s) & (rel < s + p)
+            if slen:
+                res = torch.where(in_sep, sep_t[rel.clamp(0, slen - 1)], res)
+            src = (start[row] + rel - s).clamp(0, max(int(data.shape[0]) -
+                                                      1, 0))
+            res = torch.where(in_val, data[src], res)
+        out[:total] = res
+    return offsets.to(torch.int32), out, validity
+
+
+def string_concat(sources, cap: int, sep, byte_cap: int):
+    """K40 (csrc/string_transform.cu; replaces `concat2` :323 and
+    `concat_ws` :642): `concat_plain`'s offsets, bytes and validity. The J
+    sources go to the card as a small table of (bytes, offsets, validity,
+    stride) so no J is compiled in; a plan launch writes each lane's length
+    and validity, a scan the offsets, a copy launch the bytes. byte_cap
+    must bound the output (the operands' bound sum: no host read). CPU
+    tensors run the plain version, CUDA tensors the kernel."""
+    if sources[0][2].device.type == "cpu":
+        return concat_plain(sources, cap, sep, byte_cap)
+    if byte_cap >= (1 << 31):
+        raise ValueError("concat's bytes may pass 2 GiB")
+    dev = sources[0][2].device
+    table = []
+    for offs, data, valid, per_lane in sources:
+        CB.require_cuda(offs, data, valid)
+        table += [data.data_ptr(), offs.data_ptr(), valid.data_ptr(),
+                  1 if per_lane else 0]
+    desc = torch.tensor(table, dtype=torch.int64).to(dev)
+    sep_d = torch.frombuffer(bytearray(sep or b"\0"),
+                             dtype=torch.uint8).to(dev)
+    lib = CB.library("string_transform")
+    scratch = torch.empty(int(lib.srt_string_transform_scratch_bytes(cap)),
+                          dtype=torch.uint8, device=dev)
+    offsets = torch.empty(cap + 1, dtype=torch.int32, device=dev)
+    validity = torch.empty(cap, dtype=torch.bool, device=dev)
+    out = torch.empty(max(byte_cap, 8), dtype=torch.uint8, device=dev)
+    rc = lib.srt_string_concat(
+        desc.data_ptr(), len(sources), cap, sep_d.data_ptr(),
+        len(sep) if sep is not None else -1, offsets.data_ptr(),
+        validity.data_ptr(), out.data_ptr(), out.numel(),
+        scratch.data_ptr(), scratch.numel(), CB.stream_of(out))
+    CB.count_launch("string_concat")
+    CB.check(lib, rc, "string_concat")
+    return offsets, out, validity
+
+
+def concat2(ctx, lv, rv):
+    """Reference :323 (device engine): K40, NULL when either side is NULL;
+    max_len the sum of the sides'."""
+    sources, byte_cap, max_len = _sources_of(ctx, [lv, rv])
+    offs, data, valid = string_concat(sources, ctx.capacity, None,
+                                      max(byte_cap, 8))
+    return ColV(DataType.STRING, data, valid, offs, len_bucket(max_len))
+
+
+def concat_ws(ctx, sep: str, vals):
+    """Reference :642: join the non-NULL values with sep; never NULL (all
+    NULL gives ''). Device engine: K40, max_len the sum of the members'
+    plus the separators'; CPU engine: the reference's row loop."""
+    if not ctx.is_device:
+        cols = [_host_col(ctx, v) for v in vals]
+        n = ctx.capacity
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = sep.join(str(d[i]) for d, va in cols if va[i])
+        return ColV(DataType.STRING, out, np.ones((n,), dtype=bool))
+    sb = _needle_bytes(sep)
+    cap = ctx.capacity
+    sources, byte_cap, max_len = _sources_of(ctx, vals)
+    byte_cap += max(1, len(sb) * cap * max(len(vals) - 1, 0))
+    offs, data, valid = string_concat(sources, cap, sb, max(byte_cap, 8))
+    return ColV(DataType.STRING, data, valid, offs,
+                len_bucket(max_len + len(sb) * (len(vals) - 1)))

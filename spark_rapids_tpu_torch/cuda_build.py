@@ -35,7 +35,8 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "window_rank_offset", "window_frame_agg", "string_chars",
            "explode", "segment_percentile", "parquet_decode",
            "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
-           "orc_encode", "compact_gather", "csv_parse")
+           "orc_encode", "compact_gather", "csv_parse",
+           "string_transform")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -349,6 +350,26 @@ _SIGNATURES = {
         "srt_remap_codes": (ctypes.c_int, [
             _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
             ctypes.c_int, _VOIDP, _VOIDP]),
+    },
+    "string_transform": {
+        "srt_string_transform_scratch_bytes": (ctypes.c_size_t,
+                                               [ctypes.c_longlong]),
+        "srt_string_case_map": (ctypes.c_int, [
+            _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_longlong,
+            ctypes.c_int, ctypes.c_int, _VOIDP]),
+        "srt_string_span_plan": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP,
+            ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP]),
+        "srt_string_replace_count": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_int,
+            ctypes.c_int, _VOIDP, _VOIDP, _VOIDP, ctypes.c_size_t, _VOIDP]),
+        "srt_string_replace_write": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_int,
+            ctypes.c_int, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP]),
+        "srt_string_concat": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_longlong, _VOIDP, ctypes.c_int,
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
+            ctypes.c_size_t, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

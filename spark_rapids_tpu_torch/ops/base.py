@@ -156,9 +156,10 @@ class UnaryExpression(Expression):
                                 self.do_columnar(_scalar_fold_ctx(),
                                                  _lift(v)))
         data = self.do_columnar(ctx, v)
-        if isinstance(data, ColV):
+        if isinstance(data, ColV):  # string kernels return a whole column
             return ColV(data.dtype, data.data,
-                        and_validity(data.validity, v.validity))
+                        and_validity(data.validity, v.validity), data.offsets,
+                        data.max_len)
         return ColV(self.data_type, zero_nulls(data, v.validity), v.validity)
 
     def do_columnar(self, ctx, v: ColV):
@@ -186,14 +187,17 @@ class BinaryExpression(Expression):
             return self.eval_scalars(lv, rv)
         if isinstance(lv, ScalarV) and lv.is_null or \
            isinstance(rv, ScalarV) and rv.is_null:
+            if self.data_type is DataType.STRING:
+                return _null_string_col(ctx)
             return _null_col(ctx, self.data_type)
         data = self.do_columnar(ctx, lv, rv)
         validity = and_validity(
             lv.validity if isinstance(lv, ColV) else None,
             rv.validity if isinstance(rv, ColV) else None)
-        if isinstance(data, ColV):
+        if isinstance(data, ColV):  # string kernels return a whole column
             return ColV(data.dtype, data.data,
-                        and_validity(data.validity, validity))
+                        and_validity(data.validity, validity), data.offsets,
+                        data.max_len)
         return ColV(self.data_type, zero_nulls(data, validity), validity)
 
     def do_columnar(self, ctx, lv, rv):

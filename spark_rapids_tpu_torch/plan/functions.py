@@ -101,6 +101,58 @@ def locate(substr: str, c: ColumnOrName, pos: int = 1) -> Column:
     return Column(S.StringLocate(_c(c), Literal(substr), Literal(pos)))
 
 
+# -- string transforms (reference :190-247) ----------------------------------
+def upper(c: ColumnOrName) -> Column:
+    return Column(S.Upper(_c(c)))
+
+
+def lower(c: ColumnOrName) -> Column:
+    return Column(S.Lower(_c(c)))
+
+
+def initcap(c: ColumnOrName) -> Column:
+    return Column(S.InitCap(_c(c)))
+
+
+def substring_index(c: ColumnOrName, delim: str, count: int) -> Column:
+    return Column(S.SubstringIndex(_c(c), Literal(delim), Literal(count)))
+
+
+def concat(*cols: ColumnOrName) -> Column:
+    """Binary, as the reference's: three columns raise TypeError."""
+    return Column(S.Concat(*[_c(c) for c in cols]))
+
+
+def trim(c: ColumnOrName) -> Column:
+    return Column(S.StringTrim(_c(c)))
+
+
+def ltrim(c: ColumnOrName) -> Column:
+    return Column(S.StringTrimLeft(_c(c)))
+
+
+def rtrim(c: ColumnOrName) -> Column:
+    return Column(S.StringTrimRight(_c(c)))
+
+
+def regexp_replace(c: ColumnOrName, pattern: str, repl: str) -> Column:
+    """Only literal (metacharacter-free) patterns run on the device, as in
+    the reference (GpuOverrides.scala:1458-1468)."""
+    return Column(S.RegExpReplace(_c(c), Literal(pattern), Literal(repl)))
+
+
+def concat_ws(sep: str, *cols: ColumnOrName) -> Column:
+    """Join the non-NULL values with sep; '' (never NULL) when all are
+    NULL, as Spark."""
+    if not cols:
+        raise ValueError("concat_ws requires at least one column")
+    return Column(S.ConcatWs(sep, [_c(c) for c in cols]))
+
+
+def replace(c: ColumnOrName, search: str, repl: str) -> Column:
+    return Column(S.StringReplace(_c(c), Literal(search), Literal(repl)))
+
+
 # -- date parts (reference :251) ---------------------------------------------
 def year(c: ColumnOrName) -> Column:
     return Column(DT.Year(_c(c)))

@@ -90,6 +90,56 @@ def _tag_window_expr(m: ExprMeta) -> None:
         m.will_not_work("ntile(n) requires n > 0")
 
 
+def _literal_value(e):
+    """The value of a literal argument (under any unary wrapper), else
+    None (reference :140)."""
+    node = e
+    while hasattr(node, "child") and not isinstance(node, Literal):
+        node = node.child
+    return node.value if isinstance(node, Literal) else None
+
+
+def _borderless_literal_tag(child_idx: int, what: str):
+    """The device gate of K38's and K39's needles (reference :148): a
+    literal, one byte or without a border, so matches never overlap and
+    byte-order ranks equal Java's one-position scan."""
+    def tag(m: ExprMeta) -> None:
+        from spark_rapids_tpu_torch.columnar.strings import has_border
+
+        v = _literal_value(m.expr.children()[child_idx])
+        if not isinstance(v, str):
+            m.will_not_work(f"{what} needs a literal string argument")
+        elif len(v.encode("utf-8")) > 1 and has_border(v.encode("utf-8")):
+            m.will_not_work(
+                f"device {what} requires a self-overlap-free string "
+                f"({v!r} can overlap itself)")
+    return tag
+
+
+def _tag_regexp_replace(m: ExprMeta) -> None:
+    """Reference :168: the device replaces literally, so a $ or \\ in the
+    replacement, an empty or non-literal pattern, a pattern with regex
+    metacharacters or one with a border runs on the CPU engine."""
+    from spark_rapids_tpu_torch.columnar.strings import has_border
+
+    repl = _literal_value(m.expr.children()[2])
+    if isinstance(repl, str) and ("$" in repl or "\\" in repl):
+        m.will_not_work(
+            "regexp replacement with $-references or escapes runs on "
+            "the CPU (device replacement is literal)")
+    pat = _literal_value(m.expr.children()[1])
+    if not isinstance(pat, str) or pat == "":
+        m.will_not_work("regexp_replace needs a non-empty literal pattern")
+    elif not S.RegExpReplace.is_simple_pattern(pat):
+        m.will_not_work(
+            f"regexp pattern {pat!r} contains regex metacharacters; "
+            "only literal patterns are supported on device")
+    elif len(pat.encode("utf-8")) > 1 and has_border(pat.encode("utf-8")):
+        m.will_not_work(
+            f"device replace requires a self-overlap-free pattern "
+            f"({pat!r} can overlap itself)")
+
+
 def _tag_agg(m: ExprMeta) -> None:
     e = m.expr
     if isinstance(e, (AGG.Sum, AGG.Average)) and \
@@ -127,12 +177,23 @@ def _register_expr_rules():
         r(cls, f"null-handling {cls.__name__}")
     r(If, "if/else")
     r(CaseWhen, "case when")
-    # strings (reference :135-137): Like has no tag there either, so a
+    # strings (reference :135-202): Like has no tag there either, so a
     # pattern outside classify_like's subset raises in the device kernel
     for cls in (S.Substring, S.StartsWith, S.EndsWith, S.Contains, S.Like,
-                S.Length):
+                S.Length, S.Concat, S.StringTrim, S.StringTrimLeft,
+                S.StringTrimRight, S.ConcatWs):
         r(cls, f"string {cls.__name__}")
+    r(S.StringReplace, "string StringReplace",
+      tag_fn=_borderless_literal_tag(1, "replace"))
+    r(S.RegExpReplace, "string RegExpReplace (literal patterns)",
+      tag_fn=_tag_regexp_replace)
     r(S.StringLocate, "string locate (scalar substring/start)")
+    r(S.SubstringIndex, "string substring_index (scalar delim/count)",
+      tag_fn=_borderless_literal_tag(1, "substring_index"))
+    for cls in (S.Upper, S.Lower, S.InitCap):
+        r(cls, f"string {cls.__name__}",
+          incompat="device case conversion is ASCII-only; non-ASCII "
+                   "characters pass through unchanged")
     for cls in (MX.Floor, MX.Ceil):
         r(cls, f"math {cls.__name__}")
     for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Quarter, DT.Hour,
