@@ -270,6 +270,28 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    shrink, keep the length or are empty, 1-5 concat members with literal
    and NULL-literal members, a 1 MiB row, a 0-row batch, a buffer exactly
    full); phase 15 times them over one 15M-row lineitem partition.
+16. casts to and from STRING, right after phase 15 over the same cached
+   SF 10 tables with rapids.tpu.sql.castFloatToString.enabled,
+   castStringToFloat.enabled and castStringToTimestamp.enabled:
+   CAST_PROGRAMS (casts_lineitem: l_shipdate and l_extendedprice as text,
+   concat(day, ' 08:30:00.250') parsed as a timestamp and formatted back,
+   every price parsed back, grouped by the texts; casts_orders: o_orderdate
+   with 'T23:59:59.999999-02:00' parsed (the next day in UTC) and
+   formatted as a date, SUBSTRING of o_orderkey's text, every price parsed
+   back, grouped; casts_customer: c_custkey, c_acctbal as DOUBLE and FLOAT,
+   a boolean, the phone digits as a DOUBLE (scientific notation) and the
+   balance parsed back through leading whitespace, every row), one cold
+   and CAST_WARM_REPS warm runs each, every plan on the device; lineitem
+   and orders (sorted) against numpy and Python's datetime, customer's
+   every row against Python (str, repr placed Java's way by java_text,
+   numpy's float32 str); the same programs at SMALL_SF against the port's
+   CPU engine (in phase 6's small-SF pass). Phase 3 holds K41
+   (format_fixed), K42 (format_float), K43 (parse_float) and K44
+   (parse_timestamp) bit for bit to their plain versions (cast_edge_cases:
+   the int8-int64, date and timestamp ends, every power of two, 1M random
+   f64 and f32 bit patterns, the grammars' edge rows, NULL, all-NULL and
+   0-row batches); phase 16 times them over one 15M-row lineitem
+   partition, K42's bound the larger of its bytes and its FP64 operations.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -286,7 +308,8 @@ orc_tpch_q3, orc_tpch_q5, orc_hive_q1 and orc_hive_q6 of phase 12,
 memory_spill_q5, memory_spill_q1, memory_oom_q1, memory_split and
 memory_fallback of phase 13, csv_tpch_q1, csv_tpch_q6, csv_tpch_q3 and
 csv_tpch_q5 of phase 14, strings_lineitem, strings_orders,
-strings_customer and strings_part of phase 15);
+strings_customer and strings_part of phase 15, casts_lineitem,
+casts_orders and casts_customer of phase 16);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -310,6 +333,10 @@ import time
 from types import SimpleNamespace
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (NVIDIA data sheet)
+# the kernel-timing pass at the end: CUDA-event calls a kernel (10 until
+# PR 14's cut) and calls a plain version or a library call (2 and 10)
+KERNEL_ITERS = 5
+PLAIN_ITERS = 1
 FLAGSHIP_ROWS = 1 << 26
 N_KEYS = 1024
 HIGH_CARD_ROWS = 1 << 24
@@ -461,6 +488,18 @@ KERNELS = {
     "string_concat": (
         "spark_rapids_tpu_torch/csrc/string_transform.cu",
         "spark_rapids_tpu/columnar/strings.py:642", "strings_lineitem"),
+    "format_fixed": (
+        "spark_rapids_tpu_torch/csrc/cast_format.cu",
+        "spark_rapids_tpu/columnar/format.py:532", "casts_lineitem"),
+    "format_float": (
+        "spark_rapids_tpu_torch/csrc/cast_format.cu",
+        "spark_rapids_tpu/columnar/format.py:284", "casts_lineitem"),
+    "parse_float": (
+        "spark_rapids_tpu_torch/csrc/cast_parse.cu",
+        "spark_rapids_tpu/columnar/parse.py:79", "casts_lineitem"),
+    "parse_timestamp": (
+        "spark_rapids_tpu_torch/csrc/cast_parse.cu",
+        "spark_rapids_tpu/columnar/parse.py:173", "casts_lineitem"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -611,6 +650,18 @@ PATH_KERNELS.update({
                                 "string_concat"),
     "strings_part": _GROUP_BY + _STR_KEYS + _K38 + (
         "string_case_map", "string_replace", "string_concat"),
+})
+# phase 16: dates, ints and bools formatted (K41), floats formatted (K42)
+# and parsed back (K43), timestamps parsed (K44) from concat's text (K40);
+# orders' leading digit through SUBSTRING (K13); the grouped programs
+# group by string keys
+_CASTS = ("format_fixed", "format_float", "parse_float")
+PATH_KERNELS.update({
+    "casts_lineitem": _GROUP_BY + _STR_KEYS + _CASTS + (
+        "parse_timestamp", "string_concat"),
+    "casts_orders": _GROUP_BY + _STR_KEYS + _CASTS + (
+        "parse_timestamp", "string_concat", "substring_plan"),
+    "casts_customer": _CASTS + ("string_replace", "string_concat"),
 })
 PATH_KERNELS.update({
     "csv_tpch_q1": _Q1 + _CSV_READ,
@@ -1468,6 +1519,19 @@ def run_small_sf() -> dict:
     log(f"phase 15: the four programs at SF {SMALL_SF} equal the CPU "
         "engine: " + ", ".join(f"{q} {out[q]['rows']}"
                                for q in STRING_PROGRAMS))
+    # phase 16's programs, the cast keys on for the card
+    for k, v in CAST_CONF.items():
+        card.set_conf(k, v)
+    for name, fn in CAST_PROGRAMS.items():
+        key = CAST_KEYS[name]
+        got = sorted(fn(tabs[0], F).collect(), key=lambda r: r[:key])
+        assert_on_device(card)
+        want = sorted(fn(tabs[1], F).collect(), key=lambda r: r[:key])
+        out[name] = {"rows": len(got), "max_rel_diff": check_rows(
+            got, want, f"{name} at SF {SMALL_SF} vs the CPU engine")}
+    log(f"phase 16: the three programs at SF {SMALL_SF} equal the CPU "
+        "engine: " + ", ".join(f"{q} {out[q]['rows']}"
+                               for q in CAST_PROGRAMS))
     return out
 
 
@@ -2183,7 +2247,7 @@ def time_window_kernels(dev, errs: dict, pr_content) -> dict:
     from spark_rapids_tpu_torch.ops.window import WindowFrame
     from spark_rapids_tpu_torch.columnar.dtypes import DataType
 
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     n, cap, live, user, ts, item = q05_window_batch(dev)
     orders = [SortOrder(BoundReference(0, DataType.TIMESTAMP), True)]
     words, n_part, perm = window_setup([user], [ts], orders, live)
@@ -2544,7 +2608,7 @@ def time_string_kernels(dev, errs: dict) -> dict:
 
     n = 1 << 25
     rows = {}
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     for label, pool, words in (("l_shipmode", tpch._SHIPMODES, 2),
                                ("l_shipinstruct", tpch._INSTRUCT, 8)):
         col = pool_column(pool, n, 5, dev)
@@ -2732,7 +2796,7 @@ def time_join_kernels(dev, errs: dict) -> dict:
     from spark_rapids_tpu_torch.exec import join as J
 
     rows = {}
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     n = K8_ROWS
     pool = tpch._SEGMENTS
     rng = np.random.default_rng(11)
@@ -2811,7 +2875,7 @@ def time_join_kernels(dev, errs: dict) -> dict:
         plain_ms=cuda_ms(lambda: J.join_expand_plain(
             plan[0], plan[4], plan[3], plan[2], out_cap), plain_iters),
         library_ms=cuda_ms(lambda: torch.repeat_interleave(
-            match_cnt, output_size=probe.total), iters),
+            match_cnt, output_size=probe.total), plain_iters),
         bound_ms=bound_ms(12 * n_stream + 4 + 4 * probe.total +
                           8 * out_cap),
         shape=f"{probe.total} output rows in {out_cap} lanes")
@@ -2948,7 +3012,7 @@ def time_search_kernels(dev, errs: dict) -> dict:
     from spark_rapids_tpu_torch.columnar import strings as S
 
     rows = {}
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     n = K12_ROWS
     from spark_rapids_tpu_torch.benchmarks.tpch import _O_COMMENTS
 
@@ -3059,22 +3123,24 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     g = RK.group_ids(words, order, live)
     gi = RK.GroupInfo(g[0], g[4], g[2], order, g[1], g[3])
     rows = {}
-    iters = 10
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
 
     packed = words[0] * (1 << 32) + words[n_words - 1]
     rows["radix_sort_pairs"] = dict(
         ms=cuda_ms(lambda: RK.radix_sort_pairs(words), iters),
-        plain_ms=cuda_ms(lambda: RK.radix_sort_pairs_plain(words), iters),
-        library_ms=cuda_ms(lambda: torch.sort(packed, stable=True), iters),
+        plain_ms=cuda_ms(lambda: RK.radix_sort_pairs_plain(words),
+                         plain_iters),
+        library_ms=cuda_ms(lambda: torch.sort(packed, stable=True),
+                           plain_iters),
         bound_ms=bound_ms(4 * n_words * cap + 4 * cap),
         shape=f"{n_words} words x {cap} rows")
     srt_key = packed[order.long()]
     rows["group_ids"] = dict(
         ms=cuda_ms(lambda: RK.group_ids(words, order, live), iters),
         plain_ms=cuda_ms(lambda: RK.group_ids_plain(words, order, live),
-                         iters),
+                         plain_iters),
         library_ms=cuda_ms(lambda: torch.unique_consecutive(
-            srt_key, return_inverse=True, return_counts=True), iters),
+            srt_key, return_inverse=True, return_counts=True), plain_iters),
         bound_ms=bound_ms((4 * n_words + 4 + 1) * cap + 16 * cap),
         shape=f"{cap} rows")
     gid = gi.gid.long().clamp(max=cap - 1)
@@ -3091,8 +3157,8 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows["segment_reduce"] = dict(
         ms=cuda_ms(lambda: RK.segment_reduce_many(specs, gi, cap), iters),
         plain_ms=cuda_ms(lambda: [RK.segment_reduce_plain(
-            op, d, v, gi, cap) for op, d, v in specs], iters),
-        library_ms=cuda_ms(library_k3, iters),
+            op, d, v, gi, cap) for op, d, v in specs], plain_iters),
+        library_ms=cuda_ms(library_k3, plain_iters),
         bound_ms=bound_ms(in_bytes + len(specs) * 9 * cap),
         shape=f"{len(specs)} columns x {cap} rows")
     hcap = 1 << 22
@@ -3105,7 +3171,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
     rows["hash_partition"] = dict(
         ms=cuda_ms(lambda: H.partition_ids([hk], hlive, 8), iters),
         plain_ms=cuda_ms(lambda: H.partition_ids_plain([hk], hlive, 8),
-                         iters),
+                         plain_iters),
         library_ms=None,
         bound_ms=bound_ms(10 * hcap + 4 * hcap + 36),
         shape=f"1 int64 key x {hcap} rows, 8 partitions",
@@ -3113,21 +3179,22 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
         **{f"ms_{many}": cuda_ms(lambda: H.partition_ids([hk], hlive, many),
                                  iters),
            f"plain_ms_{many}": cuda_ms(lambda: H.partition_ids_plain(
-               [hk], hlive, many), iters),
+               [hk], hlive, many), plain_iters),
            f"bound_ms_{many}": bound_ms(14 * hcap + 4 * (many + 1))})
     ids, _ = H.partition_ids([hk], hlive, 8)
     ids_many, _ = H.partition_ids([hk], hlive, many)
     rows["route_plan"] = dict(
         ms=cuda_ms(lambda: X.route_plan(ids, 8), iters),
-        plain_ms=cuda_ms(lambda: X.route_plan_plain(ids, 8), iters),
+        plain_ms=cuda_ms(lambda: X.route_plan_plain(ids, 8), plain_iters),
         # one call gives the same order: a stable sort of the ids
-        library_ms=cuda_ms(lambda: torch.sort(ids, stable=True), iters),
+        library_ms=cuda_ms(lambda: torch.sort(ids, stable=True),
+                           plain_iters),
         bound_ms=bound_ms(4 * hcap + 4 * hcap + 36),
         shape=f"{hcap} ids, 8 partitions",
         **{f"ms_{many}": cuda_ms(lambda: X.route_plan(ids_many, many),
                                  iters),
            f"plain_ms_{many}": cuda_ms(lambda: X.route_plan_plain(
-               ids_many, many), iters),
+               ids_many, many), plain_iters),
            f"bound_ms_{many}": bound_ms(8 * hcap + 4 * (many + 1))})
     passes = (("strings", lambda: time_string_kernels(dev, errs)),
               ("joins", lambda: time_join_kernels(dev, errs)),
@@ -3145,7 +3212,7 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
         t = time.perf_counter()
         rows.update(timed())
         log(f"kernel timing: {label} in {time.perf_counter() - t:.1f} s")
-    rows.update(phase_rows)  # timed in phases 14 and 15
+    rows.update(phase_rows)  # timed in phases 14, 15 and 16
     # K3's first at q_agg_join's shape rides K3's row
     rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
         "segment_reduce_first").items()})
@@ -3160,10 +3227,11 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
                                  for p, c in launches.items()},
             "max_abs_err": errs.get(name, 0.0), "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": "bytes", "library_ms": r["library_ms"],
-            "shape": r["shape"],
+            "bound_by": r.get("bound_by", "bytes"),
+            "library_ms": r["library_ms"], "shape": r["shape"],
             **{k: v for k, v in r.items() if k.startswith((
-                "ms_", "bound_ms_", "plain_ms_", "library_ms_"))}})
+                "ms_", "bound_ms_", "plain_ms_", "library_ms_", "shape_",
+                "bytes_bound_ms", "ops_bound_ms", "fp64_ops"))}})
     return out
 
 
@@ -3616,7 +3684,7 @@ def time_slice6_kernels(dev, errs: dict, d12_rows: int) -> dict:
     from spark_rapids_tpu_torch.ops.values import ColV
 
     rng = np.random.default_rng(5)
-    iters = 10
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     rows = {}
     # K18: loan_id, ym, delinq_status, current_upb, ever_30/90/180; 12
     # int32 month offsets
@@ -3653,8 +3721,8 @@ def time_slice6_kernels(dev, errs: dict, d12_rows: int) -> dict:
         ms=cuda_ms(lambda: E.explode_rows(children, elems, k, n, out_cap,
                                           False), iters),
         plain_ms=cuda_ms(lambda: E.explode_rows_plain(
-            children, elems, k, n, out_cap, False), 2),
-        library_ms=cuda_ms(library_k18, iters),
+            children, elems, k, n, out_cap, False), plain_iters),
+        library_ms=cuda_ms(library_k18, plain_iters),
         bound_ms=bound_ms(in_bytes + out_bytes),
         shape=f"{n} rows x {k} elements, 7 child columns, {out_cap} lanes")
     del children, elems
@@ -3675,7 +3743,7 @@ def time_slice6_kernels(dev, errs: dict, d12_rows: int) -> dict:
         ms=cuda_ms(lambda: RK.percentile_from_order(order, data, valid, gid,
                                                     cap, ps), iters),
         plain_ms=cuda_ms(lambda: RK.segment_percentile_plain(
-            data, valid, gid, cap, ps, order=order), 2),
+            data, valid, gid, cap, ps, order=order), plain_iters),
         library_ms=None,
         bound_ms=bound_ms((4 + 4 + 1) * cap + 8 * percentile_reads(
             valid, gid, cap, ps) + len(ps) * 9 * cap),
@@ -3698,8 +3766,8 @@ def time_slice6_kernels(dev, errs: dict, d12_rows: int) -> dict:
     rows["segment_reduce_first"] = dict(
         ms=cuda_ms(lambda: RK.segment_reduce_many(specs, gi, cap), iters),
         plain_ms=cuda_ms(lambda: RK.segment_reduce_plain(
-            "first", rate, live, gi, cap), iters),
-        library_ms=cuda_ms(lambda: rate[rep], iters),
+            "first", rate, live, gi, cap), plain_iters),
+        library_ms=cuda_ms(lambda: rate[rep], plain_iters),
         bound_ms=bound_ms((8 + 4 + 1) * cap + (4 + 1) * cap))
     return rows
 
@@ -4484,7 +4552,7 @@ def time_parquet_kernels(dev, errs: dict) -> dict:
     n = PARQUET_SHAPE_ROWS
     cap = CBT.bucket_capacity(n)
     rng = np.random.default_rng(29)
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     rows = {}
     valid = rng.random(n) < 0.99
     present = int(valid.sum())
@@ -4537,7 +4605,7 @@ def time_parquet_kernels(dev, errs: dict) -> dict:
                                                 torch.int64), iters),
         plain_ms=cuda_ms(lambda: PD.page_decode_pages_plain(
             levels, n, cap, dsrc, 8, torch.int64, False), plain_iters),
-        library_ms=cuda_ms(lambda: dvals[idx_l], iters),
+        library_ms=cuda_ms(lambda: dvals[idx_l], plain_iters),
         bound_ms=bound_ms(4 * n + 4 * present + 8000 + 9 * cap),
         ms_plain_f64=cuda_ms(lambda: PD.page_decode_pages(
             levels, n, cap, psrc, 8, torch.float64), iters),
@@ -4563,7 +4631,7 @@ def time_parquet_kernels(dev, errs: dict) -> dict:
         ms=cuda_ms(lambda: PE.encode_plain_page(pcol, n), iters),
         plain_ms=cuda_ms(lambda: PE.encode_plain_page_plain(pcol, n),
                          plain_iters),
-        library_ms=cuda_ms(lambda: price[pvalid], iters),
+        library_ms=cuda_ms(lambda: price[pvalid], plain_iters),
         bound_ms=bound_ms(n + 8 * n + 8 * n + cap // 8 + 16),
         ms_string=cuda_ms(lambda: PE.encode_plain_page(scol, n), iters),
         bound_ms_string=bound_ms(n + 4 * (n + 1) + s_bytes +
@@ -5366,7 +5434,7 @@ def time_encoded_kernels(dev, errs: dict) -> dict:
 
     n = ENCODED_ROW_GROUP
     cap = bucket_capacity(n)
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     rng = np.random.default_rng(9)
     rows = {}
     valid_np = rng.random(n) >= 0.01
@@ -5418,7 +5486,7 @@ def time_encoded_kernels(dev, errs: dict) -> dict:
                    iters),
         plain_ms=cuda_ms(lambda: E.dict_materialize_fixed_plain(
             pcodes, valid, vals), plain_iters),
-        library_ms=cuda_ms(lambda: vals[pcodes], iters),
+        library_ms=cuda_ms(lambda: vals[pcodes], plain_iters),
         bound_ms=bound_ms(5 * cap + 8 * cap + 8 * prices.size),
         shape=f"{cap} lanes through {prices.size} INT64 values")
     remap = torch.as_tensor(rng.permutation(200).astype(np.int32)).to(dev)
@@ -5430,7 +5498,7 @@ def time_encoded_kernels(dev, errs: dict) -> dict:
         ms=cuda_ms(lambda: E.remap_codes(codes, valid, remap, 0), iters),
         plain_ms=cuda_ms(lambda: E.remap_codes_plain(codes, valid, remap, 0),
                          plain_iters),
-        library_ms=cuda_ms(lambda: remap[codes], iters),
+        library_ms=cuda_ms(lambda: remap[codes], plain_iters),
         bound_ms=bound_ms(9 * cap + 4 * 200),
         ms_join_fill=cuda_ms(lambda: E.remap_codes(codes, valid, remap, -1),
                              iters),
@@ -6055,7 +6123,7 @@ def time_parquet_v2_kernels(dev, errs: dict, samples: dict) -> dict:
     from spark_rapids_tpu_torch.io import parquet_device as PD
 
     n = V2_ROW_GROUP
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     rows = {}
     # K25 on wcs_click_ts
     hc, chunk, levels, cap = v2_chunk({"wcs_click_ts": v2_spec(
@@ -6072,7 +6140,7 @@ def time_parquet_v2_kernels(dev, errs: dict, samples: dict) -> dict:
         plain_ms=cuda_ms(lambda: PD.delta_expand_plain(chunk, st,
                                                        hc.present),
                          plain_iters),
-        library_ms=cuda_ms(lambda: torch.cumsum(deltas, 0), iters),
+        library_ms=cuda_ms(lambda: torch.cumsum(deltas, 0), plain_iters),
         bound_ms=bound_ms(stream_bytes + 20 * n_mbs + 8 * hc.present),
         shape=f"{hc.present} TIMESTAMP values like wcs_click_ts in "
               f"{len(hc.kinds)} DELTA pages, {n_mbs} miniblocks, "
@@ -6108,7 +6176,7 @@ def time_parquet_v2_kernels(dev, errs: dict, samples: dict) -> dict:
             levels, n, cap, src, 8, torch.float64, False), plain_iters),
         # one call regroups the byte planes (as if one page)
         library_ms=cuda_ms(lambda: planes.view(8, n).t().contiguous(),
-                           iters),
+                           plain_iters),
         bound_ms=bound_ms(4 * n + 8 * hc.present + 9 * cap),
         shape=f"{n} DOUBLE rows like l_extendedprice in {len(hc.kinds)} "
               "BYTE_STREAM_SPLIT pages")
@@ -7109,7 +7177,7 @@ def time_orc_kernels(dev, errs: dict) -> dict:
     n = ORC_SHAPE_ROWS
     cap = CBT.bucket_capacity(n)
     rng = np.random.default_rng(67)
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     rows = {}
     dates = torch.from_numpy(rng.integers(8035, 10561, cap).astype(
         np.int32)).to(dev)
@@ -7187,7 +7255,7 @@ def time_orc_kernels(dev, errs: dict) -> dict:
         plain_ms=cuda_ms(lambda: PE.encode_plain_page_plain(pcol, n,
                                                             orc=True),
                          plain_iters),
-        library_ms=cuda_ms(lambda: price[pvalid], iters),
+        library_ms=cuda_ms(lambda: price[pvalid], plain_iters),
         bound_ms=bound_ms(n + 8 * n + 8 * n + cap // 8 + 16),
         shape=f"{n} DOUBLE rows like l_extendedprice")
     return rows
@@ -7334,7 +7402,7 @@ def time_memory_kernels(dev, errs: dict) -> dict:
 
     from spark_rapids_tpu_torch.columnar import batch as CBT
 
-    iters, plain_iters = 10, 2
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
     rng = np.random.default_rng(137)
     n = K31_ROWS
     cap = CBT.bucket_capacity(n)
@@ -7371,13 +7439,14 @@ def time_memory_kernels(dev, errs: dict) -> dict:
         ms=cuda_ms(lambda: CBT.compact_fixed([piece], [mask], cap), iters),
         plain_ms=cuda_ms(lambda: CBT.compact_fixed_plain([piece], [mask],
                                                          cap), plain_iters),
-        library_ms=cuda_ms(lambda: lib_compact(piece, mask), iters),
+        library_ms=cuda_ms(lambda: lib_compact(piece, mask), plain_iters),
         bound_ms=bound_ms(k31_bytes(cap, kept)),
         ms_half=cuda_ms(lambda: CBT.compact_fixed([hpiece], [hmask], hcap),
                         iters),
         plain_ms_half=cuda_ms(lambda: CBT.compact_fixed_plain(
             [hpiece], [hmask], hcap), plain_iters),
-        library_ms_half=cuda_ms(lambda: lib_compact(hpiece, hmask), iters),
+        library_ms_half=cuda_ms(lambda: lib_compact(hpiece, hmask),
+                                plain_iters),
         bound_ms_half=bound_ms(k31_bytes(hcap, hkept)),
         shape=f"{n} rows x {len(cols)} fixed columns (lineitem's), "
               f"{kept} kept by q1's filter; half: {n - half} rows, {hkept} "
@@ -7405,7 +7474,7 @@ def time_memory_kernels(dev, errs: dict) -> dict:
         plain_ms=cuda_ms(lambda: CBT.gather_fixed_plain(
             [c[0] for c in scols], [c[1] for c in scols], sidx, out_rows,
             None, ocap), plain_iters),
-        library_ms=cuda_ms(lambda: lib_gather(sflat, sidx), iters),
+        library_ms=cuda_ms(lambda: lib_gather(sflat, sidx), plain_iters),
         bound_ms=bound_ms(4 * ocap + 2 * swidth * ocap),
         ms_half=cuda_ms(lambda: CBT.gather_fixed(
             [c[0] for c in cols], [c[1] for c in cols], hidx, n - half, None,
@@ -7413,7 +7482,7 @@ def time_memory_kernels(dev, errs: dict) -> dict:
         plain_ms_half=cuda_ms(lambda: CBT.gather_fixed_plain(
             [c[0] for c in cols], [c[1] for c in cols], hidx, n - half, None,
             hcap), plain_iters),
-        library_ms_half=cuda_ms(lambda: lib_gather(piece, hidx), iters),
+        library_ms_half=cuda_ms(lambda: lib_gather(piece, hidx), plain_iters),
         bound_ms_half=bound_ms(8 * hcap + 2 * widths * hcap),
         shape=f"{out_rows} rows x {len(scols)} stream columns of a "
               f"{s_rows}-row batch (q5's emit); half: {n - half} rows x "
@@ -8462,6 +8531,575 @@ def run_strings(sess, raw, tables, li: dict, wants: dict, launches: dict,
     return out
 
 
+# ------------------------------------------------ phase 16 (slice 14)
+# Casts to and from STRING over phase 4's cached tables: F is either
+# package's functions module, so the CPU tests run the same text on both.
+def casts_lineitem(t, F):
+    """Dates and prices formatted, a timestamp built from the text and
+    formatted back, every price parsed back, grouped by the texts."""
+    day = F.col("l_shipdate").cast("string")
+    px = F.col("l_extendedprice").cast("string")
+    stamp = F.concat(day, F.lit(" 08:30:00.250")).cast("timestamp")
+    return (t["lineitem"].select(
+        day.alias("day"), stamp.cast("string").alias("stamp"),
+        (px.cast("double") == F.col("l_extendedprice")).cast("int")
+        .alias("same"), "l_extendedprice")
+        .groupBy("day", "stamp")
+        .agg(F.count("*").alias("n"), F.sum("same").alias("same"),
+             F.sum("l_extendedprice").alias("price")))
+
+
+def casts_orders(t, F):
+    """A local time with a zone read as UTC (the next day), the key's
+    leading digit, every price parsed back, grouped."""
+    local = F.concat(F.col("o_orderdate").cast("string"),
+                     F.lit("T23:59:59.999999-02:00")).cast("timestamp")
+    px = F.col("o_totalprice").cast("string")
+    return (t["orders"].select(
+        local.cast("date").cast("string").alias("utc_day"),
+        F.substring(F.col("o_orderkey").cast("string"), 1, 1).alias("lead"),
+        (px.cast("double") == F.col("o_totalprice")).cast("int")
+        .alias("same"), "o_totalprice")
+        .groupBy("utc_day", "lead")
+        .agg(F.count("*"), F.sum("same"), F.sum("o_totalprice")))
+
+
+def casts_customer(t, F):
+    """Every row's texts: the key, the balance as DOUBLE and FLOAT, a
+    boolean, the phone digits as a DOUBLE (scientific), and the balance
+    parsed back through leading whitespace."""
+    return t["customer"].select(
+        "c_custkey",
+        F.col("c_custkey").cast("string").alias("key"),
+        F.col("c_acctbal").cast("string").alias("bal"),
+        F.col("c_acctbal").cast("float").cast("string").alias("bal32"),
+        (F.col("c_acctbal") > F.lit(0.0)).cast("string").alias("pos"),
+        F.replace("c_phone", "-", "").cast("double").cast("string")
+        .alias("num"),
+        F.concat(F.lit(" \t"), F.col("c_acctbal").cast("string"))
+        .cast("double").alias("back"))
+
+
+CAST_PROGRAMS = {"casts_lineitem": casts_lineitem,
+                 "casts_orders": casts_orders,
+                 "casts_customer": casts_customer}
+CAST_CONF = {"rapids.tpu.sql.castFloatToString.enabled": True,
+             "rapids.tpu.sql.castStringToFloat.enabled": True,
+             "rapids.tpu.sql.castStringToTimestamp.enabled": True}
+# the key columns each program's rows are sorted by before a comparison
+CAST_KEYS = {"casts_lineitem": 2, "casts_orders": 2, "casts_customer": 1}
+CAST_WARM_REPS = 1
+CAST_FUZZ_ROWS = 1 << 20  # phase 3's random rows a set
+FP64_OPS_PER_S = 34e12  # H100 SXM FP64 outside the tensor cores (data sheet)
+
+
+def java_text(r: str) -> str:
+    """Java's Double.toString placement of the digits and exponent that
+    Python's repr of a double (or numpy's str of a float32) gives: plain
+    for -3 <= e10 < 7, else d.dddE[-]ee, '.0' after an integral value."""
+    sign = "-" if r.startswith("-") else ""
+    mant, _, exp = r.lstrip("-").partition("e")
+    ip, _, fp = mant.partition(".")
+    digits = (ip + fp).lstrip("0")
+    if not digits.strip("0"):
+        return sign + "0.0"
+    e10 = int(exp or 0) + len(ip) - 1 - (len(ip + fp) - len(digits))
+    digits = digits.rstrip("0")
+    p = len(digits)
+    if not -3 <= e10 < 7:
+        return f"{sign}{digits[0]}.{digits[1:] or '0'}E{e10}"
+    if e10 >= p - 1:
+        return sign + digits + "0" * (e10 - p + 1) + ".0"
+    if e10 >= 0:
+        return sign + digits[:e10 + 1] + "." + digits[e10 + 1:]
+    return sign + "0." + "0" * (-e10 - 1) + digits
+
+
+def iso_days(days) -> list:
+    """ISO dates of epoch days by Python's datetime."""
+    import datetime
+
+    epoch = datetime.date(1970, 1, 1)
+    return [(epoch + datetime.timedelta(days=int(d))).isoformat()
+            for d in days]
+
+
+def numpy_casts_wants(raw, li: dict) -> dict:
+    """casts_lineitem's and casts_orders' rows by numpy over the generated
+    columns and Python's datetime: a group a date (and a leading digit,
+    found by comparisons with powers of ten) by bincount, every price
+    parsed back."""
+    import numpy as np
+
+    def grouped(code, weights):
+        lo = int(code.min())
+        n = np.bincount(code - lo)
+        total = np.bincount(code - lo, weights=weights)
+        at = np.nonzero(n)[0]
+        return at + lo, n[at], total[at]
+
+    out = {}
+    days, n, price = grouped(li["l_shipdate"].astype(np.int64),
+                             li["l_extendedprice"])
+    out["casts_lineitem"] = [
+        (d, d + " 08:30:00.25", int(c), int(c), float(s))
+        for d, c, s in zip(iso_days(days), n, price)]
+    o = table_columns(raw["orders"], ("o_orderdate", "o_orderkey",
+                                      "o_totalprice"))
+    key = o["o_orderkey"]
+    nd = np.ones(len(key), np.int64)
+    for j in range(1, 19):
+        nd += key >= 10 ** j
+    lead = key // np.array([10 ** j for j in range(19)])[nd - 1]
+    check(bool((lead >= 0).all() and (lead <= 9).all()),
+          "o_orderkey's leading digits")
+    groups, n, price = grouped(
+        (o["o_orderdate"].astype(np.int64) + 1) * 10 + lead,
+        o["o_totalprice"])
+    out["casts_orders"] = [
+        (d, str(int(g % 10)), int(c), int(c), float(s))
+        for d, g, c, s in zip(iso_days(groups // 10), groups, n, price)]
+    for name in out:
+        out[name].sort(key=lambda r: r[:CAST_KEYS[name]])
+    return out
+
+
+def _java_nums(phones) -> list:
+    """java_text of each phone's digits read as a double."""
+    return [java_text(repr(float(ph.replace("-", "")))) for ph in phones]
+
+
+def check_casts_customer(rows, c: dict) -> int:
+    """casts_customer's rows (sorted by c_custkey) against Python, column
+    by column: str of the key, java_text of repr(c_acctbal) and of numpy's
+    str of its float32, 'true' / 'false', java_text of the phone digits'
+    double, the balance parsed back exactly. Where 1e-3 <= |x| < 1e7 (or
+    x is 0) repr's plain text is already Java's, so java_text is skipped
+    there. Returns the rows checked."""
+    import numpy as np
+
+    order = np.argsort(c["c_custkey"], kind="stable")
+    keys = c["c_custkey"][order].tolist()
+    check(len(rows) == len(keys), "casts_customer: row count")
+
+    def texts(x, reprs):
+        a = np.abs(x)
+        plain = ((a >= 1e-3) & (a < 1e7)) | (a == 0)
+        return [r if ok else java_text(r)
+                for r, ok in zip(reprs, plain.tolist())]
+
+    bal = c["c_acctbal"][order]
+    b32 = bal.astype(np.float32)
+    want = {"c_custkey": keys, "key": list(map(str, keys)),
+            "bal": texts(bal, map(repr, bal.tolist())),
+            "bal32": texts(b32, b32.astype(str).tolist()),
+            "pos": np.where(bal > 0.0, "true", "false").tolist(),
+            "num": _java_nums(c["c_phone"][order]),
+            "back": bal.tolist()}
+    for (name, w), g in zip(want.items(), zip(*rows)):
+        g = list(g)
+        if g != w:
+            i = next(k for k, (a, b) in enumerate(zip(g, w)) if a != b)
+            raise SmokeFailure(f"casts_customer {name} row {i}: {g[i]!r} "
+                               f"!= {w[i]!r}")
+    return len(rows)
+
+
+def same_values(got, want) -> bool:
+    """Parsed values: NaN where the other is NaN, bit for bit elsewhere
+    (so -0.0 differs from 0.0)."""
+    import torch
+
+    if got.dtype != want.dtype or got.shape != want.shape:
+        return False
+    if got.dtype.is_floating_point:
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            return False
+        return bits_equal(torch.where(nan, 0.0, got).to(got.dtype),
+                          torch.where(nan, 0.0, want).to(want.dtype))
+    return bits_equal(got, want)
+
+
+def compare_k41(x, valid, mode: str, label: str, errs: dict) -> None:
+    from spark_rapids_tpu_torch.columnar import format as FMT
+
+    plain = {"int": FMT.int_to_string_plain, "bool": FMT.bool_to_string_plain,
+             "date": FMT.date_to_string_plain,
+             "timestamp": FMT.timestamp_to_string_plain}[mode]
+    same_strings(FMT.format_fixed(x, valid, mode), plain(x, valid),
+                 f"K41 {mode} {label}", errs, "format_fixed")
+
+
+def compare_k42(x, valid, label: str, errs: dict):
+    """K42 against its plain version; returns the text (offsets, bytes)."""
+    from spark_rapids_tpu_torch.columnar import format as FMT
+
+    got = FMT.format_float(x, valid)
+    same_strings(got, FMT.float_to_string_plain(x, valid), f"K42 {label}",
+                 errs, "format_float")
+    return got
+
+
+def compare_parse(kernel: str, col, label: str, errs: dict,
+                  to32: bool = False) -> None:
+    """K43 (f64 and, with to32, f32) or K44 against its plain version:
+    value, validity and malformed flags."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import parse as PRS
+
+    offsets, data, valid = col
+    if kernel == "parse_float":
+        got = PRS.parse_float(offsets, data, valid, to32)
+        want = PRS.parse_float_plain(offsets, data, valid, to32)
+    else:
+        got = PRS.parse_timestamp(offsets, data, valid)
+        want = PRS.parse_timestamp_plain(offsets, data, valid)
+    check(same_values(got[0], want[0]), f"{kernel} {label}: values differ")
+    check(bits_equal(got[1], want[1]), f"{kernel} {label}: validity differs")
+    check(bits_equal(got[2], want[2]),
+          f"{kernel} {label}: malformed flags differ")
+    keep = want[1] & (torch.isfinite(want[0]) if want[0].is_floating_point()
+                      else True)
+    errs[kernel] = max(errs.get(kernel, 0.0), max_abs_err(got[0][keep],
+                                                          want[0][keep]))
+
+
+FLOAT_TEXT_ROWS = [
+    b"", b" ", b"+", b"-", b".", b"1.", b".5", b"1e", b"1e+", b"1e400",
+    b"1e-400", b"1e1000", b"1" * 48, b"1" * 49, b"0." + b"1" * 46,
+    b"inf", b"-Infinity", b"NaN ", b"iNf", b"+nan", b"-nAn", b"infinit",
+    b"\t1.5\n", b"1,5", b"0x10", b"12345678901234567",
+    b"123456789012345678", b"1234567890123456789012345",
+    b"0.000000000000000000001234567890123456789", b"000000000000012.5",
+    b"-0", b"-0.0", b"+.5e-3", b"5.E2", b"1e+308", b"1.7976931348623157e308",
+    b"1.7976931348623159e308", b"4.9e-324", b"2.2250738585072014E-308",
+    b"3.4028235e38", b"3.4028236e38", b"1.4e-45", b"1.17549435E-38",
+    b"1e2e3", b"1-2", b"--1", b"1.2.3", b"1e3.5", b"e5", b"1 2",
+    "１２".encode(), "é1".encode(), b"1\x00", b"\x001", b"\xff",
+    b"  -12.75e-1  ", b"9" * 30, b"0" * 60, b"1e-5", None]
+TS_TEXT_ROWS = [
+    b"2023-02-30", b"2024-02-29", b"2023-02-29", b"2020-01-01 24:00:00",
+    b"2020-01-01 23:59:59", b"2020-01-01T12:34:56Z",
+    b"2020-01-01 12:34:56+05:30", b"2020-01-01 12:34:56-02:00",
+    b"2020-01-01 12:34:56.1234567", b"2020-01-01 12:34:56.123456",
+    b"2020-01-01 12:34:56.", b"2020-01-01 12:34:56.5Z",
+    b"2020-01-01 12:34:56.123456+05:30",      # 32 characters
+    b"2020-01-01 12:34:56.123456+05:300",     # 33
+    b"2020-01-01 12:34:56.123456+05:3000",    # 34
+    b"2020-01-01 12:34:56.12345+05:30",       # 31
+    b"0000-01-01", b"9999-12-31 23:59:59.999999", b"  2020-06-15  ",
+    b"\t2020-06-15 01:02:03\n", b"2020-06-15 01:02", b"2020-6-15",
+    b"2020-06-15 01:02:03+24:00", b"2020-06-15 01:02:03+05:60",
+    b"2020-06-15 01:02:03+0530", b"2020-06-15X01:02:03", b"", b" ",
+    b"1969-12-31 23:59:59.999999", b"2020-13-01", b"2020-00-10",
+    "２０２０-01-01".encode(), b"2020-01-01\x00", None]
+
+
+def _int_edges(np_dtype):
+    import numpy as np
+
+    info = np.iinfo(np_dtype)
+    vals = [int(info.min), int(info.max), 0, 1, -1, int(info.min) + 1,
+            int(info.max) - 1]
+    for k in range(1, 19):
+        for v in (10 ** k - 1, 10 ** k, 10 ** k + 1):
+            for s in (v, -v):
+                if info.min <= s <= info.max:
+                    vals.append(s)
+    return np.array(vals, dtype=np_dtype)
+
+
+def cast_edge_cases(dev, errs: dict) -> int:
+    """K41-K44 against their plain versions on the card, bit for bit (NaN
+    by isnan): int8-int64 ends and 10^k +- 1, booleans, dates at both ends
+    of int32 days, years -1, 0, 9999 and 10000, leap days, timestamps at
+    both ends of int64 and fractions .1, .000001, .123456, .5 before and
+    after 1970; +-0.0, NaN, +-Inf, the subnormal and normal ends, every
+    power of two, 1M random f64 and 1M random f32 bit patterns; the float
+    grammar's edge rows (48 and 49 characters, words, whitespace, 17, 18
+    and 25 digits, non-ASCII and NUL) and K42's text of the random sets
+    parsed back; the timestamp grammar's rows (31-34 characters, zones,
+    7 fraction digits) and K41's text of 1M random timestamps parsed
+    back; NULL rows, an all-NULL batch, a 0-row batch in each."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import format as FMT
+    from spark_rapids_tpu_torch.columnar import parse as PRS
+    from spark_rapids_tpu_torch.ops.cast import _days_from_civil
+
+    rng = np.random.default_rng(47)
+    sets = 0
+
+    def put(values, null_every=0, cap=None):
+        x = torch.as_tensor(values).to(dev)
+        n = int(x.shape[0])
+        cap = n if cap is None else cap
+        if cap > n:
+            x = torch.cat([x, torch.zeros(cap - n, dtype=x.dtype,
+                                          device=dev)])
+        valid = torch.arange(cap, device=dev) < n
+        if null_every:
+            valid &= torch.arange(cap, device=dev) % null_every != 3
+        return x, valid
+
+    many = CAST_FUZZ_ROWS
+    for dt in (np.int8, np.int16, np.int32, np.int64):
+        edges = _int_edges(dt)
+        info = np.iinfo(dt)
+        rand = rng.integers(info.min, info.max, many, dtype=dt,
+                            endpoint=True)
+        for label, vals, nulls, cap in (
+                ("edges", edges, 0, len(edges) + 5),
+                ("edges with NULLs", edges, 4, None),
+                ("1M random", rand, 17, None)):
+            compare_k41(*put(vals, nulls, cap), "int", f"{dt.__name__} "
+                        f"{label}", errs)
+            sets += 1
+    compare_k41(*put(rng.integers(0, 2, 1000).astype(bool), 5), "bool",
+                "random", errs)
+    date_edges = [np.iinfo(np.int32).min, np.iinfo(np.int32).max, 0, -1]
+    for y in (-1, 0, 1, 1900, 1969, 1970, 2000, 2024, 9999, 10000, -10000):
+        date_edges += [_days_from_civil(y, 1, 1),
+                       _days_from_civil(y, 12, 31)]
+    for y, m, d in ((2000, 2, 29), (2024, 2, 29), (1900, 2, 28),
+                    (1900, 3, 1), (1600, 2, 29), (-4, 2, 29)):
+        date_edges.append(_days_from_civil(y, m, d))
+    dates = np.array(date_edges, np.int32)
+    rand_days = rng.integers(np.iinfo(np.int32).min, np.iinfo(np.int32).max,
+                             many, dtype=np.int32)
+    for label, vals, nulls in (("edges", dates, 0), ("edges with NULLs",
+                                                     dates, 4),
+                               ("1M random", rand_days, 13)):
+        compare_k41(*put(vals, nulls), "date", label, errs)
+        sets += 1
+    i64 = np.iinfo(np.int64)
+    day = 86_400_000_000
+    ts_edges = [i64.min, i64.max, 0, 1, -1, 100_000, 1, 123_456, 500_000,
+                -1_500_000, -86_399_999_999, -day, day - 1,
+                -day * 719_528 + 100_000, 253_402_300_799_999_999,
+                253_402_300_800_000_000, -62_167_219_200_000_000 - 1,
+                i64.min + 1, i64.max - 1, -123_456, -500_000]
+    in_range = rng.integers(-62_135_596_800_000_000, 253_402_300_799_999_999,
+                            many, dtype=np.int64)
+    in_range[::3] -= in_range[::3] % 1_000_000  # whole seconds
+    for label, vals, nulls in (
+            ("edges", np.array(ts_edges, np.int64), 0),
+            ("1M random", rng.integers(i64.min, i64.max, many,
+                                       dtype=np.int64), 11),
+            ("1M years 1-9999", in_range, 0)):
+        x, valid = put(vals, nulls)
+        compare_k41(x, valid, "timestamp", label, errs)
+        sets += 1
+    text = FMT.format_fixed(x, valid, "timestamp")
+    compare_parse("parse_timestamp", (text[0], text[1], valid),
+                  "K41's text of 1M timestamps", errs)
+    check(bits_equal(PRS.parse_timestamp(text[0], text[1], valid)[0], x),
+          "K44 does not parse K41's timestamps back")
+    sets += 1
+
+    f64_edges = np.array(
+        [0.0, -0.0, np.nan, -np.nan, np.inf, -np.inf, 5e-324,
+         2.2250738585072009e-308, 2.2250738585072014e-308,
+         1.7976931348623157e308, -1.7976931348623157e308, 1e-3,
+         9.999999e-4, 1e7, 9999999.0, 0.1, 1.5, 123456.789, 1e20, 1.23e-7,
+         1e-4, 3.141592653589793, 2.0 ** 63, 1e16, 1e-100, 1e-300,
+         5e-300, 9007199254740993.0] +
+        list(np.ldexp(1.0, np.arange(-1074, 1024))), np.float64)
+    f32_edges = np.concatenate([
+        np.array([0.0, -0.0, np.nan, np.inf, -np.inf, 3.4028235e38,
+                  -3.4028235e38, 1.1754944e-38, 1.1754942e-38, 1e-45,
+                  0.1, 7.0, 1e10, 16777217.0], np.float32),
+        np.arange(1, 4097, dtype=np.uint32).view(np.float32),
+        np.array([0x7FFFFF, 0x800001, 0x807FFFFF], np.uint32)
+        .view(np.float32)])
+    with np.errstate(invalid="ignore"):
+        f64_rand = rng.integers(0, 2 ** 64, many, dtype=np.uint64,
+                                endpoint=False).view(np.float64)
+        f32_rand = rng.integers(0, 2 ** 32, many, dtype=np.uint64) \
+            .astype(np.uint32).view(np.float32)
+    for label, vals, nulls in (("f64 edges", f64_edges, 0),
+                               ("f64 edges with NULLs", f64_edges, 7),
+                               ("1M random f64 bits", f64_rand, 19),
+                               ("f32 edges", f32_edges, 0),
+                               ("1M random f32 bits", f32_rand, 23)):
+        x, valid = put(vals, nulls)
+        text = compare_k42(x, valid, label, errs)
+        col = (text[0], text[1], valid)
+        compare_parse("parse_float", col, f"K42's text of {label}", errs)
+        compare_parse("parse_float", col, f"K42's text of {label} (f32)",
+                      errs, to32=True)
+        sets += 1
+    for label, rows, cap in (("grammar rows", FLOAT_TEXT_ROWS, 80),):
+        col = transform_column(rows, dev, cap=cap)
+        compare_parse("parse_float", col, label, errs)
+        compare_parse("parse_float", col, label + " (f32)", errs, to32=True)
+        sets += 1
+    compare_parse("parse_timestamp", transform_column(TS_TEXT_ROWS, dev,
+                                                      cap=40),
+                  "grammar rows", errs)
+    empty = transform_column([], dev, cap=8)
+    nulls = transform_column([None] * 9, dev, cap=16)
+    for label, col in (("0 rows", empty), ("all NULL", nulls)):
+        compare_parse("parse_float", col, label, errs)
+        compare_parse("parse_timestamp", col, label, errs)
+        for mode, dt in (("int", torch.int64), ("bool", torch.bool),
+                         ("date", torch.int32),
+                         ("timestamp", torch.int64)):
+            compare_k41(torch.zeros(int(col[2].shape[0]), dtype=dt,
+                                    device=dev), col[2], mode, label, errs)
+        compare_k42(torch.zeros(int(col[2].shape[0]), dtype=torch.float64,
+                                device=dev), col[2], label, errs)
+        sets += 1
+    return sets
+
+
+def time_cast_kernels(dev, errs: dict, raw) -> dict:
+    """K41-K44 at the path's shapes: one 15M-row lineitem partition's
+    l_shipdate (K41 date), l_orderkey (K41 int), l_extendedprice (K42),
+    K42's text (K43) and concat(day, ' 08:30:00.250') (K44), each against
+    its plain version bit for bit. Bounds count this data: the inputs read
+    once and the outputs written once; K42 also its FP64 operations from
+    each row's (p, e10), the larger of the two."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar import format as FMT
+    from spark_rapids_tpu_torch.columnar import parse as PRS
+    from spark_rapids_tpu_torch.columnar import strings as S
+    from spark_rapids_tpu_torch.columnar.batch import HostColumnarBatch
+
+    names = [a.name for a in raw["lineitem"].schema]
+    part = raw["lineitem"]._plan.partitions[0]
+    check(len(part) == 1, "lineitem's first partition is one batch")
+    want = ("l_shipdate", "l_orderkey", "l_extendedprice")
+    batch = HostColumnarBatch([part[0].columns[names.index(c)]
+                               for c in want]).to_device(dev)
+    cols = dict(zip(want, batch.columns))
+    n = part[0].num_rows
+    cap = batch.capacity
+    iters, plain_iters = 10, 1
+    rows = {}
+
+    def text_bytes(t):
+        return int(t[0][-1]) + 4 * (cap + 1)
+
+    for mode, col, what in (("date", cols["l_shipdate"], "l_shipdate"),
+                            ("int", cols["l_orderkey"], "l_orderkey")):
+        args = (col.data, col.validity, mode)
+        got = FMT.format_fixed(*args)
+        compare_k41(*args, f"path shape {what}", errs)
+        rows[f"format_fixed_{mode}"] = dict(
+            ms=cuda_ms(lambda: FMT.format_fixed(*args), iters),
+            plain_ms=cuda_ms(lambda: {"date": FMT.date_to_string_plain,
+                                      "int": FMT.int_to_string_plain}[mode](
+                col.data, col.validity), plain_iters),
+            library_ms=None,
+            bound_ms=bound_ms(col.data.element_size() * cap + cap +
+                              text_bytes(got)),
+            shape=f"{what} {mode}, {n} rows in {cap} lanes, "
+                  f"{int(got[0][-1])} bytes")
+    price = cols["l_extendedprice"]
+    text = FMT.format_float(price.data, price.validity)
+    compare_k42(price.data, price.validity, "path shape", errs)
+    m, p, e10, neg, kind = FMT.float_decompose(price.data)
+    live = price.validity & (kind == 0)
+    pe, ee = p[live], e10[live]
+    ops = int((8 + 33 * pe + torch.where(
+        ee > 0, 25 * ((ee + 21) // 22), 22 * ((-ee + 21) // 22))).sum())
+    b_ms = bound_ms(9 * cap + text_bytes(text))
+    o_ms = ops / FP64_OPS_PER_S * 1e3
+    rows["format_float"] = dict(
+        ms=cuda_ms(lambda: FMT.format_float(price.data, price.validity),
+                   iters),
+        plain_ms=cuda_ms(lambda: FMT.float_to_string_plain(
+            price.data, price.validity), plain_iters),
+        library_ms=None, bound_ms=max(b_ms, o_ms),
+        bound_by="operations" if o_ms > b_ms else "bytes",
+        bytes_bound_ms=b_ms, ops_bound_ms=o_ms, fp64_ops=ops,
+        shape=f"l_extendedprice, {n} rows, {int(text[0][-1])} bytes, "
+              f"p {float(pe.double().mean()):.3f} digits on average")
+    col = (text[0], text[1], price.validity)
+    compare_parse("parse_float", col, "path shape", errs)
+    back = PRS.parse_float(*col)
+    check(bits_equal(back[0][:n], price.data[:n]),
+          "K43 does not parse K42's prices back")
+    rows["parse_float"] = dict(
+        ms=cuda_ms(lambda: PRS.parse_float(*col), iters),
+        plain_ms=cuda_ms(lambda: PRS.parse_float_plain(*col), plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(text_bytes(text) + cap + 10 * cap),
+        shape=f"K42's text of l_extendedprice, {n} rows")
+    day = FMT.format_fixed(cols["l_shipdate"].data,
+                           cols["l_shipdate"].validity, "date")
+    srcs = [(day[0], day[1], cols["l_shipdate"].validity, True),
+            one_row_source(b" 08:30:00.250", dev)]
+    byte_cap = int(day[1].shape[0]) + 13 * cap + 8
+    stamp = S.string_concat(srcs, cap, None, byte_cap)
+    scol = (stamp[0], stamp[1], stamp[2])
+    compare_parse("parse_timestamp", scol, "path shape", errs)
+    rows["parse_timestamp"] = dict(
+        ms=cuda_ms(lambda: PRS.parse_timestamp(*scol), iters),
+        plain_ms=cuda_ms(lambda: PRS.parse_timestamp_plain(*scol),
+                         plain_iters),
+        library_ms=None,
+        bound_ms=bound_ms(text_bytes(stamp) + cap + 10 * cap),
+        shape=f"concat(day, ' 08:30:00.250'), {n} rows")
+    rows["format_fixed"] = rows.pop("format_fixed_date")
+    rows["format_fixed"].update({f"{k}_int": v for k, v in rows.pop(
+        "format_fixed_int").items()})
+    del batch, cols, text, day, stamp
+    return rows
+
+
+def run_casts(sess, raw, tables, li: dict, launches: dict, dev,
+              errs: dict) -> dict:
+    """Phase 16 (after phase 15, over phase 4's cached SF 10 tables): the
+    three cast programs with the three cast keys on, one cold and
+    CAST_WARM_REPS warm runs each, every operator on the card; lineitem's
+    and orders' rows (sorted) against numpy, customer's every row against
+    Python; K41-K44 timed at the path's shapes ("kernel_rows")."""
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    t = time.perf_counter()
+    want = numpy_casts_wants(raw, li)
+    out = {"numpy_s": time.perf_counter() - t}
+    table_rows = {k: sum(b.num_rows for part in v._plan.partitions
+                         for b in part) for k, v in raw.items()}
+    for k, v in CAST_CONF.items():
+        sess.set_conf(k, v)
+    try:
+        for name, fn in CAST_PROGRAMS.items():
+            CB.reset_launch_counts()
+            k = CAST_KEYS[name]
+            res = run_query(sess, fn(tables, F), want.get(name), name,
+                            CAST_WARM_REPS, order=lambda r: r[:k],
+                            keep_rows=name not in want)
+            launches[name] = CB.launch_counts()
+            rows_in = table_rows[name.split("_")[1]]
+            against = "numpy (sorted rows)"
+            if name not in want:
+                c = table_columns(raw["customer"], ("c_custkey", "c_acctbal",
+                                                    "c_phone"))
+                t1 = time.perf_counter()
+                check_casts_customer(sorted(res.pop("result_rows"),
+                                            key=lambda r: r[:k]), c)
+                res["python_check_s"] = time.perf_counter() - t1
+                against = "Python, every row"
+            res.update(input_rows=rows_in, rows_per_s=rows_in / best_s(res),
+                       checked_against=against)
+            out[name] = res
+    finally:
+        for k in CAST_CONF:
+            sess.set_conf(k, False)
+    out["kernel_rows"] = time_cast_kernels(dev, errs, raw)
+    out["phase_s"] = time.perf_counter() - t
+    log(f"phase 16: {out['phase_s']:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -8532,7 +9170,8 @@ def main(argv=None) -> int:
         slice6_edge_cases(dev, errs) + parquet_edge_cases(dev, errs) + \
         encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
         orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs) + \
-        csv_edge_cases(dev, errs) + string_transform_edge_cases(dev, errs)
+        csv_edge_cases(dev, errs) + string_transform_edge_cases(dev, errs) + \
+        cast_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -8556,6 +9195,9 @@ def main(argv=None) -> int:
     results["strings"] = run_strings(tpch_sess, raw, tables, li, wants,
                                      launches, dev, errs)
     string_rows = results["strings"].pop("kernel_rows")
+    results["casts"] = run_casts(tpch_sess, raw, tables, li, launches, dev,
+                                 errs)
+    cast_rows = results["casts"].pop("kernel_rows")
     results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
                                      wants["input_rows"], launches,
                                      args.profile)
@@ -8592,7 +9234,7 @@ def main(argv=None) -> int:
                                               args.profile)
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
         results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples,
-        {**csv_rows, **string_rows})
+        {**csv_rows, **string_rows, **cast_rows})
     results["kernels"] = kernels
     # no run outside phase 13 (timed or not) retried, split or fell back
     every = fault_counts(start_counters)
@@ -8668,6 +9310,9 @@ def main(argv=None) -> int:
         "strings": {k: ({kk: vv for kk, vv in v.items() if kk in keep}
                         if k.startswith("strings_") else v)
                     for k, v in results["strings"].items()},
+        "casts": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "python_check_s",)} if k.startswith("casts_") else v)
+            for k, v in results["casts"].items()},
         "fault_counters": results["fault_counters"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))

@@ -316,6 +316,13 @@ class HostColumnarBatch:
         return ColumnarBatch(cols, n)
 
 
+def device_float64_supported() -> bool:
+    """Whether the card computes DOUBLE in f64 lanes (reference :50: a TPU
+    does not). An H100 does, so the casts that need f64 (float -> STRING,
+    STRING -> float) may run on it."""
+    return True
+
+
 def _upload_grouped(parts, device: torch.device):
     """(np dtype, values, padded length) parts -> device tensors zero-padded
     to their lengths, with one host buffer and one host->device copy per

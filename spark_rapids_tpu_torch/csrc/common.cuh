@@ -13,6 +13,11 @@
 // srt_error_string names the launch that failed. A helper that launches
 // returns cudaError_t and its caller passes an error on with SRT_TRY.
 //
+// Civil dates (`days_from_civil`, `civil_from_days`, `civil_round_trip`):
+// the proleptic Gregorian calendar in epoch days with floor divisions, as
+// ops/datetimeops.py computes it; shared by the CSV date parse (K35), the
+// date / timestamp formats (K41) and the timestamp cast parse (K44).
+//
 // Every kernel takes an optional `active` flag in device memory: when it
 // holds 0 the kernel returns at once. The radix sort computes those flags
 // on the card, so a pass whose digit is the same for every row costs a few
@@ -86,6 +91,84 @@ struct Carver {
 
 __device__ __forceinline__ bool inactive(const int* active) {
   return active != nullptr && *active == 0;
+}
+
+// ---------------------------------------------------------- civil dates
+__device__ __forceinline__ long long floor_div(long long a, long long b) {
+  long long q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+// the same in 32 bits: the card divides 32-bit integers by a constant in
+// a few instructions and 64-bit ones in tens, so the calendar takes the
+// 32-bit form wherever its values fit (the results are the same)
+template <typename T>
+__device__ __forceinline__ T floor_div_t(T a, T b) {
+  T q = a / b;
+  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
+}
+
+template <typename T>
+__device__ __forceinline__ T days_from_civil_t(T y, T m, T d) {
+  y -= m <= 2 ? 1 : 0;
+  const T era = floor_div_t<T>(y, 400);
+  const T yoe = y - era * 400;
+  const T mp = m > 2 ? m - 3 : m + 9;
+  const T doy = floor_div_t<T>(153 * mp + 2, 5) + d - 1;
+  const T doe =
+      yoe * 365 + floor_div_t<T>(yoe, 4) - floor_div_t<T>(yoe, 100) + doy;
+  return era * 146097 + doe - 719468;
+}
+
+template <typename T>
+__device__ __forceinline__ void civil_from_days_t(T days, T* y, T* m,
+                                                  T* d) {
+  const T z = days + 719468;
+  const T era = floor_div_t<T>(z, 146097);
+  const T doe = z - era * 146097;
+  const T yoe = floor_div_t<T>(doe - floor_div_t<T>(doe, 1460) +
+                                   floor_div_t<T>(doe, 36524) -
+                                   floor_div_t<T>(doe, 146096),
+                               365);
+  const T doy =
+      doe - (365 * yoe + floor_div_t<T>(yoe, 4) - floor_div_t<T>(yoe, 100));
+  const T mp = floor_div_t<T>(5 * doy + 2, 153);
+  *d = doy - floor_div_t<T>(153 * mp + 2, 5) + 1;
+  *m = mp < 10 ? mp + 3 : mp - 9;
+  *y = yoe + era * 400 + (*m <= 2 ? 1 : 0);
+}
+
+// 32 bits hold every value of the calendar while |days| <= 2e9 (z, era *
+// 146097 and the year stay inside int32), and of its inverse while the
+// year, month and day are within 2^20 (as digits parsed from text are)
+__device__ __forceinline__ long long days_from_civil(long long y,
+                                                     long long m,
+                                                     long long d) {
+  const long long lim = 1LL << 20;
+  if (y > -lim && y < lim && m > -lim && m < lim && d > -lim && d < lim)
+    return days_from_civil_t<int>((int)y, (int)m, (int)d);
+  return days_from_civil_t<long long>(y, m, d);
+}
+
+__device__ __forceinline__ void civil_from_days(long long days, long long* y,
+                                                long long* m, long long* d) {
+  if (days >= -2000000000LL && days <= 2000000000LL) {
+    int yi, mi, di;
+    civil_from_days_t<int>((int)days, &yi, &mi, &di);
+    *y = yi;
+    *m = mi;
+    *d = di;
+    return;
+  }
+  civil_from_days_t<long long>(days, y, m, d);
+}
+
+// the date (y, m, d) is a real one: its epoch days map back to it
+__device__ __forceinline__ bool civil_round_trip(long long days, long long y,
+                                                 long long m, long long d) {
+  long long ry, rm, rd;
+  civil_from_days(days, &ry, &rm, &rd);
+  return ry == y && rm == m && rd == d;
 }
 
 // ---------------------------------------------------------------- scan

@@ -69,42 +69,6 @@ __device__ __forceinline__ bool is_digit(int c) {
   return c >= '0' && c <= '9';
 }
 
-__device__ __forceinline__ long long floor_div(long long a, long long b) {
-  long long q = a / b;
-  return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
-}
-
-// ops/datetimeops.py:days_from_civil and civil_from_days (floor divisions)
-__device__ long long days_from_civil(long long y, long long m, long long d) {
-  y -= m <= 2 ? 1 : 0;
-  const long long era = floor_div(y, 400);
-  const long long yoe = y - era * 400;
-  const long long mp = m > 2 ? m - 3 : m + 9;
-  const long long doy = floor_div(153 * mp + 2, 5) + d - 1;
-  const long long doe =
-      yoe * 365 + floor_div(yoe, 4) - floor_div(yoe, 100) + doy;
-  return era * 146097 + doe - 719468;
-}
-
-__device__ bool civil_round_trip(long long days, long long y, long long m,
-                                 long long d) {
-  const long long z = days + 719468;
-  const long long era = floor_div(z, 146097);
-  const long long doe = z - era * 146097;
-  const long long yoe = floor_div(doe - floor_div(doe, 1460) +
-                                      floor_div(doe, 36524) -
-                                      floor_div(doe, 146096),
-                                  365);
-  long long ry = yoe + era * 400;
-  const long long doy =
-      doe - (365 * yoe + floor_div(yoe, 4) - floor_div(yoe, 100));
-  const long long mp = floor_div(5 * doy + 2, 153);
-  const long long rd = doy - floor_div(153 * mp + 2, 5) + 1;
-  const long long rm = mp < 10 ? mp + 3 : mp - 9;
-  ry += rm <= 2 ? 1 : 0;
-  return ry == y && rm == m && rd == d;
-}
-
 // (layout ok, epoch days, civil ok) of a field's YYYY-MM-DD prefix
 __device__ bool parse_civil(const Field& f, long long* days) {
   int dg[10];

@@ -36,9 +36,14 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "explode", "segment_percentile", "parquet_decode",
            "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
            "orc_encode", "compact_gather", "csv_parse",
-           "string_transform")
+           "string_transform", "cast_format", "cast_parse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+# flags of one source: the casts' double-double arithmetic (Dekker products,
+# compensated sums) needs every product and sum rounded on its own, so
+# nvcc may not contract them into FMAs there
+SOURCE_FLAGS = {"cast_format": ("-fmad=false",),
+                "cast_parse": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -82,6 +87,7 @@ def _digest() -> str:
             with open(os.path.join(CSRC, fn), "rb") as fh:
                 h.update(fn.encode() + b"\0" + fh.read())
     h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     return h.hexdigest()[:12]
 
 
@@ -101,8 +107,8 @@ def build_all(verbose: bool = False) -> List[str]:
         if os.path.exists(target):
             continue
         tmp = f"{target}.{os.getpid()}.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmp,
-               os.path.join(CSRC, f"{name}.cu")]
+        cmd = [nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()), "-I", CSRC,
+               "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
         if verbose:
             cmd[1:1] = ["-Xptxas", "-v"]
         procs.append((name, target, tmp, subprocess.Popen(
@@ -370,6 +376,25 @@ _SIGNATURES = {
             _VOIDP, ctypes.c_int, ctypes.c_longlong, _VOIDP, ctypes.c_int,
             _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP,
             ctypes.c_size_t, _VOIDP]),
+    },
+    "cast_format": {
+        "srt_cast_format_scratch_bytes": (ctypes.c_size_t,
+                                          [ctypes.c_longlong]),
+        "srt_format_fixed": (ctypes.c_int, [
+            ctypes.c_int, _VOIDP, ctypes.c_int, _VOIDP, ctypes.c_longlong,
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_size_t,
+            _VOIDP]),
+        "srt_format_float": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
+            _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_size_t, _VOIDP]),
+    },
+    "cast_parse": {
+        "srt_parse_float": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            _VOIDP, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+        "srt_parse_timestamp": (ctypes.c_int, [
+            _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
+            _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

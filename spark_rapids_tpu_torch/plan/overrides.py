@@ -54,10 +54,61 @@ def register_exec(cpu_cls, desc, convert, incompat=None,
 
 
 def _tag_cast(m: ExprMeta) -> None:
+    """The reference's gates (:241-300), reasons word for word: FLOAT ->
+    STRING, STRING -> FLOAT and STRING -> TIMESTAMP under their conf keys
+    (RapidsConf.scala:393-425), the float directions on an f64 backend,
+    ANSI parses on the CPU engine; the rest of what `device_supported`
+    refuses has no device kernel. The reference then tags DOUBLE on a TPU
+    (`_tag_f64_on_tpu`), which an H100 never needs."""
     e: Cast = m.expr
-    if not Cast.device_supported(e.child.data_type, e.to_type):
-        m.will_not_work(f"cast {e.child.data_type.name}->{e.to_type.name} "
-                        "has no device kernel yet")
+    src = e.child.data_type
+    dst = e.to_type
+    if Cast.device_supported(src, dst):
+        return
+    from spark_rapids_tpu_torch.columnar.batch import (
+        device_float64_supported,
+    )
+
+    if src.is_floating and dst is DataType.STRING:
+        if not m.conf.get(C.ENABLE_CAST_FLOAT_TO_STRING):
+            m.will_not_work(
+                "cast float->STRING on device is disabled by default "
+                "(set rapids.tpu.sql.castFloatToString.enabled; output "
+                "follows this framework's shortest-round-trip "
+                "convention, not Java's)")
+        elif not device_float64_supported():
+            m.will_not_work(
+                "cast float->STRING device kernel needs an f64-capable "
+                "backend (shortest-decimal search runs in f64)")
+        return
+    if src is DataType.STRING and dst.is_floating:
+        if not m.conf.get(C.ENABLE_CAST_STRING_TO_FLOAT):
+            m.will_not_work(
+                "cast STRING->float on device is disabled by default "
+                "(set rapids.tpu.sql.castStringToFloat.enabled)")
+        elif not device_float64_supported():
+            m.will_not_work(
+                "cast STRING->float device kernel needs an f64-capable "
+                "backend")
+        elif e.ansi:
+            m.will_not_work("ANSI STRING->float cast runs on the CPU "
+                            "engine (deferred device errors only "
+                            "surface at project/filter boundaries)")
+        return
+    if src is DataType.STRING and dst is DataType.TIMESTAMP:
+        if not m.conf.get(C.ENABLE_CAST_STRING_TO_TIMESTAMP):
+            m.will_not_work(
+                "cast STRING->TIMESTAMP on device is disabled by "
+                "default (set "
+                "rapids.tpu.sql.castStringToTimestamp.enabled)")
+        elif e.ansi:
+            m.will_not_work("ANSI STRING->TIMESTAMP cast runs on the "
+                            "CPU engine (deferred device errors only "
+                            "surface at project/filter boundaries)")
+        return
+    m.will_not_work(
+        f"cast {getattr(src, 'name', src)}->{getattr(dst, 'name', dst)} "
+        "has no device kernel")
 
 
 def _tag_window_expr(m: ExprMeta) -> None:
@@ -165,8 +216,7 @@ def _register_expr_rules():
     r(BoundReference, "ordinal input reference")
     r(Literal, "literal value (numeric, boolean, DATE, TIMESTAMP, DECIMAL, "
                "STRING)")
-    r(Cast, "cast between numeric, datetime and decimal types",
-      tag_fn=_tag_cast)
+    r(Cast, "cast between types", tag_fn=_tag_cast)
     for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide, AR.Remainder,
                 AR.Pmod):
         r(cls, f"arithmetic {cls.__name__}")
