@@ -292,6 +292,32 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    f64 and f32 bit patterns, the grammars' edge rows, NULL, all-NULL and
    0-row batches); phase 16 times them over one 15M-row lineitem
    partition, K42's bound the larger of its bytes and its FP64 operations.
+17. the DataFrame surface, right after phase 16 over the same cached
+   SF 10 tables: SURFACE_PROGRAMS (surface_rollup: lineitem.rollup(
+   l_returnflag, l_linestatus) with sum, avg, min(l_shipmode),
+   max(l_shipinstruct), max(l_discount > 0.05), min(l_tax < 0.02) and
+   count, 180M rows through Expand; surface_cube: orders.cube(
+   o_orderstatus, o_orderpriority) with count, sum and max(o_comment)
+   (the generator's orders have no o_clerk); surface_repartition:
+   lineitem renamed and narrowed, repartition(64) round robin, grouped;
+   surface_distinct: orders.repartition(32, o_custkey), distinct pairs,
+   count(); surface_dedup_pair: lineitem.dropDuplicates over (l_orderkey,
+   l_partkey), count() (the generator has no l_linenumber);
+   surface_dedup_key: dropDuplicates over l_orderkey, 15M rows as host
+   columns, each equal to an input row; surface_range: session.range of
+   2^27 ids in 8 partitions, repartition(16), grouped by id % 1000 with
+   GroupedData.sum), one cold and SURFACE_WARM_REPS warm runs of each
+   collected program, every operator on the card but RangeExec; rows
+   against numpy (bincounts over pool indices, np.unique of the pairs, a
+   row hash for the dedupe, the range's sums in closed form); the
+   round-robin partitions' rows against the arithmetic, the hash ones
+   against the CPU engine's hash; coalesce(2), sortWithinPartitions with
+   show(5) (five rows on stdout) and the GroupedData sum / min / max / avg
+   shortcuts against numpy; the same programs at SMALL_SF against the
+   port's CPU engine. Phase 3 holds K45 (round_robin_route), K46
+   (assemble_routed_fixed), K47 (segment_arg_extreme_string) and K3's
+   BOOL / any lanes bit for bit to their plain versions (surface_edge_
+   cases); phase 17 times them at its shapes.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -309,7 +335,8 @@ memory_spill_q5, memory_spill_q1, memory_oom_q1, memory_split and
 memory_fallback of phase 13, csv_tpch_q1, csv_tpch_q6, csv_tpch_q3 and
 csv_tpch_q5 of phase 14, strings_lineitem, strings_orders,
 strings_customer and strings_part of phase 15, casts_lineitem,
-casts_orders and casts_customer of phase 16);
+casts_orders and casts_customer of phase 16, surface_rollup ...
+surface_range of phase 17);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -500,6 +527,15 @@ KERNELS = {
     "parse_timestamp": (
         "spark_rapids_tpu_torch/csrc/cast_parse.cu",
         "spark_rapids_tpu/columnar/parse.py:173", "casts_lineitem"),
+    "round_robin_route": (
+        "spark_rapids_tpu_torch/csrc/hash_partition.cu",
+        "spark_rapids_tpu/shuffle/exchange.py:1141", "surface_repartition"),
+    "assemble_routed_fixed": (
+        "spark_rapids_tpu_torch/csrc/compact_gather.cu",
+        "spark_rapids_tpu/shuffle/exchange.py:1433", "surface_repartition"),
+    "segment_arg_extreme_string": (
+        "spark_rapids_tpu_torch/csrc/string_arg_extreme.cu",
+        "spark_rapids_tpu/exec/rowkeys.py:177", "surface_rollup"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -662,6 +698,21 @@ PATH_KERNELS.update({
     "casts_orders": _GROUP_BY + _STR_KEYS + _CASTS + (
         "parse_timestamp", "string_concat", "substring_plan"),
     "casts_customer": _CASTS + ("string_replace", "string_concat"),
+})
+# phase 17: grouping sets reduce STRING min / max with K47 (and BOOL ones
+# in K3); round robin routes with K45, routed pieces assemble their fixed
+# columns with K46 and their strings with K7
+_K47 = ("segment_arg_extreme_string",)
+_ROUTED = ("assemble_routed_fixed",)
+PATH_KERNELS.update({
+    "surface_rollup": _GROUP_BY + _STR_KEYS + _K47,
+    "surface_cube": _GROUP_BY + _STR_KEYS + _K47,
+    "surface_repartition": _GROUP_BY + _STR_KEYS + _ROUTED + (
+        "round_robin_route",),
+    "surface_distinct": _GROUP_BY + _STR_KEYS + _ROUTED + ("route_plan",),
+    "surface_dedup_pair": _GROUP_BY + _ROUTED + ("route_plan",),
+    "surface_dedup_key": _GROUP_BY + _ROUTED + ("route_plan",),
+    "surface_range": _GROUP_BY + _ROUTED + ("round_robin_route",),
 })
 PATH_KERNELS.update({
     "csv_tpch_q1": _Q1 + _CSV_READ,
@@ -830,8 +881,8 @@ def check_flagship(batches, data, n_keys: int, what: str) -> int:
 def assert_on_device(sess) -> None:
     from spark_rapids_tpu_torch.exec.base import CpuExec
 
-    allowed = {"HostScanExec", "DeviceToHostExec", "HostToDeviceExec",
-               "CpuCoalesceBatchesExec"}
+    allowed = {"HostScanExec", "RangeExec", "DeviceToHostExec",
+               "HostToDeviceExec", "CpuCoalesceBatchesExec"}
     bad = sess.last_physical_plan.collect_nodes(
         lambda n: isinstance(n, CpuExec) and type(n).__name__ not in allowed)
     check(not bad, f"plan not on the device: {bad}")
@@ -1295,8 +1346,14 @@ SMALL_SF = 0.1
 def pool_index(df, name: str, pool) -> "object":
     """Per row of a generated STRING column whose values all come from
     `pool`: the value's index in the pool, from its UTF-8 bytes (length
-    and first five bytes, which tell each pool's values apart)."""
+    and the fewest leading bytes, at most five, that tell the pool's
+    values apart)."""
     import numpy as np
+
+    enc = [v.encode() for v in pool]
+    width = next((k for k in range(6)
+                  if len({(len(b), b[:k]) for b in enc}) == len(enc)), None)
+    check(width is not None, f"{name}: pool keys clash")
 
     def key_of(lens, first):
         key = lens.astype(np.int64) << 40
@@ -1304,13 +1361,11 @@ def pool_index(df, name: str, pool) -> "object":
             key |= b.astype(np.int64) << (8 * (4 - j))
         return key
 
-    enc = [v.encode() for v in pool]
     pool_keys = key_of(np.array([len(b) for b in enc]),
                        [np.array([b[j] if j < len(b) else 0 for b in enc])
-                        for j in range(5)])
+                        for j in range(width)])
     order = np.argsort(pool_keys)
     sorted_keys = pool_keys[order]
-    check(len(np.unique(pool_keys)) == len(pool), f"{name}: pool keys clash")
     col = [a.name for a in df.schema].index(name)
     out = []
     for part in df._plan.partitions:
@@ -1319,7 +1374,8 @@ def pool_index(df, name: str, pool) -> "object":
             offs = offs.astype(np.int64)
             lens = np.diff(offs)
             first = [np.where(j < lens, raw[np.minimum(
-                offs[:-1] + j, max(len(raw) - 1, 0))], 0) for j in range(5)]
+                offs[:-1] + j, max(len(raw) - 1, 0))], 0)
+                for j in range(width)]
             key = key_of(lens, first)
             at = np.minimum(np.searchsorted(sorted_keys, key), len(pool) - 1)
             check(bool((sorted_keys[at] == key).all()),
@@ -1532,6 +1588,24 @@ def run_small_sf() -> dict:
     log(f"phase 16: the three programs at SF {SMALL_SF} equal the CPU "
         "engine: " + ", ".join(f"{q} {out[q]['rows']}"
                                for q in CAST_PROGRAMS))
+    for k in CAST_CONF:
+        card.set_conf(k, False)
+    # phase 17's programs (rows sorted, NULLs first)
+    for name, fn in SURFACE_PROGRAMS.items():
+        t = time.perf_counter()
+        got = sorted_rows(fn(card, tabs[0], F, SMALL_SF).collect())
+        assert_on_device(card)
+        card_s = time.perf_counter() - t
+        t = time.perf_counter()
+        want = sorted_rows(fn(host, tabs[1], F, SMALL_SF).collect())
+        out[name] = {"rows": len(got), "card_s": card_s,
+                     "cpu_engine_s": time.perf_counter() - t,
+                     "max_rel_diff": check_rows(
+                         got, want, f"{name} at SF {SMALL_SF} vs the CPU "
+                         "engine")}
+    log(f"phase 17: the seven programs at SF {SMALL_SF} equal the CPU "
+        "engine: " + ", ".join(f"{q} {out[q]['rows']}"
+                               for q in SURFACE_PROGRAMS))
     return out
 
 
@@ -3213,9 +3287,11 @@ def time_kernels(dev, errs: dict, launches: dict, pr_content,
         rows.update(timed())
         log(f"kernel timing: {label} in {time.perf_counter() - t:.1f} s")
     rows.update(phase_rows)  # timed in phases 14, 15 and 16
-    # K3's first at q_agg_join's shape rides K3's row
-    rows["segment_reduce"].update({f"{k}_first": v for k, v in rows.pop(
-        "segment_reduce_first").items()})
+    # K3's first at q_agg_join's shape, and its BOOL and any lanes at the
+    # rollup's, ride K3's row
+    for mode in ("first", "bool", "any"):
+        rows["segment_reduce"].update({f"{k}_{mode}": v for k, v in rows.pop(
+            f"segment_reduce_{mode}").items()})
     out = []
     for name, (source, replaces, path) in KERNELS.items():
         r = rows[name]
@@ -8394,6 +8470,50 @@ def time_string_transform_kernels(dev, errs: dict, raw) -> dict:
     return rows
 
 
+def fixed_width_bytes(df, name: str, width: int):
+    """The UTF-8 bytes of a STRING column whose every row is `width` bytes
+    long, as a [rows, width] uint8 matrix (all partitions), or None."""
+    import numpy as np
+
+    col = [a.name for a in df.schema].index(name)
+    mats = []
+    for part in df._plan.partitions:
+        for b in part:
+            offs, raw = b.columns[col].utf8()
+            if not (np.diff(offs) == width).all():
+                return None
+            mats.append(raw[:width * b.num_rows].reshape(-1, width))
+    return np.concatenate(mats)
+
+
+def customer_strings_rows(cust) -> list:
+    """strings_customer's rows, the texts Python's string methods give:
+    c_phone 'CC-DDD-DDD-DDDD' and c_name 'Customer#' + 9 digits (the
+    generator's fixed layouts, checked) as byte matrices, column at a
+    time."""
+    import numpy as np
+
+    keys = table_columns(cust, ("c_custkey",))["c_custkey"].tolist()
+    phone = fixed_width_bytes(cust, "c_phone", 15)
+    name = fixed_width_bytes(cust, "c_name", 18)
+    check(phone is not None and name is not None and
+          bool((phone[:, [2, 6, 10]] == ord("-")).all()) and
+          not (phone[:, [0, 1]] == ord("-")).any() and
+          bool((name[:, :9] == np.frombuffer(b"Customer#",
+                                              np.uint8)).all()) and
+          not (name[:, 9:] == ord("#")).any(),
+          "customer: c_phone / c_name outside the generator's layout")
+
+    def text(m):
+        m = np.ascontiguousarray(m)
+        return m.view(f"S{m.shape[1]}").ravel().astype(str).tolist()
+
+    digits = text(name[:, 9:])
+    return list(zip(keys, text(phone[:, :2]), text(
+        phone[:, [0, 1, 3, 4, 5, 7, 8, 9, 11, 12, 13, 14]]),
+        ["customer" + d for d in digits], digits))
+
+
 def numpy_strings_wants(raw, li: dict, pools: dict) -> dict:
     """The four programs' rows by numpy and Python string operations over
     the generated columns: pool columns by their pool indices (each group a
@@ -8409,17 +8529,18 @@ def numpy_strings_wants(raw, li: dict, pools: dict) -> dict:
         return pools[key]
 
     def grouped(codes, dims, labels, sums, sum_kind):
+        """One row a non-empty group: the labels of its codes, the sum
+        and the count."""
         flat = np.ravel_multi_index(codes, dims)
         size = int(np.prod(dims))
         n = np.bincount(flat, minlength=size)
         total = np.bincount(flat, weights=sums, minlength=size)
-        rows = []
-        for g in np.nonzero(n)[0]:
-            parts = np.unravel_index(g, dims)
-            s = float(total[g]) if sum_kind is float else int(round(
-                total[g]))
-            rows.append((*labels(*parts), s, int(n[g])))
-        return rows
+        hit = np.nonzero(n)[0]
+        sums_out = total[hit].tolist() if sum_kind is float else \
+            np.rint(total[hit]).astype(np.int64).tolist()
+        return [(*labels(*parts), s, c) for parts, s, c in zip(
+            zip(*(a.tolist() for a in np.unravel_index(hit, dims))),
+            sums_out, n[hit].tolist())]
 
     out = {}
     # q1's one-byte keys are their UTF-8 bytes (phase 4's columns)
@@ -8455,15 +8576,7 @@ def numpy_strings_wants(raw, li: dict, pools: dict) -> dict:
     out["strings_orders"] = grouped((prio, ostat), (len(tpch._PRIORITIES),
                                                     3), o_labels,
                                     o["o_totalprice"], float)
-    c = table_columns(raw["customer"], ("c_custkey", "c_name", "c_phone"))
-    # per-row unique strings (np.char-built in the generator): Python's
-    # string methods row by row, which here beat np.char's element loops
-    out["strings_customer"] = [
-        (k, p.split("-", 1)[0], p.replace("-", ""),
-         nm.split("#", 1)[0].lower() + nm.rsplit("#", 1)[-1],
-         nm.replace("Customer#", " ").lstrip(" "))
-        for k, p, nm in zip(c["c_custkey"].tolist(), c["c_phone"],
-                            c["c_name"])]
+    out["strings_customer"] = customer_strings_rows(raw["customer"])
     p = table_columns(raw["part"], ("p_size", "p_name", "p_brand"))
 
     def numbered(values):
@@ -8478,11 +8591,13 @@ def numpy_strings_wants(raw, li: dict, pools: dict) -> dict:
     pbrand, brands = numbered(p.pop("p_brand"))
     ptype = idx("part", "p_type", tpch._TYPES)
 
+    type_labels = [(ty.split(" ")[-1], " ".join(w[:1] + w[1:].lower()
+                                                for w in ty.split(" ")))
+                   for ty in tpch._TYPES]
+    name_labels = [nm.replace("green", "GREEN") for nm in names]
+
     def p_labels(t, nm, b):
-        ty = tpch._TYPES[t]
-        return (ty.split(" ")[-1], " ".join(w[:1] + w[1:].lower()
-                                           for w in ty.split(" ")),
-                names[nm].replace("green", "GREEN"), brands[b])
+        return (*type_labels[t], name_labels[nm], brands[b])
 
     rows = grouped((ptype, pname, pbrand), (len(tpch._TYPES), len(names),
                                             len(brands)), p_labels,
@@ -8665,8 +8780,18 @@ def numpy_casts_wants(raw, li: dict) -> dict:
 
 
 def _java_nums(phones) -> list:
-    """java_text of each phone's digits read as a double."""
-    return [java_text(repr(float(ph.replace("-", "")))) for ph in phones]
+    """java_text of each phone's digits read as a double. Twelve digits
+    without a leading zero are an exact double of exponent 11, whose text
+    is the digits with the trailing zeros dropped (java_text's own rule,
+    without the repr round trip); any other phone goes through java_text."""
+    out = []
+    for ph in phones:
+        d = ph.replace("-", "")
+        if len(d) == 12 and d.isdigit() and d[0] != "0":
+            out.append(f"{d[0]}.{d[1:].rstrip('0') or '0'}E11")
+        else:
+            out.append(java_text(repr(float(d))))
+    return out
 
 
 def check_casts_customer(rows, c: dict) -> int:
@@ -9100,6 +9225,747 @@ def run_casts(sess, raw, tables, li: dict, launches: dict, dev,
     return out
 
 
+# ------------------------------------------------ phase 17 (slice 15)
+# the DataFrame surface over phase 4's cached tables: rollup / cube
+# through Expand, repartition / coalesce, distinct / dropDuplicates,
+# range, count / show, the GroupedData shortcuts
+SURFACE_RANGE_ROWS = 1 << 27     # session.range's ids at TPCH_SF
+SURFACE_RANGE_PARTITIONS = 8
+SURFACE_RR = 64                  # lineitem.repartition(n)
+SURFACE_HASH = 32                # orders.repartition(n, "o_custkey")
+K45_ROWS = 1 << 25
+K45_MANY = 5000
+
+
+def surface_range_rows(sf: float) -> int:
+    return max(1000, int(SURFACE_RANGE_ROWS * sf / TPCH_SF))
+
+
+def surface_rollup(s, t, F, sf):
+    """(a) lineitem's rollup: three grouping sets through Expand; min / max
+    of two STRING columns (K47) and of two BOOL predicates (K3)."""
+    return t["lineitem"].rollup("l_returnflag", "l_linestatus").agg(
+        F.sum("l_quantity").alias("qty"),
+        F.avg("l_extendedprice").alias("avg_price"),
+        F.min("l_shipmode").alias("min_mode"),
+        F.max("l_shipinstruct").alias("max_instruct"),
+        F.max(F.col("l_discount") > 0.05).alias("any_disc"),
+        F.min(F.col("l_tax") < 0.02).alias("all_low_tax"),
+        F.count("*").alias("n"))
+
+
+def surface_cube(s, t, F, sf):
+    """(b) orders' cube: four grouping sets; max of a STRING (K47)."""
+    return t["orders"].cube("o_orderstatus", "o_orderpriority").agg(
+        F.count("*").alias("n"), F.sum("o_totalprice").alias("price"),
+        F.max("o_comment").alias("max_comment"))
+
+
+def surface_repartition(s, t, F, sf):
+    """(c) round robin into SURFACE_RR partitions (K45, then K46 and K7 on
+    the routed tier), a renamed and a dropped column, then grouped."""
+    return (t["lineitem"].withColumnRenamed("l_returnflag", "flag")
+            .drop("l_comment", "l_shipinstruct")
+            .repartition(SURFACE_RR).groupBy("flag")
+            .agg(F.count("*").alias("n"), F.sum("l_quantity").alias("qty")))
+
+
+def surface_distinct(s, t, F, sf):
+    """(d) a hash repartition on o_custkey, then distinct pairs."""
+    return (t["orders"].repartition(SURFACE_HASH, "o_custkey")
+            .select("o_custkey", "o_orderstatus").distinct())
+
+
+def surface_dedup_pair(s, t, F, sf):
+    """(e) dropDuplicates over (l_orderkey, l_partkey): nearly every row
+    (the generated lineitem has no l_linenumber)."""
+    return t["lineitem"].select("l_orderkey", "l_partkey", "l_quantity",
+                                "l_extendedprice").dropDuplicates(
+        ["l_orderkey", "l_partkey"])
+
+
+def surface_dedup_key(s, t, F, sf):
+    """(e) dropDuplicates over l_orderkey: one input row a key (First)."""
+    return t["lineitem"].select("l_orderkey", "l_partkey", "l_quantity",
+                                "l_extendedprice").dropDuplicates(
+        ["l_orderkey"])
+
+
+def surface_range(s, t, F, sf):
+    """(f) session.range (a host exec, uploaded), round robin into 16
+    partitions, grouped by id % 1000 with the GroupedData shortcut."""
+    return (s.range(0, surface_range_rows(sf),
+                    num_partitions=SURFACE_RANGE_PARTITIONS)
+            .repartition(16).select((F.col("id") % 1000).alias("m"), "id")
+            .groupBy("m").sum("id"))
+
+
+SURFACE_PROGRAMS = {"surface_rollup": surface_rollup,
+                    "surface_cube": surface_cube,
+                    "surface_repartition": surface_repartition,
+                    "surface_distinct": surface_distinct,
+                    "surface_dedup_pair": surface_dedup_pair,
+                    "surface_dedup_key": surface_dedup_key,
+                    "surface_range": surface_range}
+SURFACE_WARM_REPS = 1
+
+
+def null_first(r):
+    """Sort key of a row: NULLs first, column by column."""
+    return tuple((v is not None, v if v is not None else 0) for v in r)
+
+
+def sorted_rows(rows) -> list:
+    """Rows in null_first order: a plain sort where no row holds a NULL
+    (the same order, without a key per row)."""
+    if any(None in r for r in rows):
+        return sorted(rows, key=null_first)
+    return sorted(rows)
+
+
+def pool_extreme(present, pool, want_min: bool):
+    """The smallest or largest pool value marked present (byte order), or
+    None."""
+    hit = [pool[i] for i in range(len(pool)) if present[i]]
+    if not hit:
+        return None
+    pick = min if want_min else max
+    return pick(hit, key=lambda v: v.encode())
+
+
+def numpy_surface_wants(raw, li: dict, pools: dict) -> dict:
+    """Phase 17's rows by numpy: one pass a column over the finest grouping
+    set ((flag, status) for the rollup, (status, priority) for the cube,
+    with the pool indices of the STRING aggregate inputs), the coarser sets
+    summed from those small tables."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    def idx(table, name, pool):
+        key = f"pool_{name}"
+        if key not in pools:
+            pools[key] = pool_index(raw[table], name, pool)
+        return pools[key]
+
+    out = {}
+    flag = np.searchsorted(np.frombuffer("".join(tpch._FLAGS).encode(),
+                                         np.uint8), li["l_returnflag"])
+    status = np.searchsorted(np.frombuffer("".join(tpch._STATUS).encode(),
+                                           np.uint8), li["l_linestatus"])
+    nf, ns = len(tpch._FLAGS), len(tpch._STATUS)
+    nm, ni = len(tpch._SHIPMODES), len(tpch._INSTRUCT)
+    cell = flag * ns + status
+    size = nf * ns
+
+    def table(x=None, bins=size, key=cell):
+        return np.bincount(key, weights=x, minlength=bins)
+
+    n = table()
+    qty = table(li["l_quantity"])
+    price = table(li["l_extendedprice"])
+    disc = table(li["l_discount"] > 0.05)
+    high_tax = table(li["l_tax"] >= 0.02)
+    modes = table(bins=size * nm, key=cell * nm + idx(
+        "lineitem", "l_shipmode", tpch._SHIPMODES)).reshape(size, nm)
+    instr = table(bins=size * ni, key=cell * ni + idx(
+        "lineitem", "l_shipinstruct", tpch._INSTRUCT)).reshape(size, ni)
+    rows = []
+    # rollup(l_returnflag, l_linestatus): both keys, the flag, none
+    for keep in ((True, True), (True, False), (False, False)):
+        groups = {}
+        for f in range(nf):
+            for st in range(ns):
+                groups.setdefault((f if keep[0] else None,
+                                   st if keep[1] else None), []).append(
+                    f * ns + st)
+        for (f, st), cells in groups.items():
+            c = int(n[cells].sum())
+            if c == 0:
+                continue
+            rows.append((tpch._FLAGS[f] if f is not None else None,
+                         tpch._STATUS[st] if st is not None else None,
+                         float(qty[cells].sum()),
+                         float(price[cells].sum() / c),
+                         pool_extreme(modes[cells].sum(0) > 0,
+                                      tpch._SHIPMODES, True),
+                         pool_extreme(instr[cells].sum(0) > 0,
+                                      tpch._INSTRUCT, False),
+                         bool(disc[cells].sum() > 0),
+                         bool(high_tax[cells].sum() == 0), c))
+    out["surface_rollup"] = sorted(rows, key=null_first)
+    o = table_columns(raw["orders"], ("o_totalprice",))
+    ocell = idx("orders", "o_orderstatus", ["F", "O", "P"]) * 5 + idx(
+        "orders", "o_orderpriority", tpch._PRIORITIES)
+    on = table(bins=15, key=ocell)
+    oprice = table(o["o_totalprice"], 15, ocell)
+    ncom = len(tpch._O_COMMENTS)
+    com = table(bins=15 * ncom, key=ocell * ncom + idx(
+        "orders", "o_comment", tpch._O_COMMENTS)).reshape(15, ncom)
+    rows = []
+    # cube(o_orderstatus, o_orderpriority): both, status, priority, none
+    for keep in ((True, True), (True, False), (False, True),
+                 (False, False)):
+        groups = {}
+        for st in range(3):
+            for pr in range(5):
+                groups.setdefault((st if keep[0] else None,
+                                   pr if keep[1] else None), []).append(
+                    st * 5 + pr)
+        for (st, pr), cells in groups.items():
+            c = int(on[cells].sum())
+            if c:
+                rows.append(("FOP"[st] if st is not None else None,
+                             tpch._PRIORITIES[pr] if pr is not None
+                             else None, c, float(oprice[cells].sum()),
+                             pool_extreme(com[cells].sum(0) > 0,
+                                          tpch._O_COMMENTS, False)))
+    out["surface_cube"] = sorted(rows, key=null_first)
+    fn = n.reshape(nf, ns).sum(1)
+    fq = qty.reshape(nf, ns).sum(1)
+    out["surface_repartition"] = sorted(
+        (tpch._FLAGS[f], int(fn[f]), float(fq[f])) for f in range(nf)
+        if fn[f])
+    # session.range: ids 0 .. N-1, grouped by id % 1000, in closed form
+    rr = surface_range_rows(TPCH_SF)
+    m = np.arange(1000, dtype=np.int64)
+    cnt = (rr - m + 999) // 1000
+    out["surface_range"] = [(int(a), int(c * a + 1000 * c * (c - 1) // 2))
+                            for a, c in zip(m, cnt) if c > 0]
+    return out
+
+
+def collect_columns(df) -> list:
+    """A query's result as host numpy columns (no Python rows)."""
+    import numpy as np
+
+    batches = [b for b in df.toLocalBatches() if b.num_rows]
+    if not batches:
+        return [np.zeros(0) for _ in df.columns]
+    return [np.concatenate([np.asarray(b.columns[i].data)[:b.num_rows]
+                            for b in batches])
+            for i in range(len(df.columns))]
+
+
+def exchange_partition_rows(sess, df, n_out: int) -> list:
+    """Rows in each output partition of the device exchange of n_out
+    partitions in df's plan, counted on the card (nothing is downloaded
+    but the counts)."""
+    from spark_rapids_tpu_torch.shuffle.exchange import TpuShuffleExchangeExec
+
+    with sess.query_scope():
+        plan = sess._physical_plan(df._plan)
+        ex = plan.collect_nodes(
+            lambda n: isinstance(n, TpuShuffleExchangeExec) and
+            n.partitioning.num_partitions == n_out)
+        check(len(ex) == 1, f"one device exchange of {n_out} partitions")
+        pb = ex[0].execute(sess.exec_context())
+        return [sum(int(b.num_rows) for b in pb.iterator(p))
+                for p in range(pb.num_partitions)]
+
+
+def rr_partition_rows(batch_rows, n: int) -> list:
+    """Round-robin arithmetic: map partition p's batches of batch_rows[p]
+    rows send row r to (r + p) % n."""
+    counts = [0] * n
+    for p, sizes in enumerate(batch_rows):
+        for rows in sizes:
+            q, rem = divmod(rows, n)
+            for t in range(n):
+                counts[t] += q + (1 if (t - p) % n < rem else 0)
+    return counts
+
+
+def row_hash(cols) -> "object":
+    """An int64 a row over int64 / float64 host columns (their bits, mixed
+    with wrapping multiplies), computed by torch on the card."""
+    import numpy as np
+    import torch
+
+    h = None
+    for i, c in enumerate(cols):
+        v = torch.from_numpy(np.ascontiguousarray(c).view(np.int64)).cuda()
+        h = v if h is None else h ^ v
+        h = h * (0x1E3779B97F4A7C15 + 2 * i)
+        h = h ^ (h >> 29)
+    return h
+
+
+def run_surface(sess, raw, tables, li: dict, wants: dict, launches: dict,
+                dev, errs: dict) -> dict:
+    """Phase 17 (after phase 16, over phase 4's cached SF 10 tables): the
+    seven programs of SURFACE_PROGRAMS, one cold and SURFACE_WARM_REPS
+    warm runs each, every operator on the card but RangeExec (a host exec,
+    as in the reference); rows against numpy; the round-robin partition
+    counts against their arithmetic, the hash ones against the CPU
+    engine's hash; count(), coalesce, sortWithinPartitions, show and the
+    GroupedData shortcuts; K45-K47 and K3's BOOL / any lanes timed at the
+    path's shapes ("kernel_rows")."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.ops import hashing as H
+    from spark_rapids_tpu_torch.ops.values import ColV
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    t0 = time.perf_counter()
+    want = numpy_surface_wants(raw, li, wants.setdefault("pools", {}))
+    out = {"numpy_s": time.perf_counter() - t0}
+    table_rows = {k: sum(b.num_rows for part in v._plan.partitions
+                         for b in part) for k, v in raw.items()}
+    for name, fn in SURFACE_PROGRAMS.items():
+        q = fn(sess, tables, F, TPCH_SF)
+        CB.reset_launch_counts()
+        if name in want:
+            res = run_query(sess, q, want[name], name, SURFACE_WARM_REPS,
+                            order=null_first)
+        else:
+            # the dedupes: count() runs on the card, rows come as columns
+            res = {"cold_s": None, "warm_s": [], "warm_median_s": None}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if name == "surface_dedup_key":
+                res["columns"] = collect_columns(q)
+            else:
+                res["count"] = q.count()
+            torch.cuda.synchronize()
+            res["cold_s"] = time.perf_counter() - t
+            assert_on_device(sess)
+        launches[name] = CB.launch_counts()
+        tab = {"surface_rollup": "lineitem", "surface_cube": "orders",
+               "surface_repartition": "lineitem",
+               "surface_distinct": "orders"}.get(name, "lineitem")
+        rows_in = surface_range_rows(TPCH_SF) if name == "surface_range" \
+            else table_rows[tab]
+        res.update(input_rows=rows_in, rows_per_s=rows_in / best_s(res))
+        out[name] = res
+    # (d) distinct pairs and their partitions
+    t = time.perf_counter()
+    steps = {}
+    last = [t]
+
+    def mark(label):
+        now = time.perf_counter()
+        steps[label] = now - last[0]
+        last[0] = now
+
+    ok, ck = li["l_orderkey"], li["l_partkey"]
+    o = table_columns(raw["orders"], ("o_custkey",))
+    ost = wants["pools"]["pool_o_orderstatus"]
+    pairs = distinct_count(o["o_custkey"] * 3 + ost)
+    check(out["surface_distinct"]["count"] == pairs,
+          f"distinct: {out['surface_distinct']['count']} pairs, numpy "
+          f"{pairs}")
+    mark("distinct numpy")
+    hashed = exchange_partition_rows(
+        sess, surface_distinct(sess, tables, F, TPCH_SF), SURFACE_HASH)
+    mark("hash exchange rows")
+    # the CPU engine's hash (K4's plain version) over the same keys, as
+    # torch ops on the card
+    keys_dev = torch.from_numpy(o["o_custkey"]).to(dev)
+    ids, _ = H.partition_ids_plain([ColV(
+        DataType.INT64, keys_dev, torch.ones_like(keys_dev,
+                                                  dtype=torch.bool))],
+        None, SURFACE_HASH)
+    check(hashed == torch.bincount(ids.long(), minlength=SURFACE_HASH)
+          .tolist(),
+          f"repartition({SURFACE_HASH}, o_custkey): partition rows "
+          f"{hashed} differ from the hash's")
+    mark("host hash")
+    merged = sess.execute_partitions(
+        surface_distinct(sess, tables, F, TPCH_SF).coalesce(2)._plan)
+    check(len(merged) == 2 and sum(b.num_rows for p in merged for b in p)
+          == pairs, f"coalesce(2): {len(merged)} partitions")
+    mark("coalesce")
+    # (c) round-robin partition rows
+    rr = exchange_partition_rows(
+        sess, surface_repartition(sess, tables, F, TPCH_SF), SURFACE_RR)
+    li_batches = [[b.num_rows for b in part]
+                  for part in raw["lineitem"]._plan.partitions]
+    check(rr == rr_partition_rows(li_batches, SURFACE_RR),
+          f"repartition({SURFACE_RR}): partition rows {rr}")
+    out["partition_rows"] = {"round_robin": rr, "hash": hashed}
+    mark("round-robin rows")
+    # (e) the dedupes
+    pair_n = distinct_count((ok << 21) | ck)
+    check(out["surface_dedup_pair"]["count"] == pair_n,
+          f"dropDuplicates pair: {out['surface_dedup_pair']['count']} rows,"
+          f" numpy {pair_n}")
+    mark("pair numpy")
+    k_ok, k_pk, k_q, k_p = out["surface_dedup_key"].pop("columns")
+    n_keys = distinct_count(ok)
+    check(len(k_ok) == n_keys and distinct_count(k_ok) == len(k_ok),
+          f"dropDuplicates key: {len(k_ok)} rows, {n_keys} keys")
+    check(all_in(row_hash([k_ok, k_pk, k_q, k_p]),
+                 row_hash([ok, ck, li["l_quantity"],
+                           li["l_extendedprice"]])),
+          "dropDuplicates key: a row equals no input row")
+    out["surface_dedup_key"]["rows"] = len(k_ok)
+    mark("dedupe key check")
+    # sortWithinPartitions, show(5), the shortcuts
+    head = (tables["orders"].select("o_orderkey", "o_orderstatus")
+            .sortWithinPartitions(F.col("o_orderkey").desc()).limit(5))
+    top = [r[0] for r in head.collect()]
+    first = raw["orders"]._plan.partitions[0][0].num_rows
+    check(top == list(range(first - 1, first - 6, -1)),
+          f"sortWithinPartitions + limit: {top}, want partition 0's top 5")
+    head.show(5)
+    mark("sort within, show")
+    total = table_rows["orders"]
+    check(tables["orders"].count() == total, "orders.count()")
+    price = table_columns(raw["orders"], ("o_totalprice",))["o_totalprice"]
+    g = tables["orders"].groupBy("o_orderstatus")
+    checks = {"sum": np.bincount(ost, weights=price, minlength=3),
+              "avg": np.bincount(ost, weights=price, minlength=3) /
+              np.bincount(ost, minlength=3)}
+    for fn in ("sum", "min", "max", "avg"):
+        rows = sorted(getattr(g, fn)("o_totalprice").collect())
+        assert_on_device(sess)
+        check([r[0] for r in rows] == ["F", "O", "P"],
+              f"groupBy.{fn}: keys")
+        for r in rows:
+            st = "FOP".index(r[0])
+            if fn in checks:
+                w = float(checks[fn][st])
+            else:
+                w = float(getattr(np, fn)(price[ost == st]))
+            check(abs(r[1] - w) <= TPCH_REL * abs(w),
+                  f"groupBy.{fn}: {r} vs numpy {w}")
+    mark("shortcuts")
+    out["checks_s"] = time.perf_counter() - t
+    out["check_steps_s"] = steps
+    log(f"phase 17 checks: {steps}")
+    out["kernel_rows"] = time_surface_kernels(dev, errs, raw)
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 17: {out['phase_s']:.1f} s (numpy {out['numpy_s']:.1f} s, "
+        f"checks {out['checks_s']:.1f} s)")
+    return out
+
+
+def distinct_count(keys) -> int:
+    """Distinct int64 values of a host array, by torch.unique on the card:
+    the H100 machine's host sorts 12M keys in numpy in 12.9 s (PERF.md),
+    the card in milliseconds; torch.unique is a library call the port
+    never uses."""
+    import torch
+
+    return int(torch.unique(torch.from_numpy(keys.astype("int64")).cuda())
+               .numel())
+
+
+def all_in(needles, haystack) -> bool:
+    """Whether every value of the tensor `needles` is in `haystack`
+    (torch.isin on the card, as distinct_count)."""
+    import torch
+
+    return bool(torch.isin(needles, haystack).all())
+
+
+# ------------------------------------- K45-K47, K3 bool / any (phase 3)
+def compare_k45(pidx: int, num_rows, cap: int, n: int, dev, label: str,
+                errs: dict, route: bool = True) -> None:
+    """K45 against its plain version (ids, order, counts), bit for bit."""
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    got = X.round_robin_route(pidx, num_rows, cap, n, dev, route)
+    rows = int(num_rows)
+    want = X.round_robin_route_plain(pidx, rows, cap, n, dev, route)
+    for k, (g, w) in enumerate(zip(got, want)):
+        check((g is None and w is None) or bits_equal(g, w),
+              f"{label}: K45 output {k} differs from its plain version")
+    errs.setdefault("round_robin_route", 0.0)
+
+
+def compare_k46(slices, columns, cap_out: int, label: str,
+                errs: dict) -> None:
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    got = X.assemble_routed_fixed(slices, columns, cap_out)
+    want = X.assemble_routed_fixed_plain(slices, columns, cap_out)
+    for k, ((gd, gv), (wd, wv)) in enumerate(zip(got, want)):
+        check(bits_equal(gd, wd) and bits_equal(gv, wv),
+              f"{label}: K46 column {k} differs from its plain version")
+    errs.setdefault("assemble_routed_fixed", 0.0)
+
+
+def compare_k47(col, valid, gi, cap: int, label: str, errs: dict) -> None:
+    """K47 for min and max against its plain version, bit for bit."""
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+
+    offsets, data = col
+    for want_min in (True, False):
+        got = RK.segment_arg_extreme_string(offsets, data, valid, gi, cap,
+                                            want_min)
+        want = RK.segment_arg_extreme_string_plain(offsets, data, valid,
+                                                   gi.gid, cap, want_min)
+        check(bits_equal(got, want), f"{label}: K47 "
+              f"{'min' if want_min else 'max'} differs from its plain "
+              "version")
+    errs.setdefault("segment_arg_extreme_string", 0.0)
+
+
+def compare_k3_bool(specs, gi, cap: int, label: str, errs: dict) -> None:
+    """K3's BOOL min / max and any lanes against the plain version."""
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+
+    got = RK.segment_reduce_many(specs, gi, cap)
+    for (op, d, v), (gd, gv) in zip(specs, got):
+        wd, wv = RK.segment_reduce_plain(op, d, v, gi, cap)
+        check(bits_equal(gd, wd) and bits_equal(gv, wv),
+              f"{label}: K3 {op} over {d.dtype} differs from its plain "
+              "version")
+
+
+def int_groups(keys, live, cap: int):
+    """A GroupInfo over one int64 key column (K1, K2 on the card)."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    k = ColV(DataType.INT64, keys, torch.ones_like(live))
+    return RK.group_ids_masked([RK.key_proxy(k)], live, cap)
+
+
+K47_EDGES = [b"", b"", b"a", b"a\x00", b"a\x00b", b"a", b"ab", b"b",
+             "é".encode(), b"\xff\xfe", b"\x80", b"abcdefgh", b"abcdefg",
+             b"abcdefgh\x00", b"x" * 64 + b"a", b"x" * 64 + b"b",
+             b"x" * 64, b"x" * 130 + b"z", b"x" * 130, b"\x00", b"zz"]
+
+
+def surface_edge_cases(dev, errs: dict) -> int:
+    """K45-K47 and K3's BOOL / any lanes bit for bit against their plain
+    versions: K45 at 1, 7, 64, 4097, 5000 and 65,536 partitions over 0,
+    1, n - 1, n + 3 and 3n + 5 rows, pidx offsets, both modes and a row
+    count on the card; K46 over every fixed lane type, one slice, many
+    slices of several sources, empty slices; K47 over empty, equal and
+    prefix strings, embedded NUL, bytes >= 0x80, strings past 64 and 128
+    bytes, NULL rows, all-NULL groups, one group across many chunks, the
+    keyless group and a 0-row batch; K3 over BOOL with NULLs and all-NULL
+    groups."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    sets = 0
+    for n in (1, 7, 64, 4097, 5000, 65536):
+        for rows in sorted({0, 1, max(n - 1, 0), n + 3, 3 * n + 5}):
+            cap = bucket_capacity(max(rows, 1))
+            for pidx in (0, 5, n + 2):
+                compare_k45(pidx, rows, cap, n, dev,
+                            f"K45 n={n} rows={rows} pidx={pidx}", errs)
+                sets += 1
+            compare_k45(3, torch.tensor(rows, dtype=torch.int32,
+                                        device=dev), cap, n, dev,
+                        f"K45 n={n} rows={rows} on the card", errs)
+            compare_k45(3, rows, cap, n, dev, f"K45 ids n={n} rows={rows}",
+                        errs, route=False)
+            sets += 2
+    rng = np.random.default_rng(1515)
+    srcs = []
+    for s in range(3):
+        cap = 4096 + 512 * s
+        n_rows = cap - 100
+        cols = [memory_column(rng, t, cap, n_rows, dev)
+                for _, t in MEMORY_DTYPES]
+        ids = X.rr_ids_plain(s, n_rows, cap, 5, dev)
+        order, counts = X.route_plan_plain(ids, 5)
+        srcs.append((cols, order, counts.tolist()))
+    for label, picks in (("one slice", [(0, 2)]),
+                         ("many slices", [(0, 0), (1, 0), (2, 0), (0, 3),
+                                          (2, 4), (1, 1)]),
+                         ("empty slices", [(0, 5), (1, 2), (2, 5)])):
+        slices, columns = [], [[] for _ in MEMORY_DTYPES]
+        for s, t in picks:
+            cols, order, counts = srcs[s]
+            start = sum(counts[:t])
+            slices.append((order, start, counts[t]))
+            for c, col in enumerate(cols):
+                columns[c].append(col)
+        total = sum(c for _, _, c in slices)
+        compare_k46(slices, columns, bucket_capacity(max(total, 1)),
+                    f"K46 {label}", errs)
+        sets += 1
+    # K47: edge strings in groups, NULLs, an all-NULL group, a long group
+    edges = K47_EDGES * 3
+    n_rows = len(edges) + 1100
+    long_rows = [bytes([97 + (i * 7) % 26]) * (1 + i % 70)
+                 for i in range(1100)]
+    rows = edges + long_rows
+    cap = bucket_capacity(n_rows)
+    rows += [b""] * (cap - n_rows)
+    offsets, data, _ = raw_string_column(rows, dev)
+    key = np.concatenate([np.arange(len(edges)) % 5,
+                          np.full(1100, 9), np.zeros(cap - n_rows, int)])
+    valid = np.arange(cap) < n_rows
+    valid[::13] = False
+    valid[key == 4] = False  # an all-NULL group
+    live = torch.from_numpy(np.arange(cap) < n_rows).to(dev)
+    vt = torch.from_numpy(valid).to(dev) & live
+    gi = int_groups(torch.from_numpy(key.astype(np.int64)).to(dev), live,
+                    cap)
+    compare_k47((offsets, data), vt, gi, cap, "K47 edge strings", errs)
+    compare_k47((offsets, data), vt, RK.keyless_group_info(live, cap), cap,
+                "K47 keyless", errs)
+    empty = torch.zeros(8, dtype=torch.bool, device=dev)
+    z_off = torch.zeros(9, dtype=torch.int32, device=dev)
+    z_data = torch.zeros(8, dtype=torch.uint8, device=dev)
+    compare_k47((z_off, z_data), empty, int_groups(
+        torch.zeros(8, dtype=torch.int64, device=dev), empty, 8), 8,
+        "K47 0-row batch", errs)
+    sets += 3
+    # K3: BOOL min / max and any with NULLs and all-NULL groups
+    b = torch.from_numpy(rng.random(cap) < 0.3).to(dev)
+    bv = vt.clone()
+    specs = [("min", b, bv), ("max", b, bv), ("any", b, bv),
+             ("min", ~b, live), ("count", b, bv)]
+    compare_k3_bool(specs, gi, cap, "K3 bool", errs)
+    compare_k3_bool(specs, RK.keyless_group_info(live, cap), cap,
+                    "K3 bool keyless", errs)
+    compare_k3_bool([("min", z_data.bool(), empty),
+                     ("any", z_data.bool(), empty)],
+                    int_groups(torch.zeros(8, dtype=torch.int64,
+                                           device=dev), empty, 8), 8,
+                    "K3 bool 0 rows", errs)
+    sets += 3
+    return sets
+
+
+def time_surface_kernels(dev, errs: dict, raw) -> dict:
+    """K45 at K45_ROWS rows into SURFACE_RR and K45_MANY partitions (route
+    mode); K46 over one 15M-row lineitem partition's fixed columns routed
+    round robin into 4 targets from 4 map partitions (target 0's four
+    slices, one piece); K47 over the same partition's l_shipinstruct by
+    the rollup's first grouping set (l_returnflag, l_linestatus) and by
+    its grand total; K3's BOOL min / max / any over l_discount > 0.05 and
+    l_tax < 0.02 by the same groups. Each is checked against its plain
+    version bit for bit there. Bounds: bytes read once and written once
+    (K45: ids, order and counts written, nothing read but the count; K47:
+    the group-by's order and ids, the offsets, validity and every byte of
+    the strings, one int32 a group slot). Library: a stable torch.sort of
+    the ids with a bincount (K45), index_select per column (K46), a
+    scatter_reduce_ per column (K3); none computes K47's arg-extreme."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.batch import (
+        HostColumnarBatch,
+        bucket_capacity,
+    )
+    from spark_rapids_tpu_torch.exec import rowkeys as RK
+    from spark_rapids_tpu_torch.ops.eval import col_to_colv
+    from spark_rapids_tpu_torch.shuffle import exchange as X
+
+    iters, plain_iters = KERNEL_ITERS, PLAIN_ITERS
+    rows = {}
+    n = K45_ROWS
+    for parts in (SURFACE_RR, K45_MANY):
+        compare_k45(3, n, n, parts, dev, f"K45 {n} rows, {parts} parts",
+                    errs)
+        ids = X.rr_ids_plain(3, n, n, parts, dev)
+        sfx = "" if parts == SURFACE_RR else f"_{parts}"
+        rows[f"k45{sfx}"] = {
+            f"ms{sfx}": cuda_ms(lambda: X.round_robin_route(
+                3, n, n, parts, dev), iters),
+            f"plain_ms{sfx}": cuda_ms(lambda: X.round_robin_route_plain(
+                3, n, n, parts, dev), plain_iters),
+            f"library_ms{sfx}": cuda_ms(lambda: (
+                torch.sort(ids, stable=True),
+                torch.bincount(ids, minlength=parts + 1)), plain_iters),
+            f"bound_ms{sfx}": bound_ms(8 * n + 4 * (parts + 1)),
+            f"shape{sfx}": f"{n} rows, {parts} partitions"}
+    rows["round_robin_route"] = {**rows.pop("k45"), **rows.pop(
+        f"k45_{K45_MANY}")}
+    schema = raw["lineitem"].schema
+    part = raw["lineitem"]._plan.partitions[0]
+    check(len(part) == 1, "lineitem's first partition is one batch")
+    part = part[0]
+    fixed = [i for i, a in enumerate(schema) if not a.data_type.is_string]
+    batch = HostColumnarBatch([part.columns[i] for i in fixed]).to_device(dev)
+    nrows, cap = part.num_rows, batch.capacity
+    slices = []
+    for p in range(4):
+        _, order, counts = X.round_robin_route(p, nrows, cap, 4, dev)
+        slices.append((order, 0, int(counts[0])))
+    columns = [[(c.data, c.validity)] * 4 for c in batch.columns]
+    total = sum(c for _, _, c in slices)
+    ocap = bucket_capacity(total)
+    compare_k46(slices, columns, ocap, "K46 lineitem piece", errs)
+    idx = torch.cat([o[s:s + c].long() for o, s, c in slices])
+    flat = [t for c in batch.columns for t in (c.data, c.validity)]
+    width = sum(c.data.element_size() + 1 for c in batch.columns)
+    rows["assemble_routed_fixed"] = dict(
+        ms=cuda_ms(lambda: X.assemble_routed_fixed(slices, columns, ocap),
+                   iters),
+        plain_ms=cuda_ms(lambda: X.assemble_routed_fixed_plain(
+            slices, columns, ocap), plain_iters),
+        library_ms=cuda_ms(lambda: [t.index_select(0, idx) for t in flat],
+                           plain_iters),
+        bound_ms=bound_ms(4 * total + width * total + width * ocap),
+        shape=f"{len(slices)} slices, {total} rows x {len(columns)} fixed "
+              f"columns (lineitem's) in {ocap} lanes")
+    del batch, columns, slices, idx, flat
+    names = [a.name for a in schema]
+    sb = HostColumnarBatch([part.columns[names.index(c)] for c in (
+        "l_returnflag", "l_linestatus", "l_shipinstruct", "l_discount",
+        "l_tax")]).to_device(dev)
+    flag, status, instr, disc, tax = [col_to_colv(c) for c in sb.columns]
+    cap = sb.capacity
+    live = torch.arange(cap, device=dev) < nrows
+    gi = RK.group_ids_masked([RK.key_proxy(flag), RK.key_proxy(status)],
+                             live, cap)
+    total_gi = RK.keyless_group_info(live, cap)
+    valid = instr.validity & live
+    col = (instr.offsets, instr.data)
+    compare_k47(col, valid, gi, cap, "K47 l_shipinstruct by the rollup",
+                errs)
+    compare_k47(col, valid, total_gi, cap, "K47 grand total", errs)
+    k47_bytes = 13 * cap + 4 * (cap + 1) + int(instr.offsets[nrows])
+    rows["segment_arg_extreme_string"] = dict(
+        ms=cuda_ms(lambda: RK.segment_arg_extreme_string(
+            *col, valid, gi, cap, False), iters),
+        plain_ms=cuda_ms(lambda: RK.segment_arg_extreme_string_plain(
+            *col, valid, gi.gid, cap, False), plain_iters),
+        library_ms=None, bound_ms=bound_ms(k47_bytes),
+        ms_total=cuda_ms(lambda: RK.segment_arg_extreme_string(
+            *col, valid, total_gi, cap, False), iters),
+        plain_ms_total=cuda_ms(lambda: RK.segment_arg_extreme_string_plain(
+            *col, valid, total_gi.gid, cap, False), plain_iters),
+        bound_ms_total=bound_ms(k47_bytes),
+        shape=f"l_shipinstruct max, {nrows} rows by (l_returnflag, "
+              f"l_linestatus); _total: one group")
+    d = disc.data > 0.05
+    t_ = tax.data < 0.02
+    specs = [("max", d, disc.validity & live), ("min", t_,
+                                                tax.validity & live)]
+    compare_k3_bool(specs, gi, cap, "K3 bool by the rollup", errs)
+    any_specs = [("any", d, disc.validity & live)]
+    compare_k3_bool(any_specs, gi, cap, "K3 any by the rollup", errs)
+    gid = gi.gid.long().clamp(max=cap - 1)
+
+    def library_bool(sp):
+        for op, x, _ in sp:
+            torch.zeros(cap, dtype=torch.int32, device=dev).scatter_reduce_(
+                0, gid, x.to(torch.int32), "amin" if op == "min" else "amax")
+
+    for label, sp in (("bool", specs), ("any", any_specs)):
+        rows[f"segment_reduce_{label}"] = dict(
+            ms=cuda_ms(lambda: RK.segment_reduce_many(sp, gi, cap), iters),
+            plain_ms=cuda_ms(lambda: [RK.segment_reduce_plain(
+                op, x, v, gi, cap) for op, x, v in sp], plain_iters),
+            library_ms=cuda_ms(lambda: library_bool(sp), plain_iters),
+            bound_ms=bound_ms(8 * cap + 4 * len(sp) * cap),
+            shape=f"{len(sp)} BOOL columns ({', '.join(op for op, *_ in sp)})"
+                  f" x {nrows} rows by (l_returnflag, l_linestatus)")
+    del sb
+    return rows
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -9171,7 +10037,7 @@ def main(argv=None) -> int:
         encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
         orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs) + \
         csv_edge_cases(dev, errs) + string_transform_edge_cases(dev, errs) + \
-        cast_edge_cases(dev, errs)
+        cast_edge_cases(dev, errs) + surface_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
@@ -9198,6 +10064,9 @@ def main(argv=None) -> int:
     results["casts"] = run_casts(tpch_sess, raw, tables, li, launches, dev,
                                  errs)
     cast_rows = results["casts"].pop("kernel_rows")
+    results["surface"] = run_surface(tpch_sess, raw, tables, li, wants,
+                                     launches, dev, errs)
+    surface_rows = results["surface"].pop("kernel_rows")
     results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
                                      wants["input_rows"], launches,
                                      args.profile)
@@ -9234,7 +10103,7 @@ def main(argv=None) -> int:
                                               args.profile)
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
         results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples,
-        {**csv_rows, **string_rows, **cast_rows})
+        {**csv_rows, **string_rows, **cast_rows, **surface_rows})
     results["kernels"] = kernels
     # no run outside phase 13 (timed or not) retried, split or fell back
     every = fault_counts(start_counters)
@@ -9313,6 +10182,9 @@ def main(argv=None) -> int:
         "casts": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
             "python_check_s",)} if k.startswith("casts_") else v)
             for k, v in results["casts"].items()},
+        "surface": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "count",)} if k.startswith("surface_") else v)
+            for k, v in results["surface"].items()},
         "fault_counters": results["fault_counters"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))

@@ -290,8 +290,11 @@ class HostColumnarBatch:
                 max_lens.append(S.len_bucket(int(lens.max()) if n else 1))
             else:
                 npdt = hc.dtype.to_np()
-                parts.append((npdt, np.where(hc.validity[:n], hc.data[:n],
-                                             npdt.type(0)), cap))
+                valid = hc.validity[:n]
+                # NULL lanes upload as 0; a column without NULLs as it is
+                parts.append((npdt, hc.data[:n] if valid.all() else
+                              np.where(valid, hc.data[:n], npdt.type(0)),
+                              cap))
                 max_lens.append(None)
             parts.append((np.dtype(np.bool_), hc.validity[:n], cap))
         arrays = _upload_grouped(parts, device)
@@ -335,11 +338,12 @@ def _upload_grouped(parts, device: torch.device):
     for npdt, idxs in groups.items():
         tdt = torch.from_numpy(np.zeros(0, dtype=npdt)).dtype
         starts = np.cumsum([0] + [parts[i][2] for i in idxs])
-        host = torch.zeros(int(starts[-1]), dtype=tdt, pin_memory=pin)
+        host = torch.empty(int(starts[-1]), dtype=tdt, pin_memory=pin)
         view = host.numpy()
         for j, i in enumerate(idxs):
             vals = parts[i][1]
             view[starts[j]:starts[j] + len(vals)] = vals
+            view[starts[j] + len(vals):starts[j + 1]] = 0
         dev = host.to(device, non_blocking=pin)
         for j, i in enumerate(idxs):
             out[i] = dev[starts[j]:starts[j + 1]]

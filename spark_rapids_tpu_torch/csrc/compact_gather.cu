@@ -1,5 +1,6 @@
-// K31 compact_fixed and K32 gather_fixed: the fixed-width row movement of
-// columnar/batch.py (filter compaction, masked concat, gathers by index).
+// K31 compact_fixed, K32 gather_fixed and K46 assemble_routed_fixed: the
+// fixed-width row movement of columnar/batch.py (filter compaction, masked
+// concat, gathers by index) and of the exchange's routed tier.
 //
 // K31 replaces spark_rapids_tpu/columnar/batch.py:_compact_plan (:1623) and
 // the fixed-column half of compact_batch / _gather_batch_traced (:1630,
@@ -28,11 +29,23 @@
 // negative or past the source capacity, when indices_valid masks it off, or
 // when the source row is NULL. Indices are int32 or int64.
 //
+// K46 assemble_routed_fixed replaces shuffle/exchange.py:_slice_indices
+// (:1324) and the fixed columns of _assemble_routed (:1433): the rows of
+// several routed slices, each order[start : start + count] of its own map
+// batch's route order, laid end to end in one output of cap_out lanes, for
+// every fixed column (an encoded column's codes too) in one launch. A
+// thread an output lane finds its slice by a binary search over the
+// slices' output offsets; the row's validity is copied and its data too,
+// or 0 where the row is NULL; lanes past the rows are zero and invalid, as
+// the reference zeroes them.
+//
 // Columns come through a table in device memory (int64 words: pointers and
 // element widths of 1, 2, 4 or 8 bytes), so any number of columns and
 // pieces takes one launch of each stage.
 //
-// Bound: memory. K31 reads each live mask once and the kept lanes of every
+// Bound: memory. K46 reads each slice's order entries and one element and
+// one validity byte of every column a row, and writes cap_out lanes of
+// every column. K31 reads each live mask once and the kept lanes of every
 // column once, and writes cap_out lanes of every column; K32 reads the
 // indices, and one element and one validity byte of every column a lane,
 // and writes cap lanes of every column.
@@ -229,6 +242,53 @@ __global__ void gather_fixed_kernel(const long long* __restrict__ table,
   }
 }
 
+// K46's table, int64 words, for P slices and C columns:
+//   out   [P + 1]  first output lane of each slice (the last word: rows)
+//   order [P]      int32* route order of each slice's map batch
+//   start [P]      the slice's first position in its order
+//   src_data [P * C], src_valid [P * C]  column c of slice p at p * C + c
+//   dst_data [C], dst_valid [C], width [C]
+__global__ void assemble_routed_kernel(const long long* __restrict__ table,
+                                       int P, int C, long long cap_out) {
+  const long long* out = table;
+  const long long* order = out + P + 1;
+  const long long* start = order + P;
+  const long long* src_data = start + P;
+  const long long* src_valid = src_data + (long long)P * C;
+  const long long* dst_data = src_valid + (long long)P * C;
+  const long long* dst_valid = dst_data + C;
+  const long long* width = dst_valid + C;
+  const long long total = out[P];
+  for (long long j = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       j < cap_out; j += (long long)gridDim.x * blockDim.x) {
+    if (j >= total) {
+      for (int c = 0; c < C; ++c) {
+        reinterpret_cast<bool*>(dst_valid[c])[j] = false;
+        zero_elem(reinterpret_cast<void*>(dst_data[c]), j, (int)width[c]);
+      }
+      continue;
+    }
+    int lo = 0, hi = P - 1;  // the last slice with out[p] <= j
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (out[mid] <= j) lo = mid; else hi = mid - 1;
+    }
+    const long long r = reinterpret_cast<const int32_t*>(order[lo])
+        [start[lo] + (j - out[lo])];
+    for (int c = 0; c < C; ++c) {
+      const long long k = (long long)lo * C + c;
+      const bool v = reinterpret_cast<const bool*>(src_valid[k])[r];
+      reinterpret_cast<bool*>(dst_valid[c])[j] = v;
+      void* dst = reinterpret_cast<void*>(dst_data[c]);
+      const int w = (int)width[c];
+      if (v)
+        copy_elem(reinterpret_cast<const void*>(src_data[k]), r, dst, j, w);
+      else
+        zero_elem(dst, j, w);
+    }
+  }
+}
+
 inline unsigned grid_for(long long n) {
   return (unsigned)std::max<long long>(
       1, std::min<long long>(ceil_div(n, kThreads), 65536));
@@ -294,6 +354,20 @@ SRT_API int srt_gather_fixed(const long long* table, int C, const void* idx,
       table, C, idx, idx_bytes, n_idx, ivalid, n_ivalid, out_rows, src_cap,
       cap);
   SRT_LAUNCHED("gather_fixed_kernel");
+  return 0;
+}
+
+// K46: table as assemble_routed_kernel reads it for P slices and C fixed
+// columns; outputs of cap_out lanes.
+SRT_API int srt_assemble_routed_fixed(const long long* table, int P, int C,
+                                      long long cap_out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (P < 1 || C < 0 || cap_out < 0)
+    return fail(cudaErrorInvalidValue, "arguments");
+  if (cap_out == 0 || C == 0) return 0;
+  assemble_routed_kernel<<<grid_for(cap_out), kThreads, 0, st>>>(
+      table, P, C, cap_out);
+  SRT_LAUNCHED("assemble_routed_kernel");
   return 0;
 }
 

@@ -28,6 +28,18 @@
 // pass per 8 bits of the largest id (one below 256 buckets, two below
 // 65536, three below 2^24).
 //
+// K45 round_robin_route replaces shuffle/exchange.py:_jit_rr_ids (:1141)
+// with the _route_plan that follows it (:1315) for repartition(n): row r
+// of a map batch goes to target (r + pidx) % n, a pad lane to n. The stable
+// order needs no sort: target t holds the live rows r0_t, r0_t + n, ...
+// with r0_t = (t - pidx) mod n, so with q = rows / n and rem = rows % n a
+// target counts q + (r0_t < rem) rows and starts at t * q plus the targets
+// before it whose r0 < rem (a cyclic interval of rem targets from pidx).
+// One launch writes the ids (the lazy slicer's masks), the n + 1 counts
+// (pads last) and, in route mode, `order`: a thread an output position,
+// which finds its target by a binary search over those closed-form starts,
+// so every write is coalesced and nothing is read but the row count.
+//
 // Counts: up to kSharedBuckets buckets (num_parts + 1) each block keeps its
 // histogram in shared memory and adds it to `counts` once; past that the
 // launcher picks the variant that adds every row straight into `counts` in
@@ -35,7 +47,8 @@
 // reference's partition_ids and _route_plan take any n).
 //
 // Bound: memory. The hash reads each key column once and writes one int32
-// id a row; the route reads ids twice and writes one int32 a row.
+// id a row; the route reads ids twice and writes one int32 a row; K45
+// writes one id and one order entry a row.
 #include <algorithm>
 
 #include "common.cuh"
@@ -234,10 +247,80 @@ size_t carve(void* base, long long n, int passes, RouteScratch* s) {
   return c.used;
 }
 
+// K45: the first position of target t (t in [0, n]) among the live rows
+__device__ __forceinline__ long long rr_start(long long t, long long p,
+                                              long long q, long long rem,
+                                              long long n) {
+  long long before;
+  if (p + rem <= n)
+    before = t - p < 0 ? 0 : (t - p > rem ? rem : t - p);
+  else
+    before = (t < p + rem - n ? t : p + rem - n) + (t - p > 0 ? t - p : 0);
+  return t * q + before;
+}
+
+__global__ void round_robin_route_kernel(long long cap, long long p, int n,
+                                         long long rows_host,
+                                         const int32_t* __restrict__ rows_dev,
+                                         int32_t* __restrict__ ids,
+                                         int32_t* __restrict__ order,
+                                         int32_t* __restrict__ counts) {
+  long long rows = rows_dev != nullptr ? (long long)*rows_dev : rows_host;
+  rows = rows < 0 ? 0 : (rows > cap ? cap : rows);
+  const long long q = rows / n, rem = rows % n;
+  const long long end = cap > (long long)n + 1 ? cap : (long long)n + 1;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < end; i += (long long)gridDim.x * blockDim.x) {
+    if (i < cap) {
+      ids[i] = i < rows ? (int32_t)((i + p) % n) : n;
+      if (order != nullptr) {
+        if (i < rows) {
+          long long lo = 0, hi = n - 1;  // the last t with start(t) <= i
+          while (lo < hi) {
+            const long long mid = (lo + hi + 1) >> 1;
+            if (rr_start(mid, p, q, rem, n) <= i) lo = mid; else hi = mid - 1;
+          }
+          const long long r0 = ((lo - p) % n + n) % n;
+          order[i] = (int32_t)(r0 + (i - rr_start(lo, p, q, rem, n)) * n);
+        } else {
+          order[i] = (int32_t)i;
+        }
+      }
+    }
+    if (i <= n) {
+      const long long r0 = ((i - p) % n + n) % n;
+      counts[i] = i < n ? (int32_t)(q + (r0 < rem ? 1 : 0))
+                        : (int32_t)(cap - rows);
+    }
+  }
+}
+
 }  // namespace
 }  // namespace srt
 
 using namespace srt;
+
+// K45: ids int32 [cap]; order int32 [cap] or null (ids only); counts int32
+// [num_parts + 1]. The live row count is *rows_dev when rows_dev is not
+// null, else rows_host; pidx >= 0.
+SRT_API int srt_round_robin_route(long long cap, long long pidx,
+                                  int num_parts, long long rows_host,
+                                  const int32_t* rows_dev, int32_t* ids,
+                                  int32_t* order, int32_t* counts,
+                                  void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (num_parts < 1 || num_parts == 0x7FFFFFFF || cap < 0 ||
+      cap > 0x7FFFFFFFLL || pidx < 0)
+    return fail(cudaErrorInvalidValue, "arguments");
+  const long long work = std::max<long long>(cap, (long long)num_parts + 1);
+  const unsigned grid =
+      (unsigned)std::min<long long>(ceil_div(work, kThreads), 8192);
+  round_robin_route_kernel<<<grid, kThreads, 0, st>>>(
+      cap, pidx % num_parts, num_parts, rows_host, rows_dev, ids, order,
+      counts);
+  SRT_LAUNCHED("round_robin_route_kernel");
+  return 0;
+}
 
 // ids: int32 [n] partition id per row (n = num_parts outside `live`);
 // counts: uint32 [num_parts + 1], zeroed here.

@@ -1,5 +1,5 @@
-// K3 segment_reduce: per-group count, sum, min, max, first and last of every
-// aggregate column in one launch, over the group-sorted order.
+// K3 segment_reduce: per-group count, sum, min, max, any, first and last of
+// every aggregate column in one launch, over the group-sorted order.
 //
 // Replaces spark_rapids_tpu/exec/rowkeys.py:segment_reduce with
 // _sorted_group_totals / _sorted_counts / _sorted_segment_reduce, and its
@@ -18,6 +18,12 @@
 // and seg_ends pick the same rows). The finalize pass copies that row's
 // value (1, 2, 4 or 8 bytes: any type) and validity; a group with no such
 // row is NULL.
+//
+// BOOL lanes (dtype kBool) reduce as unsigned bytes into an int32
+// accumulator: min is AND, max and `any` (the per-group OR of
+// rowkeys.py:552, :586, :613) are OR; the result is a bool lane, NULL for
+// a group without a non-null row, as the reference's min / max / any
+// branch (:528-616).
 //
 // Bound: memory. Per row and column it reads order and gid_sorted (once per
 // column from L2), the row's value and valid flag through order (a random
@@ -43,8 +49,8 @@ constexpr int kChunk = 32;
 constexpr int kMaxCols = 16;
 
 enum Op { kCount = 0, kSum = 1, kMin = 2, kMax = 3, kFirst = 4, kLast = 5,
-          kFirstIgnoreNulls = 6, kLastIgnoreNulls = 7 };
-enum Dt { kI32 = 0, kI64 = 1, kF32 = 2, kF64 = 3 };
+          kFirstIgnoreNulls = 6, kLastIgnoreNulls = 7, kAny = 8 };
+enum Dt { kI32 = 0, kI64 = 1, kF32 = 2, kF64 = 3, kBool = 4 };
 
 }  // namespace
 }  // namespace srt
@@ -110,7 +116,7 @@ __device__ void flush_atomic(const SrtSegCol& c, int32_t g, long long acc_i,
   if (c.op == kSum) {
     atomicAdd(static_cast<unsigned long long*>(c.acc) + g,
               (unsigned long long)acc_i);
-  } else if (c.dtype == kI32) {
+  } else if (c.dtype == kI32 || c.dtype == kBool) {
     int* p = static_cast<int*>(c.acc) + g;
     if (c.op == kMin) atomicMin(p, (int)acc_i);
     else atomicMax(p, (int)acc_i);
@@ -129,7 +135,9 @@ __device__ void flush_atomic(const SrtSegCol& c, int32_t g, long long acc_i,
   }
 }
 
-__device__ __forceinline__ bool is_select(int op) { return op >= kFirst; }
+__device__ __forceinline__ bool is_select(int op) {
+  return op >= kFirst && op <= kLastIgnoreNulls;
+}
 
 // first / last: one atomic per run of the chunk with the run's least or
 // greatest row position (acc holds int32 positions)
@@ -187,6 +195,7 @@ __device__ void reduce_atomic_col(const SrtSegCol& c, long long start,
     switch (c.dtype) {
       case kI32: vi = static_cast<const int32_t*>(c.data)[r]; break;
       case kI64: vi = static_cast<const long long*>(c.data)[r]; break;
+      case kBool: vi = static_cast<const uint8_t*>(c.data)[r] != 0; break;
       case kF32: vu = f32_order_bits(static_cast<const float*>(c.data)[r]); break;
       default: vu = f64_order_bits(static_cast<const double*>(c.data)[r]); break;
     }
@@ -195,7 +204,7 @@ __device__ void reduce_atomic_col(const SrtSegCol& c, long long start,
       acc_u = vu;
     } else if (c.op == kSum) {
       acc_i = (long long)((unsigned long long)acc_i + (unsigned long long)vi);
-    } else if (c.dtype == kI32 || c.dtype == kI64) {
+    } else if (c.dtype == kI32 || c.dtype == kI64 || c.dtype == kBool) {
       acc_i = is_min ? (vi < acc_i ? vi : acc_i) : (vi > acc_i ? vi : acc_i);
     } else {
       acc_u = is_min ? (vu < acc_u ? vu : acc_u) : (vu > acc_u ? vu : acc_u);
@@ -346,6 +355,7 @@ __global__ void finalize_kernel(SegCols cols, long long n,
       switch (c.dtype) {
         case kI32: static_cast<int32_t*>(c.out)[s] = v ? static_cast<const int32_t*>(c.acc)[s] : 0; break;
         case kI64: static_cast<long long*>(c.out)[s] = v ? static_cast<const long long*>(c.acc)[s] : 0; break;
+        case kBool: static_cast<uint8_t*>(c.out)[s] = v && static_cast<const int32_t*>(c.acc)[s] != 0; break;
         case kF32: static_cast<float*>(c.out)[s] = v ? f32_from_order_bits(static_cast<const uint32_t*>(c.acc)[s]) : 0.0f; break;
         default: static_cast<double*>(c.out)[s] = v ? f64_from_order_bits(static_cast<const unsigned long long*>(c.acc)[s]) : 0.0; break;
       }

@@ -36,7 +36,8 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "explode", "segment_percentile", "parquet_decode",
            "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
            "orc_encode", "compact_gather", "csv_parse",
-           "string_transform", "cast_format", "cast_parse")
+           "string_transform", "cast_format", "cast_parse",
+           "string_arg_extreme")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 # flags of one source: the casts' double-double arithmetic (Dekker products,
@@ -160,6 +161,9 @@ _SIGNATURES = {
         "srt_route_plan": (ctypes.c_int, [
             _VOIDP, ctypes.c_longlong, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
             ctypes.c_size_t, _VOIDP]),
+        "srt_round_robin_route": (ctypes.c_int, [
+            ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int,
+            ctypes.c_longlong, _VOIDP, _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
     },
     "string_hash": {
         "srt_string_hash_words": (ctypes.c_int, [
@@ -320,8 +324,16 @@ _SIGNATURES = {
             ctypes.c_longlong, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
             _VOIDP, ctypes.c_size_t, _VOIDP]),
     },
+    "string_arg_extreme": {
+        "srt_arg_extreme_chunk": (ctypes.c_int, []),
+        "srt_segment_arg_extreme_string": (ctypes.c_int, [
+            _VOIDP, _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, _VOIDP,
+            _VOIDP, _VOIDP, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+    },
     "compact_gather": {
         "srt_compact_scratch_bytes": (ctypes.c_size_t, [ctypes.c_longlong]),
+        "srt_assemble_routed_fixed": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _VOIDP]),
         "srt_compact_fixed": (ctypes.c_int, [
             _VOIDP, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
             ctypes.c_longlong, _VOIDP, _VOIDP, ctypes.c_size_t, _VOIDP]),

@@ -39,8 +39,12 @@ and every other use decodes the column first. Code-valued outputs (keys,
 min / max buffers) leave as encoded columns, so the exchange and the merge
 move codes (the merge re-encodes min / max buffers to rank space after a
 concat has unioned their dictionaries) and the value is gathered at the
-sink. min / max over a plain STRING input reduce the dense ranks of its
-values (K6 order words, K1, K2), then K7 gathers each group's winner.
+sink. min / max over a plain STRING input pick each group's winning row
+with K47 (exec/rowkeys.py), then K7 gathers it.
+
+Slice 15 adds BOOL min / max and `any` to K3 (bool lanes), and rollup /
+cube: their Expand feeds this aggregate, which groups on the null-filled
+keys and the grouping id.
 
 Every update, merge and finalize runs under engine/retry.with_retry
 (sites agg.update, agg.merge, agg.finalize, as the reference :796, :658,
@@ -325,14 +329,17 @@ def _merge(cols, num_rows, capacity, device, n_keys, op_names):
 
 def _reduce_into(bufs, specs, gi: RK.GroupInfo, capacity: int) -> None:
     """bufs[i] = the reduction of each (i, op, data or ColV, validity):
-    K3 for all but min / max over a STRING column, which reduce ranks."""
+    K3 for all but min / max over a STRING column (K47 and K7)."""
     plain = []
     for i, op, data, valid in specs:
         if isinstance(data, ColV) and data.offsets is not None:
-            bufs[i] = _string_minmax(op, data, valid, gi, capacity)
-        else:
-            plain.append((i, op, data.data if isinstance(data, ColV)
-                          else data, valid))
+            if op in ("min", "max"):
+                bufs[i] = _string_minmax(op, data, valid, gi, capacity)
+                continue
+            # count over a STRING column reads its validity only
+            data = valid
+        plain.append((i, op, data.data if isinstance(data, ColV)
+                      else data, valid))
     got = RK.segment_reduce_many([(op, d, v) for _, op, d, v in plain], gi,
                                  capacity)
     for (i, _, _, _), r in zip(plain, got):
@@ -342,19 +349,16 @@ def _reduce_into(bufs, specs, gi: RK.GroupInfo, capacity: int) -> None:
 def _string_minmax(op: str, cv: ColV, valid, gi: RK.GroupInfo,
                    capacity: int) -> ColumnVector:
     """min / max of a STRING column per group, as a string column whose
-    lane g holds group g's result: the valid rows' dense ranks in byte
-    order (K6 order words, K1, K2), K3's min / max of the ranks, then K7
-    gathers the row that represents each winning rank."""
+    lane g holds group g's result: K47 picks each group's winning row
+    (reference: update :336-341 and merge :404, segment_arg_extreme_string),
+    then K7 gathers it."""
     if op not in ("min", "max"):
         raise NotImplementedError(f"device {op} over a STRING column")
-    ranks = RK.group_ids_masked([RK.string_order_proxy(cv)], valid,
-                                capacity)
-    win, win_valid = RK.segment_reduce_many([(op, ranks.gid, valid)], gi,
-                                            capacity)[0]
-    rows = ranks.rep_rows[win.long().clamp(0, capacity - 1)]
+    rows = RK.segment_arg_extreme_string(cv.offsets, cv.data, valid, gi,
+                                         capacity, want_min=(op == "min"))
     src = ColumnVector(DataType.STRING, cv.data, cv.validity, cv.offsets,
                        cv.max_len)
-    return gather_string_col(src, rows, capacity, win_valid)
+    return gather_string_col(src, rows, capacity, rows < capacity)
 
 
 def _storage(data, dt: DataType):
@@ -689,6 +693,8 @@ class _HostAcc:
             self.value = _min_sql(self.value, v)
         elif op == "max":
             self.value = _max_sql(self.value, v)
+        elif op == "any":
+            self.value = bool(self.value) or bool(v)
         else:
             raise ValueError(f"unknown op {op}")
 
@@ -733,7 +739,9 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
                    for batch in child_pb.iterator(pidx)
                    if batch.num_rows]
             fast = _fast_groups(evs, n_keys, key_dtypes, ops)
-            for ev in ([] if fast is not None else evs):
+            vec = None if fast is not None else \
+                _vector_groups(evs, n_keys, key_dtypes, ops)
+            for ev in ([] if fast is not None or vec is not None else evs):
                 kcols = ev.columns[:n_keys]
                 vcols = ev.columns[n_keys:]
                 for i in range(ev.num_rows):
@@ -756,6 +764,8 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
                         acc.add(v, bool(col.validity[i]))
             if fast is not None:
                 inter = self._fast_inter_batch(*fast)
+            elif vec is not None:
+                inter = self._vector_inter_batch(*vec)
             else:
                 inter = self._build_inter_batch(order, key_rows, groups,
                                                 pidx)
@@ -789,6 +799,24 @@ class CpuHashAggregateExec(_HashAggregateBase, CpuExec):
                 battr.data_type.to_np(), copy=False)
             cols.append(HostColumnVector(battr.data_type, data, valid))
         return HostColumnarBatch(cols, n)
+
+    def _vector_inter_batch(self, key_data, key_valid, buf_data,
+                            buf_valid):
+        """_build_inter_batch for _vector_groups' arrays: NULL keys and
+        buffers hold 0 ("" for STRING)."""
+        cols: List[HostColumnVector] = []
+        for attrs, datas, valids in ((self.grouping, key_data, key_valid),
+                                     (self.buffer_attrs, buf_data,
+                                      buf_valid)):
+            for attr, d, v in zip(attrs, datas, valids):
+                if attr.data_type is DataType.STRING:
+                    data = np.where(v, d, "").astype(object)
+                else:
+                    data = np.zeros(len(v), dtype=attr.data_type.to_np())
+                    data[v] = d[v]
+                cols.append(HostColumnVector(attr.data_type, data, v))
+        return HostColumnarBatch(cols, len(buf_valid[0]) if buf_valid
+                                 else len(key_valid[0]))
 
     def _build_inter_batch(self, order, key_rows, groups, pidx):
         if not order:
@@ -907,6 +935,135 @@ def _fast_groups(evs, n_keys: int, key_dtypes, ops):
         buf_data.append(out)
         buf_valid.append(nvalid > 0)
     return key_cols, buf_data, buf_valid
+
+
+_VECTOR_OPS = frozenset(("sum", "count", "min", "max", "any", "first",
+                         "last", "first_ignore_nulls", "last_ignore_nulls"))
+
+
+def _factorize(data, valid, dtype: DataType):
+    """(codes, cardinality): per row 0 for NULL, else 1 + the rank of its
+    value among the column's distinct values in SQL order (floats: -0.0
+    equals 0.0, every NaN one value above the rest; strings in code-point
+    order)."""
+    if dtype is DataType.STRING:
+        seen: Dict[Any, int] = {}
+        first = np.fromiter((seen.setdefault(x, len(seen)) if ok else 0
+                             for x, ok in zip(data, valid)), np.int64,
+                            len(data))
+        ranked = sorted(seen, key=str)
+        rank = np.empty(max(len(seen), 1), np.int64)
+        for r, x in enumerate(ranked):
+            rank[seen[x]] = r
+        return np.where(valid, 1 + rank[first], 0), len(seen) + 1
+    x = np.asarray(data)
+    if x.dtype.kind == "f":
+        x = np.where(x == 0, 0.0, x.astype(np.float64))
+    x = np.where(valid, x, np.zeros((), x.dtype))
+    uniq, inv = np.unique(x, return_inverse=True)
+    return np.where(valid, 1 + inv.ravel(), 0), len(uniq) + 1
+
+
+def _vector_groups(evs, n_keys: int, key_dtypes, ops):
+    """The row loop of the CPU engine's group-by, vectorised, or None
+    (percentiles, or a column numpy cannot hold): groups in first-seen
+    order with each key's first row, and every buffer as _HostAcc computes
+    it: counts, sums added in row order (floats in f64 from -0.0, the
+    first value's own sign; integers wrapping), min / max of the SQL order
+    (NaN greatest) at the first row that reaches it, first / last rows,
+    any. Returns (key data, key validity, buffer data, buffer validity),
+    each an array a group."""
+    if not evs or any(op not in _VECTOR_OPS for op in ops):
+        return None
+    if len(evs[0].columns) != n_keys + len(ops):
+        return None
+
+    def cat(cidx, what):
+        return np.concatenate([np.asarray(getattr(ev.columns[cidx], what))
+                               for ev in evs])
+
+    total = sum(ev.num_rows for ev in evs)
+    rows = np.arange(total)
+    gkey, n_codes = np.zeros(total, np.int64), 1
+    kdata, kvalid = [], []
+    for c in range(n_keys):
+        d, v = cat(c, "data"), cat(c, "validity").astype(bool, copy=False)
+        if d.dtype.kind not in "iufbO":
+            return None
+        kdata.append(d)
+        kvalid.append(v)
+        codes, card = _factorize(d, v, key_dtypes[c])
+        if c == 0:
+            gkey, n_codes = codes, card
+        else:
+            gkey = np.unique(gkey * card + codes,
+                             return_inverse=True)[1].ravel()
+            n_codes = int(gkey.max()) + 1
+    # groups in first-seen order: each code's first row, then a sort of
+    # the codes present by it
+    first = np.full(n_codes, total, np.int64)
+    np.minimum.at(first, gkey, rows)
+    present = np.nonzero(first < total)[0]
+    by_first = present[np.argsort(first[present], kind="stable")]
+    rank = np.empty(n_codes, np.int64)
+    rank[by_first] = np.arange(len(by_first))
+    gid = rank[gkey]
+    first_rows = first[by_first]
+    n_groups = len(first_rows)
+    key_data = [d[first_rows] for d in kdata]
+    key_valid = [v[first_rows] for v in kvalid]
+    buf_data, buf_valid = [], []
+    for j, op in enumerate(ops):
+        d = cat(n_keys + j, "data")
+        v = cat(n_keys + j, "validity").astype(bool, copy=False)
+        if d.dtype.kind not in "iufbO" or (d.dtype.kind == "O" and op in (
+                "sum", "any")):
+            return None
+        nvalid = np.bincount(gid[v], minlength=n_groups)
+        has = nvalid > 0
+        if op == "count":
+            buf_data.append(nvalid.astype(np.int64))
+            buf_valid.append(np.ones(n_groups, dtype=bool))
+            continue
+        if op == "sum":
+            if d.dtype.kind == "f":
+                out = np.full(n_groups, -0.0)
+                np.add.at(out, gid[v], d[v].astype(np.float64))
+            else:
+                out = np.zeros(n_groups, np.int64)
+                np.add.at(out, gid[v], d[v].astype(np.int64))
+            buf_data.append(out)
+            buf_valid.append(has)
+            continue
+        if op == "any":
+            buf_data.append(np.bincount(gid[v], weights=d[v] != 0,
+                                        minlength=n_groups) > 0)
+            buf_valid.append(has)
+            continue
+        if op in ("min", "max"):
+            codes, card = _factorize(d, v, DataType.STRING
+                                     if d.dtype.kind == "O" else None)
+            key = codes if op == "min" else card - codes
+            best = np.full(n_groups, card + 1, np.int64)
+            np.minimum.at(best, gid[v], key[v])
+            reach = v & (key == best[gid])
+            pick = np.full(n_groups, total, np.int64)
+            np.minimum.at(pick, gid[reach], rows[reach])
+        elif op in ("first", "last"):
+            pick = first_rows if op == "first" else np.zeros(n_groups,
+                                                             np.int64)
+            if op == "last":
+                np.maximum.at(pick, gid, rows)
+        else:
+            pick = np.full(n_groups, total if op.startswith("first")
+                           else -1, np.int64)
+            (np.minimum if op.startswith("first") else np.maximum).at(
+                pick, gid[v], rows[v])
+        ok = (pick >= 0) & (pick < total)
+        safe = np.where(ok, pick, 0)
+        buf_data.append(d[safe])
+        buf_valid.append(ok & (v[safe] if op in ("first", "last") else has))
+    return key_data, key_valid, buf_data, buf_valid
 
 
 def _default_row_batch_host(specs, inter_attrs) -> HostColumnarBatch:

@@ -1,5 +1,6 @@
 """Basic physical operators (port of spark_rapids_tpu/exec/basic.py: the host
-scan, project, filter, union :296, the limits and partition coalescing;
+scan, range :79, project, filter, union :296, the limits and partition
+coalescing;
 reference:
 basicPhysicalOperators.scala — GpuProjectExec :34-95, GpuFilterExec
 :96-177, GpuCoalesceExec :201-240 — and limit.scala:39-123).
@@ -12,16 +13,20 @@ device cannot finish runs through the CPU engine."""
 from __future__ import annotations
 
 import itertools
-from typing import Iterator, List, Sequence
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
     ColumnVector,
     HostColumnarBatch,
+    HostColumnVector,
     bucket_capacity,
     ensure_compact,
 )
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.engine import retry as R
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -66,6 +71,50 @@ class HostScanExec(CpuExec):
 
     def node_name(self):
         return f"HostScan[{len(self._partitions)} parts]"
+
+
+class RangeExec(CpuExec):
+    """session.range: int64 ids split across partitions, made on the host
+    (reference: exec/basic.py:79); a device plan uploads its batches."""
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int,
+                 out_attr: Optional[AttributeReference] = None):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.num_parts = max(1, num_partitions)
+        self._attr = out_attr or AttributeReference("id", DataType.INT64,
+                                                    False)
+
+    @property
+    def output(self):
+        return [self._attr]
+
+    def with_children(self, new_children):
+        assert not new_children
+        return self
+
+    def node_name(self):
+        return f"Range[{self.start}, {self.end}, {self.step}; " \
+            f"{self.num_parts} parts]"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        total = max(0, -(-(self.end - self.start) // self.step))
+        per = -(-total // self.num_parts) if total else 0
+
+        def factory(pidx: int) -> Iterator[HostColumnarBatch]:
+            lo = pidx * per
+            hi = min(total, (pidx + 1) * per)
+            if hi <= lo:
+                return iter(())
+            ids = np.arange(self.start + self.step * lo,
+                            self.start + self.step * hi, self.step,
+                            dtype=np.int64)
+            col = HostColumnVector(DataType.INT64, ids,
+                                   np.ones(len(ids), dtype=bool))
+            return count_output(self.metrics,
+                                iter([HostColumnarBatch([col], len(ids))]))
+
+        return PartitionedBatches(self.num_parts, factory)
 
 
 class TpuProjectExec(TpuExec):

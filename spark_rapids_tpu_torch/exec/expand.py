@@ -1,6 +1,14 @@
-"""Generate (explode / posexplode of a created array) execs (port of
-spark_rapids_tpu/exec/expand.py: CpuGenerateExec :146, TpuGenerateExec
-:193; reference: GpuGenerateExec.scala:101).
+"""Expand (grouping sets) and Generate (explode / posexplode of a created
+array) execs (port of spark_rapids_tpu/exec/expand.py: _ExpandBase :50,
+CpuExpandExec :69, TpuExpandExec :87, CpuGenerateExec :146,
+TpuGenerateExec :193; reference: GpuExpandExec.scala:66-102,
+GpuGenerateExec.scala:101).
+
+Expand applies every projection list to every input batch and emits one
+output batch per list, in list order (rollup / cube feed the null-filled
+keys and the grouping id through it). On the card each list is one
+DeviceProjector; a bare reference to an encoded column passes through
+encoded. Expand is not fused into its neighbours, as in the reference.
 
 Output row i * k + j holds input row i's columns and element j of its
 array, interleaved in Spark's row order. On the card one launch of the
@@ -11,8 +19,6 @@ the int32 replicate index; STRING child columns are K7 gathers through
 that index. The element columns are evaluated once over the input batch
 by the DeviceProjector. A STRING element stays on the CPU engine
 (plan/overrides.py tags it, as the reference does).
-
-Expand (grouping sets) is not ported yet (ROADMAP.md queue 1 item 4).
 """
 
 from __future__ import annotations
@@ -49,6 +55,75 @@ from spark_rapids_tpu_torch.ops.eval import DeviceProjector, cpu_project
 
 # row indices past the explode are int32 (K7, the replicate index)
 MAX_EXPLODE_ROWS = (1 << 31) - 1
+
+
+# ---------------------------------------------------------------------------
+# Expand
+# ---------------------------------------------------------------------------
+class _ExpandBase(PhysicalExec):
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 output_attrs: List[AttributeReference], child: PhysicalExec):
+        super().__init__(child)
+        self.projections = [list(p) for p in projections]
+        self.output_attrs = list(output_attrs)
+
+    @property
+    def output(self):
+        return self.output_attrs
+
+    def node_expressions(self):
+        return [e for p in self.projections for e in p]
+
+    def with_children(self, new_children):
+        return type(self)(self.projections, self.output_attrs,
+                          new_children[0])
+
+    def node_name(self):
+        return f"{type(self).__name__}[{len(self.projections)} projections]"
+
+
+class CpuExpandExec(_ExpandBase, CpuExec):
+    placement = "cpu"
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        child_pb = self.children[0].execute(ctx)
+        bound = [bind_all(p, self.children[0].output)
+                 for p in self.projections]
+
+        def factory(pidx: int) -> Iterator[HostColumnarBatch]:
+            for batch in child_pb.iterator(pidx):
+                for proj in bound:
+                    yield cpu_project(proj, batch, partition_id=pidx)
+
+        return PartitionedBatches(
+            child_pb.num_partitions,
+            lambda p: count_output(self.metrics, factory(p)))
+
+
+class TpuExpandExec(_ExpandBase, TpuExec):
+    """One DeviceProjector a projection list; each input batch gives
+    len(projections) output batches (reference: GpuExpandIterator cycling
+    projectionIndex)."""
+
+    placement = "tpu"
+
+    def __init__(self, projections, output_attrs, child):
+        super().__init__(projections, output_attrs, child)
+        self._projectors = [DeviceProjector(bind_all(p, child.output))
+                            for p in self.projections]
+
+    def execute(self, ctx: ExecContext) -> PartitionedBatches:
+        child_pb = self.children[0].execute(ctx)
+
+        def factory(pidx: int) -> Iterator[ColumnarBatch]:
+            for batch in child_pb.iterator(pidx):
+                batch = ensure_compact(batch)
+                for projector in self._projectors:
+                    yield projector.project(batch, partition_id=pidx)
+
+        return PartitionedBatches(
+            child_pb.num_partitions,
+            lambda p: count_output(self.metrics, factory(p)))
 
 
 # ---------------------------------------------------------------------------

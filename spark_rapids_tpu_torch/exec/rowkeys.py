@@ -1,6 +1,6 @@
 """Row-key kernels of the group-by: sort, dense group ids, segment reductions.
 
-Port of spark_rapids_tpu/exec/rowkeys.py. This module holds five of the
+Port of spark_rapids_tpu/exec/rowkeys.py. This module holds six of the
 port's hand-written CUDA kernels, each beside its plain PyTorch version:
 
 - K1 `radix_sort_pairs` (csrc/radix_sort.cu) replaces `_multi_key_sort`
@@ -9,8 +9,12 @@ port's hand-written CUDA kernels, each beside its plain PyTorch version:
 - K2 `group_ids` (csrc/group_ids.cu) replaces `group_ids_masked` (:309)
   with `_neighbor_differs` (:269);
 - K3 `segment_reduce` (csrc/segment_reduce.cu) replaces `segment_reduce`
-  (:434) with `_sorted_group_totals` / `_sorted_segment_reduce` (:371-431)
-  and its first / last branch (:641-672);
+  (:434) with `_sorted_group_totals` / `_sorted_segment_reduce` (:371-431),
+  its `any` and BOOL min / max lanes (:528-616) and its first / last
+  branch (:641-672);
+- K47 `segment_arg_extreme_string` (csrc/string_arg_extreme.cu) replaces
+  `segment_arg_extreme_string` (:177) with `_string_chunk_keys` (:142):
+  each group's row of its smallest / largest non-null string;
 - K19 `segment_percentile` (csrc/segment_percentile.cu) replaces its
   `pct:<p>` branch (:480-523): K1 sorts (group, null flag, value order
   bits), K19 finds each group's valid run and interpolates;
@@ -384,9 +388,10 @@ def group_ids_masked(proxies: Sequence[KeyProxy], valid_mask,
 # K3: segment reductions
 # ---------------------------------------------------------------------------
 _OPS = {"count": 0, "sum": 1, "min": 2, "max": 3, "first": 4, "last": 5,
-        "first_ignore_nulls": 6, "last_ignore_nulls": 7}
+        "first_ignore_nulls": 6, "last_ignore_nulls": 7, "any": 8}
 _SELECT_OPS = ("first", "last", "first_ignore_nulls", "last_ignore_nulls")
-_DTS = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3}
+_DTS = {torch.int32: 0, torch.int64: 1, torch.float32: 2, torch.float64: 3,
+        torch.bool: 4}
 
 
 class _SegCol(ctypes.Structure):
@@ -408,8 +413,13 @@ def _reduce_input(op, data):
     min/max ride int32 lanes and convert back."""
     if op == "count" or op in _SELECT_OPS:
         return data
+    if op == "any":
+        # the per-group OR of each row's truth (reference: astype(bool))
+        return data if data.dtype == torch.bool else data != 0
     if data.dtype == torch.bool:
-        raise TypeError("boolean min/max/sum is not a device reduction")
+        if op == "sum":
+            raise TypeError("boolean sum is not a device reduction")
+        return data
     if data.dtype in (torch.int8, torch.int16, torch.uint8):
         return data.to(torch.int64 if op == "sum" else torch.int32)
     if op == "sum" and data.dtype == torch.int32:
@@ -468,6 +478,17 @@ def segment_reduce_plain(op, data, validity, gi: GroupInfo, capacity: int):
         out = torch.zeros(capacity + 1, dtype=x.dtype, device=dev)
         out.index_add_(0, seg, vals)
         out = out[:capacity]
+    elif x.dtype == torch.bool:
+        # bool lanes as 0 / 1: min is AND, max and any are OR
+        ident = 1 if op == "min" else 0
+        red = torch.full((capacity + 1,), ident, dtype=torch.int32,
+                         device=dev)
+        red.scatter_reduce_(0, seg, torch.where(
+            vmask, x.to(torch.int32), torch.full((), ident,
+                                                 dtype=torch.int32,
+                                                 device=dev)),
+            "amin" if op == "min" else "amax")
+        out = red[:capacity] != 0
     elif x.is_floating_point():
         key = _float_order_bits(x)
         if x.dtype == torch.float64:
@@ -490,7 +511,7 @@ def segment_reduce_plain(op, data, validity, gi: GroupInfo, capacity: int):
         out = red[:capacity]
     out = torch.where(outv, out, torch.zeros((), dtype=out.dtype,
                                              device=dev))
-    if op != "sum" and out.dtype != data.dtype:
+    if op not in ("sum", "any") and out.dtype != data.dtype:
         out = out.to(data.dtype)
     return out, outv
 
@@ -535,6 +556,12 @@ def _segment_reduce_k3(specs, gi: GroupInfo, capacity: int):
             tail = torch.empty(chunks, dtype=x.dtype, device=dev)
             d.head, d.tail = head.data_ptr(), tail.data_ptr()
             keep += [head, tail]
+            d.dtype = _DTS[x.dtype]
+        elif x.dtype == torch.bool:
+            # bool lanes reduce in an int32 accumulator (min: AND, from 1)
+            acc = torch.full((capacity,), 1 if op == "min" else 0,
+                             dtype=torch.int32, device=dev)
+            out = torch.empty(capacity, dtype=torch.bool, device=dev)
             d.dtype = _DTS[x.dtype]
         elif x.is_floating_point():
             bits = torch.int64 if x.dtype == torch.float64 else torch.int32
@@ -596,6 +623,76 @@ def segment_reduce(op: str, data, validity, gid, num_rows, capacity: int):
         raise NotImplementedError("segment_reduce needs a GroupInfo with "
                                   "its sort fields")
     return segment_reduce_many([(op, data, validity)], gid, capacity)[0]
+
+
+# ---------------------------------------------------------------------------
+# K47: string arg-extreme
+# ---------------------------------------------------------------------------
+def segment_arg_extreme_string_plain(offsets, data, validity, gid,
+                                     capacity: int, want_min: bool):
+    """int32 [capacity]: per group, the row of its smallest (want_min) or
+    largest non-null string, ties to the lowest row, `capacity` for a group
+    without one (reference: rowkeys.py:177): the candidate rows are refined
+    by each big-endian 8-byte chunk word (as two uint32 halves), then by
+    the length, then the lowest row wins."""
+    from spark_rapids_tpu_torch.columnar.strings import _chunk_u64
+
+    dev = validity.device
+    n = int(gid.shape[0])
+    gid = gid.long()
+    mask = validity[:n] & (gid < capacity)
+    starts = offsets[:n].long()
+    lens = (offsets[1:n + 1] - offsets[:n]).long()
+    longest = int(torch.where(mask, lens, 0).max()) if n else 0
+    keys = []
+    for c in range(max(1, -(-longest // 8))):
+        keys += list(_chunk_u64(data, starts + 8 * c,
+                                (lens - 8 * c).clamp(min=0)))
+    keys.append(lens)
+    safe = gid.clamp(0, capacity - 1)
+    top, bot = (1 << 32), -1
+    for key in keys:
+        seg = torch.where(mask, gid, capacity)
+        best = torch.full((capacity + 1,), top if want_min else bot,
+                          dtype=torch.int64, device=dev)
+        best.scatter_reduce_(0, seg, torch.where(mask, key, best[capacity]),
+                             "amin" if want_min else "amax")
+        mask = mask & (key == best[safe])
+    pos = torch.arange(n, dtype=torch.int64, device=dev)
+    sel = torch.full((capacity + 1,), capacity, dtype=torch.int64,
+                     device=dev)
+    sel.scatter_reduce_(0, torch.where(mask, gid, capacity),
+                        torch.where(mask, pos, capacity), "amin")
+    return sel[:capacity].to(torch.int32)
+
+
+def segment_arg_extreme_string(offsets, data, validity, gi: GroupInfo,
+                               capacity: int, want_min: bool):
+    """K47: segment_arg_extreme_string_plain's rows in two launches over
+    the group-by's sorted order (csrc/string_arg_extreme.cu). CPU tensors
+    run the plain version, CUDA tensors the kernel."""
+    if validity.device.type == "cpu":
+        return segment_arg_extreme_string_plain(offsets, data, validity,
+                                                gi.gid, capacity, want_min)
+    offsets = offsets.contiguous()
+    validity = validity.contiguous()
+    CB.require_cuda(offsets, data, validity, gi.order, gi.gid_sorted,
+                    gi.seg_ends, gi.num_groups)
+    dev = validity.device
+    lib = CB.library("string_arg_extreme")
+    chunks = max(1, -(-capacity // lib.srt_arg_extreme_chunk()))
+    out = torch.empty(capacity, dtype=torch.int32, device=dev)
+    head = torch.empty(chunks, dtype=torch.int32, device=dev)
+    tail = torch.empty(chunks, dtype=torch.int32, device=dev)
+    rc = lib.srt_segment_arg_extreme_string(
+        offsets.data_ptr(), data.data_ptr(), validity.data_ptr(), capacity,
+        gi.order.data_ptr(), gi.gid_sorted.data_ptr(),
+        gi.seg_ends.data_ptr(), gi.num_groups.data_ptr(), int(want_min),
+        out.data_ptr(), head.data_ptr(), tail.data_ptr(),
+        CB.stream_of(out))
+    CB.count_launch("segment_arg_extreme_string")
+    CB.check(lib, rc, "segment_arg_extreme_string")
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,11 @@
 """DataFrame API over the logical plan (port of spark_rapids_tpu/plan/dataframe.py:
 select (with explode / posexplode of a created array), withColumn (a window
-column too), filter, groupBy/agg (keyed and keyless), orderBy, limit,
-union, join, crossJoin, cache, collect, explain, write.parquet).
+column too), withColumnRenamed, drop, filter, groupBy/agg (keyed and
+keyless), rollup / cube (grouping sets through Expand), distinct,
+dropDuplicates, repartition, coalesce, orderBy, sortWithinPartitions,
+limit, union, join, crossJoin, cache, collect, count, show, toPandas,
+explain, write). `explain_analyze` and `rdd_columnar` are not ported yet
+(ROADMAP.md queue 1 item 6).
 
 Name resolution (`col("x")` -> AttributeReference) happens here, eagerly,
 against the child plan's output.
@@ -158,6 +162,16 @@ class DataFrame:
             out.append(e)
         return self._with_plan(L.Project(out, self._plan))
 
+    def withColumnRenamed(self, old: str, new: str) -> "DataFrame":
+        """Reference: dataframe.py:170."""
+        out = [Alias(a, new) if a.name == old else a for a in self._plan.output]
+        return self._with_plan(L.Project(out, self._plan))
+
+    def drop(self, *names: str) -> "DataFrame":
+        """Reference: dataframe.py:174."""
+        keep = [a for a in self._plan.output if a.name not in names]
+        return self._with_plan(L.Project(keep, self._plan))
+
     def filter(self, condition: Column) -> "DataFrame":
         if isinstance(condition, str):
             raise AnalysisError("string predicates require the SQL frontend; "
@@ -194,6 +208,47 @@ class DataFrame:
         return self._with_plan(L.Union(self._plan, other._plan))
 
     unionAll = union
+
+    def distinct(self) -> "DataFrame":
+        """Reference: dataframe.py:197: a group-by on every column."""
+        attrs = self._plan.output
+        return self._with_plan(L.Aggregate(list(attrs), list(attrs),
+                                           self._plan))
+
+    def dropDuplicates(self, subset: Optional[List[str]] = None
+                       ) -> "DataFrame":
+        """Reference: dataframe.py:201: a group-by on the subset, `First`
+        of every other column."""
+        if not subset:
+            return self.distinct()
+        keys = [self._resolve_name(n) for n in subset]
+        from spark_rapids_tpu_torch.ops.aggregates import First
+
+        aggs: List[Expression] = []
+        for a in self._plan.output:
+            if a.name in subset:
+                aggs.append(a)
+            else:
+                aggs.append(Alias(First(a), a.name))
+        return self._with_plan(L.Aggregate(keys, aggs, self._plan))
+
+    def repartition(self, num_partitions: int,
+                    *cols: ColumnOrName) -> "DataFrame":
+        """Round robin without columns, hash on the columns otherwise
+        (reference: dataframe.py:215)."""
+        exprs = [self._resolve(c) for c in cols]
+        return self._with_plan(
+            L.Repartition(num_partitions, exprs, False, self._plan))
+
+    def coalesce(self, num_partitions: int) -> "DataFrame":
+        """Reference: dataframe.py:220: merge partitions, no shuffle."""
+        return self._with_plan(
+            L.Repartition(num_partitions, [], True, self._plan))
+
+    def sortWithinPartitions(self, *cols, **kwargs) -> "DataFrame":
+        """Reference: dataframe.py:239: a local sort of each partition."""
+        plan = self.orderBy(*cols, **kwargs)._plan
+        return self._with_plan(L.Sort(plan.orders, False, self._plan))
 
     def join(self, other: "DataFrame",
              on: Union[str, List[str], Column, None] = None,
@@ -251,8 +306,37 @@ class DataFrame:
 
     groupby = groupBy
 
+    def rollup(self, *cols: ColumnOrName) -> "GroupedData":
+        """Hierarchical grouping sets (a, b) -> {(a, b), (a), ()} through
+        Expand (reference: dataframe.py:254, GpuExpandExec.scala:66-102)."""
+        g = self.groupBy(*cols)
+        m = len(g._grouping)
+        g._grouping_sets = [frozenset(range(k)) for k in range(m, -1, -1)]
+        return g
+
+    def cube(self, *cols: ColumnOrName) -> "GroupedData":
+        """All 2^m grouping-set combinations through Expand (reference:
+        dataframe.py:262)."""
+        import itertools as _it
+
+        g = self.groupBy(*cols)
+        m = len(g._grouping)
+        g._grouping_sets = [
+            frozenset(s)
+            for k in range(m, -1, -1)
+            for s in _it.combinations(range(m), k)
+        ]
+        return g
+
     def agg(self, *cols: Column) -> "DataFrame":
         return GroupedData(self, []).agg(*cols)
+
+    def count(self) -> int:
+        """Reference: dataframe.py:278."""
+        from spark_rapids_tpu_torch.plan.functions import count as f_count
+
+        rows = self.agg(f_count("*").alias("count")).collect()
+        return rows[0][0]
 
     def cache(self) -> "DataFrame":
         """Keep this DataFrame's batches in memory: on the card for the
@@ -278,6 +362,19 @@ class DataFrame:
 
     def toLocalBatches(self):
         return self.session.execute_batches(self._plan)
+
+    def show(self, n: int = 20) -> None:
+        """Print the first n rows (reference: dataframe.py:357)."""
+        rows = self.limit(n).collect()
+        print(" | ".join(self.columns))
+        for r in rows:
+            print(" | ".join(str(v) for v in r))
+
+    def toPandas(self):
+        """Reference: dataframe.py:381 (pandas is imported only here)."""
+        import pandas as pd
+
+        return pd.DataFrame(self.collect(), columns=self.columns)
 
     def explain(self, mode: str = "ALL") -> str:
         return self.session.explain_plan(self._plan, mode)
@@ -331,11 +428,17 @@ class DataFrameWriter:
 
 
 class GroupedData:
+    """groupBy / rollup / cube (reference: dataframe.py:397)."""
+
     def __init__(self, df: DataFrame, grouping: List[Expression]):
         self._df = df
         self._grouping = grouping
+        # rollup / cube: the grouping sets, as frozensets of key ordinals
+        self._grouping_sets: Optional[List[frozenset]] = None
 
     def agg(self, *cols: Column) -> DataFrame:
+        if self._grouping_sets is not None:
+            return self._agg_grouping_sets(cols)
         out: List[Expression] = list(self._grouping)
         for i, c in enumerate(cols):
             e = resolve(_to_expr(c), self._df._plan.output)
@@ -343,6 +446,72 @@ class GroupedData:
         plan = L.Aggregate([to_attribute(g) if isinstance(g, Alias) else g
                             for g in self._grouping], out, self._df._plan)
         return self._df._with_plan(plan)
+
+    def _agg_grouping_sets(self, cols) -> DataFrame:
+        """rollup / cube (reference: dataframe.py:419): Expand emits one
+        copy of the input per grouping set, the dropped keys null-filled,
+        with a grouping id that keeps natural NULLs apart from rolled-up
+        ones; a regular aggregate then groups on the expanded keys and the
+        id, which stays out of the output."""
+        from spark_rapids_tpu_torch.columnar.dtypes import DataType
+        from spark_rapids_tpu_torch.ops.literals import Literal
+
+        child = self._df._plan
+        m = len(self._grouping)
+        g_exprs = [g.child if isinstance(g, Alias) else g
+                   for g in self._grouping]
+        g_names = [to_attribute(g).name if isinstance(g, Alias) else g.name
+                   for g in self._grouping]
+        g_types = [g.data_type for g in g_exprs]
+        # fresh nullable output attributes for the expanded keys
+        key_attrs = [AttributeReference(n, t, True)
+                     for n, t in zip(g_names, g_types)]
+        gid_attr = AttributeReference("spark_grouping_id", DataType.INT32,
+                                      False)
+        projections: List[List[Expression]] = []
+        for s in self._grouping_sets:
+            gid = 0
+            proj: List[Expression] = list(child.output)
+            for i in range(m):
+                if i in s:
+                    proj.append(g_exprs[i])
+                else:
+                    proj.append(Literal(None, g_types[i]))
+                    gid |= 1 << (m - 1 - i)
+            proj.append(Literal(gid, DataType.INT32))
+            projections.append(proj)
+        expand_out = list(child.output) + key_attrs + [gid_attr]
+        expand = L.Expand(projections, expand_out, child)
+        out: List[Expression] = [Alias(a, a.name) for a in key_attrs]
+        for i, c in enumerate(cols):
+            e = resolve(_to_expr(c), child.output)
+            out.append(_auto_alias(e, f"agg{i}"))
+        plan = L.Aggregate(key_attrs + [gid_attr], out, expand)
+        return self._df._with_plan(plan)
+
+    def _simple(self, fn, *cols: str) -> DataFrame:
+        """Reference: dataframe.py:462: one aggregate of each named column,
+        or of every numeric column, named `fn(col)`."""
+        from spark_rapids_tpu_torch.plan import functions as F
+
+        names = cols or [a.name for a in self._df.schema
+                         if a.data_type.is_numeric]
+        return self.agg(*[getattr(F, fn)(n).alias(f"{fn}({n})")
+                          for n in names])
+
+    def sum(self, *cols: str) -> DataFrame:  # noqa: A003
+        return self._simple("sum", *cols)
+
+    def min(self, *cols: str) -> DataFrame:  # noqa: A003
+        return self._simple("min", *cols)
+
+    def max(self, *cols: str) -> DataFrame:  # noqa: A003
+        return self._simple("max", *cols)
+
+    def avg(self, *cols: str) -> DataFrame:
+        return self._simple("avg", *cols)
+
+    mean = avg
 
     def count(self) -> DataFrame:
         from spark_rapids_tpu_torch.plan.functions import count as f_count

@@ -7,6 +7,9 @@ evaluation (exec/aggregate._collapse_scan_chain, gated on the same conf),
 and this pass wraps aggregate + chain in a TpuFusedStageExec for plan
 accounting and EXPLAIN. The scan-form stages (Filter/Project/Expand/Limit
 chains without an aggregate) wait for the fused-stage kernel (ROADMAP B6).
+A TpuExpandExec (rollup / cube) stops the chain below a partial aggregate:
+the update folds no Expand, so the aggregate runs over each of Expand's
+output batches on its own.
 
 Conf: rapids.tpu.sql.fusion.enabled, rapids.tpu.sql.fusion.maxOps.
 """

@@ -1,12 +1,14 @@
 """Logical plan nodes (port of spark_rapids_tpu/plan/logical.py: local
-relation, file scan :102, cache, project, filter, aggregate, sort, join,
-limit, union :235, generate :276, window :292 and file write :318)."""
+relation, range :90, file scan :102, cache, project, filter, aggregate,
+sort, join, limit, union :235, repartition :244, expand :261, generate
+:276, window :292 and file write :318)."""
 
 from __future__ import annotations
 
 import enum
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.base import (
     AttributeReference,
     Expression,
@@ -80,6 +82,25 @@ class LocalRelation(LogicalPlan):
 
     def describe(self):
         return f"LocalRelation[{', '.join(a.name for a in self.schema)}]"
+
+
+class RangeRelation(LogicalPlan):
+    """session.range: int64 ids start, start + step, ... below end
+    (reference: logical.py:90)."""
+
+    def __init__(self, start: int, end: int, step: int, num_partitions: int):
+        super().__init__()
+        self.start, self.end, self.step = start, end, step
+        self.num_partitions = num_partitions
+        self._attr = AttributeReference("id", DataType.INT64, False)
+
+    @property
+    def output(self):
+        return [self._attr]
+
+    def describe(self):
+        return (f"Range ({self.start}, {self.end}, step={self.step}, "
+                f"splits={self.num_partitions})")
 
 
 class FileScan(LogicalPlan):
@@ -272,6 +293,46 @@ class Union(LogicalPlan):
     @property
     def output(self):
         return self.children[0].output
+
+
+class Repartition(LogicalPlan):
+    """Round-robin (no exprs) or hash (exprs) repartition; `coalesce_only`
+    merges partitions without a shuffle (reference: logical.py:244)."""
+
+    def __init__(self, num_partitions: Optional[int],
+                 partition_exprs: Sequence[Expression],
+                 coalesce_only: bool, child: LogicalPlan):
+        super().__init__(child)
+        self.num_partitions = num_partitions
+        self.partition_exprs = list(partition_exprs)
+        self.coalesce_only = coalesce_only
+
+    @property
+    def output(self):
+        return self.children[0].output
+
+    def describe(self):
+        kind = "coalesce" if self.coalesce_only else "repartition"
+        return f"Repartition {kind} {self.num_partitions} " \
+            f"{self.partition_exprs!r}"
+
+
+class Expand(LogicalPlan):
+    """Several projection lists per input row: grouping sets (reference:
+    logical.py:261, GpuExpandExec)."""
+
+    def __init__(self, projections: Sequence[Sequence[Expression]],
+                 output_attrs: List[AttributeReference], child: LogicalPlan):
+        super().__init__(child)
+        self.projections = [list(p) for p in projections]
+        self.output_attrs = list(output_attrs)
+
+    @property
+    def output(self):
+        return self.output_attrs
+
+    def describe(self):
+        return f"Expand [{len(self.projections)} projections]"
 
 
 class Generate(LogicalPlan):

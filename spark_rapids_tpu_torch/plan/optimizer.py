@@ -15,9 +15,9 @@ never pushes below it — a Project lands above the cache instead. Filter and
 Aggregate never drop (they change row counts). A node pruned to zero
 columns keeps its narrowest attribute as the row-count carrier.
 
-The rules cover the logical nodes the port has (relation, file scan :124,
-file write :256, cache, project,
-filter, sort, aggregate, limit, join, window :214, generate :247, union
+The rules cover the logical nodes the port has (relation, range :119, file
+scan :124, file write :256, cache, project, filter, limit, repartition
+:180, sort, aggregate, join, window :214, expand :228, generate :247, union
 :264); any other
 node is left untouched, as the reference leaves an unknown node. A union
 prunes the same positions in every child and pins each child's output
@@ -116,6 +116,11 @@ def _local(plan: L.LocalRelation, req):
     return L.LocalRelation(kept, parts)
 
 
+@_rule(L.RangeRelation)
+def _range(plan: L.RangeRelation, req):
+    return plan
+
+
 @_rule(L.FileScan)
 def _file_scan(plan: L.FileScan, req):
     """Parquet and ORC project by name: a narrowed schema means the pruned
@@ -203,6 +208,14 @@ def _limit(plan: L.Limit, req):
     return L.Limit(plan.n, _prune(plan.children[0], req))
 
 
+@_rule(L.Repartition)
+def _repartition(plan: L.Repartition, req):
+    child_req = None if req is None else req | _refs(plan.partition_exprs)
+    return L.Repartition(plan.num_partitions, plan.partition_exprs,
+                         plan.coalesce_only,
+                         _prune(plan.children[0], child_req))
+
+
 @_rule(L.Join)
 def _join(plan: L.Join, req):
     needed = None
@@ -228,6 +241,25 @@ def _window(plan: L.WindowOp, req):
         return _prune(plan.children[0], req)
     child_req = None if req is None else req | _refs(kept)
     return L.WindowOp(kept, _prune(plan.children[0], child_req))
+
+
+@_rule(L.Expand)
+def _expand(plan: L.Expand, req):
+    """Keep the consumed output positions in every projection and prune the
+    child to what they read (reference :228); the row-count carrier, when
+    nothing is consumed, is the cheapest position."""
+    if req is None:
+        keep_pos = list(range(len(plan.output_attrs)))
+    else:
+        keep_pos = [i for i, a in enumerate(plan.output_attrs)
+                    if a.expr_id in req]
+        if not keep_pos:
+            keep_pos = [min(range(len(plan.output_attrs)),
+                            key=lambda i: _attr_cost(plan.output_attrs[i]))]
+    projections = [[p[i] for i in keep_pos] for p in plan.projections]
+    attrs = [plan.output_attrs[i] for i in keep_pos]
+    child_req = _refs([e for p in projections for e in p])
+    return L.Expand(projections, attrs, _prune(plan.children[0], child_req))
 
 
 @_rule(L.Generate)

@@ -192,21 +192,29 @@ def _tag_regexp_replace(m: ExprMeta) -> None:
 
 
 def _tag_agg(m: ExprMeta) -> None:
+    """Reference :345-366, reasons word for word: BOOL min / max reduce on
+    the device (K3's bool lanes), min / max over a plain STRING column
+    through K47, any other aggregate over STRING (first / last, or min /
+    max of a computed string) on the CPU engine. The reference then tags
+    DOUBLE on a TPU (`_tag_f64_on_tpu`), which an H100 never needs."""
     e = m.expr
     if isinstance(e, (AGG.Sum, AGG.Average)) and \
-            e.child.data_type.is_floating and \
-            not m.conf.get(C.ENABLE_FLOAT_AGG):
-        m.will_not_work(
-            "float aggregation order differs from CPU; set "
-            "rapids.tpu.sql.variableFloatAgg.enabled=true")
-    if isinstance(e, (AGG.Min, AGG.Max)) and \
-            e.child.data_type is DataType.BOOL:
-        m.will_not_work("boolean min/max has no device reduction yet")
-    if e.child.data_type is DataType.STRING and \
-            not isinstance(e, (AGG.Count, AGG.Min, AGG.Max)):
-        m.will_not_work("this aggregate over STRING inputs runs on the CPU "
-                        "engine (device first / last over strings is not "
-                        "ported yet)")
+            e.child.data_type.is_floating:
+        if not m.conf.get(C.ENABLE_FLOAT_AGG):
+            m.will_not_work(
+                "float aggregation order differs from CPU; set "
+                "rapids.tpu.sql.variableFloatAgg.enabled=true")
+    if e.child.data_type is DataType.STRING and not isinstance(e, AGG.Count):
+        if isinstance(e, (AGG.Min, AGG.Max)) and \
+                isinstance(e.child, AttributeReference):
+            # device string min/max via the arg-extreme reduction (K47);
+            # computed string inputs need a length bound -> CPU
+            pass
+        else:
+            m.will_not_work(
+                "this aggregate over STRING inputs runs on the CPU engine "
+                "(device string reductions cover min/max of plain columns "
+                "and count)")
 
 
 def _register_expr_rules():
@@ -318,7 +326,8 @@ def _register_exec_rules():
             cpu.grouping, cpu.agg_exprs, cpu.mode, ch[0], cpu.specs))
     register_exec(
         X.CpuShuffleExchangeExec, "columnar shuffle exchange",
-        lambda cpu, ch: X.TpuShuffleExchangeExec(cpu.partitioning, ch[0]),
+        lambda cpu, ch: X.TpuShuffleExchangeExec(cpu.partitioning, ch[0],
+                                                 cpu.allow_adaptive),
         tag_fn=_tag_exchange)
     register_exec(
         CpuSortExec, "multi-key stable sort",
@@ -391,9 +400,16 @@ def _register_exec_rules():
         tag_fn=_tag_scan)
 
     from spark_rapids_tpu_torch.exec.expand import (
+        CpuExpandExec,
         CpuGenerateExec,
+        TpuExpandExec,
         TpuGenerateExec,
     )
+
+    register_exec(
+        CpuExpandExec, "grouping-sets expand (one projection list per set)",
+        lambda cpu, ch: TpuExpandExec(cpu.projections, cpu.output_attrs,
+                                      ch[0]))
 
     def _tag_generate(m: ExecMeta) -> None:
         """Reference :467-473."""

@@ -1,7 +1,8 @@
 """Logical -> CPU physical planning (port of spark_rapids_tpu/plan/planner.py:
-the LocalRelation :52, FileScan :175, Project with its windows :63-133, WindowOp :136,
-Filter :146, Union :152, Limit :157, cache, Aggregate :192-247, Generate
-:260, Sort :273 and Join :338-416 planners).
+the LocalRelation :52, RangeRelation :57, FileScan :175, Project with its
+windows :63-133, WindowOp :136, Filter :146, Union :152, Limit :157,
+Repartition :165, cache, Aggregate :192-247, Expand :250, Generate :260,
+Sort :273 and Join :338-416 planners).
 
 The CPU plan is the oracle engine; TpuOverrides (plan/overrides.py) then
 replaces the supported nodes with device execs, as the reference replaces
@@ -19,7 +20,10 @@ other join type without equi keys raises, as in the reference. Window
 expressions inside a projection become one window exec per (partition,
 order) spec below it, each over a hash exchange on the partition keys (or
 one partition without them). A union concatenates its children's
-partitions: no shuffle.
+partitions: no shuffle. A repartition plans as a round-robin or hash
+exchange (`shuffle/exchange.py:plan_repartition_exchange`), a coalesce as
+a partition merge without a shuffle; rollup / cube's Expand as one exec
+over every projection list.
 """
 
 from __future__ import annotations
@@ -56,6 +60,12 @@ def _plan_children(plan: L.LogicalPlan, conf: C.TpuConf) -> List[PhysicalExec]:
 @register_planner(L.LocalRelation)
 def _plan_local(plan: L.LocalRelation, conf: C.TpuConf) -> PhysicalExec:
     return B.HostScanExec(plan.schema, plan.partitions)
+
+
+@register_planner(L.RangeRelation)
+def _plan_range(plan: L.RangeRelation, conf: C.TpuConf) -> PhysicalExec:
+    return B.RangeExec(plan.start, plan.end, plan.step, plan.num_partitions,
+                       plan.output[0])
 
 
 @register_planner(L.FileScan)
@@ -245,6 +255,29 @@ def _plan_limit(plan: L.Limit, conf: C.TpuConf) -> PhysicalExec:
     return B.CpuGlobalLimitExec(plan.n, merged)
 
 
+@register_planner(L.Repartition)
+def _plan_repartition(plan: L.Repartition, conf: C.TpuConf) -> PhysicalExec:
+    """Reference: planner.py:165."""
+    (child,) = _plan_children(plan, conf)
+    if plan.coalesce_only:
+        return B.CoalescePartitionsExec(plan.num_partitions or 1, child)
+    from spark_rapids_tpu_torch.shuffle.exchange import (
+        plan_repartition_exchange,
+    )
+
+    return plan_repartition_exchange(plan, child, conf)
+
+
+@register_planner(L.Expand)
+def _plan_expand(plan: L.Expand, conf: C.TpuConf) -> PhysicalExec:
+    """Grouping sets: one projection list per set (reference:
+    planner.py:250, GpuExpandExec.scala:66-102)."""
+    from spark_rapids_tpu_torch.exec.expand import CpuExpandExec
+
+    (child,) = _plan_children(plan, conf)
+    return CpuExpandExec(plan.projections, plan.output_attrs, child)
+
+
 def _estimate_rows(plan: L.LogicalPlan) -> Optional[int]:
     """Upper-bound row estimate for the broadcast decision, or None
     (reference: planner.py:289). Cached relations count exactly once
@@ -253,12 +286,19 @@ def _estimate_rows(plan: L.LogicalPlan) -> Optional[int]:
     decides on the materialised bytes instead."""
     if isinstance(plan, L.LocalRelation):
         return sum(b.num_rows for part in plan.partitions for b in part)
+    if isinstance(plan, L.RangeRelation):
+        step = plan.step or 1
+        return max(0, (plan.end - plan.start + step - 1) // step)
     if isinstance(plan, L.Limit):
         child = _estimate_rows(plan.children[0])
         return plan.n if child is None else min(plan.n, child)
-    if isinstance(plan, (L.Project, L.Filter, L.Sort, L.Aggregate,
-                         L.WindowOp)):
+    if isinstance(plan, (L.Project, L.Filter, L.Sort, L.Repartition,
+                         L.WindowOp, L.Aggregate)):
         return _estimate_rows(plan.children[0])
+    if isinstance(plan, L.Expand):
+        child = _estimate_rows(plan.children[0])
+        return None if child is None else child * max(
+            len(plan.projections), 1)
     if isinstance(plan, L.Union):
         parts = [_estimate_rows(c) for c in plan.children]
         return None if any(p is None for p in parts) else sum(parts)

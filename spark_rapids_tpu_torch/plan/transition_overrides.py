@@ -92,8 +92,8 @@ class NotOnTpuError(AssertionError):
 def assert_is_on_tpu(plan: PhysicalExec, conf: C.TpuConf) -> None:
     """Strict test mode: every operator is a device exec unless allowed."""
     allowed = set(conf.allowed_non_tpu)
-    always_ok = {"HostScanExec", "DeviceToHostExec", "HostToDeviceExec",
-                 "CpuCoalesceBatchesExec"}
+    always_ok = {"HostScanExec", "RangeExec", "DeviceToHostExec",
+                 "HostToDeviceExec", "CpuCoalesceBatchesExec"}
 
     def check(n: PhysicalExec) -> None:
         name = type(n).__name__

@@ -1,6 +1,6 @@
 """TpuSession: the port's SparkSession analog (port of spark_rapids_tpu/session.py,
-cut to createDataFrame, Parquet read and write, cache, plan, execute and
-collect).
+cut to createDataFrame, range, file reads and writes, cache, plan, execute
+and collect).
 
 Plan pipeline, as in the reference (session.py:378, :423-426): logical
 plan -> column pruning (plan/optimizer.py) -> CPU physical plan
@@ -140,6 +140,16 @@ class TpuSession:
         attrs, batch = _to_host_batch(data, schema)
         return DataFrame(L.LocalRelation(attrs, _split_batch(
             batch, num_partitions)), self)
+
+    def range(self, start: int, end: Optional[int] = None, step: int = 1,
+              num_partitions: Optional[int] = None) -> DataFrame:
+        """Int64 ids in [start, end) by step, in num_partitions (default:
+        the shuffle partitions) host partitions (reference:
+        session.py:363)."""
+        if end is None:
+            start, end = 0, start
+        n = num_partitions or self.conf.shuffle_partitions
+        return DataFrame(L.RangeRelation(start, end, step, n), self)
 
     @property
     def read(self):

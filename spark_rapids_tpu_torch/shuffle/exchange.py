@@ -39,9 +39,22 @@ over the union of the dictionaries met (`union_rank_tables`), so the
 bounds are taken over ranks; a position where encoded and plain pieces
 meet compares the decoded values.
 
+Round-robin partitioning (slice 15; reference :98, :652, :815-823):
+`repartition(n)` sends row r of map partition pidx to (r + pidx) % n. On
+the card K45 `round_robin_route` (csrc/hash_partition.cu, replacing
+`_jit_rr_ids` :1141 and the `_route_plan` after it) writes the ids and the
+counts and, for a batch past the lazy cap, the stable route order in the
+same launch, by arithmetic instead of a sort. The routed tier's fixed
+columns are assembled by K46 `assemble_routed_fixed` (csrc/compact_gather.cu,
+replacing `_slice_indices` :1324 and the fixed columns of
+`_assemble_routed` :1433): one launch for every fixed column of every slice
+of a reduce group. An explicit partition count pins the exchange
+(`allow_adaptive` False, reference :1637); nothing in the port adapts
+partition counts yet.
+
 The hash half of K4 lives in ops/hashing.py. Left out so far (ROADMAP.md):
-round-robin partitioning, the serialized tier, the ICI/collective tier,
-adaptive coalescing, fetch-failure remapping.
+the serialized tier, the ICI/collective tier, adaptive coalescing,
+fetch-failure remapping.
 """
 
 from __future__ import annotations
@@ -108,6 +121,13 @@ class SinglePartitioning(Partitioning):
         self.num_partitions = 1
 
 
+class RoundRobinPartitioning(Partitioning):
+    """Reference: exchange.py:98."""
+
+    def __init__(self, num_partitions: int):
+        self.num_partitions = num_partitions
+
+
 class HashPartitioning(Partitioning):
     def __init__(self, exprs: Sequence[Expression], num_partitions: int):
         self.exprs = list(exprs)
@@ -129,9 +149,13 @@ class RangePartitioning(Partitioning):
 
 
 class _ExchangeBase(PhysicalExec):
-    def __init__(self, partitioning: Partitioning, child: PhysicalExec):
+    def __init__(self, partitioning: Partitioning, child: PhysicalExec,
+                 allow_adaptive: bool = True):
         super().__init__(child)
         self.partitioning = partitioning
+        # False for an explicit repartition(n): its fan-out is the user's
+        # (reference :139); carried through every rebuild
+        self.allow_adaptive = allow_adaptive
         self._pre_pb: Optional[PartitionedBatches] = None
 
     def set_pre_executed(self, pb: PartitionedBatches) -> None:
@@ -152,7 +176,8 @@ class _ExchangeBase(PhysicalExec):
         return self.children[0].output
 
     def with_children(self, new_children):
-        return type(self)(self.partitioning, new_children[0])
+        return type(self)(self.partitioning, new_children[0],
+                          self.allow_adaptive)
 
     @property
     def coalesce_after(self) -> bool:
@@ -365,6 +390,11 @@ class CpuShuffleExchangeExec(_ExchangeBase, CpuExec):
         if isinstance(p, RangePartitioning):
             return self._execute_range(ctx, p)
         n = p.num_partitions
+        if isinstance(p, RoundRobinPartitioning):
+            def rr_map(pidx: int, batch: HostColumnarBatch):
+                ids = (np.arange(batch.num_rows) + pidx) % n
+                return _host_slices(batch, ids, n)
+            return self._materialize(ctx, rr_map)
         bound = bind_all(p.exprs, self.children[0].output)
 
         def hash_map(pidx: int, batch: HostColumnarBatch):
@@ -435,6 +465,56 @@ def route_plan(ids, n: int):
     return order, counts
 
 
+def rr_ids_plain(pidx: int, num_rows, capacity: int, n: int, device):
+    """Round-robin ids (reference: exchange.py:_jit_rr_ids): (r + pidx) % n
+    for the live rows r < num_rows, n for the pads."""
+    lane = torch.arange(capacity, dtype=torch.int64, device=device)
+    ids = (lane + pidx) % n
+    return torch.where(lane < num_rows, ids,
+                       torch.full((), n, dtype=torch.int64,
+                                  device=device)).to(torch.int32)
+
+
+def round_robin_route_plain(pidx: int, num_rows, capacity: int, n: int,
+                            device, route: bool = True):
+    """(ids, order or None, counts [n + 1]): the ids, then the route plan
+    of them (exchange.py:_jit_rr_ids, then _route_plan)."""
+    ids = rr_ids_plain(pidx, num_rows, capacity, n, device)
+    order, counts = route_plan_plain(ids, n)
+    return ids, (order if route else None), counts
+
+
+def round_robin_route(pidx: int, num_rows, capacity: int, n: int, device,
+                      route: bool = True):
+    """K45: round_robin_route_plain's outputs in one launch; num_rows is an
+    int or a 0-dim int32 tensor on the card (read there, no sync). A CPU
+    device runs the plain version, a CUDA device the kernel."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return round_robin_route_plain(pidx, num_rows, capacity, n, device,
+                                       route)
+    rows_dev = None
+    rows_host = 0
+    if isinstance(num_rows, torch.Tensor):
+        rows_dev = num_rows.reshape(()).to(torch.int32)
+        CB.require_cuda(rows_dev)
+    else:
+        rows_host = int(num_rows)
+    ids = torch.empty(capacity, dtype=torch.int32, device=device)
+    order = torch.empty(capacity, dtype=torch.int32, device=device) \
+        if route else None
+    counts = torch.empty(n + 1, dtype=torch.int32, device=device)
+    lib = CB.library("hash_partition")
+    rc = lib.srt_round_robin_route(
+        capacity, int(pidx), n, rows_host,
+        rows_dev.data_ptr() if rows_dev is not None else None,
+        ids.data_ptr(), order.data_ptr() if route else None,
+        counts.data_ptr(), CB.stream_of(ids))
+    CB.count_launch("round_robin_route")
+    CB.check(lib, rc, "round_robin_route")
+    return ids, order, counts
+
+
 def _device_slices_lazy(batch: ColumnarBatch, ids, counts, n: int):
     """Zero-copy split: each piece is the same batch under a pid == target
     live mask; no gather, no count read."""
@@ -471,7 +551,11 @@ class _RoutedSlice:
 
 def _device_slices_routed(batch: ColumnarBatch, ids, n: int):
     """Route once, read the n + 1 counts once, emit range views."""
-    order, counts_dev = route_plan(ids, n)
+    return _routed_views(batch, *route_plan(ids, n), n)
+
+
+def _routed_views(batch: ColumnarBatch, order, counts_dev, n: int):
+    """One target's range of the route order per non-empty target."""
     # host sync: the one counts read per routed batch (reference:
     # exchange.py:1422)
     counts = counts_dev.cpu().numpy()
@@ -485,20 +569,79 @@ def _device_slices_routed(batch: ColumnarBatch, ids, n: int):
     return out
 
 
+def assemble_routed_fixed_plain(slices, columns, cap_out: int):
+    """[(data, validity) [cap_out]] per column: slice p's rows
+    order[start:start + count] of its own sources, laid end to end; data 0
+    where the row is NULL, lanes past the rows zero and invalid
+    (reference: _slice_indices :1324 with _assemble_routed :1433).
+    slices: [(order, start, count)]; columns: per column, per slice its
+    source (data, validity)."""
+    outs = []
+    for per_slice in columns:
+        d0, _ = per_slice[0]
+        data = torch.zeros(cap_out, dtype=d0.dtype, device=d0.device)
+        valid = torch.zeros(cap_out, dtype=torch.bool, device=d0.device)
+        off = 0
+        for (order, start, count), (d, v) in zip(slices, per_slice):
+            idx = order[start:start + count].long()
+            valid[off:off + count] = v[idx]
+            data[off:off + count] = d[idx]
+            off += count
+        outs.append((torch.where(valid, data, torch.zeros(
+            (), dtype=data.dtype, device=data.device)), valid))
+    return outs
+
+
+def assemble_routed_fixed(slices, columns, cap_out: int):
+    """K46: assemble_routed_fixed_plain's outputs for every column in one
+    launch. CPU tensors run the plain version, CUDA tensors the kernel."""
+    if not columns or slices[0][0].device.type == "cpu":
+        return assemble_routed_fixed_plain(slices, columns, cap_out)
+    from spark_rapids_tpu_torch.columnar.batch import _device_words
+
+    orders = [o.contiguous() for o, _, _ in slices]
+    datas = [[d.contiguous() for d, _ in per] for per in columns]
+    valids = [[v.contiguous() for _, v in per] for per in columns]
+    CB.require_cuda(*orders, *[t for per in datas + valids for t in per])
+    dev = orders[0].device
+    out_at = [0]
+    for _, _, count in slices:
+        out_at.append(out_at[-1] + int(count))
+    n_p, n_c = len(slices), len(columns)
+    out_d = [torch.empty(cap_out, dtype=per[0].dtype, device=dev)
+             for per in datas]
+    out_v = [torch.empty(cap_out, dtype=torch.bool, device=dev)
+             for _ in columns]
+    table = _device_words(
+        out_at + [o.data_ptr() for o in orders]
+        + [int(st) for _, st, _ in slices]
+        + [datas[c][p].data_ptr() for p in range(n_p) for c in range(n_c)]
+        + [valids[c][p].data_ptr() for p in range(n_p) for c in range(n_c)]
+        + [o.data_ptr() for o in out_d] + [o.data_ptr() for o in out_v]
+        + [per[0].element_size() for per in datas], dev)
+    lib = CB.library("compact_gather")
+    rc = lib.srt_assemble_routed_fixed(table.data_ptr(), n_p, n_c, cap_out,
+                                       CB.stream_of(table))
+    CB.count_launch("assemble_routed_fixed")
+    CB.check(lib, rc, "assemble_routed_fixed")
+    return list(zip(out_d, out_v))
+
+
 def _assemble_routed(slices: Sequence[_RoutedSlice]) -> ColumnarBatch:
     """Concatenate routed slices (possibly of different map batches) into
-    one compact batch. A string column is one K7 gather over the slices'
-    source columns laid end to end (reference: `_routed_string_plan`
-    :1567 and `_routed_string_bytes` :1593)."""
+    one compact batch. Every fixed column goes through one K46 launch; a
+    string column is one K7 gather over the slices' source columns laid
+    end to end (reference: `_routed_string_plan` :1567 and
+    `_routed_string_bytes` :1593)."""
     total = sum(s.count for s in slices)
     cap = bucket_capacity(max(total, 1))
-    idxs = [s.order[s.start:s.start + s.count].long() for s in slices]
     sources: List[ColumnarBatch] = []
     for s in slices:
         if all(s.batch is not b for b in sources):
             sources.append(s.batch)
     aligned = _aligned_source_columns(sources)
-    cols = []
+    cols: List[Any] = []
+    fixed: List[int] = []
     for ci in range(len(sources[0].columns)):
         c0 = aligned[id(sources[0])][ci]
         if c0.offsets is not None:
@@ -507,20 +650,22 @@ def _assemble_routed(slices: Sequence[_RoutedSlice]) -> ColumnarBatch:
             at = {id(b): base for b, base in zip(sources, bases)}
             idx = torch.zeros(cap, dtype=torch.int32, device=c0.data.device)
             off = 0
-            for s, i in zip(slices, idxs):
-                idx[off:off + s.count] = i + at[id(s.batch)]
+            for s in slices:
+                idx[off:off + s.count] = \
+                    s.order[s.start:s.start + s.count] + at[id(s.batch)]
                 off += s.count
             cols.append(gather_string_col(src, idx, total, unique=True))
             continue
-        data = torch.zeros(cap, dtype=c0.data.dtype, device=c0.data.device)
-        valid = torch.zeros(cap, dtype=torch.bool, device=c0.data.device)
-        off = 0
-        for s, idx in zip(slices, idxs):
-            col = aligned[id(s.batch)][ci]
-            data[off:off + s.count] = col.data[idx]
-            valid[off:off + s.count] = col.validity[idx]
-            off += s.count
-        cols.append(c0.with_data(data, valid))
+        fixed.append(ci)
+        cols.append(None)
+    if fixed:
+        outs = assemble_routed_fixed(
+            [(s.order, s.start, s.count) for s in slices],
+            [[(aligned[id(s.batch)][ci].data,
+               aligned[id(s.batch)][ci].validity) for s in slices]
+             for ci in fixed], cap)
+        for ci, (data, valid) in zip(fixed, outs):
+            cols[ci] = aligned[id(sources[0])][ci].with_data(data, valid)
     return ColumnarBatch(cols, total)
 
 
@@ -630,6 +775,19 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
         if isinstance(p, RangePartitioning):
             return self._execute_range(ctx)
         n = p.num_partitions
+        if isinstance(p, RoundRobinPartitioning):
+            def rr_map(pidx: int, batch: ColumnarBatch):
+                # the slicer as for a hash exchange: zero-copy views under
+                # the cap, else K45's route order in the same launch
+                batch = ensure_compact(batch)
+                lazy = batch.device_memory_size() <= LAZY_PIECE_CAP_BYTES
+                ids, order, counts = round_robin_route(
+                    pidx, batch.num_rows, batch.capacity, n, batch.device,
+                    route=not lazy)
+                if lazy:
+                    return _device_slices_lazy(batch, ids, counts, n)
+                return _routed_views(batch, order, counts, n)
+            return self._materialize(ctx, rr_map)
         bound = bind_all(p.exprs, self.children[0].output)
 
         def hash_map(pidx: int, batch: ColumnarBatch):
@@ -678,3 +836,19 @@ class TpuShuffleExchangeExec(_ExchangeBase, TpuExec):
             for target, piece in _device_slices_routed(batch, ids, n):
                 buckets[target].append(piece)
         return self._serve(n, buckets)
+
+
+def plan_repartition_exchange(plan, child: PhysicalExec,
+                              conf) -> PhysicalExec:
+    """The exchange of repartition(n[, cols]) (reference: exchange.py:1637):
+    hash on the columns, round robin without them; an explicit count is
+    never adaptively merged."""
+    n = plan.num_partitions or conf.shuffle_partitions
+    if plan.partition_exprs:
+        part = HashPartitioning(plan.partition_exprs, n)
+    else:
+        part = RoundRobinPartitioning(n)
+    ex = CpuShuffleExchangeExec(part, child)
+    if plan.num_partitions is not None:
+        ex.allow_adaptive = False
+    return ex
