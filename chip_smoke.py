@@ -318,6 +318,22 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    (assemble_routed_fixed), K47 (segment_arg_extreme_string) and K3's
    BOOL / any lanes bit for bit to their plain versions (surface_edge_
    cases); phase 17 times them at its shapes.
+18. Expressions (slice 16, after phase 17 over the same tables, with
+   incompatibleOps on): EXPR_PROGRAMS (math, date arithmetic and parts,
+   bitwise ops and shifts, the NULL / NaN functions, abs / signum /
+   negation / div / pmod), each grouped and checked against its
+   reference (numpy's datetime64 calendar; values and groups as torch's
+   own ops on the card, apart from K48); a scan-form stage with a
+   LocalLimit and one with an Expand against their fusion-off rows;
+   monotonically_increasing_id / spark_partition_id against their
+   arithmetic, rand(42) against its own rerun and [0, 1); one K48 launch
+   a partial-update batch of q1's and the flagship's Filter -> Project
+   -> update chain, with the CUDA kernels a batch with fusion on and off
+   (torch.profiler); the same programs at SMALL_SF against the CPU
+   engine. Phase 3 holds K48 (stage_program) bit for bit to its plain
+   interpreter over every op family and edge inputs, and records the
+   ulp gap of each transcendental op (k48_ulp_gaps); phase 18 times K48
+   at q1's and the flagship's update shapes.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -336,7 +352,7 @@ memory_fallback of phase 13, csv_tpch_q1, csv_tpch_q6, csv_tpch_q3 and
 csv_tpch_q5 of phase 14, strings_lineitem, strings_orders,
 strings_customer and strings_part of phase 15, casts_lineitem,
 casts_orders and casts_customer of phase 16, surface_rollup ...
-surface_range of phase 17);
+surface_range of phase 17, expr_math ... expr_expand_stage of phase 18);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -536,6 +552,9 @@ KERNELS = {
     "segment_arg_extreme_string": (
         "spark_rapids_tpu_torch/csrc/string_arg_extreme.cu",
         "spark_rapids_tpu/exec/rowkeys.py:177", "surface_rollup"),
+    "stage_program": (
+        "spark_rapids_tpu_torch/csrc/stage_program.cu",
+        "spark_rapids_tpu/exec/fused.py:351", "tpch_q1"),
 }
 _GROUP_BY = ("radix_sort_pairs", "group_ids", "segment_reduce",
              "hash_partition")
@@ -720,6 +739,20 @@ PATH_KERNELS.update({
     "csv_tpch_q3": _Q3 + _CSV_READ,
     "csv_tpch_q5": _Q5 + _CSV_READ,
 })
+# phase 18: the expression programs; K48 runs every path whose plan has
+# a computing filter, projection or aggregate input (every query of the
+# three suites, over cached tables or files)
+PATH_KERNELS.update({name: _GROUP_BY for name in (
+    "expr_math", "expr_dates", "expr_shipdates", "expr_bitwise",
+    "expr_nulls", "expr_arith")})
+PATH_KERNELS["expr_limit_stage"] = ("compact_fixed",)
+PATH_KERNELS["expr_expand_stage"] = _GROUP_BY
+for _p in list(PATH_KERNELS):
+    if _p.startswith(("flagship", "high_cardinality", "tpch_", "tpcxbb_q",
+                      "mortgage_q", "csv_tpch_", "orc_tpch_", "orc_hive_q",
+                      "parquet_tpch_", "parquet_v2_tpch_",
+                      "parquet_v2_xbb_", "expr_", "memory_spill_")):
+        PATH_KERNELS[_p] = tuple(PATH_KERNELS[_p]) + ("stage_program",)
 TPCH_SF = 10
 TPCH_PARTITIONS = 4
 TPCH_REL = 1e-9
@@ -1606,6 +1639,18 @@ def run_small_sf() -> dict:
     log(f"phase 17: the seven programs at SF {SMALL_SF} equal the CPU "
         "engine: " + ", ".join(f"{q} {out[q]['rows']}"
                                for q in SURFACE_PROGRAMS))
+    # phase 18's programs (math on the card under incompatibleOps)
+    for k, v in EXPR_CONF.items():
+        card.set_conf(k, v)
+    for name, fn in EXPR_PROGRAMS.items():
+        got = fn(tabs[0], F).collect()
+        assert_on_device(card)
+        want = fn(tabs[1], F).collect()
+        out[name] = {"rows": len(got), "max_rel_diff": check_rows(
+            got, want, f"{name} at SF {SMALL_SF} vs the CPU engine")}
+    log(f"phase 18: the {len(EXPR_PROGRAMS)} programs at SF {SMALL_SF} "
+        "equal the CPU engine: " + ", ".join(
+            f"{q} {out[q]['rows']}" for q in EXPR_PROGRAMS))
     return out
 
 
@@ -9966,6 +10011,684 @@ def time_surface_kernels(dev, errs: dict, raw) -> dict:
     return rows
 
 
+# ------------------------------------------------------- phase 18 (slice 16)
+# The expressions of slice 16 on the card, over phase 4's cached SF 10
+# tables: math, date arithmetic and parts, bitwise ops and shifts, the NULL
+# and NaN functions and the arithmetic of abs / signum / negation / div /
+# pmod, each grouped to a small result and checked against its reference
+# (numpy's datetime64 calendar, the values and groups as torch's own ops
+# on the card, apart from K48); a
+# scan-form stage with a LocalLimit and one with an Expand against their
+# fusion-off rows; monotonically_increasing_id / spark_partition_id
+# against their arithmetic and rand against its seed; K48's launches a
+# batch of the flagship's and q1's Filter -> Project -> update chain.
+EXPR_CONF = {"rapids.tpu.sql.incompatibleOps.enabled": True}
+EXPR_WARM_REPS = 0
+EXPR_LIMIT = 1000
+K48_Q1_ROWS = 15_000_000  # one of q1's four lineitem partitions at SF 10
+K48_CHAIN_ROWS = 1 << 22  # the flagship's chain-launch check
+K48_FLAGSHIP_ROWS = FLAGSHIP_ROWS // 2  # one cached flagship partition
+FUSION_KEY = "rapids.tpu.sql.fusion.enabled"
+# the largest ulp gap of each transcendental op, K48 against its plain
+# version on the card (phase 3), and the gap the smoke allows: the plain
+# versions are torch's CUDA functions over the same libm but cbrt's
+# (numpy's, on the host), so a correct kernel sits at 0 to 1
+K48_ULP_GAPS: dict = {}
+K48_MAX_ULPS = 2
+
+
+def _expr_cls():
+    from spark_rapids_tpu_torch.ops import arithmetic as AR
+    from spark_rapids_tpu_torch.ops import bitwise as BW
+    from spark_rapids_tpu_torch.ops import nulls as N
+
+    return AR, BW, N
+
+
+def expr_math(tables, F):
+    li = tables["lineitem"]
+    price, disc = F.col("l_extendedprice"), F.col("l_discount")
+    return (li.groupBy("l_linestatus")
+              .agg(F.sum(F.sqrt(price)).alias("sq"),
+                   F.sum(F.log1p(price)).alias("lg"),
+                   F.sum(F.pow(disc, F.lit(2.0))).alias("pw"),
+                   F.sum(F.exp(disc)).alias("ex"),
+                   F.sum(F.atan2(disc, F.col("l_tax") + 0.01)).alias("at"),
+                   F.max(F.cbrt(price)).alias("cb"),
+                   F.sum(F.rint(price / 3.0)).alias("ri"),
+                   F.sum(F.degrees(disc)).alias("dg"),
+                   F.sum(F.tanh(price / 1e5)).alias("tn"))
+              .orderBy("l_linestatus"))
+
+
+def expr_dates(tables, F):
+    d = F.col("o_orderdate")
+    return (tables["orders"]
+            .select(F.year(d).alias("y"),
+                    F.datediff(F.last_day(d), d).alias("dl"),
+                    F.dayofweek(d).alias("dw"), F.dayofyear(d).alias("dy"),
+                    F.date_add(d, 45).cast("int").alias("da"),
+                    F.weekday(d).alias("wd"), F.quarter(d).alias("qt"),
+                    F.month(d).alias("mo"))
+            .groupBy("y")
+            .agg(F.sum("dl").alias("dl"), F.sum("dw").alias("dw"),
+                 F.sum("dy").alias("dy"), F.max("da").alias("da"),
+                 F.sum("wd").alias("wd"), F.sum("qt").alias("qt"),
+                 F.min("mo").alias("mo"), F.count("*").alias("n"))
+            .orderBy("y"))
+
+
+def expr_shipdates(tables, F):
+    ship = F.col("l_shipdate")
+    return (tables["lineitem"]
+            .select(F.month(ship).alias("m"),
+                    F.datediff(F.col("l_receiptdate"), ship).alias("dd"),
+                    F.to_unix_timestamp(ship.cast("timestamp")).alias("ut"),
+                    F.date_sub(ship, F.col("l_quantity").cast("int"))
+                    .cast("int").alias("ds"))
+            .groupBy("m")
+            .agg(F.sum("dd").alias("dd"), F.max("ut").alias("ut"),
+                 F.sum("ds").alias("ds"))
+            .orderBy("m"))
+
+
+def expr_bitwise(tables, F):
+    AR, BW, N = _expr_cls()
+    ok, pk, sk = F.col("l_orderkey"), F.col("l_partkey"), F.col("l_suppkey")
+    Col = type(ok)
+    return (tables["lineitem"]
+            .select("l_linestatus",
+                    Col(BW.BitwiseAnd(ok.expr, F.lit(255).expr)).alias("b"),
+                    F.shiftright(ok, 3).alias("sr"),
+                    F.shiftleft(pk, 2).alias("sl"),
+                    F.bitwise_not(sk).alias("bn"),
+                    F.shiftrightunsigned(-ok, 60).alias("us"),
+                    Col(BW.BitwiseXor(ok.expr, pk.expr)).alias("x"),
+                    Col(BW.BitwiseOr(sk.expr, F.lit(1).expr)).alias("o"))
+            .groupBy("l_linestatus")
+            .agg(F.sum("b").alias("b"), F.sum("sr").alias("sr"),
+                 F.sum("sl").alias("sl"), F.sum("bn").alias("bn"),
+                 F.sum("us").alias("us"), F.max("x").alias("x"),
+                 F.sum("o").alias("o"))
+            .orderBy("l_linestatus"))
+
+
+def expr_nulls(tables, F):
+    AR, BW, N = _expr_cls()
+    y = F.sqrt(F.col("l_discount") - 0.05)
+    Col = type(y)
+    # CASE WHEN without ELSE: NULL where the quantity is 25 or less
+    x = Col(F.when(F.col("l_quantity") > 25, F.col("l_discount")).expr)
+    return (tables["lineitem"]
+            .select("l_linestatus", x.alias("x"), y.alias("y"), "l_tax")
+            .groupBy("l_linestatus")
+            .agg(F.sum(F.isnan(F.col("y")).cast("int")).alias("nan"),
+                 F.sum(F.nanvl(F.col("y"), F.lit(-1.0))).alias("nv"),
+                 F.sum(F.coalesce(F.col("x"), F.col("l_tax"))).alias("co"),
+                 F.sum(Col(N.AtLeastNNonNulls(
+                     2, F.col("x").expr, F.col("y").expr,
+                     F.col("l_tax").expr)).cast("int")).alias("al"),
+                 F.sum(F.col("x").eqNullSafe(0.05).cast("int")).alias("ns"),
+                 F.count("x").alias("nx"))
+            .orderBy("l_linestatus"))
+
+
+def expr_arith(tables, F):
+    AR, BW, N = _expr_cls()
+    ok = F.col("l_orderkey")
+    Col = type(ok)
+    return (tables["lineitem"]
+            .select("l_linestatus",
+                    F.abs_(ok - 7_000_000).alias("ab"),
+                    F.signum(F.col("l_extendedprice") - 50000.0).alias("sg"),
+                    (-F.col("l_partkey")).alias("ng"),
+                    Col(AR.IntegralDivide(ok.expr, F.lit(7).expr))
+                    .alias("dv"),
+                    F.pmod(ok, F.lit(13)).alias("pm"),
+                    (F.col("l_suppkey") % -7).alias("rm"),
+                    (F.col("l_quantity") % 7.5).alias("fm"))
+            .groupBy("l_linestatus")
+            .agg(*[F.sum(c).alias(c) for c in ("ab", "sg", "ng", "dv", "pm",
+                                               "rm", "fm")])
+            .orderBy("l_linestatus"))
+
+
+EXPR_PROGRAMS = {"expr_math": expr_math, "expr_dates": expr_dates,
+                 "expr_shipdates": expr_shipdates,
+                 "expr_bitwise": expr_bitwise, "expr_nulls": expr_nulls,
+                 "expr_arith": expr_arith}
+
+
+def expr_limit_stage(tables, F):
+    return (tables["lineitem"].filter(F.col("l_quantity") > 45)
+            .select("l_orderkey", (F.col("l_extendedprice") * 2)
+                    .alias("p2")).limit(EXPR_LIMIT))
+
+
+def expr_expand_stage(tables, F):
+    return (tables["lineitem"].filter(F.col("l_discount") > 0.05)
+            .select("l_returnflag", "l_linestatus",
+                    (F.col("l_quantity") * 2).alias("q2"))
+            .rollup("l_returnflag", "l_linestatus")
+            .agg(F.sum("q2").alias("s"), F.count("*").alias("n")))
+
+
+def _group_sums(key, cols) -> list:
+    """(group keys, rows of per-column aggregates) in key order, on the
+    card: key a small-range integer tensor, each entry of cols (values,
+    'sum' | 'max' | 'min' | 'count'); integer sums exact (int64), float
+    sums by index_add_ (another order than the group-by's)."""
+    import torch
+
+    lo = int(key.min())
+    k = (key.long() - lo)
+    counts = torch.bincount(k)
+    groups = torch.nonzero(counts).flatten()
+    n = len(counts)
+    out = []
+    for v, op in cols:
+        if op == "count":
+            red = counts
+        elif op in ("max", "min"):
+            red = torch.zeros(n, dtype=v.dtype, device=v.device)
+            red = red.scatter_reduce(0, k, v, "amax" if op == "max" else
+                                     "amin", include_self=False)
+        else:
+            acc = v.double() if v.is_floating_point() else v.long()
+            red = torch.zeros(n, dtype=acc.dtype, device=v.device) \
+                .index_add_(0, k, acc)
+        out.append(red[groups].tolist())
+    return [g + lo for g in groups.tolist()], [
+        tuple(c[g] for c in out) for g in range(len(groups))]
+
+
+def numpy_expr_wants(li: dict, o: dict, dev) -> dict:
+    """EXPR_PROGRAMS' rows: the calendar from numpy's datetime64, the
+    values and the grouping as torch ops on the card (one torch kernel an
+    op, apart from K48)."""
+    import numpy as np
+    import torch
+
+    def up(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    status = up(li["l_linestatus"])
+    keys = lambda vals: [chr(v) for v in vals]  # noqa: E731
+    price, disc, tax = (up(li[c]) for c in ("l_extendedprice", "l_discount",
+                                            "l_tax"))
+    q, ok, pk, sk = (up(li[c]) for c in ("l_quantity", "l_orderkey",
+                                         "l_partkey", "l_suppkey"))
+    want = {}
+    vals, rows = _group_sums(status, [
+        (torch.sqrt(price), "sum"), (torch.log1p(price), "sum"),
+        (torch.pow(disc, 2.0), "sum"), (torch.exp(disc), "sum"),
+        (torch.atan2(disc, tax + 0.01), "sum"),
+        (torch.pow(price, 1.0 / 3.0), "max"),
+        (torch.round(price / 3.0), "sum"), (torch.rad2deg(disc), "sum"),
+        (torch.tanh(price / 1e5), "sum")])
+    want["expr_math"] = [(k, *r) for k, r in zip(keys(vals), rows)]
+    d = o["o_orderdate"].astype(np.int64)
+    d64 = d.astype("datetime64[D]")
+    month64 = d64.astype("datetime64[M]")
+    year64 = d64.astype("datetime64[Y]")
+    month = month64.astype(np.int64) % 12 + 1
+    last = (month64 + 1).astype("datetime64[D]").astype(np.int64) - 1
+    jan1 = year64.astype("datetime64[D]").astype(np.int64)
+    dd = up(d)
+    vals, rows = _group_sums(up(year64.astype(np.int64) + 1970), [
+        (up(last) - dd, "sum"), ((dd + 4) % 7 + 1, "sum"),
+        (dd - up(jan1) + 1, "sum"), (dd + 45, "max"), ((dd + 3) % 7, "sum"),
+        ((up(month) - 1) // 3 + 1, "sum"), (up(month), "min"),
+        (dd, "count")])
+    want["expr_dates"] = [(k, *r) for k, r in zip(vals, rows)]
+    ship_np = li["l_shipdate"].astype(np.int64)
+    ship_m = ship_np.astype("datetime64[D]").astype("datetime64[M]").astype(
+        np.int64) % 12 + 1
+    ship = up(ship_np)
+    vals, rows = _group_sums(up(ship_m), [
+        (up(li["l_receiptdate"]).long() - ship, "sum"),
+        (ship * 86400, "max"), (ship - q.long(), "sum")])
+    want["expr_shipdates"] = [(k, *r) for k, r in zip(vals, rows)]
+    us = torch.bitwise_right_shift(-ok, 60) & 15  # >>> 60 of 64 bits
+    vals, rows = _group_sums(status, [
+        (ok & 255, "sum"), (ok >> 3, "sum"), (pk << 2, "sum"), (~sk, "sum"),
+        (us, "sum"), (ok ^ pk, "max"), (sk | 1, "sum")])
+    want["expr_bitwise"] = [(k, *r) for k, r in zip(keys(vals), rows)]
+    xnull = q <= 25
+    y = torch.sqrt(disc - 0.05)
+    ynan = torch.isnan(y)
+    vals, rows = _group_sums(status, [
+        (ynan.long(), "sum"), (torch.where(ynan, -1.0, y), "sum"),
+        (torch.where(xnull, tax, disc), "sum"),
+        (((~xnull).long() + (~ynan).long() + 1 >= 2).long(), "sum"),
+        ((~xnull & (disc == 0.05)).long(), "sum"), ((~xnull).long(), "sum")])
+    want["expr_nulls"] = [(k, *r) for k, r in zip(keys(vals), rows)]
+    vals, rows = _group_sums(status, [
+        ((ok - 7_000_000).abs(), "sum"), (torch.sign(price - 50000.0), "sum"),
+        (-pk, "sum"), (ok // 7, "sum"), (ok % 13, "sum"),
+        (torch.fmod(sk, -7), "sum"), (torch.fmod(q, 7.5), "sum")])
+    want["expr_arith"] = [(k, *r) for k, r in zip(keys(vals), rows)]
+    return want
+
+
+def fused_stage_names(plan) -> list:
+    import re
+
+    return re.findall(r"TpuFusedStage\(\d+\)\[[^\]]*\]", plan.tree_string())
+
+
+def fusion_off_rows(sess, q_of, tables, F, what: str) -> dict:
+    """The rows of a scan-form stage with fusion on and off, sorted (NULLs
+    first); the on-plan must hold the stage."""
+    sess.set_conf(FUSION_KEY, True)
+    t = time.perf_counter()
+    on = sorted(q_of(tables, F).collect(), key=null_first)
+    on_s = time.perf_counter() - t
+    stages = fused_stage_names(sess.last_physical_plan)
+    assert_on_device(sess)
+    sess.set_conf(FUSION_KEY, False)
+    try:
+        t = time.perf_counter()
+        off = sorted(q_of(tables, F).collect(), key=null_first)
+        off_s = time.perf_counter() - t
+    finally:
+        sess.set_conf(FUSION_KEY, True)
+    check(on == off, f"{what}: fusion on and off give different rows")
+    check(bool(stages), f"{what}: no fused stage in the plan")
+    log(f"{what}: {len(on)} rows, stages {stages}, on {on_s:.4f} s, off "
+        f"{off_s:.4f} s")
+    return {"rows": len(on), "stages": stages, "on_s": on_s, "off_s": off_s}
+
+
+def kernel_launches(fn) -> int:
+    """CUDA kernels fn launches, from torch.profiler's device events other
+    than copies and memsets (None when the profiler sees no device
+    activity)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    try:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - the count is a report only
+        log(f"kernel count: profiler unavailable ({e})")
+        return None
+    n = sum(1 for e in prof.events()
+            if str(getattr(e, "device_type", "")).endswith("CUDA") and
+            not e.name.startswith(("Memcpy", "Memset")))
+    return n or None
+
+
+def chain_launches(sess, q_of, what: str) -> dict:
+    """K48's launches within each partial-update batch of a Filter ->
+    Project -> update chain (one each: the chain is one program), and the
+    CUDA kernels a batch launches with fusion on and off."""
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.exec import aggregate as AG
+
+    real = AG._update
+    per = []
+
+    def counted(*a, **k):
+        before = CB.launch_counts().get("stage_program", 0)
+        out = real(*a, **k)
+        per.append(CB.launch_counts().get("stage_program", 0) - before)
+        return out
+
+    AG._update = counted
+    try:
+        q_of().collect()
+    finally:
+        AG._update = real
+    check(bool(per) and all(n == 1 for n in per),
+          f"{what}: K48 launches per update batch {per}, want 1 each")
+    out = {"update_batches": len(per), "k48_per_batch": per[0]}
+    for on in (True, False):
+        sess.set_conf(FUSION_KEY, on)
+        try:
+            n = kernel_launches(lambda: q_of().collect())
+        finally:
+            sess.set_conf(FUSION_KEY, True)
+        key = "fusion_on" if on else "fusion_off"
+        out[f"{key}_kernels"] = n
+        out[f"{key}_kernels_per_batch"] = None if n is None else \
+            n / len(per)
+    log(f"{what}: {len(per)} update batches, 1 K48 launch each; CUDA "
+        f"kernels a batch (whole query / batches): fusion on "
+        f"{out['fusion_on_kernels_per_batch']}, off "
+        f"{out['fusion_off_kernels_per_batch']}")
+    return out
+
+
+def check_ids(sess, tables, F) -> dict:
+    """monotonically_increasing_id is (partition << 33) + the row's index
+    in its partition, spark_partition_id the partition; rand(seed) repeats
+    and lies in [0, 1)."""
+    import numpy as np
+
+    q = tables["orders"].select(F.spark_partition_id().alias("p"),
+                                F.monotonically_increasing_id().alias("id"),
+                                F.rand(42).alias("r"))
+    t = time.perf_counter()
+    parts = sess.execute_partitions(q._plan)
+    again = sess.execute_partitions(q._plan)
+    rows = 0
+    for pidx, (part, part2) in enumerate(zip(parts, again)):
+        p = np.concatenate([b.columns[0].data for b in part])
+        ids = np.concatenate([b.columns[1].data for b in part])
+        r = np.concatenate([b.columns[2].data for b in part])
+        r2 = np.concatenate([b.columns[2].data for b in part2])
+        check(bool((p == pidx).all()), f"spark_partition_id != {pidx}")
+        check(np.array_equal(ids, (np.int64(pidx) << 33) + np.arange(
+            len(ids), dtype=np.int64)), f"monotonically_increasing_id of "
+              f"partition {pidx}")
+        check(np.array_equal(r, r2), "rand(42) differs between two runs")
+        check(bool(((r >= 0) & (r < 1)).all()), "rand outside [0, 1)")
+        rows += len(ids)
+    s = time.perf_counter() - t
+    log(f"ids: {rows} rows in {len(parts)} partitions match their "
+        f"arithmetic; rand(42) repeats, in [0, 1) ({s:.2f} s)")
+    return {"rows": rows, "partitions": len(parts), "s": s}
+
+
+def run_expressions(sess, raw, tables, li: dict, launches: dict, dev,
+                    errs: dict) -> dict:
+    """Phase 18 (after phase 17, over phase 4's cached SF 10 tables)."""
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    t0 = time.perf_counter()
+    o = table_columns(raw["orders"], ("o_orderdate",))
+    want = numpy_expr_wants(li, o, dev)
+    out = {"wants_s": time.perf_counter() - t0}
+    saved = {k: sess.conf.get_key(k) for k in EXPR_CONF}
+    for k, v in EXPR_CONF.items():
+        sess.set_conf(k, v)
+    try:
+        for name, fn in EXPR_PROGRAMS.items():
+            CB.reset_launch_counts()
+            out[name] = run_query(sess, fn(tables, F), want[name], name,
+                                  EXPR_WARM_REPS)
+            launches[name] = CB.launch_counts()
+        CB.reset_launch_counts()
+        out["expr_limit_stage"] = fusion_off_rows(
+            sess, expr_limit_stage, tables, F, "expr_limit_stage")
+        launches["expr_limit_stage"] = CB.launch_counts()
+        CB.reset_launch_counts()
+        out["expr_expand_stage"] = fusion_off_rows(
+            sess, expr_expand_stage, tables, F, "expr_expand_stage")
+        launches["expr_expand_stage"] = CB.launch_counts()
+        out["ids"] = check_ids(sess, tables, F)
+    finally:
+        for k, v in saved.items():
+            sess.set_conf(k, v)
+    from spark_rapids_tpu_torch.benchmarks import tpch
+
+    out["chain_tpch_q1"] = chain_launches(sess, lambda: tpch.q1(tables),
+                                          "tpch_q1 chain")
+    flag = sess.createDataFrame(flagship_data(K48_CHAIN_ROWS, N_KEYS),
+                                [("k", "long"), ("a", "long"),
+                                 ("b", "float")], num_partitions=4).cache()
+    out["chain_flagship"] = chain_launches(
+        sess, lambda: flagship_query(flag), "flagship chain")
+    flag.unpersist()
+    out["kernel_rows"] = time_stage_program(dev, errs, li)
+    out["s"] = time.perf_counter() - t0
+    log(f"phase 18: {len(EXPR_PROGRAMS)} programs equal their references, "
+        f"the limit and expand stages their fusion-off rows, in "
+        f"{out['s']:.1f} s")
+    return out
+
+
+# ----------------------------------------------------- K48 on the card
+def k48_battery():
+    """Bound expressions of every emittable op family over K48_SCHEMA."""
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType as D
+    from spark_rapids_tpu_torch.ops import arithmetic as AR
+    from spark_rapids_tpu_torch.ops import bitwise as BW
+    from spark_rapids_tpu_torch.ops import conditional as CO
+    from spark_rapids_tpu_torch.ops import datetimeops as DT
+    from spark_rapids_tpu_torch.ops import mathx as MX
+    from spark_rapids_tpu_torch.ops import nulls as N
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops.base import BoundReference as B
+    from spark_rapids_tpu_torch.ops.cast import Cast
+    from spark_rapids_tpu_torch.ops.literals import Literal as L
+
+    i, j, f, d = B(0, D.INT64), B(1, D.INT32), B(2, D.FLOAT32), \
+        B(3, D.FLOAT64)
+    b, dt, ts = B(4, D.BOOL), B(5, D.DATE), B(6, D.TIMESTAMP)
+    out = [
+        AR.Add(AR.Multiply(i, L(2)), L(1)), AR.Subtract(j, i),
+        AR.Multiply(f, d), AR.Divide(i, j), AR.Remainder(i, j),
+        AR.Pmod(i, j), AR.Remainder(d, L(3.5)), AR.Pmod(j, L(-3)),
+        AR.IntegralDivide(i, j), AR.UnaryMinus(i), AR.Abs(j),
+        AR.Signum(d), AR.Signum(j), AR.Abs(f),
+        P.LessThan(f, L(0.9)), P.EqualTo(f, L(0.9)), P.GreaterThan(i, d),
+        P.LessThanOrEqual(i, L(5_000_000_000)),
+        P.And(P.GreaterThan(j, L(0)), b), P.Or(N.IsNull(i), P.Not(b)),
+        P.In(j, [L(1), L(2), L(None, D.INT32)]), P.In(f, [L(0.5), L(1)]),
+        P.EqualNullSafe(i, j), P.EqualNullSafe(f, L(0.9)),
+        N.IsNull(f), N.IsNotNull(d), N.IsNan(f), N.NaNvl(d, L(1.0)),
+        N.Coalesce(j, i, L(7)), N.AtLeastNNonNulls(2, i, f, d),
+        CO.If(b, i, L(3)),
+        CO.CaseWhen([(P.GreaterThan(j, L(0)), L(1.5)), (b, f)], L(0)),
+        MX.Rint(d), MX.ToDegrees(f), MX.NormalizeNaNAndZero(d),
+        MX.Floor(d), MX.Ceil(f),
+        BW.BitwiseAnd(i, L(7)), BW.BitwiseXor(j, i), BW.BitwiseNot(j),
+        BW.ShiftLeft(i, L(65)), BW.ShiftLeft(j, j), BW.ShiftRight(j, j),
+        BW.ShiftRightUnsigned(i, L(3)), BW.ShiftRightUnsigned(j, L(-1)),
+        DT.Year(dt), DT.Month(ts), DT.DayOfMonth(dt), DT.Quarter(dt),
+        DT.Hour(ts), DT.Minute(ts), DT.Second(ts), DT.DayOfYear(dt),
+        DT.LastDay(dt), DT.DayOfWeek(ts), DT.WeekDay(dt),
+        DT.DateAdd(dt, L(30)), DT.DateSub(dt, j), DT.DateDiff(dt, L(100)),
+        DT.UnixTimestamp(ts), DT.ToUnixTimestamp(dt), DT.FromUnixTime(i),
+        Cast(d, D.INT32), Cast(f, D.INT64), Cast(i, D.FLOAT32),
+        Cast(dt, D.TIMESTAMP), Cast(ts, D.DATE), Cast(d, D.BOOL),
+        Cast(i, D.INT8), Cast(j, D.INT16)]
+    math = [MX.Sqrt(d), MX.Sin(f), MX.Sin(d), MX.Cos(d), MX.Tan(d),
+            MX.Asin(f), MX.Acos(d), MX.Atan(d), MX.Sinh(d), MX.Cosh(d),
+            MX.Tanh(d), MX.Asinh(d), MX.Acosh(d), MX.Atanh(f), MX.Cbrt(d),
+            MX.Exp(d), MX.Expm1(d), MX.Log(d), MX.Log1p(d), MX.Log2(d),
+            MX.Log10(i), MX.Cot(d), MX.Pow(d, L(2.5)), MX.Atan2(f, d),
+            MX.Logarithm(L(3.0), d)]
+    return out, math
+
+
+def k48_columns(n: int, cap: int, seed: int, dev, all_null: bool = False):
+    """ColV inputs of K48_SCHEMA on the card: NULLs, NaN, +-0, INT64_MIN,
+    INT32 extremes, divisors 0 and -1, shift amounts past the width."""
+    import numpy as np
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType as D
+    from spark_rapids_tpu_torch.ops.values import ColV
+
+    rng = np.random.default_rng(seed)
+    i = rng.integers(-1000, 1000, cap).astype(np.int64)
+    j = rng.integers(-40, 80, cap).astype(np.int32)
+    f = (rng.normal(size=cap) * 2).astype(np.float32)
+    d = rng.normal(size=cap) * 50
+    edges_i = [-(1 << 63), -1, 0, 1 << 62, (1 << 63) - 1, 7, 64, 65]
+    edges_j = [0, -1, -(1 << 31), (1 << 31) - 1, 70, 32, 31, -3]
+    edges_f = [np.nan, -0.0, 0.0, np.float32(0.9), 0.5, np.inf, -np.inf, 1e30]
+    edges_d = [np.nan, -0.0, 0.0, np.inf, 1e300, -2.5, -np.inf, 5e-324]
+    k = min(8, cap)
+    i[:k], j[:k] = edges_i[:k], edges_j[:k]
+    f[:k], d[:k] = np.array(edges_f[:k], np.float32), edges_d[:k]
+    b = rng.random(cap) > 0.5
+    dt = rng.integers(-30000, 30000, cap).astype(np.int32)
+    ts = rng.integers(-(10 ** 15), 10 ** 15, cap).astype(np.int64)
+    cols = []
+    for arr, t in ((i, D.INT64), (j, D.INT32), (f, D.FLOAT32),
+                   (d, D.FLOAT64), (b, D.BOOL), (dt, D.DATE),
+                   (ts, D.TIMESTAMP)):
+        valid = (rng.random(cap) > 0.15) & (np.arange(cap) < n)
+        if all_null:
+            valid[:] = False
+        data = torch.from_numpy(np.where(valid, arr, np.zeros((), arr.dtype))
+                                ).to(dev)
+        cols.append(ColV(t, data, torch.from_numpy(valid).to(dev)))
+    return cols
+
+
+def ulp_gap(a, b) -> int:
+    """The largest gap in units in the last place between two float
+    tensors (NaN equal to NaN)."""
+    import torch
+
+    if a.dtype == torch.float32:
+        ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    else:
+        ia, ib = a.view(torch.int64), b.view(torch.int64)
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    d = torch.where(same, torch.zeros_like(ia), (ia - ib).abs())
+    return int(d.max()) if d.numel() else 0
+
+
+def compare_k48(plan, ctx, label: str, errs: dict, math_op=None) -> None:
+    """One StagePlan's programs: the kernel against the plain version on
+    the same inputs, bit for bit (any NaN equal); a transcendental output
+    records its ulp gap under its op instead."""
+    import torch
+
+    from spark_rapids_tpu_torch.ops import program as PG
+
+    for prog, _ in plan.programs:
+        ins = plan.inputs(ctx, prog)
+        got, gk = PG.stage_program(prog, ins, ctx.num_rows, ctx.capacity,
+                                   ctx.device)
+        want, wk = PG.run_plain(prog, ins, ctx.num_rows, ctx.capacity,
+                                ctx.device)
+        check((gk is None) == (wk is None) and (
+            gk is None or torch.equal(gk, wk)), f"{label}: keep masks differ")
+        for (gd, gv), (wd, wv) in zip(got, want):
+            check(torch.equal(gv, wv), f"{label}: validity differs")
+            if math_op is not None and gd.is_floating_point():
+                # an op over a FLOAT input computes at float32 and stores
+                # widened: its gap counts in float32 ulps
+                if "FLOAT32" in math_op:
+                    gd, wd = gd.float(), wd.float()
+                n = ulp_gap(gd, wd)
+                K48_ULP_GAPS[math_op] = max(K48_ULP_GAPS.get(math_op, 0), n)
+                check(n <= K48_MAX_ULPS, f"{label}: {math_op} is {n} ulps "
+                      f"from its plain version (at most {K48_MAX_ULPS})")
+                continue
+            same = bits_equal(gd, wd) or (gd.is_floating_point() and bool(
+                ((gd == wd) | (torch.isnan(gd) & torch.isnan(wd))).all()))
+            check(same, f"{label}: data differs")
+            errs["stage_program"] = max(errs.get("stage_program", 0.0),
+                                        max_abs_err(gd, wd))
+
+
+def stage_program_edge_cases(dev, errs: dict) -> int:
+    """K48 against its plain version on the card: every emittable op
+    family over edge inputs, a 0-row, an all-NULL and a lazily counted
+    batch; the transcendental functions record their ulp gaps
+    (K48_ULP_GAPS)."""
+    import torch
+
+    from spark_rapids_tpu_torch.ops import program as PG
+    from spark_rapids_tpu_torch.ops.values import EvalContext
+
+    exact, math = k48_battery()
+    sets = 0
+    for n, cap, all_null, seed in ((4000, 4096, False, 1),
+                                   (0, 8, False, 2), (300, 512, True, 3),
+                                   (5, 8, False, 4)):
+        cols = k48_columns(n, cap, seed, dev, all_null)
+        rows = n if seed != 4 else torch.tensor(n, dtype=torch.int32,
+                                                device=dev)
+        ctx = EvalContext(True, cols, rows, cap, device=dev)
+        label = f"K48 n={n} cap={cap}{' all-NULL' if all_null else ''}"
+        compare_k48(PG.StagePlan(exact), ctx, label, errs)
+        compare_k48(PG.StagePlan([], exact[14:30]), ctx, label + " keep",
+                    errs)
+        for e in math:
+            compare_k48(PG.StagePlan([e]), ctx, f"{label} {type(e).__name__}",
+                        errs, math_op=f"{type(e).__name__}"
+                        f"({e.children()[0].data_type.name})")
+        sets += 3
+    log(f"K48: ulp gaps of the transcendental ops against torch's CUDA "
+        f"functions: {K48_ULP_GAPS}")
+    return sets
+
+
+def time_stage_program(dev, errs: dict, li: dict) -> dict:
+    """K48 at q1's update shape (the folded filter and the two computed
+    inputs over one K48_Q1_ROWS-row lineitem partition) and at the
+    flagship's (filter and c = a * 2 + 1 over a 2^25-row partition), each
+    against its plain version on the same inputs."""
+    import torch
+
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType as D
+    from spark_rapids_tpu_torch.ops import arithmetic as AR
+    from spark_rapids_tpu_torch.ops import predicates as P
+    from spark_rapids_tpu_torch.ops import program as PG
+    from spark_rapids_tpu_torch.ops.base import BoundReference as B
+    from spark_rapids_tpu_torch.ops.literals import Literal as L
+    from spark_rapids_tpu_torch.ops.values import ColV, EvalContext
+
+    def ctx_of(arrays, types, n):
+        cols = []
+        for a, t in zip(arrays, types):
+            data = torch.from_numpy(a[:n]).to(dev)
+            cols.append(ColV(t, data, torch.ones(n, dtype=torch.bool,
+                                                 device=dev)))
+        return EvalContext(True, cols, n, n, device=dev)
+
+    n = min(K48_Q1_ROWS, len(li["l_shipdate"]))
+    from spark_rapids_tpu_torch.benchmarks.tpch import _days
+
+    ctx = ctx_of([li["l_shipdate"], li["l_extendedprice"],
+                  li["l_discount"], li["l_tax"]],
+                 (D.DATE, D.FLOAT64, D.FLOAT64, D.FLOAT64), n)
+    ship, price, disc, tax = B(0, D.DATE), B(1, D.FLOAT64), \
+        B(2, D.FLOAT64), B(3, D.FLOAT64)
+    disc_price = AR.Multiply(price, AR.Subtract(L(1), disc))
+    q1 = PG.StagePlan(
+        [disc_price, AR.Multiply(disc_price, AR.Add(L(1), tax))],
+        [P.LessThanOrEqual(ship, L(_days("1998-09-02"), D.DATE))])
+    compare_k48(q1, ctx, "K48 q1 update shape", errs)
+    prog = q1.program
+    ins = q1.inputs(ctx)
+    row = dict(
+        ms=cuda_ms(lambda: PG.stage_program(prog, ins, n, n, dev),
+                   KERNEL_ITERS),
+        plain_ms=cuda_ms(lambda: PG.run_plain(prog, ins, n, n, dev),
+                         PLAIN_ITERS),
+        library_ms=None,
+        # read 4 columns (data + validity), write 2 (data + validity) and
+        # the keep mask
+        bound_ms=bound_ms((4 + 1 + 3 * (8 + 1) + 2 * (8 + 1) + 1) * n),
+        shape=f"q1 update: 1 filter + 2 outputs over {n} rows")
+    fn = K48_FLAGSHIP_ROWS
+    data = flagship_data(fn, N_KEYS)
+    fctx = ctx_of([data["a"], data["b"]], (D.INT64, D.FLOAT32), fn)
+    a, b = B(0, D.INT64), B(1, D.FLOAT32)
+    flag = PG.StagePlan(
+        [AR.Add(AR.Multiply(a, L(2)), L(1))],
+        [P.And(P.Not(P.EqualTo(AR.Remainder(a, L(3)), L(0))),
+               P.LessThan(b, L(0.9)))])
+    compare_k48(flag, fctx, "K48 flagship shape", errs)
+    fprog = flag.program
+    fins = flag.inputs(fctx)
+    row.update(
+        ms_flagship=cuda_ms(lambda: PG.stage_program(fprog, fins, fn, fn,
+                                                     dev), KERNEL_ITERS),
+        plain_ms_flagship=cuda_ms(lambda: PG.run_plain(fprog, fins, fn, fn,
+                                                       dev), PLAIN_ITERS),
+        bound_ms_flagship=bound_ms((8 + 1 + 4 + 1 + 8 + 1 + 1) * fn),
+        shape_flagship=f"flagship: 1 filter + 1 output over {fn} rows")
+    log(f"K48: q1 shape {row['ms']:.4f} ms (bound {row['bound_ms']:.4f}, "
+        f"plain {row['plain_ms']:.4f}); flagship shape "
+        f"{row['ms_flagship']:.4f} ms (bound {row['bound_ms_flagship']:.4f},"
+        f" plain {row['plain_ms_flagship']:.4f})")
+    return {"stage_program": row}
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", default=None, metavar="DIR",
@@ -10037,9 +10760,11 @@ def main(argv=None) -> int:
         encoded_edge_cases(dev, errs) + parquet_v2_edge_cases(dev, errs) + \
         orc_edge_cases(dev, errs) + memory_edge_cases(dev, errs) + \
         csv_edge_cases(dev, errs) + string_transform_edge_cases(dev, errs) + \
-        cast_edge_cases(dev, errs) + surface_edge_cases(dev, errs)
+        cast_edge_cases(dev, errs) + surface_edge_cases(dev, errs) + \
+        stage_program_edge_cases(dev, errs)
     log(f"phase 3 edge cases: {n_edge} input sets match their plain "
         f"versions")
+    results["k48_ulp_gaps"] = K48_ULP_GAPS
     sess = srt.new_session({"rapids.tpu.sql.test.enabled": True})
     launches = {}
     CB.reset_launch_counts()
@@ -10067,6 +10792,9 @@ def main(argv=None) -> int:
     results["surface"] = run_surface(tpch_sess, raw, tables, li, wants,
                                      launches, dev, errs)
     surface_rows = results["surface"].pop("kernel_rows")
+    results["expressions"] = run_expressions(tpch_sess, raw, tables, li,
+                                             launches, dev, errs)
+    expr_rows = results["expressions"].pop("kernel_rows")
     results["parquet"] = run_parquet(tpch_sess, raw, tables, wants,
                                      wants["input_rows"], launches,
                                      args.profile)
@@ -10103,7 +10831,8 @@ def main(argv=None) -> int:
                                               args.profile)
     kernels = time_kernels(dev, errs, launches, pr_content, d12_batch_rows(
         results["phase8"]["mortgage_q_delinquency_12"]["joins"]), v2_samples,
-        {**csv_rows, **string_rows, **cast_rows, **surface_rows})
+        {**csv_rows, **string_rows, **cast_rows, **surface_rows,
+         **expr_rows})
     results["kernels"] = kernels
     # no run outside phase 13 (timed or not) retried, split or fell back
     every = fault_counts(start_counters)
@@ -10185,6 +10914,10 @@ def main(argv=None) -> int:
         "surface": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
             "count",)} if k.startswith("surface_") else v)
             for k, v in results["surface"].items()},
+        "expressions": {k: ({kk: vv for kk, vv in v.items() if kk in keep}
+                            if k in EXPR_PROGRAMS else v)
+                        for k, v in results["expressions"].items()},
+        "k48_ulp_gaps": K48_ULP_GAPS,
         "fault_counters": results["fault_counters"],
         "total_s": time.perf_counter() - T0}))
     print(json.dumps({"kernels": kernels}))

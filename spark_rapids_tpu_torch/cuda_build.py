@@ -37,14 +37,17 @@ SOURCES = ("radix_sort", "group_ids", "segment_reduce", "hash_partition",
            "parquet_encode", "dict_encoded", "parquet_delta", "orc_decode",
            "orc_encode", "compact_gather", "csv_parse",
            "string_transform", "cast_format", "cast_parse",
-           "string_arg_extreme")
+           "string_arg_extreme", "stage_program")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 # flags of one source: the casts' double-double arithmetic (Dekker products,
 # compensated sums) needs every product and sum rounded on its own, so
-# nvcc may not contract them into FMAs there
+# nvcc may not contract them into FMAs there; K48's stage programs round
+# each op on its own too, as torch's eager ops do (q1's
+# price * (1 - disc) * (1 + tax) would differ in the last bit otherwise)
 SOURCE_FLAGS = {"cast_format": ("-fmad=false",),
-                "cast_parse": ("-fmad=false",)}
+                "cast_parse": ("-fmad=false",),
+                "stage_program": ("-fmad=false",)}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
@@ -407,6 +410,15 @@ _SIGNATURES = {
         "srt_parse_timestamp": (ctypes.c_int, [
             _VOIDP, _VOIDP, ctypes.c_longlong, _VOIDP, ctypes.c_longlong,
             _VOIDP, _VOIDP, _VOIDP, _VOIDP]),
+    },
+    "stage_program": {
+        "srt_stage_program_max_cols": (ctypes.c_int, []),
+        "srt_stage_program_max_regs": (ctypes.c_int, []),
+        "srt_stage_program": (ctypes.c_int, [
+            _VOIDP, ctypes.c_int, ctypes.c_int, _VOIDP, _VOIDP, _VOIDP,
+            ctypes.c_int, _VOIDP, _VOIDP, _VOIDP, ctypes.c_int,
+            ctypes.c_longlong, _VOIDP, ctypes.c_int, ctypes.c_longlong,
+            _VOIDP, _VOIDP]),
     },
     "substring": {
         "srt_substring_plan": (ctypes.c_int, [

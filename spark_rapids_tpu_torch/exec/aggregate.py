@@ -94,9 +94,9 @@ from spark_rapids_tpu_torch.ops.base import (
 from spark_rapids_tpu_torch.ops.bind import bind_all
 from spark_rapids_tpu_torch.ops.eval import (
     DeviceProjector,
+    StageCache,
     cpu_project,
-    eval_as_col,
-    keep_mask_from_result,
+    stage_context,
 )
 from spark_rapids_tpu_torch.ops.values import ColV, EvalContext
 
@@ -280,27 +280,43 @@ def _row_width(dt: DataType) -> int:
     return 12 if dt is DataType.STRING else to_torch(dt).itemsize
 
 
-def _update(cols, num_rows, capacity, device, bound_keys, bound_inputs,
-            bound_filters, op_names):
-    """Evaluate keys, inputs and folded filters; group and reduce."""
-    ctx = EvalContext(True, cols, num_rows, capacity, device=device)
-    live = ctx.row_mask()
-    for f in bound_filters:
-        live = live & keep_mask_from_result(ctx, f.eval(ctx))
-    key_cols = [eval_as_col(ctx, e) for e in bound_keys]
-    # one evaluation and one masked validity per distinct input; the
-    # percentiles of one input share one K19 sort
-    inputs: Dict[Any, Tuple[Any, Any]] = {}
-    in_of, pct, rest = [], {}, []
-    for i, (op, e) in enumerate(zip(op_names, bound_inputs)):
-        key = e.fingerprint() if e.deterministic else i
-        if key not in inputs:
-            cv = eval_as_col(ctx, e)
-            inputs[key] = (cv if cv.offsets is not None else cv.data,
-                           cv.validity & live)
-        in_of.append(key)
+class _UpdateStage:
+    """The K48 program of an update: the folded filters keep rows, the
+    keys and each distinct input are its outputs (the reference folds them
+    into B6's stage program, exec/aggregate.py:296)."""
+
+    def __init__(self, keys, inputs, filters):
+        from spark_rapids_tpu_torch.ops.program import StagePlan
+
+        self.n_keys = len(keys)
+        self.in_of: List[int] = []
+        distinct: List[Expression] = []
+        seen: Dict[Any, int] = {}
+        for i, e in enumerate(inputs):
+            key = e.fingerprint() if e.deterministic else i
+            if key not in seen:
+                seen[key] = len(distinct)
+                distinct.append(e)
+            self.in_of.append(seen[key])
+        self.plan = StagePlan(list(keys) + distinct, filters)
+
+
+def _update(ctx: EvalContext, stage: _UpdateStage, op_names):
+    """Evaluate keys, inputs and folded filters (one K48 launch); group
+    and reduce."""
+    capacity = ctx.capacity
+    outs, keep = stage.plan.run(ctx)
+    live = keep if keep is not None else ctx.row_mask()
+    key_cols = outs[:stage.n_keys]
+    # one masked validity per distinct input; the percentiles of one
+    # input share one K19 sort
+    inputs = {k: (cv if cv.offsets is not None else cv.data,
+                  cv.validity & live)
+              for k, cv in enumerate(outs[stage.n_keys:])}
+    in_of, pct, rest = stage.in_of, {}, []
+    for i, op in enumerate(op_names):
         if op.startswith("pct:"):
-            pct.setdefault(key, []).append(i)
+            pct.setdefault(in_of[i], []).append(i)
         else:
             rest.append(i)
     gi = _group_info(key_cols, live, capacity)
@@ -524,27 +540,18 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
             return assemble(out, batch.capacity, True, {
                 i: batch.columns[i].dictionary for i in enc})
 
-        plans: Dict[tuple, Any] = {}
+        stages = StageCache(
+            lambda b: E.plan_agg_update(b, bound_keys, bound_inputs,
+                                        bound_filters, op_names),
+            lambda p: _UpdateStage(p.keys, p.inputs, p.filters)
+            if p is not None else _UpdateStage(bound_keys, bound_inputs,
+                                                bound_filters))
 
         def update(batch: ColumnarBatch) -> ColumnarBatch:
-            sig = E.enc_sig(batch)
-            keys, inputs, filters = bound_keys, bound_inputs, bound_filters
-            dicts: Dict[int, Any] = {}
-            code_ords = ()
-            if sig:
-                plan = plans.get(sig)
-                if plan is None:
-                    if len(plans) >= 64:
-                        plans.clear()
-                    plan = plans[sig] = E.plan_agg_update(
-                        batch, bound_keys, bound_inputs, bound_filters,
-                        op_names)
-                batch = plan.prepare(batch)
-                keys, inputs, filters = plan.keys, plan.inputs, plan.filters
-                dicts, code_ords = plan.out_dicts, plan.code_ords
-            out = _update(E.eval_columns(batch, code_ords), batch.num_rows,
-                          batch.capacity, device, keys, inputs, filters,
-                          op_names)
+            plan, stage = stages.get(batch)
+            batch, ectx = stage_context(plan, batch)
+            out = _update(ectx, stage, op_names)
+            dicts = plan.out_dicts if plan is not None else {}
             return assemble(out, batch.capacity, True, dicts)
 
         def agg_partition(pidx: int):

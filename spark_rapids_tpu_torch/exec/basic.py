@@ -117,6 +117,12 @@ class RangeExec(CpuExec):
         return PartitionedBatches(self.num_parts, factory)
 
 
+def _positional(exprs) -> bool:
+    """Expressions whose values follow a row's position in its partition
+    (the nondeterministic ones: rand, monotonically_increasing_id)."""
+    return not all(e.deterministic for e in exprs)
+
+
 class TpuProjectExec(TpuExec):
     def __init__(self, project_list: Sequence[Expression], child: PhysicalExec):
         super().__init__(child)
@@ -139,20 +145,27 @@ class TpuProjectExec(TpuExec):
         projector = self._projector
         bound = self._bound
 
+        positional = _positional(self.project_list)
+
         def factory(pidx: int) -> Iterator:
+            row_start = 0
             for batch in child_pb.iterator(pidx):
                 # spill + retry around the projection, bisection of the
                 # batch, then the CPU engine (reference :152); `off` is a
-                # split piece's first row in the batch
+                # split piece's first row in the batch, row_start the
+                # batch's in its partition (read only for rand and
+                # monotonically_increasing_id, whose values follow it)
                 yield from R.device_op_with_fallback(
                     lambda b, off: R.with_retry(
-                        lambda: projector.project(b, partition_id=pidx,
-                                                  row_start=off),
+                        lambda: projector.project(
+                            b, partition_id=pidx, row_start=row_start + off),
                         site="project"),
                     batch,
                     lambda hb, off: cpu_project(bound, hb, partition_id=pidx,
-                                                row_start=off),
+                                                row_start=row_start + off),
                     site="project")
+                if positional:
+                    row_start += rows_of(batch)
 
         return PartitionedBatches(
             child_pb.num_partitions,
@@ -180,8 +193,11 @@ class CpuProjectExec(CpuExec):
         bound = self._bound
 
         def factory(pidx: int) -> Iterator:
+            row_start = 0
             for batch in child_pb.iterator(pidx):
-                yield cpu_project(bound, batch, partition_id=pidx)
+                yield cpu_project(bound, batch, partition_id=pidx,
+                                  row_start=row_start)
+                row_start += batch.num_rows
 
         return PartitionedBatches(
             child_pb.num_partitions,
@@ -214,17 +230,23 @@ class TpuFilterExec(TpuExec):
         sync = ctx.conf.get(C.FILTER_COMPACT_SYNC) != "never"
         bound = self._bound
 
+        positional = _positional([self.condition])
+
         def factory(pidx: int) -> Iterator:
+            row_start = 0
             for batch in child_pb.iterator(pidx):
                 yield from R.device_op_with_fallback(
                     lambda b, off: R.with_retry(
                         lambda: filt.apply(b, partition_id=pidx,
-                                           row_start=off, sync=sync),
+                                           row_start=row_start + off,
+                                           sync=sync),
                         site="filter"),
                     batch,
                     lambda hb, off: cpu_filter(bound, hb, partition_id=pidx,
-                                               row_start=off),
+                                               row_start=row_start + off),
                     site="filter")
+                if positional:
+                    row_start += rows_of(batch)
 
         return PartitionedBatches(
             child_pb.num_partitions,
@@ -252,8 +274,11 @@ class CpuFilterExec(CpuExec):
         bound = self._bound
 
         def factory(pidx: int) -> Iterator:
+            row_start = 0
             for batch in child_pb.iterator(pidx):
-                yield cpu_filter(bound, batch, partition_id=pidx)
+                yield cpu_filter(bound, batch, partition_id=pidx,
+                                 row_start=row_start)
+                row_start += batch.num_rows
 
         return PartitionedBatches(
             child_pb.num_partitions,

@@ -8,7 +8,8 @@ Expand applies every projection list to every input batch and emits one
 output batch per list, in list order (rollup / cube feed the null-filled
 keys and the grouping id through it). On the card each list is one
 DeviceProjector; a bare reference to an encoded column passes through
-encoded. Expand is not fused into its neighbours, as in the reference.
+encoded. A scan-form fused stage (exec/fused.py) may take an Expand
+with its neighbouring filters and projections.
 
 Output row i * k + j holds input row i's columns and element j of its
 array, interleaved in Spark's row order. On the card one launch of the

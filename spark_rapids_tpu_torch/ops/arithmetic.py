@@ -26,7 +26,11 @@ from spark_rapids_tpu_torch.columnar.dtypes import (
     to_torch,
 )
 from spark_rapids_tpu_torch.ops import decimal_util as DU
-from spark_rapids_tpu_torch.ops.base import BinaryExpression, _d
+from spark_rapids_tpu_torch.ops.base import (
+    BinaryExpression,
+    UnaryExpression,
+    _d,
+)
 from spark_rapids_tpu_torch.ops.values import ColV, ScalarV, zero_nulls
 
 
@@ -321,3 +325,110 @@ class Divide(BinaryArithmetic):
         l = np.asarray(l, dtype=np.float64)
         r = np.asarray(r, dtype=np.float64)
         return l / np.where(r == 0, 1.0, r)
+
+
+def _trunc_div(l, r):
+    """Integer division toward zero, the divisor never 0; INT64_MIN div -1
+    wraps (torch's trunc division of it is undefined, so -1 negates)."""
+    if isinstance(l, torch.Tensor) or isinstance(r, torch.Tensor):
+        dev = (l if isinstance(l, torch.Tensor) else r).device
+        l = torch.as_tensor(l, dtype=torch.int64, device=dev)
+        r = torch.as_tensor(r, dtype=torch.int64, device=dev)
+        minus_one = r == -1
+        safe = torch.where(minus_one, torch.ones_like(r), r)
+        return torch.where(minus_one, -l,
+                           torch.div(l, safe, rounding_mode="trunc"))
+    l = np.asarray(l, dtype=np.int64)
+    r = np.asarray(r, dtype=np.int64)
+    q = l // r
+    rem = l - q * r
+    return q + ((rem != 0) & ((l < 0) ^ (r < 0))).astype(np.int64)
+
+
+class IntegralDivide(BinaryExpression):
+    """SQL div: integer division toward zero returning LONG (reference
+    :261, Spark IntegralDivide); x div 0 is NULL. Over a DECIMAL operand
+    both sides come to one scale first, and an overflow there is NULL
+    (reference :297-318)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT64
+
+    @property
+    def nullable(self):
+        return True
+
+    def eval_kernel(self, ctx, lv, rv):
+        return _zero_divisor_nulls(ctx, super().eval_kernel(ctx, lv, rv), rv)
+
+    def do_columnar(self, ctx, lv, rv):
+        l, r = _d(lv), _d(rv)
+        lt, rt = self.left.data_type, self.right.data_type
+        ok = None
+        if is_decimal(lt) or is_decimal(rt):
+            s1 = lt.scale if is_decimal(lt) else 0
+            s2 = rt.scale if is_decimal(rt) else 0
+            l, r = DU._i64(l), DU._i64(r)
+            if s2 > s1:
+                l, ok = DU.checked_mul_pow10(l, s2 - s1)
+            elif s1 > s2:
+                r, ok = DU.checked_mul_pow10(r, s1 - s2)
+        if isinstance(r, (torch.Tensor, np.ndarray)):
+            r = DU._where(r == 0, 1, r)
+        elif r == 0:
+            r = 1
+        q = _trunc_div(l, r)
+        if ok is None:
+            return q
+        return ColV(DataType.INT64, DU._where(ok, q, 0), ok)
+
+
+class UnaryMinus(UnaryExpression):
+    """-x; integers wrap at their type (-INT_MIN == INT_MIN)."""
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def do_columnar(self, ctx, v):
+        return -v.data
+
+
+class UnaryPositive(UnaryExpression):
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def do_columnar(self, ctx, v):
+        return v.data
+
+
+class Abs(UnaryExpression):
+    """abs(x); integers wrap at their type (abs(INT_MIN) == INT_MIN)."""
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def do_columnar(self, ctx, v):
+        d = v.data
+        return torch.abs(d) if isinstance(d, torch.Tensor) else np.abs(d)
+
+
+class Signum(UnaryExpression):
+    """signum(x) as a DOUBLE. The card keeps NaN and a signed zero, as the
+    reference's device path (jnp.sign) does; the CPU engine is numpy's
+    sign, as the reference's CPU engine (NaN stays, -0.0 gives 0.0)."""
+
+    @property
+    def data_type(self):
+        return DataType.FLOAT64
+
+    def do_columnar(self, ctx, v):
+        d = v.data
+        if isinstance(d, torch.Tensor):
+            d = d.to(torch.float64)
+            one = torch.ones((), dtype=torch.float64, device=d.device)
+            return torch.where(d > 0, one, torch.where(d < 0, -one, d))
+        return np.sign(d).astype(np.float64)

@@ -1,7 +1,9 @@
 """Date and time parts (port of spark_rapids_tpu/ops/datetimeops.py :18-108,
 Quarter :231 and UnixTimestamp :157; reference: datetimeExpressions.scala
 — year, month, dayofmonth, quarter, hour, minute, second,
-unix_timestamp). UTC only, as in the reference.
+unix_timestamp, and datediff, date_add, date_sub, last_day, dayofweek,
+weekday, dayofyear, to_unix_timestamp, from_unixtime :112-229). UTC only,
+as in the reference.
 
 Calendar math is Howard Hinnant's civil-from-days algorithm: integer ops
 only, elementwise, the same code on torch tensors (the card) and numpy
@@ -17,7 +19,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
-from spark_rapids_tpu_torch.ops.base import UnaryExpression
+from spark_rapids_tpu_torch.ops.base import BinaryExpression, UnaryExpression, _d
 from spark_rapids_tpu_torch.ops.values import where
 
 from spark_rapids_tpu_torch.ops.cast import MICROS_PER_DAY, MICROS_PER_SEC
@@ -26,12 +28,16 @@ from spark_rapids_tpu_torch.ops.cast import MICROS_PER_DAY, MICROS_PER_SEC
 def _i32(x):
     if isinstance(x, torch.Tensor):
         return x.to(torch.int32)
+    if isinstance(x, (int, np.integer)):
+        return np.int32(np.int64(x).astype(np.int32))
     return np.asarray(x).astype(np.int32)
 
 
 def _i64(x):
     if isinstance(x, torch.Tensor):
         return x.to(torch.int64)
+    if isinstance(x, (int, np.integer)):
+        return np.int64(x)
     return np.asarray(x).astype(np.int64)
 
 
@@ -147,3 +153,110 @@ class UnixTimestamp(UnaryExpression):
         if self.child.data_type is DataType.DATE:
             return _i64(v.data) * 86_400
         return _i64(v.data) // MICROS_PER_SEC
+
+
+def _days(v, dtype: DataType):
+    """Epoch days of a DATE or TIMESTAMP value, int64."""
+    days = _i64(v)
+    if dtype is DataType.TIMESTAMP:
+        days = days // MICROS_PER_DAY
+    return days
+
+
+class DateDiff(BinaryExpression):
+    """datediff(end, start) in days (reference :112)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, lv, rv):
+        return _i32(_d(lv)) - _i32(_d(rv))
+
+
+class DateAdd(BinaryExpression):
+    """date_add(start, days) (reference :123)."""
+
+    @property
+    def data_type(self):
+        return DataType.DATE
+
+    def do_columnar(self, ctx, lv, rv):
+        return _i32(_d(lv)) + _i32(_d(rv))
+
+
+class DateSub(BinaryExpression):
+    @property
+    def data_type(self):
+        return DataType.DATE
+
+    def do_columnar(self, ctx, lv, rv):
+        return _i32(_d(lv)) - _i32(_d(rv))
+
+
+class LastDay(UnaryExpression):
+    """The last day of the date's month (reference :142)."""
+
+    @property
+    def data_type(self):
+        return DataType.DATE
+
+    def do_columnar(self, ctx, v):
+        y, m, _ = civil_from_days(_i64(v.data))
+        ny = where(m == 12, y + 1, y)
+        nm = where(m == 12, 1, m + 1)
+        first_next = days_from_civil(ny, nm, _i32(nm * 0 + 1))
+        return _i32(_i64(first_next) - 1)
+
+
+class ToUnixTimestamp(UnixTimestamp):
+    """to_unix_timestamp(ts): unix_timestamp's kernel (reference :169)."""
+
+
+class FromUnixTime(UnaryExpression):
+    """from_unixtime(seconds) -> TIMESTAMP (default format path only,
+    reference :177)."""
+
+    @property
+    def data_type(self):
+        return DataType.TIMESTAMP
+
+    def do_columnar(self, ctx, v):
+        return _i64(v.data) * MICROS_PER_SEC
+
+
+class DayOfWeek(UnaryExpression):
+    """1 = Sunday .. 7 = Saturday (reference :188)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        return _i32((_days(v.data, self.child.data_type) + 4) % 7 + 1)
+
+
+class WeekDay(UnaryExpression):
+    """0 = Monday .. 6 = Sunday (reference :202)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        return _i32((_days(v.data, self.child.data_type) + 3) % 7)
+
+
+class DayOfYear(UnaryExpression):
+    """1-based day of the year (reference :216)."""
+
+    @property
+    def data_type(self):
+        return DataType.INT32
+
+    def do_columnar(self, ctx, v):
+        days = _days(v.data, self.child.data_type)
+        y = civil_from_days(days)[0]
+        one = _i32(_i64(y) * 0 + 1)
+        jan1 = days_from_civil(y, one, one)
+        return _i32(days - _i64(jan1) + 1)

@@ -1,16 +1,19 @@
 """Projection/filter evaluation entry points (port of spark_rapids_tpu/ops/eval.py).
 
-Device path: the bound expression trees evaluate eagerly as torch ops on
-the card (the reference traces them into one jitted XLA program; the
-hand-written fused-stage kernel is ROADMAP item B6). CPU path: the same
-trees evaluate with numpy — the independent oracle engine.
+Device path: a projection list or a filter condition runs as one K48
+stage program a batch (ops/program.py, csrc/stage_program.cu; the
+reference traces it into one jitted XLA program, B6). Outputs the program
+does not take (a computed STRING, a nondeterministic node) evaluate
+eagerly as before; a bare column passes through untouched. CPU path: the
+same trees evaluate with numpy — the independent oracle engine.
 
 Encoded columns (columnar/encoded.py): `col_to_colv` refuses a
 DictionaryColumn, so no value kernel ever reads codes as values (the
 reference's guard, eval.py:51-60). The projector passes a bare encoded
 reference through, rewrites predicates it can compute on codes and
 materializes the columns of the rest; the filter plans its condition the
-same way (reference :130, :202-256, :282, :326).
+same way (reference :130, :202-256, :282, :326). The rewritten code
+predicates are integer comparisons, which the program takes.
 """
 
 from __future__ import annotations
@@ -108,102 +111,90 @@ def eval_as_col(ctx: EvalContext, e: Expression) -> ColV:
     return r
 
 
-def keep_mask_from_result(ctx: EvalContext, r):
-    """Keep mask of a filter condition: true AND non-null (SQL drops a row
-    whose condition is NULL); shared by DeviceFilter and the aggregate's
-    folded filters so the two can never diverge on null semantics."""
-    if isinstance(r, ScalarV):
-        return ctx.bools((not r.is_null) and bool(r.value))
-    data = r.data if r.data.dtype == torch.bool else r.data != 0
-    return data & r.validity
-
-
-class _CodePlans:
-    """Code-space plans of fixed expressions, one per set of batch
-    dictionaries (bounded; dictionaries are interned)."""
+class StageCache:
+    """An operator's code-space plan and K48 StagePlan, one pair per set
+    of batch dictionaries (bounded; dictionaries are interned).
+    `code_plan(batch)` plans an encoded batch (columnar/encoded.py);
+    `stage(plan)` builds the StagePlan of the planned expressions, or of
+    the operator's own when `plan` is None (nothing encoded)."""
 
     _MAX = 64
 
-    def __init__(self, exprs, keep_bare: bool):
-        self.exprs = list(exprs)
-        self.keep_bare = keep_bare
-        self._plans: dict = {}
+    def __init__(self, code_plan, stage):
+        self._code_plan = code_plan
+        self._stage = stage
+        self._got: dict = {}
 
     def get(self, batch: ColumnarBatch):
-        from spark_rapids_tpu_torch.columnar import encoded as E
+        from spark_rapids_tpu_torch.columnar.encoded import enc_sig
 
-        sig = E.enc_sig(batch)
-        if not sig:
-            return None
-        plan = self._plans.get(sig)
-        if plan is None:
-            if len(self._plans) >= self._MAX:
-                self._plans.clear()
-            plan = E.plan_exprs(self.exprs, batch, self.keep_bare)
-            self._plans[sig] = plan
-        return plan
+        sig = enc_sig(batch)
+        got = self._got.get(sig)
+        if got is None:
+            if len(self._got) >= self._MAX:
+                self._got.clear()
+            plan = self._code_plan(batch) if sig else None
+            got = self._got[sig] = (plan, self._stage(plan))
+        return got
 
 
-def _planned_context(plans: _CodePlans, batch: ColumnarBatch,
-                     partition_id: int, row_start: int):
-    """(prepared batch, eval context, expressions) of a batch: the batch
-    itself when nothing is encoded."""
-    plan = plans.get(batch)
+def stage_context(plan, batch: ColumnarBatch, partition_id: int = 0,
+                  row_start: int = 0):
+    """(prepared batch, eval context) of a batch under its code plan (the
+    batch itself when `plan` is None)."""
     if plan is None:
-        return batch, device_eval_context(batch, partition_id,
-                                          row_start), plans.exprs
+        return batch, device_eval_context(batch, partition_id, row_start)
     from spark_rapids_tpu_torch.columnar.encoded import eval_columns
 
     batch = plan.prepare(batch)
-    ctx = EvalContext(True, eval_columns(batch, plan.code_ords),
-                      batch.num_rows, batch.capacity,
-                      partition_id=partition_id, row_start=row_start,
-                      device=batch.device)
-    return batch, ctx, plan.exprs
+    return batch, EvalContext(True, eval_columns(batch, plan.code_ords),
+                              batch.num_rows, batch.capacity,
+                              partition_id=partition_id,
+                              row_start=row_start, device=batch.device)
 
 
 class DeviceProjector:
     """Evaluates a fixed list of bound expressions over device batches
-    (reference: GpuProjectExec's bound-expression evaluation). A bare
-    reference to an encoded column passes it through encoded."""
+    (reference: GpuProjectExec's bound-expression evaluation) as one K48
+    launch a batch. A bare reference to an encoded column passes it
+    through encoded."""
 
     def __init__(self, exprs: Sequence[Expression]):
+        from spark_rapids_tpu_torch.columnar import encoded as E
+        from spark_rapids_tpu_torch.ops.program import StagePlan
+
         self.exprs = list(exprs)
-        self._plans = _CodePlans(self.exprs, keep_bare=True)
+        self._stages = StageCache(
+            lambda b: E.plan_exprs(self.exprs, b, keep_bare=True),
+            lambda p: StagePlan(p.exprs if p is not None else self.exprs))
 
     def project(self, batch: ColumnarBatch, partition_id: int = 0,
                 row_start: int = 0) -> ColumnarBatch:
-        from spark_rapids_tpu_torch.ops.base import Alias, BoundReference
-
-        batch, ctx, exprs = _planned_context(self._plans, batch,
-                                             partition_id, row_start)
-        outs = []
-        for e in exprs:
-            inner = e.child if isinstance(e, Alias) else e
-            if isinstance(inner, BoundReference) and getattr(
-                    batch.columns[inner.ordinal], "dictionary",
-                    None) is not None:
-                outs.append(batch.columns[inner.ordinal])
-            else:
-                outs.append(colv_to_col(eval_as_col(ctx, e)))
-        return ColumnarBatch(outs, batch.num_rows)
+        plan, stage = self._stages.get(batch)
+        batch, ctx = stage_context(plan, batch, partition_id, row_start)
+        return stage.run_batch(batch, ctx)[0]
 
 
 class DeviceFilter:
-    """Evaluates the condition on the card and compacts the kept rows
-    (reference: GpuFilterExec + cudf Table.filter); over encoded columns
-    the condition runs in code space where it can."""
+    """Evaluates the condition on the card as a K48 program whose keep
+    mask K31 compacts (reference: GpuFilterExec + cudf Table.filter);
+    over encoded columns the condition runs in code space where it can."""
 
     def __init__(self, condition: Expression):
+        from spark_rapids_tpu_torch.columnar import encoded as E
+        from spark_rapids_tpu_torch.ops.program import StagePlan
+
         self.condition = condition
-        self._plans = _CodePlans([condition], keep_bare=False)
+        self._stages = StageCache(
+            lambda b: E.plan_exprs([condition], b, keep_bare=False),
+            lambda p: StagePlan([], p.exprs if p is not None
+                                else [condition]))
 
     def apply(self, batch: ColumnarBatch, partition_id: int = 0,
               row_start: int = 0, sync: bool = True) -> ColumnarBatch:
-        batch, ctx, exprs = _planned_context(self._plans, batch,
-                                             partition_id, row_start)
-        keep = keep_mask_from_result(ctx, exprs[0].eval(ctx)) & \
-            ctx.row_mask()
+        plan, stage = self._stages.get(batch)
+        batch, ctx = stage_context(plan, batch, partition_id, row_start)
+        _, keep = stage.run(ctx)
         return compact_batch(batch, keep, sync)
 
 

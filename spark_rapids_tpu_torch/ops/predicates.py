@@ -243,3 +243,54 @@ class In(Expression):
                 acc = acc | EqualTo._cmp(*_operands(v, c))
         validity = v.validity & (acc | ctx.bools(not has_null_candidate))
         return ColV(DataType.BOOL, acc & validity, validity)
+
+
+class EqualNullSafe(BinaryExpression):
+    """<=>: null-safe equality, NULL <=> NULL is true and the result is
+    never NULL (reference :99). A scalar side broadcasts at its own type,
+    so two sides compare at their common type."""
+
+    @property
+    def data_type(self):
+        return DataType.BOOL
+
+    @property
+    def nullable(self):
+        return False
+
+    def eval_kernel(self, ctx, lv, rv):
+        from spark_rapids_tpu_torch.ops.values import broadcast_scalar
+
+        if self.left.data_type is DataType.STRING:
+            from spark_rapids_tpu_torch.columnar import strings as S
+
+            if isinstance(lv, ScalarV) and isinstance(rv, ScalarV):
+                return ScalarV(DataType.BOOL, lv.value == rv.value)
+            if isinstance(lv, ScalarV) and lv.is_null or \
+                    isinstance(rv, ScalarV) and rv.is_null:
+                eq = ctx.bools(False)
+            else:
+                eq = S.string_compare(ctx, lv, rv, "eq")
+            lvalid = lv.validity if isinstance(lv, ColV) else \
+                ctx.bools(not lv.is_null)
+            rvalid = rv.validity if isinstance(rv, ColV) else \
+                ctx.bools(not rv.is_null)
+        else:
+            if isinstance(lv, ScalarV) and isinstance(rv, ScalarV):
+                if lv.is_null or rv.is_null:
+                    return ScalarV(DataType.BOOL, lv.is_null and rv.is_null)
+                return ScalarV(DataType.BOOL, bool(lv.value == rv.value))
+            lc = broadcast_scalar(ctx, lv) if isinstance(lv, ScalarV) else lv
+            rc = broadcast_scalar(ctx, rv) if isinstance(rv, ScalarV) else rv
+            l, r = lc.data, rc.data
+            if isinstance(l, torch.Tensor) and l.dtype != r.dtype:
+                common = torch.promote_types(l.dtype, r.dtype)
+                l, r = l.to(common), r.to(common)
+            eq = l == r
+            lvalid, rvalid = lc.validity, rc.validity
+        data = (lvalid & rvalid & eq) | (~lvalid & ~rvalid)
+        validity = ctx.bools(True)
+        if ctx.is_device:
+            validity = validity & ctx.row_mask()
+            data = data & validity
+        return ColV(DataType.BOOL, data, validity)

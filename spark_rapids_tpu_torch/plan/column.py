@@ -9,11 +9,13 @@ from typing import Any
 
 from spark_rapids_tpu_torch.columnar.dtypes import DataType
 from spark_rapids_tpu_torch.ops.arithmetic import (
+    Abs,
     Add,
     Divide,
     Multiply,
     Remainder,
     Subtract,
+    UnaryMinus,
 )
 from spark_rapids_tpu_torch.ops.base import Alias, Expression, SortOrder
 from spark_rapids_tpu_torch.ops.cast import Cast
@@ -21,6 +23,7 @@ from spark_rapids_tpu_torch.ops.literals import Literal
 from spark_rapids_tpu_torch.ops.nulls import IsNotNull, IsNull
 from spark_rapids_tpu_torch.ops.predicates import (
     And,
+    EqualNullSafe,
     EqualTo,
     GreaterThan,
     GreaterThanOrEqual,
@@ -81,6 +84,15 @@ class Column:
         return Column(Remainder(self.expr, _to_expr(other)))
 
     # -- comparisons ---------------------------------------------------------
+    def __neg__(self):
+        return Column(UnaryMinus(self.expr))
+
+    def __abs__(self):
+        return Column(Abs(self.expr))
+
+    def eqNullSafe(self, other):
+        return Column(EqualNullSafe(self.expr, _to_expr(other)))
+
     def __eq__(self, other):  # type: ignore[override]
         return Column(EqualTo(self.expr, _to_expr(other)))
 

@@ -1,5 +1,8 @@
-"""User-facing function library (port of spark_rapids_tpu/plan/functions.py,
-with the functions whose expressions the port has)."""
+"""User-facing function library (port of spark_rapids_tpu/plan/functions.py).
+
+`from_unixtime` takes the default format only: the reference's passes a
+second argument to a one-argument expression and raises TypeError
+(ROADMAP §3), and the port's expression formats nothing."""
 
 from __future__ import annotations
 
@@ -7,8 +10,10 @@ from typing import Any, Union
 
 from spark_rapids_tpu_torch.ops import aggregates as A
 from spark_rapids_tpu_torch.ops import arithmetic as AR
+from spark_rapids_tpu_torch.ops import bitwise as B
 from spark_rapids_tpu_torch.ops import datetimeops as DT
 from spark_rapids_tpu_torch.ops import mathx as MX
+from spark_rapids_tpu_torch.ops import misc as MISC
 from spark_rapids_tpu_torch.ops import nulls as N
 from spark_rapids_tpu_torch.ops import stringops as S
 from spark_rapids_tpu_torch.ops import window as W
@@ -187,6 +192,143 @@ def unix_timestamp(c: ColumnOrName) -> Column:
 
 
 # -- math (reference :143) ---------------------------------------------------
+def dayofweek(c: ColumnOrName) -> Column:
+    return Column(DT.DayOfWeek(_c(c)))
+
+
+def weekday(c: ColumnOrName) -> Column:
+    return Column(DT.WeekDay(_c(c)))
+
+
+def dayofyear(c: ColumnOrName) -> Column:
+    return Column(DT.DayOfYear(_c(c)))
+
+
+def last_day(c: ColumnOrName) -> Column:
+    return Column(DT.LastDay(_c(c)))
+
+
+def datediff(end: ColumnOrName, start: ColumnOrName) -> Column:
+    return Column(DT.DateDiff(_c(end), _c(start)))
+
+
+def date_add(c: ColumnOrName, days) -> Column:
+    return Column(DT.DateAdd(_c(c), _to_expr(days)))
+
+
+def date_sub(c: ColumnOrName, days) -> Column:
+    return Column(DT.DateSub(_c(c), _to_expr(days)))
+
+
+def to_unix_timestamp(c: ColumnOrName) -> Column:
+    return Column(DT.ToUnixTimestamp(_c(c)))
+
+
+def from_unixtime(c: ColumnOrName, fmt: str = "yyyy-MM-dd HH:mm:ss") -> Column:
+    if fmt != "yyyy-MM-dd HH:mm:ss":
+        raise ValueError(f"from_unixtime: format {fmt!r} is not supported "
+                         "(the default format only)")
+    return Column(DT.FromUnixTime(_c(c)))
+
+
+# -- math (reference :113-182) -------------------------------------------------
+def _unary(klass):
+    def fn(c: ColumnOrName) -> Column:
+        return Column(klass(_c(c)))
+    fn.__name__ = klass.__name__.lower()
+    return fn
+
+
+sqrt = _unary(MX.Sqrt)
+exp = _unary(MX.Exp)
+expm1 = _unary(MX.Expm1)
+log = _unary(MX.Log)
+log1p = _unary(MX.Log1p)
+log2 = _unary(MX.Log2)
+log10 = _unary(MX.Log10)
+cbrt = _unary(MX.Cbrt)
+sin = _unary(MX.Sin)
+cos = _unary(MX.Cos)
+tan = _unary(MX.Tan)
+asin = _unary(MX.Asin)
+acos = _unary(MX.Acos)
+atan = _unary(MX.Atan)
+sinh = _unary(MX.Sinh)
+cosh = _unary(MX.Cosh)
+tanh = _unary(MX.Tanh)
+asinh = _unary(MX.Asinh)
+acosh = _unary(MX.Acosh)
+atanh = _unary(MX.Atanh)
+cot = _unary(MX.Cot)
+rint = _unary(MX.Rint)
+degrees = _unary(MX.ToDegrees)
+radians = _unary(MX.ToRadians)
+abs_ = _unary(AR.Abs)
+signum = _unary(AR.Signum)
+
+
+def pow(a: ColumnOrName, b) -> Column:  # noqa: A001
+    return Column(MX.Pow(_c(a), _to_expr(b)))
+
+
+def log_base(base, c: ColumnOrName) -> Column:
+    """log(base, x) (Spark's two-argument log)."""
+    return Column(MX.Logarithm(_to_expr(base), _c(c)))
+
+
+def atan2(a: ColumnOrName, b) -> Column:
+    return Column(MX.Atan2(_c(a), _to_expr(b)))
+
+
+def shiftleft(c: ColumnOrName, n: int) -> Column:
+    return Column(B.ShiftLeft(_c(c), Literal(n)))
+
+
+def shiftright(c: ColumnOrName, n: int) -> Column:
+    return Column(B.ShiftRight(_c(c), Literal(n)))
+
+
+def shiftrightunsigned(c: ColumnOrName, n: int) -> Column:
+    return Column(B.ShiftRightUnsigned(_c(c), Literal(n)))
+
+
+def bitwise_not(c: ColumnOrName) -> Column:
+    return Column(B.BitwiseNot(_c(c)))
+
+
+def isnan(c: ColumnOrName) -> Column:
+    return Column(N.IsNan(_c(c)))
+
+
+def nanvl(a: ColumnOrName, b: ColumnOrName) -> Column:
+    return Column(N.NaNvl(_c(a), _c(b)))
+
+
+# -- nondeterministic and context (reference :321-342) ------------------------
+def rand(seed: int = 0) -> Column:
+    return Column(MISC.Rand(seed))
+
+
+def monotonically_increasing_id() -> Column:
+    return Column(MISC.MonotonicallyIncreasingID())
+
+
+def spark_partition_id() -> Column:
+    return Column(MISC.SparkPartitionID())
+
+
+def input_file_name() -> Column:
+    return Column(MISC.InputFileName())
+
+
+def input_file_block_start() -> Column:
+    return Column(MISC.InputFileBlockStart())
+
+
+def input_file_block_length() -> Column:
+    return Column(MISC.InputFileBlockLength())
+
+
 def floor(c: ColumnOrName) -> Column:
     return Column(MX.Floor(_c(c)))
 

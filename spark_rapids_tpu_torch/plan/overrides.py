@@ -17,8 +17,10 @@ from spark_rapids_tpu_torch.exec import basic as B
 from spark_rapids_tpu_torch.exec.base import PhysicalExec
 from spark_rapids_tpu_torch.ops import aggregates as AGG
 from spark_rapids_tpu_torch.ops import arithmetic as AR
+from spark_rapids_tpu_torch.ops import bitwise as BW
 from spark_rapids_tpu_torch.ops import datetimeops as DT
 from spark_rapids_tpu_torch.ops import mathx as MX
+from spark_rapids_tpu_torch.ops import misc as MISC
 from spark_rapids_tpu_torch.ops import nulls as N
 from spark_rapids_tpu_torch.ops import predicates as P
 from spark_rapids_tpu_torch.ops import stringops as S
@@ -225,13 +227,30 @@ def _register_expr_rules():
     r(Literal, "literal value (numeric, boolean, DATE, TIMESTAMP, DECIMAL, "
                "STRING)")
     r(Cast, "cast between types", tag_fn=_tag_cast)
-    for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide, AR.Remainder,
-                AR.Pmod):
+    for cls in (AR.Add, AR.Subtract, AR.Multiply, AR.Divide,
+                AR.IntegralDivide, AR.Remainder, AR.Pmod, AR.UnaryMinus,
+                AR.UnaryPositive, AR.Abs, AR.Signum):
         r(cls, f"arithmetic {cls.__name__}")
     for cls in (P.EqualTo, P.LessThan, P.LessThanOrEqual, P.GreaterThan,
-                P.GreaterThanOrEqual, P.And, P.Or, P.Not, P.In):
+                P.GreaterThanOrEqual, P.EqualNullSafe, P.And, P.Or, P.Not,
+                P.In):
         r(cls, f"predicate {cls.__name__}")
-    for cls in (N.IsNull, N.IsNotNull, N.Coalesce):
+    # math (reference :113-124): transcendental results can differ in ulps
+    # from the CPU engine's libm
+    for cls in (MX.Sin, MX.Cos, MX.Tan, MX.Asin, MX.Acos, MX.Atan, MX.Sinh,
+                MX.Cosh, MX.Tanh, MX.Asinh, MX.Acosh, MX.Atanh, MX.Cot,
+                MX.Exp, MX.Expm1, MX.Log, MX.Log1p, MX.Log2, MX.Log10,
+                MX.Sqrt, MX.Cbrt, MX.Pow, MX.Atan2, MX.Logarithm):
+        r(cls, f"math {cls.__name__}",
+          incompat="floating point results may differ in ulps from the CPU")
+    for cls in (MX.Rint, MX.ToDegrees, MX.ToRadians):
+        r(cls, f"math {cls.__name__}")
+    r(MX.NormalizeNaNAndZero, "normalize -0.0 and NaN for float keys")
+    for cls in (BW.BitwiseAnd, BW.BitwiseOr, BW.BitwiseXor, BW.BitwiseNot,
+                BW.ShiftLeft, BW.ShiftRight, BW.ShiftRightUnsigned):
+        r(cls, f"bitwise {cls.__name__}")
+    for cls in (N.IsNull, N.IsNotNull, N.IsNan, N.NaNvl, N.Coalesce,
+                N.AtLeastNNonNulls):
         r(cls, f"null-handling {cls.__name__}")
     r(If, "if/else")
     r(CaseWhen, "case when")
@@ -254,12 +273,23 @@ def _register_expr_rules():
                    "characters pass through unchanged")
     for cls in (MX.Floor, MX.Ceil):
         r(cls, f"math {cls.__name__}")
-    for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Quarter, DT.Hour,
-                DT.Minute, DT.Second):
+    for cls in (DT.Year, DT.Month, DT.DayOfMonth, DT.Hour, DT.Minute,
+                DT.Second, DT.DateDiff, DT.DateAdd, DT.DateSub, DT.LastDay,
+                DT.DayOfWeek, DT.WeekDay, DT.DayOfYear, DT.Quarter):
         r(cls, f"datetime {cls.__name__}")
-    r(DT.UnixTimestamp, "parse/convert to unix seconds",
-      incompat="range/overflow behavior differs slightly from CPU "
-               "(reference: improvedTimeOps)")
+    for cls in (DT.UnixTimestamp, DT.ToUnixTimestamp):
+        r(cls, "parse/convert to unix seconds",
+          incompat="range/overflow behavior differs slightly from CPU "
+                   "(reference: improvedTimeOps)")
+    r(DT.FromUnixTime, "format unix seconds as string")
+    # nondeterministic and context (reference :216-222)
+    r(MISC.Rand, "uniform random",
+      incompat="the card's RNG stream differs from the CPU engine's")
+    r(MISC.MonotonicallyIncreasingID, "monotonically increasing id")
+    r(MISC.SparkPartitionID, "partition id")
+    r(MISC.InputFileName, "input file name")
+    r(MISC.InputFileBlockStart, "input file block start")
+    r(MISC.InputFileBlockLength, "input file block length")
     for cls in (AGG.Min, AGG.Max, AGG.Sum, AGG.Count, AGG.Average,
                 AGG.First, AGG.Last):
         r(cls, f"aggregate {cls.__name__}", tag_fn=_tag_agg)
@@ -441,6 +471,28 @@ MT._WRAP_EXPR = _wrap_expr
 MT._NODE_EXPRESSIONS = lambda plan: plan.node_expressions()
 
 
+# keys the port copies from the reference whose module or path is not
+# ported yet: a session that sets one away from its default would get the
+# default's behaviour with no word, so planning raises instead (ROADMAP
+# queue 3 names the item that will honour each)
+UNREAD_KEYS = (C.SHUFFLE_SERIALIZE, C.SHUFFLE_MODE, C.RUN_AWARE_ENABLED,
+               C.RUN_AWARE_MAX_RUN_FRACTION, C.IO_PREFETCH_BATCHES,
+               C.HASH_OPTIMIZE_SORT, C.ASYNC_DISPATCH, C.BUFFER_DONATION,
+               C.BUFFER_DONATION_ASSUME_SUPPORTED, C.EXPORT_COLUMNAR_RDD,
+               C.REPLACE_SORT_MERGE_JOIN)
+
+
+def check_unread_keys(conf: C.TpuConf) -> None:
+    """Raise, naming the key, for a key of UNREAD_KEYS set to a value other
+    than its default (the pattern of _tag_scan)."""
+    for key in UNREAD_KEYS:
+        value = conf.get(key)
+        if value != key.default:
+            raise ValueError(
+                f"{key.key}={value!r}: the port does not implement this "
+                f"setting yet; only its default ({key.default!r}) runs")
+
+
 class TpuOverrides:
     """The pre-transition columnar rule (reference: GpuOverrides.apply,
     GpuOverrides.scala:1769-1826)."""
@@ -448,6 +500,7 @@ class TpuOverrides:
     @staticmethod
     def apply(cpu_plan: PhysicalExec, conf: C.TpuConf,
               explain_out: Optional[List[str]] = None) -> PhysicalExec:
+        check_unread_keys(conf)
         if not conf.sql_enabled:
             return cpu_plan
         wrapped = _wrap_plan(cpu_plan, conf)

@@ -93,6 +93,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 class TpuSession:
+    # the most recently created live session (reference :97, :198)
+    _active: Optional["TpuSession"] = None
+
     def __init__(self, settings: Optional[Dict[str, Any]] = None,
                  device=None):
         self.conf = C.TpuConf(settings)
@@ -114,6 +117,20 @@ class TpuSession:
                 TpuSemaphore.shutdown()
                 TpuSemaphore.initialize(self.conf.concurrent_tpu_tasks)
             _LIVE_SESSIONS.add(self)
+            TpuSession._active = self
+
+    # -- builder-style API (reference :202-210) -------------------------------
+    @staticmethod
+    def builder() -> "SessionBuilder":
+        return SessionBuilder()
+
+    @classmethod
+    def active(cls, device=None) -> "TpuSession":
+        """The active session, created on `device` (default cuda:0) when
+        there is none."""
+        with _RUNTIME_LOCK:
+            got = cls._active
+        return got if got is not None else TpuSession(device=device)
 
     def stop(self) -> None:
         """Stop the session (reference :315): disarm the process-wide
@@ -125,6 +142,8 @@ class TpuSession:
                 return
             self._stopped = True
             _LIVE_SESSIONS.discard(self)
+            if TpuSession._active is self:
+                TpuSession._active = None
             FI.disable_global()
             if not _LIVE_SESSIONS:
                 TpuSemaphore.shutdown()
@@ -336,3 +355,25 @@ def _split_batch(batch: HostColumnarBatch,
         lo, hi = i * per, min(total, (i + 1) * per)
         parts.append([batch.slice(lo, hi - lo)] if hi > lo else [])
     return parts
+
+
+class SessionBuilder:
+    """`TpuSession.builder().config(k, v).getOrCreate()` (reference
+    :1327-1342): the active session with the settings applied, or a new
+    one with them (on `device`, default cuda:0)."""
+
+    def __init__(self):
+        self._settings: Dict[str, Any] = {}
+
+    def config(self, key: str, value: Any) -> "SessionBuilder":
+        self._settings[key] = value
+        return self
+
+    def getOrCreate(self, device=None) -> TpuSession:
+        with _RUNTIME_LOCK:
+            existing = TpuSession._active
+        if existing is not None:
+            for k, v in self._settings.items():
+                existing.conf.set(k, v)
+            return existing
+        return TpuSession(dict(self._settings), device=device)

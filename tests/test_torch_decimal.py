@@ -50,6 +50,7 @@ from spark_rapids_tpu_torch.ops.eval import col_to_colv
 from spark_rapids_tpu_torch.ops.literals import Literal as PLit
 from spark_rapids_tpu_torch.ops.values import ColV as PColV
 from spark_rapids_tpu_torch.ops.values import EvalContext as PCtx
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 N = 300

@@ -21,6 +21,10 @@ from spark_rapids_tpu.plan import functions as RF
 import spark_rapids_tpu_torch as port_srt
 from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.plan import functions as PF
+from tests.port_harness import (  # noqa: F401
+    assert_port_plan_on_device,
+    one_torch_thread,
+)
 
 SCHEMA = [("k", "long"), ("a", "long"), ("b", "float")]
 
@@ -68,13 +72,6 @@ def both(ref_session, port_session, data, parts: int, shuffle: int,
         out.append(sorted(flagship(df, F, lo).collect(),
                           key=lambda r: (r[0] is None, r[0] or 0)))
     return out
-
-
-def assert_port_plan_on_device(port_session):
-    bad = port_session.last_physical_plan.collect_nodes(
-        lambda n: isinstance(n, CpuExec) and type(n).__name__ not in
-        ("HostScanExec",))
-    assert not bad, port_session.last_physical_plan.tree_string()
 
 
 @pytest.mark.parametrize("parts", [1, 2, 3])

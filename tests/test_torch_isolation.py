@@ -12,6 +12,7 @@ with a cached query spilling under a tiny budget and injected faults."""
 import os
 import subprocess
 import sys
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # One thread per probe: their tables are tiny, and under a parallel test

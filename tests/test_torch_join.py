@@ -41,6 +41,7 @@ from spark_rapids_tpu_torch.ops.eval import col_to_colv
 from spark_rapids_tpu_torch.plan import functions as PF
 
 from tests.harness import assert_rows_equal
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 HOWS = ["inner", "left", "right", "full", "semi", "anti"]
 THRESHOLD = "rapids.tpu.sql.autoBroadcastJoinThreshold"

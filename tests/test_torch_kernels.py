@@ -28,6 +28,7 @@ from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.ops import hashing as H
 from spark_rapids_tpu_torch.ops.values import ColV
 from spark_rapids_tpu_torch.shuffle import exchange as X
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 _FLOATS = np.array([np.nan, -0.0, 0.0, np.inf, -np.inf, 1.5, -2.25, 3e38])
 _I64_EDGES = np.array([np.iinfo(np.int64).min, np.iinfo(np.int64).max, -1, 0,

@@ -27,6 +27,7 @@ from spark_rapids_tpu.plan import functions as RF
 import spark_rapids_tpu_torch as port_srt
 from spark_rapids_tpu_torch.columnar import strings as PS
 from spark_rapids_tpu_torch.plan import functions as PF
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 ROWS = [b"", None, b"a", b"brandx", b"the brandx box", b"xbrandx",
         b"brand", b"x", b"\xc3\xa9brandx \xe2\x98\x83 brandx",

@@ -58,6 +58,7 @@ from spark_rapids_tpu_torch.ops.literals import Literal as PLit
 from spark_rapids_tpu_torch.ops.values import ColV as PColV
 from spark_rapids_tpu_torch.ops.values import EvalContext as PCtx
 from spark_rapids_tpu_torch.ops.values import ScalarV as PScalar
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -32,6 +32,7 @@ from spark_rapids_tpu_torch.columnar.dtypes import DataType as PDT
 from spark_rapids_tpu_torch.exec import rowkeys as PRK
 from spark_rapids_tpu_torch.ops import hashing as PH
 from spark_rapids_tpu_torch.ops.eval import col_to_colv
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 EDGE = ["", None, "a", "ab", "abc", "abcd", "abcde", "abcdefgh",
         "abcdefghi", "héllo wörld", "日本語テキスト", "☃" * 30, "x" * 64,

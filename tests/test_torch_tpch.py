@@ -30,10 +30,13 @@ from spark_rapids_tpu.plan import functions as RF
 
 import spark_rapids_tpu_torch as port_srt
 from spark_rapids_tpu_torch.benchmarks import tpch as PT
-from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.plan import functions as PF
 
 from tests.harness import assert_rows_equal
+from tests.port_harness import (  # noqa: F401
+    assert_port_plan_on_device,
+    one_torch_thread,
+)
 
 APPROX = 1e-9
 FLOAT_AGG = "rapids.tpu.sql.variableFloatAgg.enabled"
@@ -84,13 +87,6 @@ def test_gen_tables_match_reference(ref_session, port_session):
                 assert rc.dtype.value == pc.dtype.value
                 np.testing.assert_array_equal(pc.validity, rc.validity)
                 np.testing.assert_array_equal(pc.data, rc.data)
-
-
-def assert_port_plan_on_device(port_session):
-    bad = port_session.last_physical_plan.collect_nodes(
-        lambda n: isinstance(n, CpuExec) and type(n).__name__ not in
-        ("HostScanExec",))
-    assert not bad, port_session.last_physical_plan.tree_string()
 
 
 def _both(ref_session, port_session, make_tables, query, shuffle=8):

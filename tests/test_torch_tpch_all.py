@@ -23,10 +23,13 @@ from spark_rapids_tpu.plan import functions as RF
 
 import spark_rapids_tpu_torch as port_srt
 from spark_rapids_tpu_torch.benchmarks import tpch as PT
-from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.plan import functions as PF
 
 from tests.harness import assert_rows_equal
+from tests.port_harness import (  # noqa: F401
+    assert_port_plan_on_device,
+    one_torch_thread,
+)
 
 APPROX = 1e-9
 FLOAT_AGG = "rapids.tpu.sql.variableFloatAgg.enabled"
@@ -77,13 +80,6 @@ def tables(ref_cpu_session, port_session):
         return made[sf]
 
     return get
-
-
-def assert_port_plan_on_device(port_session):
-    bad = port_session.last_physical_plan.collect_nodes(
-        lambda n: isinstance(n, CpuExec) and type(n).__name__ not in
-        ("HostScanExec",))
-    assert not bad, port_session.last_physical_plan.tree_string()
 
 
 def test_queries_hold_all_22():

@@ -24,6 +24,7 @@ from spark_rapids_tpu_torch.exec.base import CpuExec
 from spark_rapids_tpu_torch.plan import functions as PF
 
 from tests.harness import assert_rows_equal
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 APPROX = 1e-9
 FLOAT_AGG = "rapids.tpu.sql.variableFloatAgg.enabled"

@@ -21,6 +21,7 @@ from spark_rapids_tpu_torch.benchmarks import tpcxbb as PX
 from spark_rapids_tpu_torch.exec.base import CpuExec
 
 from tests.harness import assert_rows_equal
+from tests.port_harness import one_torch_thread  # noqa: F401
 
 APPROX = 1e-9
 FLOAT_AGG = "rapids.tpu.sql.variableFloatAgg.enabled"
