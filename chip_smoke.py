@@ -334,6 +334,31 @@ Builds the port's hand-written CUDA kernels from spark_rapids_tpu_torch/csrc
    interpreter over every op family and edge inputs, and records the
    ulp gap of each transcendental op (k48_ulp_gaps); phase 18 times K48
    at q1's and the flagship's update shapes.
+19. Compressed execution (slice 17, right after phase 10, on its files and
+   phase 4's cached tables): (a) phase 10's rank companion written again
+   with l_shipmode and l_bucket as RLE index runs (write_rle_companion),
+   bench.py's q_runs (groupBy(l_shipmode): count, sum(l_bucket)) with
+   rapids.tpu.sql.runAware.enabled on and off, a cold and one warm run
+   each, a row group a scan batch (RUNS_CONF): rows against numpy,
+   runCollapsedRows against the rows the written runs collapse (0 off),
+   the largest K48 launch no wider than a run batch (and a row group's
+   with it off); phase 10's q_sort and q_minmax over the companion
+   against numpy; (b) Window.partitionBy(l_returnflag).orderBy(l_shipmode)
+   with rank, dense_rank, row_number and lag(l_quantity) over it, encoding
+   on (rank space) and off, checked against numpy per flag (ranks in
+   code-point order, row_number a permutation within each tie, lag the
+   previous row's; off: the partition counts and the dense ranks'
+   multiset), orderPreservingSorts one a window batch, K24 launched inside
+   the rank remap (the companion's dictionaries list their entries in
+   pool order, the flags' R, N, A) and no K5 / K6 string words with
+   encoding on; (c) phase 10's q_join (shuffled; encoding on and off) and
+   q_sort and TPC-H q5 over the cached tables, each unserialized and then
+   with rapids.tpu.shuffle.serialize.enabled, a cold and one warm run
+   each: rows against numpy, the serialized bytes of a run counted as
+   bench.py counts them (the join's fewer encoded than decoded) and the
+   host store's bytes; then q_sort with one shuffle.fetch loss injected
+   (a seed whose rolls lose exactly one read), which runs its map
+   partition again: fetchRetries 1 and equal rows.
 
 Launch counts are reset just before each path's run and read just after
 it (flagship, high_cardinality, tpch_q1, tpch_q6, tpch_q1_routed, tpch_q3,
@@ -352,7 +377,8 @@ memory_fallback of phase 13, csv_tpch_q1, csv_tpch_q6, csv_tpch_q3 and
 csv_tpch_q5 of phase 14, strings_lineitem, strings_orders,
 strings_customer and strings_part of phase 15, casts_lineitem,
 casts_orders and casts_customer of phase 16, surface_rollup ...
-surface_range of phase 17, expr_math ... expr_expand_stage of phase 18);
+surface_range of phase 17, expr_math ... expr_expand_stage of phase 18,
+compressed_q_runs ... serialized_q_sort_fetch_loss of phase 19);
 every kernel of a path must have launched in that path's own run. In the
 kernels
 line, "launches" is the count of the kernel's own path ("path") and
@@ -369,9 +395,11 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from types import SimpleNamespace
 
@@ -3983,8 +4011,11 @@ ENC_PLAIN, ENC_RLE, ENC_DELTA, ENC_DLBA, ENC_DBA, ENC_RLE_DICT, ENC_BSS = \
 DICT_LIMIT = 1 << 20  # parquet.dictionary.page.size, dictionary_pagesize_limit
 
 
-def dict_spec(codes, pool, physical: int, converted=None):
-    return ("dict", physical, converted, (codes, pool))
+def dict_spec(codes, pool, physical: int, converted=None, **options):
+    """options: rle=True writes the indices as RLE runs only (a sorted
+    column, as Spark's and Arrow's writers emit it)."""
+    spec = ("dict", physical, converted, (codes, pool))
+    return spec + (options,) if options else spec
 
 
 def plain_spec(values, physical: int, converted=None):
@@ -4208,7 +4239,8 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
     group a PLAIN dictionary page of the pool entries that group uses, in
     the order the group first meets them (those writers' order; first_seen
     False: pool order), and RLE_DICTIONARY pages (indices one bit-packed
-    run); the other kinds are described above. Definition levels are one
+    run, or with the spec's rle option one RLE run per run of equal
+    indices in a page); the other kinds are described above. Definition levels are one
     RLE run of 1s, or one bit-packed run where a page has NULLs. Written
     with the port's thrift writer and Snappy."""
     import struct
@@ -4251,6 +4283,17 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
         m = len(codes)
         return bytes([bw]) + uvarint(((m + 7) // 8 << 1) | 1) + \
             pack_bits_fast(np.pad(codes, (0, -m % 8)), bw)
+
+    def dict_indices_rle(codes, bw):
+        m = len(codes)
+        at = np.flatnonzero(codes[1:] != codes[:-1]) + 1 if m else []
+        starts = np.concatenate([[0], at]).astype(np.int64) if m else \
+            np.zeros(0, np.int64)
+        lens = np.diff(np.append(starts, m))
+        width = (bw + 7) // 8
+        return bytes([bw]) + b"".join(
+            uvarint(int(ln) << 1) + int(codes[st]).to_bytes(width, "little")
+            for st, ln in zip(starts, lens))
 
     def column_chunk(name, spec, lo: int, hi: int):
         """(bytes of the column chunk, raw size, wire size, offset of its
@@ -4310,7 +4353,9 @@ def write_parquet_fixture(path: str, columns: dict, row_group: int,
                 pkind = "dict" if pi < n_dict_pages else \
                     opts.get("fallback", "delta")
             if pkind == "dict":
-                body, enc = dict_indices(inv[a:b], bw), ENC_RLE_DICT
+                body = dict_indices_rle(inv[a:b], bw) if opts.get("rle") \
+                    else dict_indices(inv[a:b], bw)
+                enc = ENC_RLE_DICT
             elif pkind in ("dlba", "dba"):
                 o, d = string_rows(payload[0], payload[1], lo + rows)
                 body = dlba_encode(o, d) if pkind == "dlba" else \
@@ -5051,6 +5096,39 @@ PATH_KERNELS.update({
                              "dict_materialize_fixed"),
     "parquet_decode_shape_off": ("segment_reduce",) + _PQ_READ,
 })
+# phase 19: the run-collapsed update compiles into K48 and materializes
+# the summed l_bucket (K23) over the run rows; the rank-space window's
+# exchange hashes codes and its concat aligns dictionaries (K24); the
+# serialized tier splits a batch past the zero-copy cap per target (K4's
+# route, K46 for fixed columns) and compacts the zero-copy pieces (K31)
+_WINDOW = ("radix_sort_pairs", "window_segments", "window_rank_offset")
+_SER_SORT = _ENC_READ + _ENC_GROUP + ("compact_fixed", "route_plan",
+                                      "remap_codes")
+PATH_KERNELS.update({
+    "compressed_q_runs": _ENC_READ + _ENC_GROUP + (
+        "stage_program", "dict_materialize_fixed"),
+    "compressed_q_runs_off": _ENC_READ + _ENC_GROUP + (
+        "stage_program", "dict_materialize_fixed"),
+    "compressed_q_sort_rle": _ENC_READ + _ENC_GROUP + ("route_plan",
+                                                       "remap_codes"),
+    "compressed_q_minmax_rle": _ENC_READ + _ENC_GROUP + ("remap_codes",),
+    "compressed_window": _ENC_READ + _WINDOW + (
+        "hash_partition_codes", "remap_codes", "stage_program"),
+    "compressed_window_off": _WINDOW + (
+        "hybrid_expand", "page_decode_fixed", "gather_strings",
+        "string_hash_words", "hash_partition"),
+    "serialized_q_join": _ENC_READ + _ENC_GROUP + _JOIN + (
+        "route_plan", "assemble_routed_fixed", "compact_fixed"),
+    "serialized_q_join_off": _JOIN + (
+        "hybrid_expand", "page_decode_fixed", "gather_strings",
+        "string_hash_words", "hash_partition", "route_plan",
+        "compact_fixed"),
+    "serialized_q_sort": _SER_SORT,
+    "serialized_tpch_q5": _GROUP_BY + _JOIN + (
+        "route_plan", "assemble_routed_fixed", "gather_strings",
+        "compact_fixed"),
+    "serialized_q_sort_fetch_loss": _SER_SORT,
+})
 
 
 def pool_bytes(pool):
@@ -5306,82 +5384,548 @@ def run_encoded_query(sess, q, want, name: str, launches: dict,
     return res
 
 
-def run_encoded(tpch_sess, raw, wants: dict, launches: dict,
-                profile_dir=None) -> dict:
+def run_encoded(tpch_sess, raw, wants: dict, launches: dict, root: str,
+                profile_dir=None):
     """The encoded phase: bench.py --encoded's q_agg and q_join and its
     rank companion's q_sort and q_minmax at ENCODED_ROWS rows, TPC-H q1 and
     q12 over SF 10 dictionary Parquet, each with encoding on and off (the
     off run's path name ends in _off), all against numpy. Every 'on' path
     must show encoded columns from the scan; q_agg decodes no STRING column
-    before the sink."""
-    import shutil
-    import tempfile
-
+    before the sink. Its files stay in `root` for phase 19; returns the
+    results and encoded_bench_files's."""
     import numpy as np
 
     import spark_rapids_tpu_torch as srt
     from spark_rapids_tpu_torch.benchmarks import tpch
 
-    root = tempfile.mkdtemp(prefix="chip_smoke_encoded_")
     out = {}
+    bench = encoded_bench_files(root)
+    tfiles = tpch_dict_files(root, raw)
+    out["write_s"] = {"bench": bench["write_s"],
+                      "tpch": tfiles["write_s"]}
+    qs = encoded_queries(bench["paths"])
+    wants_enc = {"q_agg": numpy_enc_agg(bench["li"]),
+                 "q_join": numpy_enc_join(bench["li"]),
+                 "q_sort": numpy_enc_sort(bench["rk"]),
+                 "q_minmax": numpy_enc_minmax(bench["rk"])}
+    n = ENCODED_ROWS
+    for label, extra in (("", {}), ("_off", ENCODED_OFF)):
+        for qname, qfn in qs.items():
+            conf = {**TPCH_CONF, **extra,
+                    **(ENC_SHUFFLED if qname == "q_join" else {})}
+            sess = srt.new_session(conf)
+            name = f"encoded_{qname}{label}"
+            out[name] = run_encoded_query(
+                sess, qfn(sess), wants_enc[qname], name, launches,
+                qname == "q_sort", n + (7 if qname == "q_join" else 0))
+            if profile_dir and not label and qname == "q_agg":
+                out[name]["profile"] = profile_query(
+                    qfn(sess), profile_dir, name)
+        sess = srt.new_session({**TPCH_CONF, **extra})
+        t = {k: sess.read.parquet(p) for k, p in tfiles["paths"].items()}
+        rows = {"q1": wants["input_rows"]["q1"],
+                "q12": wants["input_rows"]["q1"] + sum(
+                    b.num_rows for part in raw["orders"]._plan.partitions
+                    for b in part)}
+        for q in ("q1", "q12"):
+            name = f"encoded_tpch_{q}{label}"
+            out[name] = run_encoded_query(
+                sess, tpch.QUERIES[q](t), wants[f"tpch_{q}"], name,
+                launches, True, rows[q])
+            if profile_dir and not label and q == "q1":
+                out[name]["profile"] = profile_query(
+                    tpch.q1(t), profile_dir, name)
+    for name, r in out.items():
+        if not name.startswith("encoded_"):
+            continue
+        if name.endswith("_off"):
+            check(r["encodedColumns"] == 0,
+                  f"{name}: the scan emitted encoded columns with "
+                  "encoding off")
+        else:
+            check(r["encodedColumns"] > 0,
+                  f"{name}: the scan emitted no encoded column")
+    check(out["encoded_q_agg"]["k23_launches"][
+        "dict_materialize_strings"] == 0,
+        "encoded_q_agg decoded a STRING column before the sink")
+    for name in list(out):
+        if name.startswith("encoded_") and not name.endswith("_off"):
+            off = out[f"{name}_off"]
+            out[name]["speedup_vs_off"] = best_s(off) / best_s(out[name])
+            log(f"{name}: {best_s(out[name]):.4f} s on, "
+                f"{best_s(off):.4f} s off")
+    return out, bench
+
+
+# ------------------------------------------------------- phase 19 (slice 17)
+# a row group is one scan batch, so the companion's run tables reach the
+# aggregate (a batch sliced below its row group is a gather, which drops
+# them); the serialized tier and the injected fetch loss
+RUNS_CONF = {"rapids.tpu.sql.reader.batchSizeRows": ENCODED_ROW_GROUP}
+SERIALIZED = {"rapids.tpu.shuffle.serialize.enabled": True}
+COMPRESSED_WARM_REPS = 1
+
+
+def write_rle_companion(root: str, rk: dict) -> dict:
+    """Phase 10's rank companion (seed 7, ENCODED_ROWS rows, 8 row groups)
+    again with l_shipmode and l_bucket's indices as RLE runs only, as
+    Spark's and Arrow's writers emit a sorted column. Each row group's
+    dictionary lists its entries in pool order: l_returnflag's pool is
+    reversed (R, N, A) and l_shipmode's is ENC_MODES, so the window's
+    keys hold dictionaries that are not sorted and go through the rank
+    remap (row group 0's first-seen flags, A, N, R, were sorted)."""
+    import numpy as np
+
+    t = time.perf_counter()
+    path = os.path.join(root, "sorted_lowcard_rle.parquet")
+    flags = len(ENC_FLAGS) - 1 - rk["l_returnflag"]
+    write_parquet_fixture(path, {
+        "l_shipmode": dict_spec(rk["l_shipmode"], pool_bytes(ENC_MODES),
+                                PHYS_BYTE_ARRAY, CONV_UTF8, rle=True),
+        "l_returnflag": dict_spec(flags.astype(np.int32),
+                                  pool_bytes(ENC_FLAGS[::-1]),
+                                  PHYS_BYTE_ARRAY, CONV_UTF8),
+        "l_quantity": dict_spec((rk["l_quantity"] - 1).astype(np.int32),
+                                np.arange(1, 51, dtype=np.int64),
+                                PHYS_INT64),
+        "l_bucket": dict_spec(rk["l_bucket"].astype(np.int32),
+                              np.arange(0, 32, dtype=np.int64), PHYS_INT64,
+                              rle=True)},
+        ENCODED_ROW_GROUP, ENCODED_PAGE_ROWS, first_seen=False)
+    return {"path": path, "write_s": time.perf_counter() - t}
+
+
+def written_runs(cols, n: int, row_group: int, page_rows: int):
+    """(rows the collapse removes, most merged runs in a row group) of
+    columns whose every page writes one RLE run per run of equal values:
+    a row group's merged runs start at its pages' first rows and wherever
+    any of the columns changes."""
+    import numpy as np
+
+    collapsed, most = 0, 0
+    for lo in range(0, n, row_group):
+        hi = min(lo + row_group, n)
+        starts = [np.arange(0, hi - lo, page_rows)]
+        for c in cols:
+            seg = c[lo:hi]
+            starts.append(np.flatnonzero(seg[1:] != seg[:-1]) + 1)
+        runs = len(np.unique(np.concatenate(starts)))
+        collapsed += (hi - lo) - runs
+        most = max(most, runs)
+    return collapsed, most
+
+
+def numpy_q_runs(rk: dict):
+    """q_runs: by l_shipmode count(*), sum(l_bucket)."""
+    import numpy as np
+
+    c = np.bincount(rk["l_shipmode"], minlength=7)
+    b = np.bincount(rk["l_shipmode"], rk["l_bucket"], minlength=7)
+    return sorted((ENC_MODES[m], int(c[m]), int(b[m])) for m in range(7)
+                  if c[m])
+
+
+def bucket_lanes(n: int) -> int:
+    from spark_rapids_tpu_torch.columnar.batch import bucket_capacity
+
+    return bucket_capacity(max(n, 1))
+
+
+class K48Lanes:
+    """The capacity of every K48 launch while entered (ops/program.py
+    calls stage_program by its module name)."""
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.ops import program as PG
+
+        self.lanes, self._orig, self._pg = [], PG.stage_program, PG
+
+        def recorded(prog, inputs, num_rows, capacity, device):
+            self.lanes.append(int(capacity))
+            return self._orig(prog, inputs, num_rows, capacity, device)
+
+        PG.stage_program = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._pg.stage_program = self._orig
+
+
+def run_runs(path: str, rk: dict, launches: dict) -> dict:
+    """Phase 19(a): bench.py's q_runs (`bench.py:1617`) over the RLE
+    companion with runAware on and off (a cold and COMPRESSED_WARM_REPS
+    warm runs each) against numpy; runCollapsedRows against the written
+    runs when on and 0 when off; K48's lanes over the runs, not the rows;
+    phase 10's q_sort and q_minmax over the companion against numpy."""
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.plan import functions as F
+
+    want = sorted(numpy_q_runs(rk), key=repr)
+    collapsed, most = written_runs([rk["l_shipmode"], rk["l_bucket"]],
+                                   ENCODED_ROWS, ENCODED_ROW_GROUP,
+                                   ENCODED_PAGE_ROWS)
+    out = {}
+    for label, on in (("", True), ("_off", False)):
+        name = f"compressed_q_runs{label}"
+        sess = srt.new_session({**TPCH_CONF, **RUNS_CONF,
+                                "rapids.tpu.sql.runAware.enabled": on})
+        q = (sess.read.parquet(path).groupBy("l_shipmode")
+             .agg(F.count("*").alias("c"), F.sum("l_bucket").alias("b")))
+        CB.reset_launch_counts()
+        with K48Lanes() as k48:
+            r = run_query(sess, q, want, name, COMPRESSED_WARM_REPS,
+                          order=repr)
+        launches[name] = CB.launch_counts()
+        got = sess.last_query_metrics.get("runCollapsedRows", 0)
+        r["runCollapsedRows"] = got
+        r["k48_max_lanes"] = max(k48.lanes)
+        r["input_rows"] = ENCODED_ROWS
+        r["rows_per_s"] = ENCODED_ROWS / best_s(r)
+        check(got == (collapsed if on else 0),
+              f"{name}: runCollapsedRows {got}, the written runs give "
+              f"{collapsed if on else 0}")
+        out[name] = r
+    on, off = out["compressed_q_runs"], out["compressed_q_runs_off"]
+    # the update's K48 program runs over the merged runs: its lanes are a
+    # run batch's, far below a row group's
+    check(on["k48_max_lanes"] <= bucket_lanes(most) < off["k48_max_lanes"],
+          f"q_runs: K48 lanes {on['k48_max_lanes']} on, "
+          f"{off['k48_max_lanes']} off; most merged runs {most}")
+    out["written_collapse"] = {"rows": collapsed, "most_runs": most}
+    qs = encoded_queries({"lineitem_like": None, "modes": None,
+                          "sorted_lowcard": path})
+    sess = srt.new_session({**TPCH_CONF, **RUNS_CONF})
+    for qname, want_q in (("q_sort", numpy_enc_sort(rk)),
+                          ("q_minmax", numpy_enc_minmax(rk))):
+        name = f"compressed_{qname}_rle"
+        CB.reset_launch_counts()
+        ordered = qname == "q_sort"
+        out[name] = run_query(sess, qs[qname](sess), want_q if ordered
+                              else sorted(want_q, key=repr), name, 0,
+                              order=None if ordered else repr)
+        launches[name] = CB.launch_counts()
+    log(f"phase 19(a): q_runs {best_s(on):.4f} s on ({on['runCollapsedRows']}"
+        f" rows collapsed, K48 lanes {on['k48_max_lanes']}), "
+        f"{best_s(off):.4f} s off (K48 lanes {off['k48_max_lanes']})")
+    return out
+
+
+def result_columns(df):
+    """(data, validity) host numpy columns of a query's result."""
+    import numpy as np
+
+    batches = [b for b in df.toLocalBatches() if b.num_rows]
+    return [(np.concatenate([b.columns[i].data[:b.num_rows]
+                             for b in batches]),
+             np.concatenate([b.columns[i].validity[:b.num_rows]
+                             for b in batches]))
+            for i in range(len(df.columns))]
+
+
+def check_window(cols, rk: dict, encoded: bool, what: str) -> None:
+    """Phase 19(b)'s window over (l_returnflag, l_shipmode) against numpy:
+    per flag, rank and dense_rank in code-point order of the modes (or,
+    with encoding off, where STRING keys order by their hash words, the
+    partition's row count and the multiset of dense ranks); row_number a
+    permutation of the partition within each tie; lag(l_quantity) the
+    previous row's by row_number. Sorts and counts as torch ops on the
+    card."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0) if torch.cuda.is_available() else \
+        torch.device("cpu")
+    (fa, _), (fn, _), (q, _), (rk_, _), (dr, _), (rn, _), (lg, lgv) = cols
+    flag = torch.from_numpy(np.where(fa, 0, np.where(fn, 1, 2))).to(dev)
+    q, rk_, dr, rn, lg, lgv = (torch.from_numpy(np.ascontiguousarray(x)).to(
+        dev).long() for x in (q, rk_, dr, rn, lg, lgv))
+    cnt = np.bincount(rk["l_returnflag"].astype(np.int64) * 7 +
+                      rk["l_shipmode"], minlength=21).reshape(3, 7)
+    by_name = np.argsort(np.array(ENC_MODES))   # code-point order
+    for f in range(3):
+        m = flag == f
+        n = int(cnt[f].sum())
+        check(int(m.sum()) == n, f"{what}: flag {ENC_FLAGS[f]} holds "
+              f"{int(m.sum())} rows, numpy {n}")
+        c = cnt[f][by_name]
+        c = c[c > 0]
+        got_dr = torch.bincount(dr[m], minlength=len(c) + 1).cpu().numpy()
+        if not encoded:
+            check(sorted(got_dr[1:].tolist()) == sorted(c.tolist()),
+                  f"{what}: flag {ENC_FLAGS[f]}'s dense ranks")
+            continue
+        check(got_dr[1:].tolist() == c.tolist() and got_dr[0] == 0,
+              f"{what}: flag {ENC_FLAGS[f]}'s dense ranks "
+              f"{got_dr[1:].tolist()}, numpy {c.tolist()}")
+        first = np.concatenate([[1], 1 + np.cumsum(c)[:-1]])
+        want_rank = torch.from_numpy(first).to(dev)[dr[m] - 1]
+        check(bool((rk_[m] == want_rank).all()),
+              f"{what}: flag {ENC_FLAGS[f]}'s ranks")
+        size = torch.from_numpy(c).to(dev)[dr[m] - 1]
+        r = rn[m]
+        check(bool(((r >= want_rank) & (r < want_rank + size)).all()),
+              f"{what}: a row_number outside its tie")
+        order = torch.argsort(r)
+        check(bool((r[order] == torch.arange(1, n + 1, device=dev)).all()),
+              f"{what}: flag {ENC_FLAGS[f]}'s row_numbers are no "
+              "permutation")
+        qs, lgs, lvs = q[m][order], lg[m][order], lgv[m][order]
+        check(not bool(lvs[0]) and bool(lvs[1:].all()) and
+              bool((lgs[1:] == qs[:-1]).all()),
+              f"{what}: lag(l_quantity) is not the previous row's")
+
+
+def run_window_rank_space(path: str, rk: dict, launches: dict) -> dict:
+    """Phase 19(b): Window.partitionBy(l_returnflag).orderBy(l_shipmode)
+    with rank, dense_rank, row_number and lag(l_quantity) over the RLE
+    companion, encoding on (rank space) and off, checked by check_window;
+    orderPreservingSorts one a window batch, K24 remapping a key to rank
+    space (its launches inside to_rank_space counted apart from the
+    dictionary alignment's), no K5 / K6 string words."""
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.columnar import encoded as E
+    from spark_rapids_tpu_torch.exec.base import NUM_OUTPUT_BATCHES
+    from spark_rapids_tpu_torch.exec.window import TpuWindowExec
+    from spark_rapids_tpu_torch.plan import functions as F
+    from spark_rapids_tpu_torch.plan.window_api import Window
+
+    out = {}
+    for label, extra in (("", {}), ("_off", ENCODED_OFF)):
+        name = f"compressed_window{label}"
+        sess = srt.new_session({**TPCH_CONF, **extra})
+        w = Window.partitionBy("l_returnflag").orderBy("l_shipmode")
+        df = sess.read.parquet(path).select(
+            (F.col("l_returnflag") == F.lit("A")).alias("fa"),
+            (F.col("l_returnflag") == F.lit("N")).alias("fn"),
+            "l_quantity", F.rank().over(w).alias("rk"),
+            F.dense_rank().over(w).alias("dr"),
+            F.row_number().over(w).alias("rn"),
+            F.lag("l_quantity").over(w).alias("lg"))
+        rank_remaps = [0, 0]     # calls, K24 launches inside them
+        orig = E.to_rank_space
+
+        def counted(cv, _orig=orig):
+            before = CB.launch_counts().get("remap_codes", 0)
+            got = _orig(cv)
+            rank_remaps[0] += 1
+            rank_remaps[1] += CB.launch_counts().get("remap_codes", 0) - \
+                before
+            return got
+
+        E.to_rank_space = counted
+        CB.reset_launch_counts()
+        try:
+            import torch
+
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            cols = result_columns(df)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        finally:
+            E.to_rank_space = orig
+        launches[name] = CB.launch_counts()
+        assert_on_device(sess)
+        ops = sess.last_query_metrics.get("orderPreservingSorts", 0)
+        win = sess.last_physical_plan.collect_nodes(
+            lambda n: isinstance(n, TpuWindowExec))
+        batches = sum(n.metrics[NUM_OUTPUT_BATCHES] for n in win)
+        t = time.perf_counter()
+        check_window(cols, rk, not extra, name)
+        out[name] = {"cold_s": secs, "warm_s": [], "warm_median_s": None,
+                     "rows": len(cols[0][0]), "input_rows": ENCODED_ROWS,
+                     "orderPreservingSorts": ops, "window_batches": batches,
+                     "rank_remaps": rank_remaps[0],
+                     "k24_rank_launches": rank_remaps[1],
+                     "k24_launches": launches[name].get("remap_codes", 0),
+                     "check_s": time.perf_counter() - t}
+        words = {k: launches[name].get(k, 0) for k in (
+            "string_hash_words", "string_order_words")}
+        if not extra:
+            check(batches > 0 and ops >= batches,
+                  f"{name}: orderPreservingSorts {ops} over {batches} "
+                  "window batches")
+            check(rank_remaps[0] > 0 and rank_remaps[1] > 0,
+                  f"{name}: {rank_remaps[0]} rank remaps launched K24 "
+                  f"{rank_remaps[1]} times")
+            check(not any(words.values()),
+                  f"{name}: the window's keys made string words {words}")
+        else:
+            check(ops == 0, f"{name}: orderPreservingSorts {ops} with "
+                  "encoding off")
+        log(f"{name}: {secs:.4f} s, orderPreservingSorts {ops} over "
+            f"{batches} batches, rank remaps {rank_remaps[0]} (K24 "
+            f"{rank_remaps[1]}), K24 in all {out[name]['k24_launches']}, "
+            f"string words {words}, check "
+            f"{out[name]['check_s']:.1f} s")
+    return out
+
+
+def serialized_bytes():
+    """Wrap serde.serialize_batch (the exchange looks it up at each call)
+    to count bench.py:1447-1551's two figures: every serialized byte, and
+    the bytes of the STRING and dictionary columns (codes, the pruned
+    dictionary's offsets and bytes; offsets and value bytes)."""
+    import numpy as np
+
+    from spark_rapids_tpu_torch.columnar import encoded as E
+    from spark_rapids_tpu_torch.columnar import serde
+    from spark_rapids_tpu_torch.columnar.dtypes import DataType
+
+    counts = [0, 0]
+    orig = serde.serialize_batch
+
+    def col_bytes(batch) -> int:
+        tot, n = 0, batch.num_rows
+        for c in batch.columns:
+            if isinstance(c, E.HostDictionaryColumn):
+                used = np.unique(c.data[:n][c.validity[:n]])
+                tot += 4 * n + 4 + 4 * (len(used) + 1) + int(
+                    c.dictionary.host_lens[used].sum())
+            elif c.dtype is DataType.STRING:
+                offs, _ = c.utf8()
+                lens = np.diff(offs[:n + 1].astype(np.int64))
+                tot += 4 * (n + 1) + int(lens[c.validity[:n]].sum())
+        return tot
+
+    def counting(batch):
+        data = orig(batch)
+        counts[0] += len(data)
+        counts[1] += col_bytes(batch)
+        return data
+
+    serde.serialize_batch = counting
+    return counts, lambda: setattr(serde, "serialize_batch", orig)
+
+
+def run_serialized(tpch_sess, tables, wants: dict, bench: dict,
+                   launches: dict) -> dict:
+    """Phase 19(c): phase 10's q_join (shuffled) with encoding on and off
+    and q_sort, and TPC-H q5 over phase 4's cached tables, each first
+    unserialized and then with shuffle.serialize.enabled in one session,
+    a cold and COMPRESSED_WARM_REPS warm runs each: rows against numpy;
+    the serialized bytes of a run (bench.py's count) and the host store's
+    bytes; the join's bytes fewer encoded than decoded; then q_sort with
+    one injected shuffle.fetch loss, whose map partition runs again
+    (fetchRetries 1, equal rows)."""
+    import spark_rapids_tpu_torch as srt
+    from spark_rapids_tpu_torch import cuda_build as CB
+    from spark_rapids_tpu_torch.benchmarks import tpch
+    from spark_rapids_tpu_torch.memory.spill import SpillFramework
+    from spark_rapids_tpu_torch.shuffle import exchange as EX
+    from spark_rapids_tpu_torch.utils import faultinject as FI
+
+    qs = encoded_queries(bench["paths"])
+    wants_enc = {"q_join": numpy_enc_join(bench["li"]),
+                 "q_sort": numpy_enc_sort(bench["rk"])}
+    counts, restore = serialized_bytes()
+    stored = [0]
+    orig_add = SpillFramework.add_host_bytes
+
+    def add_host_bytes(self, data, *a, **kw):
+        stored[0] += len(data)
+        return orig_add(self, data, *a, **kw)
+
+    SpillFramework.add_host_bytes = add_host_bytes
+    key = "rapids.tpu.shuffle.serialize.enabled"
+    out = {}
+
+    def one(name, sess, q, want, ordered, reps=COMPRESSED_WARM_REPS):
+        """The path unserialized (its time only, unless reps is None: the
+        fault run has no counterpart), then serialized."""
+        want = want if ordered else sorted(want, key=repr)
+        order = None if ordered else repr
+        base = None
+        if reps is not None:
+            sess.set_conf(key, False)
+            base = run_query(sess, q(sess), want, f"{name} unserialized",
+                             reps, order=order)
+        sess.set_conf(key, True)
+        counts[0] = counts[1] = stored[0] = 0
+        CB.reset_launch_counts()
+        r = run_query(sess, q(sess), want, name, reps or 0, order=order)
+        launches[name] = CB.launch_counts()
+        runs = 1 + len(r["warm_s"])
+        r.update({"serialized_bytes": counts[0] // runs,
+                  "serialized_string_col_bytes": counts[1] // runs,
+                  "host_store_bytes": stored[0] // runs,
+                  "fetchRetries": sess.last_query_metrics.get(
+                      "fetchRetries", 0),
+                  "unserialized_s": None if base is None else best_s(base)})
+        check(counts[0] > 0 and stored[0] == counts[0],
+              f"{name}: serialized {counts[0]} B, host store {stored[0]} B")
+        log(f"{name}: {best_s(r):.4f} s serialized, "
+            f"{r['unserialized_s']} s not; {r['serialized_bytes']} B a run "
+            f"({r['serialized_string_col_bytes']} B string / dictionary "
+            "columns)")
+        out[name] = r
+        return r
+
     try:
-        bench = encoded_bench_files(root)
-        tfiles = tpch_dict_files(root, raw)
-        out["write_s"] = {"bench": bench["write_s"],
-                          "tpch": tfiles["write_s"]}
-        qs = encoded_queries(bench["paths"])
-        wants_enc = {"q_agg": numpy_enc_agg(bench["li"]),
-                     "q_join": numpy_enc_join(bench["li"]),
-                     "q_sort": numpy_enc_sort(bench["rk"]),
-                     "q_minmax": numpy_enc_minmax(bench["rk"])}
-        n = ENCODED_ROWS
         for label, extra in (("", {}), ("_off", ENCODED_OFF)):
-            for qname, qfn in qs.items():
-                conf = {**TPCH_CONF, **extra,
-                        **(ENC_SHUFFLED if qname == "q_join" else {})}
-                sess = srt.new_session(conf)
-                name = f"encoded_{qname}{label}"
-                out[name] = run_encoded_query(
-                    sess, qfn(sess), wants_enc[qname], name, launches,
-                    qname == "q_sort", n + (7 if qname == "q_join" else 0))
-                if profile_dir and not label and qname == "q_agg":
-                    out[name]["profile"] = profile_query(
-                        qfn(sess), profile_dir, name)
-            sess = srt.new_session({**TPCH_CONF, **extra})
-            t = {k: sess.read.parquet(p) for k, p in tfiles["paths"].items()}
-            rows = {"q1": wants["input_rows"]["q1"],
-                    "q12": wants["input_rows"]["q1"] + sum(
-                        b.num_rows for part in raw["orders"]._plan.partitions
-                        for b in part)}
-            for q in ("q1", "q12"):
-                name = f"encoded_tpch_{q}{label}"
-                out[name] = run_encoded_query(
-                    sess, tpch.QUERIES[q](t), wants[f"tpch_{q}"], name,
-                    launches, True, rows[q])
-                if profile_dir and not label and q == "q1":
-                    out[name]["profile"] = profile_query(
-                        tpch.q1(t), profile_dir, name)
-        for name, r in out.items():
-            if not name.startswith("encoded_"):
-                continue
-            if name.endswith("_off"):
-                check(r["encodedColumns"] == 0,
-                      f"{name}: the scan emitted encoded columns with "
-                      "encoding off")
-            else:
-                check(r["encodedColumns"] > 0,
-                      f"{name}: the scan emitted no encoded column")
-        check(out["encoded_q_agg"]["k23_launches"][
-            "dict_materialize_strings"] == 0,
-            "encoded_q_agg decoded a STRING column before the sink")
-        for name in list(out):
-            if name.startswith("encoded_") and not name.endswith("_off"):
-                off = out[f"{name}_off"]
-                out[name]["speedup_vs_off"] = best_s(off) / best_s(out[name])
-                log(f"{name}: {best_s(out[name]):.4f} s on, "
-                    f"{best_s(off):.4f} s off")
+            sess = srt.new_session({**TPCH_CONF, **ENC_SHUFFLED, **extra})
+            one(f"serialized_q_join{label}", sess, qs["q_join"],
+                wants_enc["q_join"], False)
+        check(out["serialized_q_join"]["serialized_bytes"] <
+              out["serialized_q_join_off"]["serialized_bytes"],
+              "serialized q_join: encoded bytes not below decoded")
+        sess = srt.new_session(TPCH_CONF)
+        one("serialized_q_sort", sess, qs["q_sort"], wants_enc["q_sort"],
+            True)
+        try:
+            one("serialized_tpch_q5", tpch_sess, lambda _s: tpch.q5(tables),
+                wants["tpch_q5"], True)
+        finally:
+            tpch_sess.set_conf(key, False)
+        # one lost piece: count q_sort's reads, pick a seed that loses one
+        reads = [0]
+        orig_decode = EX._SerializedPiece.decode
+
+        def counted(self, device):
+            reads[0] += 1
+            return orig_decode(self, device)
+
+        EX._SerializedPiece.decode = counted
+        try:
+            sess.last_query_metrics = {}
+            qs["q_sort"](sess).collect()
+        finally:
+            EX._SerializedPiece.decode = orig_decode
+        rate = 1.0 / (reads[0] + 1)
+        seed = FI.one_loss_seed("shuffle.fetch", reads[0], rate)
+        sess = srt.new_session({
+            **TPCH_CONF, **SERIALIZED,
+            "rapids.tpu.test.faultInjection.enabled": True,
+            "rapids.tpu.test.faultInjection.sites": "shuffle.fetch",
+            "rapids.tpu.test.faultInjection.seed": seed,
+            "rapids.tpu.test.faultInjection.rate": rate})
+        r = one("serialized_q_sort_fetch_loss", sess, qs["q_sort"],
+                wants_enc["q_sort"], True, reps=None)
+        check(r["fetchRetries"] == 1,
+              f"q_sort with one lost piece: fetchRetries {r['fetchRetries']}")
+        r["reads"] = reads[0]
     finally:
-        shutil.rmtree(root, ignore_errors=True)
+        restore()
+        SpillFramework.add_host_bytes = orig_add
+    return out
+
+
+def run_compressed(tpch_sess, tables, wants: dict, bench: dict, root: str,
+                   launches: dict) -> dict:
+    """Phase 19 (after phase 10, on its files and phase 4's cached
+    tables): (a) run_runs, (b) run_window_rank_space, (c)
+    run_serialized."""
+    t0 = time.perf_counter()
+    comp = write_rle_companion(root, bench["rk"])
+    log(f"phase 19: RLE companion written in {comp['write_s']:.1f} s")
+    out = {"write_s": comp["write_s"]}
+    out.update(run_runs(comp["path"], bench["rk"], launches))
+    out.update(run_window_rank_space(comp["path"], bench["rk"], launches))
+    out.update(run_serialized(tpch_sess, tables, wants, bench, launches))
+    out["phase_s"] = time.perf_counter() - t0
+    log(f"phase 19: {out['phase_s']:.1f} s")
     return out
 
 
@@ -10802,8 +11346,15 @@ def main(argv=None) -> int:
         "l_extendedprice_sample")}
     results["orc"] = run_orc(tpch_sess, raw, tables, wants,
                              wants["input_rows"], launches, args.profile)
-    results["encoded"] = run_encoded(tpch_sess, raw, wants, launches,
-                                     args.profile)
+    enc_root = tempfile.mkdtemp(prefix="chip_smoke_encoded_")
+    try:
+        results["encoded"], bench = run_encoded(
+            tpch_sess, raw, wants, launches, enc_root, args.profile)
+        results["compressed"] = run_compressed(
+            tpch_sess, tables, wants, bench, enc_root, launches)
+    finally:
+        shutil.rmtree(enc_root, ignore_errors=True)
+    del bench
     for df in tables.values():
         df.unpersist()
     tpch_sess.last_physical_plan = None
@@ -10900,6 +11451,14 @@ def main(argv=None) -> int:
             "scan_host_s", "speedup_vs_off")}
             if k.startswith("encoded_") else v)
             for k, v in results["encoded"].items()},
+        "compressed": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
+            "runCollapsedRows", "k48_max_lanes", "orderPreservingSorts",
+            "window_batches", "rank_remaps", "k24_rank_launches",
+            "k24_launches",
+            "serialized_bytes", "serialized_string_col_bytes",
+            "host_store_bytes", "fetchRetries", "unserialized_s")}
+            if k.startswith(("compressed_", "serialized_")) else v)
+            for k, v in results["compressed"].items()},
         "memory": results["memory"],
         "csv": {k: ({kk: vv for kk, vv in v.items() if kk in keep + (
             "last_run_scan_host_s", "csv_host_splits")}

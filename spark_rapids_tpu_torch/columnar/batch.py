@@ -66,9 +66,14 @@ class ColumnVector:
     """A device-resident column (reference: GpuColumnVector.java).
     STRING columns also carry int32 `offsets` [capacity + 1] and the
     host-known power-of-two `max_len` bound (every producer of a device
-    string column sets it); `data` is their uint8 bytes."""
+    string column sets it); `data` is their uint8 bytes.
 
-    __slots__ = ("dtype", "data", "validity", "offsets", "max_len")
+    `runs` is the scan's host run table (columnar/runs.py), host metadata
+    only. A new column starts without one, so every op that rebuilds a
+    column drops it (the reference's pytree did so); only the scan, a plain
+    concat and the encoded alignment set it."""
+
+    __slots__ = ("dtype", "data", "validity", "offsets", "max_len", "runs")
 
     def __init__(self, dtype: DataType, data, validity, offsets=None,
                  max_len=None):
@@ -77,6 +82,7 @@ class ColumnVector:
         self.validity = validity
         self.offsets = offsets
         self.max_len = max_len
+        self.runs = None
 
     @property
     def capacity(self) -> int:
@@ -101,20 +107,35 @@ class ColumnVector:
 class HostColumnVector:
     """Host column: numpy data + validity (reference: RapidsHostColumnVector).
     Strings are object arrays of str; nulls live only in the mask. A string
-    column caches its UTF-8 form (offsets, bytes) once computed."""
+    column caches its UTF-8 form (offsets, bytes) once computed; one made
+    from that form alone (data None, as a download makes it) decodes its
+    strings at the first read of `data`."""
 
-    __slots__ = ("dtype", "data", "validity", "_utf8")
+    __slots__ = ("dtype", "_data", "validity", "_utf8")
 
-    def __init__(self, dtype: DataType, data: np.ndarray, validity: np.ndarray,
-                 utf8=None):
-        assert len(data) == len(validity)
+    def __init__(self, dtype: DataType, data: Optional[np.ndarray],
+                 validity: np.ndarray, utf8=None):
+        assert (utf8 is not None if data is None else
+                len(data) == len(validity))
         self.dtype = dtype
-        self.data = data
+        self._data = data
         self.validity = validity
         self._utf8 = utf8
 
+    @property
+    def data(self) -> np.ndarray:
+        if self._data is None:
+            offs, raw = self._utf8
+            self._data = S.decode_utf8(offs, raw, self.validity,
+                                       len(self.validity))
+        return self._data
+
+    @data.setter
+    def data(self, value: np.ndarray) -> None:
+        self._data = value
+
     def __len__(self):
-        return len(self.data)
+        return len(self.validity)
 
     def utf8(self):
         """(offsets int32 [n + 1], bytes uint8) of a string column."""
@@ -256,7 +277,7 @@ class HostColumnarBatch:
         total = 0
         for c in self.columns:
             if c.dtype is DataType.STRING:
-                total += len(c.utf8()[1]) + 5 * len(c.data)
+                total += len(c.utf8()[1]) + 5 * len(c.validity)
             else:
                 total += c.data.nbytes + len(c.validity)
         return total
@@ -402,10 +423,15 @@ class ColumnarBatch:
                 f"cols={[c.dtype.name for c in self.columns]})")
 
 
-def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
+def to_host_many(batches: Sequence[ColumnarBatch],
+                 keep_encoded: bool = False) -> List[HostColumnarBatch]:
     """Download many device batches with one grouped transfer per dtype and
     one wait (reference: to_host_many, batch.py:700). Row counts still on
-    the card ride along in the int64 group."""
+    the card ride along in the int64 group. A STRING column comes back in
+    its UTF-8 form and makes its Python strings only when they are read.
+    keep_encoded: an encoded column stays host codes plus its dictionary (a
+    HostDictionaryColumn, which the serialized shuffle ships with a pruned
+    dictionary) instead of decoding at this sink."""
     batches = [ensure_compact(b) for b in batches]
     out: List[Optional[HostColumnarBatch]] = [None] * len(batches)
     plan = []   # (batch index, [(group key, offset, length)] , n or None)
@@ -463,13 +489,15 @@ def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
         seg_iter = iter(segs)
         for c in b.columns:
             if c.offsets is not None:
-                ko, oo, lo = next(seg_iter)
+                ko, oo, _ = next(seg_iter)
                 kb, ob, lb = next(seg_iter)
                 kv, ov, _ = next(seg_iter)
                 valid = np_host[kv][ov:ov + n].copy()
-                offs = np_host[ko][oo:oo + lo]
-                data = S.decode_utf8(offs, np_host[kb][ob:ob + lb], valid, n)
-                cols.append(HostColumnVector(c.dtype, data, valid))
+                # copies: the column outlives the (pinned) download buffer
+                offs = np_host[ko][oo:oo + n + 1]
+                raw = np_host[kb][ob:ob + lb][int(offs[0]):int(offs[n])]
+                cols.append(HostColumnVector(
+                    c.dtype, None, valid, (offs - offs[0], raw.copy())))
                 continue
             kd, od, _ = next(seg_iter)
             kv, ov, _ = next(seg_iter)
@@ -477,12 +505,14 @@ def to_host_many(batches: Sequence[ColumnarBatch]) -> List[HostColumnarBatch]:
             valid = np_host[kv][ov:ov + n].copy()
             d = getattr(c, "dictionary", None)
             if d is not None:
-                # the sink: codes crossed to the host, decoded here
-                from spark_rapids_tpu_torch.columnar.encoded import (
-                    materialize_host_values,
-                )
+                from spark_rapids_tpu_torch.columnar import encoded as E
 
-                cols.append(HostColumnVector(c.dtype, materialize_host_values(
+                if keep_encoded:
+                    cols.append(E.HostDictionaryColumn(
+                        c.dtype, np.where(valid, data, 0), valid, d))
+                    continue
+                # the sink: codes crossed to the host, decoded here
+                cols.append(HostColumnVector(c.dtype, E.materialize_host_values(
                     data, valid, d), valid))
                 continue
             npdt = c.dtype.to_np()
@@ -901,7 +931,11 @@ def _align_encoded_pieces(batches: Sequence[ColumnarBatch]
     for i in sorted(ords):
         col_i = [c[i] for c in cols]
         if all(E.is_encoded(c) for c in col_i):
-            _, col_i = E.align_encoded(col_i)
+            union, aligned = E.align_encoded(col_i)
+            for orig, new in zip(col_i, aligned):
+                if new is not orig and orig.runs is not None:
+                    new.runs = _remapped_runs(orig, union)
+            col_i = aligned
         else:
             col_i = [E.materialize(c) if E.is_encoded(c) else c
                      for c in col_i]
@@ -909,6 +943,38 @@ def _align_encoded_pieces(batches: Sequence[ColumnarBatch]
             c[i] = new
     return [ColumnarBatch(c, b.num_rows, live=b.live)
             for c, b in zip(cols, batches)]
+
+
+def _remapped_runs(orig, union):
+    """A run table of an encoded column whose codes moved into `union`'s
+    code space, its values remapped the same way (reference :1025-1039),
+    so a pre-union code never describes post-union codes."""
+    from spark_rapids_tpu_torch.columnar.runs import RunTable
+
+    remap = orig.dictionary.remap_to(union)
+    vals = np.asarray(orig.runs.values)
+    if remap is not None and len(vals):
+        vals = remap[np.clip(vals, 0, len(remap) - 1)]
+    return RunTable(orig.runs.starts, vals, orig.runs.num_rows)
+
+
+def _concat_runs(cols, batches) -> None:
+    """Run tables through a plain concat: each piece's starts shift by its
+    row offset (reference: _concat_run_tables :978-995). A position keeps
+    a table only when every piece has one covering its rows."""
+    from spark_rapids_tpu_torch.columnar.runs import RunTable
+
+    for ci, out in enumerate(cols):
+        tabs = [b.columns[ci].runs for b in batches]
+        if any(t is None or t.num_rows != b.num_rows
+               for t, b in zip(tabs, batches)):
+            continue
+        bases = np.cumsum([0] + [b.num_rows for b in batches])
+        out.runs = RunTable(
+            np.concatenate([t.starts + base for t, base in
+                            zip(tabs, bases)]),
+            np.concatenate([np.asarray(t.values) for t in tabs]),
+            int(bases[-1]))
 
 
 def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
@@ -941,6 +1007,7 @@ def concat_batches(batches: Sequence[ColumnarBatch]) -> ColumnarBatch:
                 valid[off:off + n] = b.columns[ci].validity[:n]
                 off += n
             cols.append(c0.with_data(data, valid))
+        _concat_runs(cols, batches)
         return ColumnarBatch(cols, total)
     cap = bucket_capacity(sum(b.capacity for b in batches))
     cols, total = _compact_pieces(batches, [b.live_mask() for b in batches],

@@ -37,8 +37,10 @@ version, which CPU tensors run:
 - K24 `remap_codes` (replaces `_remap_kernel` :707, fill 0, and
   `_remap_join_kernel` :841, fill -1).
 
-Left out (ROADMAP.md): run tables (`out.runs`), the serialized shuffle of
-codes, the window's rank-space plan, fused stages over codes.
+Elsewhere since slice 17: a scan column's run table (`runs`,
+columnar/runs.py), the window's keys in rank space (exec/window.py) and
+the serialized shuffle of codes with pruned dictionaries
+(`HostDictionaryColumn`, shuffle/exchange.py, columnar/serde.py).
 """
 
 from __future__ import annotations

@@ -93,13 +93,19 @@ def _pruned_dict_piece(col, n: int, validity: np.ndarray):
     (reference: _pruned_dict_piece :97)."""
     d = col.dictionary
     codes = np.ascontiguousarray(col.data[:n], dtype=np.int32)
-    if n and validity.any():
-        used = np.unique(codes[validity[:n]]).astype(np.int32)
-    else:
-        used = np.empty(0, dtype=np.int32)
+    valid = validity[:n]
+    every = bool(valid.all())
+    # the codes present, ascending, and each one's place among them: a
+    # count and a table lookup, linear in the rows
+    present = np.bincount(codes if every else codes[valid],
+                          minlength=d.size) > 0 if n else \
+        np.zeros(d.size, dtype=bool)
+    used = np.flatnonzero(present).astype(np.int32)
     if len(used):
-        codes = np.where(validity[:n], np.searchsorted(used, codes),
-                         0).astype(np.int32)
+        rank = np.cumsum(present, dtype=np.int32) - 1
+        codes = rank[codes] if every else \
+            np.where(valid, rank[np.where(valid, codes, 0)],
+                     0).astype(np.int32, copy=False)
     else:
         codes = np.zeros(n, dtype=np.int32)
     lens = d.host_lens[used].astype(np.int64)

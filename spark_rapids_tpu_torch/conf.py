@@ -1205,8 +1205,7 @@ RUN_AWARE_ENABLED = _conf("rapids.tpu.sql.runAware.enabled").doc(
     "evaluate one predicate per run, integral sums become value x "
     "run_length, counts become sums of run lengths — before the "
     "ordinary update kernel runs. Falls back to row space whenever any "
-    "eligibility condition fails (metric: runCollapsedRows). The port "
-    "reads this key nowhere yet: run tables are queued (ROADMAP.md)."
+    "eligibility condition fails (metric: runCollapsedRows)."
 ).boolean(True)
 
 RUN_AWARE_MAX_RUN_FRACTION = _conf(

@@ -50,7 +50,15 @@ Every update, merge and finalize runs under engine/retry.with_retry
 (sites agg.update, agg.merge, agg.finalize, as the reference :796, :658,
 :490): a CUDA OOM spills the device store and runs the step again; the
 reference does not bisect an aggregate's input, and neither does the port.
-Left out so far (ROADMAP.md): run-aware collapse, buffer donation.
+
+Slice 17 adds the run-aware update (reference :680-720, columnar/runs.py):
+under rapids.tpu.sql.runAware.enabled, an update batch whose keys, inputs
+and folded filters read only columns with scan run tables becomes one row
+per merged run (`collapse_update`), sum(e) becomes sum(e * __run_len) and
+count(e) a sum of run lengths, and the rewritten inputs compile into the
+K48 program of a stage cache of their own; K1-K3 then group and reduce the
+runs. The rows collapsed away are `runCollapsedRows`, on the query and on
+this node. Left out so far (ROADMAP.md): buffer donation.
 """
 
 from __future__ import annotations
@@ -73,6 +81,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     gather_string_col,
 )
 from spark_rapids_tpu_torch.columnar import encoded as E
+from spark_rapids_tpu_torch.columnar import runs as RUNS
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
 from spark_rapids_tpu_torch.engine.retry import with_retry
 from spark_rapids_tpu_torch.exec import rowkeys as RK
@@ -99,6 +108,7 @@ from spark_rapids_tpu_torch.ops.eval import (
     stage_context,
 )
 from spark_rapids_tpu_torch.ops.values import ColV, EvalContext
+from spark_rapids_tpu_torch.utils import metrics as M
 
 PARTIAL = "partial"
 FINAL = "final"
@@ -540,19 +550,35 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
             return assemble(out, batch.capacity, True, {
                 i: batch.columns[i].dictionary for i in enc})
 
-        stages = StageCache(
-            lambda b: E.plan_agg_update(b, bound_keys, bound_inputs,
-                                        bound_filters, op_names),
-            lambda p: _UpdateStage(p.keys, p.inputs, p.filters)
-            if p is not None else _UpdateStage(bound_keys, bound_inputs,
-                                                bound_filters))
+        def stage_cache(inputs, ops) -> StageCache:
+            return StageCache(
+                lambda b: E.plan_agg_update(b, bound_keys, inputs,
+                                            bound_filters, ops),
+                lambda p: _UpdateStage(p.keys, p.inputs, p.filters)
+                if p is not None else _UpdateStage(bound_keys, inputs,
+                                                    bound_filters))
 
-        def update(batch: ColumnarBatch) -> ColumnarBatch:
+        def update(batch: ColumnarBatch, form) -> ColumnarBatch:
+            stages, ops = form
             plan, stage = stages.get(batch)
             batch, ectx = stage_context(plan, batch)
-            out = _update(ectx, stage, op_names)
+            out = _update(ectx, stage, ops)
             dicts = plan.out_dicts if plan is not None else {}
             return assemble(out, batch.capacity, True, dicts)
+
+        row_form = (stage_cache(bound_inputs, op_names), op_names) \
+            if do_update else None
+        # the run-aware update (columnar/runs.py): a batch whose read
+        # columns all carry scan run tables aggregates one row per merged
+        # run through its own stage cache, so the run and row programs
+        # never share a cache slot
+        run_form = None
+        if do_update and ctx.conf.get(C.RUN_AWARE_ENABLED) and \
+                RUNS.run_form_ok(bound_inputs, op_names):
+            run_inputs, run_ops = RUNS.run_form(
+                bound_inputs, op_names, len(child_attrs) + 1)
+            run_form = (stage_cache(run_inputs, run_ops), run_ops)
+        run_fraction = ctx.conf.get(C.RUN_AWARE_MAX_RUN_FRACTION)
 
         def agg_partition(pidx: int):
             running: Optional[ColumnarBatch] = None
@@ -561,7 +587,17 @@ class TpuHashAggregateExec(_HashAggregateBase, TpuExec):
                     continue
                 batch = ensure_compact(batch)
                 if do_update:
-                    local = with_retry(lambda: update(batch),
+                    form = row_form
+                    cu = RUNS.collapse_update(
+                        batch, bound_keys, bound_inputs, bound_filters,
+                        run_fraction) if run_form is not None else None
+                    if cu is not None:
+                        batch, collapsed = cu
+                        form = run_form
+                        M.record_run_collapsed_rows(collapsed)
+                        M.add_node_metric(self.metrics,
+                                          M.RUN_COLLAPSED_ROWS, collapsed)
+                    local = with_retry(lambda: update(batch, form),
                                        site="agg.update")
                     running = local if running is None else with_retry(
                         lambda: merge(concat_batches([running, local])),

@@ -31,6 +31,20 @@ PyTorch version in this module:
   the peers of a RANGE frame) or over any frame, first / last, then the
   scatter back to input order.
 
+Encoded columns (slice 17; reference `_encoded_plan` :313-365 and its use
+in `execute` :370-405): a dictionary column referenced only bare in the
+partition-by or the order-by stays encoded and goes to rank space (K24
+through its sorted dictionary, `batch_to_rank_space`), and the keys bind
+to its int32 rank codes (the retyped attributes of reference :166-178):
+codes of a sorted dictionary cluster and order as the values do, so K1
+sorts plain int32 words and no string word is made. Window-function
+inputs, computed spec expressions and the order column of a finite RANGE
+frame (whose bounds do arithmetic on values) decode through K23 first.
+Each batch kept in rank space counts one `orderPreservingSorts`. A STRING
+order key in rank space orders by value, while a decoded one orders by its
+hash words as above: both packages give different rank() and
+row_number() results with encoding on and off (ROADMAP.md section 3).
+
 Sorted-domain conventions: live rows sort before the pads, so a sorted
 position is live iff it is below the row count. At pad positions the
 partition id and every bound are `cap`, the non-null span (cap, -1) and
@@ -56,7 +70,7 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ensure_compact,
 )
 from spark_rapids_tpu_torch.columnar.dtypes import DataType, to_torch
-from spark_rapids_tpu_torch.columnar.encoded import decode_batch
+from spark_rapids_tpu_torch.columnar import encoded as E
 from spark_rapids_tpu_torch.exec import rowkeys as RK
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
@@ -77,6 +91,7 @@ from spark_rapids_tpu_torch.ops.aggregates import (
 )
 from spark_rapids_tpu_torch.ops.base import (
     AttributeReference,
+    BoundReference,
     Expression,
     to_attribute,
 )
@@ -86,6 +101,7 @@ from spark_rapids_tpu_torch.ops.eval import (
     device_eval_context,
     eval_as_col,
 )
+from spark_rapids_tpu_torch.ops.values import EvalContext
 from spark_rapids_tpu_torch.ops.window import (
     UNBOUNDED,
     DenseRank,
@@ -98,6 +114,7 @@ from spark_rapids_tpu_torch.ops.window import (
     WindowFrame,
     WindowSpec,
 )
+from spark_rapids_tpu_torch.utils import metrics as M
 
 # integer-kind ORDER BY types of a bounded RANGE frame (reference :272)
 RANGE_KEY_TYPES = (DataType.INT8, DataType.INT16, DataType.INT32,
@@ -133,10 +150,13 @@ class _WindowBase(PhysicalExec):
     def _spec(self) -> WindowSpec:
         return _unwrap(self.window_exprs[0]).spec
 
-    def _bound(self):
+    def _bound(self, rank_ords=frozenset()):
         """(partition exprs, sort orders, window exprs, function inputs)
-        bound against the child's output."""
-        attrs = self.children[0].output
+        bound against the child's output; the columns at `rank_ords` bind
+        as their int32 rank codes."""
+        attrs = [AttributeReference(a.name, DataType.INT32, a.nullable,
+                                    a.expr_id) if i in rank_ords else a
+                 for i, a in enumerate(self.children[0].output)]
         spec = self._spec()
         wexprs = [_unwrap(e) for e in self.window_exprs]
         inputs = []
@@ -728,8 +748,12 @@ def _function_kind(f):
 def window_columns(batch: ColumnarBatch, bound_part, bound_orders, wexprs,
                    bound_inputs) -> List[ColumnVector]:
     """The window output columns of one compact device batch: K1 sorts,
-    K14 lays out the partitions, K15 / K16 evaluate each function."""
-    ctx = device_eval_context(batch)
+    K14 lays out the partitions, K15 / K16 evaluate each function. An
+    encoded column left in the batch reads as its int32 codes."""
+    enc = E.encoded_ordinals(batch)
+    ctx = EvalContext(True, E.eval_columns(batch, enc), batch.num_rows,
+                      batch.capacity, device=batch.device) if enc else \
+        device_eval_context(batch)
     cap = ctx.capacity
     live = ctx.row_mask()
     part_cols = [eval_as_col(ctx, e) for e in bound_part]
@@ -771,20 +795,68 @@ def window_columns(batch: ColumnarBatch, bound_part, bound_orders, wexprs,
 class TpuWindowExec(_WindowBase, TpuExec):
     placement = "tpu"
 
+    def _encoded_plan(self, batch: ColumnarBatch, bound) -> tuple:
+        """(rank_ords, mat_ords) of one batch (reference :313): encoded
+        columns used only as bare partition-by / order-by references stay
+        codes in rank space; function inputs, computed spec expressions
+        and a finite RANGE frame's order column decode."""
+        enc = set(E.encoded_ordinals(batch))
+        if not enc:
+            return frozenset(), ()
+        bound_part, bound_orders, wexprs, inputs = bound
+
+        def bare(e):
+            return e.ordinal if isinstance(e, BoundReference) and \
+                e.ordinal in enc else None
+
+        def refs(e):
+            return {r.ordinal for r in e.collect(
+                lambda x: isinstance(x, BoundReference))} & enc
+
+        finite_range = any(
+            w.spec.frame.frame_type == "range"
+            and (w.spec.frame.lower not in (UNBOUNDED, 0)
+                 or w.spec.frame.upper not in (UNBOUNDED, 0))
+            for w in wexprs)
+        rank, mat = set(), set()
+        for e in bound_part:
+            o = bare(e)
+            if o is not None:
+                rank.add(o)
+            else:
+                mat.update(refs(e))
+        for so in bound_orders:
+            o = bare(so.child)
+            if o is not None:
+                (mat if finite_range else rank).add(o)
+            else:
+                mat.update(refs(so.child))
+        for b in inputs:
+            if b is not None:
+                mat.update(refs(b))
+        return frozenset(rank - mat), tuple(sorted(mat))
+
     def execute(self, ctx: ExecContext) -> PartitionedBatches:
         child_pb = self.children[0].execute(ctx)
-        bound_part, bound_orders, wexprs, inputs = self._bound()
+        plain = self._bound()
+        by_rank = {frozenset(): plain}
 
         def window_partition(pidx: int):
             for batch in child_pb.iterator(pidx):
                 n = batch.host_rows()
                 if n == 0:
                     continue
-                # the window's rank-space plan is queued: encoded columns
-                # decode at this boundary
-                batch = decode_batch(ensure_compact(batch))
-                outs = window_columns(batch, bound_part, bound_orders,
-                                      wexprs, inputs)
+                batch = ensure_compact(batch)
+                rank_ords, mat_ords = self._encoded_plan(batch, plain)
+                batch = E.batch_with_materialized(batch, mat_ords)
+                if rank_ords:
+                    batch = E.batch_to_rank_space(batch, rank_ords)
+                    M.record_order_preserving_sort()
+                    M.add_node_metric(self.metrics,
+                                      M.ORDER_PRESERVING_SORTS, 1)
+                if rank_ords not in by_rank:
+                    by_rank[rank_ords] = self._bound(rank_ords)
+                outs = window_columns(batch, *by_rank[rank_ords])
                 yield ColumnarBatch(list(batch.columns) + outs, n)
 
         return PartitionedBatches(

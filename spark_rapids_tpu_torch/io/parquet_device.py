@@ -40,6 +40,14 @@ dictionary from the dictionary page it parses; the device part runs K20
 over the indices and K21 in codes mode, which spreads them onto their
 rows as int32 codes, with no dictionary gather.
 
+Run tables (reference :837-860, attached at :1008-1048 and :1427): a
+dictionary chunk with no NULL whose index stream is RLE runs only (a
+sorted column) also leaves with a host `columnar.runs.RunTable` on its
+column, the runs' first rows and codes (an encoded column) or values
+(through the dictionary page's raw values, a decoded fixed-width column),
+which the run-aware aggregate reads (exec/aggregate.py). A decoded STRING
+column, a bit-packed group or a NULL gives none; so do ORC and CSV.
+
 Every kernel wrapper takes its plain PyTorch version for CPU tensors (the
 tests and the port's CPU scan) and launches its kernel for CUDA tensors.
 """
@@ -1126,6 +1134,64 @@ def _intern_dictionary(buf: np.ndarray, dp: PageInfo, dtype, in_w: int,
     return E.DeviceDictionary.from_fixed_values(vals, dtype)
 
 
+def _rle_run_table(val_tabs, num_rows: int):
+    """The columnar.runs.RunTable of a chunk's index streams (reference
+    :837), or None when a group is bit-packed (its values are not known on
+    the host), the stream is empty or the starts do not rise strictly from
+    0. Meaningful only when every row is present: dense offsets are then
+    row offsets."""
+    from spark_rapids_tpu_torch.columnar.runs import RunTable
+
+    if not val_tabs or not all(bool(np.all(t[1])) for t in val_tabs):
+        return None
+    starts = np.concatenate([t[0] for t in val_tabs]).astype(np.int64)
+    values = np.concatenate([t[2] for t in val_tabs])
+    keep = starts < num_rows
+    starts, values = starts[keep], values[keep]
+    if len(starts) == 0 or starts[0] != 0 or \
+            bool(np.any(np.diff(starts) <= 0)):
+        return None
+    return RunTable(starts, values, num_rows)
+
+
+def _chunk_runs(hc: HostChunk):
+    """The run table of a whole-dictionary chunk with every row present,
+    for the chunks the reference attaches one to: an encoded column (run
+    values are codes) and a fixed-width column of one index width up to 24
+    bits (the reference's whole-chunk path, :941-995), else None."""
+    if not hc.dict_mode or hc.present != hc.rows or \
+            hc.dtype is DataType.BOOL:
+        return None
+    widths = {int(t[4][0]) for t in hc.val_tabs if len(t[4])} - {0}
+    if any(w > 24 for w in widths):
+        return None
+    if hc.dtype is DataType.STRING:
+        if hc.dictionary is None:
+            return None
+    elif len(widths) > 1 or hc.physical == T_FLBA or (
+            getattr(hc.dtype, "is_decimal", False) and hc.in_w != 8):
+        return None
+    return _rle_run_table(hc.val_tabs, hc.num_rows)
+
+
+def _decoded_runs(hc: HostChunk, rt):
+    """A decoded fixed-width chunk's run table with its codes taken
+    through the dictionary page's raw values (reference :1036-1048)."""
+    from spark_rapids_tpu_torch.columnar.runs import RunTable
+
+    if rt is None or not hc.dict_pages[0].num_values:
+        return None
+    dp = hc.dict_pages[0]
+    raw_dt = {4: np.float32, 8: np.float64}[hc.in_w] \
+        if hc.dtype in (DataType.FLOAT32, DataType.FLOAT64) else \
+        {4: np.int32, 8: np.int64}[hc.in_w]
+    vals = np.frombuffer(hc.buf, dtype=raw_dt, count=dp.num_values,
+                         offset=dp.data_start)
+    sel = np.clip(rt.values, 0, dp.num_values - 1)
+    return RunTable(rt.starts, vals[sel].astype(hc.dtype.to_np()),
+                    rt.num_rows)
+
+
 def decode_prepared(hc: HostChunk, cap: Optional[int],
                     device) -> ColumnVector:
     """The device's part: upload the chunk once, expand the runs (K20) and
@@ -1155,6 +1221,7 @@ def decode_prepared(hc: HostChunk, cap: Optional[int],
         codes = page_decode_codes(def_levels, num_rows, cap,
                                   idx[:max(present, 1)])
         out = E.DictionaryColumn(dtype, codes, valid, hc.dictionary)
+        out.runs = _chunk_runs(hc)
         E.record_scan_emission(out)
         return out
     dense = delta_expand(chunk_t, delta_streams(hc.deltas, device),
@@ -1184,8 +1251,10 @@ def decode_prepared(hc: HostChunk, cap: Optional[int],
     source = page_source(chunk_t, kinds, hc.dense_end, hc.byte_pos,
                          idx=idx if dict_bytes is not None else None,
                          dict_bytes=dict_bytes, dict_w=dict_w, dense=dense)
-    return ColumnVector(dtype, *page_decode_pages(
+    out = ColumnVector(dtype, *page_decode_pages(
         def_levels, num_rows, cap, source, in_w, out_dtype, sign))
+    out.runs = _decoded_runs(hc, _chunk_runs(hc))
+    return out
 
 
 def _spread(def_levels, num_rows: int, cap: int, dense: torch.Tensor

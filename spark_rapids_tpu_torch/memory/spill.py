@@ -9,7 +9,9 @@ Tiers:
   (columnar/serde.py), then drops every reference to its CUDA tensors, so
   PyTorch's allocator can hand the memory to the next tensor.
 - HOST: the TPB1 bytes in process memory, bounded by
-  rapids.tpu.memory.host.spillStorageSize; overflow goes to disk.
+  rapids.tpu.memory.host.spillStorageSize; overflow goes to disk. The
+  serialized shuffle registers its pieces here (`add_host_bytes`, at
+  SpillPriorities.OUTPUT_FOR_READ) and reads them back with `read_bytes`.
 - DISK: the bytes in a file under rapids.tpu.memory.spill.dir (default: a
   directory under the process's temporary directory).
 
@@ -263,6 +265,13 @@ class HostStore(BufferStore):
     def size_limit(self) -> Optional[int]:
         return self.limit_bytes
 
+    def add_bytes_tracked(self, buf: SpillableBuffer) -> None:
+        """Track a new host buffer and push any overflow to disk (never
+        called under a buffer lock, unlike track from spill_buffer)."""
+        self.track(buf)
+        if self.current_size > self.limit_bytes and self.spill_store:
+            self.synchronous_spill(self.limit_bytes)
+
     def _demote(self, buf: SpillableBuffer) -> None:
         disk: DiskStore = self.spill_store  # type: ignore[assignment]
         buf.disk_path = disk.write_file(buf.id, buf.host_bytes)
@@ -337,7 +346,21 @@ class SpillFramework:
         self.watermark.ensure_headroom(batch.device_memory_size())
         return self.device_store.add_batch(batch)
 
+    def add_host_bytes(self, data: bytes,
+                       priority: float = SpillPriorities.DEFAULT
+                       ) -> SpillableBuffer:
+        """Register serialized bytes at the host tier (reference :445; the
+        serialized shuffle's pieces, so shuffle data takes part in spill
+        and demotes to disk past the host budget). `free` releases it."""
+        buf = SpillableBuffer(next_buffer_id(), len(data), StorageTier.HOST,
+                              priority, serialized_rows(data))
+        buf.host_bytes = data
+        self.catalog.register(buf)
+        self.host_store.add_bytes_tracked(buf)
+        return buf
+
     def read_bytes(self, buf: SpillableBuffer) -> bytes:
+        """A host or disk buffer's serialized bytes."""
         with buf.lock:
             return self._read_bytes(buf)
 

@@ -475,9 +475,8 @@ MT._NODE_EXPRESSIONS = lambda plan: plan.node_expressions()
 # ported yet: a session that sets one away from its default would get the
 # default's behaviour with no word, so planning raises instead (ROADMAP
 # queue 3 names the item that will honour each)
-UNREAD_KEYS = (C.SHUFFLE_SERIALIZE, C.SHUFFLE_MODE, C.RUN_AWARE_ENABLED,
-               C.RUN_AWARE_MAX_RUN_FRACTION, C.IO_PREFETCH_BATCHES,
-               C.HASH_OPTIMIZE_SORT, C.ASYNC_DISPATCH, C.BUFFER_DONATION,
+UNREAD_KEYS = (C.SHUFFLE_MODE, C.IO_PREFETCH_BATCHES, C.HASH_OPTIMIZE_SORT,
+               C.ASYNC_DISPATCH, C.BUFFER_DONATION,
                C.BUFFER_DONATION_ASSUME_SUPPORTED, C.EXPORT_COLUMNAR_RDD,
                C.REPLACE_SORT_MERGE_JOIN)
 

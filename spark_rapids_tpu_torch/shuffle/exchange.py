@@ -52,9 +52,23 @@ of a reduce group. An explicit partition count pins the exchange
 (`allow_adaptive` False, reference :1637); nothing in the port adapts
 partition counts yet.
 
+The serialized tier (slice 17; reference :177-290, :362-481; conf
+rapids.tpu.shuffle.serialize.enabled): each map batch's pieces download in
+one grouped transfer (`to_host_many(..., keep_encoded=True)` under
+with_retry at transfer.download), one batch behind the routing, and
+serialize to TPB1 bytes (columnar/serde.py); an encoded column ships its
+codes with a dictionary pruned to the codes present (code 12). The bytes
+live in the session's host spill store at OUTPUT_FOR_READ, demote to disk
+past its budget and are freed with their piece. Past the zero-copy cap the
+slicer keeps the per-target contiguous split (one materialized piece per
+target). The reduce side decodes a piece where it is served; a lost read
+(an injected shuffle.fetch loss or a spilled file that cannot be read)
+runs the piece's map partition again, up to `_FETCH_REMAP_ATTEMPTS` times
+(`fetchRetries`), then FetchFailedError surfaces. Range exchanges do not
+serialize, as in the reference.
+
 The hash half of K4 lives in ops/hashing.py. Left out so far (ROADMAP.md):
-the serialized tier, the ICI/collective tier, adaptive coalescing,
-fetch-failure remapping.
+the ICI/collective tier, adaptive coalescing.
 """
 
 from __future__ import annotations
@@ -65,8 +79,10 @@ from typing import Any, List, Optional, Sequence
 import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch import cuda_build as CB
 from spark_rapids_tpu_torch.columnar import encoded as E
+from spark_rapids_tpu_torch.columnar import serde
 from spark_rapids_tpu_torch.columnar.batch import (
     ColumnarBatch,
     HostColumnarBatch,
@@ -75,7 +91,9 @@ from spark_rapids_tpu_torch.columnar.batch import (
     ensure_compact,
     gather_string_col,
     strings_end_to_end,
+    to_host_many,
 )
+from spark_rapids_tpu_torch.engine.retry import FetchFailedError, with_retry
 from spark_rapids_tpu_torch.exec.base import (
     CpuExec,
     ExecContext,
@@ -95,12 +113,18 @@ from spark_rapids_tpu_torch.ops.base import (
 from spark_rapids_tpu_torch.ops.bind import bind_all
 from spark_rapids_tpu_torch.ops.eval import cpu_project, host_to_colv
 from spark_rapids_tpu_torch.ops.values import ColV
+from spark_rapids_tpu_torch.utils import faultinject as FI
+from spark_rapids_tpu_torch.utils import metrics as M
 
 # routed slices of one reduce bucket assembled per gather, and the most
 # string bytes their source batches may hold together (a column's sources
 # lie end to end under int32 offsets)
 _ROUTED_GROUP = 16
 _ROUTED_STRING_BYTES = 1 << 30
+
+# in-place re-executions of a map partition for one lost serialized piece
+# before FetchFailedError surfaces (reference :80)
+_FETCH_REMAP_ATTEMPTS = 6
 
 
 def _string_bytes(batch) -> int:
@@ -198,26 +222,79 @@ class _ExchangeBase(PhysicalExec):
 
     def _materialize(self, ctx: ExecContext, map_fn) -> PartitionedBatches:
         """Run the map side over every child partition; regroup its pieces
-        into reduce buckets in map order."""
+        into reduce buckets in map order, each with its provenance (map
+        partition, index in that map's list for the target), so a lost
+        serialized piece can run its map partition again."""
         child_pb = self._child_pb(ctx)
         n_out = self.partitioning.num_partitions
-        buckets: List[List[Any]] = [[] for _ in range(n_out)]
-        for pidx in range(child_pb.num_partitions):
+        serialize = ctx.conf.get(C.SHUFFLE_SERIALIZE)
+        fw = ctx.spill
+
+        def run_map(pidx: int) -> List[List[Any]]:
+            buckets: List[List[Any]] = [[] for _ in range(n_out)]
+
+            def emit(routed) -> None:
+                if serialize:
+                    routed = _encode_pieces_grouped(routed, fw)
+                for target, piece in routed:
+                    buckets[target].append(piece)
+
+            # serialized: a batch's download and encode run after the
+            # next batch's routing has been queued on the card
+            prev = None
             for batch in child_pb.iterator(pidx):
                 if isinstance(batch.num_rows, int) and batch.num_rows == 0:
                     continue
-                for target, piece in map_fn(pidx, batch):
-                    buckets[target].append(piece)
-        return self._serve(n_out, buckets)
+                routed = list(map_fn(pidx, batch))
+                if not serialize:
+                    emit(routed)
+                    continue
+                if prev is not None:
+                    emit(prev)
+                prev = routed
+            if prev is not None:
+                emit(prev)
+            return buckets
 
-    def _serve(self, n_out: int, buckets) -> PartitionedBatches:
+        buckets: List[List[Any]] = [[] for _ in range(n_out)]
+        sources: List[List[Any]] = [[] for _ in range(n_out)]
+        for m in range(child_pb.num_partitions):
+            for t, pieces in enumerate(run_map(m)):
+                for k, piece in enumerate(pieces):
+                    buckets[t].append(piece)
+                    sources[t].append((m, k))
+        return self._serve(n_out, buckets, (sources, run_map),
+                           ctx.device if self.placement == "tpu" else None)
+
+    def _serve(self, n_out: int, buckets, lineage=None,
+               device=None) -> PartitionedBatches:
         """Reduce side: each bucket's pieces in map order, routed slices
-        assembled in groups."""
+        assembled in groups, serialized pieces decoded onto `device` (host
+        batches for the CPU engine, device None), a lost one after its map
+        partition ran again (lineage: (provenance, run_map))."""
+
+        def decode_with_remap(piece: "_SerializedPiece", t: int, j: int):
+            attempts = 0
+            while True:
+                try:
+                    return piece.decode(device)
+                except FetchFailedError:
+                    if attempts >= _FETCH_REMAP_ATTEMPTS:
+                        raise
+                    attempts += 1
+                    M.record_fetch_retry()
+                    M.add_node_metric(self.metrics, M.FETCH_RETRIES, 1)
+                    sources, run_map = lineage
+                    m, k = sources[t][j]
+                    fresh = run_map(m)[t]
+                    if k >= len(fresh):
+                        raise
+                    piece = fresh[k]
 
         def piece_gen(pidx: int):
             routed: List[_RoutedSlice] = []
             sources: dict = {}   # id(source batch) -> its string bytes
-            for piece in buckets[pidx]:
+            for j, piece in enumerate(buckets[pidx]):
                 if isinstance(piece, _RoutedSlice):
                     key = id(piece.batch)
                     if key not in sources:
@@ -237,12 +314,86 @@ class _ExchangeBase(PhysicalExec):
                 if routed:
                     yield _assemble_routed(routed)
                     routed, sources = [], {}
+                if isinstance(piece, _SerializedPiece):
+                    piece = decode_with_remap(piece, pidx, j)
                 yield piece
             if routed:
                 yield _assemble_routed(routed)
 
         return PartitionedBatches(
             n_out, lambda p: count_output(self.metrics, piece_gen(p)))
+
+
+# ===========================================================================
+# Serialized tier (reference :362-481)
+# ===========================================================================
+class _SerializedPiece:
+    """One shuffle piece as TPB1 bytes (reference :362; the length-prefixed
+    host stream of GpuColumnarBatchSerializer.scala:37-245): in the spill
+    framework's host store when there is one (it may demote to disk), and
+    freed with the piece."""
+
+    def __init__(self, data=None, buf=None, fw=None):
+        self._data = data
+        self._buf = buf
+        self._fw = fw
+
+    def decode(self, device):
+        """The piece as a batch on `device`, or as a host batch for the CPU
+        engine (device None). A read that fails raises FetchFailedError."""
+        FI.maybe_inject("shuffle.fetch")
+        try:
+            data = self._data if self._data is not None else \
+                self._fw.read_bytes(self._buf)
+        except (OSError, KeyError, RuntimeError) as e:
+            raise FetchFailedError(f"shuffle piece unavailable: {e}") from e
+        if device is None:
+            return serde.deserialize_batch(data)
+        if self._fw is not None:
+            self._fw.watermark.ensure_headroom(len(data))
+        return serde.deserialize_to_device(data, device)
+
+    def __del__(self):
+        if self._buf is not None and self._fw is not None:
+            try:
+                self._fw.free(self._buf)
+            except Exception:  # noqa: BLE001 - a finalizer must not raise
+                pass
+
+
+def _serialize_host_piece(host: HostColumnarBatch, fw) -> _SerializedPiece:
+    """TPB1 bytes of a host piece, registered in the host spill store at
+    OUTPUT_FOR_READ when there is a framework (reference :426). serde's
+    serialize_batch is looked up at each call."""
+    from spark_rapids_tpu_torch.memory.spill import SpillPriorities
+
+    data = serde.serialize_batch(host)
+    if fw is not None:
+        return _SerializedPiece(buf=fw.add_host_bytes(
+            data, SpillPriorities.OUTPUT_FOR_READ), fw=fw)
+    return _SerializedPiece(data=data)
+
+
+def _encode_pieces_grouped(routed, fw):
+    """One map batch's (target, piece) list serialized, its device pieces
+    downloaded in ONE grouped transfer (reference :439). A routed slice is
+    assembled into a batch of its own here, which is the per-target
+    contiguous split past the zero-copy cap (reference :785-800). Encoded
+    columns stay codes with their dictionary, each piece pruned to the
+    codes it holds; STRING columns stay UTF-8 bytes (no Python string is
+    made)."""
+    dev_at, dev = [], []
+    for j, (_t, piece) in enumerate(routed):
+        if isinstance(piece, _RoutedSlice):
+            piece = piece.to_batch()
+        if isinstance(piece, ColumnarBatch):
+            dev_at.append(j)
+            dev.append(ensure_compact(piece))
+    hosts = dict(zip(dev_at, with_retry(
+        lambda: to_host_many(dev, keep_encoded=True),
+        site="transfer.download"))) if dev else {}
+    return [(t, _serialize_host_piece(hosts.get(j, piece), fw))
+            for j, (t, piece) in enumerate(routed)]
 
 
 # ===========================================================================
@@ -547,6 +698,10 @@ class _RoutedSlice:
     @property
     def num_rows(self) -> int:
         return self.count
+
+    def to_batch(self) -> ColumnarBatch:
+        """The slice's rows as a compact batch of their own."""
+        return _assemble_routed([self])
 
 
 def _device_slices_routed(batch: ColumnarBatch, ids, n: int):

@@ -116,6 +116,20 @@ class FaultInjector:
             self._deferred.clear()
 
 
+def one_loss_seed(site: str, n: int, rate: float) -> int:
+    """The first seed at `rate` under which `site` injects exactly once in
+    its first n + 2 invocations, and within the first n: a run of n
+    invocations loses one, and the two after them (those that run again
+    after the loss) lose none."""
+    for seed in range(100_000):
+        inj = FaultInjector(seed, site, rate)
+        rolls = [inj.decide(site, i) for i in range(n + 2)]
+        if sum(rolls) == 1 and rolls.index(True) < n:
+            return seed
+    raise ValueError(f"no seed in 100000 loses exactly one of {n} "
+                     f"{site} invocations at rate {rate}")
+
+
 def _parse_sites(spec: str) -> Dict[str, str]:
     """'*' or 'name[,name:kind,...]' -> {site: kind}; unknown sites are
     accepted, unknown kinds raise (reference :156)."""

@@ -12,6 +12,11 @@ spark_rapids_tpu/utils/metrics.py that layer records).
   disk, and the rematerialisations that brought a batch back.
 - `trace_range` (reference :860): a host-clock range that adds its
   elapsed nanoseconds to a counter.
+- The compressed-execution counters (reference :89-93, :658-670):
+  `runCollapsedRows`, the rows the run-aware aggregate collapsed away
+  (columnar/runs.py); `orderPreservingSorts`, the window batches ordered
+  over rank codes; `fetchRetries`, the serialized shuffle pieces whose
+  map partition ran again after a lost fetch (shuffle/exchange.py).
 
 Every increment lands in a process-wide total and in the ambient query's
 context; the session exposes the context's snapshot as
@@ -34,6 +39,9 @@ CPU_FALLBACK_EVENTS = "cpuFallbackEvents"
 SPILL_TO_HOST_BYTES = "spillDeviceToHostBytes"
 SPILL_TO_DISK_BYTES = "spillHostToDiskBytes"
 UNSPILLS = "spillRematerializations"
+RUN_COLLAPSED_ROWS = "runCollapsedRows"
+ORDER_PRESERVING_SORTS = "orderPreservingSorts"
+FETCH_RETRIES = "fetchRetries"
 
 
 class QueryContext:
@@ -126,6 +134,27 @@ def record_spill(to_tier: str, nbytes: int) -> None:
 def record_unspill(n: int = 1) -> None:
     """One spilled buffer brought back to the device."""
     _record(UNSPILLS, n)
+
+
+def record_run_collapsed_rows(n: int) -> None:
+    """Rows one run-collapsed update batch lost (rows minus merged runs)."""
+    _record(RUN_COLLAPSED_ROWS, int(n))
+
+
+def record_order_preserving_sort(n: int = 1) -> None:
+    """One batch ordered over rank codes instead of decoded values."""
+    _record(ORDER_PRESERVING_SORTS, n)
+
+
+def record_fetch_retry(n: int = 1) -> None:
+    """One lost shuffle piece whose map partition ran again."""
+    _record(FETCH_RETRIES, n)
+
+
+def add_node_metric(metrics: Dict[str, int], name: str, n: int) -> None:
+    """Add to an exec node's own metric as well (EXPLAIN's per-node
+    counters)."""
+    metrics[name] = metrics.get(name, 0) + int(n)
 
 
 @contextlib.contextmanager

@@ -248,7 +248,7 @@ NON_DEFAULT = {C.SHUFFLE_SERIALIZE: True, C.SHUFFLE_MODE: "ici",
 @pytest.mark.parametrize("key", [k.key for k in UNREAD_KEYS])
 def test_unread_conf_key_raises_when_set(key):
     entry = next(k for k in UNREAD_KEYS if k.key == key)
-    assert len(UNREAD_KEYS) == 11 and entry in NON_DEFAULT
+    assert len(UNREAD_KEYS) == 8 and entry in NON_DEFAULT
     rows = [(1, 2)]
     s = port_srt.new_session({key: entry.default}, device="cpu")
     assert s.createDataFrame(rows, [("a", "long"), ("b", "long")]) \
@@ -257,6 +257,48 @@ def test_unread_conf_key_raises_when_set(key):
     with pytest.raises(ValueError, match=key.replace(".", r"\.")):
         s.createDataFrame(rows, [("a", "long"), ("b", "long")]).collect()
     s.stop()
+
+
+READ_KEYS = {C.SHUFFLE_SERIALIZE.key: True, C.RUN_AWARE_ENABLED.key: False,
+             C.RUN_AWARE_MAX_RUN_FRACTION.key: 0.25}
+
+
+@pytest.mark.parametrize("key", sorted(READ_KEYS))
+def test_read_conf_key_runs_and_matches_reference(key, tmp_path):
+    """The keys the run-aware aggregate and the serialized shuffle read
+    plan and run when set, and give the reference's rows and
+    runCollapsedRows at the same setting (sorted dictionary columns, so
+    run tables attach)."""
+    import pyarrow as pa
+    import pyarrow.parquet as pq
+
+    assert all(k.key not in READ_KEYS for k in UNREAD_KEYS)
+    rng = np.random.default_rng(3)
+    n = 3000
+    path = str(tmp_path / "sorted.parquet")
+    pq.write_table(pa.table({
+        "s": np.sort(rng.choice(["ant", "bee", "cat"], n)).astype(object),
+        "g": np.sort(rng.integers(0, 9, n)).astype(np.int64)}), path,
+        use_dictionary=True, row_group_size=1000)
+    conf = {key: READ_KEYS[key], "rapids.tpu.sql.shuffle.partitions": 2}
+
+    def q(s, F):
+        return s.read.parquet(path).groupBy("s").agg(
+            F.count("*").alias("c"), F.sum("g").alias("t"))
+
+    ref = ref_srt.new_session()
+    ref.conf.set("rapids.tpu.sql.spmd.enabled", False)
+    for k, v in conf.items():
+        ref.conf.set(k, v)
+    want = sorted(q(ref, RF).collect())
+    want_m = dict(ref.last_query_metrics)
+    ref.stop()
+    port = port_srt.new_session(conf, device="cpu")
+    assert sorted(q(port, PF).collect()) == want
+    got = port.last_query_metrics.get("runCollapsedRows", 0)
+    assert got == want_m["runCollapsedRows"]
+    assert (got == 0) == (key == C.RUN_AWARE_ENABLED.key)
+    port.stop()
 
 
 def test_integral_divide_over_decimals():
